@@ -1,0 +1,16 @@
+"""minicpm-2b — llama-like dense with tied embeddings
+[arXiv:2404.06395; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2304,
+    num_heads=36, num_kv_heads=36, head_dim=64,
+    d_ff=5760,
+    vocab_size=122753,
+    norm="rmsnorm",
+    tie_embeddings=True,
+    source="arXiv:2404.06395",
+)

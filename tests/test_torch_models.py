@@ -1,0 +1,101 @@
+"""The port's dense decoder and greedy serving loop against the JAX package,
+on the CPU, for reduced fp32 configs: the reference's own weights
+(``repro.models.lm.init_params`` → numpy → ``params_from_numpy``) and the
+same numpy-seeded tokens go through both.
+
+Logits are held at rtol 1e-4 / atol 1e-3 (the fp32 GEMM tolerance of
+``tests/test_kernels.py``: two layers of fp32 products summed in another
+order); greedy tokens must be equal.  The reference's step functions run
+jitted for the logits and eagerly (``generate_loop(..., jit=False)``) for the
+greedy tokens.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_config
+from repro.models import lm as jlm
+from repro.serve import decode as jdecode
+from repro_torch.configs.base import get_config as torch_config
+from repro_torch.models import lm as tlm
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.serve import decode as tdecode
+
+ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b"]
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-3)
+BATCH, PROMPT, STEPS = 2, 8, 8
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    jcfg, tcfg = jax_config(arch).reduced(), torch_config(arch).reduced()
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_copies_of_the_reference(arch):
+    full_j, full_t = jax_config(arch), torch_config(arch)
+    assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
+    assert dataclasses.asdict(full_t.reduced()) == dataclasses.asdict(full_j.reduced())
+    assert full_t.padded_vocab == full_j.padded_vocab
+
+
+def test_padded_vocab_and_unported_archs():
+    assert torch_config("minicpm_2b").padded_vocab == 122880
+    with pytest.raises(KeyError, match="ROADMAP"):
+        torch_config("gemma3_12b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_logits_match_reference(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    max_seq = PROMPT + STEPS
+    jcache = jlm.init_cache(jcfg, BATCH, max_seq)
+    tcache = tlm.init_cache(tcfg, BATCH, max_seq, device="cpu")
+    jprefill = jax.jit(lambda p, c, t: jlm.prefill(jcfg, p, c, {"tokens": t}))
+    jstep = jax.jit(lambda p, c, t, pos: jlm.decode_step(jcfg, p, c, t, pos))
+
+    jl, jcache = jprefill(jparams, jcache, jnp.asarray(prompts))
+    tl, tcache = tlm.prefill(tcfg, tparams, tcache, {"tokens": torch.from_numpy(prompts)})
+    assert tl.shape == (BATCH, tcfg.padded_vocab) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    for t in range(STEPS):
+        toks = rng.integers(0, jcfg.vocab_size, (BATCH,)).astype(np.int32)
+        jl, jcache = jstep(jparams, jcache, jnp.asarray(toks), PROMPT + t)
+        tl, tcache = tlm.decode_step(tcfg, tparams, tcache, torch.from_numpy(toks), PROMPT + t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL,
+                                   err_msg=f"decode step {t}")
+        assert tlm.finite_logits(tl).all()
+    for layer, (jk, tc) in enumerate(zip(np.asarray(jcache["dec"][0][0]["attn"]["k"]), tcache)):
+        np.testing.assert_allclose(tc["k"].numpy(), jk, **LOGIT_TOL, err_msg=f"layer {layer}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_loop_tokens_equal_reference(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    prompts = np.random.default_rng(6).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    want = jdecode.generate_loop(jcfg, jparams, jnp.asarray(prompts), STEPS,
+                                 scfg=jdecode.ServeConfig(max_seq=64), jit=False)
+    got = tdecode.generate_loop(tcfg, tparams, prompts, STEPS,
+                                scfg=tdecode.ServeConfig(max_seq=64))
+    assert got.shape == (BATCH, PROMPT + STEPS)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_generate_loop_validates_lengths():
+    _, _, tcfg, tparams = _models("llama2_13b")
+    with pytest.raises(ValueError, match="max_seq"):
+        tdecode.generate_loop(tcfg, tparams, np.zeros((1, 8), np.int32), 8,
+                              scfg=tdecode.ServeConfig(max_seq=10))
+    with pytest.raises(ValueError, match="num_new"):
+        tdecode.generate_loop(tcfg, tparams, np.zeros((1, 8), np.int32), 0)

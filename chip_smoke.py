@@ -7,20 +7,27 @@ Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all at once) and print the build time;
-  3. hold each kernel (K1 GEMM, K2 flash attention, K3 flash decode) against
-     its plain PyTorch version on the card, at the main path's shapes plus
-     GQA, windowed and ragged ones; print error and tolerance, the median
-     time over CUDA events, the plain version's time, one PyTorch library
-     call's time as a yardstick (the port never calls it) and the bound;
-  4. run ``generate_loop`` for reduced fp32 llama2-13b, gpt-j-6b and
-     minicpm-2b on the card (kernels) and on the CPU (plain versions): the
-     logits must agree and the greedy tokens must be equal;
+  3. hold each kernel (K1 GEMM, K2 flash attention, K3 flash decode, K4
+     paged decode) against its plain PyTorch version on the card, at the
+     main paths' shapes plus GQA, windowed and ragged ones; print error and
+     tolerance, the median time over CUDA events, the plain version's time,
+     one PyTorch library call's time as a yardstick (the port never calls
+     it) and the bound;
+  4. run ``generate_loop`` and the serving engine for reduced fp32
+     llama2-13b, gpt-j-6b and minicpm-2b on the card (kernels) and on the
+     CPU (plain versions): the logits must agree, and the greedy tokens and
+     the engine's greedy and sampled tokens must be equal;
   5. serve full-width llama2-13b (bf16, all 40 layers, random weights from a
      seed, batch 4, prompt 512, 16 new tokens) through ``generate_loop`` with
-     every launch counter set to 0 just before and read just after: each
-     kernel must have launched, the logits must be finite;
-  6. print one JSON line with every kernel's numbers;
-  7. print the last line, ``{"ok": true, "device": {...}}``.
+     every launch counter set to 0 just before and read just after: K1, K2
+     and K3 must have launched, the logits must be finite;
+  6. serve the same model through the continuous-batching engine (8 slots,
+     16-token pages, 16 ragged requests, greedy and sampled): paged logits
+     must equal dense ones, every request must finish with ``validate()``
+     clean after every step, K4 must launch once per layer per decode step,
+     and a drain on 3 slots must give the same tokens (schedule invariance);
+  7. print one JSON line with every kernel's numbers;
+  8. print the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.
 """
@@ -51,24 +58,30 @@ TOL = {"float32": {"gemm": (1e-4, 1e-3), "attn": (1e-4, 1e-4)},
 MODEL_TOL = (1e-4, 1e-3)   # logits, reduced fp32 configs: GPU kernels vs CPU plain
 
 # file:line of the TPU kernel each CUDA kernel replaces: matmul_pallas,
-# flash_attention_pallas and flash_decode_pallas.
+# flash_attention_pallas, flash_decode_pallas and the Pallas path of
+# paged_decode_attention.
 REPLACES = {
     "gemm": "src/repro/kernels/brgemm.py:58",
     "flash_attention": "src/repro/kernels/flash_attention.py:35",
     "flash_decode": "src/repro/kernels/flash_attention.py:169",
+    "paged_decode": "src/repro/kernels/ops.py:103",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
 }
+KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
-# weighted cases of phase 3 (library: torch.matmul without the activation,
-# and scaled_dot_product_attention).
+# weighted cases of phase 3 (library: torch.matmul without the activation;
+# scaled_dot_product_attention; for K4, index_select of the pages into a
+# dense view plus scaled_dot_product_attention with a length mask).
 ROW = {
     "gemm": "one llama2-13b layer's 7 projections at prefill (M 2048) plus one decode step (M 4)",
     "flash_attention": "one llama2-13b layer's prefill attention (B 4, H 40, S 512, causal)",
     "flash_decode": "one llama2-13b layer's decode attention (B 4, H 40, cache 528, length 520)",
+    "paged_decode": "one llama2-13b layer's paged decode attention (B 8, H 40, page 16, lengths 37..1000)",
 }
 
 
@@ -118,7 +131,7 @@ class Bench:
     def __init__(self, torch, peaks):
         self.torch = torch
         self.peaks = peaks
-        self.cases = {"gemm": [], "flash_attention": [], "flash_decode": []}
+        self.cases = {name: [] for name in KERNELS}
 
     def bound(self, flops, nbytes, kind):
         t_ops = flops / self.peaks[kind]
@@ -184,7 +197,10 @@ def gemm_cases(torch, bench, ref, brgemm):
     d, ff = 5120, 13824
     # (K, N, activation, occurrences per layer): wq wk wv wo | wg (silu) | wu | wd
     layer = [(d, d, None, 4), (d, ff, "silu", 1), (d, ff, None, 1), (ff, d, None, 1)]
-    for m, phase_name in ((2048, "prefill"), (4, "decode")):
+    # prefill and generate_loop decode make up K1's row; the engine's decode
+    # (M 8) is timed beside them
+    for m, phase_name, main in ((2048, "prefill", True), (4, "decode", True),
+                                (8, "engine decode", False)):
         for k, n, act, count in layer:
             a, b, _ = operands(m, k, n, torch.bfloat16)
             bench.run("gemm", f"{phase_name} {m}x{k}x{n} {act or ''}",
@@ -192,7 +208,16 @@ def gemm_cases(torch, bench, ref, brgemm):
                       lambda: ref.matmul_ref(a, b, activation=act),
                       lambda: torch.matmul(a, b),
                       flops=2 * m * n * k, nbytes=2 * (m * k + k * n + m * n),
-                      dtype="bfloat16", tol_kind="gemm", weight=count)
+                      dtype="bfloat16", tol_kind="gemm", weight=count if main else 0)
+    # the engine's logits: bf16 operands, fp32 output (library: bf16 out)
+    m, k, n = 8, d, 32000
+    a, b, _ = operands(m, k, n, torch.bfloat16)
+    bench.run("gemm", f"engine logits {m}x{k}x{n} fp32 out",
+              lambda: brgemm.matmul(a, b, out_dtype=torch.float32),
+              lambda: ref.matmul_ref(a, b, out_dtype=torch.float32),
+              lambda: torch.matmul(a, b),
+              flops=2 * m * n * k, nbytes=2 * (m * k + k * n) + 4 * m * n,
+              dtype="bfloat16", tol_kind="gemm")
     for m, k, n, act, dt in ((37, 200, 100, "gelu", torch.bfloat16),
                              (16, 96, 130, "relu", torch.bfloat16),
                              (70, 300, 96, "sigmoid", torch.float32),
@@ -296,6 +321,66 @@ def decode_cases(torch, bench, ref, fa):
                   dtype=name, tol_kind="attn", weight=weight, timed=timed)
 
 
+def _page_table(torch, lens, ps, maxp, num_pages, seed):
+    """(B, maxp) int32 table over a shuffled pool of ``num_pages`` pages:
+    each slot owns ceil(len / ps) of them, the rest of its row is the trash
+    page (index ``num_pages``), as the engine's allocator leaves it."""
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(seed))
+    table = torch.full((len(lens), maxp), num_pages, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lens):
+        k = -(-n // ps)
+        table[i, :k] = perm[used:used + k]
+        used += k
+    return table.cuda()
+
+
+def paged_decode_cases(torch, bench, ref, fa):
+    """K4 at the engine's shape (llama2-13b, B 8, H = Hk = 40, D 128, page
+    16, a 513-row pool, lengths 37..1000, bf16), GQA, windowed, and small
+    fp32 and bf16 checks."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    engine_lens = [37, 1000, 513, 260, 777, 129, 400, 64]
+    cases = [  # label, B, H, Hk, D, page, max pages, pool pages, lengths, window, dtype, weight, timed
+        ("main B8 H40 D128 ps16 len37..1000", 8, 40, 40, 128, 16, 64, 512, engine_lens, None, torch.bfloat16, 1, True),
+        ("gqa B8 H32 Hk8 D128 ps16", 8, 32, 8, 128, 16, 64, 512, engine_lens, None, torch.bfloat16, 0, True),
+        ("window128 B8 H40 D128 ps16", 8, 40, 40, 128, 16, 64, 512, engine_lens, 128, torch.bfloat16, 0, True),
+        ("check H4 Hk2 D16 ps4 window5 fp32", 3, 4, 2, 16, 4, 8, 20, [13, 32, 3], 5, torch.float32, 0, False),
+        ("check H16 Hk1 D128 ps16 fp32", 2, 16, 1, 128, 16, 8, 20, [100, 61], None, torch.float32, 0, False),
+        ("check H8 Hk2 D64 ps8 len1", 2, 8, 2, 64, 8, 8, 20, [50, 1], None, torch.bfloat16, 0, False),
+    ]
+    for label, b, h, hk, d, ps, maxp, npages, lens, window, dt, weight, timed in cases:
+        q = torch.randn(b, h, d, generator=gen, device="cuda").to(dt)
+        kp = torch.randn(npages + 1, ps, hk, d, generator=gen, device="cuda").to(dt)
+        vp = torch.randn(npages + 1, ps, hk, d, generator=gen, device="cuda").to(dt)
+        table = _page_table(torch, lens, ps, maxp, npages, seed=b + h)
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        valid = sum(min(n, window) if window else n for n in lens)
+        library = None
+        if timed and window is None:
+            keep = (torch.arange(maxp * ps, device="cuda")[None, :] < length[:, None])[:, None, None, :]
+            flat = table.flatten()
+
+            def library():
+                kd = kp.index_select(0, flat).view(b, maxp * ps, hk, d).transpose(1, 2)
+                vd = vp.index_select(0, flat).view(b, maxp * ps, hk, d).transpose(1, 2)
+                return F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=keep,
+                                                      enable_gqa=hk != h)
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        pages_read = sum(-(-n // ps) for n in lens)
+        bench.run("paged_decode", label,
+                  lambda: fa.paged_decode(q, kp, vp, table, page_size=ps, length=length,
+                                          window=window),
+                  lambda: ref.paged_decode_attention_ref(q, kp, vp, table, page_size=ps,
+                                                         length=length, window=window),
+                  library,
+                  flops=4 * h * d * valid,
+                  nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid)
+                  + 4 * (pages_read + b),
+                  dtype=name, tol_kind="attn", weight=weight, timed=timed)
+
+
 def _to_cuda(tree):
     """A copy of a parameter tree (dicts and lists of tensors) on the GPU."""
     if isinstance(tree, dict):
@@ -336,9 +421,36 @@ def reduced_models(torch):
         scfg = ServeConfig(max_seq=64)
         toks = {dev: generate_loop(cfg, params[dev], prompts, 8, scfg=scfg).cpu() for dev in params}
         same = torch.equal(toks["cuda"], toks["cpu"])
+        served = {dev: reduced_engine(cfg, params[dev]) for dev in params}
+        engine_same = served["cuda"] == served["cpu"]
         print(f"  {arch}-reduced fp32: max logit diff {worst:.3e} (rtol {rtol}, atol {atol}),"
-              f" greedy tokens equal: {same}", flush=True)
+              f" greedy tokens equal: {same}, engine tokens and statuses equal: {engine_same}"
+              f" ({len(served['cuda'][0])} requests)", flush=True)
         check(same, f"{arch} reduced: greedy tokens differ between GPU and CPU")
+        check(engine_same, f"{arch} reduced: engine tokens or statuses differ between GPU and CPU")
+
+
+def reduced_engine(cfg, params):
+    """8 ragged requests, greedy and sampled, through a 3-slot engine with
+    4-token pages and optimistic admission on a pool small enough to
+    preempt; ``validate()`` after every step; → (tokens, statuses, stats)."""
+    import numpy as np
+    from repro_torch.serve import Engine, EngineConfig
+
+    eng = Engine(cfg, params, EngineConfig(num_slots=3, page_size=4, max_seq=64, segment_len=4,
+                                           seed=7, admission="optimistic", num_pages=6,
+                                           thrash_preemptions=50))
+    rng = np.random.default_rng(5)    # a draw whose drain preempts once
+    for i in range(8):
+        prompt = rng.integers(1, cfg.vocab_size, int(rng.integers(3, 12)))
+        eng.submit(prompt, int(rng.integers(4, 10)), temperature=0.8 if i % 2 else 0.0,
+                   top_k=5 if i % 4 == 1 else 0, top_p=0.9 if i % 4 == 3 else 1.0)
+    while not eng.idle:
+        eng.step()
+        eng.validate()
+    check(eng.stats["preemptions"] > 0, "the reduced engine run did not preempt")
+    tokens = {uid: eng.collect(uid) for uid in sorted(eng.metrics)}
+    return tokens, {uid: eng.status(uid).value for uid in tokens}, eng.stats
 
 
 def serving_bounds(cfg, params, batch, prompt_len, new, peaks):
@@ -369,20 +481,27 @@ def serving_bounds(cfg, params, batch, prompt_len, new, peaks):
     return {"prefill_bound_ms": prefill, "decode_bound_ms_per_token": decode}
 
 
-def full_width(torch, counters, peaks):
-    """llama2-13b at full width and depth through generate_loop."""
+def init_model(torch):
+    """Full-width, full-depth llama2-13b with random weights from a seed."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
-    from repro_torch.serve.decode import ServeConfig, generate_loop
 
     cfg = get_config("llama2_13b")
-    batch, prompt_len, new = 4, 512, 16
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"  init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype},"
           f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights in"
           f" {time.perf_counter() - t0:.2f} s", flush=True)
+    return cfg, params
+
+
+def full_width(torch, counters, peaks, cfg, params):
+    """llama2-13b at full width and depth through generate_loop."""
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    batch, prompt_len, new = 4, 512, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device="cuda")
 
@@ -424,16 +543,265 @@ def full_width(torch, counters, peaks):
           f" (bound {result['decode_bound_ms_per_token']:.2f}),"
           f" {result['tokens_per_s']:.1f} tokens/s overall,"
           f" peak {peak / 2**30:.2f} GiB, launches {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("gemm", "flash_attention", "flash_decode"):
+        check(launches[name] > 0, f"kernel {name} was not launched by generate_loop")
     result["profile"] = device_breakdown(
         torch, lambda: generate_loop(cfg, params, prompts, new, scfg=scfg), total_ms)
     return result
 
 
+ENGINE = dict(num_slots=8, page_size=16, max_seq=1024, segment_len=8, admission="reserve", seed=0)
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+BF16_LOGITS = (2e-2, 2e-1)   # the bf16 tolerance of the repo's tests
+
+
+def engine_requests(cfg, n=16):
+    """Ragged requests from a numpy seed: prompts of 32..480 tokens, 8..40
+    new tokens; even uids greedy, odd ones sampled."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(32, 481))
+        reqs.append(dict(prompt=rng.integers(0, cfg.vocab_size, plen).tolist(),
+                         max_new=int(rng.integers(8, 41)), **(SAMPLED if i % 2 else {})))
+    return reqs
+
+
+def drain(torch, cfg, params, reqs, *, num_slots, validate=True, tracer=None, logits=None):
+    """Submit ``reqs`` to a fresh engine and run it dry; → (engine, wall ms
+    of the drain).  Builds the pools before the clock starts.  A list
+    passed as ``logits`` receives a device copy of every (uids, positions,
+    logits) the engine samples from."""
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve import engine as engine_mod
+
+    eng = Engine(cfg, params, EngineConfig(**dict(ENGINE, num_slots=num_slots)), tracer=tracer)
+    for r in reqs:
+        eng.submit(r["prompt"], r["max_new"], temperature=r.get("temperature", 0.0),
+                   top_k=r.get("top_k", 0), top_p=r.get("top_p", 1.0))
+    sample = engine_mod.sample_tokens
+    if logits is not None:
+        def recording(lg, *, uids, positions, **knobs):
+            logits.append((uids.clone(), positions.clone(), lg.clone()))
+            return sample(lg, uids=uids, positions=positions, **knobs)
+        engine_mod.sample_tokens = recording
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        while not eng.idle:
+            eng.step()
+            if validate:
+                eng.validate()
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.sample_tokens = sample
+    return eng, (time.perf_counter() - start) * 1e3
+
+
+def logits_divergence(torch, rec_a, rec_b, uid):
+    """The first position at which two drains sampled ``uid`` from logits
+    that are not bitwise equal, with the largest difference and each
+    drain's top-2 gap there."""
+    def rows(rec):
+        out = {}
+        for uids, positions, lg in rec:
+            for i in (uids == uid).nonzero().flatten().tolist():
+                out[int(positions[i])] = lg[i].float().cpu()
+        return out
+    a, b = rows(rec_a), rows(rec_b)
+    for p in sorted(set(a) & set(b)):
+        if not torch.equal(a[p], b[p]):
+            ta, tb = a[p].topk(2).values, b[p].topk(2).values
+            return {"uid": uid, "position": p, "max_abs_diff": float((a[p] - b[p]).abs().max()),
+                    "top2_gap": (float(ta[0] - ta[1]), float(tb[0] - tb[1])),
+                    "argmax": (int(a[p].argmax()), int(b[p].argmax()))}
+    return None
+
+
+def paged_matches_dense(torch, cfg, params):
+    """One bucket-padded paged prefill and one paged decode step against the
+    dense path, two prompts of 100 tokens, a shuffled table; → max abs
+    logit difference."""
+    from repro_torch.models import lm
+    b, plen, bucket, ps, maxp, num_pages = 2, 100, 128, 16, 8, 32
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (b, bucket), generator=gen, device="cuda")
+    dense = lm.init_cache(cfg, b, plen + 1, device="cuda")
+    want, dense = lm.prefill(cfg, params, dense, {"tokens": tokens[:, :plen]})
+    pools = lm.init_paged_cache(cfg, num_pages, ps, device="cuda")
+    table = _page_table(torch, [bucket] * b, ps, maxp, num_pages, seed=7)
+    got, pools = lm.prefill(cfg, params, pools, {"tokens": tokens}, page_table=table,
+                            page_size=ps, logit_index=torch.full((b,), plen - 1, device="cuda"))
+    errs = [float((got - want).abs().max())]
+    ok = torch.allclose(got, want, rtol=BF16_LOGITS[0], atol=BF16_LOGITS[1])
+    tok = want.argmax(-1)
+    want, _ = lm.decode_step(cfg, params, dense, tok, plen)
+    got, _ = lm.decode_step(cfg, params, pools, tok, torch.full((b,), plen, device="cuda"),
+                            page_table=table, page_size=ps)
+    errs.append(float((got - want).abs().max()))
+    ok = ok and torch.allclose(got, want, rtol=BF16_LOGITS[0], atol=BF16_LOGITS[1])
+    print(f"  paged vs dense logits, prefill and one decode step: max abs diff"
+          f" {errs[0]:.3e}, {errs[1]:.3e} (rtol {BF16_LOGITS[0]}, atol {BF16_LOGITS[1]})",
+          flush=True)
+    check(ok and all(math.isfinite(e) for e in errs), "paged logits differ from dense logits")
+    del pools, dense
+    return max(errs)
+
+
+def first_difference(torch, cfg, params, a, b):
+    """The first (uid, position) where two drains' tokens differ, with the
+    top-2 gap of the dense path's logits there."""
+    from repro_torch.models import lm
+    for uid in sorted(a):
+        if a[uid] != b[uid]:
+            i = next(j for j, (x, y) in enumerate(zip(a[uid], b[uid])) if x != y)
+            prefix = torch.tensor([a[uid][:i]], device="cuda")
+            caches = lm.init_cache(cfg, 1, i, device="cuda")
+            logits, _ = lm.prefill(cfg, params, caches, {"tokens": prefix})
+            top = logits[0].topk(2).values
+            return {"uid": uid, "position": i, "tokens": (a[uid][i], b[uid][i]),
+                    "top2_gap": float(top[0] - top[1])}
+    return None
+
+
+def batch_invariance_probe(torch, cfg, params):
+    """Whether one paged decode step gives a row the same bits in a batch of
+    8 as in a batch of 3 (the engine's two drains): every call of the
+    step's kernels, norms and RoPE is recorded at both batch sizes, and the
+    first one whose first three rows differ is reported with whether its
+    input rows were equal (if so, that op depends on the batch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, lm
+    ps, per_slot, b = 16, 24, 8
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    pools = lm.init_paged_cache(cfg, b * per_slot, ps, device="cuda")
+    for pool in pools:
+        for t in pool.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    table = torch.full((b, ENGINE["max_seq"] // ps), b * per_slot, dtype=torch.int32)
+    table[:, :per_slot] = torch.arange(b * per_slot, dtype=torch.int32).view(b, per_slot)
+    table = table.cuda()
+    pos = torch.tensor([300, 250, 350, 236, 284, 216, 244, 106], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda")
+    hooked = [(ops, "matmul"), (ops, "paged_decode_attention"), (blocks, "_norm"),
+              (blocks, "apply_rope"), (lm, "_logits")]
+    saved = {(m, n): getattr(m, n) for m, n in hooked}
+
+    def run(n):
+        calls = []
+        for (m, name), fn in saved.items():
+            def rec(*a, _fn=fn, _name=name, **k):
+                out = _fn(*a, **k)
+                x = next(t for t in a if isinstance(t, torch.Tensor))
+                calls.append((_name, x.detach().clone(), out.detach().clone()))
+                return out
+            setattr(m, name, rec)
+        try:
+            logits, _ = lm.decode_step(cfg, params, pools, toks[:n], pos[:n],
+                                       page_table=table[:n], page_size=ps)
+        finally:
+            for (m, name), fn in saved.items():
+                setattr(m, name, fn)
+        return logits, calls
+
+    logits8, calls8 = run(b)
+    logits3, calls3 = run(3)
+    first = None
+    for i, ((name, x8, y8), (_, x3, y3)) in enumerate(zip(calls8, calls3)):
+        if not torch.equal(y8[:3], y3):
+            first = {"call": i, "of": len(calls8), "op": name,
+                     "input_rows_equal": torch.equal(x8[:3], x3),
+                     "max_abs_diff": float((y8[:3].float() - y3.float()).abs().max())}
+            break
+    out = {"logits_equal": torch.equal(logits8[:3], logits3), "first_differing_call": first}
+    print(f"  one paged decode step at batch 8 and batch 3: {out}", flush=True)
+    del pools
+    return out
+
+
+def engine_full_width(torch, counters, peaks, cfg, params):
+    """llama2-13b at full width and depth through the serving engine."""
+    from repro_torch.obs.trace import Tracer
+
+    paged_err = paged_matches_dense(torch, cfg, params)
+    probe = batch_invariance_probe(torch, cfg, params)
+    reqs = engine_requests(cfg)
+    tracer = Tracer()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    rec8, rec3 = [], []
+    eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer,
+                         logits=rec8)
+    launches = counters.read()                  # the main path's run
+    peak = torch.cuda.max_memory_allocated()
+    tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
+    for uid, r in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"request {uid} ended {eng.status(uid).value}")
+        check(len(tokens[uid]) == len(r["prompt"]) + r["max_new"],
+              f"request {uid}: {len(tokens[uid])} tokens, want {len(r['prompt']) + r['max_new']}")
+        check(tokens[uid][:len(r["prompt"])] == r["prompt"], f"request {uid}: prompt changed")
+        check(all(0 <= t < cfg.vocab_size for t in tokens[uid]), f"request {uid}: token outside the vocabulary")
+    steps = eng.decode_steps
+    check(launches["paged_decode"] == cfg.num_layers * steps,
+          f"K4 launched {launches['paged_decode']} times in {steps} decode steps of {cfg.num_layers} layers")
+    for name in ("gemm", "flash_attention"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the engine")
+    spans = tracer.spans()
+    decode_ms = sum(sp.duration for sp in spans if sp.name == "engine.decode_segment") * 1e3
+    prefill_ms = [sp.duration * 1e3 for sp in spans if sp.name == "engine.prefill"]
+    ttft = sorted((m["first_token"] - m["submitted"]) * 1e3 for m in eng.metrics.values())
+    generated = eng.tokens_generated
+    mean_ctx = statistics.mean(len(r["prompt"]) + r["max_new"] / 2 for r in reqs)
+    bound = serving_bounds(cfg, params, ENGINE["num_slots"], int(mean_ctx), 0, peaks)
+    result = {"requests": len(reqs), "slots": ENGINE["num_slots"], "generated_tokens": generated,
+              "drain_ms": wall_ms, "tokens_per_s": generated / (wall_ms / 1e3),
+              "ttft_ms_median": statistics.median(ttft),
+              "ttft_ms_p90": statistics.quantiles(ttft, n=10)[8],
+              "prefill_ms_median": statistics.median(prefill_ms), "prefills": len(prefill_ms),
+              "decode_steps": steps, "decode_ms_per_step": decode_ms / steps,
+              "decode_step_bound_ms": bound["decode_bound_ms_per_token"],
+              "engine_steps": eng._step_idx, "max_memory_allocated_gib": peak / 2**30,
+              "launches": launches, "paged_vs_dense_max_abs": paged_err,
+              "batch_invariance_probe": probe, "stats": eng.stats}
+    print(f"  drain of {len(reqs)} requests on {ENGINE['num_slots']} slots: {wall_ms:.1f} ms,"
+          f" {generated} tokens, {result['tokens_per_s']:.1f} tokens/s; TTFT median"
+          f" {result['ttft_ms_median']:.1f} ms, p90 {result['ttft_ms_p90']:.1f} ms; prefill median"
+          f" {result['prefill_ms_median']:.1f} ms; {steps} decode steps at"
+          f" {result['decode_ms_per_step']:.2f} ms (bound {result['decode_step_bound_ms']:.2f} ms at"
+          f" mean context {mean_ctx:.0f}); peak {peak / 2**30:.2f} GiB; launches {launches}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng3, wall3_ms = drain(torch, cfg, params, reqs, num_slots=3, logits=rec3)
+    tokens3 = {uid: eng3.collect(uid) for uid in range(len(reqs))}
+    del eng3
+    torch.cuda.empty_cache()
+    diff = first_difference(torch, cfg, params, tokens, tokens3)
+    result["slots3_drain_ms"] = wall3_ms
+    result["schedule_invariant"] = diff is None
+    print(f"  drain on 3 slots: {wall3_ms:.1f} ms; tokens equal to the 8-slot drain: {diff is None}"
+          + (f"; first difference {diff}" if diff else ""), flush=True)
+    if diff:
+        print(f"  first logits of uid {diff['uid']} that differ between the drains:"
+              f" {logits_divergence(torch, rec8, rec3, diff['uid'])}", flush=True)
+    del rec8, rec3
+    check(diff is None, f"tokens depend on the number of slots: {diff}")
+
+    wave = reqs[:ENGINE["num_slots"]]
+    _, wave_ms = drain(torch, cfg, params, wave, num_slots=ENGINE["num_slots"], validate=False)
+    result["profile"] = device_breakdown(
+        torch, lambda: drain(torch, cfg, params, wave, num_slots=ENGINE["num_slots"],
+                             validate=False), wave_ms)
+    result["profile"]["requests"] = len(wave)
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
-             "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode"}
+             "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
+             "paged_decode_kernel": "paged_decode"}
 
 
 def device_breakdown(torch, run, wall_ms):
@@ -475,11 +843,13 @@ class Counters:
         self.brgemm.LAUNCHES = 0
         self.fa.ATTENTION_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
+        self.fa.PAGED_DECODE_LAUNCHES = 0
 
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES,
                 "flash_attention": self.fa.ATTENTION_LAUNCHES,
-                "flash_decode": self.fa.DECODE_LAUNCHES}
+                "flash_decode": self.fa.DECODE_LAUNCHES,
+                "paged_decode": self.fa.PAGED_DECODE_LAUNCHES}
 
 
 def main() -> int:
@@ -522,28 +892,34 @@ def main() -> int:
     gemm_cases(torch, bench, ref, brgemm)
     attention_cases(torch, bench, ref, fa)
     decode_cases(torch, bench, ref, fa)
+    paged_decode_cases(torch, bench, ref, fa)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
     reduced_models(torch)
 
     phase("5. llama2-13b, full width, through generate_loop")
     counters = Counters(brgemm, fa)
-    result = full_width(torch, counters, peaks)
+    cfg, params = init_model(torch)
+    result = full_width(torch, counters, peaks, cfg, params)
 
-    phase("6. kernels")
+    phase("6. llama2-13b, full width, through the serving engine")
+    engine = engine_full_width(torch, counters, peaks, cfg, params)
+
+    phase("7. kernels")
     kernels = []
-    for name in ("gemm", "flash_attention", "flash_decode"):
+    for name in KERNELS:
         s = bench.summary(name)
         tol = TOL["bfloat16"]["gemm" if name == "gemm" else "attn"]
+        by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name],
-            "launches": result["launches"][name], "max_abs_err": s["max_abs_err"],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": s["max_abs_err"],
             "max_err": s["max_abs_err"], "tol": {"rtol": tol[0], "atol": tol[1]},
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "cases": bench.cases[name]})
-    print(json.dumps({"build_s": build_s, "full_width": result}))
+    print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -45,18 +45,33 @@ def bias_add(x, bias):
     return (x.float() + bias.float()).to(x.dtype)
 
 
+def _row_mean(x):
+    """Mean over the last dim, summed in an order fixed per row: the row is
+    zero-padded to a power-of-two width and halved pairwise.  A library
+    reduction on the GPU picks how to split a row by the number of rows, so
+    its sums, and a decoded token with them, could change with how many
+    requests share a batch."""
+    d = x.shape[-1]
+    n = 1 << (d - 1).bit_length()
+    s = torch.nn.functional.pad(x, (0, n - d))
+    while n > 1:
+        n //= 2
+        s = s[..., :n] + s[..., n:]
+    return s / d
+
+
 def layernorm(x, gamma, beta, *, eps: float = 1e-5):
     """Layernorm over the last dim, fp32 statistics."""
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
+    mu = _row_mean(xf)
+    var = _row_mean((xf - mu).square())
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
 def rmsnorm(x, gamma, *, eps: float = 1e-6):
     xf = x.float()
-    ms = xf.square().mean(-1, keepdim=True)
+    ms = _row_mean(xf.square())
     return (xf * torch.rsqrt(ms + eps) * gamma.float()).to(x.dtype)
 
 

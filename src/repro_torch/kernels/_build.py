@@ -49,6 +49,12 @@ SIGNATURES = {
         "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)
         + (_L,) * 10 + (_I, _F, _P),
     },
+    "paged_decode": {
+        # q, k_pool, v_pool, table, length, o, bf16, B, H, Hk, D, page_size,
+        # max_pages, pool rows, q (batch, head), o (batch, head), window,
+        # scale, stream
+        "paged_decode": (_P,) * 6 + (_I,) * 8 + (_L,) * 4 + (_I, _F, _P),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

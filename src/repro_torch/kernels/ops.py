@@ -4,14 +4,14 @@ A CPU tensor runs the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor runs the hand-written CUDA kernel, which launches or raises.  There is
 no backend switch and no fallback: a kernel that fails to build or launch
 fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
-``attention``, ``decode_attention``).
+``attention``, ``decode_attention``, ``paged_decode_attention``).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import brgemm, ref
 from repro_torch.kernels import flash_attention as fa
 
-__all__ = ["matmul", "attention", "decode_attention"]
+__all__ = ["matmul", "attention", "decode_attention", "paged_decode_attention"]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -48,3 +48,15 @@ def decode_attention(q, k_cache, v_cache, *, length, window=None):
         return ref.decode_attention_ref(q, k_cache, v_cache, length=length,
                                         window=window)
     return fa.flash_decode(q, k_cache, v_cache, length=length, window=window)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, *, page_size,
+                           length, window=None):
+    """One-token attention over token-major page pools (P + 1, page_size,
+    Hk, D) through ``page_table`` (B, maxp), q (B,H,D) (K4)."""
+    if _on_cpu(q, k_pool, v_pool, page_table, length):
+        return ref.paged_decode_attention_ref(
+            q, k_pool, v_pool, page_table, page_size=page_size,
+            length=length, window=window)
+    return fa.paged_decode(q, k_pool, v_pool, page_table, page_size=page_size,
+                           length=length, window=window)

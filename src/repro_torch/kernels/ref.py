@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core import tpp
 
-__all__ = ["matmul_ref", "attention_ref", "decode_attention_ref"]
+__all__ = ["matmul_ref", "attention_ref", "decode_attention_ref",
+           "paged_decode_attention_ref"]
 
 
 def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
@@ -74,3 +75,20 @@ def decode_attention_ref(q, k_cache, v_cache, *, length=None, window=None,
     o = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(b, h, d).to(out_dtype or q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, page_table, *, page_size,
+                               length, window=None, out_dtype=None):
+    """One query token over token-major page pools: q (B, H, D); pools
+    (P, page_size, Hk, D) shared by every slot; ``page_table`` (B, maxp)
+    names each slot's pages (the trash page in unused entries); ``length``
+    (B,) valid prefix lengths.  Gathers each slot's pages, swaps them to the
+    head-major cache layout and calls :func:`decode_attention_ref`, which
+    masks the positions past ``length``."""
+    b, maxp = page_table.shape
+    s = maxp * page_size
+    idx = page_table.long()
+    k = k_pool[idx].reshape(b, s, k_pool.shape[2], -1).transpose(1, 2)
+    v = v_pool[idx].reshape(b, s, v_pool.shape[2], -1).transpose(1, 2)
+    return decode_attention_ref(q, k, v, length=length, window=window,
+                                out_dtype=out_dtype)

@@ -8,9 +8,10 @@ as ``x @ w``.  Projection weights and biases are stored in the compute dtype
 (the reference keeps fp32 masters and casts them at every call: the values
 are the same); norm scales and biases stay fp32.
 
-Ported so far: the dense decoder's attention (no cache, and the dense cache
-at a scalar position) and MLP (gated and plain).  Paged, ring-buffer, MLA,
-MoE, mamba and cross-attention branches are still to be ported (ROADMAP.md,
+Ported so far: the dense decoder's attention (no cache; the dense cache at
+a scalar position or at per-slot positions; the paged pools of the serving
+engine) and MLP (gated and plain).  The ring-buffer local cache, MLA, MoE,
+mamba and cross-attention branches are still to be ported (ROADMAP.md,
 Queue 1).
 """
 from __future__ import annotations
@@ -83,7 +84,20 @@ def apply_rope(x, positions, *, theta: float, fraction: float = 1.0):
 
 
 # --------------------------------------------------------------------------
-# GQA attention (causal / sliding-window / bidirectional) with a dense cache
+# Paged-cache indexing (serving engine; see serve/kvcache.py)
+# --------------------------------------------------------------------------
+
+def _page_lookup(page_table, idx):
+    """page_table (B, maxp) → page ids for per-token page indices ``idx``
+    (B, T).  Out-of-range indices clip to the last column, which the
+    allocator fills with the trash-page sentinel: writes for padding or
+    retired slots land in the trash page, and reads are length-masked."""
+    idx = idx.clamp(0, page_table.shape[-1] - 1)
+    return torch.gather(page_table.long(), 1, idx.long())
+
+
+# --------------------------------------------------------------------------
+# GQA attention (causal / sliding-window / bidirectional) with a KV cache
 # --------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, gen):
@@ -98,15 +112,28 @@ def init_attention(cfg: ModelConfig, gen):
 
 
 def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
-                    positions=None, cache=None, cache_pos: int = 0):
+                    positions=None, cache=None, cache_pos=0,
+                    page_table=None, page_size: int = 0):
     """x (B, S, d) → (out (B, S, d), cache).  kind ∈ {attn, local, global,
     bidir}.
 
     Without a cache: prefill/training attention over the S tokens.  With a
-    dense cache ``{"k", "v"}`` of shape (B, Hk, S_max, hd) and a scalar
-    ``cache_pos``: the new K/V are written at ``cache_pos``, then S == 1
-    decodes against the cache up to ``cache_pos + 1`` and S > 1 attends over
-    ``[0, cache_pos + S)`` (chunked prefill)."""
+    dense cache ``{"k", "v"}`` of (B, Hk, S_max, hd): ``cache_pos`` is a
+    scalar write position (S == 1 decodes against the cache up to
+    ``cache_pos + 1``, S > 1 attends over ``[0, cache_pos + S)``), or a
+    (B,) tensor of per-slot positions for a one-token decode (continuous
+    batching: each slot attends up to its own ``pos + 1``).
+
+    Paged mode (``page_table`` (B, maxp) and ``page_size``): the cache holds
+    token-major page pools (P + 1, page_size, Hk, hd) shared by all slots.
+    Decode (S == 1, per-slot ``cache_pos``) scatters the new K/V into
+    (page, offset) and attends through the page table; prefill (S > 1, from
+    position 0) attends over the in-flight K/V and only records them in the
+    slot's pages.
+
+    The reference returns new caches; here every cache write lands in place
+    in the caller's tensors (the dense buffers or the pools), and the same
+    dictionary is returned."""
     if kind not in _CAUSAL_KINDS + ("bidir",):
         raise _later(f"attention kind {kind!r}")
     b, s, d = x.shape
@@ -126,27 +153,61 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
 
     window = cfg.sliding_window if kind == "local" else None
     causal = kind in _CAUSAL_KINDS
+    per_slot = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
     if cache is None:
         o = ops.attention(q, k, v, causal=causal, window=window)
+    elif page_table is not None:
+        if page_size < 1:
+            raise ValueError("a paged cache needs page_size >= 1")
+        if s == 1:
+            if not per_slot:
+                raise ValueError("paged decode takes per-slot (B,) positions")
+            pos = cache_pos
+            pg = _page_lookup(page_table, (pos // page_size)[:, None])[:, 0]
+            off = pos % page_size
+            cache["k"][pg, off] = k[:, :, 0]
+            cache["v"][pg, off] = v[:, :, 0]
+            o = ops.paged_decode_attention(
+                q[:, :, 0], cache["k"], cache["v"], page_table,
+                page_size=page_size, length=pos + 1, window=window)[:, :, None]
+        else:
+            # whole-prompt prefill from position 0: attention runs on the
+            # in-flight K/V; the pages only record them for later decode.
+            # Positions past the slot's pages clip into the trash page.
+            if per_slot or cache_pos != 0:
+                raise ValueError("paged prefill starts at position 0")
+            tpos = torch.arange(s, device=x.device)
+            pg = _page_lookup(page_table, (tpos // page_size).expand(b, s))
+            off = (tpos % page_size).expand(b, s)
+            cache["k"][pg, off] = xk
+            cache["v"][pg, off] = xv
+            o = ops.attention(q, k, v, causal=causal, window=window)
     else:
         smax = cache["k"].shape[2]
         if kind == "local" and cfg.sliding_window is not None and smax <= cfg.sliding_window:
             raise _later("the ring-buffer local cache")
-        if not isinstance(cache_pos, int):
-            raise _later("per-slot cache positions")
-        # The reference's dynamic_update_slice returns a new cache; here the
-        # new K/V are written in place into the caller's cache tensors.
-        cache["k"][:, :, cache_pos:cache_pos + s] = k
-        cache["v"][:, :, cache_pos:cache_pos + s] = v
-        if s == 1:
-            length = torch.full((b,), cache_pos + 1, dtype=torch.int32,
-                                device=x.device)
+        if per_slot:
+            if s != 1:
+                raise ValueError("per-slot cache positions are decode-only (S == 1)")
+            pos = cache_pos
+            bidx = torch.arange(b, device=x.device)
+            cache["k"][bidx, :, pos] = k[:, :, 0]
+            cache["v"][bidx, :, pos] = v[:, :, 0]
             o = ops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
-                                     length=length, window=window)[:, :, None]
+                                     length=pos + 1, window=window)[:, :, None]
         else:
-            end = cache_pos + s
-            o = ops.attention(q, cache["k"][:, :, :end], cache["v"][:, :, :end],
-                              causal=causal, window=window)
+            cache_pos = int(cache_pos)
+            cache["k"][:, :, cache_pos:cache_pos + s] = k
+            cache["v"][:, :, cache_pos:cache_pos + s] = v
+            if s == 1:
+                length = torch.full((b,), cache_pos + 1, dtype=torch.int32,
+                                    device=x.device)
+                o = ops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
+                                         length=length, window=window)[:, :, None]
+            else:
+                end = cache_pos + s
+                o = ops.attention(q, cache["k"][:, :, :end], cache["v"][:, :, :end],
+                                  causal=causal, window=window)
     o = o.transpose(1, 2).reshape(b * s, h * hd)
     return ops.matmul(o, p["wo"]).view(b, s, d), cache
 

@@ -6,8 +6,11 @@ parameters on a leading axis and runs ``lax.scan`` over it; here
 a Python loop.  ``models.convert.params_from_numpy`` builds that list from
 the reference's stacked pytree.
 
-Caches are a list with one ``{"k", "v"}`` dictionary of (B, Hk, S_max, hd)
-tensors per layer, updated in place by ``prefill`` and ``decode_step``.
+Dense caches are a list with one ``{"k", "v"}`` dictionary of
+(B, Hk, S_max, hd) tensors per layer; the serving engine's paged caches
+(``init_paged_cache``) are a list with one ``{"k", "v"}`` dictionary of
+token-major page pools (num_pages + 1, page_size, Hk, hd) per layer.  Both
+are updated in place by ``prefill`` and ``decode_step``.
 
 Only dense decoders run here; MoE, MLA, SSM, encoder-decoder, VLM and
 ``use_fusion`` configs raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
@@ -20,11 +23,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 
 __all__ = [
     "LayerGroup", "derive_groups", "layer_kinds", "init_params",
-    "forward_hidden", "init_cache", "prefill", "decode_step", "finite_logits",
+    "forward_hidden", "init_cache", "init_paged_cache", "prefill",
+    "decode_step", "finite_logits",
 ]
 
 
@@ -79,12 +84,13 @@ def init_block(cfg: ModelConfig, gen):
 
 
 def block_apply(cfg: ModelConfig, p, x, *, kind: str, cache=None,
-                cache_pos: int = 0, positions=None):
+                cache_pos=0, positions=None, page_table=None, page_size=0):
     """Pre-norm residual block → (x, cache)."""
     h = B._norm(cfg, p["norm1"], x)
     out, cache = B.attention_apply(cfg, p["attn"], h, kind=kind,
                                    positions=positions, cache=cache,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, page_table=page_table,
+                                   page_size=page_size)
     x = x + out
     if "mlp" in p:
         h = B._norm(cfg, p["norm2"], x)
@@ -121,18 +127,30 @@ def _embed(cfg, params, tokens):
     return params["embed"][tokens]
 
 
+def _positions_from(pos0, b, s, device):
+    """(B, S) positions: ``pos0 + j``, with ``pos0`` a scalar or per-slot
+    (B,) positions."""
+    steps = torch.arange(s, device=device)
+    if isinstance(pos0, torch.Tensor) and pos0.dim() == 1:
+        return pos0[:, None] + steps[None, :]
+    return int(pos0) + steps.expand(b, s)
+
+
 def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
-                   cache_pos: int = 0):
+                   cache_pos=0, page_table=None, page_size=0):
     """→ (hidden (B, S, d) in the compute dtype, caches).  ``batch`` holds
-    ``tokens`` (B, S) at positions ``cache_pos ..``."""
+    ``tokens`` (B, S) at positions ``cache_pos ..``; ``cache_pos`` may be a
+    per-slot (B,) tensor, and ``page_table``/``page_size`` switch the
+    caches to the paged pool layout (see ``init_paged_cache``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
-    positions = cache_pos + torch.arange(s, device=tokens.device).expand(b, s)
+    positions = _positions_from(cache_pos, b, s, tokens.device)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         x, _ = block_apply(cfg, p, x, kind=kind,
                            cache=caches[i] if caches is not None else None,
-                           cache_pos=cache_pos, positions=positions)
+                           cache_pos=cache_pos, positions=positions,
+                           page_table=page_table, page_size=page_size)
     return B._norm(cfg, params["final_norm"], x), caches
 
 
@@ -150,9 +168,14 @@ def _unembed_weight(cfg, params):
 
 
 def _logits(cfg, params, h_last):
-    # fp32 product outside any kernel, as in the reference (lm.py:568-569)
+    # The reference takes an fp32 product of the upcast operands
+    # (lm.py:568-569).  K1 with an fp32 output computes the same sums: a
+    # product of two bf16 values is exact in fp32.  Unlike a library GEMM,
+    # which picks its algorithm by M, K1 sums every row in the same order
+    # at any batch of up to 16 rows, so a request's logits do not depend on
+    # how many slots decode beside it.
     w = _unembed_weight(cfg, params)
-    return _mask_pad_logits(cfg, h_last.float() @ w.float())
+    return _mask_pad_logits(cfg, ops.matmul(h_last, w, out_dtype=torch.float32))
 
 
 # --------------------------------------------------------------------------
@@ -170,18 +193,46 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
             for _ in layer_kinds(cfg)]
 
 
-def prefill(cfg: ModelConfig, params, caches, batch):
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
+                     device=None):
+    """The serving engine's caches: per layer, zeroed token-major K and V
+    pools (num_pages + 1, page_size, Hk, hd) shared by all slots through a
+    page table.  The last row is the trash page: table entries of empty or
+    retired slots point at it, so their writes land outside every live
+    request's pages (reads are length-masked).  The reference also takes
+    ``num_slots``, which sizes per-slot mamba state; mamba layers raise
+    here."""
+    dev = resolve_device(device)
+    shape = (num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
+    dt = B.compute_dtype(cfg)
+    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in layer_kinds(cfg)]
+
+
+def prefill(cfg: ModelConfig, params, caches, batch, *, page_table=None,
+            page_size=0, logit_index=None):
     """Process the prompt, writing the caches from position 0; →
-    (last-token logits (B, V) fp32, caches)."""
-    h, caches = forward_hidden(cfg, params, batch, caches=caches, cache_pos=0)
-    return _logits(cfg, params, h[:, -1]), caches
+    (last-token logits (B, V) fp32, caches).  ``logit_index`` ((B,)
+    integer tensor) reads each row's logits at its own position instead of
+    the last one: the engine right-pads prompts to a shape bucket."""
+    h, caches = forward_hidden(cfg, params, batch, caches=caches, cache_pos=0,
+                               page_table=page_table, page_size=page_size)
+    if logit_index is None:
+        h_last = h[:, -1]
+    else:
+        h_last = h[torch.arange(h.shape[0], device=h.device), logit_index.long()]
+    return _logits(cfg, params, h_last), caches
 
 
-def decode_step(cfg: ModelConfig, params, caches, tokens, pos: int):
-    """One decode step: tokens (B,) at scalar position ``pos``; →
-    (logits (B, V) fp32, caches)."""
+def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
+                page_table=None, page_size=0):
+    """One decode step: tokens (B,) at position ``pos``, a scalar or
+    per-slot (B,) positions (continuous batching); → (logits (B, V) fp32,
+    caches)."""
     h, caches = forward_hidden(cfg, params, {"tokens": tokens[:, None]},
-                               caches=caches, cache_pos=pos)
+                               caches=caches, cache_pos=pos,
+                               page_table=page_table, page_size=page_size)
     return _logits(cfg, params, h[:, -1]), caches
 
 

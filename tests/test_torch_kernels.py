@@ -1,5 +1,5 @@
-"""The port's kernel API on the CPU (the plain PyTorch versions of K1, K2 and
-K3) against the JAX reference (``backend="xla"``) and the JAX Pallas kernels
+"""The port's kernel API on the CPU (the plain PyTorch versions of K1, K2, K3
+and K4) against the JAX reference (``backend="xla"``) and the JAX Pallas kernels
 in interpret mode, on the same numpy-seeded inputs.
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 GEMM rtol 1e-4 /
@@ -118,6 +118,39 @@ def test_decode_attention_matches_reference_and_pallas(window, dtype):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("hk", [2, 4])
+def test_paged_decode_attention_matches_reference_and_pallas(hk, window, dtype):
+    """Token-major pools read through a shuffled page table whose unused
+    columns hold the trash page; ragged lengths (one ends mid-page, one
+    fills every column); GQA (H=4, Hk=2) and MHA (Hk=4)."""
+    rng = np.random.default_rng(7)
+    b, h, d, ps, maxp = 3, 4, 16, 4, 8
+    num_pages = 20
+    lens = np.asarray([13, 32, 3], np.int32)
+    table = np.full((b, maxp), num_pages, np.int32)        # trash sentinel
+    pages = rng.permutation(num_pages)
+    used = 0
+    for i, n in enumerate(lens):
+        k = -(-int(n) // ps)
+        table[i, :k] = pages[used:used + k]
+        used += k
+    jq, tq = _pair(rng.normal(size=(b, h, d)).astype(np.float32), dtype)
+    pool = (num_pages + 1, ps, hk, d)
+    jk, tk = _pair(rng.normal(size=pool).astype(np.float32), dtype)
+    jv, tv = _pair(rng.normal(size=pool).astype(np.float32), dtype)
+    got = tops.paged_decode_attention(tq, tk, tv, torch.from_numpy(table), page_size=ps,
+                                      length=torch.from_numpy(lens), window=window)
+    assert got.shape == (b, h, d) and got.dtype == tq.dtype
+    for backend in ("xla", "pallas_interpret"):
+        want = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(table), page_size=ps,
+                                           length=jnp.asarray(lens), window=window,
+                                           backend=backend, block_kv=16)
+        np.testing.assert_allclose(_f32(got), _f32(want), **ATTN_TOL[dtype],
+                                   err_msg=backend)
+
+
 def test_dispatch_follows_the_device_with_no_fallback():
     """CPU tensors run the plain version and launch nothing; the CUDA
     wrappers refuse CPU tensors instead of computing on them; mixed or other
@@ -134,5 +167,14 @@ def test_dispatch_follows_the_device_with_no_fallback():
         tfa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_decode(q[:, :, 0], q, q, length=torch.ones(1, dtype=torch.int32))
+    pool = torch.ones(3, 4, 2, 16)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.paged_decode(q[:, :, 0], pool, pool, table, page_size=4,
+                         length=torch.ones(1, dtype=torch.int32))
+    before = tfa.PAGED_DECODE_LAUNCHES
+    tops.paged_decode_attention(q[:, :, 0], pool, pool, table, page_size=4,
+                                length=torch.ones(1, dtype=torch.int32))
+    assert tfa.PAGED_DECODE_LAUNCHES == before
     with pytest.raises(ValueError, match="meta"):
         tops.matmul(a.to("meta"), b.to("meta"))

@@ -7,9 +7,10 @@ Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all at once) and print the build time;
-  3. hold each kernel (K1 GEMM, K2 flash attention, K3 flash decode, K4
-     paged decode) against its plain PyTorch version on the card, at the
-     main paths' shapes plus GQA, windowed and ragged ones; print error and
+  3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
+     attention, K6 its backward, K3 flash decode, K4 paged decode) against
+     its plain PyTorch version on the card, at the main paths' shapes plus
+     GQA, windowed and ragged ones; print error and
      tolerance, the median time over CUDA events, the plain version's time,
      one PyTorch library call's time as a yardstick (the port never calls
      it) and the bound;
@@ -26,8 +27,19 @@ Phases, each of which must pass:
      must equal dense ones, every request must finish with ``validate()``
      clean after every step, K4 must launch once per layer per decode step,
      and a drain on 3 slots must give the same tokens (schedule invariance);
-  7. print one JSON line with every kernel's numbers;
-  8. print the last line, ``{"ok": true, "device": {...}}``.
+  7. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
+     on the CPU from one initial state (loss and grad norm must agree), and
+     check that 2 steps + checkpoint + restore + 2 steps give the parameters
+     of 4 steps straight, bit for bit;
+  8. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
+     B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
+     to 0 just before and read just after: losses and grad norms finite, K6
+     launched once per layer per step, K1 with a transposed operand; then 3
+     steps on one repeated batch, whose loss must fall at each step; print
+     step time, tokens/s, model-FLOPs share, bound, peak memory and one
+     profiled step's device breakdown;
+  9. print one JSON line with every kernel's numbers;
+ 10. print the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.
 """
@@ -35,6 +47,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -62,13 +75,17 @@ MODEL_TOL = (1e-4, 1e-3)   # logits, reduced fp32 configs: GPU kernels vs CPU pl
 # paged_decode_attention.
 REPLACES = {
     "gemm": "src/repro/kernels/brgemm.py:58",
+    "gemm_transposed": "src/repro/kernels/brgemm.py:58",
     "flash_attention": "src/repro/kernels/flash_attention.py:35",
+    "flash_attention_bwd": "src/repro/fusion/autodiff.py:236",
     "flash_decode": "src/repro/kernels/flash_attention.py:169",
     "paged_decode": "src/repro/kernels/ops.py:103",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
+    "gemm_transposed": "src/repro_torch/kernels/csrc/gemm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
 }
@@ -79,7 +96,11 @@ KERNELS = tuple(SOURCE)
 # dense view plus scaled_dot_product_attention with a length mask).
 ROW = {
     "gemm": "one llama2-13b layer's 7 projections at prefill (M 2048) plus one decode step (M 4)",
+    "gemm_transposed": "minicpm-2b backward at 4096 tokens: dX of the down-projection, dW of the"
+                       " up-projection, and one 2048-row loss chunk's tied logits and dE",
     "flash_attention": "one llama2-13b layer's prefill attention (B 4, H 40, S 512, causal)",
+    "flash_attention_bwd": "one minicpm-2b layer's attention backward (B 4, H 36, S 1024, D 64,"
+                           " causal)",
     "flash_decode": "one llama2-13b layer's decode attention (B 4, H 40, cache 528, length 520)",
     "paged_decode": "one llama2-13b layer's paged decode attention (B 8, H 40, page 16, lengths 37..1000)",
 }
@@ -116,8 +137,12 @@ def time_ms(torch, fn, warmup=3, reps=10):
 
 
 def compare(torch, got, want, rtol, atol):
-    """→ (max abs error, within tolerance)."""
+    """→ (max abs error, within tolerance); tuples of tensors are compared
+    as one flat tensor."""
     torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        got = torch.cat([t.float().flatten() for t in got])
+        want = torch.cat([t.float().flatten() for t in want])
     g, w = got.float(), want.float()
     err = (g - w).abs()
     ok = bool(torch.isfinite(g).all()) and bool((err <= atol + rtol * w.abs()).all())
@@ -239,6 +264,64 @@ def gemm_cases(torch, bench, ref, brgemm):
               dtype="bfloat16", tol_kind="gemm", timed=False)
 
 
+def gemm_training_cases(torch, bench, ref, brgemm):
+    """K1 at minicpm-2b's training shapes for B 4 x S 1024 (4096 tokens;
+    the tied logits per 512-token loss chunk, 2048 rows): the forward
+    projections and the logits' dX in the plain layout, then the backward's
+    products reading one operand transposed in place, plus ragged and fp32
+    checks."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    t, d, ff, v, chunk = 4096, 2304, 5760, 122880, 2048
+    cases = [  # label, a, b, out dtype, weight (1: the row), timed
+        ("dX down-proj (4096x2304)·(5760x2304)^T", randn(t, d), randn(ff, d, scale=ff ** -0.5).T,
+         torch.bfloat16, 1, True),
+        ("dW up-proj (2304x4096)^T-read·(4096x5760) fp32 out", randn(t, d).T, randn(t, ff),
+         torch.float32, 1, True),
+        ("logits fwd (2048x2304)·(122880x2304)^T fp32 out", randn(chunk, d),
+         randn(v, d, scale=0.02).T, torch.float32, 1, True),
+        ("dE logits (122880x2048)^T-read·(2048x2304) fp32 out", randn(chunk, v, scale=1e-3).T,
+         randn(chunk, d), torch.float32, 1, True),
+        ("check ragged (77x40)^T·(100x77)^T bf16", randn(40, 77).T, randn(100, 40).T,
+         torch.bfloat16, 0, False),
+        ("check M 9 (33x9)^T·(33x50) fp32 out", randn(33, 9).T, randn(33, 50), torch.float32, 0,
+         False),
+        ("check fp32 (70x300)^T·(96x300)^T", randn(300, 70, dtype=torch.float32).T,
+         randn(96, 300, dtype=torch.float32).T, torch.float32, 0, False),
+    ]
+    # The forward projections of a layer (wq wk wv wo | wg (silu) | wu | wd),
+    # and dX of the tied logits, which reads the (122880, 2304) embedding as
+    # stored: no operand is transposed, so they are K1's plain layout.
+    for k, n, act in ((d, d, None), (d, ff, "silu"), (d, ff, None), (ff, d, None)):
+        x, w = randn(t, k), randn(k, n, scale=k ** -0.5)
+        bench.run("gemm", f"train fwd {t}x{k}x{n} {act or ''}",
+                  lambda: brgemm.matmul(x, w, activation=act),
+                  lambda: ref.matmul_ref(x, w, activation=act),
+                  lambda: torch.matmul(x, w), flops=2 * t * n * k,
+                  nbytes=2 * (t * k + k * n + t * n), dtype="bfloat16", tol_kind="gemm")
+    del x, w
+    dl, emb = randn(chunk, v, scale=1e-3), randn(v, d, scale=0.02)
+    bench.run("gemm", "dX logits (2048x122880)·(122880x2304)",
+              lambda: brgemm.matmul(dl, emb), lambda: ref.matmul_ref(dl, emb),
+              lambda: torch.matmul(dl, emb), flops=2 * chunk * v * d,
+              nbytes=2 * (chunk * v + v * d + chunk * d), dtype="bfloat16", tol_kind="gemm")
+    del dl, emb
+    for label, a, b, out, weight, timed in cases:
+        m, k = a.shape
+        n = b.shape[1]
+        dt = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+        bench.run("gemm_transposed", label,
+                  lambda: brgemm.matmul(a, b, out_dtype=out),
+                  lambda: ref.matmul_ref(a, b, out_dtype=out),
+                  (lambda: torch.matmul(a, b)) if timed else None,
+                  flops=2 * m * n * k,
+                  nbytes=a.element_size() * (m * k + k * n) + m * n * out.itemsize,
+                  dtype=dt, tol_kind="gemm", weight=weight, timed=timed)
+
+
 def _pairs(torch, sq, skv, causal, window):
     rows = torch.arange(sq)[:, None] + (skv - sq)
     cols = torch.arange(skv)[None, :]
@@ -252,13 +335,15 @@ def _pairs(torch, sq, skv, causal, window):
 
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
-    windowed, and small ragged fp32 and bf16 checks."""
+    windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64), and
+    small ragged fp32 and bf16 checks."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed
         ("main B4 H40 S512 D128 causal", 4, 40, 40, 512, 512, 128, True, None, torch.bfloat16, 1, True),
         ("gqa B4 H40 Hk8 S512 D128", 4, 40, 8, 512, 512, 128, True, None, torch.bfloat16, 0, True),
         ("window128 B4 H40 S512 D128", 4, 40, 40, 512, 512, 128, True, 128, torch.bfloat16, 0, True),
+        ("minicpm train B4 H36 S1024 D64 causal", 4, 36, 36, 1024, 1024, 64, True, None, torch.bfloat16, 0, True),
         ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, torch.float32, 0, False),
         ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, torch.float32, 0, False),
         ("check Sq40 Skv40 H6 Hk3 D64 noncausal", 1, 6, 3, 40, 40, 64, False, None, torch.bfloat16, 0, False),
@@ -284,6 +369,62 @@ def attention_cases(torch, bench, ref, fa):
                   library if timed else None,
                   flops=4 * b * h * d * pairs,
                   nbytes=q.element_size() * (2 * b * h * sq * d + 2 * b * hk * skv * d),
+                  dtype=name, tol_kind="attn", weight=weight, timed=timed)
+
+
+def attention_bwd_cases(torch, bench, ref, fa):
+    """K6 against its plain version from the same (o, lse) of K2 (whose o
+    and lse are first held against the plain version's): minicpm-2b's training
+    shape (B 4, H 36, S 1024, D 64, causal, bf16), llama2-13b's (B 1, H 40,
+    S 512, D 128), GQA, window 128, and small fp32 and bf16 checks (ragged,
+    Sq < Skv, noncausal, D 256, rows with every key masked)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed
+        ("minicpm B4 H36 S1024 D64 causal", 4, 36, 36, 1024, 1024, 64, True, None, torch.bfloat16, 1, True),
+        ("llama2 B1 H40 S512 D128 causal", 1, 40, 40, 512, 512, 128, True, None, torch.bfloat16, 0, True),
+        ("gqa B2 H32 Hk8 S512 D128 causal", 2, 32, 8, 512, 512, 128, True, None, torch.bfloat16, 0, True),
+        ("window128 B4 H36 S1024 D64", 4, 36, 36, 1024, 1024, 64, True, 128, torch.bfloat16, 0, True),
+        ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, torch.float32, 0, False),
+        ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, torch.float32, 0, False),
+        ("check Sq40 H6 Hk3 D32 noncausal fp32", 1, 6, 3, 40, 40, 32, False, None, torch.float32, 0, False),
+        ("check Sq33 H2 D256 causal", 1, 2, 2, 33, 33, 256, True, None, torch.bfloat16, 0, False),
+        ("check Sq70 Skv40 H4 D16 masked rows fp32", 2, 4, 4, 70, 40, 16, True, None, torch.float32, 0, False),
+    ]
+    for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed in cases:
+        def proj(s, heads, scale=1.0):
+            x = torch.randn(b, s, heads, d, generator=gen, device="cuda") * scale
+            return x.to(dt).transpose(1, 2)
+        q, k, v, do = proj(sq, h), proj(skv, hk), proj(skv, hk), proj(sq, h)
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
+        o_ref, lse_ref = ref.attention_fwd_ref(q, k, v, causal=causal, window=window)
+        # a row with every key masked: NaN in the plain version, 0 from K2
+        o_ref = torch.where(torch.isfinite(lse_ref)[..., None], o_ref.float(), 0.0)
+        o_err, o_ok = compare(torch, o, o_ref, *TOL[name]["attn"])
+        check(o_ok, f"K2's output disagrees with the plain version's for {label}: {o_err:.3e}")
+        both_inf = torch.isinf(lse) & torch.isinf(lse_ref)
+        err = float(torch.where(both_inf, 0.0, lse - lse_ref).abs().max())
+        rtol, atol = TOL["float32"]["attn"]
+        check(err <= atol + rtol * float(lse_ref[~both_inf].abs().max()),
+              f"K2's lse disagrees with the plain version's for {label}: {err:.3e}")
+        del o_ref
+        library = None
+        if timed:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            if window is None:
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=hk != h)
+            else:
+                keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril().triu(-(window - 1))
+                out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep, enable_gqa=hk != h)
+            library = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+        pairs = _pairs(torch, sq, skv, causal, window)
+        bench.run("flash_attention_bwd", f"{label} (K2 o err {o_err:.1e}, lse err {err:.1e})",
+                  lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window),
+                  lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window),
+                  library,
+                  flops=10 * b * h * d * pairs,
+                  nbytes=q.element_size() * (4 * b * h * sq * d + 4 * b * hk * skv * d) + 4 * b * h * sq,
                   dtype=name, tol_kind="attn", weight=weight, timed=timed)
 
 
@@ -382,12 +523,13 @@ def paged_decode_cases(torch, bench, ref, fa):
 
 
 def _to_cuda(tree):
-    """A copy of a parameter tree (dicts and lists of tensors) on the GPU."""
+    """A copy of a parameter tree (dicts and lists of tensors) on the GPU,
+    each leaf a leaf that requires a gradient where the original does."""
     if isinstance(tree, dict):
         return {k: _to_cuda(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_cuda(v) for v in tree]
-    return tree.cuda()
+    return tree.detach().cuda().requires_grad_(tree.requires_grad)
 
 
 def reduced_models(torch):
@@ -798,10 +940,26 @@ def engine_full_width(torch, counters, peaks, cfg, params):
     return result
 
 
-# Kernel names as the profiler reports them → the port's kernel.
+# Kernel names as the profiler reports them → the port's kernel.  K1's
+# launches that read a transposed operand are kernels of their own names.
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
+             "gemm_transposed_bf16_wmma": "gemm_transposed",
+             "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
-             "paged_decode_kernel": "paged_decode"}
+             "paged_decode_kernel": "paged_decode", "dkdv_kernel": "flash_attention_bwd",
+             "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd"}
+
+
+def kernel_of(name):
+    """The port's kernel that a profiled device kernel belongs to: the
+    first word of its demangled name that is one of the port's kernel
+    names."""
+    return next((KERNEL_OF[w] for w in re.findall(r"\w+", name) if w in KERNEL_OF), "other")
+
+
+# Named ranges of the port (torch.profiler.record_function) whose device
+# spans a profile reports beside the kernels.
+RANGES = ("adamw",)
 
 
 def device_breakdown(torch, run, wall_ms):
@@ -815,20 +973,25 @@ def device_breakdown(torch, run, wall_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    by_kernel = {}
+    by_kernel, ranges = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
-        name = next((k for frag, k in KERNEL_OF.items() if frag in ev.key), "other")
+        if ev.key in RANGES:     # a named range's device span, not a kernel
+            ranges[ev.key] = ev.self_device_time_total / 1e3
+            continue
+        name = kernel_of(ev.key)
         ms, count = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (ms + ev.self_device_time_total / 1e3, count + ev.count)
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
            "by_kernel": {k: {"ms": ms, "launches": n} for k, (ms, n) in
-                         sorted(by_kernel.items(), key=lambda kv: -kv[1][0])}}
+                         sorted(by_kernel.items(), key=lambda kv: -kv[1][0])},
+           "ranges_ms": ranges}
     print(f"  profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
-          + "".join(f"; {k} {v['ms']:.1f} ms / {v['launches']}" for k, v in out["by_kernel"].items()),
+          + "".join(f"; {k} {v['ms']:.1f} ms / {v['launches']}" for k, v in out["by_kernel"].items())
+          + "".join(f"; range {k} spans {v:.1f} ms on the device" for k, v in ranges.items()),
           flush=True)
     return out
 
@@ -841,15 +1004,174 @@ class Counters:
 
     def reset(self):
         self.brgemm.LAUNCHES = 0
+        self.brgemm.TRANSPOSED_LAUNCHES = 0
         self.fa.ATTENTION_LAUNCHES = 0
+        self.fa.BACKWARD_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
         self.fa.PAGED_DECODE_LAUNCHES = 0
 
     def read(self):
-        return {"gemm": self.brgemm.LAUNCHES,
+        return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
+                "gemm_transposed": self.brgemm.TRANSPOSED_LAUNCHES,
                 "flash_attention": self.fa.ATTENTION_LAUNCHES,
+                "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES}
+
+
+TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
+
+
+def reduced_training(torch):
+    """Reduced fp32 minicpm-2b and gpt-j-6b: three ``make_train_step``
+    steps on CUDA and on the CPU from the same initial state and batches
+    (loss and grad norm within TRAIN_TOL), then 4 trainer steps straight
+    against 2 steps, a checkpoint, a restore and 2 more on the card
+    (parameters bitwise equal)."""
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus, to_device
+    from repro_torch.optim.adamw import init_state, tree_leaves
+    from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
+                                   init_train_state, make_train_step, train)
+
+    for arch in ("minicpm_2b", "gptj_6b"):
+        cfg = get_config(arch).reduced()
+        tcfg = TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=40, loss_chunk=16)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=1)
+        cpu_params, cpu_opt = init_train_state(cfg, tcfg, 0, device="cpu")
+        state = {"cpu": (cpu_params, cpu_opt)}
+        gpu_params = _to_cuda(cpu_params)
+        state["cuda"] = (gpu_params, init_state(gpu_params, tcfg.adamw))
+        step_fn = make_train_step(cfg, tcfg)
+        corpus = SyntheticCorpus(dcfg)
+        worst = 0.0
+        for step in range(3):
+            batch = corpus.batch_at(step)
+            m = {}
+            for dev in ("cpu", "cuda"):
+                params, opt, metrics = step_fn(*state[dev], to_device(batch, dev), step)
+                state[dev] = (params, opt)
+                m[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+            for (a, b), what in zip(zip(m["cuda"], m["cpu"]), ("loss", "grad norm")):
+                rel = abs(a - b) / abs(b)
+                worst = max(worst, rel)
+                check(math.isfinite(a) and rel <= TRAIN_TOL,
+                      f"{arch} reduced step {step}: CUDA {what} {a} against CPU {b}")
+        with tempfile.TemporaryDirectory() as d:
+            rcfg = dict(ckpt_every=2, log_every=0)
+            straight, _, _ = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=4, **rcfg), device="cuda")
+            try:
+                train(cfg, tcfg, dcfg, TrainerConfig(num_steps=4, ckpt_dir=d, preempt_after=2, **rcfg),
+                      device="cuda")
+                check(False, f"{arch}: the preemption did not happen")
+            except SimulatedPreemption:
+                pass
+            resumed, _, _ = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=4, ckpt_dir=d, **rcfg),
+                                  device="cuda")
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(straight), tree_leaves(resumed)))
+        print(f"  {arch}-reduced fp32: 3 steps, CUDA vs CPU loss and grad norm within"
+              f" {worst:.2e} relative (tol {TRAIN_TOL}); 4 steps straight vs 2 + checkpoint +"
+              f" restore + 2 bitwise equal: {same}", flush=True)
+        check(same, f"{arch}: resumed training differs from the straight run")
+
+
+def training_model_flops(cfg, batch, seq):
+    """(model FLOPs of one step: 6 N tokens plus causal attention forward and
+    backward, remat excluded; FLOPs the step does with remat: one more
+    forward of every layer and one more of the loss chunks' logits)."""
+    L, d, ff, h, hd = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
+    per_layer = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d \
+        + (3 if cfg.gated_mlp else 2) * d * ff
+    tokens = batch * seq
+    pairs = seq * (seq + 1) // 2
+    attn_fwd = 4 * batch * h * hd * pairs * L
+    logits_fwd = 2 * tokens * d * cfg.padded_vocab
+    model = 6 * (L * per_layer + d * cfg.padded_vocab) * tokens + 3 * attn_fwd
+    remat = model + 2 * L * per_layer * tokens + attn_fwd + logits_fwd
+    return model, remat
+
+
+def train_full_width(torch, counters, peaks):
+    """minicpm-2b at full width and depth: 6 trainer steps (fp32 masters,
+    bf16 compute, B 4 x S 1024, loss_chunk 512, remat, AdamW defaults, WSD),
+    then 3 steps at a small constant learning rate on one repeated batch,
+    whose loss must fall at each step, and one profiled step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus, to_device
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, TrainerConfig, make_train_step, train
+
+    cfg = get_config("minicpm_2b")
+    batch, seq, steps = 4, 1024, 6
+    tcfg = TrainConfig(schedule="wsd", peak_lr=3e-4, warmup_steps=2, total_steps=100,
+                       loss_chunk=512, remat=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    params, opt, hist = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=steps, log_every=1),
+                              seed=0, device="cuda")
+    launches = counters.read()                    # the main path's run
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(all(math.isfinite(x) for x in hist["loss"] + hist["grad_norm"]),
+          f"non-finite loss or grad norm: {hist['loss']}, {hist['grad_norm']}")
+    check(launches["flash_attention_bwd"] == cfg.num_layers * steps,
+          f"K6 launched {launches['flash_attention_bwd']} times in {steps} steps of"
+          f" {cfg.num_layers} layers")
+    check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
+    for name in ("gemm", "flash_attention"):
+        check(launches[name] > 0, f"kernel {name} was not launched by training")
+    step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+    tokens = batch * seq
+    model_flops, remat_flops = training_model_flops(cfg, batch, seq)
+    state_bytes = 7 * 4 * n_params               # AdamW reads p, g, mu, nu; writes p, mu, nu
+    # the model's work (remat, a choice that trades FLOPs for memory, beside it)
+    bound_ms = max(model_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
+    remat_bound_ms = max(remat_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
+    result = {"steps": steps, "step_ms_median_2_6": step_ms, "step_times_ms":
+              [t * 1e3 for t in hist["step_time"]], "tokens_per_s": tokens / (step_ms / 1e3),
+              "model_flops_per_step": model_flops, "flops_per_step_with_remat": remat_flops,
+              "mfu_bf16_peak": model_flops / (step_ms / 1e3) / peaks["bf16"],
+              "step_bound_ms": bound_ms, "step_bound_with_remat_ms": remat_bound_ms,
+              "parameters": n_params, "max_memory_allocated_gib": peak / 2**30,
+              "launches": launches, "loss": hist["loss"], "grad_norm": hist["grad_norm"]}
+    print(f"  trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
+          f" grad norms {[round(x, 3) for x in hist['grad_norm']]}; step {step_ms:.1f} ms"
+          f" (median of steps 2-{steps}), {result['tokens_per_s']:.1f} tokens/s,"
+          f" model FLOPs {model_flops / 1e12:.2f} T/step ({remat_flops / 1e12:.2f} T with remat),"
+          f" {100 * result['mfu_bf16_peak']:.2f} % of the {peaks['bf16'] / 1e12:g} TFLOP/s bf16 peak;"
+          f" bound {bound_ms:.1f} ms ({remat_bound_ms:.1f} ms with remat); {n_params} parameters; peak {peak / 2**30:.2f} GiB;"
+          f" launches {launches}", flush=True)
+
+    # Downhill: a fresh AdamW state, one repeated batch, a small constant lr.
+    del opt
+    torch.cuda.empty_cache()
+    fixed = TrainConfig(schedule="wsd", peak_lr=1e-5, warmup_steps=0, total_steps=10**6,
+                        loss_chunk=512, remat=True)
+    opt = init_state(params, AdamWConfig())
+    step_fn = make_train_step(cfg, fixed)
+    one = to_device(SyntheticCorpus(dcfg).batch_at(1000), "cuda")
+    losses = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, one, i)
+        losses.append(float(metrics["loss"]))
+        last_ms = (time.perf_counter() - start) * 1e3
+    with torch.no_grad():
+        losses.append(float(lm.lm_loss(cfg, params, one, loss_chunk=512)[0]))
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    result["repeated_batch_losses"] = losses
+    print(f"  3 steps at lr 1e-5 on one batch: losses {losses} (falling: {falls})", flush=True)
+    check(falls, f"the loss did not fall at each step on a repeated batch: {losses}")
+    result["profile"] = device_breakdown(torch, lambda: step_fn(params, opt, one, 3), last_ms)
+    del params, opt
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -890,7 +1212,9 @@ def main() -> int:
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
     gemm_cases(torch, bench, ref, brgemm)
+    gemm_training_cases(torch, bench, ref, brgemm)
     attention_cases(torch, bench, ref, fa)
+    attention_bwd_cases(torch, bench, ref, fa)
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
 
@@ -904,13 +1228,22 @@ def main() -> int:
 
     phase("6. llama2-13b, full width, through the serving engine")
     engine = engine_full_width(torch, counters, peaks, cfg, params)
+    del params
+    torch.cuda.empty_cache()
 
-    phase("7. kernels")
+    phase("7. reduced configs: training on CUDA against the CPU")
+    reduced_training(torch)
+
+    phase("8. minicpm-2b, full width and depth, training")
+    training = train_full_width(torch, counters, peaks)
+
+    phase("9. kernels")
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
-        tol = TOL["bfloat16"]["gemm" if name == "gemm" else "attn"]
-        by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name]}
+        tol = TOL["bfloat16"]["gemm" if name.startswith("gemm") else "attn"]
+        by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
+                   "training": training["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -919,7 +1252,8 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "cases": bench.cases[name]})
-    print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine}))
+    print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
+                      "training": training}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
-"""Tensor Processing Primitives used on the serving path, in PyTorch.
+"""Tensor Processing Primitives used by the dense decoder, in PyTorch.
 
-The subset of ``repro/core/tpp.py`` that the dense decoder runs.  As there,
+The subset of ``repro/core/tpp.py`` that the dense decoder runs, serving
+and training.  As there,
 every primitive is precision-aware: low-precision inputs compute in fp32 and
 cast back on the way out.
 """
@@ -11,7 +12,7 @@ import math
 import torch
 
 __all__ = ["relu", "gelu", "silu", "sigmoid", "mul", "bias_add",
-           "layernorm", "rmsnorm", "ACTIVATIONS"]
+           "layernorm", "rmsnorm", "ACTIVATIONS", "activation_grad"]
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -77,3 +78,25 @@ def rmsnorm(x, gamma, *, eps: float = 1e-6):
 
 # Epilogue activations of the GEMM kernel, by the names ``ops.matmul`` takes.
 ACTIVATIONS = {"relu": relu, "gelu": gelu, "silu": silu, "sigmoid": sigmoid}
+
+
+def activation_grad(activation, dy, z):
+    """dy * act'(z) in fp32 at the fp32 pre-activation ``z``: the derivative
+    XLA takes of each activation above (``repro/core/tpp.py``'s
+    ``relu_grad`` and ``gelu_grad``, and the chain rule through
+    ``sigmoid`` and ``x * sigmoid(x)``)."""
+    dy, z = dy.float(), z.float()
+    if activation is None:
+        return dy
+    if activation == "relu":
+        return torch.where(z > 0, dy, torch.zeros((), dtype=dy.dtype, device=dy.device))
+    if activation == "gelu":
+        t = torch.tanh(_SQRT_2_OVER_PI * (z + 0.044715 * z ** 3))
+        dt = (1.0 - t ** 2) * _SQRT_2_OVER_PI * (1.0 + 3 * 0.044715 * z ** 2)
+        return dy * (0.5 * (1.0 + t) + 0.5 * z * dt)
+    sig = torch.sigmoid(z)
+    if activation == "sigmoid":
+        return dy * sig * (1.0 - sig)
+    if activation == "silu":
+        return dy * (sig + z * sig * (1.0 - sig))
+    raise ValueError(f"unknown activation {activation!r}")

@@ -7,8 +7,8 @@ torch has no unsigned 32-bit arithmetic, so every word is held in int64 in
 tensors of any shape and device (broadcasting) and on Python ints.
 
 Ported so far: ``threefry2x32``, ``derive_salt`` and ``fold_in`` (what the
-sampler needs).  ``tile_bits``, ``keep_mask`` and ``dropout`` come with
-training; ``hw_tile_bits`` (K13) later (ROADMAP.md).
+sampler needs), and ``tile_bits``, ``keep_threshold``, ``keep_mask`` and
+``dropout`` (training).  ``hw_tile_bits`` (K13) comes later (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import zlib
 
 import torch
 
-__all__ = ["SCHEME", "threefry2x32", "derive_salt", "fold_in"]
+__all__ = ["SCHEME", "threefry2x32", "derive_salt", "fold_in", "tile_bits",
+           "keep_threshold", "keep_mask", "dropout"]
 
 SCHEME = "threefry2x32-20"
 
@@ -65,3 +66,38 @@ def fold_in(seed, data):
     golden-ratio constant; → the new seed word (int64 tensor)."""
     x0, _ = threefry2x32(seed, _GOLDEN, data, 0)
     return x0
+
+
+def tile_bits(seed, salt, shape, *, offsets=(0, 0), device=None):
+    """uint32 bits (as int64) for a 2-D tile of ``shape`` whose element
+    (r, c) sits at global coordinates (offsets[0] + r, offsets[1] + c), the
+    counter words; computed on ``device`` (default: the CPU)."""
+    if len(shape) != 2:
+        raise ValueError(f"tile_bits takes a 2-D shape, got {shape}")
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    rows = torch.arange(shape[0], dtype=torch.int64, device=dev)[:, None] + int(offsets[0])
+    cols = torch.arange(shape[1], dtype=torch.int64, device=dev)[None, :] + int(offsets[1])
+    bits, _ = threefry2x32(_u32(seed, dev), _u32(salt, dev), rows, cols)
+    return bits
+
+
+def keep_threshold(rate: float) -> int:
+    """``bits < threshold`` keeps an element with probability ``1 - rate``
+    (an exact integer compare)."""
+    t = int((1.0 - float(rate)) * 4294967296.0)
+    return max(0, min(t, 4294967295))
+
+
+def keep_mask(seed, salt, shape, *, rate: float, offsets=(0, 0), device=None):
+    """Boolean keep decisions for a tile (True = keep)."""
+    return tile_bits(seed, salt, shape, offsets=offsets, device=device) < keep_threshold(rate)
+
+
+def dropout(x, seed, salt, rate: float, *, offsets=(0, 0)):
+    """Dropout over a 2-D tensor with the reference's draw: kept elements
+    scaled by 1 / (1 - rate) in fp32, output in ``x``'s dtype."""
+    if rate <= 0.0:
+        return x
+    keep = keep_mask(seed, salt, x.shape, rate=rate, offsets=offsets, device=x.device)
+    scaled = x.float() * float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+    return torch.where(keep, scaled, torch.zeros((), device=x.device)).to(x.dtype)

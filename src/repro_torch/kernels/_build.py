@@ -35,19 +35,25 @@ _F = ctypes.c_float
 # C signature of every entry point, by source: (argtypes), restype is int.
 SIGNATURES = {
     "gemm": {
-        # a, b, bias, c, in_bf16, out_bf16, M, N, K, lda, ldb, act, vec, stream
-        "gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # a, b, bias, c, in_bf16, out_bf16, M, N, K, lda, ldb, trans_a,
+        # trans_b, act, vec, stream
+        "gemm": (_P, _P, _P, _P) + (_I,) * 11 + (_P,),
     },
     "flash_attention": {
-        # q, k, v, o, bf16, B, H, Hk, Sq, Skv, D,
+        # q, k, v, o, lse, bf16, B, H, Hk, Sq, Skv, D,
         # q/k/v/o strides (batch, head, seq) x 4, causal, window, scale, stream
-        "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
+        "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
         + (_L,) * 12 + (_I, _I, _F, _P),
         # q, k, v, length, o, bf16, B, H, Hk, S, D,
         # q (batch, head), k/v (batch, head, seq), o (batch, head), window,
         # scale, stream
         "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)
         + (_L,) * 10 + (_I, _F, _P),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, lse, do, delta, dq, dk, dv, bf16, B, H, Hk, Sq, Skv, D,
+        # strides (24 int64s on the host), causal, window, scale, stream
+        "flash_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_P, _I, _I, _F, _P),
     },
     "paged_decode": {
         # q, k_pool, v_pool, table, length, o, bf16, B, H, Hk, D, page_size,

@@ -9,7 +9,11 @@
 // by default); causal and window masks aligned at the ends
 // (row i sits at key position i + Skv - Sq); wholly masked key blocks are
 // skipped; online softmax keeps fp32 (m, l, acc) with -1e30 fill; l is
-// floored at 1e-30, so a row with every key masked gives 0.  K3 reads each
+// floored at 1e-30, so a row with every key masked gives 0.  For training,
+// K2 also writes each row's log-sum-exp of its scaled, masked scores,
+// m + log(l) (-inf for a row with every key masked), to an optional fp32
+// (B, H, Sq) buffer: the K6 backward (flash_attention_bwd.cu) recomputes
+// the probabilities from it.  K3 reads each
 // batch row's valid length from device memory (no host sync) and an optional
 // window keeps keys with index >= length - window.
 //
@@ -29,6 +33,7 @@
 // cores (wgmma) and split-KV decode are for the PR that makes them fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -68,7 +73,8 @@ constexpr size_t attn_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kAttnThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H, int Hk, int Sq,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int H, int Hk, int Sq,
                        int Skv, long long q_sb, long long q_sh, long long q_ss,
                        long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                        long long v_sh, long long v_ss, long long o_sb, long long o_sh,
@@ -159,6 +165,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + b * o_sb + h * o_sh + (q0 + r) * o_ss;
 #pragma unroll
     for (int i = 0; i < NA; ++i) op[cg + 4 * i] = from_float<T>(acc[i] * inv);
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * H + h) * Sq + q0 + r] = l > 0.0f ? m + logf(l) : -INFINITY;
   }
 }
 
@@ -270,7 +278,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, int D>
-cudaError_t launch_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
+cudaError_t launch_attention(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int B, int H,
                              int Hk, int Sq, int Skv, const long long* st, int causal,
                              int window, float scale, cudaStream_t s) {
   constexpr size_t smem = attn_smem_bytes<D>();
@@ -283,7 +292,7 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v, void* 
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kAttnThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hk, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(o), lse, H, Hk, Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], causal, window, scale);
   return cudaGetLastError();
 }
@@ -310,14 +319,14 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const int
 
 template <typename T>
 cudaError_t dispatch_attention(int D, const void* q, const void* k, const void* v, void* o,
-                               int B, int H, int Hk, int Sq, int Skv, const long long* st,
+                               float* lse, int B, int H, int Hk, int Sq, int Skv, const long long* st,
                                int causal, int window, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_attention<T, 16>(q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
-    case 32: return launch_attention<T, 32>(q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
-    case 64: return launch_attention<T, 64>(q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
-    case 128: return launch_attention<T, 128>(q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
-    case 256: return launch_attention<T, 256>(q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+    case 16: return launch_attention<T, 16>(q, k, v, o, lse, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+    case 32: return launch_attention<T, 32>(q, k, v, o, lse, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+    case 64: return launch_attention<T, 64>(q, k, v, o, lse, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+    case 128: return launch_attention<T, 128>(q, k, v, o, lse, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+    case 256: return launch_attention<T, 256>(q, k, v, o, lse, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -340,8 +349,10 @@ cudaError_t dispatch_decode(int D, const void* q, const void* k, const void* v,
 
 // q (B,H,Sq,D), k/v (B,Hk,Skv,D), o (B,H,Sq,D), each given by its (batch,
 // head, seq) strides with unit stride over D; bf16 if bf16 else fp32.
-// window <= 0 means none.  Returns the launch's cudaGetLastError().
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int bf16_,
+// lse: a contiguous fp32 (B,H,Sq) buffer for each row's log-sum-exp, or
+// null.  window <= 0 means none.  Returns the launch's cudaGetLastError().
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int bf16_,
                                int B, int H, int Hk, int Sq, int Skv, int D, long long q_sb,
                                long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                                long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -349,8 +360,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int window, float scale, void* stream) {
   const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = bf16_ ? dispatch_attention<bf16>(D, q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s)
-                        : dispatch_attention<float>(D, q, k, v, o, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
+  float* l = static_cast<float*>(lse);
+  cudaError_t e = bf16_ ? dispatch_attention<bf16>(D, q, k, v, o, l, B, H, Hk, Sq, Skv, st, causal, window, scale, s)
+                        : dispatch_attention<float>(D, q, k, v, o, l, B, H, Hk, Sq, Skv, st, causal, window, scale, s);
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,13 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels, forward and backward.
 
-Each mirrors its oracle in ``repro/kernels/ref.py``.  On the CPU they are
-what ``kernels.ops`` runs; on the GPU they are what ``chip_smoke.py`` holds
-each CUDA kernel against.  They compute in fp32 from the stored inputs.
+Each forward mirrors its oracle in ``repro/kernels/ref.py``; each backward
+is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``) or what
+``repro/fusion/autodiff.py``'s recompute backward derives
+(``attention_bwd_ref``).  On the CPU they are what ``kernels.ops`` runs
+(``matmul``'s backward there runs ``matmul_ref`` on transposed views, as
+K1 reads them on the card, and the tests hold it against
+``matmul_bwd_ref``); on the GPU they are what ``chip_smoke.py`` holds each
+CUDA kernel against.  They compute in fp32 from the stored inputs.
 """
 from __future__ import annotations
 
@@ -12,8 +17,8 @@ import torch
 
 from repro_torch.core import tpp
 
-__all__ = ["matmul_ref", "attention_ref", "decode_attention_ref",
-           "paged_decode_attention_ref"]
+__all__ = ["matmul_ref", "matmul_bwd_ref", "attention_ref", "attention_fwd_ref",
+           "attention_bwd_ref", "decode_attention_ref", "paged_decode_attention_ref"]
 
 
 def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
@@ -27,18 +32,32 @@ def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
     return acc.to(out_dtype)
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
-                  out_dtype=None):
-    """q (B, H, Sq, D); k/v (B, Hk, Skv, D) with H % Hk == 0.  Masks align
-    the ends of the query and key ranges (row i sits at key position
-    i + Skv - Sq); ``window`` keeps keys within [i-window+1, i].  A row with
-    every key masked gives NaN here (softmax over -inf), 0 in the kernel."""
-    b, h, sq, d = q.shape
-    hk, skv = k.shape[1], k.shape[2]
-    g = h // hk
+def matmul_bwd_ref(a, b, dy, *, bias=None, activation=None):
+    """Gradients of :func:`matmul_ref` for the output cotangent ``dy``:
+    dZ = dy * act'(Z) at the fp32 pre-activation Z = a @ b + bias, then
+    dA = dZ @ b^T, dB = a^T @ dZ and dbias = the sum of dZ's rows (None
+    without a bias); all fp32."""
+    z = None
+    if activation is not None:
+        z = torch.matmul(a.float(), b.float())
+        if bias is not None:
+            z = z + bias.float()
+    dz = tpp.activation_grad(activation, dy, z if z is not None else dy)
+    da = torch.matmul(dz, b.float().T)
+    db = torch.matmul(a.float().T, dz)
+    return da, db, dz.sum(0) if bias is not None else None
+
+
+def _masked_scores(q, k, *, causal, window, scale):
+    """Scaled fp32 scores (B, H, Sq, Skv) of q against the group-broadcast k,
+    and the (Sq, Skv) keep mask; masked scores are -inf.  Masks align the
+    ends of the query and key ranges (row i sits at key position
+    i + Skv - Sq); ``window`` keeps keys within [i-window+1, i]."""
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    g = q.shape[1] // k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kq = k.repeat_interleave(g, dim=1).float()
-    vq = v.repeat_interleave(g, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
     rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     cols = torch.arange(skv, device=q.device)[None, :]
@@ -47,10 +66,54 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
         mask = mask & (cols <= rows)
     if window is not None:
         mask = mask & (cols > rows - window)
-    s = s.masked_fill(~mask, float("-inf"))
+    return s.masked_fill(~mask, float("-inf")), mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
+                  out_dtype=None):
+    """q (B, H, Sq, D); k/v (B, Hk, Skv, D) with H % Hk == 0.  A row with
+    every key masked gives NaN here (softmax over -inf), 0 in the kernel."""
+    s, _ = _masked_scores(q, k, causal=causal, window=window, scale=scale)
     p = torch.softmax(s, dim=-1)
+    vq = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
     o = torch.einsum("bhqk,bhkd->bhqd", p, vq)
     return o.to(out_dtype or q.dtype)
+
+
+def attention_fwd_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """:func:`attention_ref` and each row's log-sum-exp of its scaled, masked
+    scores, lse (B, H, Sq) fp32 (-inf for a row with every key masked): the
+    training forward, whose lse the backward recomputes P from."""
+    s, _ = _masked_scores(q, k, causal=causal, window=window, scale=scale)
+    o = attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
+                      scale=None):
+    """Gradients of the attention for the output cotangent ``do``, from the
+    forward's output ``o`` and row log-sum-exp ``lse``: P = exp(S - lse) on
+    the kept keys, dP = dO V^T, dS = P * (dP - D) with D = rowsum(dO * O)
+    (the softmax gradient of ``repro/fusion/autodiff.py``'s dz graph),
+    dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, the last two summed
+    over each kv head's group of query heads.  → (dq, dk, dv) fp32.  A row
+    with every key masked gets zero gradients."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    g = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s, mask = _masked_scores(q, k, causal=causal, window=window, scale=scale)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), torch.zeros((), device=q.device))
+    dof, qf = do.float(), q.float()
+    kq = k.repeat_interleave(g, dim=1).float()
+    vq = v.repeat_interleave(g, dim=1).float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return (dq, dk.view(b, hk, g, skv, d).sum(2), dv.view(b, hk, g, skv, d).sum(2))
 
 
 def decode_attention_ref(q, k_cache, v_cache, *, length=None, window=None,

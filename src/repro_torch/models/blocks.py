@@ -5,12 +5,14 @@ the CPU, the CUDA kernels on the GPU); every elementwise or normalisation op
 is a TPP from ``repro_torch.core.tpp``.  Parameters are dictionaries of
 tensors in the reference's layouts: projection weights (d_in, d_out), used
 as ``x @ w``.  Projection weights and biases are stored in the compute dtype
-(the reference keeps fp32 masters and casts them at every call: the values
-are the same); norm scales and biases stay fp32.
+for serving, or as fp32 masters for training, as the reference keeps them;
+either way ``ops.matmul`` casts them to the activations' dtype at use (the
+reference's ``_cast``).  Norm scales and biases stay fp32.
 
-Ported so far: the dense decoder's attention (no cache; the dense cache at
-a scalar position or at per-slot positions; the paged pools of the serving
-engine) and MLP (gated and plain).  The ring-buffer local cache, MLA, MoE,
+Ported so far: the dense decoder's attention (no cache, with the training
+path's output-projection dropout; the dense cache at a scalar position or at
+per-slot positions; the paged pools of the serving engine) and MLP (gated
+and plain).  The ring-buffer local cache, MLA, MoE,
 mamba and cross-attention branches are still to be ported (ROADMAP.md,
 Queue 1).
 """
@@ -22,13 +24,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tpp
+from repro_torch.fusion import rng
 from repro_torch.kernels import ops
 
 __all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp",
-           "apply_rope", "attention_apply", "mlp_apply"]
+           "apply_rope", "attention_apply", "mlp_apply", "ATTN_OUT_DROPOUT_SALT"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _CAUSAL_KINDS = ("attn", "local", "global")
+# Salt of the attention output-projection dropout: the one the reference's
+# fused and unfused paths share (repro/fusion/library.py).
+ATTN_OUT_DROPOUT_SALT = rng.derive_salt("fused_attn_out/dropout")
 
 
 def _later(what: str) -> NotImplementedError:
@@ -100,9 +106,9 @@ def _page_lookup(page_table, idx):
 # GQA attention (causal / sliding-window / bidirectional) with a KV cache
 # --------------------------------------------------------------------------
 
-def init_attention(cfg: ModelConfig, gen):
+def init_attention(cfg: ModelConfig, gen, dtype=None):
     d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     return {
         "wq": _init(gen, (d, h * hd), dtype=dt),
         "wk": _init(gen, (d, hk * hd), dtype=dt),
@@ -113,7 +119,7 @@ def init_attention(cfg: ModelConfig, gen):
 
 def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
                     positions=None, cache=None, cache_pos=0,
-                    page_table=None, page_size: int = 0):
+                    page_table=None, page_size: int = 0, dropout_seed=None):
     """x (B, S, d) → (out (B, S, d), cache).  kind ∈ {attn, local, global,
     bidir}.
 
@@ -130,6 +136,11 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     (page, offset) and attends through the page table; prefill (S > 1, from
     position 0) attends over the in-flight K/V and only records them in the
     slot's pages.
+
+    ``dropout_seed`` (training only, already folded per step and layer)
+    enables the output-projection dropout at ``cfg.dropout_rate``: the
+    reference's counter-based bits (``fusion.rng.dropout``) over the same
+    (B·S, d) index space and salt.
 
     The reference returns new caches; here every cache write lands in place
     in the caller's tensors (the dense buffers or the pools), and the same
@@ -209,16 +220,19 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
                 o = ops.attention(q, cache["k"][:, :, :end], cache["v"][:, :, :end],
                                   causal=causal, window=window)
     o = o.transpose(1, 2).reshape(b * s, h * hd)
-    return ops.matmul(o, p["wo"]).view(b, s, d), cache
+    out = ops.matmul(o, p["wo"])
+    if dropout_seed is not None and cfg.dropout_rate > 0.0:
+        out = rng.dropout(out, dropout_seed, ATTN_OUT_DROPOUT_SALT, cfg.dropout_rate)
+    return out.view(b, s, d), cache
 
 
 # --------------------------------------------------------------------------
 # MLP (gated / plain)
 # --------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen):
+def init_mlp(cfg: ModelConfig, gen, dtype=None):
     d, ff = cfg.d_model, cfg.d_ff
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     if cfg.gated_mlp:
         return {"wg": _init(gen, (d, ff), dtype=dt),
                 "wu": _init(gen, (d, ff), dtype=dt),

@@ -5,8 +5,10 @@ with every leaf already turned into a numpy array (``jax.tree.map(np.asarray,
 params)``, done by the caller: this package never imports jax) and returns
 the port's parameter dictionary.  The reference stacks each group's layers on
 a leading axis (``groups[g][pos][...][i]``); here they become one dictionary
-per layer.  Projection weights and biases are cast to the compute dtype, norm
-scales and biases stay fp32.
+per layer.  Embeddings, projection weights and biases are stored in
+``dtype``: the compute dtype by default (serving), or ``torch.float32`` to
+keep the reference's fp32 masters bit for bit (training).  Norm scales and
+biases stay fp32.
 """
 from __future__ import annotations
 
@@ -42,11 +44,12 @@ def _index(node, i):
     return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
 
 
-def params_from_numpy(cfg: ModelConfig, tree, device=None):
+def params_from_numpy(cfg: ModelConfig, tree, device=None, *, dtype=None):
     """Reference parameter pytree (numpy leaves) → the port's parameters on
-    ``device`` (CUDA unless given)."""
+    ``device`` (CUDA unless given), stored in ``dtype`` (default: the
+    compute dtype)."""
     dev = resolve_device(device)
-    dt = B.compute_dtype(cfg)
+    dt = dtype or B.compute_dtype(cfg)
     layers = []
     for gtree, group in zip(tree["groups"], lm.derive_groups(cfg)):
         for r in range(group.repeat):

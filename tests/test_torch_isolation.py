@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert {'repro_torch.serve.engine', 'repro_torch.kernels.ops', 'repro_torch.obs.trace',\n"
-        "        'repro_torch.fusion.rng'} <= set(names)\n"
+        "        'repro_torch.fusion.rng', 'repro_torch.train.trainer', 'repro_torch.optim.adamw',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.checkpoint.checkpoint'} <= set(names)\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print(len(names))\n"
     )
@@ -49,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.strip()) >= 32
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -63,3 +64,18 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_cache(cfg, 1, 8)
     assert lm.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+
+    from repro_torch.data import DataConfig, SyntheticCorpus, to_device
+    from repro_torch.train import TrainConfig, TrainerConfig, init_train_state, train
+    tcfg = TrainConfig(loss_chunk=8)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, tcfg, dcfg, TrainerConfig(num_steps=1, log_every=0))
+    batch = SyntheticCorpus(dcfg).batch_at(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_device(batch)
+    assert to_device(batch, "cpu")["tokens"].device.type == "cpu"
+    params, _ = init_train_state(cfg, tcfg, device="cpu")
+    assert params["embed"].device.type == "cpu"

@@ -1,6 +1,7 @@
 """The port's kernel API on the CPU (the plain PyTorch versions of K1, K2, K3
-and K4) against the JAX reference (``backend="xla"``) and the JAX Pallas kernels
-in interpret mode, on the same numpy-seeded inputs.
+and K4, and the backward of K1 and of K2 that K6 computes) against the JAX
+reference (``backend="xla"``) and the JAX Pallas kernels in interpret mode,
+on the same numpy-seeded inputs; gradients against ``jax.grad``.
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 GEMM rtol 1e-4 /
 atol 1e-3 (K up to 64 fp32 products summed in another order), fp32 attention
@@ -8,16 +9,19 @@ atol 1e-3 (K up to 64 fp32 products summed in another order), fp32 attention
 atol 2e-1 (one bf16 rounding of the output is 2^-8 relative, and the Pallas
 kernels round p or intermediate tiles at other places).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import fusion
 from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_pallas, flash_decode_pallas
 from repro_torch.kernels import brgemm
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -178,3 +182,159 @@ def test_dispatch_follows_the_device_with_no_fallback():
     assert tfa.PAGED_DECODE_LAUNCHES == before
     with pytest.raises(ValueError, match="meta"):
         tops.matmul(a.to("meta"), b.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the ops' autograd Functions against jax.grad of the reference
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-3)    # fp32 GEMM backward, K up to 48 summed
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu", "sigmoid"])
+def test_matmul_grad_matches_jax_grad(activation, with_bias):
+    """dA, dB and dbias of ``ops.matmul`` (fp32) against jax.grad of
+    ``repro.kernels.ops.matmul(backend="xla")`` for one cotangent."""
+    rng = np.random.default_rng(11)
+    m, k, n = 24, 40, 48
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    bias = rng.normal(size=(n,)).astype(np.float32) if with_bias else None
+    probe = rng.normal(size=(m, n)).astype(np.float32)
+
+    def jloss(a_, b_, bias_):
+        y = jops.matmul(a_, b_, bias=bias_, activation=activation, backend="xla")
+        return jnp.sum(y * probe)
+
+    argnums = (0, 1, 2) if with_bias else (0, 1)
+    want = jax.grad(jloss, argnums=argnums)(jnp.asarray(a), jnp.asarray(b),
+                                            None if bias is None else jnp.asarray(bias))
+    ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
+    tbias = torch.from_numpy(bias).requires_grad_() if with_bias else None
+    y = tops.matmul(ta, tb, bias=tbias, activation=activation)
+    inputs = (ta, tb, tbias) if with_bias else (ta, tb)
+    got = torch.autograd.grad((y * torch.from_numpy(probe)).sum(), inputs)
+    for g, w, name in zip(got, want, ("a", "b", "bias")):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("activation", [None, "relu", "gelu", "silu", "sigmoid"])
+def test_matmul_bwd_ref_matches_jax_grad_and_the_function(activation, with_bias):
+    """The plain backward ``ref.matmul_bwd_ref`` against jax.grad of
+    ``repro.kernels.ops.matmul(backend="xla")`` and against the gradients
+    of ``ops.matmul``'s Function, for one cotangent in fp32."""
+    rng = np.random.default_rng(13)
+    m, k, n = 20, 36, 44
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    bias = rng.normal(size=(n,)).astype(np.float32) if with_bias else None
+    probe = rng.normal(size=(m, n)).astype(np.float32)
+
+    def jloss(a_, b_, bias_):
+        y = jops.matmul(a_, b_, bias=bias_, activation=activation, backend="xla")
+        return jnp.sum(y * probe)
+
+    argnums = (0, 1, 2) if with_bias else (0, 1)
+    want = jax.grad(jloss, argnums=argnums)(jnp.asarray(a), jnp.asarray(b),
+                                            None if bias is None else jnp.asarray(bias))
+    tbias = torch.from_numpy(bias) if with_bias else None
+    plain = tref.matmul_bwd_ref(torch.from_numpy(a), torch.from_numpy(b),
+                                torch.from_numpy(probe), bias=tbias, activation=activation)
+    ta, tb = torch.from_numpy(a).requires_grad_(), torch.from_numpy(b).requires_grad_()
+    inputs = (ta, tb, tbias.requires_grad_()) if with_bias else (ta, tb)
+    y = tops.matmul(ta, tb, bias=inputs[2] if with_bias else None, activation=activation)
+    got = torch.autograd.grad((y * torch.from_numpy(probe)).sum(), inputs)
+    for p, w, g, name in zip(plain, want, got, ("a", "b", "bias")):
+        assert p.dtype == torch.float32
+        np.testing.assert_allclose(p.numpy(), np.asarray(w), **GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), **GRAD_TOL, err_msg=name)
+
+
+def test_matmul_grad_of_fp32_master_read_transposed():
+    """bf16 activations against an fp32 master weight held as a transposed
+    view (the tied logits, ``embed.T``): the weight is cast at use, and its
+    gradient comes back in fp32 and in the master's layout.  jax.grad of
+    the reference's cast-then-matmul rounds dW to bf16 before the master
+    sees it, so the tolerance is bf16's."""
+    rng = np.random.default_rng(12)
+    m, d, v = 16, 32, 56
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    emb = (rng.normal(size=(v, d)) * 0.02).astype(np.float32)
+    probe = rng.normal(size=(m, v)).astype(np.float32)
+
+    def jloss(x_, e_):
+        y = jops.matmul(x_.astype(jnp.bfloat16), e_.astype(jnp.bfloat16).T,
+                        out_dtype=jnp.float32, backend="xla")
+        return jnp.sum(y * probe)
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(emb))
+    tx = torch.from_numpy(x).requires_grad_()
+    te = torch.from_numpy(emb).requires_grad_()
+    y = tops.matmul(tx.to(torch.bfloat16), te.T, out_dtype=torch.float32)
+    gx, ge = torch.autograd.grad((y * torch.from_numpy(probe)).sum(), (tx, te))
+    assert ge.dtype == torch.float32 and ge.shape == (v, d)
+    for g, w in ((gx, want[0]), (ge, want[1])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w, np.float32), **GEMM_TOL["bfloat16"])
+
+
+ATTN_GRAD_CASES = {  # (H, Hk, Sq, Skv, causal, window)
+    "causal": (4, 4, 64, 64, True, None),
+    "window": (4, 4, 64, 64, True, 24),
+    "gqa": (4, 2, 64, 64, True, None),
+    "sq_lt_skv": (4, 2, 32, 64, True, None),
+}
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("case", sorted(ATTN_GRAD_CASES))
+def test_attention_grad_matches_jax_grad(case, backend):
+    """(dq, dk, dv) of ``ops.attention`` (fp32) against jax.grad of
+    ``repro.fusion.fused_attention_apply``, whose backward is the six-graph
+    ChainedBackwardPlan (K6's spec), in interpret mode and on XLA; the
+    tolerance of ``tests/test_fusion_attention.py``."""
+    h, hk, sq, skv, causal, window = ATTN_GRAD_CASES[case]
+    rng = np.random.default_rng(13)
+    b, d = 2, 16
+    q = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hk, skv, d)).astype(np.float32)
+    v = rng.normal(size=(b, hk, skv, d)).astype(np.float32)
+    probe = rng.normal(size=(b, h, sq, d)).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        o = fusion.fused_attention_apply(q_, k_, v_, causal=causal, window=window,
+                                         backend=backend)
+        return jnp.sum(o.astype(jnp.float32) * probe)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = tops.attention(tq, tk, tv, causal=causal, window=window)
+    got = torch.autograd.grad((o * torch.from_numpy(probe)).sum(), (tq, tk, tv))
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_attention_fwd_lse_and_masked_rows():
+    """The training forward's lse is each row's log-sum-exp of its scaled,
+    masked scores; with Sq > Skv the first rows see no key: lse -inf there,
+    and the backward gives those rows (and nothing else) zero gradients."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 10, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 2, 6, 8)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 2, 6, 8)).astype(np.float32))
+    o, lse = ref.attention_fwd_ref(q, k, v, causal=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(8)
+    rows = torch.arange(10)[:, None] - 4
+    live = torch.arange(6)[None, :] <= rows
+    want = torch.logsumexp(s.masked_fill(~live, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse[:, :, 4:], want[:, :, 4:])
+    assert torch.isinf(lse[:, :, :4]).all()
+    do = torch.from_numpy(rng.normal(size=o.shape).astype(np.float32))
+    dq, dk, dv = ref.attention_bwd_ref(q, k, v, torch.nan_to_num(o), lse, do, causal=True)
+    assert (dq[:, :, :4] == 0).all() and (dq[:, :, 4:] != 0).any()
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()

@@ -5,19 +5,22 @@
 
 Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, all at once) and print the build time;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and the
+     K5 sources generated from ``csrc/fused_gemm.cuh`` for every fused graph
+     phases 3 and 7 launch (one nvcc per source, all at once) and print the
+     build time;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
-     attention, K6 its backward, K3 flash decode, K4 paged decode) against
-     its plain PyTorch version on the card, at the main paths' shapes plus
-     GQA, windowed and ragged ones; print error and
+     attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
+     TppGraphs) against its plain PyTorch version on the card, at the main
+     paths' shapes plus GQA, windowed and ragged ones; print error and
      tolerance, the median time over CUDA events, the plain version's time,
      one PyTorch library call's time as a yardstick (the port never calls
      it) and the bound;
   4. run ``generate_loop`` and the serving engine for reduced fp32
      llama2-13b, gpt-j-6b and minicpm-2b on the card (kernels) and on the
-     CPU (plain versions): the logits must agree, and the greedy tokens and
-     the engine's greedy and sampled tokens must be equal;
+     CPU (plain versions), without and with ``use_fusion``: the logits must
+     agree, and the greedy tokens and the engine's greedy and sampled tokens
+     must be equal;
   5. serve full-width llama2-13b (bf16, all 40 layers, random weights from a
      seed, batch 4, prompt 512, 16 new tokens) through ``generate_loop`` with
      every launch counter set to 0 just before and read just after: K1, K2
@@ -27,19 +30,25 @@ Phases, each of which must pass:
      must equal dense ones, every request must finish with ``validate()``
      clean after every step, K4 must launch once per layer per decode step,
      and a drain on 3 slots must give the same tokens (schedule invariance);
-  7. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
+  7. serve the same model with ``use_fusion=True``: K5 must launch twice per
+     layer per prefill and per decode step and K1 four times per layer plus
+     the logits, the logits must be finite; print prefill and decode times
+     beside the unfused path's and the bounds, and how far the fused logits
+     and tokens are from the unfused ones; then drain 8 requests through the
+     engine on 8 slots and on 3: equal tokens, ``validate()`` clean;
+  8. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
      on the CPU from one initial state (loss and grad norm must agree), and
      check that 2 steps + checkpoint + restore + 2 steps give the parameters
      of 4 steps straight, bit for bit;
-  8. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
+  9. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
      B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
      to 0 just before and read just after: losses and grad norms finite, K6
      launched once per layer per step, K1 with a transposed operand; then 3
      steps on one repeated batch, whose loss must fall at each step; print
      step time, tokens/s, model-FLOPs share, bound, peak memory and one
      profiled step's device breakdown;
-  9. print one JSON line with every kernel's numbers;
- 10. print the last line, ``{"ok": true, "device": {...}}``.
+ 10. print one JSON line with every kernel's numbers;
+ 11. print the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.
 """
@@ -80,6 +89,7 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/fusion/autodiff.py:236",
     "flash_decode": "src/repro/kernels/flash_attention.py:169",
     "paged_decode": "src/repro/kernels/ops.py:103",
+    "fused_gemm": "src/repro/fusion/lowering.py:330",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -88,6 +98,9 @@ SOURCE = {
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
+    # the template; one source per graph is generated from it by
+    # src/repro_torch/kernels/fused_gemm.py
+    "fused_gemm": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
@@ -103,6 +116,8 @@ ROW = {
                            " causal)",
     "flash_decode": "one llama2-13b layer's decode attention (B 4, H 40, cache 528, length 520)",
     "paged_decode": "one llama2-13b layer's paged decode attention (B 8, H 40, page 16, lengths 37..1000)",
+    "fused_gemm": "one llama2-13b layer's two fused graphs (fused_gated_mlp_silu, fused_attn_out_res)"
+                  " at prefill (M 2048) plus one decode step (M 4)",
 }
 
 
@@ -522,6 +537,136 @@ def paged_decode_cases(torch, bench, ref, fa):
                   dtype=name, tol_kind="attn", weight=weight, timed=timed)
 
 
+def sweep_graphs(fusion):
+    """Small graphs that between them use every pointwise op K5's generator
+    takes (and a graph of two distinct lhs operands)."""
+    Root, Node, Op, TppGraph = (fusion.ContractionRoot, fusion.Node, fusion.OperandSpec,
+                                fusion.TppGraph)
+    unary = TppGraph(
+        "sweep_unary", (Op("x", "lhs"), Op("w", "rhs")),
+        nodes=(Node("n0", "scale", ("acc",), (("s", 0.37),)), Node("n1", "gelu", ("n0",)),
+               Node("n2", "silu", ("acc",)), Node("n3", "sigmoid", ("n2",)),
+               Node("n4", "relu", ("n1",)), Node("n5", "identity", ("n3",))),
+        outputs=("n4", "n5", "n0"))
+    binary = TppGraph(
+        "sweep_binary", (Op("x", "lhs"), Op("wa", "rhs"), Op("wb", "rhs"), Op("t", "tile"),
+                         Op("bias", "rowvec"), Op("s", "rowvec"), Op("keep", "mask")),
+        roots=(Root("a", "x", "wa"), Root("b", "x", "wb")),
+        nodes=(Node("n0", "add", ("a", "b")), Node("n1", "sub", ("n0", "t")),
+               Node("n2", "mul", ("n1", "b")), Node("n3", "residual_add", ("n2", "t")),
+               Node("n4", "bias_add", ("n3", "bias")), Node("n5", "scale_rowvec", ("n4", "s")),
+               Node("n6", "dropout", ("n5", "keep"), (("rate", 0.3),))),
+        outputs=("n6", "n1"))
+    grads = TppGraph(
+        "sweep_grads", (Op("x", "lhs"), Op("wd", "rhs"), Op("wz", "rhs"), Op("keep", "mask")),
+        roots=(Root("dv", "x", "wd"), Root("z", "x", "wz")),
+        nodes=(Node("n0", "relu_grad", ("dv", "z")), Node("n1", "gelu_grad", ("dv", "z")),
+               Node("n2", "silu_grad", ("dv", "z")), Node("n3", "sigmoid_grad", ("dv", "z")),
+               Node("n4", "dropout_grad", ("n0", "keep"), (("rate", 0.25),))),
+        outputs=("n4", "n1", "n2", "n3"))
+    two_lhs = TppGraph(
+        "sweep_two_lhs", (Op("x1", "lhs"), Op("x2", "lhs"), Op("w", "rhs")),
+        roots=(Root("a1", "x1", "w"), Root("a2", "x2", "w")),
+        nodes=(Node("n0", "add", ("a1", "a2")),))
+    return [unary, binary, grads, two_lhs]
+
+
+def fused_graphs(fusion):
+    """Every graph phase 3 and the fused serving path launch: the path's
+    (llama2-13b, gpt-j-6b), fused_qkv and the op sweep."""
+    return [fusion.fused_gated_mlp_graph("silu"), fusion.fused_attn_out_graph(True),
+            fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion)]
+
+
+def fused_sources(fusion, fused_gemm):
+    """name → generated CUDA source of every graph in ``fused_graphs``."""
+    out = {}
+    for g in fused_graphs(fusion):
+        src = fused_gemm.generate_source(fusion.simplify_graph(g))
+        out[fused_gemm.source_name(fusion.simplify_graph(g), src)] = src
+    return out
+
+
+def fused_gemm_cases(torch, bench, fusion):
+    """K5 (each graph's generated kernel) against its plain version, the
+    composed reference path, on the card: llama2-13b's fused_gated_mlp_silu
+    and fused_attn_out_res at prefill (M 2048) and decode (M 4), gpt-j-6b's
+    fused_mlp_gelu, fused_qkv at llama2 GQA widths (5120 → 5120/1024/1024),
+    ragged and fp32 cases, and the op sweep in fp32 and bf16."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def run(label, graph, ops, *, flops, nbytes, library=None, weight=0, timed=True,
+            out_dtype=None):
+        dt = next(iter(ops.values())).dtype
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        kernel = fusion.compile(graph, path="cuda", out_dtype=out_dtype)
+        plain = fusion.compile(graph, path="reference", out_dtype=out_dtype)
+        bench.run("fused_gemm", f"{graph.name} {label}", lambda: kernel(**ops),
+                  lambda: plain(**ops), library if timed else None, flops=flops,
+                  nbytes=nbytes, dtype=name, tol_kind="gemm", weight=weight, timed=timed)
+
+    d, ff = 5120, 13824
+    gated = fusion.fused_gated_mlp_graph("silu")
+    attn_out = fusion.fused_attn_out_graph(True)
+    for m in (2048, 4):          # llama2-13b prefill (B 4 x 512) and decode (B 4)
+        x, wg, wu = randn(m, d), randn(d, ff, scale=d ** -0.5), randn(d, ff, scale=d ** -0.5)
+        run(f"M{m} {d}->{ff}", gated, dict(x=x, wg=wg, wu=wu), weight=1,
+            flops=4 * m * d * ff, nbytes=2 * (m * d + 2 * d * ff + m * ff),
+            library=lambda: F.silu(x @ wg) * (x @ wu))
+        del x, wg, wu
+        o, wo, res = randn(m, d), randn(d, d, scale=d ** -0.5), randn(m, d)
+        run(f"M{m} {d}->{d}", attn_out, dict(o=o, wo=wo, residual=res), weight=1,
+            flops=2 * m * d * d, nbytes=2 * (m * d + d * d + 2 * m * d),
+            library=lambda: torch.addmm(res, o, wo))
+        del o, wo, res
+    # gpt-j-6b's up projection, 4096 -> 16384 with bias and tanh gelu
+    m, k, n = 2048, 4096, 16384
+    x, w, b = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+    run(f"M{m} {k}->{n}", fusion.fused_mlp_graph("gelu"), dict(x=x, w=w, bias=b),
+        flops=2 * m * k * n, nbytes=2 * (m * k + k * n + n + m * n),
+        library=lambda: F.gelu(x @ w + b, approximate="tanh"))
+    del x, w, b
+    # fused_qkv at llama2 GQA widths (8 kv heads of 128): one stacked output
+    m, nk = 2048, 1024
+    x, wq, wk, wv = randn(m, d), randn(d, d, scale=d ** -0.5), randn(d, nk, scale=d ** -0.5), \
+        randn(d, nk, scale=d ** -0.5)
+    wqkv = torch.cat([wq, wk, wv], 1)
+    run(f"M{m} {d}->{d}/{nk}/{nk}", fusion.fused_qkv_graph(), dict(x=x, wq=wq, wk=wk, wv=wv),
+        flops=2 * m * d * (d + 2 * nk), nbytes=2 * (m * d + d * (d + 2 * nk) + 3 * m * d),
+        library=lambda: x @ wqkv)
+    del x, wq, wk, wv, wqkv
+    # ragged, M <= 16, fp32, fp32 out, narrow roots
+    for dt in (torch.bfloat16, torch.float32):
+        for m, k, n in ((37, 200, 100), (5, 72, 130), (70, 300, 96)):
+            x, wg, wu = randn(m, k, dtype=dt), randn(k, n, dtype=dt), randn(k, n, dtype=dt)
+            run(f"check M{m} K{k} N{n}", gated, dict(x=x, wg=wg, wu=wu), timed=False,
+                flops=4 * m * k * n, nbytes=x.element_size() * (m * k + 2 * k * n + m * n))
+            o, wo, res = randn(m, k, dtype=dt), randn(k, n, dtype=dt), randn(m, n, dtype=dt)
+            run(f"check M{m} K{k} N{n}", attn_out, dict(o=o, wo=wo, residual=res), timed=False,
+                flops=2 * m * k * n, nbytes=x.element_size() * (m * k + k * n + 2 * m * n))
+        x, wq, wk, wv = randn(33, 64, dtype=dt), randn(64, 96, dtype=dt), \
+            randn(64, 32, dtype=dt), randn(64, 32, dtype=dt)
+        run("check narrow M33 K64 N96/32/32", fusion.fused_qkv_graph(),
+            dict(x=x, wq=wq, wk=wk, wv=wv), timed=False, flops=2 * 33 * 64 * 160,
+            nbytes=x.element_size() * (33 * 64 + 64 * 160 + 3 * 33 * 96))
+        m, k, n = 48, 96, 80
+        for g in sweep_graphs(fusion):
+            ops = {}
+            for spec in g.operands:
+                shape = {"lhs": (m, k), "rhs": (k, n), "tile": (m, n), "rowvec": (n,)}.get(spec.kind)
+                ops[spec.name] = (torch.rand(m, n, generator=gen, device="cuda") > 0.4
+                                  if spec.kind == "mask" else randn(*shape, dtype=dt))
+            run(f"check sweep M{m} K{k} N{n}", g, ops, timed=False,
+                flops=2 * m * k * n * len(g.base_roots), nbytes=0)
+    x, wg, wu = randn(37, 200), randn(200, 100), randn(200, 100)
+    run("check bf16 in, fp32 out", gated, dict(x=x, wg=wg, wu=wu), timed=False,
+        flops=4 * 37 * 200 * 100, nbytes=0, out_dtype=torch.float32)
+
+
 def _to_cuda(tree):
     """A copy of a parameter tree (dicts and lists of tensors) on the GPU,
     each leaf a leaf that requires a gradient where the original does."""
@@ -532,15 +677,18 @@ def _to_cuda(tree):
     return tree.detach().cuda().requires_grad_(tree.requires_grad)
 
 
-def reduced_models(torch):
-    """Reduced fp32 configs: CUDA kernels against CPU plain versions."""
+def reduced_models(torch, counters, *, fused=False):
+    """Reduced fp32 configs: CUDA kernels against CPU plain versions; with
+    ``fused``, ``use_fusion=True`` (K5 must launch on the card)."""
+    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
     from repro_torch.serve.decode import ServeConfig, generate_loop
 
     rtol, atol = MODEL_TOL
     for arch in ("llama2_13b", "gptj_6b", "minicpm_2b"):
-        cfg = get_config(arch).reduced()
+        cfg = dataclasses.replace(get_config(arch).reduced(), use_fusion=fused)
+        counters.reset()
         cpu = lm.init_params(cfg, seed=0, device="cpu")
         params = {"cpu": cpu, "cuda": _to_cuda(cpu)}
         gen = torch.Generator().manual_seed(3)
@@ -565,9 +713,12 @@ def reduced_models(torch):
         same = torch.equal(toks["cuda"], toks["cpu"])
         served = {dev: reduced_engine(cfg, params[dev]) for dev in params}
         engine_same = served["cuda"] == served["cpu"]
-        print(f"  {arch}-reduced fp32: max logit diff {worst:.3e} (rtol {rtol}, atol {atol}),"
-              f" greedy tokens equal: {same}, engine tokens and statuses equal: {engine_same}"
-              f" ({len(served['cuda'][0])} requests)", flush=True)
+        k5 = counters.read()["fused_gemm"]
+        print(f"  {arch}-reduced fp32{' use_fusion' if fused else ''}: max logit diff {worst:.3e}"
+              f" (rtol {rtol}, atol {atol}), greedy tokens equal: {same}, engine tokens and"
+              f" statuses equal: {engine_same} ({len(served['cuda'][0])} requests);"
+              f" K5 launches {k5}", flush=True)
+        check((k5 > 0) == fused, f"{arch} reduced: K5 launched {k5} times (use_fusion={fused})")
         check(same, f"{arch} reduced: greedy tokens differ between GPU and CPU")
         check(engine_same, f"{arch} reduced: engine tokens or statuses differ between GPU and CPU")
 
@@ -940,6 +1091,134 @@ def engine_full_width(torch, counters, peaks, cfg, params):
     return result
 
 
+def fused_full_width(torch, counters, peaks, cfg, params, unfused):
+    """llama2-13b at full width and depth with ``use_fusion=True`` on phase
+    5's parameters: K5 launches 2 per layer per prefill and per decode step
+    (fused_attn_out_res, fused_gated_mlp_silu) and K1 4 per layer plus the
+    logits; timed through generate_loop beside the unfused path (``unfused``:
+    phase 5's numbers, and one more unfused run in this phase)."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    fcfg = dataclasses.replace(cfg, use_fusion=True)
+    L = cfg.num_layers
+    batch, prompt_len, new = 4, 512, 16
+    gen = torch.Generator(device="cuda").manual_seed(1)     # phase 5's prompts
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device="cuda")
+
+    caches = lm.init_cache(fcfg, batch, prompt_len + 1, device="cuda")
+    counters.reset()
+    logits, caches = lm.prefill(fcfg, params, caches, {"tokens": prompts})
+    per_prefill = counters.read()
+    counters.reset()
+    step_logits, _ = lm.decode_step(fcfg, params, caches, logits.argmax(-1), prompt_len)
+    per_step = counters.read()
+    for what, n in (("prefill", per_prefill), ("decode step", per_step)):
+        check(n["fused_gemm"] == 2 * L, f"K5 launched {n['fused_gemm']} times in one {what}, want {2 * L}")
+        check(n["gemm"] == 4 * L + 1, f"K1 launched {n['gemm']} times in one {what}, want {4 * L + 1}")
+    check(logits.shape == (batch, cfg.padded_vocab), f"fused prefill logits {tuple(logits.shape)}")
+    check(bool(lm.finite_logits(logits).all()) and bool(lm.finite_logits(step_logits).all()),
+          "fused logits are not finite")
+    del caches
+    ucaches = lm.init_cache(cfg, batch, prompt_len + 1, device="cuda")
+    ulogits, _ = lm.prefill(cfg, params, ucaches, {"tokens": prompts})
+    logit_diff = float((logits - ulogits).abs().max())
+    del ucaches, ulogits, logits, step_logits
+
+    scfg = ServeConfig(max_seq=prompt_len + new)
+
+    def serve(c, n):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = generate_loop(c, params, prompts, n, scfg=scfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - start) * 1e3
+
+    _, prefill_ms = serve(fcfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out, total_ms = serve(fcfg, new)          # the fused main path
+    launches = counters.read()
+    by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = launches["flash_decode"] // L
+    check(steps == new - 1, f"{steps} decode steps, want {new - 1}")
+    check(by_graph == {"fused_attn_out_res": L * (1 + steps), "fused_gated_mlp_silu": L * (1 + steps)},
+          f"K5 launches by graph {by_graph} in 1 prefill + {steps} decode steps")
+    check(out.shape == (batch, prompt_len + new) and torch.equal(out[:, :prompt_len], prompts),
+          "fused generate_loop output")
+    uout, unfused_total_ms = serve(cfg, new)
+    agree = int((out[:, prompt_len:] == uout[:, prompt_len:]).sum())
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    result = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms, "total_ms": total_ms,
+              "tokens_per_s": batch * new / (total_ms / 1e3),
+              "max_memory_allocated_gib": peak / 2**30, "launches": launches,
+              "launches_by_graph": by_graph, "launches_per_prefill": per_prefill, "launches_per_decode_step": per_step,
+              "unfused_prefill_ms": unfused["prefill_ms"],
+              "unfused_decode_ms_per_token": unfused["decode_ms_per_token"],
+              "unfused_total_ms_this_phase": unfused_total_ms,
+              "fused_vs_unfused_last_logits_max_abs": logit_diff,
+              "greedy_tokens_agreeing": agree, "greedy_tokens": batch * new}
+    result.update(serving_bounds(cfg, params, batch, prompt_len, new, peaks))
+    print(f"  use_fusion generate_loop B{batch} P{prompt_len} +{new}: prefill {prefill_ms:.1f} ms"
+          f" (unfused {unfused['prefill_ms']:.1f}, bound {result['prefill_bound_ms']:.2f}),"
+          f" decode {decode_ms:.2f} ms/token (unfused {unfused['decode_ms_per_token']:.2f}, bound"
+          f" {result['decode_bound_ms_per_token']:.2f}); total {total_ms:.1f} ms, unfused in this"
+          f" phase {unfused_total_ms:.1f} ms; peak {peak / 2**30:.2f} GiB; launches {launches},"
+          f" K5 by graph {by_graph};"
+          f" per prefill {per_prefill}; per decode step {per_step}", flush=True)
+    print(f"  fused vs unfused last-token prefill logits: max abs diff {logit_diff:.4f};"
+          f" greedy tokens agreeing {agree} of {batch * new} (information, not a gate)", flush=True)
+    result["profile"] = device_breakdown(
+        torch, lambda: generate_loop(fcfg, params, prompts, new, scfg=scfg), total_ms)
+    return result
+
+
+def fused_engine(torch, counters, cfg, params):
+    """A short engine drain with ``use_fusion=True`` (phase 6's first 8
+    requests) on 8 slots and on 3: every request finishes, ``validate()``
+    stays clean, K5 launches 2 per layer per prefill and decode step, and
+    the tokens are equal."""
+    import dataclasses
+    from repro_torch.obs.trace import Tracer
+
+    fcfg = dataclasses.replace(cfg, use_fusion=True)
+    L = cfg.num_layers
+    reqs = engine_requests(cfg)[:8]
+    tracer = Tracer()
+    counters.reset()
+    eng, wall_ms = drain(torch, fcfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer)
+    launches = counters.read()                  # the fused engine's run
+    prefills = sum(1 for sp in tracer.spans() if sp.name == "engine.prefill")
+    steps = eng.decode_steps
+    tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
+    for uid, r in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"fused request {uid} ended {eng.status(uid).value}")
+        check(len(tokens[uid]) == len(r["prompt"]) + r["max_new"], f"fused request {uid}: length")
+    check(launches["fused_gemm"] == 2 * L * (prefills + steps),
+          f"K5 launched {launches['fused_gemm']} times in {prefills} prefills + {steps} decode steps")
+    check(launches["paged_decode"] == L * steps, f"K4 launched {launches['paged_decode']} times")
+    generated = eng.tokens_generated
+    del eng
+    torch.cuda.empty_cache()
+    eng3, wall3_ms = drain(torch, fcfg, params, reqs, num_slots=3)
+    tokens3 = {uid: eng3.collect(uid) for uid in range(len(reqs))}
+    del eng3
+    torch.cuda.empty_cache()
+    diff = first_difference(torch, fcfg, params, tokens, tokens3)
+    result = {"requests": len(reqs), "generated_tokens": generated, "drain_ms": wall_ms,
+              "tokens_per_s": generated / (wall_ms / 1e3), "prefills": prefills,
+              "decode_steps": steps, "slots3_drain_ms": wall3_ms,
+              "schedule_invariant": diff is None, "launches": launches}
+    print(f"  use_fusion drain of {len(reqs)} requests on {ENGINE['num_slots']} slots: {wall_ms:.1f} ms,"
+          f" {generated} tokens, {result['tokens_per_s']:.1f} tokens/s, {prefills} prefills,"
+          f" {steps} decode steps, launches {launches}; on 3 slots {wall3_ms:.1f} ms, tokens"
+          f" equal: {diff is None}" + (f"; first difference {diff}" if diff else ""), flush=True)
+    check(diff is None, f"fused tokens depend on the number of slots: {diff}")
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names.
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
@@ -947,7 +1226,8 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode", "dkdv_kernel": "flash_attention_bwd",
-             "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd"}
+             "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
+             "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm"}
 
 
 def kernel_of(name):
@@ -999,8 +1279,8 @@ def device_breakdown(torch, run, wall_ms):
 class Counters:
     """Reads and resets the kernel wrappers' launch counters."""
 
-    def __init__(self, brgemm, fa):
-        self.brgemm, self.fa = brgemm, fa
+    def __init__(self, brgemm, fa, fused_gemm):
+        self.brgemm, self.fa, self.fused_gemm = brgemm, fa, fused_gemm
 
     def reset(self):
         self.brgemm.LAUNCHES = 0
@@ -1009,6 +1289,8 @@ class Counters:
         self.fa.BACKWARD_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
         self.fa.PAGED_DECODE_LAUNCHES = 0
+        self.fused_gemm.LAUNCHES = 0
+        self.fused_gemm.GRAPH_LAUNCHES.clear()
 
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
@@ -1016,7 +1298,8 @@ class Counters:
                 "flash_attention": self.fa.ATTENTION_LAUNCHES,
                 "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
-                "paged_decode": self.fa.PAGED_DECODE_LAUNCHES}
+                "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
+                "fused_gemm": self.fused_gemm.LAUNCHES}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -1181,7 +1464,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, brgemm, ref
+    from repro_torch import fusion
+    from repro_torch.kernels import _build, brgemm, fused_gemm, ref
     from repro_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1201,7 +1485,7 @@ def main() -> int:
 
     phase("2. build")
     start = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(generated=fused_sources(fusion, fused_gemm))
     build_s = time.perf_counter() - start
     print(f"  built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
@@ -1217,32 +1501,40 @@ def main() -> int:
     attention_bwd_cases(torch, bench, ref, fa)
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
+    fused_gemm_cases(torch, bench, fusion)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
-    reduced_models(torch)
+    counters = Counters(brgemm, fa, fused_gemm)
+    reduced_models(torch, counters)
+    reduced_models(torch, counters, fused=True)
 
     phase("5. llama2-13b, full width, through generate_loop")
-    counters = Counters(brgemm, fa)
     cfg, params = init_model(torch)
     result = full_width(torch, counters, peaks, cfg, params)
 
     phase("6. llama2-13b, full width, through the serving engine")
     engine = engine_full_width(torch, counters, peaks, cfg, params)
+
+    phase("7. llama2-13b, full width, use_fusion=True: generate_loop and the engine")
+    fused = fused_full_width(torch, counters, peaks, cfg, params, result)
+    fused["engine"] = fused_engine(torch, counters, cfg, params)
     del params
     torch.cuda.empty_cache()
 
-    phase("7. reduced configs: training on CUDA against the CPU")
+    phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
-    phase("8. minicpm-2b, full width and depth, training")
+    phase("9. minicpm-2b, full width and depth, training")
     training = train_full_width(torch, counters, peaks)
 
-    phase("9. kernels")
+    phase("10. kernels")
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
-        tol = TOL["bfloat16"]["gemm" if name.startswith("gemm") else "attn"]
+        tol = TOL["bfloat16"]["gemm" if name.startswith(("gemm", "fused")) else "attn"]
         by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
+                   "fused_generate_loop": fused["launches"][name],
+                   "fused_engine": fused["engine"]["launches"][name],
                    "training": training["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
@@ -1251,9 +1543,12 @@ def main() -> int:
             "max_err": s["max_abs_err"], "tol": {"rtol": tol[0], "atol": tol[1]},
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            "cases": bench.cases[name]})
+            "cases": bench.cases[name],
+            **({"generator": "src/repro_torch/kernels/fused_gemm.py",
+                "launches_by_graph_in_fused_generate_loop": fused["launches_by_graph"]}
+               if name == "fused_gemm" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
-                      "training": training}))
+                      "fused": fused, "training": training}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,9 @@ tensors of any shape and device (broadcasting) and on Python ints.
 
 Ported so far: ``threefry2x32``, ``derive_salt`` and ``fold_in`` (what the
 sampler needs), and ``tile_bits``, ``keep_threshold``, ``keep_mask`` and
-``dropout`` (training).  ``hw_tile_bits`` (K13) comes later (ROADMAP.md).
+``dropout`` (training), and the compile-time salt guard of the fusion
+compiler (``collect_salt_sites``, ``salt_collisions``,
+``assert_unique_salts``).  ``hw_tile_bits`` (K13) comes later (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import zlib
 import torch
 
 __all__ = ["SCHEME", "threefry2x32", "derive_salt", "fold_in", "tile_bits",
-           "keep_threshold", "keep_mask", "dropout"]
+           "keep_threshold", "keep_mask", "dropout", "collect_salt_sites",
+           "salt_collisions", "assert_unique_salts"]
 
 SCHEME = "threefry2x32-20"
 
@@ -101,3 +104,59 @@ def dropout(x, seed, salt, rate: float, *, offsets=(0, 0)):
     keep = keep_mask(seed, salt, x.shape, rate=rate, offsets=offsets, device=x.device)
     scaled = x.float() * float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
     return torch.where(keep, scaled, torch.zeros((), device=x.device)).to(x.dtype)
+
+
+def collect_salt_sites(graph):
+    """``[(node_name, op, salt, rate)]`` for every node of ``graph`` whose
+    attrs carry a static PRNG ``salt``."""
+    out = []
+    for nd in graph.nodes:
+        attrs = nd.attr_dict()
+        if "salt" in attrs:
+            out.append((nd.name, nd.op, attrs["salt"], attrs.get("rate")))
+    return out
+
+
+def salt_collisions(graph):
+    """``[(site_a, site_b, message)]`` for every illegal salt sharing: two
+    nodes of one op on one salt (identical masks at both sites), or a
+    forward/grad pair on one salt with different rates.  One
+    ``dropout_rng`` and one ``dropout_rng_grad`` on one salt and rate is the
+    recompute contract, not a fault."""
+    by_salt: dict = {}
+    for name, op, salt, rate in collect_salt_sites(graph):
+        by_salt.setdefault(salt, []).append((name, op, rate))
+    out = []
+    for salt, sites in sorted(by_salt.items()):
+        seen_op: dict = {}
+        for name, op, rate in sites:
+            if op in seen_op:
+                other = seen_op[op]
+                out.append((other, name, (
+                    f"graph {graph.name!r}: nodes {other!r} and {name!r} "
+                    f"both draw {op!r} bits with salt {salt:#010x} — the "
+                    "two sites would apply identical masks. Derive a "
+                    "distinct salt per site (rng.derive_salt of a unique "
+                    "stable name).")))
+            else:
+                seen_op[op] = name
+        rates = {rate for _n, _o, rate in sites}
+        if len(sites) > 1 and len(rates) > 1:
+            a, b = sites[0][0], sites[1][0]
+            out.append((a, b, (
+                f"graph {graph.name!r}: nodes sharing salt {salt:#010x} "
+                f"disagree on rate ({sorted(map(str, rates))}) — a "
+                "backward regeneration would keep a different element set "
+                "than the forward applied.")))
+    return out
+
+
+def assert_unique_salts(graph) -> None:
+    """Raise ``FusionLegalityError`` (code ``TPP203``) on the first illegal
+    salt sharing, naming both sites."""
+    collisions = salt_collisions(graph)
+    if collisions:
+        from repro_torch.fusion.graph import FusionLegalityError
+        _a, _b, msg = collisions[0]
+        raise FusionLegalityError("TPP203 duplicate-prng-salt: " + msg,
+                                  code="TPP203")

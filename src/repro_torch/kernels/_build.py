@@ -4,8 +4,12 @@ Each ``csrc/<name>.cu`` is a self-contained source with a plain C interface.
 At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of its source and flags so an edited source never loads a
-stale library, and loaded with ``ctypes``.  ``build_all`` starts one ``nvcc``
-per source at once and waits for all of them.
+stale library, and loaded with ``ctypes``.  Generated sources (K5's, one per
+fused graph, from ``kernels/fused_gemm.py``) are written there beside their
+library, built with ``csrc`` on the include path and named by a hash of
+their text, of ``csrc/fused_gemm.cuh`` and of the flags (``load_generated``).
+``build_all`` starts one ``nvcc`` per source, fixed and generated, at once
+and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises if that is not 0.  Nothing here catches a failed build or
@@ -21,7 +25,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "check"]
+__all__ = ["SOURCES", "build_all", "load", "load_generated", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -63,6 +67,11 @@ SIGNATURES = {
     },
 }
 SOURCES = tuple(SIGNATURES)
+# C signature of every generated source (K5), and the headers it includes.
+# fused_gemm: args struct, M, N, K, R, w0, w1, w2, in_bf16, out_bf16, vec,
+# stream
+GENERATED_SIGNATURE = {"fused_gemm": (_P,) + (_I,) * 10 + (_P,)}
+GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -86,34 +95,78 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc on one source; → (process, target, temp path, log path),
-    or None when the library is already built."""
-    target = _target(name)
-    if target.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _generated_target(name: str, source: str) -> Path:
+    digest = hashlib.sha256(source.encode() + b"".join(p.read_bytes() for p in GENERATED_INCLUDES)
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _run_nvcc(src: Path, target: Path, extra=()):
+    """Start nvcc on ``src``; → (process, target, temp path, log path)."""
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     log = target.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return proc, target, tmp, log
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every source not yet built, all at once; → name → compiler
-    log (register and shared-memory use per kernel, from ``-Xptxas -v``).
-    Every nvcc has ended before this returns or raises."""
+def _start(name: str):
+    """Start nvcc on one fixed source, or None when it is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return _run_nvcc(CSRC / f"{name}.cu", target)
+
+
+def _start_generated(name: str, source: str):
+    """Write one generated source beside its library and start nvcc on it,
+    or None when it is already built."""
+    target = _generated_target(name, source)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = target.with_suffix(".cu")
+    tmp = src.with_suffix(f".{os.getpid()}.cu.tmp")
+    tmp.write_text(source)
+    os.replace(tmp, src)
+    return _run_nvcc(src, target, ("-I", str(CSRC)))
+
+
+def build_all(names=SOURCES, generated=()) -> dict[str, str]:
+    """Compile every source not yet built, fixed (``names``) and generated
+    (``generated``: ``(name, source)`` pairs), all at once; → name →
+    compiler log (register and shared-memory use per kernel, from
+    ``-Xptxas -v``).  Every nvcc has ended before this returns or raises."""
+    generated = dict(generated)
+    targets = {n: _target(n) for n in names}
+    targets.update({n: _generated_target(n, src) for n, src in generated.items()})
     with _LOCK:
         jobs = [j for j in (_start(n) for n in names) if j is not None]
+        jobs += [j for j in (_start_generated(n, src) for n, src in generated.items())
+                 if j is not None]
         codes = [proc.wait() for proc, *_ in jobs]
         for code, (_, target, tmp, log) in zip(codes, jobs):
             if code != 0:
                 raise RuntimeError(f"nvcc failed for {target.name}:\n{log.read_text()}")
             os.replace(tmp, target)
-    return {n: _target(n).with_suffix(".log").read_text()
-            if _target(n).with_suffix(".log").exists() else "" for n in names}
+    logs = {}
+    for n, target in targets.items():
+        log = target.with_suffix(".log")
+        logs[n] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def _open(key: str, target: Path, signatures: dict) -> ctypes.CDLL:
+    with _LOCK:
+        if key not in _LIBS:
+            lib = ctypes.CDLL(str(target))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -122,14 +175,17 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all((name,))
-    with _LOCK:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
-    return _LIBS[name]
+    return _open(name, _target(name), SIGNATURES[name])
+
+
+def load_generated(name: str, source: str) -> ctypes.CDLL:
+    """The loaded library of a generated source, built first if needed."""
+    target = _generated_target(name, source)
+    lib = _LIBS.get(target.name)
+    if lib is not None:
+        return lib
+    build_all((), {name: source})
+    return _open(target.name, target, GENERATED_SIGNATURE)
 
 
 def check(err: int, what: str) -> None:

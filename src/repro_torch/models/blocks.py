@@ -12,7 +12,11 @@ reference's ``_cast``).  Norm scales and biases stay fp32.
 Ported so far: the dense decoder's attention (no cache, with the training
 path's output-projection dropout; the dense cache at a scalar position or at
 per-slot positions; the paged pools of the serving engine) and MLP (gated
-and plain).  The ring-buffer local cache, MLA, MoE,
+and plain).  With ``cfg.use_fusion`` the output projection (with the
+block's residual) and the MLP's up projection are fused TppGraphs
+(``repro_torch.fusion``: K5 on the card) for serving; fused training
+(dropout, the no-cache attention of ``repro``'s chained root) comes with
+the fusion compiler's training slice.  The ring-buffer local cache, MLA, MoE,
 mamba and cross-attention branches are still to be ported (ROADMAP.md,
 Queue 1).
 """
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import tpp
+from repro_torch.fusion import library as fusion_lib
 from repro_torch.fusion import rng
 from repro_torch.kernels import ops
 
@@ -32,9 +37,9 @@ __all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp",
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _CAUSAL_KINDS = ("attn", "local", "global")
-# Salt of the attention output-projection dropout: the one the reference's
-# fused and unfused paths share (repro/fusion/library.py).
-ATTN_OUT_DROPOUT_SALT = rng.derive_salt("fused_attn_out/dropout")
+# Salt of the attention output-projection dropout: the one the fused and
+# unfused paths share.
+ATTN_OUT_DROPOUT_SALT = fusion_lib.ATTN_OUT_DROPOUT_SALT
 
 
 def _later(what: str) -> NotImplementedError:
@@ -119,7 +124,8 @@ def init_attention(cfg: ModelConfig, gen, dtype=None):
 
 def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
                     positions=None, cache=None, cache_pos=0,
-                    page_table=None, page_size: int = 0, dropout_seed=None):
+                    page_table=None, page_size: int = 0, dropout_seed=None,
+                    residual=None):
     """x (B, S, d) → (out (B, S, d), cache).  kind ∈ {attn, local, global,
     bidir}.
 
@@ -141,6 +147,11 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     enables the output-projection dropout at ``cfg.dropout_rate``: the
     reference's counter-based bits (``fusion.rng.dropout``) over the same
     (B·S, d) index space and salt.
+
+    ``residual`` (B, S, d) is added to the output (the block's residual).
+    With ``cfg.use_fusion`` the output projection and that add are one
+    fused graph, ``fused_attn_out_res`` (``repro/models/blocks.py``'s
+    ``fused_attn_out_apply``); its dropout is training and raises here.
 
     The reference returns new caches; here every cache write lands in place
     in the caller's tensors (the dense buffers or the pools), and the same
@@ -220,10 +231,20 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
                 o = ops.attention(q, cache["k"][:, :, :end], cache["v"][:, :, :end],
                                   causal=causal, window=window)
     o = o.transpose(1, 2).reshape(b * s, h * hd)
+    dropping = dropout_seed is not None and cfg.dropout_rate > 0.0
+    if cfg.use_fusion:
+        if dropping:
+            raise _later("dropout with use_fusion=True (training)")
+        res2d = residual.reshape(b * s, d) if residual is not None else None
+        out = fusion_lib.fused_attn_out_apply(o, p["wo"].to(o.dtype), residual=res2d)
+        return out.view(b, s, d), cache
     out = ops.matmul(o, p["wo"])
-    if dropout_seed is not None and cfg.dropout_rate > 0.0:
+    if dropping:
         out = rng.dropout(out, dropout_seed, ATTN_OUT_DROPOUT_SALT, cfg.dropout_rate)
-    return out.view(b, s, d), cache
+    out = out.view(b, s, d)
+    if residual is not None:
+        out = residual + out
+    return out, cache
 
 
 # --------------------------------------------------------------------------
@@ -244,8 +265,19 @@ def init_mlp(cfg: ModelConfig, gen, dtype=None):
 
 
 def mlp_apply(cfg: ModelConfig, p, x2d):
-    """x2d (T, d) → (T, d): GEMM with the activation fused in its epilogue."""
+    """x2d (T, d) → (T, d): GEMM with the activation fused in its epilogue.
+    With ``cfg.use_fusion`` the up projection is one fused graph:
+    ``fused_gated_mlp`` (both roots on one lhs) or ``fused_mlp`` (bias and
+    activation); the down projection stays K1."""
     act = cfg.mlp_activation
+    dt = x2d.dtype
+    if cfg.use_fusion:
+        if cfg.gated_mlp:
+            h = fusion_lib.fused_gated_mlp_apply(x2d, p["wg"].to(dt), p["wu"].to(dt),
+                                                 activation=act)
+            return ops.matmul(h, p["wd"])
+        h = fusion_lib.fused_mlp_apply(x2d, p["wu"].to(dt), p["bu"].to(dt), activation=act)
+        return ops.matmul(h, p["wd"], bias=p["bd"])
     if cfg.gated_mlp:
         g = ops.matmul(x2d, p["wg"], activation=act)
         u = ops.matmul(x2d, p["wu"])

@@ -14,8 +14,11 @@ are updated in place by ``prefill`` and ``decode_step``.
 
 Training (``lm_loss``) takes fp32 master parameters (``init_params(...,
 dtype=torch.float32)``), cast to the compute dtype at use.  Only dense
-decoders run here; MoE, MLA, SSM, encoder-decoder, VLM and
-``use_fusion`` configs raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+decoders run here; MoE, MLA, SSM, encoder-decoder and VLM configs raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).  ``use_fusion`` configs
+serve (``prefill``, ``decode_step``, ``forward_hidden`` with caches)
+through the fused TppGraph layers; training them raises until the fusion
+compiler's training slice.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.models import blocks as B
 
 __all__ = [
     "LayerGroup", "derive_groups", "layer_kinds", "init_params",
-    "forward_hidden", "lm_loss", "init_cache", "init_paged_cache", "prefill",
+    "forward_hidden", "lm_loss", "check_trainable", "init_cache", "init_paged_cache", "prefill",
     "decode_step", "finite_logits",
 ]
 
@@ -49,13 +52,19 @@ def _check_dense(cfg: ModelConfig) -> None:
         "MoE layers": cfg.is_moe, "MLA attention": cfg.use_mla,
         "encoder-decoder models": cfg.is_encdec,
         "modality frontends": cfg.frontend is not None,
-        "fused TppGraph layers (use_fusion=True)": cfg.use_fusion,
         "mamba layers": "mamba" in cfg.layer_pattern,
         "bidirectional decoder layers": "bidir" in cfg.layer_pattern,
     }
     for what, present in unsupported.items():
         if present:
             raise B._later(what)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a config the port cannot train yet: ``use_fusion`` needs
+    the fused graphs' gradients and the chained-root attention."""
+    if cfg.use_fusion:
+        raise B._later("training with use_fusion=True")
 
 
 def derive_groups(cfg: ModelConfig) -> list[LayerGroup]:
@@ -92,13 +101,18 @@ def block_apply(cfg: ModelConfig, p, x, *, kind: str, cache=None,
                 cache_pos=0, positions=None, page_table=None, page_size=0,
                 dropout_seed=None):
     """Pre-norm residual block → (x, cache).  ``dropout_seed`` (training
-    only, already folded per layer) enables the attention-output dropout."""
+    only, already folded per layer) enables the attention-output dropout.
+    With ``cfg.use_fusion`` the residual rides the fused output projection
+    (``fused_attn_out_res``), which returns the post-residual value, as in
+    ``repro/models/lm.py``."""
     h = B._norm(cfg, p["norm1"], x)
+    res_folded = cfg.use_fusion
     out, cache = B.attention_apply(cfg, p["attn"], h, kind=kind,
                                    positions=positions, cache=cache,
                                    cache_pos=cache_pos, page_table=page_table,
-                                   page_size=page_size, dropout_seed=dropout_seed)
-    x = x + out
+                                   page_size=page_size, dropout_seed=dropout_seed,
+                                   residual=x if res_folded else None)
+    x = out if res_folded else x + out
     if "mlp" in p:
         h = B._norm(cfg, p["norm2"], x)
         b, s, d = h.shape
@@ -161,7 +175,10 @@ def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
     ``torch.utils.checkpoint``, which keeps only its input and recomputes
     the rest in the backward (the reference's ``jax.checkpoint`` with
     ``nothing_saveable``).  ``dropout_seed`` is folded with each layer's
-    index (``fusion.rng.fold_in``) into that layer's dropout seed."""
+    index (``fusion.rng.fold_in``) into that layer's dropout seed.  A
+    ``use_fusion`` config runs with caches only (serving)."""
+    if caches is None:
+        check_trainable(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -201,6 +218,7 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat=True, loss_chunk=512,
     so logits live for one chunk at a time; ``ce = tot / max(cnt, 1)``.
     Dense models have no auxiliary loss (aux = 0).  Counterpart of
     ``repro/models/lm.py::lm_loss``."""
+    check_trainable(cfg)
     h, _ = forward_hidden(cfg, params, batch, remat=remat, dropout_seed=dropout_seed)
     w = _unembed_weight(cfg, params)
     labels = batch["labels"].long()

@@ -5,7 +5,8 @@
 :class:`NullRegistry` hands out one shared no-op instrument, which is what
 an engine gets when observability is disabled (``REPRO_OBS=0``).  Each :class:`~repro_torch.serve.engine.Engine` owns its
 registry, so two engines in one process never mix counts.  The metric names
-are those of the reference's catalog (``serve.*``).
+are those of the reference's catalog (``serve.*``, and ``fusion.*`` in the
+process-global :func:`default_registry` that the fusion compiler writes).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import threading
 from typing import Optional
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "NullRegistry",
-           "NULL_REGISTRY"]
+           "NULL_REGISTRY", "default_registry", "set_default_registry"]
 
 
 # -- instruments ------------------------------------------------------------
@@ -159,3 +160,29 @@ class NullRegistry:
 
 
 NULL_REGISTRY = NullRegistry()
+
+_default_lock = threading.Lock()
+_default: "Registry | NullRegistry | None" = None
+
+
+def default_registry():
+    """The process-global registry: a real :class:`Registry` when
+    observability is enabled, :data:`NULL_REGISTRY` otherwise.  Publishers
+    without an owner (the fusion compiler) write here."""
+    global _default
+    if _default is None:
+        with _default_lock:
+            if _default is None:
+                from repro_torch.obs import enabled
+                _default = Registry() if enabled() else NULL_REGISTRY
+    return _default
+
+
+def set_default_registry(registry) -> "Registry | NullRegistry | None":
+    """Swap the process-global registry (a fresh one isolates counts);
+    returns the previous one, None if none had been made."""
+    global _default
+    with _default_lock:
+        prev = _default
+        _default = registry
+    return prev

@@ -82,6 +82,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     without microbatching).  ``batch`` holds device tensors (see
     ``data.to_device``); params and moments are updated in place."""
     _check(tcfg)
+    lm.check_trainable(cfg)
 
     def loss_fn(params, microbatch, dropout_seed=None):
         return lm.lm_loss(cfg, params, microbatch, remat=tcfg.remat,

@@ -63,11 +63,14 @@ def _trace(n, seed, vocab, *, sampled=True):
     return out
 
 
-def _drain(pkg, ecfg, reqs, *, faults=None, arch="minicpm_2b"):
+def _drain(pkg, ecfg, reqs, *, faults=None, arch="minicpm_2b", fused=False):
     """Submit ``reqs`` to one package's engine and step it dry, validating
-    after every step; → (tokens, statuses, stats, engine)."""
+    after every step; → (tokens, statuses, stats, engine).  ``fused`` runs
+    the config with ``use_fusion=True`` on the same weights."""
     mod = PKGS[pkg]
     cfg, params = _models(arch)[pkg]
+    if fused:
+        cfg = dataclasses.replace(cfg, use_fusion=True)
     eng = mod.Engine(cfg, params, mod.EngineConfig(**ecfg), faults=faults)
     for r in reqs:
         eng.submit(r["prompt"], r["max_new"], temperature=r["temperature"],
@@ -233,6 +236,19 @@ def test_engine_matches_reference_engine(case):
         assert len(got[0][uid]) == len(r["prompt"]) + r["max_new"]
     if case == "optimistic_preempting":
         assert got[2]["preemptions"] > 0 and got[2]["page_grows"] > 0
+
+
+@pytest.mark.parametrize("case", ["ragged_greedy", "optimistic_preempting"])
+def test_fused_engine_matches_reference_engine(case):
+    """``use_fusion=True`` engines: the same tokens, statuses and stats as
+    the reference's fused engine."""
+    ecfg, trace_kw = ENGINE_CASES[case]
+    cfg = _models("minicpm_2b")["torch"][0]
+    reqs = _trace(vocab=cfg.vocab_size, **trace_kw)
+    want = _drain("jax", ecfg, reqs, fused=True)
+    got = _drain("torch", ecfg, reqs, fused=True)
+    _assert_same(want, got)
+    assert set(got[1].values()) == {"finished"}
 
 
 @pytest.mark.parametrize("seed", [3, 11])

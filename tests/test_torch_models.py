@@ -32,7 +32,13 @@ BATCH, PROMPT, STEPS = 2, 8, 8
 
 
 @functools.lru_cache(maxsize=None)
-def _models(arch):
+def _models(arch, fused=False):
+    """Both packages' reduced config and weights; ``fused`` sets
+    ``use_fusion=True`` on the same weights."""
+    if fused:
+        jcfg, jparams, tcfg, tparams = _models(arch)
+        return (dataclasses.replace(jcfg, use_fusion=True), jparams,
+                dataclasses.replace(tcfg, use_fusion=True), tparams)
     jcfg, tcfg = jax_config(arch).reduced(), torch_config(arch).reduced()
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
@@ -55,7 +61,17 @@ def test_padded_vocab_and_unported_archs():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch):
-    jcfg, jparams, tcfg, tparams = _models(arch)
+    _check_logits(*_models(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fused_prefill_and_decode_logits_match_reference(arch):
+    """``use_fusion=True``: the fused output projection (with the residual)
+    and up projection in both packages, held as the unfused logits are."""
+    _check_logits(*_models(arch, fused=True))
+
+
+def _check_logits(jcfg, jparams, tcfg, tparams):
     rng = np.random.default_rng(5)
     prompts = rng.integers(0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     max_seq = PROMPT + STEPS
@@ -81,7 +97,15 @@ def test_prefill_and_decode_logits_match_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_loop_tokens_equal_reference(arch):
-    jcfg, jparams, tcfg, tparams = _models(arch)
+    _check_tokens(*_models(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fused_generate_loop_tokens_equal_reference(arch):
+    _check_tokens(*_models(arch, fused=True))
+
+
+def _check_tokens(jcfg, jparams, tcfg, tparams):
     prompts = np.random.default_rng(6).integers(
         0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
     want = jdecode.generate_loop(jcfg, jparams, jnp.asarray(prompts), STEPS,

@@ -6,16 +6,19 @@
 Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and the
-     K5 sources generated from ``csrc/fused_gemm.cuh`` for every fused graph
-     phases 3 and 7 launch (one nvcc per source, all at once) and print the
-     build time;
+     K5 sources generated from ``csrc/fused_gemm.cuh`` and
+     ``csrc/fused_chain.cuh`` for every fused graph phases 3, 4, 7, 8 and
+     10 launch, forward and derived backward (one nvcc per source, all at
+     once) and print the build time;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
      attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
-     TppGraphs) against its plain PyTorch version on the card, at the main
-     paths' shapes plus GQA, windowed and ragged ones; print error and
-     tolerance, the median time over CUDA events, the plain version's time,
-     one PyTorch library call's time as a yardstick (the port never calls
-     it) and the bound;
+     TppGraphs: serving's graphs, and the fused training path's chained
+     attention, its six derived backward graphs, the projections' derived
+     backward graphs, in-kernel dropout bits and row panels) against its
+     plain PyTorch version on the card, at the main paths' shapes plus GQA,
+     windowed and ragged ones; print error and tolerance, the median time
+     over CUDA events, the plain version's time, one PyTorch library call's
+     time as a yardstick (the port never calls it) and the bound;
   4. run ``generate_loop`` and the serving engine for reduced fp32
      llama2-13b, gpt-j-6b and minicpm-2b on the card (kernels) and on the
      CPU (plain versions), without and with ``use_fusion``: the logits must
@@ -39,7 +42,8 @@ Phases, each of which must pass:
   8. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
      on the CPU from one initial state (loss and grad norm must agree), and
      check that 2 steps + checkpoint + restore + 2 steps give the parameters
-     of 4 steps straight, bit for bit;
+     of 4 steps straight, bit for bit; then 3 steps of each with
+     ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
   9. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
      B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
      to 0 just before and read just after: losses and grad norms finite, K6
@@ -47,8 +51,14 @@ Phases, each of which must pass:
      steps on one repeated batch, whose loss must fall at each step; print
      step time, tokens/s, model-FLOPs share, bound, peak memory and one
      profiled step's device breakdown;
- 10. print one JSON line with every kernel's numbers;
- 11. print the last line, ``{"ok": true, "device": {...}}``.
+ 10. train the same model with ``use_fusion=True`` from phase 9's initial
+     parameters and batches (4 trainer steps): K5's launches by graph must
+     be what the derived backward plans imply (forward graphs twice a layer
+     and step under remat, backward graphs once), K2 and K6 must not run,
+     step 1's loss within rtol 2e-2 of phase 9's, and the loss must fall on
+     a repeated batch; print the same numbers beside phase 9's;
+ 11. print one JSON line with every kernel's numbers;
+ 12. print the last line, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line.
 """
@@ -90,6 +100,9 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_attention.py:169",
     "paged_decode": "src/repro/kernels/ops.py:103",
     "fused_gemm": "src/repro/fusion/lowering.py:330",
+    "fused_chain": "src/repro/fusion/lowering.py:330",
+    "fused_attention_bwd": "src/repro/fusion/lowering.py:330",
+    "fused_proj_bwd": "src/repro/fusion/lowering.py:330",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -98,9 +111,12 @@ SOURCE = {
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "flash_decode": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
-    # the template; one source per graph is generated from it by
+    # the templates; one source per graph is generated from them by
     # src/repro_torch/kernels/fused_gemm.py
     "fused_gemm": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
+    "fused_chain": "src/repro_torch/kernels/csrc/fused_chain.cuh",
+    "fused_attention_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
+    "fused_proj_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
@@ -118,6 +134,13 @@ ROW = {
     "paged_decode": "one llama2-13b layer's paged decode attention (B 8, H 40, page 16, lengths 37..1000)",
     "fused_gemm": "one llama2-13b layer's two fused graphs (fused_gated_mlp_silu, fused_attn_out_res)"
                   " at prefill (M 2048) plus one decode step (M 4)",
+    "fused_chain": "one minicpm-2b layer's chained-root attention forward (B 4, H 36, S 1024, D 64,"
+                   " causal)",
+    "fused_attention_bwd": "the six derived graphs of one minicpm-2b layer's attention backward"
+                           " (p, dp, dz, dq, dk, dv; B 4, H 36, S 1024, D 64, causal); library:"
+                           " SDPA's backward",
+    "fused_proj_bwd": "one minicpm-2b layer's derived backward graphs of fused_attn_out_res"
+                      " (dlhs, drhs) and fused_gated_mlp_silu (dz0, dlhs, drhs) at 4096 tokens",
 }
 
 
@@ -172,6 +195,8 @@ class Bench:
         self.torch = torch
         self.peaks = peaks
         self.cases = {name: [] for name in KERNELS}
+        # a kernel's library time measured for its whole row at once
+        self.library_row = {}
 
     def bound(self, flops, nbytes, kind):
         t_ops = flops / self.peaks[kind]
@@ -179,17 +204,19 @@ class Bench:
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
     def run(self, kernel, label, fn, plain, library, *, flops, nbytes, dtype, tol_kind,
-            weight=0, timed=True):
+            weight=0, timed=True, peak=None):
         """Check ``fn()`` against ``plain()``; time kernel, plain version and
         library call; ``weight`` is how often the case occurs in the
-        kernel's main-path row (0: a check only)."""
+        kernel's main-path row (0: a check only).  ``dtype`` names the
+        tolerance; ``peak`` ("bf16" or "fp32", by default as ``dtype``) the
+        rate the operations' bound takes."""
         torch = self.torch
         got = fn()
         torch.cuda.synchronize()
         want = plain()
         rtol, atol = TOL[dtype][tol_kind]
         err, ok = compare(torch, got, want, rtol, atol)
-        kind = "bf16" if dtype == "bfloat16" else "fp32"
+        kind = peak or ("bf16" if dtype == "bfloat16" else "fp32")
         bound_ms, bound_by = self.bound(flops, nbytes, kind)
         row = {"case": label, "dtype": dtype, "max_abs_err": err, "rtol": rtol, "atol": atol,
                "weight": weight, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -212,8 +239,9 @@ class Bench:
         tot = {k: sum(r[k] * r["weight"] for r in rows)
                for k in ("ms", "plain_ms", "bound_ms")}
         lib = [r["library_ms"] for r in rows]
-        tot["library_ms"] = (sum(x * r["weight"] for x, r in zip(lib, rows))
-                             if all(x is not None for x in lib) else None)
+        tot["library_ms"] = self.library_row.get(kernel, (
+            sum(x * r["weight"] for x, r in zip(lib, rows))
+            if all(x is not None for x in lib) else None))
         share = {"operations": 0.0, "bytes": 0.0}
         for r in rows:
             share[r["bound_by"]] += r["bound_ms"] * r["weight"]
@@ -578,10 +606,38 @@ def fused_graphs(fusion):
             fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion)]
 
 
-def fused_sources(fusion, fused_gemm):
-    """name → generated CUDA source of every graph in ``fused_graphs``."""
+def training_graphs(fusion):
+    """Every K5 graph the fused training path launches for full-width
+    minicpm-2b and the reduced minicpm-2b and gpt-j-6b of phase 8 (the
+    chained attention at each config's scale, fused_attn_out with and
+    without dropout, the gated and plain MLP up projections, and all their
+    derived backward graphs), and phase 3's row-panel and windowed checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+
+    fwd = [fusion.fused_attn_out_graph(True), fusion.fused_attn_out_graph(True, dropout_rate=0.15),
+           fusion.fused_gated_mlp_graph("silu"), fusion.fused_mlp_graph("gelu"),
+           fusion.fused_attention_graph(causal=True, window=256, scale=0.125),
+           fusion.fused_output_graph(0.1), fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6)]
+    for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
+                get_config("gptj_6b").reduced()):
+        for kind in sorted(set(lm.layer_kinds(cfg))):
+            fwd.append(fusion.fused_attention_graph(
+                causal=True, window=cfg.sliding_window if kind == "local" else 0,
+                scale=1.0 / math.sqrt(cfg.head_dim)))
+    out = []
+    for g in fwd:
+        out.append(g)
+        out.extend(fusion.backward_graphs(g).values())
+    return out
+
+
+def fused_sources(fusion, fused_gemm, graphs=None):
+    """name → generated CUDA source of every graph in ``graphs`` (default:
+    ``fused_graphs`` and ``training_graphs``); graphs of one structure
+    share a source."""
     out = {}
-    for g in fused_graphs(fusion):
+    for g in graphs if graphs is not None else fused_graphs(fusion) + training_graphs(fusion):
         src = fused_gemm.generate_source(fusion.simplify_graph(g))
         out[fused_gemm.source_name(fusion.simplify_graph(g), src)] = src
     return out
@@ -665,6 +721,217 @@ def fused_gemm_cases(torch, bench, fusion):
     x, wg, wu = randn(37, 200), randn(200, 100), randn(200, 100)
     run("check bf16 in, fp32 out", gated, dict(x=x, wg=wg, wu=wu), timed=False,
         flops=4 * 37 * 200 * 100, nbytes=0, out_dtype=torch.float32)
+
+
+def _graph_run(torch, fusion, graph, out_dtype=None):
+    """(K5's launch, the composed reference path) of ``graph``."""
+    return (fusion.compile(graph, path="cuda", out_dtype=out_dtype),
+            fusion.compile(graph, path="reference", out_dtype=out_dtype))
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fused_training_cases(torch, bench, fusion, rng):
+    """K5's graphs of the fused training path against their plain version
+    (the composed reference path) on the card, at minicpm-2b's training
+    shapes (B 4 x S 1024, 36 heads of 64, d 2304, d_ff 5760): the chained
+    attention (causal, and window 256), its six derived backward graphs
+    (each fed the plain version's outputs of the graphs before it; their sum
+    beside SDPA's backward), the derived backward graphs of fused_attn_out_res
+    and fused_gated_mlp_silu, fused_attn_out with dropout_rng at M 4096 x N
+    2304 (keep pattern checked bit for bit, forward and a backward graph's
+    regeneration), fused_output_graph(0.1) at N 1024 and 5120 (layernorm
+    panels) and its dz graph, an rmsnorm panel, and small fp32 checks
+    (ragged, Sq != Skv, one batch axis, a chain of 128)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def run(kernel, label, graph, ops, *, flops, nbytes, weight=0, timed=True, library=None,
+            out_dtype=None, peak=None, tol=None):
+        k5, plain = _graph_run(torch, fusion, graph, out_dtype)
+        dts = [ops[sp.name].dtype for sp in graph.contraction_operands]
+        tol = tol or ("bfloat16" if (out_dtype or dts[0]) == torch.bfloat16 else "float32")
+        # all-bf16 operands run on the tensor cores; any fp32 one in fp32
+        bf16 = all(dt == torch.bfloat16 for dt in dts)
+        return bench.run(kernel, f"{graph.name} {label}", lambda: k5(**ops), lambda: plain(**ops),
+                         library if timed else None, flops=flops, nbytes=nbytes, dtype=tol,
+                         tol_kind="gemm", weight=weight, timed=timed,
+                         peak=peak or ("bf16" if bf16 else "fp32"))
+
+    f32 = torch.float32
+    b, h, s, d = 4, 36, 1024, 64
+    # q as the strided view of the (B, S, H, D) projection, k and v as the
+    # contiguous copies the GQA repeat would give
+    q = randn(b, s, h, d).transpose(1, 2)
+    k, v, dy = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
+    causal = fusion.fused_attention_graph(causal=True, scale=d ** -0.5)
+    pairs = s * (s + 1) // 2
+    run("fused_chain", f"B{b} H{h} S{s} D{d} causal", causal, dict(q=q, k=k, v=v), weight=1,
+        flops=4 * b * h * d * pairs, nbytes=_nbytes(q, k, v, dy),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    win = fusion.fused_attention_graph(causal=True, window=256, scale=d ** -0.5)
+    keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril().triu(-255)
+    run("fused_chain", f"B{b} H{h} S{s} D{d} window 256", win, dict(q=q, k=k, v=v),
+        flops=4 * b * h * d * int(keep.sum()), nbytes=_nbytes(q, k, v, dy),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep))
+    del keep
+    # the six derived backward graphs, each on the plain version's outputs
+    g = {fusion.derive_vjp(causal).graph_role(nm): gr
+         for nm, gr in fusion.backward_graphs(causal).items()}
+    full = 2 * b * h * s * s * d
+    p = run("fused_attention_bwd", "P", g["p"], dict(q=q, k=k), weight=1, out_dtype=f32,
+            flops=full, nbytes=_nbytes(q, k) + 4 * b * h * s * s)
+    dp = run("fused_attention_bwd", "dP = dy v^T", g["dp"], dict(dy=dy, v=v), weight=1,
+             out_dtype=f32, flops=full, nbytes=_nbytes(dy, v) + 4 * b * h * s * s)
+    dz = run("fused_attention_bwd", "dZ (softmax_grad panel)", g["dz"], dict(q=q, k=k, dp=dp),
+             weight=1, out_dtype=f32, flops=full, nbytes=_nbytes(q, k, dp, dp))
+    del dp
+    for role, ops in (("dq", dict(dz=dz, k=k)), ("dk", dict(dz=dz, q=q)), ("dv", dict(p=p, dy=dy))):
+        run("fused_attention_bwd", role, g[role], ops, weight=1, out_dtype=f32, flops=full,
+            nbytes=_nbytes(*ops.values()) + 4 * b * h * s * d)
+    del p, dz
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    bench.library_row["fused_attention_bwd"] = time_ms(
+        torch, lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dy, retain_graph=True))
+    del qg, kg, vg, sdpa, q, k, v, dy
+
+    # the projections' backward graphs at 4096 tokens
+    t, ff = b * s, 5760
+    dm = h * d
+    out_res = fusion.fused_attn_out_graph(True)
+    gb = fusion.backward_graphs(out_res)
+    o, wo, dyo = randn(t, dm), randn(dm, dm, scale=dm ** -0.5), randn(t, dm)
+    run("fused_proj_bwd", "dO = dy wo^T", gb["fused_attn_out_res@bwd_dlhs[o]"],
+        dict(dz_acc=dyo, wo=wo), weight=1, out_dtype=f32, flops=2 * t * dm * dm,
+        nbytes=_nbytes(dyo, wo) + 4 * t * dm, library=lambda: dyo @ wo.T)
+    run("fused_proj_bwd", "dW = o^T dy", gb["fused_attn_out_res@bwd_drhs"],
+        dict(o=o, dz_acc=dyo), weight=1, out_dtype=f32, flops=2 * t * dm * dm,
+        nbytes=_nbytes(o, dyo) + 4 * dm * dm, library=lambda: o.T @ dyo)
+    del o, wo
+    gated = fusion.fused_gated_mlp_graph("silu")
+    gb = fusion.backward_graphs(gated)
+    x, wg, wu, dyg = randn(t, dm), randn(dm, ff, scale=dm ** -0.5), randn(dm, ff, scale=dm ** -0.5), \
+        randn(t, ff)
+    dz0 = run("fused_proj_bwd", "dz (2 roots)", gb["fused_gated_mlp_silu@bwd_dz0"],
+              dict(x=x, wg=wg, wu=wu, dy=dyg), weight=1, out_dtype=f32, flops=4 * t * dm * ff,
+              nbytes=_nbytes(x, wg, wu, dyg) + 8 * t * ff,
+              library=lambda: x @ torch.cat([wg, wu], 1))
+    dzg, dzu = dz0[0], dz0[1]
+    run("fused_proj_bwd", "dX (fp32 dz, 2 roots)", gb["fused_gated_mlp_silu@bwd_dlhs[x]"],
+        dict(dz_g=dzg, wg=wg, dz_u=dzu, wu=wu), weight=1, out_dtype=f32,
+        flops=4 * t * dm * ff, nbytes=_nbytes(dzg, wg, dzu, wu) + 4 * t * dm,
+        library=lambda: torch.cat([dzg, dzu], 1) @ torch.cat([wg, wu], 1).float().T)
+    run("fused_proj_bwd", "dW (fp32 dz, 2 roots)", gb["fused_gated_mlp_silu@bwd_drhs"],
+        dict(x=x, dz_g=dzg, dz_u=dzu), weight=1, out_dtype=f32, flops=4 * t * dm * ff,
+        nbytes=_nbytes(x, dzg, dzu) + 8 * dm * ff,
+        library=lambda: x.float().T @ torch.cat([dzg, dzu], 1))
+    del x, wg, wu, dyg, dz0, dzg, dzu
+
+    # dropout_rng in the kernel: the forward's keep pattern and a backward
+    # graph's regeneration, bit for bit, against fusion.rng at M 4096 x N 2304
+    rate, salt, seed = 0.15, fusion.library.ATTN_OUT_DROPOUT_SALT, 1234567
+    do_res = fusion.fused_attn_out_graph(True, dropout_rate=rate)
+    o, wo = randn(t, dm), randn(dm, dm, scale=dm ** -0.5)
+    zero = torch.zeros(t, dm, dtype=torch.bfloat16, device="cuda")
+    y = run("fused_gemm", f"M{t} N{dm} dropout {rate}", do_res,
+            dict(o=o, wo=wo, seed=seed, residual=zero), flops=2 * t * dm * dm,
+            nbytes=_nbytes(o, wo, zero, zero), library=lambda: torch.addmm(zero, o, wo))
+    keep = rng.keep_mask(seed, salt, (t, dm), rate=rate, device="cuda")
+    acc = (o.float() @ wo.float()).abs() > 1e-2
+    check(torch.equal((y != 0) & acc, keep & acc),
+          "fused_attn_out_do_res: the kernel's keep pattern differs from fusion.rng's")
+    bits = fusion.TppGraph.chain("dropout_rng_grad_bits",
+                                 [("dropout_rng_grad", ("seed",), {"rate": rate, "salt": salt})],
+                                 [("o", "lhs"), ("wo", "rhs"), ("seed", "scalar")])
+    yb = run("fused_gemm", f"M{t} N{dm} dropout_rng_grad", bits, dict(o=o, wo=wo, seed=seed),
+             flops=2 * t * dm * dm, nbytes=_nbytes(o, wo, zero), timed=False)
+    check(torch.equal((yb != 0) & acc, keep & acc),
+          "the backward graph's regenerated keep pattern differs from the forward's")
+    print(f"  dropout_rng keep pattern, forward and backward graph: equal to fusion.rng's on"
+          f" {int(acc.sum())} of {t * dm} elements (|x w| > 1e-2), kept share"
+          f" {float(keep.float().mean()):.4f}", flush=True)
+    del o, wo, zero, y, yb, acc, keep
+
+    # row panels: Listing 6 at N 1024 and 5120 (layernorm), its dz graph
+    # (layernorm_grad, then the regenerated dropout), an rmsnorm panel
+    out_g = fusion.fused_output_graph(0.1)
+    for kk, n in ((1024, 1024), (1024, 5120)):
+        x, w, res = randn(t, kk), randn(kk, n, scale=kk ** -0.5), randn(t, n)
+        bias, gamma, beta = randn(n, dtype=f32), randn(n, dtype=f32), randn(n, dtype=f32)
+        ops = dict(x=x, w=w, bias=bias, seed=seed, residual=res, gamma=gamma, beta=beta)
+        run("fused_gemm", f"M{t} K{kk} N{n}", out_g, ops, flops=2 * t * kk * n,
+            nbytes=_nbytes(x, w, res, res))
+        if n == 1024:
+            dz_g = next(gr for nm, gr in fusion.backward_graphs(out_g).items() if "dz0" in nm)
+            dyo = randn(t, n)
+            ops = dict(x=x, w=w, bias=bias, seed=seed, residual=res, gamma=gamma, dy=dyo)
+            run("fused_gemm", f"M{t} K{kk} N{n} fp32 out", dz_g, ops, out_dtype=f32,
+                flops=2 * t * kk * n, nbytes=_nbytes(x, w, res, dyo) + 8 * t * n)
+    del x, w, res
+    rms = fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6)
+    o, wo, res, gamma = randn(t, dm), randn(dm, dm, scale=dm ** -0.5), randn(t, dm), \
+        randn(dm, dtype=f32)
+    run("fused_gemm", f"M{t} N{dm}", rms, dict(o=o, wo=wo, residual=res, gamma=gamma),
+        flops=2 * t * dm * dm, nbytes=_nbytes(o, wo, res, res))
+    del o, wo, res
+
+    # a row with every key masked (causal, Sq 2 > Skv 1): the kernel gives
+    # 0, as the reference's chained Pallas kernel does; the plain version
+    # follows the reference's composed path (a uniform softmax over the
+    # masked keys); ROADMAP.md Queue 3
+    one = fusion.fused_attention_graph(causal=True, scale=0.5, offset=-1)
+    k5, plain = _graph_run(torch, fusion, one)
+    qs = torch.arange(8, dtype=f32, device="cuda").reshape(2, 4) / 8
+    ks, vs = torch.ones(1, 4, device="cuda"), torch.tensor([[1.0, 2.0, 3.0, 4.0]], device="cuda")
+    got, want = k5(q=qs, k=ks, v=vs), plain(q=qs, k=ks, v=vs)
+    check(torch.equal(got[0], torch.zeros(4, device="cuda")) and torch.equal(got[1], vs[0])
+          and torch.equal(want[0], vs[0]),
+          f"fully masked row: kernel {got.tolist()}, plain version {want.tolist()}")
+    print(f"  a fully masked row (causal, Sq 2, Skv 1): kernel {got[0].tolist()}, plain version"
+          f" {want[0].tolist()} (the reference's Pallas and composed paths differ the same way)",
+          flush=True)
+
+    # small fp32 and mixed checks: ragged, Sq < Skv, one batch axis, N2 128
+    def qkv(bt, sq, skv, dd, dt=f32):
+        return randn(*bt, sq, dd, dtype=dt), randn(*bt, skv, dd, dtype=dt), \
+            randn(*bt, skv, dd, dtype=dt)
+
+    for label, bt, sq, skv, dd, win, dt in (
+            ("ragged fp32", (2, 3), 100, 100, 24, 7, f32), ("Sq 70 Skv 100 fp32", (3,), 70, 100, 16, 0, f32),
+            ("chain 128 bf16", (1, 2), 200, 200, 128, 0, torch.bfloat16)):
+        qs, ks, vs = qkv(bt, sq, skv, dd, dt)
+        cg = fusion.fused_attention_graph(causal=True, window=win, scale=dd ** -0.5, offset=skv - sq)
+        run("fused_chain", f"check {label}", cg, dict(q=qs, k=ks, v=vs), timed=False, flops=0, nbytes=0)
+        for role, gr in ((fusion.derive_vjp(cg).graph_role(nm), gr)
+                         for nm, gr in fusion.backward_graphs(cg).items()):
+            if role == "p":
+                pp = run("fused_attention_bwd", f"check {label}", gr, dict(q=qs, k=ks), timed=False,
+                         out_dtype=f32, flops=0, nbytes=0)
+            elif role == "dq":
+                run("fused_attention_bwd", f"check {label}", gr, dict(dz=pp, k=ks), timed=False,
+                    out_dtype=f32, flops=0, nbytes=0)
+            elif role == "dk":
+                run("fused_attention_bwd", f"check {label}", gr, dict(dz=pp, q=qs), timed=False,
+                    out_dtype=f32, flops=0, nbytes=0)
+    for gname, graph in (("out", fusion.fused_output_graph(0.1)),
+                         ("rms", fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6))):
+        m, kk, n = 77, 50, 130
+        shape = {"lhs": (m, kk), "rhs": (kk, n), "tile": (m, n), "rowvec": (n,)}
+        ops = {sp.name: seed if sp.kind == "scalar" else randn(*shape[sp.kind], dtype=f32)
+               for sp in graph.operands}
+        run("fused_gemm", f"check fp32 M{m} K{kk} N{n}", graph, ops, timed=False, flops=0, nbytes=0)
+        ops["dy"] = randn(m, n, dtype=f32)
+        for nm, gr in fusion.backward_graphs(graph).items():
+            if "@bwd_dz" in nm:
+                run("fused_proj_bwd", f"check fp32 {gname}", gr,
+                    {sp.name: ops[sp.name] for sp in gr.operands}, timed=False, out_dtype=f32,
+                    flops=0, nbytes=0)
 
 
 def _to_cuda(tree):
@@ -1220,14 +1487,18 @@ def fused_engine(torch, counters, cfg, params):
 
 
 # Kernel names as the profiler reports them → the port's kernel.  K1's
-# launches that read a transposed operand are kernels of their own names.
+# launches that read a transposed operand are kernels of their own names;
+# K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
+# fused_panel (a row panel), fused_chain (a chained root).
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_bf16_wmma": "gemm_transposed",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode", "dkdv_kernel": "flash_attention_bwd",
              "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
-             "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm"}
+             "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
+             "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
+             "fused_chain_f32_simt": "fused_chain"}
 
 
 def kernel_of(name):
@@ -1276,6 +1547,22 @@ def device_breakdown(torch, run, wall_ms):
     return out
 
 
+def k5_kind(graph_name):
+    """The kernels line's entry that a K5 launch of ``graph_name`` counts
+    under: the chained attention, its six derived backward graphs, the
+    other derived backward graphs, or the forward graphs (fused_gemm)."""
+    if graph_name.startswith("fused_attention"):
+        return "fused_attention_bwd" if "@bwd" in graph_name else "fused_chain"
+    return "fused_proj_bwd" if "@bwd" in graph_name else "fused_gemm"
+
+
+def k5_kinds(by_graph):
+    out = dict.fromkeys(("fused_gemm", "fused_chain", "fused_attention_bwd", "fused_proj_bwd"), 0)
+    for name, n in by_graph.items():
+        out[k5_kind(name)] += n
+    return out
+
+
 class Counters:
     """Reads and resets the kernel wrappers' launch counters."""
 
@@ -1299,7 +1586,7 @@ class Counters:
                 "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
-                "fused_gemm": self.fused_gemm.LAUNCHES}
+                **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES)}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -1310,7 +1597,10 @@ def reduced_training(torch):
     steps on CUDA and on the CPU from the same initial state and batches
     (loss and grad norm within TRAIN_TOL), then 4 trainer steps straight
     against 2 steps, a checkpoint, a restore and 2 more on the card
-    (parameters bitwise equal)."""
+    (parameters bitwise equal); and the same three steps with
+    ``use_fusion=True`` at dropout 0.15 (K5's graphs, forward and derived
+    backward, on the card)."""
+    import dataclasses
     import tempfile
     from repro_torch.configs.base import get_config
     from repro_torch.data import DataConfig, SyntheticCorpus, to_device
@@ -1318,8 +1608,11 @@ def reduced_training(torch):
     from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                    init_train_state, make_train_step, train)
 
-    for arch in ("minicpm_2b", "gptj_6b"):
+    for arch, fused in (("minicpm_2b", False), ("gptj_6b", False), ("minicpm_2b", True),
+                        ("gptj_6b", True)):
         cfg = get_config(arch).reduced()
+        if fused:
+            cfg = dataclasses.replace(cfg, use_fusion=True, dropout_rate=0.15)
         tcfg = TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=40, loss_chunk=16)
         dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=1)
         cpu_params, cpu_opt = init_train_state(cfg, tcfg, 0, device="cpu")
@@ -1341,6 +1634,10 @@ def reduced_training(torch):
                 worst = max(worst, rel)
                 check(math.isfinite(a) and rel <= TRAIN_TOL,
                       f"{arch} reduced step {step}: CUDA {what} {a} against CPU {b}")
+        if fused:
+            print(f"  {arch}-reduced fp32 use_fusion, dropout 0.15: 3 steps, CUDA (K5) vs CPU loss"
+                  f" and grad norm within {worst:.2e} relative (tol {TRAIN_TOL})", flush=True)
+            continue
         with tempfile.TemporaryDirectory() as d:
             rcfg = dict(ckpt_every=2, log_every=0)
             straight, _, _ = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=4, **rcfg), device="cuda")
@@ -1375,11 +1672,38 @@ def training_model_flops(cfg, batch, seq):
     return model, remat
 
 
-def train_full_width(torch, counters, peaks):
+def fused_training_launches(fusion, cfg, steps):
+    """K5 launches by graph name that ``steps`` fused training steps of
+    ``cfg`` must make: per layer and step, each forward graph twice (the
+    forward and remat's recompute) and each graph its derived backward plan
+    runs once."""
+    from repro_torch.models import lm
+
+    fwd = [fusion.fused_attn_out_graph(True, dropout_rate=cfg.dropout_rate),
+           fusion.fused_gated_mlp_graph(cfg.mlp_activation) if cfg.gated_mlp
+           else fusion.fused_mlp_graph(cfg.mlp_activation)]
+    want = {}
+    for kind in lm.layer_kinds(cfg):
+        att = fusion.fused_attention_graph(
+            causal=True, window=cfg.sliding_window if kind == "local" else 0,
+            scale=1.0 / math.sqrt(cfg.head_dim))
+        for g in [att] + fwd:
+            g = fusion.simplify_graph(g)
+            want[g.name] = want.get(g.name, 0) + 2 * steps
+            for name in fusion.backward_graphs(g):
+                want[name] = want.get(name, 0) + steps
+    return want
+
+
+def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
     """minicpm-2b at full width and depth: 6 trainer steps (fp32 masters,
     bf16 compute, B 4 x S 1024, loss_chunk 512, remat, AdamW defaults, WSD),
     then 3 steps at a small constant learning rate on one repeated batch,
-    whose loss must fall at each step, and one profiled step."""
+    whose loss must fall at each step, and one profiled step.  With
+    ``fused``, ``use_fusion=True`` from the same initial parameters and
+    batches (4 trainer steps): K5's launches by graph must be what the
+    derived plans imply, and step 1's loss within rtol 2e-2 of ``unfused``
+    (the unfused run's result) step 1's."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import DataConfig, SyntheticCorpus, to_device
     from repro_torch.models import lm
@@ -1387,8 +1711,11 @@ def train_full_width(torch, counters, peaks):
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import TrainConfig, TrainerConfig, make_train_step, train
 
-    cfg = get_config("minicpm_2b")
-    batch, seq, steps = 4, 1024, 6
+    import dataclasses
+    from repro_torch import fusion
+
+    cfg = dataclasses.replace(get_config("minicpm_2b"), use_fusion=fused)
+    batch, seq, steps = 4, 1024, 4 if fused else 6
     tcfg = TrainConfig(schedule="wsd", peak_lr=3e-4, warmup_steps=2, total_steps=100,
                        loss_chunk=512, remat=True)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
@@ -1398,37 +1725,58 @@ def train_full_width(torch, counters, peaks):
     params, opt, hist = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=steps, log_every=1),
                               seed=0, device="cuda")
     launches = counters.read()                    # the main path's run
+    by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in tree_leaves(params))
     check(all(math.isfinite(x) for x in hist["loss"] + hist["grad_norm"]),
           f"non-finite loss or grad norm: {hist['loss']}, {hist['grad_norm']}")
-    check(launches["flash_attention_bwd"] == cfg.num_layers * steps,
-          f"K6 launched {launches['flash_attention_bwd']} times in {steps} steps of"
-          f" {cfg.num_layers} layers")
+    if fused:
+        want = fused_training_launches(fusion, cfg, steps)
+        check(by_graph == want, f"K5 launches by graph {by_graph}, want {want}")
+        for name in ("fused_gemm", "fused_chain", "fused_attention_bwd", "fused_proj_bwd"):
+            check(launches[name] > 0, f"K5's {name} graphs were not launched by fused training")
+        check(launches["flash_attention"] == 0 and launches["flash_attention_bwd"] == 0,
+              f"K2 or K6 ran on the fused path: {launches}")
+        rel = abs(hist["loss"][0] - unfused["loss"][0]) / abs(unfused["loss"][0])
+        print(f"  step 1 loss {hist['loss'][0]:.6f} fused against {unfused['loss'][0]:.6f} unfused"
+              f" (phase 9): {rel:.2e} relative (tol 2e-2)", flush=True)
+        check(rel <= 2e-2, f"fused step 1 loss {hist['loss'][0]} against unfused {unfused['loss'][0]}")
+    else:
+        check(launches["flash_attention_bwd"] == cfg.num_layers * steps,
+              f"K6 launched {launches['flash_attention_bwd']} times in {steps} steps of"
+              f" {cfg.num_layers} layers")
+        for name in ("gemm", "flash_attention"):
+            check(launches[name] > 0, f"kernel {name} was not launched by training")
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
-    for name in ("gemm", "flash_attention"):
-        check(launches[name] > 0, f"kernel {name} was not launched by training")
-    step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+    step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
     model_flops, remat_flops = training_model_flops(cfg, batch, seq)
     state_bytes = 7 * 4 * n_params               # AdamW reads p, g, mu, nu; writes p, mu, nu
     # the model's work (remat, a choice that trades FLOPs for memory, beside it)
     bound_ms = max(model_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
     remat_bound_ms = max(remat_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
-    result = {"steps": steps, "step_ms_median_2_6": step_ms, "step_times_ms":
+    result = {"steps": steps, "step_ms_median": step_ms, "step_times_ms":
               [t * 1e3 for t in hist["step_time"]], "tokens_per_s": tokens / (step_ms / 1e3),
               "model_flops_per_step": model_flops, "flops_per_step_with_remat": remat_flops,
               "mfu_bf16_peak": model_flops / (step_ms / 1e3) / peaks["bf16"],
               "step_bound_ms": bound_ms, "step_bound_with_remat_ms": remat_bound_ms,
               "parameters": n_params, "max_memory_allocated_gib": peak / 2**30,
               "launches": launches, "loss": hist["loss"], "grad_norm": hist["grad_norm"]}
-    print(f"  trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
+    if fused:
+        result.update({"launches_by_graph": by_graph,
+                       "unfused_step_ms_median_2_6": unfused["step_ms_median"],
+                       "unfused_max_memory_allocated_gib": unfused["max_memory_allocated_gib"],
+                       "unfused_step1_loss": unfused["loss"][0]})
+    print(f"  {'use_fusion ' if fused else ''}trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
           f" grad norms {[round(x, 3) for x in hist['grad_norm']]}; step {step_ms:.1f} ms"
-          f" (median of steps 2-{steps}), {result['tokens_per_s']:.1f} tokens/s,"
+          f" (median of steps 2-{steps}"
+          + (f"; unfused {unfused['step_ms_median']:.1f} ms" if fused else "")
+          + f"), {result['tokens_per_s']:.1f} tokens/s,"
           f" model FLOPs {model_flops / 1e12:.2f} T/step ({remat_flops / 1e12:.2f} T with remat),"
           f" {100 * result['mfu_bf16_peak']:.2f} % of the {peaks['bf16'] / 1e12:g} TFLOP/s bf16 peak;"
-          f" bound {bound_ms:.1f} ms ({remat_bound_ms:.1f} ms with remat); {n_params} parameters; peak {peak / 2**30:.2f} GiB;"
-          f" launches {launches}", flush=True)
+          f" bound {bound_ms:.1f} ms ({remat_bound_ms:.1f} ms with remat); {n_params} parameters; peak {peak / 2**30:.2f} GiB"
+          + (f" (unfused {unfused['max_memory_allocated_gib']:.2f})" if fused else "")
+          + f"; launches {launches}", flush=True)
 
     # Downhill: a fresh AdamW state, one repeated batch, a small constant lr.
     del opt
@@ -1465,6 +1813,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import fusion
+    from repro_torch.fusion import rng
     from repro_torch.kernels import _build, brgemm, fused_gemm, ref
     from repro_torch.kernels import flash_attention as fa
 
@@ -1502,6 +1851,12 @@ def main() -> int:
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
     fused_gemm_cases(torch, bench, fusion)
+    fused_training_cases(torch, bench, fusion, rng)
+    k6 = bench.summary("flash_attention_bwd")["ms"]
+    six = bench.summary("fused_attention_bwd")
+    print(f"  the six derived attention-backward graphs: {six['ms']:.4f} ms against K6's"
+          f" {k6:.4f} ms and SDPA's backward {six['library_ms']:.4f} ms at B 4, H 36, S 1024,"
+          f" D 64, causal", flush=True)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
     counters = Counters(brgemm, fa, fused_gemm)
@@ -1527,7 +1882,10 @@ def main() -> int:
     phase("9. minicpm-2b, full width and depth, training")
     training = train_full_width(torch, counters, peaks)
 
-    phase("10. kernels")
+    phase("10. minicpm-2b, full width and depth, training with use_fusion=True")
+    fused_training = train_full_width(torch, counters, peaks, fused=True, unfused=training)
+
+    phase("11. kernels")
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
@@ -1535,7 +1893,8 @@ def main() -> int:
         by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
                    "fused_generate_loop": fused["launches"][name],
                    "fused_engine": fused["engine"]["launches"][name],
-                   "training": training["launches"][name]}
+                   "training": training["launches"][name],
+                   "fused_training": fused_training["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1545,10 +1904,13 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "cases": bench.cases[name],
             **({"generator": "src/repro_torch/kernels/fused_gemm.py",
-                "launches_by_graph_in_fused_generate_loop": fused["launches_by_graph"]}
-               if name == "fused_gemm" else {})})
+                "launches_by_graph_in_fused_generate_loop": fused["launches_by_graph"],
+                "launches_by_graph_in_fused_training": {
+                    g: n for g, n in fused_training["launches_by_graph"].items()
+                    if k5_kind(g) == name}}
+               if name.startswith("fused") else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
-                      "fused": fused, "training": training}))
+                      "fused": fused, "training": training, "fused_training": fused_training}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -23,9 +23,9 @@ Epilogue TPPs come from the registry ``EPILOGUE_OPS``; each ``apply`` is a
 torch function on fp32 tensors with the reference's semantics.  The
 composed reference path (``fusion.lowering``) runs them on full arrays; the
 CUDA code generator (``kernels.fused_gemm``) emits one C++ expression per
-pointwise op.  ``grad`` keeps each op's derivative rule as data, the name
-of a registered op or a callable rule; the autodiff that reads them is
-ported with the training slice of the fusion compiler.
+op (pointwise ones inline, reducing ones as a row-panel close).  ``grad``
+keeps each op's derivative rule as data, the name of a registered op or a
+callable rule, which ``fusion.autodiff`` reads to derive backward graphs.
 
 ``simplify_graph`` drops ``identity`` and rate-0 dropout nodes and the
 operands nothing references any more.
@@ -197,7 +197,8 @@ def _dropout_rng_apply(v, seed, *, rate: float = 0.0, salt: int = 0,
         return v
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(())
-    bits = rng.tile_bits(seed, salt, tuple(v.shape), offsets=_offsets, device=v.device)
+    # a batched value keys each 2-D problem on its own coordinates
+    bits = rng.tile_bits(seed, salt, tuple(v.shape[-2:]), offsets=_offsets, device=v.device)
     keep = bits < rng.keep_threshold(rate)
     return torch.where(keep, v.float() * _fp32_scale(rate),
                        torch.zeros((), device=v.device))
@@ -234,9 +235,9 @@ _MASK_FLOOR = -1e29
 
 def _attn_keep(shape, device, *, causal, window, offset, offsets):
     r0, c0 = offsets
-    rows = r0 + offset + torch.arange(shape[0], device=device)[:, None]
-    cols = c0 + torch.arange(shape[1], device=device)[None, :]
-    keep = torch.ones(tuple(shape), dtype=torch.bool, device=device)
+    rows = r0 + offset + torch.arange(shape[-2], device=device)[:, None]
+    cols = c0 + torch.arange(shape[-1], device=device)[None, :]
+    keep = torch.ones(tuple(shape[-2:]), dtype=torch.bool, device=device)
     if causal:
         keep = keep & (cols <= rows)
     if window:
@@ -248,7 +249,8 @@ def _attn_mask_apply(v, *, causal: bool = True, window: int = 0,
                      offset: int = 0, _offsets=(0, 0)):
     """Causal / sliding-window score mask on global coordinates: row i
     (shifted by ``offset`` = S_kv - S_q) keeps column j iff j <= i + offset
-    (causal) and j > i + offset - window (window > 0)."""
+    (causal) and j > i + offset - window (window > 0).  Leading batch axes
+    share the mask of the last two."""
     keep = _attn_keep(v.shape, v.device, causal=causal, window=window,
                       offset=offset, offsets=_offsets)
     return torch.where(keep, v, torch.full((), _NEG_INF, device=v.device))

@@ -11,47 +11,36 @@ activation) and ``fused_attn_out_graph`` (GEMM [→ dropout] [→ +residual]
 chained-root graph: ``fused_attention_graph`` (flash attention as IR).
 
 The ``fused_*_apply`` helpers run the graph through
-``lowering.compile_for_device``: the composed reference on CPU tensors, K5's
-generated kernel on CUDA tensors.  They take no ``backend=``: the device
-decides.  They compute forwards only: called with a tensor that requires a
-gradient they raise ``NotImplementedError``.  ``fused_output_apply`` and
-``fused_attention_apply`` come with the derived backward graphs, the row
-panel and the chained root in the fusion compiler's training slice
-(ROADMAP.md, Queue 1 item 8).
+``autodiff.compile_with_vjp``, as the reference's ``_dispatch`` does: the
+forward is ``lowering.compile_for_device`` (the composed reference on CPU
+tensors, K5's generated kernel on CUDA tensors) and a gradient runs the
+derived backward graphs the same way.  They take no ``backend=``: the
+device decides.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.fusion import rng
+from repro_torch.fusion.autodiff import compile_with_vjp
 from repro_torch.fusion.graph import (ContractionRoot, FusionLegalityError, Node,
                                       OperandSpec, TppGraph)
-from repro_torch.fusion.lowering import compile_for_device
 
 __all__ = [
     "fused_output_graph", "fused_mlp_graph", "fused_gated_mlp_graph",
     "fused_qkv_graph", "fused_attn_out_graph", "fused_attention_graph",
-    "fused_mlp_apply", "fused_gated_mlp_apply", "fused_qkv_apply",
-    "fused_attn_out_apply", "OUTPUT_DROPOUT_SALT", "ATTN_OUT_DROPOUT_SALT",
+    "fused_output_apply", "fused_mlp_apply", "fused_gated_mlp_apply", "fused_qkv_apply",
+    "fused_attn_out_apply", "fused_attention_apply", "OUTPUT_DROPOUT_SALT",
+    "ATTN_OUT_DROPOUT_SALT",
 ]
 
 # Per-site PRNG salts, shared with the unfused paths that reproduce a fused
 # draw (the same stable strings as the reference).
 OUTPUT_DROPOUT_SALT = rng.derive_salt("fused_output/dropout")
 ATTN_OUT_DROPOUT_SALT = rng.derive_salt("fused_attn_out/dropout")
-
-_TRAINING = ("gradients through fused TppGraphs (fusion/autodiff.py) are not "
-             "ported to repro_torch yet: they come with the fusion compiler's "
-             "training slice (ROADMAP.md, Queue 1 item 8)")
-
-
-def _forward_only(*tensors):
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(_TRAINING)
-
 
 @functools.lru_cache(maxsize=None)
 def fused_output_graph(dropout_rate: float = 0.0, eps: float = 1e-5,
@@ -182,16 +171,39 @@ def fused_attn_out_graph(residual: bool = False, norm: str = "",
     return TppGraph.chain(name, ops, operands)
 
 
+def fused_output_apply(x, w, bias, residual, gamma, beta, *, keep_mask=None,
+                       dropout_rate: float = 0.0, dropout_seed=None,
+                       dropout_salt: int = OUTPUT_DROPOUT_SALT,
+                       deterministic: bool = False, eps: float = 1e-5):
+    """Listing 6 in one kernel: layernorm(dropout(x @ w + bias) + residual).
+    Dropout draws in-kernel counter bits from a scalar ``dropout_seed``;
+    ``deterministic=True`` disables it; a ``keep_mask`` takes the mask
+    graph instead.  At rate 0 the simplified graph has neither."""
+    rate = 0.0 if deterministic else dropout_rate
+    operands = dict(x=x, w=w, bias=bias, residual=residual, gamma=gamma, beta=beta)
+    if rate > 0.0 and keep_mask is not None:
+        g = fused_output_graph(rate, eps, rng_dropout=False)
+        operands["keep_mask"] = keep_mask
+    else:
+        g = fused_output_graph(rate, eps, dropout_salt=dropout_salt)
+        if rate > 0.0:
+            if dropout_seed is None:
+                raise ValueError(
+                    f"fused_output_apply: dropout_rate={dropout_rate} needs a dropout_seed "
+                    "for the in-kernel PRNG (or deterministic=True to disable dropout; a "
+                    "keep_mask is also accepted)")
+            operands["seed"] = dropout_seed
+    return compile_with_vjp(g)(**operands)
+
+
 def fused_mlp_apply(x, w, bias, *, activation: str = "gelu"):
     """act(x @ w + bias) in one kernel."""
-    _forward_only(x, w, bias)
-    return compile_for_device(fused_mlp_graph(activation))(x=x, w=w, bias=bias)
+    return compile_with_vjp(fused_mlp_graph(activation))(x=x, w=w, bias=bias)
 
 
 def fused_gated_mlp_apply(x, wg, wu, *, activation: str = "silu"):
     """act(x @ wg) * (x @ wu) in one two-root kernel."""
-    _forward_only(x, wg, wu)
-    return compile_for_device(fused_gated_mlp_graph(activation))(x=x, wg=wg, wu=wu)
+    return compile_with_vjp(fused_gated_mlp_graph(activation))(x=x, wg=wg, wu=wu)
 
 
 def fused_qkv_apply(x, wq, wk, wv):
@@ -213,9 +225,30 @@ def fused_qkv_apply(x, wq, wk, wv):
             "must share the input (K) width, k and v must match, and the q "
             "width must be a positive multiple of the kv width (GQA)",
             code="TPP214")
-    _forward_only(x, wq, wk, wv)
-    out = compile_for_device(fused_qkv_graph())(x=x, wq=wq, wk=wk, wv=wv)
+    out = compile_with_vjp(fused_qkv_graph())(x=x, wq=wq, wk=wk, wv=wv)
     return out[0], out[1][:, :nk], out[2][:, :nv]
+
+
+def fused_attention_apply(q, k, v, *, causal: bool = True, window=None, scale=None):
+    """Attention through the chained-root graph, a drop-in for
+    ``kernels.ops.attention``: q (B, H, Sq, D), k and v (B, Hk, Skv, D) with
+    H % Hk == 0 (GQA kv heads repeated on dim 1, as ``jnp.repeat``).  Every
+    (batch, head) pair is one 2-D problem of the graph, as under the
+    reference's vmap; a gradient runs the six derived graphs of
+    ``autodiff.ChainedBackwardPlan``."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    if h % hk:
+        raise FusionLegalityError(
+            f"fused_attention_apply: query heads ({h}) must be a multiple of kv heads "
+            f"({hk})", code="TPP214")
+    if hk != h:
+        k = torch.repeat_interleave(k, h // hk, dim=1)
+        v = torch.repeat_interleave(v, h // hk, dim=1)
+    g = fused_attention_graph(
+        causal=bool(causal), window=int(window or 0),
+        scale=float(scale) if scale is not None else 1.0 / math.sqrt(d), offset=skv - sq)
+    return compile_with_vjp(g)(q=q, k=k, v=v)
 
 
 def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
@@ -225,9 +258,8 @@ def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
                          deterministic: bool = False):
     """The attention output projection [+ dropout] [+ residual] [+ norm] in
     one kernel.  Dropout takes a scalar ``dropout_seed`` for the counter
-    PRNG; ``deterministic=True`` disables it.  On the card the norm and the
-    dropout raise until the training slice (the generator's TPP220 and
-    TPP223)."""
+    PRNG, whose bits the derived backward regenerates; ``deterministic=True``
+    disables it."""
     need = {"layernorm": ("gamma", "beta"), "rmsnorm": ("gamma",)}.get(norm, ())
     given = {"gamma": gamma, "beta": beta}
     missing = [p for p in need if given[p] is None]
@@ -241,7 +273,6 @@ def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
         raise ValueError(
             f"fused_attn_out_apply: dropout_rate={dropout_rate} needs a "
             "dropout_seed for the in-kernel PRNG (or deterministic=True)")
-    _forward_only(o, wo, residual, gamma, beta)
     g = fused_attn_out_graph(residual is not None, norm, eps, rate, dropout_salt)
     operands = dict(o=o, wo=wo)
     if rate > 0.0:
@@ -249,4 +280,4 @@ def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
     if residual is not None:
         operands["residual"] = residual
     operands.update({p: given[p] for p in need})
-    return compile_for_device(g)(**operands)
+    return compile_with_vjp(g)(**operands)

@@ -6,19 +6,26 @@
     arrays.  It is the plain version of K5: the CPU path of every graph, and
     what ``chip_smoke.py`` holds the kernel against on the card.
   * ``path="cuda"``: K5, one generated CUDA C++ kernel per simplified graph
-    (``kernels.fused_gemm``), for graphs whose roots are base roots and
-    whose nodes are pointwise.  Anything else raises
+    (``kernels.fused_gemm``): base roots with a pointwise epilogue, a row
+    panel (softmax, the norms and their gradients), a chained root (flash
+    attention as IR), transposed and mixed-dtype operands and the
+    coordinate-keyed ops.  What the generator does not take raises
     ``FusionLegalityError`` when the graph is compiled; a CPU tensor raises
     when the kernel is called.
 
+Operands may carry leading batch axes (the reference's ``vmap`` over a 2-D
+graph, written out): every batched operand shares them, 2-D operands are
+shared by every problem, and the output gets them in front.
+
 ``compile`` first runs ``simplify_graph`` and the salt guard; operands the
 simplification removed are still accepted at call time and ignored.
-``compile_for_device`` memoizes one callable per graph that sends CPU
-tensors to the reference path and CUDA tensors to the kernel, as
-``kernels/ops.py`` does: there is no backend switch, and a graph that fails
-on the card raises, it is never rerouted to the reference path (the
-reference's ``_guarded_pallas`` fallback and blocklist are deliberately not
-ported).
+``compile_for_device`` memoizes one callable per graph and output dtype
+that sends CPU tensors to the reference path and CUDA tensors to the
+kernel, as ``kernels/ops.py`` does: there is no backend switch, and a graph
+that fails on the card raises, it is never rerouted to the reference path
+(the reference's ``_guarded_pallas`` fallback and blocklist are
+deliberately not ported).  A ``scalar`` operand (the PRNG seed) may be a
+Python int or a CPU tensor whatever the device.
 """
 from __future__ import annotations
 
@@ -30,9 +37,16 @@ from repro_torch.fusion.graph import EPILOGUE_OPS, TppGraph, simplify_graph
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["compile", "compile_for_device", "PATHS"]
+__all__ = ["compile", "compile_for_device", "contraction_operand_values", "PATHS"]
 
 PATHS = ("reference", "cuda")
+
+
+def contraction_operand_values(graph: TppGraph) -> frozenset[str]:
+    """Contraction (lhs/rhs) operands referenced as epilogue values: the
+    reference path takes them (full arrays), K5 does not (TPP207)."""
+    con = {o.name for o in graph.operands if o.kind in ("lhs", "rhs")}
+    return frozenset(r for nd in graph.nodes for r in nd.inputs if r in con)
 
 
 def _pack_operands(graph: TppGraph, operands: dict, ignore=frozenset()):
@@ -70,9 +84,9 @@ def _compile_reference(graph: TppGraph, *, out_dtype=None, ignore=frozenset()):
         for root in base:
             a, b = operands[root.lhs], operands[root.rhs]
             if graph.operand(root.lhs).trans:
-                a = a.T
+                a = a.transpose(-1, -2)
             if graph.operand(root.rhs).trans:
-                b = b.T
+                b = b.transpose(-1, -2)
             # bf16 products are exact in fp32: the reference's
             # tpp.gemm(..., out_dtype=float32)
             env[root.name] = torch.matmul(a.float(), b.float())
@@ -101,7 +115,7 @@ def _compile_reference(graph: TppGraph, *, out_dtype=None, ignore=frozenset()):
             wmax = max(o.shape[-1] for o in outs)
             outs = [o if o.shape[-1] == wmax else F.pad(o, (0, wmax - o.shape[-1]))
                     for o in outs]
-            return torch.stack(outs).to(odt)
+            return torch.stack(outs, dim=-3).to(odt)
         return env[graph.outputs[0]].to(odt)
 
     return fn
@@ -158,33 +172,37 @@ def compile(graph: TppGraph, *, path: str = "cuda", simplify: bool = True,
 _COMPILE_CACHE: dict = {}
 
 
-def compile_for_device(graph: TppGraph):
-    """The memoized callable the library helpers use: CPU operands run the
-    composed reference, CUDA operands K5's generated kernel (compiled at
-    the graph's first CUDA call, which raises for a graph the generator
-    does not take); the output keeps the lhs dtype.  Memoized per graph;
-    counts ``fusion.compile_cache.hits``/``.misses`` in the default
-    registry."""
+def compile_for_device(graph: TppGraph, *, out_dtype=None):
+    """The memoized callable the library helpers and the derived backward
+    graphs use: CPU operands run the composed reference, CUDA operands K5's
+    generated kernel (compiled at the graph's first CUDA call, which raises
+    for a graph the generator does not take); the output is ``out_dtype``,
+    by default the first lhs operand's dtype.  Memoized per graph and
+    ``out_dtype``; counts ``fusion.compile_cache.hits``/``.misses`` in the
+    default registry."""
     reg = obs_metrics.default_registry()
-    hit = _COMPILE_CACHE.get(graph)
+    key = (graph, out_dtype)
+    hit = _COMPILE_CACHE.get(key)
     if hit is not None:
         reg.counter("fusion.compile_cache.hits").inc()
         return hit
     reg.counter("fusion.compile_cache.misses").inc()
     with obs_trace.get_tracer().span("fusion.compile", cat="fusion", graph=graph.name):
-        reference = compile(graph, path="reference")
+        reference = compile(graph, path="reference", out_dtype=out_dtype)
+    scalars = {o.name for o in graph.operands if o.kind == "scalar"}
     cuda = []
 
     def fn(**operands):
-        kinds = {v.device.type for v in operands.values() if isinstance(v, torch.Tensor)}
+        kinds = {v.device.type for nm, v in operands.items()
+                 if isinstance(v, torch.Tensor) and nm not in scalars}
         if kinds == {"cpu"}:
             return reference(**operands)
         if kinds != {"cuda"}:
             raise ValueError(f"graph {graph.name!r}: operands on {sorted(kinds)}; "
                              "need all on cpu or all on cuda")
         if not cuda:
-            cuda.append(compile(graph, path="cuda"))
+            cuda.append(compile(graph, path="cuda", out_dtype=out_dtype))
         return cuda[0](**operands)
 
-    _COMPILE_CACHE[graph] = fn
+    _COMPILE_CACHE[key] = fn
     return fn

@@ -7,7 +7,8 @@ named by a hash of its source and flags so an edited source never loads a
 stale library, and loaded with ``ctypes``.  Generated sources (K5's, one per
 fused graph, from ``kernels/fused_gemm.py``) are written there beside their
 library, built with ``csrc`` on the include path and named by a hash of
-their text, of ``csrc/fused_gemm.cuh`` and of the flags (``load_generated``).
+their text, of the templates they include (``csrc/fused_gemm.cuh``,
+``csrc/fused_chain.cuh``) and of the flags (``load_generated``).
 ``build_all`` starts one ``nvcc`` per source, fixed and generated, at once
 and waits for all of them.
 
@@ -68,10 +69,9 @@ SIGNATURES = {
 }
 SOURCES = tuple(SIGNATURES)
 # C signature of every generated source (K5), and the headers it includes.
-# fused_gemm: args struct, M, N, K, R, w0, w1, w2, in_bf16, out_bf16, vec,
-# stream
-GENERATED_SIGNATURE = {"fused_gemm": (_P,) + (_I,) * 10 + (_P,)}
-GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh",)
+# fused_gemm: the FusedArgs struct, stream
+GENERATED_SIGNATURE = {"fused_gemm": (_P, _P)}
+GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

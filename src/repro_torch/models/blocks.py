@@ -13,10 +13,10 @@ Ported so far: the dense decoder's attention (no cache, with the training
 path's output-projection dropout; the dense cache at a scalar position or at
 per-slot positions; the paged pools of the serving engine) and MLP (gated
 and plain).  With ``cfg.use_fusion`` the output projection (with the
-block's residual) and the MLP's up projection are fused TppGraphs
-(``repro_torch.fusion``: K5 on the card) for serving; fused training
-(dropout, the no-cache attention of ``repro``'s chained root) comes with
-the fusion compiler's training slice.  The ring-buffer local cache, MLA, MoE,
+block's residual and the training path's dropout), the MLP's up projection
+and the no-cache attention (the chained root) are fused TppGraphs
+(``repro_torch.fusion``: K5 on the card) with derived backward graphs, as
+in ``repro``.  The ring-buffer local cache, MLA, MoE,
 mamba and cross-attention branches are still to be ported (ROADMAP.md,
 Queue 1).
 """
@@ -149,9 +149,11 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     (B·S, d) index space and salt.
 
     ``residual`` (B, S, d) is added to the output (the block's residual).
-    With ``cfg.use_fusion`` the output projection and that add are one
-    fused graph, ``fused_attn_out_res`` (``repro/models/blocks.py``'s
-    ``fused_attn_out_apply``); its dropout is training and raises here.
+    With ``cfg.use_fusion`` the output projection, its dropout and that add
+    are one fused graph (``repro/models/blocks.py``'s
+    ``fused_attn_out_apply``: in-kernel counter bits, regenerated by the
+    derived backward), and attention without a cache runs the chained-root
+    graph (``fused_attention_apply``), as the reference routes them.
 
     The reference returns new caches; here every cache write lands in place
     in the caller's tensors (the dense buffers or the pools), and the same
@@ -177,7 +179,10 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     causal = kind in _CAUSAL_KINDS
     per_slot = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
     if cache is None:
-        o = ops.attention(q, k, v, causal=causal, window=window)
+        if cfg.use_fusion:
+            o = fusion_lib.fused_attention_apply(q, k, v, causal=causal, window=window)
+        else:
+            o = ops.attention(q, k, v, causal=causal, window=window)
     elif page_table is not None:
         if page_size < 1:
             raise ValueError("a paged cache needs page_size >= 1")
@@ -233,10 +238,11 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     o = o.transpose(1, 2).reshape(b * s, h * hd)
     dropping = dropout_seed is not None and cfg.dropout_rate > 0.0
     if cfg.use_fusion:
-        if dropping:
-            raise _later("dropout with use_fusion=True (training)")
         res2d = residual.reshape(b * s, d) if residual is not None else None
-        out = fusion_lib.fused_attn_out_apply(o, p["wo"].to(o.dtype), residual=res2d)
+        out = fusion_lib.fused_attn_out_apply(
+            o, p["wo"].to(o.dtype), residual=res2d,
+            dropout_rate=cfg.dropout_rate if dropping else 0.0,
+            dropout_seed=dropout_seed if dropping else None)
         return out.view(b, s, d), cache
     out = ops.matmul(o, p["wo"])
     if dropping:

@@ -16,9 +16,8 @@ Training (``lm_loss``) takes fp32 master parameters (``init_params(...,
 dtype=torch.float32)``), cast to the compute dtype at use.  Only dense
 decoders run here; MoE, MLA, SSM, encoder-decoder and VLM configs raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1).  ``use_fusion`` configs
-serve (``prefill``, ``decode_step``, ``forward_hidden`` with caches)
-through the fused TppGraph layers; training them raises until the fusion
-compiler's training slice.
+serve and train through the fused TppGraph layers and their derived
+backward graphs.
 """
 from __future__ import annotations
 
@@ -36,7 +35,7 @@ from repro_torch.models import blocks as B
 
 __all__ = [
     "LayerGroup", "derive_groups", "layer_kinds", "init_params",
-    "forward_hidden", "lm_loss", "check_trainable", "init_cache", "init_paged_cache", "prefill",
+    "forward_hidden", "lm_loss", "init_cache", "init_paged_cache", "prefill",
     "decode_step", "finite_logits",
 ]
 
@@ -58,13 +57,6 @@ def _check_dense(cfg: ModelConfig) -> None:
     for what, present in unsupported.items():
         if present:
             raise B._later(what)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot train yet: ``use_fusion`` needs
-    the fused graphs' gradients and the chained-root attention."""
-    if cfg.use_fusion:
-        raise B._later("training with use_fusion=True")
 
 
 def derive_groups(cfg: ModelConfig) -> list[LayerGroup]:
@@ -175,10 +167,10 @@ def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
     ``torch.utils.checkpoint``, which keeps only its input and recomputes
     the rest in the backward (the reference's ``jax.checkpoint`` with
     ``nothing_saveable``).  ``dropout_seed`` is folded with each layer's
-    index (``fusion.rng.fold_in``) into that layer's dropout seed.  A
-    ``use_fusion`` config runs with caches only (serving)."""
-    if caches is None:
-        check_trainable(cfg)
+    index (``fusion.rng.fold_in``) into that layer's dropout seed.  With
+    ``cfg.use_fusion`` the fused layers' autograd Functions are replayed by
+    the checkpoint; their dropout bits are counter-based, so the replay
+    draws the same ones."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -218,7 +210,6 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat=True, loss_chunk=512,
     so logits live for one chunk at a time; ``ce = tot / max(cnt, 1)``.
     Dense models have no auxiliary loss (aux = 0).  Counterpart of
     ``repro/models/lm.py::lm_loss``."""
-    check_trainable(cfg)
     h, _ = forward_hidden(cfg, params, batch, remat=remat, dropout_seed=dropout_seed)
     w = _unembed_weight(cfg, params)
     labels = batch["labels"].long()

@@ -4,7 +4,9 @@ remat, LR schedules, global-norm clipping and AdamW.
 
 The step runs eagerly: PyTorch's autograd takes the place of
 ``jax.value_and_grad``, and ``ops.matmul`` / ``ops.attention`` carry their
-own backward kernels (K1 on transposed operands, K6).
+own backward kernels (K1 on transposed operands, K6).  A ``use_fusion``
+config trains through the fused layers, whose backward is the derived
+graphs of ``fusion.autodiff`` (K5 on the card).
 """
 from __future__ import annotations
 
@@ -82,7 +84,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     without microbatching).  ``batch`` holds device tensors (see
     ``data.to_device``); params and moments are updated in place."""
     _check(tcfg)
-    lm.check_trainable(cfg)
 
     def loss_fn(params, microbatch, dropout_seed=None):
         return lm.lm_loss(cfg, params, microbatch, remat=tcfg.remat,

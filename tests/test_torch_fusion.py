@@ -2,8 +2,9 @@
 package's, on the CPU: the epilogue registry, graph validation and
 simplification, the composed reference path (K5's plain version) on the
 library's graphs against ``repro.fusion.compile(path="xla")`` and the
-interpret-mode Pallas kernel, the fused blocks, and K5's CUDA code generator
-without nvcc (its sources and its refusals).
+interpret-mode Pallas kernel, the fused blocks, fused training, and K5's
+CUDA code generator without nvcc (its sources, the graphs it takes and its
+refusals).
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: fp32 rtol 1e-4 / atol 1e-3 (the fp32 GEMM tolerance of
@@ -389,15 +390,26 @@ def test_helper_checks_match_the_reference():
             f.fused_attn_out_apply(x, w, dropout_rate=0.1)
 
 
-def test_a_gradient_through_a_fused_helper_raises():
-    _, (x, w, w2, b, r) = _helper_operands(3)
-    w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tf.fused_gated_mlp_apply(x, w, w2)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tf.fused_attn_out_apply(x, w, residual=r)
-    with torch.no_grad():
-        assert tf.fused_mlp_apply(x, w, b).shape == (24, 40)
+def test_a_gradient_through_a_fused_helper_matches_the_reference():
+    """The helpers' gradients run the derived backward graphs, as the
+    reference's ``_dispatch`` through ``compile_with_vjp`` does."""
+    (jx, jw, jw2, jb, jr), (x, w, w2, b, r) = _helper_operands(3)
+    probe = np.random.default_rng(4).normal(size=(24, 40)).astype(np.float32)
+    cases = [("fused_gated_mlp_apply", (jx, jw, jw2), (x, w, w2), {}),
+             ("fused_attn_out_apply", (jx, jw), (x, w), {"residual": (jr, r)}),
+             ("fused_mlp_apply", (jx, jw, jb), (x, w, b), {})]
+    for fn, jargs, targs, extra in cases:
+        def jloss(*a):
+            kw = {k: v[0] for k, v in extra.items()}
+            return jnp.sum(getattr(jf, fn)(*a, **kw) * probe)
+
+        want = jax.grad(jloss, argnums=tuple(range(len(jargs))))(*jargs)
+        leaves = [t.clone().requires_grad_(True) for t in targs]
+        out = getattr(tf, fn)(*leaves, **{k: v[1] for k, v in extra.items()})
+        (out * torch.from_numpy(probe)).sum().backward()
+        for t, g in zip(leaves, want):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=1e-4, atol=1e-3,
+                                       err_msg=fn)
 
 
 def test_compile_for_device_memoizes_and_counts():
@@ -445,10 +457,6 @@ def _trans_graph(f):
 
 
 UNSUPPORTED = {
-    "TPP221": lambda f: f.fused_attention_graph(causal=True),
-    "TPP220": lambda f: f.fused_attn_out_graph(True, "rmsnorm"),
-    "TPP223": lambda f: f.fused_attn_out_graph(True, dropout_rate=0.1),
-    "TPP222": _trans_graph,
     "TPP207": lambda f: f.TppGraph("cv", (f.OperandSpec("x", "lhs"), f.OperandSpec("w", "rhs")),
                                    nodes=(f.Node("n0", "add", ("acc", "x")),)),
     "TPP224": lambda f: f.TppGraph(
@@ -468,6 +476,40 @@ def test_generator_refuses_with_a_stable_code(code):
         tf.compile(g, path="cuda")
     assert e.value.code == code
     # the composed reference path takes it
+    tf.compile(g, path="reference")
+
+
+def _bwd(f, g, role):
+    plan = f.derive_vjp(g)
+    return next(gr for nm, gr in plan.fused_graphs().items() if plan.graph_role(nm) == role)
+
+
+# The graphs the generator once refused (chained root, row panel, transposed
+# operands, coordinate-keyed ops) and now takes, with what their source says.
+ACCEPTED = {
+    "chained causal": (lambda f: f.fused_attention_graph(causal=True), ["chain_entry"]),
+    "chained window offset": (lambda f: f.fused_attention_graph(causal=True, window=8, offset=3),
+                              ["fg_attn_keep(gm, gn, true, 8, 3)", "n0 + bn - 1 <= m0 + 3 - 8"]),
+    "panel softmax": (lambda f: _bwd(f, f.fused_attention_graph(causal=True), "p"),
+                      ["fg::RED_SOFTMAX;"]),
+    "panel softmax_grad": (lambda f: _bwd(f, f.fused_attention_graph(causal=True), "dz"),
+                           ["fg::RED_SOFTMAX_GRAD;"]),
+    "panel rmsnorm": (lambda f: f.fused_attn_out_graph(True, "rmsnorm"), ["fg::RED_RMSNORM;"]),
+    "panel layernorm_grad": (lambda f: _bwd(f, f.fused_output_graph(0.1), "dz"),
+                             ["fg::RED_LN_GRAD;", "fg_dropout_rng("]),
+    "trans": (_trans_graph, ["trans_rhs(int r) { return true; }"]),
+    "dropout_rng": (lambda f: f.fused_attn_out_graph(True, dropout_rate=0.1), ["fg_dropout_rng("]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ACCEPTED))
+def test_generator_takes_the_training_slice_graphs(case):
+    make, markers = ACCEPTED[case]
+    g = tf.simplify_graph(make(tf))
+    src = fused_gemm.generate_source(g)
+    for marker in markers:
+        assert marker in src, marker
+    assert callable(tf.compile(g, path="cuda"))   # compiling builds nothing yet
     tf.compile(g, path="reference")
 
 
@@ -541,19 +583,24 @@ def test_fused_blocks_match_the_reference(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-3)
 
 
-def test_fused_training_raises():
+def test_fused_training_takes_steps():
+    """``use_fusion=True`` trains: forward_hidden and lm_loss take gradients
+    through the fused layers, and make_train_step lowers the loss (the
+    trajectory against repro's is tests/test_torch_fusion_autodiff.py)."""
+    from repro_torch.data import DataConfig, SyntheticCorpus, to_device
     from repro_torch.models import lm as tlm
-    from repro_torch.train import TrainConfig, make_train_step
-    cfg = dataclasses.replace(torch_config("minicpm_2b").reduced(), use_fusion=True)
-    params = tlm.init_params(cfg, device="cpu")
-    batch = {k: torch.zeros(1, 8, dtype=torch.long) for k in ("tokens", "labels", "mask")}
-    with pytest.raises(NotImplementedError, match="training with use_fusion"):
-        tlm.lm_loss(cfg, params, batch, loss_chunk=8)
-    with pytest.raises(NotImplementedError, match="training with use_fusion"):
-        tlm.forward_hidden(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="training with use_fusion"):
-        make_train_step(cfg, TrainConfig(loss_chunk=8))
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="dropout with use_fusion"):
-        tblocks.attention_apply(dataclasses.replace(cfg, dropout_rate=0.1), params["layers"][0]["attn"],
-                                x, dropout_seed=3)
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    cfg = dataclasses.replace(torch_config("minicpm_2b").reduced(), use_fusion=True,
+                              dropout_rate=0.1)
+    tcfg = TrainConfig(peak_lr=1e-2, warmup_steps=0, total_steps=100, loss_chunk=8)
+    params, opt = init_train_state(cfg, tcfg, 0, device="cpu")
+    batch = to_device(SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                                 global_batch=2, seed=1)).batch_at(0), "cpu")
+    h, _ = tlm.forward_hidden(cfg, params, batch, dropout_seed=3)
+    assert h.requires_grad and torch.isfinite(h).all()
+    step = make_train_step(cfg, tcfg)
+    losses = []
+    for i in range(4):
+        params, opt, m = step(params, opt, batch, i)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0], losses

@@ -42,7 +42,8 @@ def test_every_module_imports_with_jax_blocked():
         "for name in names: importlib.import_module(name)\n"
         "assert {'repro_torch.serve.engine', 'repro_torch.kernels.ops', 'repro_torch.obs.trace',\n"
         "        'repro_torch.fusion.rng', 'repro_torch.train.trainer', 'repro_torch.optim.adamw',\n"
-        "        'repro_torch.data.pipeline', 'repro_torch.checkpoint.checkpoint'} <= set(names)\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.checkpoint.checkpoint',\n"
+        "        'repro_torch.fusion.autodiff'} <= set(names)\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print(len(names))\n"
     )

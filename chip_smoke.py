@@ -14,13 +14,15 @@ Phases, each of which must pass:
      attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
      TppGraphs: serving's graphs, and the fused training path's chained
      attention, its six derived backward graphs, the projections' derived
-     backward graphs, in-kernel dropout bits and row panels) against its
+     backward graphs, in-kernel dropout bits and row panels; K8 selective
+     scan at falcon-mamba-7b's prefill and engine-decode shapes) against its
      plain PyTorch version on the card, at the main paths' shapes plus GQA,
      windowed and ragged ones; print error and tolerance, the median time
      over CUDA events, the plain version's time, one PyTorch library call's
      time as a yardstick (the port never calls it) and the bound;
   4. run ``generate_loop`` and the serving engine for reduced fp32
-     llama2-13b, gpt-j-6b and minicpm-2b on the card (kernels) and on the
+     llama2-13b, gpt-j-6b, minicpm-2b and falcon-mamba-7b on the card
+     (kernels) and on the
      CPU (plain versions), without and with ``use_fusion``: the logits must
      agree, and the greedy tokens and the engine's greedy and sampled tokens
      must be equal;
@@ -39,6 +41,15 @@ Phases, each of which must pass:
      beside the unfused path's and the bounds, and how far the fused logits
      and tokens are from the unfused ones; then drain 8 requests through the
      engine on 8 slots and on 3: equal tokens, ``validate()`` clean;
+ 7b. free llama2-13b and serve full-width falcon-mamba-7b (bf16, all 64
+     layers, random weights from a seed): K8 must launch once per layer per
+     prefill and per decode step and K1 four times per layer plus the
+     logits, nothing else; a bucket-padded prefill must equal the unpadded
+     one; ``generate_loop`` (batch 4, prompt 512, 16 new tokens) with every
+     counter set to 0 just before and read just after, timed beside its
+     bounds, with one profiled decode step; then the engine (8 slots, 16
+     ragged requests, greedy and sampled, ``validate()`` after every step)
+     and a 3-slot drain with equal tokens;
   8. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
      on the CPU from one initial state (loss and grad norm must agree), and
      check that 2 steps + checkpoint + restore + 2 steps give the parameters
@@ -85,13 +96,14 @@ PEAKS = {
 # Kernel against plain version on the card.  Both sides read the same inputs
 # and accumulate in fp32, so they differ by summation order and, in bf16, by
 # one rounding of the output (2^-8 relative) and the plain decode's bf16 p.
-TOL = {"float32": {"gemm": (1e-4, 1e-3), "attn": (1e-4, 1e-4)},
-       "bfloat16": {"gemm": (1e-2, 1e-2), "attn": (1e-2, 1e-2)}}
+TOL = {"float32": {"gemm": (1e-4, 1e-3), "attn": (1e-4, 1e-4), "scan": (1e-4, 1e-4)},
+       "bfloat16": {"gemm": (1e-2, 1e-2), "attn": (1e-2, 1e-2), "scan": (1e-2, 1e-2)}}
 MODEL_TOL = (1e-4, 1e-3)   # logits, reduced fp32 configs: GPU kernels vs CPU plain
 
 # file:line of the TPU kernel each CUDA kernel replaces: matmul_pallas,
-# flash_attention_pallas, flash_decode_pallas and the Pallas path of
-# paged_decode_attention.
+# flash_attention_pallas, flash_decode_pallas, the Pallas path of
+# paged_decode_attention, the attention backward plan, K5's lowering and
+# mamba_scan_pallas.
 REPLACES = {
     "gemm": "src/repro/kernels/brgemm.py:58",
     "gemm_transposed": "src/repro/kernels/brgemm.py:58",
@@ -103,6 +115,7 @@ REPLACES = {
     "fused_chain": "src/repro/fusion/lowering.py:330",
     "fused_attention_bwd": "src/repro/fusion/lowering.py:330",
     "fused_proj_bwd": "src/repro/fusion/lowering.py:330",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:27",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -117,6 +130,7 @@ SOURCE = {
     "fused_chain": "src/repro_torch/kernels/csrc/fused_chain.cuh",
     "fused_attention_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "fused_proj_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
+    "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
@@ -141,6 +155,9 @@ ROW = {
                            " SDPA's backward",
     "fused_proj_bwd": "one minicpm-2b layer's derived backward graphs of fused_attn_out_res"
                       " (dlhs, drhs) and fused_gated_mlp_silu (dz0, dlhs, drhs) at 4096 tokens",
+    "mamba_scan": "one falcon-mamba-7b layer's scan at prefill (B 4, L 512, D 8192, N 16, bf16)"
+                  " plus one engine decode step (B 8, L 1, from the cached state); no PyTorch"
+                  " call computes a selective scan",
 }
 
 
@@ -565,6 +582,63 @@ def paged_decode_cases(torch, bench, ref, fa):
                   dtype=name, tol_kind="attn", weight=weight, timed=timed)
 
 
+def mamba_scan_cases(torch, bench, ref, scan):
+    """K8 at falcon-mamba-7b's shapes (D 8192, N 16): the prefill (B 4,
+    L 512, bf16, B and C strided column slices of the x projection as on
+    the path, no state) and the engine's decode step (B 8, L 1, from a
+    state), plus generate_loop's decode (B 4), a ragged fp32 L 100 from a
+    state, contiguous B and C, N 8, and a channel count that is not a
+    multiple of the block's 32; two checks write the state in place over
+    h0, as the layer does into its cache.  Operations count 6 N + 3 per channel-step
+    (an exponential as one) at the fp32 peak; bytes count x, dt, B, C, A,
+    D and the state read once, y and the new state written once."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    # label, B, L, D, N, dtype, with h0, strided B/C, weight, timed, state in place
+    cases = [
+        ("prefill B4 L512 D8192 N16 strided B/C", 4, 512, 8192, 16, torch.bfloat16, False, True, 1, True, False),
+        ("engine decode B8 L1 D8192 N16 h0", 8, 1, 8192, 16, torch.bfloat16, True, True, 1, True, False),
+        ("decode B4 L1 D8192 N16 h0", 4, 1, 8192, 16, torch.bfloat16, True, True, 0, True, False),
+        ("batch-1 prefill L512 D8192 N16", 1, 512, 8192, 16, torch.bfloat16, False, True, 0, True, False),
+        ("check ragged L100 D8192 N16 h0 fp32", 2, 100, 8192, 16, torch.float32, True, True, 0, False, False),
+        ("check L77 D256 N16 contiguous B/C bf16", 2, 77, 256, 16, torch.bfloat16, True, False, 0, False, False),
+        ("check L40 D128 N8 h0 fp32", 2, 40, 128, 8, torch.float32, True, True, 0, False, False),
+        ("check L65 D100 N16 h0 fp32", 3, 65, 100, 16, torch.float32, True, False, 0, False, False),
+        ("check decode B8 L1 D8192 N16 state in place", 8, 1, 8192, 16, torch.bfloat16, True, True, 0, False, True),
+        ("check L100 D8192 N16 fp32 state in place", 2, 100, 8192, 16, torch.float32, True, True, 0, False, True),
+    ]
+
+    def in_place(x, dtv, a, bi, ci, dsk, h0):
+        h = h0.clone()
+        y, h_fin = scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h, h_out=h)
+        check(h_fin.data_ptr() == h.data_ptr(), "mamba_scan h_out: state not written in place")
+        return y, h
+
+    for label, b, l, d, n, dt, with_h0, strided, weight, timed, inplace in cases:
+        x = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
+        # softplus of the path's dt_raw (bias -2): about 0.01 to 1
+        dtv = (torch.rand(b, l, d, generator=gen, device="cuda") * 0.9 + 0.01).to(dt)
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(d, n).contiguous()
+        a = a * (0.5 + torch.rand(d, 1, generator=gen, device="cuda"))
+        if strided:   # (B·L, dt_rank + 2N) projection, B and C its column slices
+            proj = torch.randn(b, l, 256 + 2 * n, generator=gen, device="cuda").to(dt)
+            bi, ci = proj[..., 256:256 + n], proj[..., 256 + n:]
+        else:
+            bi = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+            ci = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+        dsk = torch.randn(d, generator=gen, device="cuda")
+        h0 = torch.randn(b, d, n, generator=gen, device="cuda") if with_h0 else None
+        esize = x.element_size()
+        nbytes = (esize * (3 * b * l * d + 2 * b * l * n) + 4 * (d * n + d)
+                  + 4 * b * d * n * (2 if with_h0 else 1))
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        bench.run("mamba_scan", label,
+                  (lambda: in_place(x, dtv, a, bi, ci, dsk, h0)) if inplace else
+                  (lambda: scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0)),
+                  lambda: ref.mamba_scan_ref(x, dtv, a, bi, ci, dsk, h0=h0),
+                  None, flops=b * l * d * (6 * n + 3), nbytes=nbytes, dtype=name,
+                  tol_kind="scan", weight=weight, timed=timed, peak="fp32")
+
+
 def sweep_graphs(fusion):
     """Small graphs that between them use every pointwise op K5's generator
     takes (and a graph of two distinct lhs operands)."""
@@ -953,7 +1027,7 @@ def reduced_models(torch, counters, *, fused=False):
     from repro_torch.serve.decode import ServeConfig, generate_loop
 
     rtol, atol = MODEL_TOL
-    for arch in ("llama2_13b", "gptj_6b", "minicpm_2b"):
+    for arch in ("llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b"):
         cfg = dataclasses.replace(get_config(arch).reduced(), use_fusion=fused)
         counters.reset()
         cpu = lm.init_params(cfg, seed=0, device="cpu")
@@ -980,12 +1054,13 @@ def reduced_models(torch, counters, *, fused=False):
         same = torch.equal(toks["cuda"], toks["cpu"])
         served = {dev: reduced_engine(cfg, params[dev]) for dev in params}
         engine_same = served["cuda"] == served["cpu"]
-        k5 = counters.read()["fused_gemm"]
+        k5, k8 = counters.read()["fused_gemm"], counters.read()["mamba_scan"]
         print(f"  {arch}-reduced fp32{' use_fusion' if fused else ''}: max logit diff {worst:.3e}"
               f" (rtol {rtol}, atol {atol}), greedy tokens equal: {same}, engine tokens and"
               f" statuses equal: {engine_same} ({len(served['cuda'][0])} requests);"
-              f" K5 launches {k5}", flush=True)
+              f" K5 launches {k5}, K8 launches {k8}", flush=True)
         check((k5 > 0) == fused, f"{arch} reduced: K5 launched {k5} times (use_fusion={fused})")
+        check((k8 > 0) == ("mamba" in cfg.layer_pattern), f"{arch} reduced: K8 launched {k8} times")
         check(same, f"{arch} reduced: greedy tokens differ between GPU and CPU")
         check(engine_same, f"{arch} reduced: engine tokens or statuses differ between GPU and CPU")
 
@@ -1189,7 +1264,7 @@ def paged_matches_dense(torch, cfg, params):
     tokens = torch.randint(0, cfg.vocab_size, (b, bucket), generator=gen, device="cuda")
     dense = lm.init_cache(cfg, b, plen + 1, device="cuda")
     want, dense = lm.prefill(cfg, params, dense, {"tokens": tokens[:, :plen]})
-    pools = lm.init_paged_cache(cfg, num_pages, ps, device="cuda")
+    pools = lm.init_paged_cache(cfg, b, num_pages, ps, device="cuda")
     table = _page_table(torch, [bucket] * b, ps, maxp, num_pages, seed=7)
     got, pools = lm.prefill(cfg, params, pools, {"tokens": tokens}, page_table=table,
                             page_size=ps, logit_index=torch.full((b,), plen - 1, device="cuda"))
@@ -1235,7 +1310,7 @@ def batch_invariance_probe(torch, cfg, params):
     from repro_torch.models import blocks, lm
     ps, per_slot, b = 16, 24, 8
     gen = torch.Generator(device="cuda").manual_seed(8)
-    pools = lm.init_paged_cache(cfg, b * per_slot, ps, device="cuda")
+    pools = lm.init_paged_cache(cfg, b, b * per_slot, ps, device="cuda")
     for pool in pools:
         for t in pool.values():
             t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
@@ -1486,6 +1561,206 @@ def fused_engine(torch, counters, cfg, params):
     return result
 
 
+def mamba_bounds(cfg, params, batch, prompt_len, peaks):
+    """Least card time for a falcon-mamba prefill of ``batch`` rows of
+    ``prompt_len`` tokens and for one decode step of ``batch`` rows, each
+    the larger of its bytes over the HBM rate and its operations over the
+    bf16 peak.  Bytes: every weight once (the embedding only in the rows it
+    gathers) and each row's conv and SSM state written (prefill) or read
+    and written (decode).  Operations: the four projections, the scan
+    (6 N + 3 per channel-step) and the last token's logits."""
+    layer_w = [t for layer in params["layers"] for sub in layer.values() for t in sub.values()]
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w_bytes = sum(t.numel() * t.element_size() for t in layer_w + [head]) \
+        + sum(t.numel() * t.element_size() for t in params["final_norm"].values())
+    proj = sum(t.numel() for layer in params["layers"] for k, t in layer["mamba"].items()
+               if k.startswith("w_"))
+    L, di, n = cfg.num_layers, cfg.d_inner, cfg.ssm_state
+    state_row = L * di * (4 * n + (cfg.ssm_conv - 1) * params["embed"].element_size())
+    scan = L * di * (6 * n + 3)
+    logits = 2 * batch * cfg.d_model * cfg.padded_vocab
+
+    def bound(flops, nbytes):
+        return max(flops / peaks["bf16"], nbytes / peaks["hbm"]) * 1e3
+
+    tokens = batch * prompt_len
+    return {"prefill_bound_ms": bound(2 * tokens * proj + tokens * scan + logits,
+                                      w_bytes + batch * state_row),
+            "decode_bound_ms_per_token": bound(2 * batch * proj + batch * scan + logits,
+                                               w_bytes + 2 * batch * state_row)}
+
+
+def mamba_full_width(torch, counters, peaks):
+    """falcon-mamba-7b at full width and depth (bf16, random weights from a
+    seed): launches per prefill and decode step (K8 once a layer, K1 four
+    times a layer plus the logits, nothing else), a bucket-padded prefill
+    against the unpadded one, ``generate_loop`` (B 4, prompt 512, 16 new
+    tokens) timed beside its bounds with one profiled decode step, and the
+    engine (8 slots, phase 6's 16 ragged requests, greedy and sampled) with
+    a 3-slot drain that must give the same tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    cfg = get_config("falcon_mamba_7b")
+    L = cfg.num_layers
+    start = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name}: {L} layers, d_model {cfg.d_model}, d_inner {cfg.d_inner},"
+          f" state {cfg.ssm_state}, {cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB"
+          f" of weights in {time.perf_counter() - start:.2f} s", flush=True)
+
+    def launched(n, what, calls):
+        want = {"gemm": (4 * L + 1) * calls, "mamba_scan": L * calls}
+        for name, count in n.items():
+            check(count == want.get(name, 0),
+                  f"{name} launched {count} times in {what}, want {want.get(name, 0)}")
+
+    batch, prompt_len, new = 4, 512, 16
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device="cuda")
+    caches = lm.init_cache(cfg, batch, prompt_len + 1, device="cuda")
+    counters.reset()
+    logits, caches = lm.prefill(cfg, params, caches, {"tokens": prompts})
+    per_prefill = counters.read()
+    counters.reset()
+    step_logits, _ = lm.decode_step(cfg, params, caches, logits.argmax(-1), prompt_len)
+    per_step = counters.read()
+    launched(per_prefill, "one prefill", 1)
+    launched(per_step, "one decode step", 1)
+    check(logits.shape == (batch, cfg.padded_vocab), f"prefill logits {tuple(logits.shape)}")
+    check(bool(lm.finite_logits(logits).all()) and bool(lm.finite_logits(step_logits).all()),
+          "falcon-mamba logits are not finite")
+    del caches, logits, step_logits
+
+    # a prompt of 300 tokens, alone and right-padded to the engine's bucket of 512
+    plen, bucket = 300, 512
+    one = prompts[:1, :plen]
+    dense = lm.init_cache(cfg, 1, plen + 1, device="cuda")
+    want, dense = lm.prefill(cfg, params, dense, {"tokens": one})
+    padded = lm.init_cache(cfg, 1, bucket, device="cuda")
+    tokens = torch.cat([one, torch.zeros(1, bucket - plen, dtype=one.dtype, device="cuda")], 1)
+    got, padded = lm.prefill(cfg, params, padded, {"tokens": tokens},
+                             logit_index=torch.full((1,), plen - 1, device="cuda"))
+    errs = [float((got - want).abs().max())]
+    ok = torch.allclose(got, want, rtol=BF16_LOGITS[0], atol=BF16_LOGITS[1])
+    state_err = max(float((a[k].float() - b[k].float()).abs().max())
+                    for a, b in zip(dense, padded) for k in a)
+    tok = want.argmax(-1)
+    want, _ = lm.decode_step(cfg, params, dense, tok, plen)
+    got, _ = lm.decode_step(cfg, params, padded, tok, plen)
+    errs.append(float((got - want).abs().max()))
+    ok = ok and torch.allclose(got, want, rtol=BF16_LOGITS[0], atol=BF16_LOGITS[1])
+    print(f"  padded ({bucket}) vs unpadded ({plen}) prefill and one decode step: max abs logit"
+          f" diff {errs[0]:.3e}, {errs[1]:.3e} (rtol {BF16_LOGITS[0]}, atol {BF16_LOGITS[1]});"
+          f" max abs state diff {state_err:.3e}", flush=True)
+    check(ok and all(math.isfinite(e) for e in errs), "padded prefill differs from unpadded")
+    del dense, padded
+
+    scfg = ServeConfig(max_seq=prompt_len + new)
+
+    def serve(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_loop(cfg, params, prompts, n, scfg=scfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, prefill_ms = serve(1)          # prefill and the first token
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out, total_ms = serve(new)        # the main path
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    launched(launches, "generate_loop (1 prefill, 15 decode steps)", new)
+    check(out.shape == (batch, prompt_len + new), f"generate_loop output {tuple(out.shape)}")
+    check(torch.equal(out[:, :prompt_len], prompts), "generate_loop changed the prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token outside the vocabulary")
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    result = {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+              "total_ms": total_ms, "tokens_per_s": batch * new / (total_ms / 1e3),
+              "decode_tokens_per_s": batch / (decode_ms / 1e3),
+              "max_memory_allocated_gib": peak / 2**30, "launches": launches,
+              "launches_per_prefill": per_prefill, "launches_per_decode_step": per_step,
+              "padded_vs_unpadded_max_abs": max(errs), "padded_vs_unpadded_state_max_abs": state_err}
+    result.update(mamba_bounds(cfg, params, batch, prompt_len, peaks))
+    print(f"  generate_loop B{batch} P{prompt_len} +{new}: prefill {prefill_ms:.1f} ms"
+          f" (bound {result['prefill_bound_ms']:.2f}), decode {decode_ms:.2f} ms/token"
+          f" (bound {result['decode_bound_ms_per_token']:.2f}),"
+          f" {result['tokens_per_s']:.1f} tokens/s overall,"
+          f" peak {peak / 2**30:.2f} GiB, launches {launches}", flush=True)
+    caches = lm.init_cache(cfg, batch, prompt_len + 1, device="cuda")
+    tok = lm.prefill(cfg, params, caches, {"tokens": prompts})[0].argmax(-1)
+
+    def step():
+        return lm.decode_step(cfg, params, caches, tok, prompt_len)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    result["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
+    result["profile"] = device_breakdown(torch, step, result["decode_step_ms"])
+    del caches
+
+    reqs = engine_requests(cfg)
+    tracer = Tracer()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer)
+    elaunches = counters.read()                 # the engine's run
+    epeak = torch.cuda.max_memory_allocated()
+    spans = tracer.spans()
+    prefill_spans = [sp.duration * 1e3 for sp in spans if sp.name == "engine.prefill"]
+    steps = eng.decode_steps
+    launched(elaunches, f"the engine drain ({len(prefill_spans)} prefills, {steps} decode steps)",
+             len(prefill_spans) + steps)
+    tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
+    for uid, r in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"request {uid} ended {eng.status(uid).value}")
+        check(len(tokens[uid]) == len(r["prompt"]) + r["max_new"],
+              f"request {uid}: {len(tokens[uid])} tokens, want {len(r['prompt']) + r['max_new']}")
+        check(tokens[uid][:len(r["prompt"])] == r["prompt"], f"request {uid}: prompt changed")
+        check(all(0 <= t < cfg.vocab_size for t in tokens[uid]),
+              f"request {uid}: token outside the vocabulary")
+    decode_span_ms = sum(sp.duration for sp in spans if sp.name == "engine.decode_segment") * 1e3
+    ttft = sorted((m["first_token"] - m["submitted"]) * 1e3 for m in eng.metrics.values())
+    generated = eng.tokens_generated
+    bound = mamba_bounds(cfg, params, ENGINE["num_slots"], 1, peaks)
+    engine = {"requests": len(reqs), "slots": ENGINE["num_slots"], "generated_tokens": generated,
+              "drain_ms": wall_ms, "tokens_per_s": generated / (wall_ms / 1e3),
+              "ttft_ms_median": statistics.median(ttft),
+              "ttft_ms_p90": statistics.quantiles(ttft, n=10)[8],
+              "prefill_ms_median": statistics.median(prefill_spans), "prefills": len(prefill_spans),
+              "decode_steps": steps, "decode_ms_per_step": decode_span_ms / steps,
+              "decode_step_bound_ms": bound["decode_bound_ms_per_token"],
+              "max_memory_allocated_gib": epeak / 2**30, "launches": elaunches,
+              "stats": eng.stats}
+    print(f"  drain of {len(reqs)} requests on {ENGINE['num_slots']} slots: {wall_ms:.1f} ms,"
+          f" {generated} tokens, {engine['tokens_per_s']:.1f} tokens/s; TTFT median"
+          f" {engine['ttft_ms_median']:.1f} ms, p90 {engine['ttft_ms_p90']:.1f} ms; prefill median"
+          f" {engine['prefill_ms_median']:.1f} ms; {steps} decode steps at"
+          f" {engine['decode_ms_per_step']:.2f} ms (bound {engine['decode_step_bound_ms']:.2f} ms);"
+          f" peak {epeak / 2**30:.2f} GiB; launches {elaunches}", flush=True)
+    del eng
+    eng3, wall3_ms = drain(torch, cfg, params, reqs, num_slots=3)
+    tokens3 = {uid: eng3.collect(uid) for uid in range(len(reqs))}
+    del eng3
+    diff = first_difference(torch, cfg, params, tokens, tokens3)
+    engine["slots3_drain_ms"] = wall3_ms
+    engine["schedule_invariant"] = diff is None
+    print(f"  drain on 3 slots: {wall3_ms:.1f} ms; tokens equal to the 8-slot drain: {diff is None}"
+          + (f"; first difference {diff}" if diff else ""), flush=True)
+    check(diff is None, f"falcon-mamba tokens depend on the number of slots: {diff}")
+    result["engine"] = engine
+    del params
+    torch.cuda.empty_cache()
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
@@ -1498,7 +1773,7 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
-             "fused_chain_f32_simt": "fused_chain"}
+             "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan"}
 
 
 def kernel_of(name):
@@ -1566,8 +1841,8 @@ def k5_kinds(by_graph):
 class Counters:
     """Reads and resets the kernel wrappers' launch counters."""
 
-    def __init__(self, brgemm, fa, fused_gemm):
-        self.brgemm, self.fa, self.fused_gemm = brgemm, fa, fused_gemm
+    def __init__(self, brgemm, fa, fused_gemm, scan):
+        self.brgemm, self.fa, self.fused_gemm, self.scan = brgemm, fa, fused_gemm, scan
 
     def reset(self):
         self.brgemm.LAUNCHES = 0
@@ -1578,6 +1853,7 @@ class Counters:
         self.fa.PAGED_DECODE_LAUNCHES = 0
         self.fused_gemm.LAUNCHES = 0
         self.fused_gemm.GRAPH_LAUNCHES.clear()
+        self.scan.SCAN_LAUNCHES = 0
 
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
@@ -1586,7 +1862,8 @@ class Counters:
                 "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
-                **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES)}
+                **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES),
+                "mamba_scan": self.scan.SCAN_LAUNCHES}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -1816,6 +2093,7 @@ def main() -> int:
     from repro_torch.fusion import rng
     from repro_torch.kernels import _build, brgemm, fused_gemm, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1850,6 +2128,7 @@ def main() -> int:
     attention_bwd_cases(torch, bench, ref, fa)
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
+    mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion)
     fused_training_cases(torch, bench, fusion, rng)
     k6 = bench.summary("flash_attention_bwd")["ms"]
@@ -1859,7 +2138,7 @@ def main() -> int:
           f" D 64, causal", flush=True)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
-    counters = Counters(brgemm, fa, fused_gemm)
+    counters = Counters(brgemm, fa, fused_gemm, scan)
     reduced_models(torch, counters)
     reduced_models(torch, counters, fused=True)
 
@@ -1876,6 +2155,9 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    phase("7b. falcon-mamba-7b, full width and depth: generate_loop and the engine")
+    mamba = mamba_full_width(torch, counters, peaks)
+
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
@@ -1889,12 +2171,15 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
-        tol = TOL["bfloat16"]["gemm" if name.startswith(("gemm", "fused")) else "attn"]
+        tol = TOL["bfloat16"]["gemm" if name.startswith(("gemm", "fused")) else
+                              "scan" if name == "mamba_scan" else "attn"]
         by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
                    "fused_generate_loop": fused["launches"][name],
                    "fused_engine": fused["engine"]["launches"][name],
                    "training": training["launches"][name],
-                   "fused_training": fused_training["launches"][name]}
+                   "fused_training": fused_training["launches"][name],
+                   "mamba_generate_loop": mamba["launches"][name],
+                   "mamba_engine": mamba["engine"]["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1910,7 +2195,8 @@ def main() -> int:
                     if k5_kind(g) == name}}
                if name.startswith("fused") else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
-                      "fused": fused, "training": training, "fused_training": fused_training}))
+                      "fused": fused, "mamba": mamba, "training": training,
+                      "fused_training": fused_training}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

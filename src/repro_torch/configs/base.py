@@ -2,9 +2,10 @@
 
 A copy of ``repro/configs/base.py``: the same ``ModelConfig`` fields,
 ``padded_vocab``, ``reduced()`` and ``get_config``, so a config built here
-compares equal field by field with the reference one.  Only the dense
-decoder architectures of the ported slice are registered; the rest of the
-reference's zoo joins as the port grows (ROADMAP.md, Queue 1).
+compares equal field by field with the reference one.  Only the
+architectures of the ported slices are registered (dense decoders and the
+attention-free Mamba-1 LM); the rest of the reference's zoo joins as the
+port grows (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -92,6 +93,10 @@ class ModelConfig:
         return len(self.layer_pattern)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
@@ -142,7 +147,7 @@ class ModelConfig:
 
 
 # The architectures the port runs.
-ARCH_IDS = ["minicpm_2b", "gptj_6b", "llama2_13b"]
+ARCH_IDS = ["minicpm_2b", "gptj_6b", "llama2_13b", "falcon_mamba_7b"]
 
 # Every architecture of the reference package; those not in ARCH_IDS are
 # still to be ported.

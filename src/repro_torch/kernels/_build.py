@@ -66,6 +66,11 @@ SIGNATURES = {
         # scale, stream
         "paged_decode": (_P,) * 6 + (_I,) * 8 + (_L,) * 4 + (_I, _F, _P),
     },
+    "mamba_scan": {
+        # x, dt, a, b, c, d_skip, h0, y, h_out, bf16, B, L, D, N,
+        # x/dt/b/c strides (batch, step), stream
+        "mamba_scan": (_P,) * 9 + (_I,) * 5 + (_L,) * 8 + (_P,),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 # C signature of every generated source (K5), and the headers it includes.

@@ -4,14 +4,16 @@ A CPU tensor runs the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor runs the hand-written CUDA kernel, which launches or raises.  There is
 no backend switch and no fallback: a kernel that fails to build or launch
 fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
-``attention``, ``decode_attention``, ``paged_decode_attention``).
+``attention``, ``decode_attention``, ``paged_decode_attention``,
+``mamba_scan``).
 
 ``matmul`` and ``attention`` are ``torch.autograd.Function``s when an input
 requires a gradient.  Their forward and backward dispatch by device too, so
 the CPU tests run the same Function, saved tensors and backward wiring as
 the card: ``matmul``'s backward is K1 on transposed operands, ``attention``'s
 is K6 fed by K2's row log-sum-exp.  When no input requires a gradient they
-call the forward alone and save nothing.
+call the forward alone and save nothing.  ``mamba_scan`` has no backward
+yet and raises when an input requires a gradient.
 """
 from __future__ import annotations
 
@@ -20,8 +22,10 @@ import torch
 from repro_torch.core import tpp
 from repro_torch.kernels import brgemm, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as scan
 
-__all__ = ["matmul", "attention", "decode_attention", "paged_decode_attention"]
+__all__ = ["matmul", "attention", "decode_attention", "paged_decode_attention",
+           "mamba_scan"]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -156,3 +160,20 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, *, page_size,
             length=length, window=window)
     return fa.paged_decode(q, k_pool, v_pool, page_table, page_size=page_size,
                            length=length, window=window)
+
+
+def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
+    """The selective scan of a Mamba-1 layer, x, dt (B, L, D), a (D, N),
+    b_in, c_in (B, L, N), d_skip (D,), h0 (B, D, N) or None; → (y (B, L, D)
+    in x's dtype, h_final (B, D, N) fp32) (K8).  ``h_out`` (B, D, N) fp32,
+    contiguous, receives h_final when given and may be ``h0``: a cache's
+    state is then updated in place.  Inference only: there is no backward
+    yet, so an input that requires a gradient raises."""
+    if _wants_grad(x, dt, a, b_in, c_in, d_skip, h0):
+        raise NotImplementedError(
+            "mamba_scan has no backward yet: mamba training is still to be "
+            "ported (ROADMAP.md, Queue 1)")
+    if _on_cpu(x, dt, a, b_in, c_in, d_skip, h0, h_out):
+        y, h = ref.mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, h0=h0)
+        return (y, h) if h_out is None else (y, h_out.copy_(h))
+    return scan.mamba_scan(x, dt, a, b_in, c_in, d_skip, h0=h0, h_out=h_out)

@@ -18,7 +18,8 @@ import torch
 from repro_torch.core import tpp
 
 __all__ = ["matmul_ref", "matmul_bwd_ref", "attention_ref", "attention_fwd_ref",
-           "attention_bwd_ref", "decode_attention_ref", "paged_decode_attention_ref"]
+           "attention_bwd_ref", "decode_attention_ref", "paged_decode_attention_ref",
+           "mamba_scan_ref"]
 
 
 def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
@@ -155,3 +156,25 @@ def paged_decode_attention_ref(q, k_pool, v_pool, page_table, *, page_size,
     v = v_pool[idx].reshape(b, s, v_pool.shape[2], -1).transpose(1, 2)
     return decode_attention_ref(q, k, v, length=length, window=window,
                                 out_dtype=out_dtype)
+
+
+def mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, *, h0=None):
+    """Selective state-space scan (Mamba-1): x, dt (B, L, D); a (D, N), the
+    negative decay rates; b_in, c_in (B, L, N); d_skip (D,); h0 (B, D, N)
+    the state to continue from (zeros when None).  Per step, in fp32:
+    h <- h * exp(dt A) + (dt B) x and y = h C; then y + D x, cast to x's
+    dtype.  → (y (B, L, D), h_final (B, D, N) fp32).
+    A loop over time, one length or another; ``h0`` is not modified."""
+    bsz, l, dch = x.shape
+    n = a.shape[1]
+    xf, dtf = x.float(), dt.float()
+    bf, cf = b_in.float(), c_in.float()
+    af = a.float()
+    h = (torch.zeros(bsz, dch, n, device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(l):
+        dtt = dtf[:, t, :, None]                             # (B, D, 1)
+        h = h * torch.exp(dtt * af) + dtt * bf[:, t, None, :] * xf[:, t, :, None]
+        ys.append((h * cf[:, t, None, :]).sum(-1))
+    y = (torch.stack(ys, 1) if ys else xf.new_zeros(bsz, 0, dch)) + xf * d_skip.float()
+    return y.to(x.dtype), h

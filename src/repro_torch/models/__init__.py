@@ -1,1 +1,1 @@
-"""Dense decoder blocks and language-model assembly."""
+"""Decoder blocks (dense and Mamba-1) and language-model assembly."""

@@ -16,9 +16,10 @@ and plain).  With ``cfg.use_fusion`` the output projection (with the
 block's residual and the training path's dropout), the MLP's up projection
 and the no-cache attention (the chained root) are fused TppGraphs
 (``repro_torch.fusion``: K5 on the card) with derived backward graphs, as
-in ``repro``.  The ring-buffer local cache, MLA, MoE,
-mamba and cross-attention branches are still to be ported (ROADMAP.md,
-Queue 1).
+in ``repro``.  The Mamba-1 block (``mamba_apply``: the selective scan, K8
+on the card) serves with the dense and the paged caches; it has no
+backward yet.  The ring-buffer local cache, MLA, MoE and cross-attention
+branches are still to be ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ from repro_torch.fusion import library as fusion_lib
 from repro_torch.fusion import rng
 from repro_torch.kernels import ops
 
-__all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp",
-           "apply_rope", "attention_apply", "mlp_apply", "ATTN_OUT_DROPOUT_SALT"]
+__all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp", "init_mamba",
+           "apply_rope", "attention_apply", "mlp_apply", "mamba_apply",
+           "ATTN_OUT_DROPOUT_SALT"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _CAUSAL_KINDS = ("attn", "local", "global")
@@ -290,3 +292,96 @@ def mlp_apply(cfg: ModelConfig, p, x2d):
         return ops.matmul(tpp.mul(g, u), p["wd"])
     hid = ops.matmul(x2d, p["wu"], bias=p["bu"], activation=act)
     return ops.matmul(hid, p["wd"], bias=p["bd"])
+
+
+# --------------------------------------------------------------------------
+# Mamba-1 block (selective SSM)
+# --------------------------------------------------------------------------
+
+def init_mamba(cfg: ModelConfig, gen, dtype=None):
+    """The reference's initialisation: S4D-real A (``a_log`` = log 1..N per
+    channel), dt bias -2 (softplus about 0.12), unit skip ``d_skip``.
+    ``dt_bias``, ``a_log`` and ``d_skip`` stay fp32 (the reference reads
+    them uncast); the rest is stored in ``dtype``."""
+    d, di, n, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    dt = dtype or compute_dtype(cfg)
+    dev = gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "w_in": _init(gen, (d, 2 * di), dtype=dt),
+        "conv_w": _init(gen, (cfg.ssm_conv, di), 0.5, dtype=dt),
+        "conv_b": torch.zeros(di, dtype=dt, device=dev),
+        "w_x": _init(gen, (di, dr + 2 * n), dtype=dt),
+        "w_dt": _init(gen, (dr, di), 1.0 / math.sqrt(dr), dtype=dt),
+        "dt_bias": torch.full((di,), -2.0, **f32),
+        "a_log": torch.log(torch.arange(1, n + 1, **f32)).expand(di, n).contiguous(),
+        "d_skip": torch.ones(di, **f32),
+        "w_out": _init(gen, (di, d), 1.0 / math.sqrt(di), dtype=dt),
+    }
+
+
+def _causal_conv(w, b, x, state=None):
+    """Depthwise causal convolution of window c = len(w) over x (B, S, di),
+    continuing from ``state`` (B, c-1, di), the previous c-1 inputs (zeros
+    when None); → (y in x's dtype, the last c-1 inputs)."""
+    c = w.shape[0]
+    if state is None:
+        state = x.new_zeros(x.shape[0], c - 1, x.shape[2])
+    xp = torch.cat([state, x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i] for i in range(c)) + b
+    new_state = xp[:, s:] if c > 1 else state
+    return y.to(x.dtype), new_state
+
+
+def mamba_apply(cfg: ModelConfig, p, x, *, cache=None, length=None):
+    """x (B, S, d) → out (B, S, d).  ``cache`` ``{"conv": (B, c-1, di),
+    "h": (B, di, N) fp32}`` carries the decode context and is updated in
+    place (the reference returns a new one).  ``length`` ((B,) integer
+    tensor) marks positions >= length[i] as padding: their update is the
+    identity (dt = 0, x = 0) and the conv state is taken at the true
+    boundary, so a bucket-padded prefill leaves the state of a
+    length[i]-token prompt.  Counterpart of ``repro/models/blocks.py``'s
+    ``mamba_apply``; the scan is ``ops.mamba_scan`` (K8 on the card)."""
+    dt_ = x.dtype
+    b, s, d = x.shape
+    di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+    conv_w, conv_b = p["conv_w"].to(dt_), p["conv_b"].to(dt_)
+
+    xz = ops.matmul(x.reshape(b * s, d), p["w_in"]).view(b, s, 2 * di)
+    xi, z = xz[..., :di], xz[..., di:]
+    conv_state = cache["conv"] if cache is not None else None
+    boundary = None
+    if length is not None:
+        pad_keep = (torch.arange(s, device=x.device)[None, :] < length[:, None])[..., None]
+        c = conv_w.shape[0]
+        if c > 1:
+            # the conv window ends at the valid length, not at S
+            st = conv_state if conv_state is not None else xi.new_zeros(b, c - 1, di)
+            xp = torch.cat([st, xi], dim=1)                        # (B, S+c-1, di)
+            idx = length[:, None] + torch.arange(c - 1, device=x.device)[None, :]
+            boundary = torch.gather(xp, 1, idx[..., None].expand(b, c - 1, di))
+    xi, new_conv = _causal_conv(conv_w, conv_b, xi, conv_state)
+    if boundary is not None:
+        new_conv = boundary
+    xi = tpp.silu(xi)
+
+    proj = ops.matmul(xi.reshape(b * s, di), p["w_x"])             # (B·S, dr + 2N)
+    dt_raw = ops.matmul(proj[:, :dr], p["w_dt"])
+    dt_v = torch.logaddexp(dt_raw.float() + p["dt_bias"],
+                           torch.zeros((), device=x.device)).to(dt_).view(b, s, di)
+    proj = proj.view(b, s, dr + 2 * n)
+    b_in, c_in = proj[..., dr:dr + n], proj[..., dr + n:]
+    if length is not None:
+        # dt = 0 makes the state update the identity; x = 0 adds nothing
+        dt_v = torch.where(pad_keep, dt_v, 0)
+        xi = torch.where(pad_keep, xi, 0)
+
+    a = -torch.exp(p["a_log"])                                      # (di, N) fp32
+    h = cache["h"] if cache is not None else None
+    y, _ = ops.mamba_scan(xi, dt_v, a, b_in, c_in, p["d_skip"], h0=h, h_out=h)
+    y = tpp.mul(y, tpp.silu(z))
+    out = ops.matmul(y.reshape(b * s, di), p["w_out"]).view(b, s, d)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+    return out

@@ -8,7 +8,8 @@ a leading axis (``groups[g][pos][...][i]``); here they become one dictionary
 per layer.  Embeddings, projection weights and biases are stored in
 ``dtype``: the compute dtype by default (serving), or ``torch.float32`` to
 keep the reference's fp32 masters bit for bit (training).  Norm scales and
-biases stay fp32.
+biases stay fp32, and so do a mamba block's ``dt_bias``, ``a_log`` and
+``d_skip``, which the reference reads uncast.
 """
 from __future__ import annotations
 
@@ -23,20 +24,25 @@ from repro_torch.models import lm
 __all__ = ["params_from_numpy"]
 
 
-def _is_norm(key: str) -> bool:
-    return key.startswith("norm") or key == "final_norm"
+# Mamba parameters the reference reads uncast, in fp32.
+_FP32_KEYS = ("dt_bias", "a_log", "d_skip")
+
+
+def _keeps_fp32(key: str) -> bool:
+    return key.startswith("norm") or key == "final_norm" or key in _FP32_KEYS
 
 
 def _convert(node, dev, dt):
-    """Dict tree of arrays → dict tree of tensors; subtrees under a norm key
-    keep fp32."""
+    """Dict tree of arrays → dict tree of tensors; norm subtrees and the
+    mamba parameters of ``_FP32_KEYS`` keep fp32."""
     out = {}
     for key, val in node.items():
+        keep = torch.float32 if _keeps_fp32(key) else dt
         if isinstance(val, dict):
-            out[key] = _convert(val, dev, torch.float32 if _is_norm(key) else dt)
+            out[key] = _convert(val, dev, keep)
         else:
             t = torch.from_numpy(np.array(val, np.float32))
-            out[key] = t.to(device=dev, dtype=torch.float32 if _is_norm(key) else dt)
+            out[key] = t.to(device=dev, dtype=keep)
     return out
 
 

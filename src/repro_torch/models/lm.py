@@ -1,4 +1,4 @@
-"""Dense decoder LM: init, forward, loss, dense KV-cache prefill and decode.
+"""Decoder LM: init, forward, loss, dense-cache prefill and decode.
 
 Ported from ``repro/models/lm.py``.  The reference stacks each layer group's
 parameters on a leading axis and runs ``lax.scan`` over it; here
@@ -6,18 +6,22 @@ parameters on a leading axis and runs ``lax.scan`` over it; here
 a Python loop.  ``models.convert.params_from_numpy`` builds that list from
 the reference's stacked pytree.
 
-Dense caches are a list with one ``{"k", "v"}`` dictionary of
-(B, Hk, S_max, hd) tensors per layer; the serving engine's paged caches
-(``init_paged_cache``) are a list with one ``{"k", "v"}`` dictionary of
-token-major page pools (num_pages + 1, page_size, Hk, hd) per layer.  Both
-are updated in place by ``prefill`` and ``decode_step``.
+Dense caches are a list with one dictionary per layer: ``{"k", "v"}`` of
+(B, Hk, S_max, hd) tensors for an attention layer, ``{"conv", "h"}`` of
+(B, conv-1, d_inner) and (B, d_inner, N) fp32 state for a mamba layer.  The
+serving engine's paged caches (``init_paged_cache``) hold token-major page
+pools (num_pages + 1, page_size, Hk, hd) for each attention layer and
+per-slot mamba state.  Both are updated in place by ``prefill`` and
+``decode_step``.
 
-Training (``lm_loss``) takes fp32 master parameters (``init_params(...,
-dtype=torch.float32)``), cast to the compute dtype at use.  Only dense
-decoders run here; MoE, MLA, SSM, encoder-decoder and VLM configs raise
-``NotImplementedError`` (ROADMAP.md, Queue 1).  ``use_fusion`` configs
-serve and train through the fused TppGraph layers and their derived
-backward graphs.
+Dense decoders and the attention-free Mamba-1 LM (falcon-mamba-7b, served
+only: the scan has no backward yet) run here; MoE, MLA, encoder-decoder,
+bidirectional and VLM configs raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1).  Training (``lm_loss``) takes fp32 master parameters
+(``init_params(..., dtype=torch.float32)``), cast to the compute dtype at
+use.  ``use_fusion`` configs serve and train through the fused TppGraph
+layers and their derived backward graphs; a mamba block has no fused form
+and computes the same either way, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,7 +55,6 @@ def _check_dense(cfg: ModelConfig) -> None:
         "MoE layers": cfg.is_moe, "MLA attention": cfg.use_mla,
         "encoder-decoder models": cfg.is_encdec,
         "modality frontends": cfg.frontend is not None,
-        "mamba layers": "mamba" in cfg.layer_pattern,
         "bidirectional decoder layers": "bidir" in cfg.layer_pattern,
     }
     for what, present in unsupported.items():
@@ -60,8 +63,8 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def derive_groups(cfg: ModelConfig) -> list[LayerGroup]:
-    """The reference's layer groups for a dense decoder: one group, its
-    period the config's layer pattern."""
+    """The reference's layer groups for a decoder without MoE layers: one
+    group, its period the config's layer pattern."""
     _check_dense(cfg)
     sigs = cfg._layer_kinds()
     period = cfg.pattern_period
@@ -80,9 +83,12 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 # Blocks and parameters
 # --------------------------------------------------------------------------
 
-def init_block(cfg: ModelConfig, gen, dtype=None):
-    p = {"norm1": B.init_norm(cfg, gen.device),
-         "attn": B.init_attention(cfg, gen, dtype)}
+def init_block(cfg: ModelConfig, gen, kind: str, dtype=None):
+    p = {"norm1": B.init_norm(cfg, gen.device)}
+    if kind == "mamba":
+        p["mamba"] = B.init_mamba(cfg, gen, dtype)
+    else:
+        p["attn"] = B.init_attention(cfg, gen, dtype)
     if cfg.d_ff > 0:
         p["norm2"] = B.init_norm(cfg, gen.device)
         p["mlp"] = B.init_mlp(cfg, gen, dtype)
@@ -91,20 +97,26 @@ def init_block(cfg: ModelConfig, gen, dtype=None):
 
 def block_apply(cfg: ModelConfig, p, x, *, kind: str, cache=None,
                 cache_pos=0, positions=None, page_table=None, page_size=0,
-                dropout_seed=None):
+                dropout_seed=None, seq_lengths=None):
     """Pre-norm residual block → (x, cache).  ``dropout_seed`` (training
     only, already folded per layer) enables the attention-output dropout.
-    With ``cfg.use_fusion`` the residual rides the fused output projection
-    (``fused_attn_out_res``), which returns the post-residual value, as in
-    ``repro/models/lm.py``."""
+    With ``cfg.use_fusion`` the residual of an attention block rides the
+    fused output projection (``fused_attn_out_res``), which returns the
+    post-residual value, as in ``repro/models/lm.py``.  A mamba block keeps
+    its per-row state in the cache whatever the layout of the attention
+    caches, and honours ``seq_lengths`` ((B,) valid-token counts), so a
+    bucket-padded prefill leaves exact state."""
     h = B._norm(cfg, p["norm1"], x)
-    res_folded = cfg.use_fusion
-    out, cache = B.attention_apply(cfg, p["attn"], h, kind=kind,
-                                   positions=positions, cache=cache,
-                                   cache_pos=cache_pos, page_table=page_table,
-                                   page_size=page_size, dropout_seed=dropout_seed,
-                                   residual=x if res_folded else None)
-    x = out if res_folded else x + out
+    if kind == "mamba":
+        x = x + B.mamba_apply(cfg, p["mamba"], h, cache=cache, length=seq_lengths)
+    else:
+        res_folded = cfg.use_fusion
+        out, cache = B.attention_apply(cfg, p["attn"], h, kind=kind,
+                                       positions=positions, cache=cache,
+                                       cache_pos=cache_pos, page_table=page_table,
+                                       page_size=page_size, dropout_seed=dropout_seed,
+                                       residual=x if res_folded else None)
+        x = out if res_folded else x + out
     if "mlp" in p:
         h = B._norm(cfg, p["norm2"], x)
         b, s, d = h.shape
@@ -119,6 +131,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
     Embeddings, projections and biases are stored in ``dtype``: the compute
     dtype by default (serving), or ``torch.float32`` for the fp32 masters
     training updates (the reference's storage).  Norms are fp32 either way.
+    A mamba block's ``dt_bias``, ``a_log`` and ``d_skip`` stay fp32 too.
     The draws differ from ``jax.random``'s; tests load the reference's
     weights through ``models.convert.params_from_numpy`` instead."""
     dev = resolve_device(device)
@@ -128,7 +141,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
     params = {
         "embed": B._init(gen, (v, d), 0.02, dtype=dt),
         "final_norm": B.init_norm(cfg, gen.device),
-        "layers": [init_block(cfg, gen, dt) for _ in layer_kinds(cfg)],
+        "layers": [init_block(cfg, gen, kind, dt) for kind in layer_kinds(cfg)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = B._init(gen, (d, v), 0.02, dtype=dt)
@@ -157,11 +170,13 @@ def _positions_from(pos0, b, s, device):
 
 def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
                    cache_pos=0, page_table=None, page_size=0, remat=True,
-                   dropout_seed=None):
+                   dropout_seed=None, seq_lengths=None):
     """→ (hidden (B, S, d) in the compute dtype, caches).  ``batch`` holds
     ``tokens`` (B, S) at positions ``cache_pos ..``; ``cache_pos`` may be a
     per-slot (B,) tensor, and ``page_table``/``page_size`` switch the
-    caches to the paged pool layout (see ``init_paged_cache``).
+    attention caches to the paged pool layout (see ``init_paged_cache``).
+    ``seq_lengths`` ((B,), optional) marks the tokens past each row's
+    length as padding for the mamba layers.
 
     Training (no caches, gradients on): with ``remat`` each block runs under
     ``torch.utils.checkpoint``, which keeps only its input and recomputes
@@ -180,7 +195,7 @@ def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
         seed_i = rng.fold_in(dropout_seed, i) if dropout_seed is not None else None
         kw = dict(kind=kind, cache=caches[i] if caches is not None else None,
                   cache_pos=cache_pos, positions=positions, page_table=page_table,
-                  page_size=page_size, dropout_seed=seed_i)
+                  page_size=page_size, dropout_seed=seed_i, seq_lengths=seq_lengths)
         if remat:
             # the blocks draw no torch random numbers: nothing to replay
             x, _ = checkpoint(block_apply, cfg, p, x, use_reentrant=False,
@@ -261,32 +276,45 @@ def _logits(cfg, params, h_last):
 # KV-cache decode
 # --------------------------------------------------------------------------
 
+def _mamba_state(cfg: ModelConfig, rows: int, dev):
+    """Zeroed per-row mamba state: the last conv-1 inputs in the compute
+    dtype and the SSM state in fp32."""
+    return {"conv": torch.zeros(rows, cfg.ssm_conv - 1, cfg.d_inner,
+                                dtype=B.compute_dtype(cfg), device=dev),
+            "h": torch.zeros(rows, cfg.d_inner, cfg.ssm_state,
+                             dtype=torch.float32, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                device=None):
-    """One zeroed ``{"k", "v"}`` pair of (B, Hk, max_seq, hd) per layer."""
+    """Per layer, a zeroed ``{"k", "v"}`` pair of (B, Hk, max_seq, hd) for
+    attention, or ``{"conv", "h"}`` mamba state for B rows."""
     dev = resolve_device(device)
     shape = (batch_size, cfg.num_kv_heads, max_seq, cfg.head_dim)
     dt = B.compute_dtype(cfg)
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+    return [_mamba_state(cfg, batch_size, dev) if kind == "mamba" else
+            {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in layer_kinds(cfg)]
+            for kind in layer_kinds(cfg)]
 
 
-def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, *,
-                     device=None):
-    """The serving engine's caches: per layer, zeroed token-major K and V
-    pools (num_pages + 1, page_size, Hk, hd) shared by all slots through a
-    page table.  The last row is the trash page: table entries of empty or
-    retired slots point at it, so their writes land outside every live
-    request's pages (reads are length-masked).  The reference also takes
-    ``num_slots``, which sizes per-slot mamba state; mamba layers raise
-    here."""
+def init_paged_cache(cfg: ModelConfig, num_slots: int, num_pages: int,
+                     page_size: int, *, device=None):
+    """The serving engine's caches: per attention layer, zeroed token-major
+    K and V pools (num_pages + 1, page_size, Hk, hd) shared by all slots
+    through a page table.  The last row is the trash page: table entries of
+    empty or retired slots point at it, so their writes land outside every
+    live request's pages (reads are length-masked).  Mamba state is O(1)
+    per slot, so a mamba layer holds ``{"conv", "h"}`` for ``num_slots``
+    rows, as ``init_cache`` does; a config without attention layers has no
+    pools."""
     dev = resolve_device(device)
     shape = (num_pages + 1, page_size, cfg.num_kv_heads, cfg.head_dim)
     dt = B.compute_dtype(cfg)
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+    return [_mamba_state(cfg, num_slots, dev) if kind == "mamba" else
+            {"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
-            for _ in layer_kinds(cfg)]
+            for kind in layer_kinds(cfg)]
 
 
 def prefill(cfg: ModelConfig, params, caches, batch, *, page_table=None,
@@ -294,9 +322,13 @@ def prefill(cfg: ModelConfig, params, caches, batch, *, page_table=None,
     """Process the prompt, writing the caches from position 0; →
     (last-token logits (B, V) fp32, caches).  ``logit_index`` ((B,)
     integer tensor) reads each row's logits at its own position instead of
-    the last one: the engine right-pads prompts to a shape bucket."""
+    the last one: the engine right-pads prompts to a shape bucket.  It
+    doubles as the mamba layers' valid length (``logit_index + 1``), so
+    their state is exact despite the padding."""
+    seq_lengths = logit_index.long() + 1 if logit_index is not None else None
     h, caches = forward_hidden(cfg, params, batch, caches=caches, cache_pos=0,
-                               page_table=page_table, page_size=page_size)
+                               page_table=page_table, page_size=page_size,
+                               seq_lengths=seq_lengths)
     if logit_index is None:
         h_last = h[:, -1]
     else:

@@ -6,20 +6,25 @@ statuses and ``stats`` in both packages.  One ``Engine`` owns the device
 state (the paged KV pools and the per-slot ``DecodeState``; params stay
 caller-owned, and the engine runs on their device) and the host bookkeeping
 (scheduler, page allocator, per-request outputs, statuses, latency
-metrics).  Each ``step()`` is one continuous-batching iteration:
+metrics).  A mamba layer keeps its state per slot beside the pools; a
+config with no attention layers has no pools, and the page bookkeeping
+runs as for any other.  Each ``step()`` is one continuous-batching
+iteration:
 
 1. **expire/faults**: deadline-expired requests time out, and the fault
    plan's scheduled faults (forced preemption, allocator exhaustion, clock
    skew) fire;
 2. **admit**: waiting requests move into free slots (FIFO, page reservation
    per the admission mode), each running a batch-1 **prefill** at a
-   power-of-two shape bucket (``logit_index`` reads the true last token, so
-   padding never changes results) which also samples its first token;
+   power-of-two shape bucket (``logit_index`` reads the true last token and
+   bounds the mamba layers' update, so padding never changes results) from
+   zeroed mamba state in the slot's rows, and samples its first token;
 3. **grow/preempt**: under optimistic admission, each running slot's pages
    are extended to cover the coming segment's writes; when the pool runs
    dry the youngest-admitted request is preempted and requeued at the head
    with its generated prefix folded into the prompt (sampling keyed on
-   (seed, uid, position) makes the resume bit-identical);
+   (seed, uid, position) makes the resume bit-identical; the re-prefill
+   starts from zero mamba state, like any admission);
 4. **decode**: all running slots advance together for up to
    ``segment_len`` steps; the segment ends early when a request finishes
    while others wait, so its slot refills next step;
@@ -30,15 +35,18 @@ Failures are per request: a NaN/Inf logits row quarantines that request as
 never fit fails instead of raising; deadlines and ``cancel(uid)`` retire
 requests as ``TIMED_OUT``/``CANCELLED``.
 
-Decode runs every slot: empty and retired slots write into the trash page
-and their sampled tokens are discarded.  Where the reference runs a segment
+Decode runs every slot: empty and retired slots write into the trash page,
+advance their own rows of mamba state, and their sampled tokens are
+discarded.  Where the reference runs a segment
 as one jitted ``lax.while_loop`` over donated buffers, here the pools and
 the ``DecodeState`` are updated in place and the segment is a Python loop of
 up to ``segment_len`` steps.  Host reads are the reference's bookkeeping
 reads: one per prefill (first token, quarantine flag), one per decode step
-(the loop's exit test), one per segment (the harvest).  The mamba slot state
-of the reference (``_fresh_slot_state``, ``_merge_slot_state``) is ported
-with the mamba layers; such configs raise here (ROADMAP.md, Queue 1).
+(the loop's exit test), one per segment (the harvest).  The reference's
+``_fresh_slot_state`` and ``_merge_slot_state`` (a zeroed batch-1 copy of
+the mamba state, merged back into the slot after the prefill) become
+``_fresh_slot_state`` here: the slot's rows are zeroed and handed to the
+prefill as views, which it updates in place.
 """
 from __future__ import annotations
 
@@ -156,8 +164,8 @@ class Engine:
         self.kv = PagedKvCache(ecfg.num_slots, num_pages, ecfg.page_size,
                                ecfg.max_pages_per_slot)
         self.sched = Scheduler(ecfg.num_slots, self.kv, mode=ecfg.admission)
-        self.caches = lm.init_paged_cache(cfg, num_pages, ecfg.page_size,
-                                          device=self.device)
+        self.caches = lm.init_paged_cache(cfg, ecfg.num_slots, num_pages,
+                                          ecfg.page_size, device=self.device)
         self._faults = faults if faults is not None else NO_FAULTS
         self._clock = clock if clock is not None else time.perf_counter
         self._skew = 0.0          # virtual seconds added by fault delays
@@ -720,13 +728,26 @@ class Engine:
         plan = self._faults
         return (uids == plan.poison_uid) & (positions >= plan.poison_pos)
 
+    def _fresh_slot_state(self, slot: int):
+        """The caches of a batch-1 prefill into ``slot``: the shared pools,
+        and each mamba layer's rows of the slot, zeroed (a new request
+        starts from zero state), as views the prefill writes in place."""
+        caches = []
+        for cache in self.caches:
+            if "h" in cache:        # a mamba layer's per-slot {conv, h}
+                cache = {k: v[slot:slot + 1] for k, v in cache.items()}
+                for v in cache.values():
+                    v.zero_()
+            caches.append(cache)
+        return caches
+
     def _prefill_one(self, slot: int, req: Request, tokens, table_row):
         """Batch-1 prefill of one admitted request and its first sampled
         token, written into the slot's ``DecodeState``; → (first token,
         quarantine flag), read to the host in one copy."""
         plen, dev = len(req.prompt), self.device
         logit_index = torch.full((1,), plen - 1, dtype=torch.int64, device=dev)
-        logits, _ = lm.prefill(self.cfg, self.params, self.caches,
+        logits, _ = lm.prefill(self.cfg, self.params, self._fresh_slot_state(slot),
                                {"tokens": tokens}, page_table=table_row,
                                page_size=self.ecfg.page_size,
                                logit_index=logit_index)

@@ -5,7 +5,8 @@ weights (``repro.models.lm.init_params`` → numpy → ``params_from_numpy``).
 Paged logits are held to the port's dense logits at atol 2e-4 (the
 reference's own paged-vs-dense tolerance, ``test_serve_engine.py``) and to
 the reference's paged logits at rtol 1e-4 / atol 1e-3 (two fp32 layers
-summed in another order).  Token lists, statuses and ``stats`` of the two
+summed in another order).  Reduced falcon-mamba-7b (Mamba-1 layers, no KV
+pools) runs the same checks where its state replaces the pools.  Token lists, statuses and ``stats`` of the two
 engines must be equal: the same calls drive both, and the sampler is
 bit-exact (``test_torch_serve.py``), so a difference would be a fault of the
 port.
@@ -107,10 +108,11 @@ def _shuffled_table(b, ppr, num_pages, seed):
     return table
 
 
-@pytest.mark.parametrize("arch", ["llama2_13b", "minicpm_2b"])
+@pytest.mark.parametrize("arch", ["llama2_13b", "minicpm_2b", "falcon_mamba_7b"])
 def test_paged_cache_matches_dense_logits(arch):
     """Bucket-padded paged prefill and (B,)-position paged decode reproduce
-    the dense-cache logits (the port's copy of the reference's test)."""
+    the dense-cache logits (the port's copy of the reference's test); for
+    mamba layers the padding must leave the state of the unpadded prompt."""
     cfg, params = _models(arch)["torch"]
     rng = np.random.default_rng(0)
     b, p, new, ps = 3, 8, 5, 4
@@ -127,7 +129,7 @@ def test_paged_cache_matches_dense_logits(arch):
 
     ppr = pages_needed(p + new, ps)
     num_pages = ppr * b + 2
-    pcaches = tlm.init_paged_cache(cfg, num_pages, ps, device="cpu")
+    pcaches = tlm.init_paged_cache(cfg, b, num_pages, ps, device="cpu")
     table = torch.from_numpy(_shuffled_table(b, ppr, num_pages, seed=1))
     padded = torch.cat([prompts, torch.zeros(b, 16 - p, dtype=prompts.dtype)], 1)
     logits, pcaches = tlm.prefill(cfg, params, pcaches, {"tokens": padded},
@@ -187,7 +189,7 @@ def test_paged_prefill_and_decode_match_reference(arch):
     jstep = jax.jit(lambda prm, c, t, pos, tab: jlm.decode_step(
         jcfg, prm, c, t, pos, page_table=tab, page_size=ps))
     jc = jlm.init_paged_cache(jcfg, b, num_pages, ps)
-    tc = tlm.init_paged_cache(tcfg, num_pages, ps, device="cpu")
+    tc = tlm.init_paged_cache(tcfg, b, num_pages, ps, device="cpu")
     jl, jc = jprefill(jparams, jc, jnp.asarray(prompts), jnp.asarray(table), jnp.asarray(lidx))
     tl, tc = tlm.prefill(tcfg, tparams, tc, {"tokens": torch.from_numpy(prompts)},
                          page_table=torch.from_numpy(table), page_size=ps,
@@ -223,14 +225,26 @@ ENGINE_CASES = {
 
 @pytest.mark.parametrize("case", sorted(ENGINE_CASES))
 def test_engine_matches_reference_engine(case):
+    _engine_matches_reference(case, "minicpm_2b")
+
+
+@pytest.mark.parametrize("case", sorted(ENGINE_CASES))
+def test_mamba_engine_matches_reference_engine(case):
+    """Reduced falcon-mamba-7b: 8 requests on 3 slots, so slots are reused
+    (a slot's mamba state must start from zero at each admission and
+    re-prefill), with no KV pools at all."""
+    _engine_matches_reference(case, "falcon_mamba_7b")
+
+
+def _engine_matches_reference(case, arch):
     ecfg, trace_kw = ENGINE_CASES[case]
-    cfg = _models("minicpm_2b")["torch"][0]
+    cfg = _models(arch)["torch"][0]
     reqs = _trace(vocab=cfg.vocab_size, **trace_kw)
     if case == "mixed_sampled":
         for i, r in enumerate(reqs):   # the engine phase's knobs on odd rows
             r.update(temperature=0.8 if i % 2 else 0.0, top_k=5, top_p=0.9)
-    want = _drain("jax", ecfg, reqs)
-    got = _drain("torch", ecfg, reqs)
+    want = _drain("jax", ecfg, reqs, arch=arch)
+    got = _drain("torch", ecfg, reqs, arch=arch)
     _assert_same(want, got)
     for uid, r in enumerate(reqs):
         assert len(got[0][uid]) == len(r["prompt"]) + r["max_new"]
@@ -305,11 +319,19 @@ def test_lifecycle_matches_reference():
 
 
 def test_forced_preemption_resumes_bit_identical():
-    cfg = _models("minicpm_2b")["torch"][0]
+    _forced_preemption("minicpm_2b")
+
+
+def test_mamba_forced_preemption_resumes_bit_identical():
+    _forced_preemption("falcon_mamba_7b")
+
+
+def _forced_preemption(arch):
+    cfg = _models(arch)["torch"][0]
     reqs = _trace(5, 2, cfg.vocab_size)
-    golden = _drain("torch", E_RES, reqs)[0]
+    golden = _drain("torch", E_RES, reqs, arch=arch)[0]
     plan = tserve.FaultPlan(preempt_steps=frozenset({1, 2}))
-    tokens, statuses, stats, eng = _drain("torch", E_RES, reqs, faults=plan)
+    tokens, statuses, stats, eng = _drain("torch", E_RES, reqs, faults=plan, arch=arch)
     assert stats["preemptions"] >= 1
     assert any(m["preemptions"] for m in eng.metrics.values())
     assert tokens == golden
@@ -330,13 +352,24 @@ def test_engine_matches_generate_loop(greedy):
         tserve.generate(cfg, params, prompts, 60, scfg=scfg)
 
 
+def test_mamba_engine_matches_generate_loop():
+    """Reduced falcon-mamba-7b: ``generate`` (the engine, per-slot state)
+    gives ``generate_loop``'s tokens (dense state), sampled."""
+    cfg, params = _models("falcon_mamba_7b")["torch"]
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 8))
+    scfg = tserve.ServeConfig(max_seq=64, greedy=False, temperature=1.5, top_k=20, seed=13)
+    want = tserve.generate_loop(cfg, params, prompts, 6, scfg=scfg)
+    got = tserve.generate(cfg, params, prompts, 6, scfg=scfg)
+    torch.testing.assert_close(got, want)
+
+
 def test_engine_rejects_what_it_cannot_serve():
     cfg, params = _models("minicpm_2b")["torch"]
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tserve.Engine(dataclasses.replace(cfg, is_encdec=True), params,
                       tserve.EngineConfig(**E_RES))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.Engine(dataclasses.replace(cfg, layer_pattern=("mamba",)), params,
+        tserve.Engine(dataclasses.replace(cfg, use_mla=True), params,
                       tserve.EngineConfig(**E_RES))
     with pytest.raises(ValueError, match="admission"):
         tserve.EngineConfig(admission="greedy")

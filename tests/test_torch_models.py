@@ -1,5 +1,5 @@
-"""The port's dense decoder and greedy serving loop against the JAX package,
-on the CPU, for reduced fp32 configs: the reference's own weights
+"""The port's decoders (dense and Mamba-1) and greedy serving loop against
+the JAX package, on the CPU, for reduced fp32 configs: the reference's own weights
 (``repro.models.lm.init_params`` → numpy → ``params_from_numpy``) and the
 same numpy-seeded tokens go through both.
 
@@ -7,7 +7,8 @@ Logits are held at rtol 1e-4 / atol 1e-3 (the fp32 GEMM tolerance of
 ``tests/test_kernels.py``: two layers of fp32 products summed in another
 order); greedy tokens must be equal.  The reference's step functions run
 jitted for the logits and eagerly (``generate_loop(..., jit=False)``) for the
-greedy tokens.
+greedy tokens.  The port's decode steps also reproduce its own full
+forward at the reference's atol 2e-4 (``tests/test_models.py``).
 """
 import dataclasses
 import functools
@@ -26,7 +27,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import decode as tdecode
 
-ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b"]
+ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b"]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-3)
 BATCH, PROMPT, STEPS = 2, 8, 8
 
@@ -91,8 +92,12 @@ def _check_logits(jcfg, jparams, tcfg, tparams):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL,
                                    err_msg=f"decode step {t}")
         assert tlm.finite_logits(tl).all()
-    for layer, (jk, tc) in enumerate(zip(np.asarray(jcache["dec"][0][0]["attn"]["k"]), tcache)):
-        np.testing.assert_allclose(tc["k"].numpy(), jk, **LOGIT_TOL, err_msg=f"layer {layer}")
+    jdec = jcache["dec"][0][0]
+    for part, key in (("attn", "k"), ("mamba", "conv"), ("mamba", "h")):
+        if part in jdec:
+            for layer, tc in enumerate(tcache):
+                np.testing.assert_allclose(tc[key].numpy(), np.asarray(jdec[part][key][layer]),
+                                           **LOGIT_TOL, err_msg=f"layer {layer} {key}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -114,6 +119,24 @@ def _check_tokens(jcfg, jparams, tcfg, tparams):
                                 scfg=tdecode.ServeConfig(max_seq=64))
     assert got.shape == (BATCH, PROMPT + STEPS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_forward(arch):
+    """Prefill of 8 tokens, then 8 decode steps on the dense cache: each
+    step's logits equal the full forward's at that position."""
+    _, _, cfg, params = _models(arch)
+    b, s, p = 2, 16, 8
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s)))
+    h, _ = tlm.forward_hidden(cfg, params, {"tokens": toks})
+    full = tlm._logits(cfg, params, h.reshape(b * s, -1)).view(b, s, -1)
+    caches = tlm.init_cache(cfg, b, s, device="cpu")
+    logits, caches = tlm.prefill(cfg, params, caches, {"tokens": toks[:, :p]})
+    errs = [float((logits - full[:, p - 1]).abs().max())]
+    for t in range(p, s):
+        logits, caches = tlm.decode_step(cfg, params, caches, toks[:, t], t)
+        errs.append(float((logits - full[:, t]).abs().max()))
+    assert max(errs) < 2e-4, errs
 
 
 def test_generate_loop_validates_lengths():

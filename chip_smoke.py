@@ -7,15 +7,22 @@ Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and the
      K5 sources generated from ``csrc/fused_gemm.cuh`` and
-     ``csrc/fused_chain.cuh`` for every fused graph phases 3, 4, 7, 8 and
-     10 launch, forward and derived backward (one nvcc per source, all at
+     ``csrc/fused_chain.cuh`` for every fused graph phases 3, 4, 7, 8, 10
+     and 10b launch, forward and derived backward (one nvcc per source, all at
      once) and print the build time;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
      attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
      TppGraphs: serving's graphs, and the fused training path's chained
      attention, its six derived backward graphs, the projections' derived
-     backward graphs, in-kernel dropout bits and row panels; K8 selective
-     scan at falcon-mamba-7b's prefill and engine-decode shapes) against its
+     backward graphs, in-kernel dropout bits and row panels, and the
+     chained root and its six derived graphs without a causal mask at
+     bert-large's shape; K8 selective scan at falcon-mamba-7b's prefill and
+     engine-decode shapes; K10 Block-SpMM over the Fig. 8 sweep (4096^3,
+     16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
+     dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
+     products; K9 at qwen3-moe's expert widths; K7 Listing 6 at
+     bert-large's output layers and N 5120, beside K5's keep-mask graph;
+     K2 and K6 without a causal mask at bert-large's shape) against its
      plain PyTorch version on the card, at the main paths' shapes plus GQA,
      windowed and ragged ones; print error and tolerance, the median time
      over CUDA events, the plain version's time, one PyTorch library call's
@@ -50,24 +57,39 @@ Phases, each of which must pass:
      bounds, with one profiled decode step; then the engine (8 slots, 16
      ragged requests, greedy and sampled, ``validate()`` after every step)
      and a 3-slot drain with equal tokens;
-  8. train reduced fp32 minicpm-2b and gpt-j-6b for 3 steps on the card and
-     on the CPU from one initial state (loss and grad norm must agree), and
-     check that 2 steps + checkpoint + restore + 2 steps give the parameters
-     of 4 steps straight, bit for bit; then 3 steps of each with
-     ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
+ 7c. the paper's Block-SpMM path (``examples/sparse_inference.py``,
+     ``benchmarks/bench_e2e.py``'s sparse row) at bert-large's widths: both
+     FFN weights magnitude-pruned to 80 % of 8x8 blocks, up, gelu and down
+     through ``ops.block_spmm`` on 4096 tokens with every counter set to 0
+     just before and read just after (one K10 launch a call, nothing else),
+     each against the dense pruned product, timed beside the dense
+     ``torch.matmul``, K1 and the work list at 0 %; then Listing 6 through
+     ``kernels.fused_output`` and qwen3-moe's experts through
+     ``ops.grouped_matmul``, counted the same way;
+  8. train reduced fp32 minicpm-2b, gpt-j-6b and bert-large for 3 steps on
+     the card and on the CPU from one initial state (loss and grad norm
+     must agree), and check that 2 steps + checkpoint + restore + 2 steps
+     give the parameters of 4 steps straight, bit for bit; then 3 steps of
+     each with ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
   9. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
      B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
-     to 0 just before and read just after: losses and grad norms finite, K6
-     launched once per layer per step, K1 with a transposed operand; then 3
-     steps on one repeated batch, whose loss must fall at each step; print
-     step time, tokens/s, model-FLOPs share, bound, peak memory and one
-     profiled step's device breakdown;
+     to 0 just before and read just after: losses and grad norms finite, K1
+     (plain and transposed), K2 and K6 launched as often as the layer count
+     implies; then 3 steps on one repeated batch, whose loss must fall at
+     each step; print step time, tokens/s, model-FLOPs share, bound, peak
+     memory and one profiled step's device breakdown;
  10. train the same model with ``use_fusion=True`` from phase 9's initial
      parameters and batches (4 trainer steps): K5's launches by graph must
      be what the derived backward plans imply (forward graphs twice a layer
      and step under remat, backward graphs once), K2 and K6 must not run,
      step 1's loss within rtol 2e-2 of phase 9's, and the loss must fall on
      a repeated batch; print the same numbers beside phase 9's;
+ 10b. train bert-large at full width and depth (24 bidirectional layers, d
+     1024, B 16 x S 512; ``benchmarks/bench_e2e.py``'s train row) as phase 9
+     (6 steps) and then with ``use_fusion=True`` as phase 10 (4 steps): K1,
+     K2 and K6 launches as the layer count implies, K5's by graph, step 1's
+     fused loss within rtol 2e-2 of the unfused one; print step time,
+     sequences/s, tokens/s, the model-FLOPs share and peak memory;
  11. print one JSON line with every kernel's numbers;
  12. print the last line, ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +138,9 @@ REPLACES = {
     "fused_attention_bwd": "src/repro/fusion/lowering.py:330",
     "fused_proj_bwd": "src/repro/fusion/lowering.py:330",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:27",
+    "block_spmm": "src/repro/kernels/block_spmm.py:72",
+    "grouped_matmul": "src/repro/kernels/block_spmm.py:137",
+    "fused_output": "src/repro/kernels/fused_output.py:48",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -131,6 +156,9 @@ SOURCE = {
     "fused_attention_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "fused_proj_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "block_spmm": "src/repro_torch/kernels/csrc/block_spmm.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/block_spmm.cu",
+    "fused_output": "src/repro_torch/kernels/csrc/fused_output.cu",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
@@ -158,6 +186,15 @@ ROW = {
     "mamba_scan": "one falcon-mamba-7b layer's scan at prefill (B 4, L 512, D 8192, N 16, bf16)"
                   " plus one engine decode step (B 8, L 1, from the cached state); no PyTorch"
                   " call computes a selective scan",
+    "block_spmm": "bert-large's two FFN products at 80 % block sparsity (8x8 blocks) on 4096 tokens"
+                  " (phase 7c: W_up 4096x1024 @ x^T, W_down 1024x4096 @ h^T, bf16); library:"
+                  " torch.matmul on the dense pruned weights",
+    "grouped_matmul": "one qwen3-moe expert layer's up projection: 4096 rows in 64-row tiles, d 4096"
+                      " -> f 1536, 128 experts, sorted group ids, bf16; library: torch._grouped_mm"
+                      " where the card's torch has it",
+    "fused_output": "bert-large's two Listing 6 output layers at 4096 tokens (Bert-Output K 4096,"
+                    " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask); no one"
+                    " PyTorch call fuses the product with dropout, residual and layernorm",
 }
 
 
@@ -214,6 +251,8 @@ class Bench:
         self.cases = {name: [] for name in KERNELS}
         # a kernel's library time measured for its whole row at once
         self.library_row = {}
+        # numbers measured beside the cases (sweeps, K5 beside K7, ...)
+        self.extra = {}
 
     def bound(self, flops, nbytes, kind):
         t_ops = flops / self.peaks[kind]
@@ -395,8 +434,9 @@ def _pairs(torch, sq, skv, causal, window):
 
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
-    windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64), and
-    small ragged fp32 and bf16 checks."""
+    windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
+    bert-large's (B 16, H 16, S 512, D 64, not causal), and small ragged
+    fp32 and bf16 checks."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed
@@ -404,6 +444,7 @@ def attention_cases(torch, bench, ref, fa):
         ("gqa B4 H40 Hk8 S512 D128", 4, 40, 8, 512, 512, 128, True, None, torch.bfloat16, 0, True),
         ("window128 B4 H40 S512 D128", 4, 40, 40, 512, 512, 128, True, 128, torch.bfloat16, 0, True),
         ("minicpm train B4 H36 S1024 D64 causal", 4, 36, 36, 1024, 1024, 64, True, None, torch.bfloat16, 0, True),
+        ("bert train B16 H16 S512 D64 noncausal", 16, 16, 16, 512, 512, 64, False, None, torch.bfloat16, 0, True),
         ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, torch.float32, 0, False),
         ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, torch.float32, 0, False),
         ("check Sq40 Skv40 H6 Hk3 D64 noncausal", 1, 6, 3, 40, 40, 64, False, None, torch.bfloat16, 0, False),
@@ -436,7 +477,8 @@ def attention_bwd_cases(torch, bench, ref, fa):
     """K6 against its plain version from the same (o, lse) of K2 (whose o
     and lse are first held against the plain version's): minicpm-2b's training
     shape (B 4, H 36, S 1024, D 64, causal, bf16), llama2-13b's (B 1, H 40,
-    S 512, D 128), GQA, window 128, and small fp32 and bf16 checks (ragged,
+    S 512, D 128), GQA, window 128, bert-large's (B 16, H 16, S 512, D 64,
+    not causal), and small fp32 and bf16 checks (ragged,
     Sq < Skv, noncausal, D 256, rows with every key masked)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -445,6 +487,7 @@ def attention_bwd_cases(torch, bench, ref, fa):
         ("llama2 B1 H40 S512 D128 causal", 1, 40, 40, 512, 512, 128, True, None, torch.bfloat16, 0, True),
         ("gqa B2 H32 Hk8 S512 D128 causal", 2, 32, 8, 512, 512, 128, True, None, torch.bfloat16, 0, True),
         ("window128 B4 H36 S1024 D64", 4, 36, 36, 1024, 1024, 64, True, 128, torch.bfloat16, 0, True),
+        ("bert B16 H16 S512 D64 noncausal", 16, 16, 16, 512, 512, 64, False, None, torch.bfloat16, 0, True),
         ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, torch.float32, 0, False),
         ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, torch.float32, 0, False),
         ("check Sq40 H6 Hk3 D32 noncausal fp32", 1, 6, 3, 40, 40, 32, False, None, torch.float32, 0, False),
@@ -639,6 +682,289 @@ def mamba_scan_cases(torch, bench, ref, scan):
                   tol_kind="scan", weight=weight, timed=timed, peak="fp32")
 
 
+def block_prune(w, sparsity, bs=8):
+    """Magnitude-based block pruning (the paper's block-wise weight pruning),
+    ``examples/sparse_inference.py``'s helper: zero the ``sparsity`` share
+    of (bs, bs) blocks of ``w`` with the smallest summed magnitudes."""
+    import numpy as np
+    m, n = w.shape
+    tiles = w.reshape(m // bs, bs, n // bs, bs).transpose(0, 2, 1, 3)
+    scores = np.abs(tiles).sum((2, 3))
+    k = int(scores.size * sparsity)
+    thresh = np.partition(scores.ravel(), k)[k] if k else -np.inf
+    tiles = tiles.copy()
+    tiles[scores < thresh] = 0
+    return tiles.transpose(0, 2, 1, 3).reshape(m, n)
+
+
+def random_block_sparse(rng, m, k, bs, sparsity):
+    """An (m, k) fp32 numpy matrix whose (bs, bs) blocks are each zeroed with
+    probability ``sparsity`` (``benchmarks/bench_spmm.py``'s pattern)."""
+    import numpy as np
+    dense = rng.normal(size=(m, k)).astype(np.float32)
+    dense.reshape(m // bs, bs, k // bs, bs).transpose(0, 2, 1, 3)[
+        rng.random((m // bs, k // bs)) < sparsity] = 0
+    return dense
+
+
+def bert_ffn_weights(seed=0):
+    """bert-large's two FFN weights in (out, in) layout, N(0, 1/in), fp32
+    numpy: W_up (4096, 1024) and W_down (1024, 4096)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d, ff = 1024, 4096
+    return (rng.normal(size=(ff, d)).astype(np.float32) / math.sqrt(d),
+            rng.normal(size=(d, ff)).astype(np.float32) / math.sqrt(ff))
+
+
+def block_spmm_cases(torch, bench, ref, spmm, brgemm):
+    """K10 against its plain version: the Fig. 8 sweep of
+    ``benchmarks/bench_spmm.py`` at the card's size (M = K = N = 4096, 16x16
+    blocks, sparsity 0, 0.5, 0.7, 0.9, bf16 and fp32; library: cuBLAS on the
+    dense pruned matrix; K1 on the same dense matrix beside it), 8x8 blocks
+    at 80 %, bert-large's two 80 % sparse FFN products on 4096 tokens with
+    B a transposed view (phase 7c's calls: K10's row), and small checks (an
+    empty block row without padding, ragged N, both layouts of B, fp32
+    out)."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def run(label, blocks, rid, cid, b, nrows, dense=None, weight=0, timed=True, out_dtype=None):
+        name = "bfloat16" if b.dtype == bf16 else "float32"
+        out = out_dtype or b.dtype
+        flops = 2 * blocks.shape[0] * blocks.shape[1] * blocks.shape[2] * b.shape[1]
+        nbytes = (blocks.numel() * blocks.element_size() + 8 * blocks.shape[0]
+                  + b.numel() * b.element_size() + nrows * blocks.shape[1] * b.shape[1] * out.itemsize)
+        bench.run("block_spmm", label,
+                  lambda: spmm.block_spmm(blocks, rid, cid, b, nrows_b=nrows, out_dtype=out_dtype),
+                  lambda: ref.block_spmm_ref(blocks, rid, cid, b, nrows_b=nrows, out_dtype=out_dtype),
+                  (lambda: torch.matmul(dense, b)) if dense is not None else None,
+                  flops=flops, nbytes=nbytes, dtype=name, tol_kind="gemm", weight=weight,
+                  timed=timed)
+        return bench.cases["block_spmm"][-1]
+
+    m = k = n = 4096
+    b32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    sweep = []
+    for sparsity in (0.0, 0.5, 0.7, 0.9):
+        dense_np = random_block_sparse(rng, m, k, 16, sparsity)
+        blocks32, rid, cid = spmm.densify_to_bcsr(dense_np, 16, 16)
+        dense32 = torch.from_numpy(dense_np).cuda()
+        for dt in (bf16, f32):
+            blocks, b, dense = blocks32.to(dt), b32.to(dt), dense32.to(dt)
+            row = run(f"fig8 4096^3 16x16 sparsity {sparsity} {str(dt)[6:]}", blocks, rid, cid, b,
+                      m // 16, dense)
+            entry = {"sparsity": sparsity, "dtype": str(dt)[6:], "nnzb": int(blocks.shape[0]),
+                     "k10_ms": row["ms"], "cublas_dense_ms": row["library_ms"],
+                     "bound_ms": row["bound_ms"]}
+            # the port's own dense GEMM on the same (pruned) matrix
+            entry["k1_dense_ms"] = time_ms(torch, lambda: brgemm.matmul(dense, b))
+            sweep.append(entry)
+            del blocks, dense
+        del blocks32, dense32
+    for dt in ("bfloat16", "float32"):
+        rows = [e for e in sweep if e["dtype"] == dt]
+        base = rows[0]["k10_ms"]
+        for e in rows:
+            e["speedup_vs_k10_at_0"] = base / e["k10_ms"]
+        print(f"  Fig. 8 sweep {dt}: " + "; ".join(
+            f"{e['sparsity']:.0%} K10 {e['k10_ms']:.4f} ms ({e['speedup_vs_k10_at_0']:.2f}x of 0 %,"
+            f" bound {e['bound_ms']:.4f}), K1 dense {e['k1_dense_ms']:.4f},"
+            f" cuBLAS dense {e['cublas_dense_ms']:.4f}" for e in rows), flush=True)
+    bench.extra["fig8_sweep"] = sweep
+
+    dense_np = random_block_sparse(rng, m, k, 8, 0.8)
+    blocks, rid, cid = spmm.densify_to_bcsr(dense_np, 8, 8)
+    dense = torch.from_numpy(dense_np).cuda().to(bf16)
+    run("4096^3 8x8 sparsity 0.8 bfloat16", blocks.to(bf16), rid, cid, b32.to(bf16), m // 8, dense)
+    del blocks, dense, b32
+
+    # phase 7c's two calls: the pruned weight (out, in) times x^T, read in place
+    w_up, w_down = bert_ffn_weights()
+    t = 4096
+    for name, w in (("W_up 4096x1024", w_up), ("W_down 1024x4096", w_down)):
+        w_sp = block_prune(w, 0.8)
+        blocks, rid, cid = spmm.densify_to_bcsr(w_sp, 8, 8)
+        x = torch.randn(t, w.shape[1], generator=gen, device="cuda").to(bf16)
+        dense = torch.from_numpy(w_sp).cuda().to(bf16)
+        run(f"bert {name} 80 % 8x8 @ x^T (T {t})", blocks.to(bf16), rid, cid, x.T, w.shape[0] // 8,
+            dense, weight=1)
+    del blocks, x, dense
+
+    # checks: an empty block row without a padding block, ragged N, both
+    # layouts of B, fp32 out
+    for bs, mm, kk, nn, dt, trans, pad, out in (
+            (8, 64, 96, 300, f32, False, False, None), (8, 64, 96, 300, bf16, True, False, None),
+            (16, 96, 64, 200, bf16, True, True, f32), (16, 48, 64, 129, bf16, False, False, None),
+            (16, 64, 48, 77, f32, True, False, None), (8, 40, 72, 136, bf16, False, True, None)):
+        a = random_block_sparse(rng, mm, kk, bs, 0.5)
+        a[bs:2 * bs] = 0   # block row 1 is empty
+        blocks, rid, cid = spmm.densify_to_bcsr(a, bs, bs, pad_empty_rows=pad)
+        bmat = (torch.randn(nn, kk, generator=gen, device="cuda").T if trans else
+                torch.randn(kk, nn, generator=gen, device="cuda")).to(dt)
+        run(f"check {bs}x{bs} {mm}x{kk} N {nn} {'B^T ' if trans else ''}{str(dt)[6:]}"
+            f"{' no pad' if not pad else ''}{' fp32 out' if out else ''}",
+            blocks.to(dt), rid, cid, bmat, mm // bs, timed=False, out_dtype=out)
+        check(float(spmm.block_spmm(blocks.to(dt), rid, cid, bmat, nrows_b=mm // bs)[bs:2 * bs]
+                    .abs().max()) == 0.0, "K10: the empty block row is not zero")
+
+
+def grouped_matmul_cases(torch, bench, ref, spmm):
+    """K9 against its plain version at qwen3-moe's expert widths
+    (``src/repro/configs/qwen3_moe_235b.py``: d 4096, moe_d_ff 1536, 128
+    experts): 4096 rows in 64-row tiles with sorted group ids drawn from the
+    seed, bf16; library: ``torch._grouped_mm`` where the card's torch has
+    it; plus fp32, ragged and small-tile checks."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def operands(t, d, f, e, bm, dt):
+        x = torch.randn(t, d, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(dt)
+        gid = torch.from_numpy(np.sort(rng.integers(0, e, t // bm)).astype(np.int32)).cuda()
+        return x, w, gid
+
+    t, d, f, e, bm = 4096, 4096, 1536, 128, 64
+    x, w, gid = operands(t, d, f, e, bm, bf16)
+    used = int(torch.unique(gid).numel())
+    library, why = None, None
+    if not hasattr(torch, "_grouped_mm"):
+        why = f"torch {torch.__version__} has no torch._grouped_mm"
+    else:
+        # rows of each expert, in order: offsets are the running row counts
+        offs = (torch.bincount(gid.long(), minlength=e) * bm).cumsum(0).to(torch.int32)
+        wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)    # column-major slabs
+        try:
+            lib_out = torch._grouped_mm(x, wt, offs=offs)
+            err, ok = compare(torch, lib_out, ref.grouped_matmul_ref(x, gid, w), 1e-2, 1e-2)
+            if ok:
+                library = lambda: torch._grouped_mm(x, wt, offs=offs)
+            else:
+                why = f"torch._grouped_mm disagrees with the plain version by {err:.3e}"
+        except (RuntimeError, TypeError, ValueError) as exc:   # the yardstick only
+            why = f"torch._grouped_mm refused these operands: {str(exc).splitlines()[0][:160]}"
+    bench.run("grouped_matmul", f"qwen3-moe T{t} tiles of {bm} d{d} f{f} E{e} ({used} used)",
+              lambda: spmm.grouped_matmul(x, gid, w), lambda: ref.grouped_matmul_ref(x, gid, w),
+              library, flops=2 * t * d * f,
+              nbytes=2 * (t * d + used * d * f + t * f) + 4 * (t // bm), dtype="bfloat16",
+              tol_kind="gemm", weight=1)
+    bench.extra["grouped_matmul_library"] = why or "torch._grouped_mm"
+    if why:
+        print(f"  grouped_matmul library: none, {why}", flush=True)
+    del x, w, gid
+    for t, d, f, e, bm, dt, out in ((192, 96, 200, 5, 48, f32, None), (64, 32, 64, 4, 8, bf16, None),
+                                    (300, 64, 136, 3, 100, bf16, None), (256, 72, 128, 6, 64, f32, bf16),
+                                    (128, 64, 96, 4, 64, bf16, f32)):
+        x, w, gid = operands(t, d, f, e, bm, dt)
+        name = "bfloat16" if dt == bf16 else "float32"
+        bench.run("grouped_matmul", f"check T{t} tiles of {bm} d{d} f{f} E{e} {name}"
+                  + (f" -> {str(out)[6:]}" if out else ""),
+                  lambda: spmm.grouped_matmul(x, gid, w, out_dtype=out),
+                  lambda: ref.grouped_matmul_ref(x, gid, w, out_dtype=out), None,
+                  flops=2 * t * d * f, nbytes=0, dtype=name, tol_kind="gemm", timed=False)
+
+
+def fused_output_cases(torch, bench, fo, fusion):
+    """K7 (Listing 6) against its plain version at bert-large's two output
+    layers (M 4096 tokens, N 1024: Bert-Output K 4096 and Bert-SelfOutput K
+    1024; bf16, dropout 0.1 by a seeded keep mask: K7's row), N 5120 (the
+    panel in device memory) and fp32, each beside K5's ``fused_output_apply``
+    keep-mask graph on the same inputs; plus ragged, no-dropout and fp32-out
+    checks on both panel placements."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+    k5_ms = {}
+    for label, m, k, n, dt, rate, out, weight, timed in (
+            ("Bert-Output M4096 K4096 N1024", 4096, 4096, 1024, bf16, 0.1, None, 1, True),
+            ("Bert-SelfOutput M4096 K1024 N1024", 4096, 1024, 1024, bf16, 0.1, None, 1, True),
+            ("M4096 K1024 N5120", 4096, 1024, 5120, bf16, 0.1, None, 0, True),
+            ("fp32 M4096 K1024 N1024", 4096, 1024, 1024, f32, 0.1, None, 0, True),
+            ("check fp32 M77 K50 N130", 77, 50, 130, f32, 0.3, None, 0, False),
+            ("check fp32 M70 K64 N2000 (device panel)", 70, 64, 2000, f32, 0.2, None, 0, False),
+            ("check bf16 M33 K72 N1700 (device panel)", 33, 72, 1700, bf16, 0.5, None, 0, False),
+            ("check bf16 M40 K96 N256 no dropout", 40, 96, 256, bf16, 0.0, None, 0, False),
+            ("check bf16 M64 K128 N384 fp32 out", 64, 128, 384, bf16, 0.1, f32, 0, False)):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(dt)
+        res = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+        bias, gamma, beta = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+        keep = torch.rand(m, n, generator=gen, device="cuda") > rate
+        args = (x, w, bias, res, gamma, beta)
+        name = "bfloat16" if (out or dt) == bf16 else "float32"
+        got = bench.run("fused_output", label,
+                        lambda: fo.fused_output(*args, keep_mask=keep, dropout_rate=rate, out_dtype=out),
+                        lambda: fo.fused_output_ref(*args, keep_mask=keep, dropout_rate=rate,
+                                                    out_dtype=out),
+                        None, flops=2 * m * n * k,
+                        nbytes=_nbytes(x, w, res, keep) + m * n * (out or dt).itemsize + 12 * n,
+                        dtype=name, tol_kind="gemm", weight=weight, timed=timed)
+        if timed:     # the same layer as K5's keep-mask graph (fusion.library.fused_output_apply)
+            with torch.no_grad():
+                k5 = lambda: fusion.library.fused_output_apply(*args, keep_mask=keep, dropout_rate=rate)
+                err, ok = compare(torch, k5(), got, *TOL[name]["gemm"])
+                check(ok, f"K5's fused_output_apply and K7 disagree at {label}: {err:.3e}")
+                k5_ms[label] = time_ms(torch, k5)
+            print(f"    K5 fused_output_apply (keep mask) at {label}: {k5_ms[label]:.4f} ms"
+                  f" (K7 {bench.cases['fused_output'][-1]['ms']:.4f}); |K5 - K7| {err:.3e}", flush=True)
+    bench.extra["fused_output_k5_ms"] = k5_ms
+
+
+def bert_attention_cases(torch, bench, fusion):
+    """Bidirectional attention at bert-large's training shape (B 16, H 16,
+    S 512, D 64, bf16) through K5's chained root and its six derived
+    backward graphs (each fed the plain version's outputs of the graphs
+    before it), beside SDPA and SDPA's backward; K2 and K6 at this shape
+    are cases of ``attention_cases`` and ``attention_bwd_cases``."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    f32 = torch.float32
+    b, h, s, d = 16, 16, 512, 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run(kernel, label, graph, ops, *, flops, nbytes, library=None, out_dtype=None, peak="bf16"):
+        k5, plain = _graph_run(torch, fusion, graph, out_dtype)
+        tol = "bfloat16" if out_dtype is None else "float32"
+        return bench.run(kernel, f"{graph.name} {label}", lambda: k5(**ops), lambda: plain(**ops),
+                         library, flops=flops, nbytes=nbytes, dtype=tol, tol_kind="gemm", peak=peak)
+
+    q = randn(b, s, h, d).transpose(1, 2)
+    k, v, dy = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
+    graph = fusion.fused_attention_graph(causal=False, scale=d ** -0.5)
+    full = 2 * b * h * s * s * d
+    run("fused_chain", f"bert B{b} H{h} S{s} D{d} bidirectional", graph, dict(q=q, k=k, v=v),
+        flops=2 * full, nbytes=_nbytes(q, k, v, dy),
+        library=lambda: F.scaled_dot_product_attention(q, k, v))
+    g = {fusion.derive_vjp(graph).graph_role(nm): gr for nm, gr in fusion.backward_graphs(graph).items()}
+    label = f"bert B{b} H{h} S{s} D{d}"
+    p = run("fused_attention_bwd", f"P {label}", g["p"], dict(q=q, k=k), out_dtype=f32, flops=full,
+            nbytes=_nbytes(q, k) + 4 * b * h * s * s)
+    dp = run("fused_attention_bwd", f"dP {label}", g["dp"], dict(dy=dy, v=v), out_dtype=f32,
+             flops=full, nbytes=_nbytes(dy, v) + 4 * b * h * s * s)
+    dz = run("fused_attention_bwd", f"dZ {label}", g["dz"], dict(q=q, k=k, dp=dp), out_dtype=f32,
+             flops=full, nbytes=_nbytes(q, k, dp, dp))
+    del dp
+    for role, ops in (("dq", dict(dz=dz, k=k)), ("dk", dict(dz=dz, q=q)), ("dv", dict(p=p, dy=dy))):
+        run("fused_attention_bwd", f"{role} {label}", g[role], ops, out_dtype=f32, flops=full,
+            nbytes=_nbytes(*ops.values()) + 4 * b * h * s * d, peak="fp32")
+    del p, dz
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+    rows = bench.cases["fused_attention_bwd"][-6:]
+    bench.extra["bert_attention_bwd"] = {
+        "six_graphs_ms": sum(r["ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows),
+        "sdpa_backward_ms": time_ms(torch, lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dy,
+                                                                        retain_graph=True))}
+    print(f"  bert's six derived attention-backward graphs: {bench.extra['bert_attention_bwd']['six_graphs_ms']:.4f}"
+          f" ms against SDPA's backward {bench.extra['bert_attention_bwd']['sdpa_backward_ms']:.4f} ms",
+          flush=True)
+
+
 def sweep_graphs(fusion):
     """Small graphs that between them use every pointwise op K5's generator
     takes (and a graph of two distinct lhs operands)."""
@@ -675,17 +1001,20 @@ def sweep_graphs(fusion):
 
 def fused_graphs(fusion):
     """Every graph phase 3 and the fused serving path launch: the path's
-    (llama2-13b, gpt-j-6b), fused_qkv and the op sweep."""
+    (llama2-13b, gpt-j-6b), fused_qkv, the op sweep, and Listing 6's
+    keep-mask graph beside K7."""
     return [fusion.fused_gated_mlp_graph("silu"), fusion.fused_attn_out_graph(True),
-            fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion)]
+            fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion),
+            fusion.fused_output_graph(0.1, rng_dropout=False)]
 
 
 def training_graphs(fusion):
     """Every K5 graph the fused training path launches for full-width
-    minicpm-2b and the reduced minicpm-2b and gpt-j-6b of phase 8 (the
-    chained attention at each config's scale, fused_attn_out with and
-    without dropout, the gated and plain MLP up projections, and all their
-    derived backward graphs), and phase 3's row-panel and windowed checks."""
+    minicpm-2b and bert-large and the reduced minicpm-2b, gpt-j-6b and
+    bert-large of phase 8 (the chained attention at each config's scale and
+    kind, causal or bidirectional, fused_attn_out with and without dropout,
+    the gated and plain MLP up projections, and all their derived backward
+    graphs), and phase 3's row-panel and windowed checks."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
 
@@ -694,16 +1023,24 @@ def training_graphs(fusion):
            fusion.fused_attention_graph(causal=True, window=256, scale=0.125),
            fusion.fused_output_graph(0.1), fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6)]
     for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
-                get_config("gptj_6b").reduced()):
+                get_config("gptj_6b").reduced(), get_config("bert_large"),
+                get_config("bert_large").reduced()):
         for kind in sorted(set(lm.layer_kinds(cfg))):
-            fwd.append(fusion.fused_attention_graph(
-                causal=True, window=cfg.sliding_window if kind == "local" else 0,
-                scale=1.0 / math.sqrt(cfg.head_dim)))
+            fwd.append(attention_graph(fusion, cfg, kind))
     out = []
     for g in fwd:
         out.append(g)
         out.extend(fusion.backward_graphs(g).values())
     return out
+
+
+def attention_graph(fusion, cfg, kind):
+    """The chained-root attention graph a ``kind`` layer of ``cfg`` runs
+    with ``use_fusion``: causal (and windowed for a local layer), or
+    bidirectional for bert's ``bidir`` layers."""
+    return fusion.fused_attention_graph(
+        causal=kind != "bidir", window=cfg.sliding_window if kind == "local" else 0,
+        scale=1.0 / math.sqrt(cfg.head_dim))
 
 
 def fused_sources(fusion, fused_gemm, graphs=None):
@@ -1761,6 +2098,126 @@ def mamba_full_width(torch, counters, peaks):
     return result
 
 
+def sparse_ffn(torch, counters, peaks, spmm, fo):
+    """Phase 7c, the paper's Block-SpMM path at bert-large's widths (what
+    ``examples/sparse_inference.py`` and ``benchmarks/bench_e2e.py``'s
+    sparse row do): both FFN weights magnitude-pruned to 80 % block sparsity
+    in 8x8 blocks, each linear ``ops.block_spmm(blocks, rid, cid, x.T,
+    nrows_b=out // 8).T`` on 4096 tokens (B 8 x S 512) in bf16, up, gelu,
+    down, with every counter set to 0 just before and read just after: one
+    K10 launch a call and nothing else; each output against the dense
+    product of its pruned weight; times of the dense ``torch.matmul``, K1
+    on the same dense weight, the work list at 0 % and at 80 %, each beside
+    its bound.  Then Listing 6 at bert's Bert-Output layer through
+    ``kernels.fused_output`` and qwen3-moe's expert product through
+    ``ops.grouped_matmul``, each counted the same way."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import brgemm, ops
+
+    bf16 = torch.bfloat16
+    tokens, sparsity = 8 * 512, 0.8
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(tokens, 1024, generator=gen, device="cuda").to(bf16)
+    layers = {}
+    for name, w in zip(("W_up", "W_down"), bert_ffn_weights()):
+        w_sp = block_prune(w, sparsity)
+        nz = np.abs(w_sp.reshape(w.shape[0] // 8, 8, w.shape[1] // 8, 8)).sum((1, 3)) != 0
+        blocks, rid, cid = spmm.densify_to_bcsr(w_sp, 8, 8)
+        blocks0, rid0, cid0 = spmm.densify_to_bcsr(w, 8, 8)
+        layers[name] = {"sparse": (blocks.to(bf16), rid, cid), "full": (blocks0.to(bf16), rid0, cid0),
+                        "dense": torch.from_numpy(w_sp).cuda().to(bf16), "out": w.shape[0],
+                        "sparsity": float(1 - nz.mean())}
+
+    def linear(layer, inp, which="sparse"):
+        blocks, rid, cid = layer[which]
+        return ops.block_spmm(blocks, rid, cid, inp.T, nrows_b=layer["out"] // 8).T
+
+    # the path: up, gelu, down
+    counters.reset()
+    up = linear(layers["W_up"], x)
+    h = F.gelu(up, approximate="tanh")
+    y = linear(layers["W_down"], h)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches["block_spmm"] == 2 and sum(launches.values()) == 2,
+          f"the sparse FFN launched {launches}, want K10 twice and nothing else")
+    check(y.shape == (tokens, 1024) and bool(torch.isfinite(y).all()), "sparse FFN output not finite")
+    result = {"tokens": tokens, "launches": launches, "layers": {}}
+    rtol, atol = TOL["bfloat16"]["gemm"]
+    for name, inp, got in (("W_up", x, up), ("W_down", h, y)):
+        layer = layers[name]
+        counters.reset()
+        linear(layer, inp)
+        per_call = counters.read()["block_spmm"]
+        check(per_call == 1, f"{name}: K10 launched {per_call} times in one call")
+        want = inp.float() @ layer["dense"].float().T
+        err, ok = compare(torch, got, want, rtol, atol)
+        check(ok, f"{name}: the sparse product differs from the dense pruned one by {err:.3e}")
+        out, k = layer["dense"].shape
+        nnzb = layer["sparse"][0].shape[0]
+        nnzb0 = layer["full"][0].shape[0]
+
+        def bound(items, dense=False):
+            flops = 2 * (out * k if dense else items * 64) * tokens
+            nbytes = 2 * ((out * k if dense else items * 64) + k * tokens + out * tokens) \
+                + (0 if dense else 8 * items)
+            return max(flops / peaks["bf16"], nbytes / peaks["hbm"]) * 1e3
+        dense_w = layer["dense"]
+        row = {"sparsity": layer["sparsity"], "nnzb": nnzb, "nnzb_at_0": nnzb0, "max_abs_err": err,
+               "dense_torch_matmul_ms": time_ms(torch, lambda: torch.matmul(inp, dense_w.T)),
+               "dense_k1_ms": time_ms(torch, lambda: brgemm.matmul(inp, dense_w.T)),
+               "work_list_0_ms": time_ms(torch, lambda: linear(layer, inp, "full")),
+               "work_list_ms": time_ms(torch, lambda: linear(layer, inp)),
+               "dense_bound_ms": bound(0, dense=True), "work_list_0_bound_ms": bound(nnzb0),
+               "work_list_bound_ms": bound(nnzb)}
+        row["speedup_vs_0"] = row["work_list_0_ms"] / row["work_list_ms"]
+        row["speedup_vs_dense"] = row["dense_torch_matmul_ms"] / row["work_list_ms"]
+        result["layers"][name] = row
+        print(f"  {name} ({out}x{k}, block sparsity {layer['sparsity']:.1%}, {nnzb} of {nnzb0} 8x8"
+              f" blocks) on {tokens} tokens: max err {err:.3e} (rtol {rtol}, atol {atol});"
+              f" dense torch.matmul {row['dense_torch_matmul_ms']:.4f} ms (bound"
+              f" {row['dense_bound_ms']:.4f}), K1 dense {row['dense_k1_ms']:.4f} ms, work list at 0 %"
+              f" {row['work_list_0_ms']:.4f} ms (bound {row['work_list_0_bound_ms']:.4f}), at 80 %"
+              f" {row['work_list_ms']:.4f} ms (bound {row['work_list_bound_ms']:.4f});"
+              f" {row['speedup_vs_0']:.2f}x of 0 % (ideal {1 / (1 - sparsity):.2f}x),"
+              f" {row['speedup_vs_dense']:.2f}x of dense", flush=True)
+    del layers, x, up, h, y
+
+    # Listing 6 at bert-large's Bert-Output layer, through its entry point
+    m, k, n = tokens, 4096, 1024
+    xo = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+    wo = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
+    res = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
+    bias, gamma, beta = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    keep = torch.rand(m, n, generator=gen, device="cuda") > 0.1
+    counters.reset()
+    yo = fo.fused_output(xo, wo, bias, res, gamma, beta, keep_mask=keep, dropout_rate=0.1)
+    torch.cuda.synchronize()
+    result["listing6_launches"] = counters.read()
+    check(result["listing6_launches"]["fused_output"] == 1 and bool(torch.isfinite(yo).all()),
+          f"Listing 6: launches {result['listing6_launches']}, finite {bool(torch.isfinite(yo).all())}")
+    del xo, wo, res, keep, yo
+
+    # qwen3-moe's expert up projection through ops.grouped_matmul
+    t, d, f, e, bm = 4096, 4096, 1536, 128, 64
+    xg = torch.randn(t, d, generator=gen, device="cuda").to(bf16)
+    wg = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(bf16)
+    gid = torch.sort(torch.randint(0, e, (t // bm,), generator=gen, device="cuda"))[0].to(torch.int32)
+    counters.reset()
+    yg = ops.grouped_matmul(xg, gid, wg)
+    torch.cuda.synchronize()
+    result["grouped_launches"] = counters.read()
+    check(result["grouped_launches"]["grouped_matmul"] == 1 and bool(torch.isfinite(yg).all()),
+          f"grouped experts: launches {result['grouped_launches']}")
+    print(f"  Listing 6 (M {m}, K {k}, N {n}) launches {result['listing6_launches']['fused_output']}"
+          f" K7; qwen3-moe experts (T {t}, d {d}, f {f}, E {e}) launches"
+          f" {result['grouped_launches']['grouped_matmul']} K9", flush=True)
+    del xg, wg, gid, yg
+    torch.cuda.empty_cache()
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
@@ -1773,7 +2230,10 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
-             "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan"}
+             "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
+             "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
+             "grouped_matmul_bf16_wmma": "grouped_matmul",
+             "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output"}
 
 
 def kernel_of(name):
@@ -1841,8 +2301,9 @@ def k5_kinds(by_graph):
 class Counters:
     """Reads and resets the kernel wrappers' launch counters."""
 
-    def __init__(self, brgemm, fa, fused_gemm, scan):
+    def __init__(self, brgemm, fa, fused_gemm, scan, spmm, fo):
         self.brgemm, self.fa, self.fused_gemm, self.scan = brgemm, fa, fused_gemm, scan
+        self.spmm, self.fo = spmm, fo
 
     def reset(self):
         self.brgemm.LAUNCHES = 0
@@ -1854,6 +2315,9 @@ class Counters:
         self.fused_gemm.LAUNCHES = 0
         self.fused_gemm.GRAPH_LAUNCHES.clear()
         self.scan.SCAN_LAUNCHES = 0
+        self.spmm.SPMM_LAUNCHES = 0
+        self.spmm.GROUPED_LAUNCHES = 0
+        self.fo.LAUNCHES = 0
 
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
@@ -1863,14 +2327,17 @@ class Counters:
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
                 **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES),
-                "mamba_scan": self.scan.SCAN_LAUNCHES}
+                "mamba_scan": self.scan.SCAN_LAUNCHES,
+                "block_spmm": self.spmm.SPMM_LAUNCHES,
+                "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
+                "fused_output": self.fo.LAUNCHES}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
 
 
 def reduced_training(torch):
-    """Reduced fp32 minicpm-2b and gpt-j-6b: three ``make_train_step``
+    """Reduced fp32 minicpm-2b, gpt-j-6b and bert-large: three ``make_train_step``
     steps on CUDA and on the CPU from the same initial state and batches
     (loss and grad norm within TRAIN_TOL), then 4 trainer steps straight
     against 2 steps, a checkpoint, a restore and 2 more on the card
@@ -1885,8 +2352,8 @@ def reduced_training(torch):
     from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                    init_train_state, make_train_step, train)
 
-    for arch, fused in (("minicpm_2b", False), ("gptj_6b", False), ("minicpm_2b", True),
-                        ("gptj_6b", True)):
+    for arch, fused in (("minicpm_2b", False), ("gptj_6b", False), ("bert_large", False),
+                        ("minicpm_2b", True), ("gptj_6b", True), ("bert_large", True)):
         cfg = get_config(arch).reduced()
         if fused:
             cfg = dataclasses.replace(cfg, use_fusion=True, dropout_rate=0.15)
@@ -1934,15 +2401,20 @@ def reduced_training(torch):
 
 
 def training_model_flops(cfg, batch, seq):
-    """(model FLOPs of one step: 6 N tokens plus causal attention forward and
-    backward, remat excluded; FLOPs the step does with remat: one more
-    forward of every layer and one more of the loss chunks' logits)."""
+    """(model FLOPs of one step: 6 N tokens plus attention forward and
+    backward, over the causal pairs S(S+1)/2 of a causal layer and all S^2
+    of a bidirectional one, remat excluded; FLOPs the step does with remat:
+    one more forward of every layer and one more of the loss chunks'
+    logits)."""
+    from repro_torch.models import lm
+
     L, d, ff, h, hd = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
     per_layer = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d \
         + (3 if cfg.gated_mlp else 2) * d * ff
     tokens = batch * seq
-    pairs = seq * (seq + 1) // 2
-    attn_fwd = 4 * batch * h * hd * pairs * L
+    pairs = sum(seq * seq if kind == "bidir" else seq * (seq + 1) // 2
+                for kind in lm.layer_kinds(cfg))
+    attn_fwd = 4 * batch * h * hd * pairs
     logits_fwd = 2 * tokens * d * cfg.padded_vocab
     model = 6 * (L * per_layer + d * cfg.padded_vocab) * tokens + 3 * attn_fwd
     remat = model + 2 * L * per_layer * tokens + attn_fwd + logits_fwd
@@ -1961,10 +2433,7 @@ def fused_training_launches(fusion, cfg, steps):
            else fusion.fused_mlp_graph(cfg.mlp_activation)]
     want = {}
     for kind in lm.layer_kinds(cfg):
-        att = fusion.fused_attention_graph(
-            causal=True, window=cfg.sliding_window if kind == "local" else 0,
-            scale=1.0 / math.sqrt(cfg.head_dim))
-        for g in [att] + fwd:
+        for g in [attention_graph(fusion, cfg, kind)] + fwd:
             g = fusion.simplify_graph(g)
             want[g.name] = want.get(g.name, 0) + 2 * steps
             for name in fusion.backward_graphs(g):
@@ -1972,9 +2441,27 @@ def fused_training_launches(fusion, cfg, steps):
     return want
 
 
-def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
-    """minicpm-2b at full width and depth: 6 trainer steps (fp32 masters,
-    bf16 compute, B 4 x S 1024, loss_chunk 512, remat, AdamW defaults, WSD),
+def unfused_training_launches(cfg, seq, loss_chunk):
+    """Launches one unfused training step of ``cfg`` makes under remat: K1
+    twice for each projection of a layer (the forward and remat's
+    recompute) and once more for the activated projection's pre-activation
+    in the backward, K1 on a transposed operand for each projection's dX and
+    dW, K2 twice and K6 once a layer; per loss chunk the logits twice
+    (checkpointed), their dX and dW, a tied embedding read transposed."""
+    products = 4 + (3 if cfg.gated_mlp else 2)
+    chunks = seq // min(loss_chunk, seq)
+    head_plain, head_trans = (1, 3) if cfg.tie_embeddings else (2, 2)
+    L = cfg.num_layers
+    return {"gemm": L * (2 * products + 1) + chunks * head_plain,
+            "gemm_transposed": 2 * L * products + chunks * head_trans,
+            "flash_attention": 2 * L, "flash_attention_bwd": L}
+
+
+def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=1024,
+                     fused=False, unfused=None):
+    """``arch`` at full width and depth: 6 trainer steps (fp32 masters, bf16
+    compute, B ``batch`` x S ``seq``, loss_chunk 512, remat, AdamW defaults,
+    WSD) whose K1, K2 and K6 launches must be what the layer count implies,
     then 3 steps at a small constant learning rate on one repeated batch,
     whose loss must fall at each step, and one profiled step.  With
     ``fused``, ``use_fusion=True`` from the same initial parameters and
@@ -1991,8 +2478,8 @@ def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
     import dataclasses
     from repro_torch import fusion
 
-    cfg = dataclasses.replace(get_config("minicpm_2b"), use_fusion=fused)
-    batch, seq, steps = 4, 1024, 4 if fused else 6
+    cfg = dataclasses.replace(get_config(arch), use_fusion=fused)
+    steps = 4 if fused else 6
     tcfg = TrainConfig(schedule="wsd", peak_lr=3e-4, warmup_steps=2, total_steps=100,
                        loss_chunk=512, remat=True)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
@@ -2019,11 +2506,12 @@ def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
               f" (phase 9): {rel:.2e} relative (tol 2e-2)", flush=True)
         check(rel <= 2e-2, f"fused step 1 loss {hist['loss'][0]} against unfused {unfused['loss'][0]}")
     else:
-        check(launches["flash_attention_bwd"] == cfg.num_layers * steps,
-              f"K6 launched {launches['flash_attention_bwd']} times in {steps} steps of"
-              f" {cfg.num_layers} layers")
-        for name in ("gemm", "flash_attention"):
-            check(launches[name] > 0, f"kernel {name} was not launched by training")
+        want = {k: n * steps for k, n in unfused_training_launches(cfg, seq, 512).items()}
+        print(f"  launches in {steps} steps {dict((k, launches[k]) for k in want)}, implied by"
+              f" {cfg.num_layers} layers: {want}", flush=True)
+        for name, n in want.items():
+            check(launches[name] == n, f"{name} launched {launches[name]} times in {steps} steps"
+                                       f" of {cfg.num_layers} layers, want {n}")
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
     step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
@@ -2032,8 +2520,9 @@ def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
     # the model's work (remat, a choice that trades FLOPs for memory, beside it)
     bound_ms = max(model_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
     remat_bound_ms = max(remat_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
-    result = {"steps": steps, "step_ms_median": step_ms, "step_times_ms":
-              [t * 1e3 for t in hist["step_time"]], "tokens_per_s": tokens / (step_ms / 1e3),
+    result = {"arch": arch, "batch": batch, "seq": seq, "steps": steps, "step_ms_median": step_ms,
+              "step_times_ms": [t * 1e3 for t in hist["step_time"]],
+              "sequences_per_s": batch / (step_ms / 1e3), "tokens_per_s": tokens / (step_ms / 1e3),
               "model_flops_per_step": model_flops, "flops_per_step_with_remat": remat_flops,
               "mfu_bf16_peak": model_flops / (step_ms / 1e3) / peaks["bf16"],
               "step_bound_ms": bound_ms, "step_bound_with_remat_ms": remat_bound_ms,
@@ -2044,11 +2533,11 @@ def train_full_width(torch, counters, peaks, *, fused=False, unfused=None):
                        "unfused_step_ms_median_2_6": unfused["step_ms_median"],
                        "unfused_max_memory_allocated_gib": unfused["max_memory_allocated_gib"],
                        "unfused_step1_loss": unfused["loss"][0]})
-    print(f"  {'use_fusion ' if fused else ''}trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
+    print(f"  {cfg.name} {'use_fusion ' if fused else ''}trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
           f" grad norms {[round(x, 3) for x in hist['grad_norm']]}; step {step_ms:.1f} ms"
           f" (median of steps 2-{steps}"
           + (f"; unfused {unfused['step_ms_median']:.1f} ms" if fused else "")
-          + f"), {result['tokens_per_s']:.1f} tokens/s,"
+          + f"), {result['sequences_per_s']:.2f} sequences/s, {result['tokens_per_s']:.1f} tokens/s,"
           f" model FLOPs {model_flops / 1e12:.2f} T/step ({remat_flops / 1e12:.2f} T with remat),"
           f" {100 * result['mfu_bf16_peak']:.2f} % of the {peaks['bf16'] / 1e12:g} TFLOP/s bf16 peak;"
           f" bound {bound_ms:.1f} ms ({remat_bound_ms:.1f} ms with remat); {n_params} parameters; peak {peak / 2**30:.2f} GiB"
@@ -2092,7 +2581,9 @@ def main() -> int:
     from repro_torch import fusion
     from repro_torch.fusion import rng
     from repro_torch.kernels import _build, brgemm, fused_gemm, ref
+    from repro_torch.kernels import block_spmm as spmm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_output as fo
     from repro_torch.kernels import mamba_scan as scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2131,6 +2622,10 @@ def main() -> int:
     mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion)
     fused_training_cases(torch, bench, fusion, rng)
+    bert_attention_cases(torch, bench, fusion)
+    block_spmm_cases(torch, bench, ref, spmm, brgemm)
+    grouped_matmul_cases(torch, bench, ref, spmm)
+    fused_output_cases(torch, bench, fo, fusion)
     k6 = bench.summary("flash_attention_bwd")["ms"]
     six = bench.summary("fused_attention_bwd")
     print(f"  the six derived attention-backward graphs: {six['ms']:.4f} ms against K6's"
@@ -2138,7 +2633,7 @@ def main() -> int:
           f" D 64, causal", flush=True)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
-    counters = Counters(brgemm, fa, fused_gemm, scan)
+    counters = Counters(brgemm, fa, fused_gemm, scan, spmm, fo)
     reduced_models(torch, counters)
     reduced_models(torch, counters, fused=True)
 
@@ -2158,6 +2653,9 @@ def main() -> int:
     phase("7b. falcon-mamba-7b, full width and depth: generate_loop and the engine")
     mamba = mamba_full_width(torch, counters, peaks)
 
+    phase("7c. the paper's Block-SpMM path: bert-large's FFN at 80 % block sparsity")
+    sparse = sparse_ffn(torch, counters, peaks, spmm, fo)
+
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
@@ -2167,19 +2665,29 @@ def main() -> int:
     phase("10. minicpm-2b, full width and depth, training with use_fusion=True")
     fused_training = train_full_width(torch, counters, peaks, fused=True, unfused=training)
 
+    phase("10b. bert-large, full width and depth, training, unfused and use_fusion=True")
+    bert_kw = dict(arch="bert_large", batch=16, seq=512)
+    bert = train_full_width(torch, counters, peaks, **bert_kw)
+    bert_fused = train_full_width(torch, counters, peaks, fused=True, unfused=bert, **bert_kw)
+
     phase("11. kernels")
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
-        tol = TOL["bfloat16"]["gemm" if name.startswith(("gemm", "fused")) else
-                              "scan" if name == "mamba_scan" else "attn"]
+        tol = TOL["bfloat16"]["scan" if name == "mamba_scan" else
+                              "attn" if name.startswith(("flash", "paged")) else "gemm"]
         by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
                    "fused_generate_loop": fused["launches"][name],
                    "fused_engine": fused["engine"]["launches"][name],
                    "training": training["launches"][name],
                    "fused_training": fused_training["launches"][name],
                    "mamba_generate_loop": mamba["launches"][name],
-                   "mamba_engine": mamba["engine"]["launches"][name]}
+                   "mamba_engine": mamba["engine"]["launches"][name],
+                   "sparse_ffn": sparse["launches"][name],
+                   "listing6_output": sparse["listing6_launches"][name],
+                   "grouped_experts": sparse["grouped_launches"][name],
+                   "bert_training": bert["launches"][name],
+                   "bert_fused_training": bert_fused["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2193,10 +2701,11 @@ def main() -> int:
                 "launches_by_graph_in_fused_training": {
                     g: n for g, n in fused_training["launches_by_graph"].items()
                     if k5_kind(g) == name}}
-               if name.startswith("fused") else {})})
+               if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
-                      "fused": fused, "mamba": mamba, "training": training,
-                      "fused_training": fused_training}))
+                      "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "training": training,
+                      "fused_training": fused_training, "bert_training": bert,
+                      "bert_fused_training": bert_fused, "phase3_extra": bench.extra}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

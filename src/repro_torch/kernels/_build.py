@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``kernels/csrc``.
 
-Each ``csrc/<name>.cu`` is a self-contained source with a plain C interface.
-At first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of its source and flags so an edited source never loads a
-stale library, and loaded with ``ctypes``.  Generated sources (K5's, one per
+Each ``csrc/<name>.cu`` is a source with a plain C interface (it may include
+the shared ``csrc/*.cuh`` headers).  At first use it is compiled by ``nvcc``
+for ``sm_90a`` into a shared library under ``build/kernels/`` at the
+repository root (listed in ``.gitignore``), named by a hash of its source,
+the headers and the flags so an edited source never loads a stale library,
+and loaded with ``ctypes``.  Generated sources (K5's, one per
 fused graph, from ``kernels/fused_gemm.py``) are written there beside their
 library, built with ``csrc`` on the include path and named by a hash of
 their text, of the templates they include (``csrc/fused_gemm.cuh``,
@@ -71,6 +72,20 @@ SIGNATURES = {
         # x/dt/b/c strides (batch, step), stream
         "mamba_scan": (_P,) * 9 + (_I,) * 5 + (_L,) * 8 + (_P,),
     },
+    "block_spmm": {
+        # blocks, row_ptr, col_id, b, c, in_bf16, out_bf16, nrows, bm, bk,
+        # N, K, ldb, trans_b, vec, stream
+        "block_spmm": (_P,) * 5 + (_I,) * 10 + (_P,),
+        # x, group_id, w, out, in_bf16, out_bf16, tiles, rows, E, d, f, vec,
+        # stream
+        "grouped_matmul": (_P,) * 4 + (_I,) * 8 + (_P,),
+    },
+    "fused_output": {
+        # x, w, bias, residual, keep, gamma, beta, out, scratch, in_bf16,
+        # out_bf16, M, N, K, scale, eps, vec, stream
+        "fused_output": (_P,) * 9 + (_I,) * 5 + (_F, _F, _I, _P),
+        "fused_output_smem_max_n": (),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 # C signature of every generated source (K5), and the headers it includes.
@@ -96,7 +111,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -5,7 +5,7 @@ tensor runs the hand-written CUDA kernel, which launches or raises.  There is
 no backend switch and no fallback: a kernel that fails to build or launch
 fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
 ``attention``, ``decode_attention``, ``paged_decode_attention``,
-``mamba_scan``).
+``mamba_scan``, ``block_spmm``, ``grouped_matmul``).
 
 ``matmul`` and ``attention`` are ``torch.autograd.Function``s when an input
 requires a gradient.  Their forward and backward dispatch by device too, so
@@ -13,19 +13,21 @@ the CPU tests run the same Function, saved tensors and backward wiring as
 the card: ``matmul``'s backward is K1 on transposed operands, ``attention``'s
 is K6 fed by K2's row log-sum-exp.  When no input requires a gradient they
 call the forward alone and save nothing.  ``mamba_scan`` has no backward
-yet and raises when an input requires a gradient.
+yet, and ``block_spmm`` and ``grouped_matmul`` have none in the reference:
+each raises when an input requires a gradient.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import tpp
+from repro_torch.kernels import block_spmm as spmm
 from repro_torch.kernels import brgemm, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as scan
 
 __all__ = ["matmul", "attention", "decode_attention", "paged_decode_attention",
-           "mamba_scan"]
+           "mamba_scan", "block_spmm", "grouped_matmul"]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -177,3 +179,36 @@ def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
         y, h = ref.mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, h0=h0)
         return (y, h) if h_out is None else (y, h_out.copy_(h))
     return scan.mamba_scan(x, dt, a, b_in, c_in, d_skip, h0=h0, h_out=h_out)
+
+
+def _no_grad(name, *tensors):
+    if _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: the reference differentiates neither its Pallas "
+            "kernel nor this one")
+
+
+def block_spmm(blocks, row_id, col_id, b, *, nrows_b, bn=128, out_dtype=None):
+    """C = A_sparse @ B, A a BCSR work list (``blocks`` (nnzb, bm, bk),
+    ``row_id``/``col_id`` (nnzb,) int32, sorted row-major), b (K, N),
+    possibly a transposed view; → (nrows_b·bm, N) in ``out_dtype`` (default
+    ``b.dtype``) (K10).  ``bn`` is the reference's N tile; the CUDA kernel
+    tiles N by 128 and masks a ragged last tile, so it takes any N.
+    Inference only: an input that requires a gradient raises."""
+    _no_grad("block_spmm", blocks, b)
+    if _on_cpu(blocks, row_id, col_id, b):
+        return ref.block_spmm_ref(blocks, row_id, col_id, b, nrows_b=nrows_b,
+                                  out_dtype=out_dtype)
+    return spmm.block_spmm(blocks, row_id, col_id, b, nrows_b=nrows_b, out_dtype=out_dtype)
+
+
+def grouped_matmul(x, group_id, w, *, bf=128, out_dtype=None):
+    """Per-row-tile expert product: x (T, d) in ``len(group_id)`` row tiles,
+    ``group_id`` (tiles,) int32, w (E, d, f); → (T, f) in ``out_dtype``
+    (default ``x.dtype``) (K9).  ``bf`` is the reference's f tile; the CUDA
+    kernel tiles f by 128 (bf16) or 64 (fp32) and masks the edge.
+    Inference only: an input that requires a gradient raises."""
+    _no_grad("grouped_matmul", x, w)
+    if _on_cpu(x, group_id, w):
+        return ref.grouped_matmul_ref(x, group_id, w, out_dtype=out_dtype)
+    return spmm.grouped_matmul(x, group_id, w, out_dtype=out_dtype)

@@ -3,11 +3,13 @@
 Each forward mirrors its oracle in ``repro/kernels/ref.py``; each backward
 is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``) or what
 ``repro/fusion/autodiff.py``'s recompute backward derives
-(``attention_bwd_ref``).  On the CPU they are what ``kernels.ops`` runs
-(``matmul``'s backward there runs ``matmul_ref`` on transposed views, as
-K1 reads them on the card, and the tests hold it against
-``matmul_bwd_ref``); on the GPU they are what ``chip_smoke.py`` holds each
-CUDA kernel against.  They compute in fp32 from the stored inputs.
+(``attention_bwd_ref``); ``mlp_ref``, ``bcsr_to_dense``,
+``block_spmm_ref`` and ``grouped_matmul_ref`` mirror the oracles of the
+same names.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
+backward there runs ``matmul_ref`` on transposed views, as K1 reads them on
+the card, and the tests hold it against ``matmul_bwd_ref``); on the GPU
+they are what ``chip_smoke.py`` holds each CUDA kernel against.  They
+compute in fp32 from the stored inputs.
 """
 from __future__ import annotations
 
@@ -17,9 +19,9 @@ import torch
 
 from repro_torch.core import tpp
 
-__all__ = ["matmul_ref", "matmul_bwd_ref", "attention_ref", "attention_fwd_ref",
-           "attention_bwd_ref", "decode_attention_ref", "paged_decode_attention_ref",
-           "mamba_scan_ref"]
+__all__ = ["matmul_ref", "matmul_bwd_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
+           "grouped_matmul_ref", "attention_ref", "attention_fwd_ref", "attention_bwd_ref",
+           "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref"]
 
 
 def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
@@ -47,6 +49,59 @@ def matmul_bwd_ref(a, b, dy, *, bias=None, activation=None):
     da = torch.matmul(dz, b.float().T)
     db = torch.matmul(a.float().T, dz)
     return da, db, dz.sum(0) if bias is not None else None
+
+
+def mlp_ref(x, weights, biases, *, activation="gelu", out_dtype=None):
+    """Cascading fully-connected layers (paper §III-A): each layer
+    act(h @ w + b) with an fp32 accumulator, cast to ``out_dtype`` (default
+    ``x.dtype``) before the next."""
+    act = tpp.ACTIVATIONS[activation]
+    h = x
+    for w, b in zip(weights, biases):
+        acc = torch.matmul(h.float(), w.float()) + b.float()
+        h = act(acc).to(out_dtype or x.dtype)
+    return h
+
+
+# Work items of block_spmm_ref gathered and multiplied at once: bounds the
+# (items, bk, N) fp32 gather of B's rows at full width.
+_SPMM_ITEMS = 4096
+
+
+def bcsr_to_dense(blocks, row_id, col_id, nrows_b, ncols_b):
+    """The dense (nrows_b·bm, ncols_b·bk) matrix of a BCSR work list, in
+    ``blocks``' dtype; repeated coordinates add up."""
+    nnzb, bm, bk = blocks.shape
+    tiles = blocks.new_zeros(nrows_b, ncols_b, bm, bk)
+    tiles.index_put_((row_id.long(), col_id.long()), blocks, accumulate=True)
+    return tiles.permute(0, 2, 1, 3).reshape(nrows_b * bm, ncols_b * bk)
+
+
+def block_spmm_ref(blocks, row_id, col_id, b, *, nrows_b, out_dtype=None):
+    """C = A_sparse @ B with A a BCSR work list: ``blocks`` (nnzb, bm, bk),
+    ``row_id``/``col_id`` (nnzb,) block coordinates, ``b`` (K, N) dense.
+    Each item's block times B's rows ``col_id·bk ..`` in fp32, added into
+    its block row (a row without items stays zero); → (nrows_b·bm, N) in
+    ``out_dtype`` (default ``b.dtype``)."""
+    nnzb, bm, bk = blocks.shape
+    n = b.shape[1]
+    b_tiles = b.reshape(-1, bk, n)
+    out = torch.zeros(nrows_b, bm, n, dtype=torch.float32, device=b.device)
+    for t0 in range(0, nnzb, _SPMM_ITEMS):
+        sl = slice(t0, t0 + _SPMM_ITEMS)
+        part = torch.bmm(blocks[sl].float(), b_tiles[col_id[sl].long()].float())
+        out.index_add_(0, row_id[sl].long(), part)
+    return out.reshape(nrows_b * bm, n).to(out_dtype or b.dtype)
+
+
+def grouped_matmul_ref(x, group_id, w, *, out_dtype=None):
+    """Per-row-tile expert matmul: x (T, d) in T / len(group_id) row tiles,
+    ``group_id`` the expert of each tile, w (E, d, f); → (T, f) in
+    ``out_dtype`` (default ``x.dtype``), fp32 accumulator."""
+    tiles = group_id.shape[0]
+    bm = x.shape[0] // tiles
+    out = torch.bmm(x.reshape(tiles, bm, -1).float(), w[group_id.long()].float())
+    return out.reshape(x.shape[0], w.shape[-1]).to(out_dtype or x.dtype)
 
 
 def _masked_scores(q, k, *, causal, window, scale):

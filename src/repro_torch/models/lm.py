@@ -14,12 +14,16 @@ pools (num_pages + 1, page_size, Hk, hd) for each attention layer and
 per-slot mamba state.  Both are updated in place by ``prefill`` and
 ``decode_step``.
 
-Dense decoders and the attention-free Mamba-1 LM (falcon-mamba-7b, served
-only: the scan has no backward yet) run here; MoE, MLA, encoder-decoder,
-bidirectional and VLM configs raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1).  Training (``lm_loss``) takes fp32 master parameters
-(``init_params(..., dtype=torch.float32)``), cast to the compute dtype at
-use.  ``use_fusion`` configs serve and train through the fused TppGraph
+Dense decoders, the encoder-only bert-large (``"bidir"`` layers: attention
+without a causal mask) and the attention-free Mamba-1 LM (falcon-mamba-7b,
+served only: the scan has no backward yet) run here; MoE, MLA,
+encoder-decoder and VLM configs raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1).  Like the reference, ``init_cache``, ``prefill`` and
+``decode_step`` do not refuse a bidirectional config (its prefill attends
+over the whole prompt); the reference's tests give bert no decode step,
+and neither do the port's.  Training (``lm_loss``) takes fp32 master
+parameters (``init_params(..., dtype=torch.float32)``), cast to the
+compute dtype at use.  ``use_fusion`` configs serve and train through the fused TppGraph
 layers and their derived backward graphs; a mamba block has no fused form
 and computes the same either way, as in the reference.
 """
@@ -55,7 +59,6 @@ def _check_dense(cfg: ModelConfig) -> None:
         "MoE layers": cfg.is_moe, "MLA attention": cfg.use_mla,
         "encoder-decoder models": cfg.is_encdec,
         "modality frontends": cfg.frontend is not None,
-        "bidirectional decoder layers": "bidir" in cfg.layer_pattern,
     }
     for what, present in unsupported.items():
         if present:

@@ -5,8 +5,8 @@ for every derived graph) equal ``jax.grad`` through the reference's
 ``compile_with_vjp`` (its XLA backend, and interpret-mode Pallas for a few
 graphs); the dz graph regenerates the forward's dropout bits exactly;
 ``fused_attention_apply`` forward and gradients; fused training
-(``use_fusion=True``) of reduced minicpm-2b (dropout 0 and 0.15) and
-gpt-j-6b against ``repro``'s fused train step; and K5's generated sources
+(``use_fusion=True``) of reduced minicpm-2b (dropout 0 and 0.15), gpt-j-6b
+and bert-large (bidirectional) against ``repro``'s fused train step; and K5's generated sources
 for the graphs this path adds, without nvcc.
 
 Inputs are made with numpy from a seed and handed to both packages.
@@ -299,7 +299,7 @@ def test_fused_attention_batched_equals_per_head():
 # Fused training against repro's fused train step
 # --------------------------------------------------------------------------
 
-TRAIN = {"minicpm_2b": 0.0, "minicpm_2b-dropout": 0.15, "gptj_6b": 0.0}
+TRAIN = {"minicpm_2b": 0.0, "minicpm_2b-dropout": 0.15, "gptj_6b": 0.0, "bert_large": 0.0}
 
 
 @pytest.mark.parametrize("case", sorted(TRAIN))

@@ -27,7 +27,9 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import decode as tdecode
 
-ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b"]
+ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b", "chatglm3_6b", "glm4_9b"]
+# encoder-only: no decode step in the reference (tests/test_models.py)
+ENCODERS = ["bert_large"]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-3)
 BATCH, PROMPT, STEPS = 2, 8, 8
 
@@ -46,7 +48,7 @@ def _models(arch, fused=False):
     return jcfg, jparams, tcfg, tparams
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ENCODERS)
 def test_configs_are_copies_of_the_reference(arch):
     full_j, full_t = jax_config(arch), torch_config(arch)
     assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
@@ -137,6 +139,33 @@ def test_decode_matches_forward(arch):
         logits, caches = tlm.decode_step(cfg, params, caches, toks[:, t], t)
         errs.append(float((logits - full[:, t]).abs().max()))
     assert max(errs) < 2e-4, errs
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_encoder_hidden_and_loss_match_reference(fused):
+    """bert-large (bidirectional attention, layernorm, gelu MLP with
+    biases, tied embeddings): the final hidden states of a full forward and
+    the chunked LM loss, unfused and with ``use_fusion=True``."""
+    jcfg, jparams, tcfg, tparams = _models("bert_large", fused=fused)
+    assert set(tlm.layer_kinds(tcfg)) == {"bidir"}
+    rng = np.random.default_rng(7)
+    b, s = 2, 16
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32),
+             "mask": (rng.random((b, s)) > 0.1).astype(np.float32)}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jh = jlm.forward_hidden(jcfg, jparams, jb, remat=False)[0]
+    th, _ = tlm.forward_hidden(tcfg, tparams, tb, remat=False)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **LOGIT_TOL)
+    # a later token changes an earlier position's state: attention is not causal
+    tb2 = dict(tb, tokens=tb["tokens"].clone())
+    tb2["tokens"][:, -1] = (tb2["tokens"][:, -1] + 1) % tcfg.vocab_size
+    th2, _ = tlm.forward_hidden(tcfg, tparams, tb2, remat=False)
+    assert float((th2[:, 0] - th[:, 0]).abs().max()) > 1e-6
+    jloss, _ = jlm.lm_loss(jcfg, jparams, jb, remat=False, loss_chunk=8)
+    tloss, _ = tlm.lm_loss(tcfg, tparams, tb, remat=False, loss_chunk=8)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
 
 
 def test_generate_loop_validates_lengths():

@@ -39,7 +39,7 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                init_train_state, make_train_step, train)
 
-ARCHS = ("minicpm_2b", "gptj_6b")
+ARCHS = ("minicpm_2b", "gptj_6b", "bert_large")
 CFG = get_config("minicpm_2b").reduced()
 DCFG = DataConfig(vocab_size=CFG.vocab_size, seq_len=32, global_batch=8, seed=1)
 
@@ -235,8 +235,17 @@ def test_dropout_training_loss_matches_reference():
 def test_train_step_trajectory_matches_reference():
     """Five ``make_train_step`` steps from the reference's initial state on
     the reference's batches (cosine schedule with warmup, clipping)."""
-    cfg_j, jp = _jax_state("minicpm_2b")
-    cfg = get_config("minicpm_2b").reduced()
+    _check_trajectory("minicpm_2b")
+
+
+def test_encoder_train_step_trajectory_matches_reference():
+    """The same five steps for bert-large (bidirectional layers)."""
+    _check_trajectory("bert_large")
+
+
+def _check_trajectory(arch):
+    cfg_j, jp = _jax_state(arch)
+    cfg = get_config(arch).reduced()
     tkw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=40, loss_chunk=16)
     jstep = jax.jit(jsteps.make_train_step(cfg_j, jsteps.TrainConfig(**tkw)))
     jopt = jadamw.init_state(jp)

@@ -22,7 +22,11 @@ Phases, each of which must pass:
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
      products; K9 at qwen3-moe's expert widths; K7 Listing 6 at
      bert-large's output layers and N 5120, beside K5's keep-mask graph;
-     K2 and K6 without a causal mask at bert-large's shape) against its
+     K2 and K6 without a causal mask at bert-large's shape; K11 Listing 1 at
+     benchmarks/bench_gemm.py's seven shapes under five spec strings, each
+     bitwise equal to "bca"'s, K1 on the flat product beside it; K1 under
+     those spec strings at llama2-13b's 5120x5120 projection, bitwise equal
+     to its fixed grid; K12 at ResNet-50's 1x1 layers) against its
      plain PyTorch version on the card, at the main paths' shapes plus GQA,
      windowed and ragged ones; print error and tolerance, the median time
      over CUDA events, the plain version's time, one PyTorch library call's
@@ -66,6 +70,11 @@ Phases, each of which must pass:
      ``torch.matmul``, K1 and the work list at 0 %; then Listing 6 through
      ``kernels.fused_output`` and qwen3-moe's experts through
      ``ops.grouped_matmul``, counted the same way;
+  7d. PARLOOPER, with every counter set to 0 just before and read just
+     after each run: Listing 1 (2048^3) through ``ops.brgemm_blocked``, one
+     K11 launch; ResNet-50's 1x1 layers (N 32) through ``ops.conv2d``, one
+     K12 call on one K1 launch a layer; its 3x3 layers (N 2) through
+     Listing 4 on the executor, no kernel; each against its plain version;
   8. train reduced fp32 minicpm-2b, gpt-j-6b and bert-large for 3 steps on
      the card and on the CPU from one initial state (loss and grad norm
      must agree), and check that 2 steps + checkpoint + restore + 2 steps
@@ -124,8 +133,9 @@ MODEL_TOL = (1e-4, 1e-3)   # logits, reduced fp32 configs: GPU kernels vs CPU pl
 
 # file:line of the TPU kernel each CUDA kernel replaces: matmul_pallas,
 # flash_attention_pallas, flash_decode_pallas, the Pallas path of
-# paged_decode_attention, the attention backward plan, K5's lowering and
-# mamba_scan_pallas.
+# paged_decode_attention, the attention backward plan, K5's lowering,
+# mamba_scan_pallas, block_spmm_pallas, grouped_matmul_pallas,
+# fused_output_pallas, brgemm_blocked_pallas and conv2d_1x1_pallas.
 REPLACES = {
     "gemm": "src/repro/kernels/brgemm.py:58",
     "gemm_transposed": "src/repro/kernels/brgemm.py:58",
@@ -141,6 +151,8 @@ REPLACES = {
     "block_spmm": "src/repro/kernels/block_spmm.py:72",
     "grouped_matmul": "src/repro/kernels/block_spmm.py:137",
     "fused_output": "src/repro/kernels/fused_output.py:48",
+    "brgemm_blocked": "src/repro/kernels/brgemm.py:152",
+    "conv2d_1x1": "src/repro/kernels/conv.py:112",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -159,10 +171,14 @@ SOURCE = {
     "block_spmm": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "fused_output": "src/repro_torch/kernels/csrc/fused_output.cu",
+    "brgemm_blocked": "src/repro_torch/kernels/csrc/brgemm_blocked.cu",
+    # the reshape around K1 (csrc/gemm.cu), under the spec string
+    "conv2d_1x1": "src/repro_torch/kernels/conv.py",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
-# weighted cases of phase 3 (library: torch.matmul without the activation;
+# weighted cases of phase 3 (library: torch.matmul without the activation
+# or on the flat matrices; cuDNN's convolution;
 # scaled_dot_product_attention; for K4, index_select of the pages into a
 # dense view plus scaled_dot_product_attention with a length mask).
 ROW = {
@@ -195,6 +211,12 @@ ROW = {
     "fused_output": "bert-large's two Listing 6 output layers at 4096 tokens (Bert-Output K 4096,"
                     " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask); no one"
                     " PyTorch call fuses the product with dropout, residual and layernorm",
+    "brgemm_blocked": "Listing 1 at benchmarks/bench_gemm.py's seven shapes (1024^3 .. 4096x4096x11008),"
+                      " bf16 64x64x64 blocks, k_step 4, spec 'bca'; library: torch.matmul on the flat"
+                      " matrices",
+    "conv2d_1x1": "ResNet-50's seven 1x1 layers at N 32, bf16, through ops.conv2d (blocking, reshape,"
+                  " K1 under 'bca'); library: torch.nn.functional.conv2d in bf16 on channels-last"
+                  " tensors",
 }
 
 
@@ -911,6 +933,173 @@ def fused_output_cases(torch, bench, fo, fusion):
             print(f"    K5 fused_output_apply (keep mask) at {label}: {k5_ms[label]:.4f} ms"
                   f" (K7 {bench.cases['fused_output'][-1]['ms']:.4f}); |K5 - K7| {err:.3e}", flush=True)
     bench.extra["fused_output_k5_ms"] = k5_ms
+
+
+# benchmarks/bench_gemm.py's shapes (M, K, N): paper Fig. 2 (square,
+# skewed) and Fig. 5 (BERT-ish, GPT/Llama-ish)
+GEMM_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096), (256, 1024, 4096),
+               (1024, 4096, 1024), (2048, 5120, 5120), (4096, 4096, 11008))
+
+
+def spec_strings(kb_outer):
+    """The spec strings phase 3 runs K11 and K1 under, with their block
+    steps: output-stationary, N outer, both output loops PARALLEL, M blocked
+    by 4, and K blocked by ``kb_outer`` blocks (a multiple of the visit that
+    divides K's block count)."""
+    return (("bca", None), ("cba", None), ("BCa", None), ("bcba", {"b": (4,)}),
+            ("bcaa", {"a": (kb_outer,)}))
+
+
+def brgemm_blocked_cases(torch, bench, ref, brgemm):
+    """K11 (Listing 1) at bench_gemm.py's seven shapes in bf16 64x64x64
+    blocks, k_step 4, under every spec string of ``spec_strings``: each
+    output bitwise equal to "bca"'s and within tolerance of
+    ``brgemm_blocked_ref``; "bca" is K11's row, timed beside the plain
+    version, ``torch.matmul`` on the flat matrices (the library) and K1 on
+    the same flat product; every spec's time kept.  Then fp32 (the SIMT
+    variant) at 1024^3, and the test shapes (8x16 and 4x8 A blocks, fp32 and
+    bf16 in SIMT; 16x16 and 32x16 in WMMA, one with an fp32 output), each
+    checking that its variant launched."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    bf16, f32 = torch.bfloat16, torch.float32
+    blk, k_step = 64, 4
+    by_spec, k1_ms = {}, {}
+    for m, k, n in GEMM_SHAPES:
+        mb, kb, nb = m // blk, k // blk, n // blk
+        a = torch.randn(mb, kb, blk, blk, generator=gen, device="cuda").to(bf16)
+        b = (torch.randn(nb, kb, blk, blk, generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
+        flat_a = a.permute(0, 2, 1, 3).reshape(m, k)
+        flat_b = b.permute(1, 2, 0, 3).reshape(k, n)
+        shape = f"{m}x{k}x{n}"
+        flops, nbytes = 2 * m * n * k, 2 * (m * k + k * n + m * n)
+        kb_outer = 16 if kb % 16 == 0 else kb
+        base, times = None, {}
+        for spec, steps in spec_strings(kb_outer):
+            run = lambda: brgemm.brgemm_blocked(a, b, spec_string=spec, k_step=k_step,
+                                                block_steps=steps)
+            got = bench.run("brgemm_blocked", f"{shape} bf16 64^3 k_step 4 {spec} {steps or ''}",
+                            run, lambda: ref.brgemm_blocked_ref(a, b),
+                            (lambda: torch.matmul(flat_a, flat_b)) if base is None else None,
+                            flops=flops, nbytes=nbytes, dtype="bfloat16", tol_kind="gemm",
+                            weight=int(base is None), timed=base is None)
+            if base is None:
+                base, times[spec] = got, bench.cases["brgemm_blocked"][-1]["ms"]
+            else:
+                check(torch.equal(got, base), f"K11 {shape}: {spec} {steps} differs from 'bca'")
+                times[f"{spec} {steps or ''}".strip()] = time_ms(torch, run, reps=5)
+        k1_ms[shape] = time_ms(torch, lambda: brgemm.matmul(flat_a, flat_b))
+        by_spec[shape] = times
+        print(f"    {shape}: K11 by spec {', '.join(f'{s} {t:.4f}' for s, t in times.items())} ms"
+              f" (bitwise equal); K1 on the flat product {k1_ms[shape]:.4f} ms", flush=True)
+        del a, b, flat_a, flat_b, base
+    bench.extra["brgemm_blocked_by_spec_ms"] = by_spec
+    bench.extra["brgemm_blocked_k1_flat_ms"] = k1_ms
+    # fp32 (SIMT) at 1024^3 and the test shapes; the variant counters
+    for label, a_shape, b_shape, ks, dt, out, spec, variant, timed in (
+            ("1024^3 fp32 64^3 k_step 4", (16, 16, 64, 64), (16, 16, 64, 64), 4, f32, None, "bca",
+             "simt", True),
+            ("check fp32 A 8x16 B 16x32 k_step 2", (4, 6, 8, 16), (3, 6, 16, 32), 2, f32, None,
+             "bca", "simt", False),
+            ("check fp32 A 4x8 B 8x16 k_step 2 bBcCa", (4, 6, 4, 8), (6, 6, 8, 16), 2, f32, None,
+             "bBcCa", "simt", False),
+            ("check bf16 A 8x16 B 16x32 k_step 3 cba", (4, 6, 8, 16), (3, 6, 16, 32), 3, bf16, None,
+             "cba", "simt", False),
+            ("check bf16 A 16x16 B 16x32 fp32 out", (4, 6, 16, 16), (3, 6, 16, 32), 2, bf16, f32,
+             "Bca", "wmma", False),
+            ("check bf16 A 32x16 B 16x48 k_step 1 bf16 out", (3, 5, 32, 16), (2, 5, 16, 48), 1, bf16,
+             None, "cBa", "wmma", False)):
+        a = torch.randn(*a_shape, generator=gen, device="cuda").to(dt)
+        b = torch.randn(*b_shape, generator=gen, device="cuda").to(dt)
+        steps = {"b": (2,), "c": (3,)} if spec == "bBcCa" else None
+        m, k, n = a_shape[0] * a_shape[2], a_shape[1] * a_shape[3], b_shape[0] * b_shape[3]
+        name = "bfloat16" if (out or dt) == bf16 else "float32"
+        before = brgemm.BLOCKED_WMMA_LAUNCHES if variant == "wmma" else brgemm.BLOCKED_SIMT_LAUNCHES
+        bench.run("brgemm_blocked", label,
+                  lambda: brgemm.brgemm_blocked(a, b, spec_string=spec, k_step=ks, block_steps=steps,
+                                                out_dtype=out),
+                  lambda: ref.brgemm_blocked_ref(a, b, out_dtype=out), None,
+                  flops=2 * m * n * k,
+                  nbytes=a.element_size() * (m * k + k * n) + m * n * (out or dt).itemsize,
+                  dtype=name, tol_kind="gemm", timed=timed)
+        after = brgemm.BLOCKED_WMMA_LAUNCHES if variant == "wmma" else brgemm.BLOCKED_SIMT_LAUNCHES
+        check(after > before, f"K11 {label}: the {variant} variant did not launch")
+
+
+def gemm_spec_cases(torch, bench, ref, brgemm):
+    """K1 under spec strings at llama2-13b's 5120x5120 projection at M 2048
+    (bf16, tiles = K1's 128x128 CTA tile and K 32, so that a plan block is a
+    CTA tile), ``spec_strings``' specs plus "bca" on ``pick_tiles``' 512x512
+    blocks: every output bitwise equal to the fixed grid's, each spec's time
+    beside the fixed grid's.  Then bitwise checks on the decode tile (M 16)
+    and the fp32 tile."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    m, k, n = 2048, 5120, 5120
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+    base = brgemm.matmul(a, b)
+    times = {"fixed grid": time_ms(torch, lambda: brgemm.matmul(a, b))}
+    cases = [(spec, (128, 32, 128), steps) for spec, steps in spec_strings(16)]
+    cases.append(("bca", None, None))
+    for spec, tiles, steps in cases:
+        label = f"spec {spec} {steps or ''} tiles {tiles or 'pick_tiles'}"
+        got = bench.run("gemm", f"{m}x{k}x{n} {label}",
+                        lambda: brgemm.matmul(a, b, spec_string=spec, tiles=tiles,
+                                              block_steps=steps),
+                        lambda: ref.matmul_ref(a, b), lambda: torch.matmul(a, b),
+                        flops=2 * m * n * k, nbytes=2 * (m * k + k * n + m * n),
+                        dtype="bfloat16", tol_kind="gemm")
+        check(torch.equal(got, base), f"K1 under {label} differs from the fixed grid")
+        times[label] = bench.cases["gemm"][-1]["ms"]
+    bench.extra["gemm_by_spec_ms"] = times
+    print(f"    K1 {m}x{k}x{n} by spec (bitwise equal): "
+          + ", ".join(f"{s} {t:.4f}" for s, t in times.items()) + " ms", flush=True)
+    for m, k, n, dt, tiles, spec in ((16, 256, 512, torch.bfloat16, (16, 64, 64), "cba"),
+                                     (256, 128, 192, torch.float32, (64, 32, 64), "cBa")):
+        a = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
+        check(torch.equal(brgemm.matmul(a, b, spec_string=spec, tiles=tiles), brgemm.matmul(a, b)),
+              f"K1 {m}x{k}x{n} {dt} under {spec} differs from the fixed grid")
+
+
+# ResNet-50's 1x1 layers (He et al., arXiv:1512.03385, Table 1): (H = W of
+# the input, C, K, stride)
+RESNET_1X1 = ((56, 64, 256, 1), (56, 256, 64, 1), (56, 256, 512, 2), (28, 512, 128, 1),
+              (14, 1024, 256, 1), (7, 512, 2048, 1), (7, 2048, 512, 1))
+# and its 3x3 layers (output H = W, C = K), VALID on an input of H + 2
+RESNET_3X3 = ((56, 64), (28, 128), (14, 256), (7, 512))
+
+
+def conv_operands(torch, gen, n, hw, c, k, r, dtype):
+    x = torch.randn(n, hw, hw, c, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(r, r, c, k, generator=gen, device="cuda") / math.sqrt(r * r * c)).to(dtype)
+    return x, w
+
+
+def conv1x1_cases(torch, bench, ref, ops):
+    """K12 (``ops.conv2d`` with a 1x1 filter: the blocking, the reshape and
+    K1 under "bca") on ResNet-50's 1x1 layers at N 32, bf16, against
+    ``conv2d_ref``, timed beside it and beside ``F.conv2d`` in bf16 on
+    channels-last tensors (cuDNN, the library); plus one fp32 layer."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    n = 32
+    for hw, c, k, st in RESNET_1X1:
+        x, w = conv_operands(torch, gen, n, hw, c, k, 1, torch.bfloat16)
+        p = (hw - 1) // st + 1
+        x_nchw = x.permute(0, 3, 1, 2)      # channels-last as stored
+        w_kcrs = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bench.run("conv2d_1x1", f"{hw}x{hw} {c}->{k} stride {st} N {n}",
+                  lambda: ops.conv2d(x, w, stride=st), lambda: ref.conv2d_ref(x, w, stride=st),
+                  lambda: F.conv2d(x_nchw, w_kcrs, stride=st),
+                  # the strided input pixels the layer reads, w and the output once
+                  flops=2 * n * p * p * c * k, nbytes=2 * (n * p * p * c + c * k + n * p * p * k),
+                  dtype="bfloat16", tol_kind="gemm", weight=1)
+    x, w = conv_operands(torch, gen, 4, 14, 1024, 256, 1, torch.float32)
+    bench.run("conv2d_1x1", "check fp32 14x14 1024->256 N 4",
+              lambda: ops.conv2d(x, w), lambda: ref.conv2d_ref(x, w), None,
+              flops=2 * 4 * 14 * 14 * 1024 * 256, nbytes=4 * (4 * 196 * 1024 + 1024 * 256 + 4 * 196 * 256),
+              dtype="float32", tol_kind="gemm", timed=False)
 
 
 def bert_attention_cases(torch, bench, fusion):
@@ -2218,6 +2407,94 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     return result
 
 
+def parlooper(torch, counters, peaks, ops, ref):
+    """Phase 7d, PARLOOPER: Listing 1 and Listing 4.  Each run below with
+    every counter set to 0 just before and read just after: Listing 1's
+    GEMM at 2048^3 (bf16 64x64x64 blocks, k_step 4, "bca") through
+    ``ops.brgemm_blocked``, one K11 launch and nothing else, against
+    ``brgemm_blocked_ref``; ResNet-50's 1x1 layers at N 32 through
+    ``ops.conv2d``, one K12 call and one K1 launch a layer and nothing else,
+    against ``conv2d_ref``; its 3x3 layers at N 2 (bench_conv.py's own
+    minibatch) through ``ops.conv2d`` on Listing 4's executor
+    (``conv2d_parlooper``), which launches no kernel of the port, against
+    ``conv2d_ref``, timed beside it and beside cuDNN's bf16 channels-last
+    convolution."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf16 = torch.bfloat16
+    rtol, atol = TOL["bfloat16"]["gemm"]
+    result = {}
+
+    blk, size = 64, 2048
+    a = torch.randn(size // blk, size // blk, blk, blk, generator=gen, device="cuda").to(bf16)
+    b = (torch.randn(size // blk, size // blk, blk, blk, generator=gen, device="cuda")
+         / math.sqrt(size)).to(bf16)
+    counters.reset()
+    c = ops.brgemm_blocked(a, b, spec_string="bca", k_step=4)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches["brgemm_blocked"] == 1 and sum(launches.values()) == 1,
+          f"Listing 1 launched {launches}, want K11 once and nothing else")
+    err, ok = compare(torch, c, ref.brgemm_blocked_ref(a, b), rtol, atol)
+    check(ok, f"Listing 1: K11 differs from brgemm_blocked_ref by {err:.3e}")
+    result["listing1"] = {"shape": [size] * 3, "max_abs_err": err}
+    result["listing1_launches"] = launches
+    print(f"  Listing 1 {size}^3 bf16 64^3 blocks, k_step 4: launches {launches['brgemm_blocked']} K11;"
+          f" max err {err:.3e} (rtol {rtol}, atol {atol})", flush=True)
+    del a, b, c
+
+    total = dict.fromkeys(KERNELS, 0)
+    result["conv1x1"] = []
+    for hw, ci, co, st in RESNET_1X1:
+        x, w = conv_operands(torch, gen, 32, hw, ci, co, 1, bf16)
+        counters.reset()
+        y = ops.conv2d(x, w, stride=st)
+        torch.cuda.synchronize()
+        launches = counters.read()
+        check(launches["conv2d_1x1"] == 1 and launches["gemm"] == 1 and sum(launches.values()) == 2,
+              f"1x1 {hw}x{hw} {ci}->{co}: launched {launches}, want K12 once on one K1 and nothing else")
+        for name, count in launches.items():
+            total[name] += count
+        err, ok = compare(torch, y, ref.conv2d_ref(x, w, stride=st), rtol, atol)
+        check(ok and y.shape == (32, (hw - 1) // st + 1, (hw - 1) // st + 1, co),
+              f"1x1 {hw}x{hw} {ci}->{co}: shape {tuple(y.shape)}, max err {err:.3e}")
+        result["conv1x1"].append({"layer": [hw, ci, co, st], "max_abs_err": err})
+    result["conv1x1_launches"] = total
+    print(f"  ResNet-50 1x1 layers (N 32): launches {total['conv2d_1x1']} K12 on {total['gemm']} K1,"
+          f" max err {max(r['max_abs_err'] for r in result['conv1x1']):.3e}", flush=True)
+
+    total = dict.fromkeys(KERNELS, 0)
+    result["conv3x3"] = []
+    for hw, ch in RESNET_3X3:
+        x, w = conv_operands(torch, gen, 2, hw + 2, ch, ch, 3, bf16)
+        counters.reset()
+        y = ops.conv2d(x, w)
+        torch.cuda.synchronize()
+        launches = counters.read()
+        check(sum(launches.values()) == 0, f"3x3 {hw}x{hw} {ch}: the executor path launched {launches}")
+        for name, count in launches.items():
+            total[name] += count
+        err, ok = compare(torch, y, ref.conv2d_ref(x, w), rtol, atol)
+        check(ok and y.shape == (2, hw, hw, ch), f"3x3 {hw}x{hw} {ch}: max err {err:.3e}")
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_kcrs = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        row = {"layer": [hw, ch], "max_abs_err": err,
+               "executor_ms": time_ms(torch, lambda: ops.conv2d(x, w), warmup=1, reps=3),
+               "plain_ms": time_ms(torch, lambda: ref.conv2d_ref(x, w), warmup=1, reps=3),
+               "cudnn_bf16_ms": time_ms(torch, lambda: F.conv2d(x_nchw, w_kcrs)),
+               "bound_ms": max(2 * 2 * hw * hw * 9 * ch * ch / peaks["bf16"],
+                               2 * (2 * (hw + 2) ** 2 * ch + 9 * ch * ch + 2 * hw * hw * ch)
+                               / peaks["hbm"]) * 1e3}
+        result["conv3x3"].append(row)
+        print(f"  3x3 {hw}x{hw} {ch}->{ch} N 2 on the executor: {row['executor_ms']:.3f} ms"
+              f" (plain {row['plain_ms']:.3f}, cuDNN bf16 {row['cudnn_bf16_ms']:.4f},"
+              f" bound {row['bound_ms']:.4f}); max err {err:.3e}; launches 0", flush=True)
+    result["conv3x3_launches"] = total
+    torch.cuda.empty_cache()
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
@@ -2233,7 +2510,9 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
-             "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output"}
+             "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
+             "brgemm_blocked_bf16_wmma": "brgemm_blocked",
+             "brgemm_blocked_simt": "brgemm_blocked"}
 
 
 def kernel_of(name):
@@ -2301,13 +2580,17 @@ def k5_kinds(by_graph):
 class Counters:
     """Reads and resets the kernel wrappers' launch counters."""
 
-    def __init__(self, brgemm, fa, fused_gemm, scan, spmm, fo):
+    def __init__(self, brgemm, fa, fused_gemm, scan, spmm, fo, conv):
         self.brgemm, self.fa, self.fused_gemm, self.scan = brgemm, fa, fused_gemm, scan
-        self.spmm, self.fo = spmm, fo
+        self.spmm, self.fo, self.conv = spmm, fo, conv
 
     def reset(self):
         self.brgemm.LAUNCHES = 0
         self.brgemm.TRANSPOSED_LAUNCHES = 0
+        self.brgemm.BLOCKED_LAUNCHES = 0
+        self.brgemm.BLOCKED_WMMA_LAUNCHES = 0
+        self.brgemm.BLOCKED_SIMT_LAUNCHES = 0
+        self.conv.LAUNCHES = 0
         self.fa.ATTENTION_LAUNCHES = 0
         self.fa.BACKWARD_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
@@ -2330,7 +2613,9 @@ class Counters:
                 "mamba_scan": self.scan.SCAN_LAUNCHES,
                 "block_spmm": self.spmm.SPMM_LAUNCHES,
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
-                "fused_output": self.fo.LAUNCHES}
+                "fused_output": self.fo.LAUNCHES,
+                "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
+                "conv2d_1x1": self.conv.LAUNCHES}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -2580,7 +2865,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import fusion
     from repro_torch.fusion import rng
-    from repro_torch.kernels import _build, brgemm, fused_gemm, ref
+    from repro_torch.kernels import _build, brgemm, conv, fused_gemm, ops, ref
     from repro_torch.kernels import block_spmm as spmm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_output as fo
@@ -2626,6 +2911,9 @@ def main() -> int:
     block_spmm_cases(torch, bench, ref, spmm, brgemm)
     grouped_matmul_cases(torch, bench, ref, spmm)
     fused_output_cases(torch, bench, fo, fusion)
+    brgemm_blocked_cases(torch, bench, ref, brgemm)
+    gemm_spec_cases(torch, bench, ref, brgemm)
+    conv1x1_cases(torch, bench, ref, ops)
     k6 = bench.summary("flash_attention_bwd")["ms"]
     six = bench.summary("fused_attention_bwd")
     print(f"  the six derived attention-backward graphs: {six['ms']:.4f} ms against K6's"
@@ -2633,7 +2921,7 @@ def main() -> int:
           f" D 64, causal", flush=True)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
-    counters = Counters(brgemm, fa, fused_gemm, scan, spmm, fo)
+    counters = Counters(brgemm, fa, fused_gemm, scan, spmm, fo, conv)
     reduced_models(torch, counters)
     reduced_models(torch, counters, fused=True)
 
@@ -2655,6 +2943,9 @@ def main() -> int:
 
     phase("7c. the paper's Block-SpMM path: bert-large's FFN at 80 % block sparsity")
     sparse = sparse_ffn(torch, counters, peaks, spmm, fo)
+
+    phase("7d. PARLOOPER: Listing 1 and Listing 4")
+    loops = parlooper(torch, counters, peaks, ops, ref)
 
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
@@ -2687,7 +2978,10 @@ def main() -> int:
                    "listing6_output": sparse["listing6_launches"][name],
                    "grouped_experts": sparse["grouped_launches"][name],
                    "bert_training": bert["launches"][name],
-                   "bert_fused_training": bert_fused["launches"][name]}
+                   "bert_fused_training": bert_fused["launches"][name],
+                   "parlooper_listing1": loops["listing1_launches"][name],
+                   "parlooper_conv1x1": loops["conv1x1_launches"][name],
+                   "parlooper_conv3x3": loops["conv3x3_launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2703,7 +2997,8 @@ def main() -> int:
                     if k5_kind(g) == name}}
                if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
-                      "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "training": training,
+                      "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
+                      "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "phase3_extra": bench.extra}))
     print(card_line)

@@ -1,8 +1,8 @@
 """``LegalityError``: the base of the port's diagnostics with a stable code.
 
-Counterpart of ``repro/core/loops.py::LegalityError``.  The loop nest of
-``core/loops.py`` is not ported yet (ROADMAP.md, Queue 1 item 3); its port
-will raise this class.  ``fusion.graph.FusionLegalityError`` derives from it.
+Counterpart of ``repro/core/loops.py::LegalityError``.  The loop nest
+(``core/loops.py``, which re-exports it), the executor and the CUDA plans
+raise it; ``fusion.graph.FusionLegalityError`` derives from it.
 """
 from __future__ import annotations
 

@@ -42,8 +42,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "gemm": {
         # a, b, bias, c, in_bf16, out_bf16, M, N, K, lda, ldb, trans_a,
-        # trans_b, act, vec, stream
-        "gemm": (_P, _P, _P, _P) + (_I,) * 11 + (_P,),
+        # trans_b, act, vec, order, n_order, stream
+        "gemm": (_P, _P, _P, _P) + (_I,) * 11 + (_P, _I, _P),
+    },
+    "brgemm_blocked": {
+        # a, b, c, order, n_order, in_bf16, out_bf16, wmma, Mb, Kb, bm, bn,
+        # bk, k_step, vec, stream
+        "brgemm_blocked": (_P,) * 4 + (_I,) * 11 + (_P,),
     },
     "flash_attention": {
         # q, k, v, o, lse, bf16, B, H, Hk, Sq, Skv, D,

@@ -5,7 +5,8 @@ tensor runs the hand-written CUDA kernel, which launches or raises.  There is
 no backend switch and no fallback: a kernel that fails to build or launch
 fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
 ``attention``, ``decode_attention``, ``paged_decode_attention``,
-``mamba_scan``, ``block_spmm``, ``grouped_matmul``).
+``mamba_scan``, ``block_spmm``, ``grouped_matmul``, ``conv2d``), plus
+``brgemm_blocked`` (paper Listing 1, K11).
 
 ``matmul`` and ``attention`` are ``torch.autograd.Function``s when an input
 requires a gradient.  Their forward and backward dispatch by device too, so
@@ -13,8 +14,9 @@ the CPU tests run the same Function, saved tensors and backward wiring as
 the card: ``matmul``'s backward is K1 on transposed operands, ``attention``'s
 is K6 fed by K2's row log-sum-exp.  When no input requires a gradient they
 call the forward alone and save nothing.  ``mamba_scan`` has no backward
-yet, and ``block_spmm`` and ``grouped_matmul`` have none in the reference:
-each raises when an input requires a gradient.
+yet, and ``block_spmm``, ``grouped_matmul``, ``conv2d``,
+``brgemm_blocked`` and a ``matmul`` scheduled by a spec string have none in
+the reference: each raises when an input requires a gradient.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ import torch
 
 from repro_torch.core import tpp
 from repro_torch.kernels import block_spmm as spmm
-from repro_torch.kernels import brgemm, ref
+from repro_torch.kernels import brgemm, conv, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as scan
 
 __all__ = ["matmul", "attention", "decode_attention", "paged_decode_attention",
-           "mamba_scan", "block_spmm", "grouped_matmul"]
+           "mamba_scan", "block_spmm", "grouped_matmul", "conv2d", "brgemm_blocked"]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -45,12 +47,16 @@ def _wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _matmul_fwd(a, b, bias, activation, out_dtype):
+def _matmul_fwd(a, b, bias, activation, out_dtype, spec_string=None, tiles=None,
+                block_steps=None):
     if _on_cpu(a, b, bias):
+        # the card's schedule, validated so that the CPU raises where it would
+        brgemm.schedule(a.shape[0], a.shape[1], b.shape[1], a.dtype, spec_string, tiles,
+                        block_steps)
         return ref.matmul_ref(a, b, bias=bias, activation=activation,
                               out_dtype=out_dtype)
-    return brgemm.matmul(a, b, bias=bias, activation=activation,
-                         out_dtype=out_dtype)
+    return brgemm.matmul(a, b, bias=bias, activation=activation, out_dtype=out_dtype,
+                         spec_string=spec_string, tiles=tiles, block_steps=block_steps)
 
 
 def _cast(t, dtype):
@@ -92,14 +98,22 @@ class _Matmul(torch.autograd.Function):
                 _cast(dbias, bias.dtype) if bias is not None else None, None, None)
 
 
-def matmul(a, b, *, bias=None, activation=None, out_dtype=None):
+def matmul(a, b, *, bias=None, activation=None, out_dtype=None, spec_string=None,
+           tiles=None, block_steps=None):
     """act(a @ b + bias) with an fp32 accumulator (K1).  ``b`` and ``bias``
     may be fp32 master weights: they are cast to ``a``'s dtype at use, as the
     reference's blocks cast their parameters (``repro/models/blocks.py``
-    ``_cast``)."""
-    if _wants_grad(a, b, bias):
+    ``_cast``).  ``spec_string``, ``tiles`` (bm, bk, bn) and ``block_steps``
+    schedule K1's blocks as the reference's ``matmul_pallas`` plans its grid
+    (``brgemm.schedule``); on the CPU the schedule is validated too, so an
+    illegal one raises on either device.  A scheduled product has no
+    gradient."""
+    if spec_string is not None or tiles is not None or block_steps:
+        _no_grad("matmul with a spec string", a, b, bias)
+    elif _wants_grad(a, b, bias):
         return _Matmul.apply(a, b, bias, activation, out_dtype)
-    return _matmul_fwd(a, _cast(b, a.dtype), _cast(bias, a.dtype), activation, out_dtype)
+    return _matmul_fwd(a, _cast(b, a.dtype), _cast(bias, a.dtype), activation, out_dtype,
+                       spec_string, tiles, block_steps)
 
 
 class _Attention(torch.autograd.Function):
@@ -212,3 +226,37 @@ def grouped_matmul(x, group_id, w, *, bf=128, out_dtype=None):
     if _on_cpu(x, group_id, w):
         return ref.grouped_matmul_ref(x, group_id, w, out_dtype=out_dtype)
     return spmm.grouped_matmul(x, group_id, w, out_dtype=out_dtype)
+
+
+def brgemm_blocked(a, b, *, spec_string="bca", k_step=1, block_steps=None, out_dtype=None):
+    """Paper Listing 1: A (Mb, Kb, bm, bk) × B (Nb, Kb, bk, bn) → C (Nb, Mb,
+    bm, bn) in ``out_dtype`` (default ``a.dtype``), each visit batch-reducing
+    ``k_step`` blocks under ``spec_string`` (K11).  On the CPU the plain
+    version, after the schedule is validated.  No gradient."""
+    _no_grad("brgemm_blocked", a, b)
+    if _on_cpu(a, b):
+        brgemm.blocked_schedule(tuple(a.shape), tuple(b.shape), spec_string, k_step,
+                                block_steps)
+        return ref.brgemm_blocked_ref(a, b, out_dtype=out_dtype)
+    return brgemm.brgemm_blocked(a, b, spec_string=spec_string, k_step=k_step,
+                                 block_steps=block_steps, out_dtype=out_dtype)
+
+
+def conv2d(x_nhwc, w_rsck, *, stride=1, out_dtype=None):
+    """VALID convolution of x (N, H, W, C) with w (R, S, C, K) → (N, P, Q, K)
+    in ``out_dtype`` (default x's dtype), through the paper's blocked
+    layouts (bc = min(32, C), bk = min(32, K), as the reference): R = S = 1
+    runs K12 (``conv.conv2d_1x1``, on K1), other filters Listing 4 on the
+    executor (``conv.conv2d_parlooper``).  No gradient."""
+    _no_grad("conv2d", x_nhwc, w_rsck)
+    _on_cpu(x_nhwc, w_rsck)
+    r, s = w_rsck.shape[:2]
+    bc = min(32, x_nhwc.shape[-1])
+    bk = min(32, w_rsck.shape[-1])
+    xb, wb = conv.block_conv_tensors(x_nhwc, w_rsck, bc, bk)
+    if r == 1 and s == 1:
+        ob = conv.conv2d_1x1(xb, wb, stride=stride, out_dtype=out_dtype)
+    else:
+        ob = conv.conv2d_parlooper(xb, wb, stride=stride, out_dtype=out_dtype)
+    n, kb, p, q, bko = ob.shape
+    return ob.permute(0, 2, 3, 1, 4).reshape(n, p, q, kb * bko)

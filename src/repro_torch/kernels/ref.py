@@ -4,8 +4,8 @@ Each forward mirrors its oracle in ``repro/kernels/ref.py``; each backward
 is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``) or what
 ``repro/fusion/autodiff.py``'s recompute backward derives
 (``attention_bwd_ref``); ``mlp_ref``, ``bcsr_to_dense``,
-``block_spmm_ref`` and ``grouped_matmul_ref`` mirror the oracles of the
-same names.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
+``block_spmm_ref``, ``grouped_matmul_ref``, ``brgemm_blocked_ref`` and
+``conv2d_ref`` mirror the oracles of the same names.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
 backward there runs ``matmul_ref`` on transposed views, as K1 reads them on
 the card, and the tests hold it against ``matmul_bwd_ref``); on the GPU
 they are what ``chip_smoke.py`` holds each CUDA kernel against.  They
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import tpp
 
-__all__ = ["matmul_ref", "matmul_bwd_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
+__all__ = ["matmul_ref", "matmul_bwd_ref", "brgemm_blocked_ref", "conv2d_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
            "grouped_matmul_ref", "attention_ref", "attention_fwd_ref", "attention_bwd_ref",
            "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref"]
 
@@ -49,6 +49,33 @@ def matmul_bwd_ref(a, b, dy, *, bias=None, activation=None):
     da = torch.matmul(dz, b.float().T)
     db = torch.matmul(a.float().T, dz)
     return da, db, dz.sum(0) if bias is not None else None
+
+
+def brgemm_blocked_ref(a, b, *, out_dtype=None):
+    """Blocked-layout BRGEMM (paper Listing 1): A (Mb, Kb, bm, bk) × B (Nb,
+    Kb, bk, bn) → C (Nb, Mb, bm, bn), summed over (Kb, bk) in fp32 and cast
+    once to ``out_dtype`` (default ``a.dtype``)."""
+    acc = torch.einsum("mkab,nkbc->nmac", a.float(), b.float())
+    return acc.to(out_dtype or a.dtype)
+
+
+def conv2d_ref(x, w, *, stride=1, out_dtype=None):
+    """Direct convolution, NHWC input x (N, H, W, C), HWIO weights w (R, S,
+    C, K), VALID padding, ``stride`` on both axes; in fp32, one product of
+    the (R, S) shifted and strided views with w[r, s] after another, cast to
+    ``out_dtype`` (default ``x.dtype``).  Plain matrix products only, so it
+    runs in full fp32 on the card whatever cuDNN's TF32 setting."""
+    n, h, wd, c = x.shape
+    r, s, _, k = w.shape
+    p = (h - r) // stride + 1
+    q = (wd - s) // stride + 1
+    xf, wf = x.float(), w.float()
+    acc = torch.zeros(n, p, q, k, dtype=torch.float32, device=x.device)
+    for dr in range(r):
+        for ds in range(s):
+            view = xf[:, dr:dr + (p - 1) * stride + 1:stride, ds:ds + (q - 1) * stride + 1:stride]
+            acc += torch.matmul(view, wf[dr, ds])
+    return acc.to(out_dtype or x.dtype)
 
 
 def mlp_ref(x, weights, biases, *, activation="gelu", out_dtype=None):

@@ -153,6 +153,7 @@ REPLACES = {
     "fused_output": "src/repro/kernels/fused_output.py:48",
     "brgemm_blocked": "src/repro/kernels/brgemm.py:152",
     "conv2d_1x1": "src/repro/kernels/conv.py:112",
+    "hw_tile_bits": "src/repro/fusion/rng.py:212",
 }
 SOURCE = {
     "gemm": "src/repro_torch/kernels/csrc/gemm.cu",
@@ -174,6 +175,8 @@ SOURCE = {
     "brgemm_blocked": "src/repro_torch/kernels/csrc/brgemm_blocked.cu",
     # the reshape around K1 (csrc/gemm.cu), under the spec string
     "conv2d_1x1": "src/repro_torch/kernels/conv.py",
+    # K13, the Philox4x32-10 device function K5 draws from under hw_prng=True
+    "hw_tile_bits": "src/repro_torch/kernels/csrc/philox.cuh",
 }
 KERNELS = tuple(SOURCE)
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up: the
@@ -217,6 +220,11 @@ ROW = {
     "conv2d_1x1": "ResNet-50's seven 1x1 layers at N 32, bf16, through ops.conv2d (blocking, reshape,"
                   " K1 under 'bca'); library: torch.nn.functional.conv2d in bf16 on channels-last"
                   " tensors",
+    "hw_tile_bits": "K5 with hw_prng=True under pick_tiles' plan: minicpm-2b's fused_attn_out_do_res"
+                    " (M 4096, K 2304 -> N 2304, rate 0.15) and bert-large's fused_output_graph(0.1)"
+                    " at phase 10b's batch (M 8192, K 4096 -> N 1024), bf16; the bound is the graph's"
+                    " (Philox's integer operations not counted: the table has no int32 rate);"
+                    " library: torch.nn.functional.dropout on the (M, N) output, the draw alone",
 }
 
 
@@ -1014,10 +1022,15 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
         m, k, n = a_shape[0] * a_shape[2], a_shape[1] * a_shape[3], b_shape[0] * b_shape[3]
         name = "bfloat16" if (out or dt) == bf16 else "float32"
         before = brgemm.BLOCKED_WMMA_LAUNCHES if variant == "wmma" else brgemm.BLOCKED_SIMT_LAUNCHES
+        library = None
+        if timed:     # torch.matmul on the same flat product, fp32 (no TF32)
+            flat_a = a.permute(0, 2, 1, 3).reshape(m, k)
+            flat_b = b.permute(1, 2, 0, 3).reshape(k, n)
+            library = lambda: torch.matmul(flat_a, flat_b)
         bench.run("brgemm_blocked", label,
                   lambda: brgemm.brgemm_blocked(a, b, spec_string=spec, k_step=ks, block_steps=steps,
                                                 out_dtype=out),
-                  lambda: ref.brgemm_blocked_ref(a, b, out_dtype=out), None,
+                  lambda: ref.brgemm_blocked_ref(a, b, out_dtype=out), library,
                   flops=2 * m * n * k,
                   nbytes=a.element_size() * (m * k + k * n) + m * n * (out or dt).itemsize,
                   dtype=name, tol_kind="gemm", timed=timed)
@@ -1190,11 +1203,12 @@ def sweep_graphs(fusion):
 
 def fused_graphs(fusion):
     """Every graph phase 3 and the fused serving path launch: the path's
-    (llama2-13b, gpt-j-6b), fused_qkv, the op sweep, and Listing 6's
-    keep-mask graph beside K7."""
+    (llama2-13b, gpt-j-6b), fused_qkv, the op sweep, Listing 6's keep-mask
+    graph beside K7, and K13's graphs (with Listing 6 at rate 0)."""
     return [fusion.fused_gated_mlp_graph("silu"), fusion.fused_attn_out_graph(True),
             fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion),
-            fusion.fused_output_graph(0.1, rng_dropout=False)]
+            fusion.fused_output_graph(0.1, rng_dropout=False), *k13_graphs(fusion),
+            fusion.fused_output_graph(0.0)]
 
 
 def training_graphs(fusion):
@@ -1532,6 +1546,247 @@ def fused_training_cases(torch, bench, fusion, rng):
                 run("fused_proj_bwd", f"check fp32 {gname}", gr,
                     {sp.name: ops[sp.name] for sp in gr.operands}, timed=False, out_dtype=f32,
                     flops=0, nbytes=0)
+
+
+def k13_graphs(fusion):
+    """The graphs phase 3's K13 cases launch besides the paths' own: the
+    pre-norm half of Listing 6 (bias and dropout, whose keep pattern shows
+    in its output) and a dropout after a row panel's close (full-row
+    tiles)."""
+    salt = fusion.library.OUTPUT_DROPOUT_SALT
+    return [fusion.TppGraph.chain("fused_output_keep",
+                                  [("bias_add", ("bias",), {}),
+                                   ("dropout_rng", ("seed",), {"rate": 0.1, "salt": salt})],
+                                  [("x", "lhs"), ("w", "rhs"), ("bias", "rowvec"),
+                                   ("seed", "scalar")]),
+            fusion.TppGraph.chain("softmax_dropout",
+                                  [("softmax", (), {}),
+                                   ("dropout_rng", ("seed",), {"rate": 0.2, "salt": 7})],
+                                  [("x", "lhs"), ("w", "rhs"), ("seed", "scalar")])]
+
+
+def _k5_counted(torch, fused_gemm, fn):
+    """``fn()`` with K5's counters read around it: → (output, launches,
+    K13 launches)."""
+    fused_gemm.LAUNCHES = fused_gemm.HW_PRNG_LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_gemm.LAUNCHES, fused_gemm.HW_PRNG_LAUNCHES
+
+
+def fused_spec_cases(torch, bench, fusion, fused_gemm, rng):
+    """K5 scheduled from spec strings (``fusion.compile(graph,
+    spec_string=, tiles=, block_steps=)``), each output bitwise equal to
+    the fixed grid's and each case one K5 launch: llama2-13b's
+    fused_gated_mlp_silu at prefill (M 2048, 5120 -> 13824) on K5's CTA
+    tiles, bert-large's Listing 6 (fused_output_graph(0.1), M 4096, K 1024,
+    N 1024: row panels) and minicpm-2b's chained attention (B 4, H 36, S
+    1024, D 64, causal) on pick_tiles' blocks; then the counter draw of
+    fused_attn_out_do_res (M 4096, N 2304) under three (spec, tiles) pairs,
+    its keep bits equal to ``fusion.rng.tile_bits``'s."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf16)
+
+    times = {}
+
+    def by_spec(kernel, label, graph, ops, cases, *, flops, nbytes, library):
+        fixed = fusion.compile(graph, path="cuda")
+        base = fixed(**ops)
+        plain = fusion.compile(graph, path="reference")
+        times[f"{label} fixed grid"] = time_ms(torch, lambda: fixed(**ops))
+        for spec, tiles, steps in cases:
+            k5 = fusion.compile(graph, path="cuda", spec_string=spec, tiles=tiles, block_steps=steps)
+            name = f"{label} spec {spec} {steps or ''} tiles {tiles or 'pick_tiles'}"
+            got, n, _ = _k5_counted(torch, fused_gemm, lambda: k5(**ops))
+            check(n == 1, f"K5 {name}: {n} launches, want 1")
+            check(torch.equal(got, base), f"K5 under {name} differs from the fixed grid")
+            bench.run(kernel, name, lambda: k5(**ops), lambda: plain(**ops), library,
+                      flops=flops, nbytes=nbytes, dtype="bfloat16", tol_kind="gemm")
+            times[name] = bench.cases[kernel][-1]["ms"]
+
+    m, d, ff = 2048, 5120, 13824
+    x, wg, wu = randn(m, d), randn(d, ff, scale=d ** -0.5), randn(d, ff, scale=d ** -0.5)
+    by_spec("fused_gemm", f"fused_gated_mlp_silu M{m} {d}->{ff}", fusion.fused_gated_mlp_graph("silu"),
+            dict(x=x, wg=wg, wu=wu),
+            [(spec, (128, 32, 64), steps) for spec, steps in
+             (("bca", None), ("cba", None), ("BCa", None), ("bcba", {"b": (4,)}))],
+            flops=4 * m * d * ff, nbytes=2 * (m * d + 2 * d * ff + m * ff),
+            library=lambda: torch.nn.functional.silu(x @ wg) * (x @ wu))
+    del x, wg, wu
+    m, k, n = 4096, 1024, 1024
+    x, w, res = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
+    bias, gamma, beta = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    by_spec("fused_gemm", f"fused_output_graph(0.1) M{m} K{k} N{n}", fusion.fused_output_graph(0.1),
+            dict(x=x, w=w, bias=bias, seed=99, residual=res, gamma=gamma, beta=beta),
+            [("bca", None, None), ("bcca", None, {"c": (2,)}), ("bbca", None, {"b": (2,)})],
+            flops=2 * m * k * n, nbytes=_nbytes(x, w, res, res), library=None)
+    del x, w, res
+    b, h, sq, hd = 4, 36, 1024, 64
+    q = randn(b, sq, h, hd).transpose(1, 2)
+    kk, v = randn(b, h, sq, hd), randn(b, h, sq, hd)
+    by_spec("fused_chain", f"attention B{b} H{h} S{sq} D{hd} causal",
+            fusion.fused_attention_graph(causal=True, scale=hd ** -0.5), dict(q=q, k=kk, v=v),
+            [("bca", None, None), ("bbca", None, {"b": (2,)})],
+            flops=4 * b * h * hd * sq * (sq + 1) // 2, nbytes=_nbytes(q, kk, v, v),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(q, kk, v, is_causal=True))
+    del q, kk, v
+
+    rate, salt, seed = 0.15, fusion.library.ATTN_OUT_DROPOUT_SALT, 4242
+    t, dm = 4096, 2304
+    g = fusion.fused_attn_out_graph(True, dropout_rate=rate)
+    o, wo = randn(t, dm), randn(dm, dm, scale=dm ** -0.5)
+    zero = torch.zeros(t, dm, dtype=bf16, device="cuda")
+    keep = rng.keep_mask(seed, salt, (t, dm), rate=rate, device="cuda")
+    acc = (o.float() @ wo.float()).abs() > 1e-2
+    for spec, tiles, steps in (("bca", None, None), ("cba", (128, 32, 128), None),
+                               ("bcca", (256, 64, 128), {"c": (2,)})):
+        y = fusion.compile(g, path="cuda", spec_string=spec, tiles=tiles, block_steps=steps)(
+            o=o, wo=wo, seed=seed, residual=zero)
+        check(torch.equal((y != 0) & acc, keep & acc),
+              f"the counter draw under {spec} {tiles} differs from fusion.rng.tile_bits")
+    print(f"  counter draw of fused_attn_out_do_res M{t} N{dm} under bca, cba (128,32,128) and"
+          f" bcca (256,64,128): keep bits equal to fusion.rng.tile_bits on {int(acc.sum())} of"
+          f" {t * dm} elements", flush=True)
+    bench.extra["k5_by_spec_ms"] = times
+    print("    K5 by spec (bitwise equal to the fixed grid): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in times.items()) + " ms", flush=True)
+
+
+def _sigma(p, n):
+    return math.sqrt(p * (1 - p) / n)
+
+
+def _rate0(fusion, graph):
+    """``graph`` with its dropout_rng nodes at rate 0 (simplified away)."""
+    import dataclasses
+    nodes = tuple(dataclasses.replace(nd, attrs=tuple((a, 0.0 if a == "rate" else v)
+                                                      for a, v in nd.attrs))
+                  if nd.op == "dropout_rng" else nd for nd in graph.nodes)
+    return dataclasses.replace(graph, name=f"{graph.name}_rate0", nodes=nodes)
+
+
+def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
+    """K13: K5 under ``hw_prng=True`` against its plain version on the card
+    (``fusion.plain_version``, the composed reference drawing
+    ``rng.hw_bits`` per plan tile) under pick_tiles' plan and one other
+    tile choice: minicpm-2b's fused_attn_out_do_res (M 4096, K 2304 -> N
+    2304, rate 0.15), bert-large's fused_output_graph(0.1) at phase 10b's
+    batch (M 8192, K 4096 -> N 1024; its keep pattern through its pre-norm
+    half, ``k13_graphs``), and small ragged, fp32 and post-reduce checks.
+    Each: the keep pattern bit for bit, the keep share within 5 sigma of
+    1 - rate, agreement with the counter pattern within 5 sigma of p^2 +
+    (1 - p)^2, the same bits in two runs, one K13 launch a call; timed
+    beside the counter path, the graph at rate 0 and F.dropout on the
+    output."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    def draw_checks(label, keep, counter_keep, rate):
+        n = keep.numel()
+        p = 1 - rate
+        share = float(keep.float().mean())
+        check(abs(share - p) <= 5 * _sigma(p, n),
+              f"K13 {label}: keep share {share:.5f}, want {p} within 5 sigma")
+        agree = float((keep == counter_keep).float().mean())
+        q = p * p + (1 - p) ** 2
+        check(abs(agree - q) <= 5 * _sigma(q, n),
+              f"K13 {label}: agreement with the counter pattern {agree:.5f}, want {q:.5f}")
+        return share, agree
+
+    def case(label, graph, ops, tiles, *, rate, salt, seed, shape, keep_graph=None,
+             keep_ops=None, weight=0, timed=True, flops=0, nbytes=0, dtype="bfloat16",
+             rate0=None, full_row=False):
+        hw = fusion.compile(graph, path="cuda", hw_prng=True, tiles=tiles)
+        plain = fusion.plain_version(graph, hw_prng=True, tiles=tiles)
+        y, n, n_hw = _k5_counted(torch, fused_gemm, lambda: hw(**ops))
+        check(n == 1 and n_hw == 1, f"K13 {label}: K5 {n} and K13 {n_hw} launches, want 1 each")
+        check(torch.equal(y, hw(**ops)), f"K13 {label}: two runs gave different bits")
+        gp = fusion.lowering.plan_graph(fusion.simplify_graph(graph), *shape, ops[graph.roots[0].lhs].dtype,
+                                        tiles=tiles)
+        m, n_cols = shape[0], shape[2]
+        tile = (gp.prng_tile[0], n_cols) if full_row else gp.prng_tile
+        keep = rng.hw_bits(seed, salt, (m, n_cols), tile, device="cuda") < rng.keep_threshold(rate)
+        counter_keep = rng.keep_mask(seed, salt, (m, n_cols), rate=rate, device="cuda")
+        # the keep pattern: in the output, or through the graph's pre-norm
+        # half, where the value before the draw is not near 0
+        kg, kops = (keep_graph, keep_ops) if keep_graph is not None else (graph, ops)
+        ky = fusion.compile(kg, path="cuda", hw_prng=True, tiles=tiles)(**kops)
+        kp = fusion.plain_version(kg, hw_prng=True, tiles=tiles)(**kops)
+        before = fusion.plain_version(_rate0(fusion, kg))(**kops).float().abs()
+        live = before > 1e-3 * float(before.max())
+        check(torch.equal((ky != 0) & live, keep & live) and torch.equal((kp != 0) & live, keep & live),
+              f"K13 {label}: the kernel's keep pattern differs from rng.hw_bits on tile {tile}")
+        share, agree = draw_checks(label, keep, counter_keep, rate)
+        bench.run("hw_tile_bits", f"{label} tiles {tiles or 'pick_tiles'}", lambda: hw(**ops),
+                  lambda: plain(**ops), (lambda: F.dropout(y, rate)) if timed else None,
+                  flops=flops, nbytes=nbytes, dtype=dtype, tol_kind="gemm", weight=weight,
+                  timed=timed)
+        row = {"prng_tile": list(tile), "keep_share": share, "agreement_with_counter": agree,
+               "live_elements_checked": int(live.sum())}
+        if timed:
+            counter = fusion.compile(graph, path="cuda")
+            zero_rate = fusion.compile(rate0, path="cuda")
+            row.update(hw_ms=bench.cases["hw_tile_bits"][-1]["ms"],
+                       counter_ms=time_ms(torch, lambda: counter(**ops)),
+                       rate0_ms=time_ms(torch, lambda: zero_rate(**ops)),
+                       dropout_library_ms=bench.cases["hw_tile_bits"][-1]["library_ms"],
+                       bound_ms=bench.cases["hw_tile_bits"][-1]["bound_ms"])
+            print(f"    {label} tiles {tiles or 'pick_tiles'} (K13 tile {tuple(tile)}): hw"
+                  f" {row['hw_ms']:.4f} ms, counter {row['counter_ms']:.4f} ms, rate 0"
+                  f" {row['rate0_ms']:.4f} ms, F.dropout {row['dropout_library_ms']:.4f} ms, bound"
+                  f" {row['bound_ms']:.4f} ms; keep share {share:.5f}, agreement {agree:.5f}", flush=True)
+        rows[f"{label} tiles {tiles or 'pick_tiles'}"] = row
+
+    # minicpm-2b's attention output projection with dropout 0.15
+    rate, salt, seed = 0.15, fusion.library.ATTN_OUT_DROPOUT_SALT, 777
+    t, dm = 4096, 2304
+    g = fusion.fused_attn_out_graph(True, dropout_rate=rate)
+    o, wo, res = randn(t, dm), randn(dm, dm, scale=dm ** -0.5), randn(t, dm)
+    zero = torch.zeros(t, dm, dtype=bf16, device="cuda")
+    for tiles, weight in ((None, 1), ((128, 64, 128), 0)):
+        case(f"fused_attn_out_do_res M{t} N{dm}", g, dict(o=o, wo=wo, seed=seed, residual=res),
+             tiles, rate=rate, salt=salt, seed=seed, shape=(t, dm, dm), weight=weight,
+             keep_ops=dict(o=o, wo=wo, seed=seed, residual=zero), keep_graph=g,
+             flops=2 * t * dm * dm, nbytes=_nbytes(o, wo, res, res), rate0=_rate0(fusion, g))
+    del o, wo, res, zero
+    # bert-large's Listing 6 at phase 10b's batch (16 x 512 tokens), Bert-Output
+    rate, salt = 0.1, fusion.library.OUTPUT_DROPOUT_SALT
+    m, k, n = 8192, 4096, 1024
+    x, w, res = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
+    bias, gamma, beta = (torch.randn(n, generator=gen, device="cuda") for _ in range(3))
+    ops = dict(x=x, w=w, bias=bias, seed=seed, residual=res, gamma=gamma, beta=beta)
+    for tiles, weight in ((None, 1), ((256, 64, 512), 0)):
+        case(f"fused_output_graph(0.1) M{m} K{k} N{n}", fusion.fused_output_graph(rate), ops, tiles,
+             rate=rate, salt=salt, seed=seed, shape=(m, k, n), weight=weight,
+             keep_graph=k13_graphs(fusion)[0], keep_ops=dict(x=x, w=w, bias=bias, seed=seed),
+             flops=2 * m * k * n, nbytes=_nbytes(x, w, res, res),
+             rate0=_rate0(fusion, fusion.fused_output_graph(rate)))
+    del x, w, res, ops
+    # small checks: ragged fp32 (pick_tiles' odd blocks), bf16 on K5's SIMT
+    # tile, and a draw after a row panel's close (full-row tiles)
+    for label, graph, (m, k, n), dt, tiles, full in (
+            ("check fp32 ragged", g, (77, 50, 130), f32, None, False),
+            ("check fp32", g, (96, 64, 192), f32, (32, 32, 64), False),
+            ("check bf16 M16", g, (16, 64, 256), bf16, (16, 32, 64), False),
+            ("check post-reduce", k13_graphs(fusion)[1], (128, 64, 384), f32, (32, 32, 128), True)):
+        ops = {"o" if "o" in graph.operand_names else "x": randn(m, k, dtype=dt),
+               "wo" if "wo" in graph.operand_names else "w": randn(k, n, dtype=dt), "seed": seed}
+        if "residual" in graph.operand_names:
+            ops["residual"] = torch.zeros(m, n, dtype=dt, device="cuda")
+        r = 0.2 if full else 0.15
+        s = 7 if full else fusion.library.ATTN_OUT_DROPOUT_SALT
+        case(f"{label} M{m} K{k} N{n}", graph, ops, tiles, rate=r, salt=s, seed=seed,
+             shape=(m, k, n), timed=False, full_row=full,
+             dtype="bfloat16" if dt == bf16 else "float32")
+    bench.extra["k13"] = rows
 
 
 def _to_cuda(tree):
@@ -2495,6 +2750,70 @@ def parlooper(torch, counters, peaks, ops, ref):
     return result
 
 
+def scheduled_path(torch, counters, fusion, rng):
+    """Phase 7e, K5 scheduled and K13 through the library helpers a user
+    calls, each with every counter set to 0 just before and read just
+    after: llama2-13b's gated MLP at prefill (M 2048, 5120 -> 13824) through
+    ``fused_gated_mlp_apply(..., spec_string="bcba", block_steps={"b":
+    (4,)}, tiles=(128, 32, 64))``, one K5 launch and nothing else, bitwise
+    equal to the unscheduled call; minicpm-2b's attention output
+    projection with dropout 0.15 (M 4096, 2304 -> 2304) through
+    ``fused_attn_out_apply(..., hw_prng=True, vjp=False)``, one K5 launch
+    that draws from K13 and nothing else, its output finite, of the
+    expected shape and within the bf16 tolerance of K13's plain version
+    on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    bf16 = torch.bfloat16
+    rtol, atol = TOL["bfloat16"]["gemm"]
+    result, total = {}, dict.fromkeys(KERNELS, 0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf16)
+
+    m, d, ff = 2048, 5120, 13824
+    x, wg, wu = randn(m, d), randn(d, ff, scale=d ** -0.5), randn(d, ff, scale=d ** -0.5)
+    sched = dict(spec_string="bcba", block_steps={"b": (4,)}, tiles=(128, 32, 64))
+    counters.reset()
+    y = fusion.fused_gated_mlp_apply(x, wg, wu, vjp=False, **sched)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches["fused_gemm"] == 1 and sum(launches.values()) == 1,
+          f"the scheduled gated MLP launched {launches}, want K5 once and nothing else")
+    check(torch.equal(y, fusion.fused_gated_mlp_apply(x, wg, wu, vjp=False)),
+          "the scheduled gated MLP differs from the fixed grid")
+    for name, count in launches.items():
+        total[name] += count
+    result["gated_mlp"] = {"shape": [m, d, ff], **sched, "launches": launches}
+    print(f"  fused_gated_mlp_apply M{m} {d}->{ff} under bcba {{b:(4,)}} tiles (128, 32, 64):"
+          f" launches {launches['fused_gemm']} K5, bitwise equal to the fixed grid", flush=True)
+    del x, wg, wu, y
+
+    t, dm, rate, seed = 4096, 2304, 0.15, 2024
+    o, wo, res = randn(t, dm), randn(dm, dm, scale=dm ** -0.5), randn(t, dm)
+    counters.reset()
+    y = fusion.fused_attn_out_apply(o, wo, residual=res, dropout_rate=rate, dropout_seed=seed,
+                                    hw_prng=True, vjp=False)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches["fused_gemm"] == 1 and launches["hw_tile_bits"] == 1
+          and sum(launches.values()) == 2,
+          f"hw_prng fused_attn_out_apply launched {launches}, want K5 once drawing from K13")
+    g = fusion.fused_attn_out_graph(True, dropout_rate=rate)
+    want = fusion.plain_version(g, hw_prng=True)(o=o, wo=wo, seed=seed, residual=res)
+    err, ok = compare(torch, y, want, rtol, atol)
+    check(ok and y.shape == (t, dm), f"hw_prng fused_attn_out_apply: shape {tuple(y.shape)},"
+                                     f" max err {err:.3e} against K13's plain version")
+    for name, count in launches.items():
+        total[name] += count
+    result["attn_out_hw_prng"] = {"shape": [t, dm, dm], "rate": rate, "max_abs_err": err,
+                                  "launches": launches}
+    result["launches"] = total
+    print(f"  fused_attn_out_apply M{t} {dm}->{dm} dropout {rate} hw_prng: launches"
+          f" {launches['fused_gemm']} K5, {launches['hw_tile_bits']} K13; max err {err:.3e}"
+          f" against K13's plain version (rtol {rtol}, atol {atol})", flush=True)
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
@@ -2597,6 +2916,7 @@ class Counters:
         self.fa.PAGED_DECODE_LAUNCHES = 0
         self.fused_gemm.LAUNCHES = 0
         self.fused_gemm.GRAPH_LAUNCHES.clear()
+        self.fused_gemm.HW_PRNG_LAUNCHES = 0
         self.scan.SCAN_LAUNCHES = 0
         self.spmm.SPMM_LAUNCHES = 0
         self.spmm.GROUPED_LAUNCHES = 0
@@ -2615,7 +2935,8 @@ class Counters:
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
                 "fused_output": self.fo.LAUNCHES,
                 "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
-                "conv2d_1x1": self.conv.LAUNCHES}
+                "conv2d_1x1": self.conv.LAUNCHES,
+                "hw_tile_bits": self.fused_gemm.HW_PRNG_LAUNCHES}
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -2907,6 +3228,8 @@ def main() -> int:
     mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion)
     fused_training_cases(torch, bench, fusion, rng)
+    fused_spec_cases(torch, bench, fusion, fused_gemm, rng)
+    hw_prng_cases(torch, bench, fusion, fused_gemm, rng)
     bert_attention_cases(torch, bench, fusion)
     block_spmm_cases(torch, bench, ref, spmm, brgemm)
     grouped_matmul_cases(torch, bench, ref, spmm)
@@ -2947,6 +3270,9 @@ def main() -> int:
     phase("7d. PARLOOPER: Listing 1 and Listing 4")
     loops = parlooper(torch, counters, peaks, ops, ref)
 
+    phase("7e. K5 scheduled from spec strings, and K13, through the library helpers")
+    scheduled = scheduled_path(torch, counters, fusion, rng)
+
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
@@ -2981,7 +3307,8 @@ def main() -> int:
                    "bert_fused_training": bert_fused["launches"][name],
                    "parlooper_listing1": loops["listing1_launches"][name],
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
-                   "parlooper_conv3x3": loops["conv3x3_launches"][name]}
+                   "parlooper_conv3x3": loops["conv3x3_launches"][name],
+                   "scheduled": scheduled["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2998,6 +3325,7 @@ def main() -> int:
                if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
                       "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
+                      "scheduled": scheduled,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "phase3_extra": bench.extra}))

@@ -2,10 +2,11 @@
 K5, a CUDA C++ code generator for every graph the library and its derived
 backward graphs use (``kernels/fused_gemm.py``); the library's fused-layer
 graphs; the derived backward graphs and their autograd Function
-(``autodiff``); and the counter-based random bits (``rng``).  Ported from
-``repro/fusion``; the cost path (``fusion/cost.py``) waits for
-``core.perf_model``, ``core.autotune`` and ``core.loops`` (ROADMAP.md,
-Queue 1)."""
+(``autodiff``); the counter-based random bits and K13's per-tile Philox
+bits (``rng``); graphs scheduled from a PARLOOPER spec string
+(``lowering.plan_graph``).  Ported from ``repro/fusion``; the cost path
+(``fusion/cost.py``) waits for ``core.perf_model`` and ``core.autotune``
+(ROADMAP.md, Queue 1)."""
 from repro_torch.fusion import rng
 from repro_torch.fusion.autodiff import (BackwardPlan, ChainedBackwardPlan, backward_graphs,
                                          compile_with_vjp, derive_vjp)
@@ -17,12 +18,14 @@ from repro_torch.fusion.library import (fused_attention_apply, fused_attention_g
                                         fused_gated_mlp_apply, fused_gated_mlp_graph,
                                         fused_mlp_apply, fused_mlp_graph, fused_output_apply,
                                         fused_output_graph, fused_qkv_apply, fused_qkv_graph)
-from repro_torch.fusion.lowering import compile, compile_for_device
+from repro_torch.fusion.lowering import (DEFAULT_SPEC, compile, compile_for_device,
+                                        plain_version, validate_epilogue_band)
 
 __all__ = [
     "TppGraph", "ContractionRoot", "Node", "OperandSpec", "EpilogueOp",
     "EPILOGUE_OPS", "ONLINE_REDUCERS", "register_epilogue", "FusionLegalityError",
-    "simplify_graph", "rng", "compile", "compile_for_device", "compile_with_vjp",
+    "simplify_graph", "rng", "compile", "compile_for_device", "plain_version",
+    "compile_with_vjp", "DEFAULT_SPEC", "validate_epilogue_band",
     "derive_vjp", "backward_graphs", "BackwardPlan", "ChainedBackwardPlan",
     "fused_output_graph", "fused_mlp_graph", "fused_gated_mlp_graph",
     "fused_qkv_graph", "fused_attn_out_graph", "fused_attention_graph",

@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.fusion.graph import (EPILOGUE_OPS, ContractionRoot, FusionLegalityError, Node,
                                       OperandSpec, TppGraph, _check_grad_arity, simplify_graph)
-from repro_torch.fusion.lowering import compile_for_device, contraction_operand_values
+from repro_torch.fusion.lowering import (HW_PRNG_OPS, _freeze, compile_for_device,
+                                        contraction_operand_values)
 
 __all__ = ["derive_vjp", "BackwardPlan", "ChainedBackwardPlan", "backward_graphs",
            "compile_with_vjp"]
@@ -648,19 +649,32 @@ def _run_backward(plan, ops_env: dict, accs: Optional[dict], dy):
 _VJP_CACHE: dict = {}
 
 
-def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute"):
-    """``fn(**operands)`` whose forward equals ``compile_for_device(graph)``
-    and whose backward, under autograd, runs the graphs :func:`derive_vjp`
-    derives (through ``compile_for_device``, fp32 out), each cotangent cast
-    to its operand's dtype.  Memoized per graph and ``residuals``."""
-    key = (graph, residuals)
+def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
+    """``fn(**operands)`` whose forward equals ``compile_for_device(graph,
+    **kw)`` and whose backward, under autograd, runs the graphs
+    :func:`derive_vjp` derives (through ``compile_for_device``, fp32 out),
+    each cotangent cast to its operand's dtype.  Schedule keywords
+    (``spec_string``, ``tiles``, ``block_steps``) apply to the forward
+    kernel; the backward graphs have their own problem shapes and keep
+    their own grids, as in the reference.  ``hw_prng=True`` on a graph with
+    a PRNG node raises ``FusionLegalityError``: the derived backward graphs
+    regenerate the counter path's bits, which would not be the forward's
+    mask (the reference hands ``hw_prng`` to the forward only and so takes
+    a wrong gradient).  Memoized per graph, ``residuals`` and schedule."""
+    key = (graph, residuals, _freeze(kw))
     hit = _VJP_CACHE.get(key)
     if hit is not None:
         return hit
     lowered = simplify_graph(graph)
+    if kw.get("hw_prng") and any(nd.op in HW_PRNG_OPS for nd in lowered.nodes):
+        raise FusionLegalityError(
+            f"graph {graph.name!r}: hw_prng=True draws the forward's dropout bits per "
+            "plan tile, which the derived backward graphs cannot regenerate; use the "
+            "counter path (hw_prng=False) to differentiate this graph, or "
+            "compile_for_device for a forward without a gradient", code="TPP227")
     plan = derive_vjp(lowered, policy=residuals)
     names = tuple(s.name for s in lowered.contraction_operands + lowered.epilogue_operands)
-    fwd_fn = compile_for_device(lowered)
+    fwd_fn = compile_for_device(lowered, **kw)
     aug_fn = (compile_for_device(plan.aug_forward, out_dtype=_F32)
               if plan.aug_forward is not None else None)
     n_out = len(lowered.outputs)

@@ -187,18 +187,28 @@ def _dropout_apply(v, mask, *, rate: float = 0.0):
 
 
 def _dropout_rng_apply(v, seed, *, rate: float = 0.0, salt: int = 0,
-                       _offsets=(0, 0)):
+                       _offsets=(0, 0), _impl: str = "counter", _tile=None):
     """Counter-based dropout: keep bits regenerated from (seed, salt,
     element coordinates), no mask operand; exact integer threshold, fp32
-    rescale.  (The reference's ``_impl="hw"``, the TPU's hardware
-    generator, is K13 and not ported.)"""
+    rescale.  ``_impl="hw"`` draws K13's per-tile Philox bits instead
+    (``rng.hw_tile_bits``): ``v`` is one tile at ``_offsets``, or, with
+    ``_tile`` (rows, columns), a whole problem cut into such tiles from
+    (0, 0), as a plan cuts it."""
     from repro_torch.fusion import rng
     if rate <= 0.0:
         return v
+    if _impl not in ("counter", "hw"):
+        raise ValueError(f"dropout_rng: unknown _impl {_impl!r}")
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(())
     # a batched value keys each 2-D problem on its own coordinates
-    bits = rng.tile_bits(seed, salt, tuple(v.shape[-2:]), offsets=_offsets, device=v.device)
+    shape = tuple(v.shape[-2:])
+    if _impl == "counter":
+        bits = rng.tile_bits(seed, salt, shape, offsets=_offsets, device=v.device)
+    elif _tile is None:
+        bits = rng.hw_tile_bits(seed, salt, shape, offsets=_offsets, device=v.device)
+    else:
+        bits = rng.hw_bits(seed, salt, shape, _tile, device=v.device)
     keep = bits < rng.keep_threshold(rate)
     return torch.where(keep, v.float() * _fp32_scale(rate),
                        torch.zeros((), device=v.device))

@@ -15,7 +15,9 @@ The ``fused_*_apply`` helpers run the graph through
 forward is ``lowering.compile_for_device`` (the composed reference on CPU
 tensors, K5's generated kernel on CUDA tensors) and a gradient runs the
 derived backward graphs the same way.  They take no ``backend=``: the
-device decides.
+device decides.  As the reference's, they take ``vjp`` (False: the forward
+alone, ``compile_for_device``) and pass any other keyword on: the schedule
+(``spec_string``, ``tiles``, ``block_steps``, ``hw_prng``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.fusion import rng
 from repro_torch.fusion.autodiff import compile_with_vjp
+from repro_torch.fusion.lowering import compile_for_device
 from repro_torch.fusion.graph import (ContractionRoot, FusionLegalityError, Node,
                                       OperandSpec, TppGraph)
 
@@ -36,6 +39,10 @@ __all__ = [
     "fused_attn_out_apply", "fused_attention_apply", "OUTPUT_DROPOUT_SALT",
     "ATTN_OUT_DROPOUT_SALT",
 ]
+
+def _dispatch(graph, vjp, kw):
+    return compile_with_vjp(graph, **kw) if vjp else compile_for_device(graph, **kw)
+
 
 # Per-site PRNG salts, shared with the unfused paths that reproduce a fused
 # draw (the same stable strings as the reference).
@@ -174,7 +181,8 @@ def fused_attn_out_graph(residual: bool = False, norm: str = "",
 def fused_output_apply(x, w, bias, residual, gamma, beta, *, keep_mask=None,
                        dropout_rate: float = 0.0, dropout_seed=None,
                        dropout_salt: int = OUTPUT_DROPOUT_SALT,
-                       deterministic: bool = False, eps: float = 1e-5):
+                       deterministic: bool = False, eps: float = 1e-5, vjp: bool = True,
+                       **kw):
     """Listing 6 in one kernel: layernorm(dropout(x @ w + bias) + residual).
     Dropout draws in-kernel counter bits from a scalar ``dropout_seed``;
     ``deterministic=True`` disables it; a ``keep_mask`` takes the mask
@@ -193,20 +201,20 @@ def fused_output_apply(x, w, bias, residual, gamma, beta, *, keep_mask=None,
                     "for the in-kernel PRNG (or deterministic=True to disable dropout; a "
                     "keep_mask is also accepted)")
             operands["seed"] = dropout_seed
-    return compile_with_vjp(g)(**operands)
+    return _dispatch(g, vjp, kw)(**operands)
 
 
-def fused_mlp_apply(x, w, bias, *, activation: str = "gelu"):
+def fused_mlp_apply(x, w, bias, *, activation: str = "gelu", vjp: bool = True, **kw):
     """act(x @ w + bias) in one kernel."""
-    return compile_with_vjp(fused_mlp_graph(activation))(x=x, w=w, bias=bias)
+    return _dispatch(fused_mlp_graph(activation), vjp, kw)(x=x, w=w, bias=bias)
 
 
-def fused_gated_mlp_apply(x, wg, wu, *, activation: str = "silu"):
+def fused_gated_mlp_apply(x, wg, wu, *, activation: str = "silu", vjp: bool = True, **kw):
     """act(x @ wg) * (x @ wu) in one two-root kernel."""
-    return compile_with_vjp(fused_gated_mlp_graph(activation))(x=x, wg=wg, wu=wu)
+    return _dispatch(fused_gated_mlp_graph(activation), vjp, kw)(x=x, wg=wg, wu=wu)
 
 
-def fused_qkv_apply(x, wq, wk, wv):
+def fused_qkv_apply(x, wq, wk, wv, *, vjp: bool = True, **kw):
     """``(x @ wq, x @ wk, x @ wv)`` in one three-root kernel, each at its
     projection's own width (GQA: k and v narrower than q).  Weight shapes
     are checked first (one input width K, k and v matching, q's width a
@@ -225,11 +233,12 @@ def fused_qkv_apply(x, wq, wk, wv):
             "must share the input (K) width, k and v must match, and the q "
             "width must be a positive multiple of the kv width (GQA)",
             code="TPP214")
-    out = compile_with_vjp(fused_qkv_graph())(x=x, wq=wq, wk=wk, wv=wv)
+    out = _dispatch(fused_qkv_graph(), vjp, kw)(x=x, wq=wq, wk=wk, wv=wv)
     return out[0], out[1][:, :nk], out[2][:, :nv]
 
 
-def fused_attention_apply(q, k, v, *, causal: bool = True, window=None, scale=None):
+def fused_attention_apply(q, k, v, *, causal: bool = True, window=None, scale=None,
+                          vjp: bool = True, **kw):
     """Attention through the chained-root graph, a drop-in for
     ``kernels.ops.attention``: q (B, H, Sq, D), k and v (B, Hk, Skv, D) with
     H % Hk == 0 (GQA kv heads repeated on dim 1, as ``jnp.repeat``).  Every
@@ -248,14 +257,14 @@ def fused_attention_apply(q, k, v, *, causal: bool = True, window=None, scale=No
     g = fused_attention_graph(
         causal=bool(causal), window=int(window or 0),
         scale=float(scale) if scale is not None else 1.0 / math.sqrt(d), offset=skv - sq)
-    return compile_with_vjp(g)(q=q, k=k, v=v)
+    return _dispatch(g, vjp, kw)(q=q, k=k, v=v)
 
 
 def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
                          norm: str = "", eps: float = 1e-5,
                          dropout_rate: float = 0.0, dropout_seed=None,
                          dropout_salt: int = ATTN_OUT_DROPOUT_SALT,
-                         deterministic: bool = False):
+                         deterministic: bool = False, vjp: bool = True, **kw):
     """The attention output projection [+ dropout] [+ residual] [+ norm] in
     one kernel.  Dropout takes a scalar ``dropout_seed`` for the counter
     PRNG, whose bits the derived backward regenerates; ``deterministic=True``
@@ -280,4 +289,4 @@ def fused_attn_out_apply(o, wo, *, residual=None, gamma=None, beta=None,
     if residual is not None:
         operands["residual"] = residual
     operands.update({p: given[p] for p in need})
-    return compile_with_vjp(g)(**operands)
+    return _dispatch(g, vjp, kw)(**operands)

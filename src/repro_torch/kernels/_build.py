@@ -8,8 +8,8 @@ the headers and the flags so an edited source never loads a stale library,
 and loaded with ``ctypes``.  Generated sources (K5's, one per
 fused graph, from ``kernels/fused_gemm.py``) are written there beside their
 library, built with ``csrc`` on the include path and named by a hash of
-their text, of the templates they include (``csrc/fused_gemm.cuh``,
-``csrc/fused_chain.cuh``) and of the flags (``load_generated``).
+their text, of the headers they include (``csrc/fused_gemm.cuh``,
+``csrc/fused_chain.cuh``, ``csrc/philox.cuh``) and of the flags (``load_generated``).
 ``build_all`` starts one ``nvcc`` per source, fixed and generated, at once
 and waits for all of them.
 
@@ -96,7 +96,7 @@ SOURCES = tuple(SIGNATURES)
 # C signature of every generated source (K5), and the headers it includes.
 # fused_gemm: the FusedArgs struct, stream
 GENERATED_SIGNATURE = {"fused_gemm": (_P, _P)}
-GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh")
+GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh", CSRC / "philox.cuh")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -37,7 +37,7 @@ from repro_torch.core.loops import LoopSpec, ThreadedLoop
 from repro_torch.kernels import _build
 
 __all__ = ["matmul", "brgemm_blocked", "schedule", "blocked_schedule", "cta_tile",
-           "cta_order", "pick_tiles", "DEFAULT_SPEC", "LAUNCHES", "TRANSPOSED_LAUNCHES",
+           "cta_order", "tile_order", "pick_tiles", "DEFAULT_SPEC", "LAUNCHES", "TRANSPOSED_LAUNCHES",
            "BLOCKED_LAUNCHES", "BLOCKED_WMMA_LAUNCHES", "BLOCKED_SIMT_LAUNCHES", "ACT_CODES"]
 
 DEFAULT_SPEC = "bca"  # output-stationary: M, N outer; K (reduction) innermost
@@ -135,22 +135,29 @@ def cta_tile(m: int, in_bf16: bool) -> tuple[int, int]:
     return (16, 64) if m <= 16 else (128, 128)
 
 
-@functools.lru_cache(maxsize=256)
-def cta_order(plan, m: int, n: int, cta: tuple[int, int]) -> torch.Tensor:
-    """(T, 2) int32 (row, column) origins of K1's CTA tiles in the order the
-    plan first visits them: each visited output block of the plan, in
-    order, lists the CTA tiles it touches row by row, and a tile shared
-    with an earlier block keeps its first place.  Every tile appears once."""
-    block_m, block_n = plan.out_block
+def tile_order(visits, block: tuple[int, int], cta: tuple[int, int]) -> torch.Tensor:
+    """(T, 2) int32 (row, column) origins of CTA tiles of shape ``cta`` in
+    the order output blocks of shape ``block`` at block indices ``visits``
+    first touch them: each visited block, in order, lists the CTA tiles it
+    touches row by row, and a tile shared with an earlier block keeps its
+    first place.  Every tile appears once."""
+    block_m, block_n = block
     cta_m, cta_n = cta
     seen, order = set(), []
-    for i, j in plan.visit_order.tolist():
+    for i, j in visits:
         for ti in range(i * block_m // cta_m, ((i + 1) * block_m - 1) // cta_m + 1):
             for tj in range(j * block_n // cta_n, ((j + 1) * block_n - 1) // cta_n + 1):
                 if (ti, tj) not in seen:
                     seen.add((ti, tj))
                     order.append((ti * cta_m, tj * cta_n))
     return torch.tensor(order, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=256)
+def cta_order(plan, m: int, n: int, cta: tuple[int, int]) -> torch.Tensor:
+    """(T, 2) int32 (row, column) origins of K1's CTA tiles in the order the
+    plan first visits them (``tile_order`` over its output blocks)."""
+    return tile_order(plan.visit_order.tolist(), plan.out_block, cta)
 
 
 # Order tables on the card, by (plan, shape, tile, device).

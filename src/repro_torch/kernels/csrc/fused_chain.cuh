@@ -13,7 +13,9 @@
 // Scores at or below -1e29 (the mask fill, -1e30) add nothing to the sum; a
 // row with no live score outputs 0 (the sum floored at 1e-30), as the
 // reference's chained Pallas kernel does.  Leading batch axes run one
-// problem (a (batch, head) pair of attention) per grid.z index.
+// problem (a (batch, head) pair of attention) per grid.z index.  Under a
+// schedule a block takes its 64 rows from the order table (the plan's M
+// order), as fused_gemm.cuh's row panels do.
 //
 // What bounds it on an H100: at the minicpm-2b training shape (144 heads of
 // 1024 x 1024 x 64, causal, bf16) both limits sit near 20 us: 75 MB of q, k,
@@ -67,7 +69,7 @@ fused_chain_f32_simt(FusedArgs a) {
   const FgCtx c = block_ctx(a);
   const int M = a.M, N = a.N, K = a.K, N2 = a.N2;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = tile_origin(a, BM, 0).x;
   const int dq = a.lhs_bf16[0], dk = a.rhs_bf16[0], dv = a.crhs_bf16;
   const void* Q = typed(a.lhs[0], dq, c.off(a.s_lhs[0]));
   const void* Kp = typed(a.rhs[0], dk, c.off(a.s_rhs[0]));
@@ -193,7 +195,7 @@ fused_chain_f32_simt(FusedArgs a) {
 
 template <class E, int NJ>
 void launch_chain(const FusedArgs& a, cudaStream_t s) {
-  dim3 grid(1, (a.M + 63) / 64, a.batch);
+  const dim3 grid = tile_grid(a, 64, a.N);
   if (a.out_bf16)
     fused_chain_f32_simt<E, NJ, fg_bf16><<<grid, 256, 0, s>>>(a);
   else
@@ -204,7 +206,8 @@ void launch_chain(const FusedArgs& a, cudaStream_t s) {
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // lhs[0], rhs[0]: the base root's operands; crhs: the chain operand
 // (N, N2) with leading dimension ldc; the output (batch, M, N2)
-// contiguous.  N2 <= 128.  Returns cudaGetLastError() after the launch, or
+// contiguous.  N2 <= 128.  order (if not null): the origins of 64-row
+// blocks in the plan's M order.  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a chain wider than 128.
 template <class E>
 int chain_entry(const FusedArgs* args, void* stream) {

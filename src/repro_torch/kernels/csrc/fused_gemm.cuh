@@ -36,6 +36,16 @@
 // attn_mask and its gradient: causal / window / offset) evaluate at the
 // element's global coordinates, so the bits equal repro_torch/fusion/rng.py
 // tile_bits and a backward graph regenerates the forward's keep pattern.
+// With the hw flag set (fusion.compile(..., hw_prng=True)) dropout_rng draws
+// K13's bits instead, Philox4x32-10 per plan tile (csrc/philox.cuh).
+//
+// A schedule (fusion.compile(..., spec_string=, tiles=, block_steps=))
+// reaches the kernel as a table of tile origins in the plan's visit order
+// (FusedArgs::order, built by kernels/fused_gemm.py from the PARLOOPER
+// plan): block i computes the i-th tile, so the spec string sets the order
+// the tiles are rasterised in.  A tile is computed the same way whichever
+// block computes it, so every schedule gives the same bits.  Without a
+// table the grid is the fixed 2-D raster, "bca"'s order.
 //
 // What bounds it on an H100: at prefill and training (M in the thousands
 // against the 2304..13824-wide weights) tensor-core operations; at decode
@@ -69,6 +79,8 @@
 
 #include <type_traits>
 
+#include "philox.cuh"
+
 #define FG_MAX_ROOTS 3
 #define FG_MAX_EP 8
 
@@ -79,7 +91,11 @@ typedef __nv_bfloat16 fg_bf16;
 // graph's distinct lhs operands, rhs[r] per root, crhs the chained root's
 // rhs; ep[i] the epilogue operands in canonical order with their dtype
 // (0 fp32, 1 bf16, 2 bool, 3 scalar held in ep_u32[i]).  s_*[2] are the
-// strides of the two batch axes (B0, B1), grid.z = B0 * B1.
+// strides of the two batch axes (B0, B1), grid.z = B0 * B1.  order: null
+// (the fixed grid) or n_order (row, column) tile origins, block i taking
+// entry i (a row panel or a chained root reads the rows only).  hw: draw
+// dropout_rng from K13 on (prng_tm, prng_tn) tiles (full rows after the
+// reducing node).
 struct FusedArgs {
   const void* lhs[FG_MAX_ROOTS];
   const void* rhs[FG_MAX_ROOTS];
@@ -106,6 +122,9 @@ struct FusedArgs {
   int width[FG_MAX_ROOTS];
   int B1, batch;
   int all_bf16, out_bf16, vec;
+  const int* order;
+  int n_order;
+  int prng_tm, prng_tn, hw;
 };
 
 // The block's problem: its two batch indices.
@@ -159,11 +178,15 @@ __device__ __forceinline__ uint32_t fg_threefry(uint32_t k0, uint32_t k1, uint32
   }
   return x0;
 }
-// Counter-based dropout at global (row, column): kept iff bits < threshold,
-// kept values scaled in fp32 (fusion/graph.py _dropout_rng_apply).
+// Dropout at global (row, column): kept iff bits < threshold, kept values
+// scaled in fp32 (fusion/graph.py _dropout_rng_apply).  The bits are the
+// counter path's threefry, or with hw K13's Philox on (tm, tn) tiles.
 __device__ __forceinline__ float fg_dropout_rng(float v, uint32_t seed, uint32_t salt,
-                                                uint32_t thresh, float scale, int gm, int gn) {
-  return fg_threefry(seed, salt, (uint32_t)gm, (uint32_t)gn) < thresh ? v * scale : 0.0f;
+                                                uint32_t thresh, float scale, int gm, int gn,
+                                                int hw, int tm, int tn) {
+  const uint32_t bits = hw ? fg_hw_tile_bits(seed, salt, gm, gn, tm, tn)
+                           : fg_threefry(seed, salt, (uint32_t)gm, (uint32_t)gn);
+  return bits < thresh ? v * scale : 0.0f;
 }
 // Causal / sliding-window keep test of attn_mask at (row gm, column gn).
 __device__ __forceinline__ bool fg_attn_keep(int gm, int gn, bool causal, int window,
@@ -196,6 +219,20 @@ template <> __device__ __forceinline__ fg_bf16 from_float<fg_bf16>(float x) {
 
 __device__ __forceinline__ FgCtx block_ctx(const FusedArgs& a) {
   return FgCtx{static_cast<int>(blockIdx.z) / a.B1, static_cast<int>(blockIdx.z) % a.B1};
+}
+
+// The block's tile origin (row, column): entry blockIdx.x of the order
+// table, or the fixed grid's (blockIdx.y * bm, blockIdx.x * bn).
+__device__ __forceinline__ int2 tile_origin(const FusedArgs& a, int bm, int bn) {
+  if (a.order != nullptr)
+    return make_int2(a.order[2 * blockIdx.x], a.order[2 * blockIdx.x + 1]);
+  return make_int2(static_cast<int>(blockIdx.y) * bm, static_cast<int>(blockIdx.x) * bn);
+}
+
+// The launch grid: one block per table entry, else tiles_n x tiles_m.
+inline dim3 tile_grid(const FusedArgs& a, int bm, int bn) {
+  if (a.order != nullptr) return dim3(a.n_order, 1, a.batch);
+  return dim3((a.N + bn - 1) / bn, (a.M + bm - 1) / bm, a.batch);
 }
 
 // Where a tile's element goes: the plain epilogue (every node, every output
@@ -623,15 +660,16 @@ template <class E, class T, typename TOut>
 __global__ void __launch_bounds__(T::NT)
 fused_gemm_bf16_wmma(FusedArgs a) {
   __shared__ __align__(128) unsigned char smem[Bf16Smem<T, E::R, E::NLHS>::BYTES];
-  bf16_tile<E, T, PLAIN, TOut>(a, block_ctx(a), blockIdx.y * T::BM, blockIdx.x * T::BN, smem);
+  const int2 t = tile_origin(a, T::BM, T::BN);
+  bf16_tile<E, T, PLAIN, TOut>(a, block_ctx(a), t.x, t.y, smem);
 }
 
 template <class E, typename TOut>
 __global__ void __launch_bounds__(256)
 fused_gemm_f32_simt(FusedArgs a) {
   __shared__ SimtSmem<E::R, E::NLHS> sm;
-  simt_tile<E, PLAIN, TOut>(a, block_ctx(a), blockIdx.y * SimtTiles::BM,
-                            blockIdx.x * SimtTiles::BN, sm);
+  const int2 t = tile_origin(a, SimtTiles::BM, SimtTiles::BN);
+  simt_tile<E, PLAIN, TOut>(a, block_ctx(a), t.x, t.y, sm);
 }
 
 template <class E, class T, typename TOut>
@@ -640,7 +678,7 @@ fused_panel_bf16_wmma(FusedArgs a) {
   __shared__ __align__(128) unsigned char smem[Bf16Smem<T, E::R, E::NLHS>::BYTES];
   __shared__ float strip[2 * T::BM];
   const FgCtx c = block_ctx(a);
-  const int m0 = blockIdx.y * T::BM;
+  const int m0 = tile_origin(a, T::BM, 0).x;
   for (int n0 = 0; n0 < a.N; n0 += T::BN) bf16_tile<E, T, PANEL, TOut>(a, c, m0, n0, smem);
   __syncthreads();   // the staged panel is complete (and visible to the block)
   close_rows<E, TOut>(a, c, m0, T::BM, strip);
@@ -652,7 +690,7 @@ fused_panel_f32_simt(FusedArgs a) {
   __shared__ SimtSmem<E::R, E::NLHS> sm;
   __shared__ float strip[2 * SimtTiles::BM];
   const FgCtx c = block_ctx(a);
-  const int m0 = blockIdx.y * SimtTiles::BM;
+  const int m0 = tile_origin(a, SimtTiles::BM, 0).x;
   for (int n0 = 0; n0 < a.N; n0 += SimtTiles::BN) {
     simt_tile<E, PANEL, TOut>(a, c, m0, n0, sm);
     __syncthreads();
@@ -662,25 +700,21 @@ fused_panel_f32_simt(FusedArgs a) {
 
 template <class E, class T, typename TOut>
 void launch_bf16(const FusedArgs& a, cudaStream_t s) {
-  dim3 grid((a.N + T::BN - 1) / T::BN, (a.M + T::BM - 1) / T::BM, a.batch);
-  fused_gemm_bf16_wmma<E, T, TOut><<<grid, T::NT, 0, s>>>(a);
+  fused_gemm_bf16_wmma<E, T, TOut><<<tile_grid(a, T::BM, T::BN), T::NT, 0, s>>>(a);
 }
 
 template <class E, typename TOut>
 void dispatch(const FusedArgs& a, cudaStream_t s) {
   if constexpr (E::PANEL) {
+    // one block a row band: the grid's N extent is one tile of all of N
     if (a.all_bf16) {
       using T = Bf16Tiles<64, 128, 2, 4>;
-      fused_panel_bf16_wmma<E, T, TOut>
-          <<<dim3(1, (a.M + T::BM - 1) / T::BM, a.batch), T::NT, 0, s>>>(a);
+      fused_panel_bf16_wmma<E, T, TOut><<<tile_grid(a, T::BM, a.N), T::NT, 0, s>>>(a);
     } else {
-      fused_panel_f32_simt<E, TOut>
-          <<<dim3(1, (a.M + SimtTiles::BM - 1) / SimtTiles::BM, a.batch), 256, 0, s>>>(a);
+      fused_panel_f32_simt<E, TOut><<<tile_grid(a, SimtTiles::BM, a.N), 256, 0, s>>>(a);
     }
   } else if (!a.all_bf16) {
-    dim3 grid((a.N + SimtTiles::BN - 1) / SimtTiles::BN, (a.M + SimtTiles::BM - 1) / SimtTiles::BM,
-              a.batch);
-    fused_gemm_f32_simt<E, TOut><<<grid, 256, 0, s>>>(a);
+    fused_gemm_f32_simt<E, TOut><<<tile_grid(a, SimtTiles::BM, SimtTiles::BN), 256, 0, s>>>(a);
   } else if (a.M <= 16) {
     launch_bf16<E, Bf16Tiles<16, 64, 1, 4>, TOut>(a, s);
   } else if (E::R == 1) {
@@ -694,6 +728,8 @@ void dispatch(const FusedArgs& a, cudaStream_t s) {
 // chained root defines:
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // The output (batch, NOUT, M, N) contiguous, bf16 if out_bf16 else fp32;
+// order (if not null): the tile origins of the CTA tile the dispatch below
+// picks, as kernels/fused_gemm.py cta_tile gives it;
 // R must be the graph's root count; all_bf16 picks the tensor-core
 // mainloop; vec: every lhs and rhs row of every problem starts 16-byte
 // aligned.  Returns cudaGetLastError() after the launch, or

@@ -29,6 +29,15 @@ and ``attn_mask``/``attn_mask_grad``.  The source is built by ``nvcc`` for
 and launched through one fixed C signature; graphs of the same structure
 (the same roots, operands and nodes under another graph name) share it.
 
+A schedule reaches a launch as data, never as source: given a plan
+(``fusion.lowering.plan_graph``), the wrapper passes ``order_table``'s
+CTA tiles in the plan's visit order (row blocks for a row panel or a
+chained root) and runs a 1-D grid over them, and under ``hw_prng`` sets the
+``hw`` flag and the plan's PRNG tile, so the generated ``dropout_rng``
+expression draws K13's Philox4x32-10 bits (``csrc/philox.cuh``) instead of
+threefry.  Without a plan the fixed 2-D grid runs, as before schedules
+existed.
+
 What the generator does not take raises ``FusionLegalityError`` with a
 stable code; the composed reference path (``fusion.lowering``) takes all of
 these:
@@ -53,16 +62,20 @@ import torch
 
 from repro_torch.fusion import rng
 from repro_torch.fusion.graph import EPILOGUE_OPS, FusionLegalityError, TppGraph
-from repro_torch.fusion.lowering import contraction_operand_values
+from repro_torch.fusion.lowering import HW_PRNG_OPS, contraction_operand_values
 from repro_torch.kernels import _build
+from repro_torch.kernels.brgemm import _device_table, tile_order
 
-__all__ = ["FusedKernel", "generate_source", "source_name", "check_supported",
-           "LAUNCHES", "GRAPH_LAUNCHES", "MAX_ROOTS", "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN"]
+__all__ = ["FusedKernel", "generate_source", "source_name", "check_supported", "cta_tile",
+           "order_table", "LAUNCHES", "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES", "MAX_ROOTS",
+           "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN"]
 
 # Launches of a generated kernel since import (or since a caller reset them),
-# in all and by graph name.
+# in all and by graph name; and those that drew K13's bits (hw_prng=True on
+# a graph with a dropout_rng node).
 LAUNCHES = 0
 GRAPH_LAUNCHES: dict[str, int] = {}
+HW_PRNG_LAUNCHES = 0
 
 MAX_ROOTS = 3
 MAX_EPILOGUE_OPERANDS = 8
@@ -90,8 +103,10 @@ def _dropout_rng_expr(v, seed, attrs):
     if rate <= 0.0:
         return v
     salt = int(attrs.get("salt", 0)) & 0xFFFFFFFF
+    # under hw, K13's tile: (a.prng_tm, prng_tn), prng_tn declared by the
+    # body (_Emitter.nodes)
     return (f"fg_dropout_rng({v}, {seed}, {salt}u, {rng.keep_threshold(rate)}u, "
-            f"{_f32_literal(1.0 / (1.0 - rate))}, gm, gn)")
+            f"{_f32_literal(1.0 / (1.0 - rate))}, gm, gn, a.hw, a.prng_tm, prng_tn)")
 
 
 def _keep(at) -> str:
@@ -189,8 +204,9 @@ class _Emitter:
     """Straight-line fp32 C++ for a list of nodes: one ``const float`` a
     value, operands read where a node takes them."""
 
-    def __init__(self, graph: TppGraph):
+    def __init__(self, graph: TppGraph, full_row: bool = False):
         self.graph = graph
+        self.full_row = full_row
         self.ep_index = {o.name: i for i, o in enumerate(graph.epilogue_operands)}
         self.env: dict[str, str] = {}
         self.lines: list[str] = []
@@ -220,6 +236,10 @@ class _Emitter:
             self.env["acc"] = self.env[roots[0].name]
 
     def nodes(self, nodes):
+        if any(nd.op in HW_PRNG_OPS for nd in nodes):
+            # the width of K13's tile: the plan's, or full rows after the
+            # reducing node
+            self.lines.append(f"    const int prng_tn = {'a.N' if self.full_row else 'a.prng_tn'};")
         for nd in nodes:
             args = [self.value(r) for r in nd.inputs]
             var = f"v_{_ident(nd.name)}"
@@ -265,7 +285,7 @@ def _panel_body(graph: TppGraph) -> list[str]:
     near.env.update({nm: _scratch(j) for j, nm in enumerate(staged)})
     vals = [near.value(r) for r in red.inputs[:op.value_arity]]
     params = [near.value(r) for r in red.inputs[op.value_arity:]]
-    post = _Emitter(graph)
+    post = _Emitter(graph, full_row=True)
     post.env.update(near.env)
     post.env[red.name] = "y"
     post.nodes(graph.post_reduce_nodes())
@@ -405,7 +425,38 @@ class _Args(ctypes.Structure):
                 ("N2", ctypes.c_int), ("R", ctypes.c_int),
                 ("width", ctypes.c_int * MAX_ROOTS),
                 ("B1", ctypes.c_int), ("batch", ctypes.c_int),
-                ("all_bf16", ctypes.c_int), ("out_bf16", ctypes.c_int), ("vec", ctypes.c_int)]
+                ("all_bf16", ctypes.c_int), ("out_bf16", ctypes.c_int), ("vec", ctypes.c_int),
+                ("order", ctypes.c_void_p), ("n_order", ctypes.c_int),
+                ("prng_tm", ctypes.c_int), ("prng_tn", ctypes.c_int), ("hw", ctypes.c_int)]
+
+
+def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool) -> tuple[int, int]:
+    """The (rows, columns) of the output one K5 block computes, as the
+    templates' dispatch picks them: a chained root 64 rows, a row panel 64
+    (bf16) or 128 (SIMT) whole rows; else SIMT 128x64, bf16 16x64 for M <=
+    16, 128x128 for one root and 128x64 for two or three."""
+    if graph.chained_root() is not None:
+        return 64, n
+    if graph.reducing_node() is not None:
+        return (64 if all_bf16 else 128), n
+    if not all_bf16:
+        return 128, 64
+    if m <= 16:
+        return 16, 64
+    return (128, 128) if len(graph.base_roots) == 1 else (128, 64)
+
+
+def order_table(gp, m: int, n: int, cta: tuple[int, int]) -> torch.Tensor:
+    """(T, 2) int32 origins of K5's CTA tiles ``cta`` in the order the
+    plan ``gp`` (``fusion.lowering.GraphPlan``) first visits them: each
+    visited output block lists the tiles it touches (a full-row block: the
+    row bands), a tile shared with an earlier block keeping its first
+    place.  A stacking axis of several outputs is not a tile dimension."""
+    letters = gp.out_letters
+    bi, ci = letters.index("b"), (letters.index("c") if "c" in letters else None)
+    block = gp.plan.out_block
+    visits = [(v[bi], v[ci] if ci is not None else 0) for v in gp.plan.visit_order.tolist()]
+    return tile_order(visits, (block[bi], block[ci] if ci is not None else n), cta)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -447,6 +498,8 @@ class FusedKernel:
         self.staged = len(graph.staged_values()) if self.panel else 0
         consumed = {graph.resolve_acc(ref) for nd in graph.nodes for ref in nd.inputs}
         self.output_only = {r.name for r in self.roots if r.name not in consumed}
+        # draws counter or K13 bits: a dropout_rng node that simplification kept
+        self.draws = any(nd.op in HW_PRNG_OPS for nd in graph.nodes)
         self._lib = None
 
     def library(self):
@@ -545,9 +598,14 @@ class FusedKernel:
                 raise ValueError(f"graph {g.name!r}: K5 needs CUDA tensors, got {v.device}")
         return m, k, n, widths, n2, batch, odt
 
-    def __call__(self, operands, *, out_dtype=None):
-        global LAUNCHES
+    def __call__(self, operands, *, out_dtype=None, plan=None, hw_prng=False):
+        """Launch on ``operands``; ``plan`` (a ``fusion.lowering.GraphPlan``
+        at these shapes) orders the CTA tiles by its visit order and sets
+        K13's tile, which ``hw_prng`` draws ``dropout_rng`` from."""
+        global LAUNCHES, HW_PRNG_LAUNCHES
         g = self.graph
+        if hw_prng and plan is None:
+            raise ValueError(f"graph {g.name!r}: hw_prng needs a plan (its tiles key K13)")
         m, k, n, widths, n2, batch, odt = self._check(operands, out_dtype)
         nout = len(g.outputs)
         nb = len(batch)
@@ -628,9 +686,17 @@ class FusedKernel:
         args.all_bf16 = int(all(bf16))
         args.out_bf16 = int(odt == torch.bfloat16)
         args.vec = int(vec)
+        args.prng_tm, args.prng_tn = plan.prng_tile if plan is not None else (1, 1)
+        args.hw = int(bool(hw_prng) and self.draws)
+        if plan is not None:
+            cta = cta_tile(g, m, n, bool(args.all_bf16))
+            order = _device_table((plan, m, n, cta), lambda: order_table(plan, m, n, cta), dev)
+            args.order, args.n_order = order.data_ptr(), order.shape[0]
         lib = self.library()
         err = lib.fused_gemm(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, f"fused_gemm {g.name}")
         LAUNCHES += 1
         GRAPH_LAUNCHES[g.name] = GRAPH_LAUNCHES.get(g.name, 0) + 1
+        if args.hw:
+            HW_PRNG_LAUNCHES += 1
         return out

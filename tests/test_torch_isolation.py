@@ -47,7 +47,8 @@ def test_every_module_imports_with_jax_blocked():
         "        'repro_torch.kernels.fused_output', 'repro_torch.configs.bert_large',\n"
         "        'repro_torch.core.parser', 'repro_torch.core.loops', 'repro_torch.core.executor',\n"
         "        'repro_torch.core.cuda_lowering', 'repro_torch.analysis.diagnostics',\n"
-        "        'repro_torch.analysis.footprint', 'repro_torch.kernels.conv'} <= set(names)\n"
+        "        'repro_torch.analysis.footprint', 'repro_torch.kernels.conv',\n"
+        "        'repro_torch.fusion.lowering', 'repro_torch.kernels.fused_gemm'} <= set(names)\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print(len(names))\n"
     )
@@ -56,6 +57,27 @@ def test_every_module_imports_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 61
+
+
+CSRC = PORT / "kernels" / "csrc"
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")), ids=lambda p: p.name)
+def test_cuda_sources_include_no_library_of_kernels(path):
+    """Every CUDA source includes the toolkit's own headers and the port's:
+    no cuRAND (K13's Philox is written by hand), cuBLAS, cuDNN or CUTLASS
+    device-level GEMM."""
+    includes = [ln.split()[1].strip('"<>') for ln in path.read_text().splitlines()
+                if ln.startswith("#include")]
+    local = {p.name for p in CSRC.iterdir()}
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "mma.h", "math.h", "stdint.h", "type_traits"}
+    assert all(inc in local or inc in allowed for inc in includes), includes
+
+
+def test_k13_header_is_built_with_every_generated_source():
+    from repro_torch.kernels import _build
+    assert (CSRC / "philox.cuh") in _build.GENERATED_INCLUDES
+    assert '#include "philox.cuh"' in (CSRC / "fused_gemm.cuh").read_text()
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):

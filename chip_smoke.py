@@ -9,7 +9,9 @@ Phases, each of which must pass:
      K5 sources generated from ``csrc/fused_gemm.cuh`` and
      ``csrc/fused_chain.cuh`` for every fused graph phases 3, 4, 7, 8, 10
      and 10b launch, forward and derived backward (one nvcc per source, all at
-     once) and print the build time;
+     once) and print the build time, and each K2 instantiation's
+     ``-Xptxas -v`` figures, shared memory and (with ``cuobjdump``) HGMMA
+     instructions;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
      attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
      TppGraphs: serving's graphs, and the fused training path's chained
@@ -40,7 +42,9 @@ Phases, each of which must pass:
   5. serve full-width llama2-13b (bf16, all 40 layers, random weights from a
      seed, batch 4, prompt 512, 16 new tokens) through ``generate_loop`` with
      every launch counter set to 0 just before and read just after: K1, K2
-     and K3 must have launched, the logits must be finite;
+     and K3 must have launched, K2 once a layer and all on its bf16 wgmma
+     kernel (``ATTENTION_WGMMA_LAUNCHES``, as in phases 6, 9 and 10b), the
+     logits must be finite;
   6. serve the same model through the continuous-batching engine (8 slots,
      16-token pages, 16 ragged requests, greedy and sampled): paged logits
      must equal dense ones, every request must finish with ``validate()``
@@ -462,29 +466,107 @@ def _pairs(torch, sq, skv, causal, window):
     return int(mask.sum())
 
 
+def _attention_operands(torch, gen, b, h, hk, sq, skv, d, dt, layout):
+    """q, k, v as generate_loop passes them to K2: q a strided view of the
+    (B, S, H, D) projection; k and v the same ("proj", the prefill's
+    in-flight K/V) or slices [:, :, :Skv] of (B, Hk, Skv + 16, D) dense
+    caches ("cache", a prompt after earlier tokens)."""
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    if layout == "cache":
+        k, v = (torch.randn(b, hk, skv + 16, d, generator=gen, device="cuda").to(dt)[:, :, :skv]
+                for _ in range(2))
+    else:
+        k, v = (torch.randn(b, skv, hk, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+                for _ in range(2))
+    return q, k, v
+
+
+def ptxas_by_kernel(log):
+    """``nvcc -Xptxas -v`` lines of a build log by mangled kernel name:
+    {name: "Used N registers, ...; B bytes stack frame, S bytes spill
+    stores, L bytes spill loads"}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+            out[name] = []
+        elif name and ("stack frame" in line or "Used " in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def k2_build_report(build, fa, log):
+    """Print the ``-Xptxas -v`` figures of each K2 instantiation (the bf16
+    wgmma kernel and the fp32 SIMT kernel, by head dim), with the dynamic
+    shared memory of its plan, and, where ``cuobjdump`` is on the path, the
+    HGMMA instructions of each bf16 instantiation; → those figures."""
+    import shutil
+    import torch
+
+    report = {}
+    for mangled, figures in ptxas_by_kernel(log).items():
+        found = re.search(r"(flash_attention(?:_wgmma)?_kernel)I(?:f)?Li(\d+)E", mangled)
+        if not found:
+            continue
+        kernel, d = found.group(1), int(found.group(2))
+        wgmma = "wgmma" in kernel
+        t = torch.empty(1, 1, 1, d, dtype=torch.bfloat16 if wgmma else torch.float32)
+        plan = fa.forward_plan(t, t, t)
+        report[f"{kernel}<{d}>"] = {"mangled": mangled, "ptxas": figures,
+                                    "dynamic_smem_bytes": plan.smem_bytes, "rows": plan.rows,
+                                    "bn": plan.bn, "stages": plan.stages}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        sass = subprocess.run([tool, "-sass", str(build._target("flash_attention"))],
+                              capture_output=True, text=True, timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = part.split()[0]
+            for row in report.values():
+                if row["mangled"] == name:
+                    row["hgmma"] = part.count("HGMMA")
+    for name, row in sorted(report.items()):
+        print(f"  K2 {name}: {row['ptxas']}; dynamic smem {row['dynamic_smem_bytes']} bytes"
+              f" ({row['rows']} rows, BN {row['bn']}, {row['stages']} stages)"
+              + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
+    return report
+
+
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
     windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
-    bert-large's (B 16, H 16, S 512, D 64, not causal), and small ragged
-    fp32 and bf16 checks."""
+    bert-large's (B 16, H 16, S 512, D 64, not causal), and small checks at
+    the bf16 kernel's edges: rows with no key (Sq 70 > Skv 40), Sq < Skv,
+    Sq and Skv ragged against the 128-row and 64- or 128-key tiles, D 16,
+    32 and 256, windows 24 and 100, GQA 5:1, k and v as dense-cache slices;
+    and fp32 checks on the SIMT kernel."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed
-        ("main B4 H40 S512 D128 causal", 4, 40, 40, 512, 512, 128, True, None, torch.bfloat16, 1, True),
-        ("gqa B4 H40 Hk8 S512 D128", 4, 40, 8, 512, 512, 128, True, None, torch.bfloat16, 0, True),
-        ("window128 B4 H40 S512 D128", 4, 40, 40, 512, 512, 128, True, 128, torch.bfloat16, 0, True),
-        ("minicpm train B4 H36 S1024 D64 causal", 4, 36, 36, 1024, 1024, 64, True, None, torch.bfloat16, 0, True),
-        ("bert train B16 H16 S512 D64 noncausal", 16, 16, 16, 512, 512, 64, False, None, torch.bfloat16, 0, True),
-        ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, torch.float32, 0, False),
-        ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, torch.float32, 0, False),
-        ("check Sq40 Skv40 H6 Hk3 D64 noncausal", 1, 6, 3, 40, 40, 64, False, None, torch.bfloat16, 0, False),
-        ("check Sq33 H2 D256 causal", 1, 2, 2, 33, 33, 256, True, None, torch.bfloat16, 0, False),
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed, layout
+        ("main B4 H40 S512 D128 causal", 4, 40, 40, 512, 512, 128, True, None, bf, 1, True, "proj"),
+        ("gqa B4 H40 Hk8 S512 D128", 4, 40, 8, 512, 512, 128, True, None, bf, 0, True, "proj"),
+        ("window128 B4 H40 S512 D128", 4, 40, 40, 512, 512, 128, True, 128, bf, 0, True, "proj"),
+        ("minicpm train B4 H36 S1024 D64 causal", 4, 36, 36, 1024, 1024, 64, True, None, bf, 0, True, "proj"),
+        ("bert train B16 H16 S512 D64 noncausal", 16, 16, 16, 512, 512, 64, False, None, bf, 0, True, "proj"),
+        ("check Sq50 Skv77 H4 Hk2 D16 fp32", 2, 4, 2, 50, 77, 16, True, None, f32, 0, False, "proj"),
+        ("check Sq64 H4 Hk2 D16 window24 fp32", 2, 4, 2, 64, 64, 16, True, 24, f32, 0, False, "proj"),
+        ("check Sq40 Skv40 H6 Hk3 D64 noncausal", 1, 6, 3, 40, 40, 64, False, None, bf, 0, False, "proj"),
+        ("check Sq33 H2 D256 causal", 1, 2, 2, 33, 33, 256, True, None, bf, 0, False, "proj"),
+        ("check Sq70 Skv40 H4 D16 masked rows", 2, 4, 4, 70, 40, 16, True, None, bf, 0, False, "proj"),
+        ("check Sq50 Skv77 H4 Hk2 D16", 2, 4, 2, 50, 77, 16, True, None, bf, 0, False, "proj"),
+        ("check Sq65 Skv200 H2 D32 window24", 1, 2, 2, 65, 200, 32, True, 24, bf, 0, False, "proj"),
+        ("check Sq200 H4 D64 window24", 2, 4, 4, 200, 200, 64, True, 24, bf, 0, False, "proj"),
+        ("check Sq300 Skv300 H10 Hk2 D128 window100", 1, 10, 2, 300, 300, 128, True, 100, bf, 0, False, "proj"),
+        ("check Sq129 Skv257 H4 D256 noncausal", 1, 4, 4, 129, 257, 256, False, None, bf, 0, False, "proj"),
+        ("check Sq97 Skv61 H2 D256 masked rows", 1, 2, 2, 97, 61, 256, True, None, bf, 0, False, "proj"),
+        ("check Sq200 Skv200 H5 Hk1 D32 noncausal window100", 2, 5, 1, 200, 200, 32, False, 100, bf, 0, False, "proj"),
+        ("check dense-cache slice Sq480 H40 Hk8 D128", 1, 40, 8, 480, 480, 128, True, None, bf, 0, False, "cache"),
+        ("check dense-cache slice Sq32 Skv300 H40 D128", 2, 40, 40, 32, 300, 128, True, None, bf, 0, False, "cache"),
+        ("check dense-cache slice Sq200 H36 D64", 1, 36, 36, 200, 200, 64, True, None, bf, 0, False, "cache"),
     ]
-    for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed in cases:
-        # q, k, v as strided views of (B, S, H, D) projections, as on the path
-        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
-        k = torch.randn(b, skv, hk, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
-        v = torch.randn(b, skv, hk, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed, layout in cases:
+        q, k, v = _attention_operands(torch, gen, b, h, hk, sq, skv, d, dt, layout)
         pairs = _pairs(torch, sq, skv, causal, window)
         if window is None:
             library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
@@ -493,14 +575,28 @@ def attention_cases(torch, bench, ref, fa):
             keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril().triu(-(window - 1))
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep,
                                                              enable_gqa=hk != h)
+        if causal and sq > skv:
+            # rows with every key masked: NaN in the plain version, 0 from K2
+            def plain():
+                o, lse = ref.attention_fwd_ref(q, k, v, causal=causal, window=window)
+                return torch.where(torch.isfinite(lse)[..., None], o.float(), 0.0).to(o.dtype)
+        else:
+            plain = lambda: ref.attention_ref(q, k, v, causal=causal, window=window)
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        bench.run("flash_attention", label,
-                  lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
-                  lambda: ref.attention_ref(q, k, v, causal=causal, window=window),
-                  library if timed else None,
+        kernel = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+        bench.run("flash_attention", label, kernel, plain, library if timed else None,
                   flops=4 * b * h * d * pairs,
                   nbytes=q.element_size() * (2 * b * h * sq * d + 2 * b * hk * skv * d),
                   dtype=name, tol_kind="attn", weight=weight, timed=timed)
+        if timed:
+            # the device's rate without the host's cost of a lone launch: 20
+            # calls back to back between two events, as a model path issues them
+            def back_to_back(fn):
+                return time_ms(torch, lambda: [fn() for _ in range(20)], warmup=1, reps=5) / 20
+            row = {"kernel_ms": back_to_back(kernel), "library_ms": back_to_back(library)}
+            bench.extra.setdefault("flash_attention_back_to_back", {})[label] = row
+            print(f"  {'':15s} {label:38s} 20 back to back: kernel {row['kernel_ms']:.4f} ms"
+                  f"  library {row['library_ms']:.4f} ms", flush=True)
 
 
 def attention_bwd_cases(torch, bench, ref, fa):
@@ -508,8 +604,9 @@ def attention_bwd_cases(torch, bench, ref, fa):
     and lse are first held against the plain version's): minicpm-2b's training
     shape (B 4, H 36, S 1024, D 64, causal, bf16), llama2-13b's (B 1, H 40,
     S 512, D 128), GQA, window 128, bert-large's (B 16, H 16, S 512, D 64,
-    not causal), and small fp32 and bf16 checks (ragged,
-    Sq < Skv, noncausal, D 256, rows with every key masked)."""
+    not causal), and small fp32 and bf16 checks (ragged, Sq < Skv,
+    noncausal, windows 24 and 100, GQA 5:1, D 16 to 256, rows with every
+    key masked)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(10)
     cases = [  # label, B, H, Hk, Sq, Skv, D, causal, window, dtype, weight, timed
@@ -523,6 +620,11 @@ def attention_bwd_cases(torch, bench, ref, fa):
         ("check Sq40 H6 Hk3 D32 noncausal fp32", 1, 6, 3, 40, 40, 32, False, None, torch.float32, 0, False),
         ("check Sq33 H2 D256 causal", 1, 2, 2, 33, 33, 256, True, None, torch.bfloat16, 0, False),
         ("check Sq70 Skv40 H4 D16 masked rows fp32", 2, 4, 4, 70, 40, 16, True, None, torch.float32, 0, False),
+        ("check Sq70 Skv40 H4 D16 masked rows", 2, 4, 4, 70, 40, 16, True, None, torch.bfloat16, 0, False),
+        ("check Sq50 Skv77 H4 Hk2 D32", 2, 4, 2, 50, 77, 32, True, None, torch.bfloat16, 0, False),
+        ("check Sq200 H4 D64 window24", 2, 4, 4, 200, 200, 64, True, 24, torch.bfloat16, 0, False),
+        ("check Sq300 H10 Hk2 D128 window100", 1, 10, 2, 300, 300, 128, True, 100, torch.bfloat16, 0, False),
+        ("check Sq129 Skv257 H4 D256 noncausal", 1, 4, 4, 129, 257, 256, False, None, torch.bfloat16, 0, False),
     ]
     for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed in cases:
         def proj(s, heads, scale=1.0):
@@ -1961,6 +2063,9 @@ def full_width(torch, counters, peaks, cfg, params):
           f" peak {peak / 2**30:.2f} GiB, launches {launches}", flush=True)
     for name in ("gemm", "flash_attention", "flash_decode"):
         check(launches[name] > 0, f"kernel {name} was not launched by generate_loop")
+    check(launches["flash_attention_wgmma"] == launches["flash_attention"] == cfg.num_layers,
+          f"K2 launched {launches['flash_attention']} times, {launches['flash_attention_wgmma']}"
+          f" of them on the bf16 wgmma kernel, in one prefill of {cfg.num_layers} layers")
     result["profile"] = device_breakdown(
         torch, lambda: generate_loop(cfg, params, prompts, new, scfg=scfg), total_ms)
     return result
@@ -2163,6 +2268,9 @@ def engine_full_width(torch, counters, peaks, cfg, params):
           f"K4 launched {launches['paged_decode']} times in {steps} decode steps of {cfg.num_layers} layers")
     for name in ("gemm", "flash_attention"):
         check(launches[name] > 0, f"kernel {name} was not launched by the engine")
+    check(launches["flash_attention_wgmma"] == launches["flash_attention"],
+          f"K2 launched {launches['flash_attention']} times in the engine's drain, only"
+          f" {launches['flash_attention_wgmma']} of them on the bf16 wgmma kernel")
     spans = tracer.spans()
     decode_ms = sum(sp.duration for sp in spans if sp.name == "engine.decode_segment") * 1e3
     prefill_ms = [sp.duration * 1e3 for sp in spans if sp.name == "engine.prefill"]
@@ -2699,7 +2807,7 @@ def parlooper(torch, counters, peaks, ops, ref):
           f" max err {err:.3e} (rtol {rtol}, atol {atol})", flush=True)
     del a, b, c
 
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(counters.read(), 0)
     result["conv1x1"] = []
     for hw, ci, co, st in RESNET_1X1:
         x, w = conv_operands(torch, gen, 32, hw, ci, co, 1, bf16)
@@ -2719,7 +2827,7 @@ def parlooper(torch, counters, peaks, ops, ref):
     print(f"  ResNet-50 1x1 layers (N 32): launches {total['conv2d_1x1']} K12 on {total['gemm']} K1,"
           f" max err {max(r['max_abs_err'] for r in result['conv1x1']):.3e}", flush=True)
 
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(counters.read(), 0)
     result["conv3x3"] = []
     for hw, ch in RESNET_3X3:
         x, w = conv_operands(torch, gen, 2, hw + 2, ch, ch, 3, bf16)
@@ -2765,7 +2873,7 @@ def scheduled_path(torch, counters, fusion, rng):
     gen = torch.Generator(device="cuda").manual_seed(51)
     bf16 = torch.bfloat16
     rtol, atol = TOL["bfloat16"]["gemm"]
-    result, total = {}, dict.fromkeys(KERNELS, 0)
+    result, total = {}, dict.fromkeys(counters.read(), 0)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf16)
@@ -2821,7 +2929,8 @@ def scheduled_path(torch, counters, fusion, rng):
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_bf16_wmma": "gemm_transposed",
              "gemm_transposed_f32_simt": "gemm_transposed",
-             "flash_attention_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
+             "flash_attention_kernel": "flash_attention",
+             "flash_attention_wgmma_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode", "dkdv_kernel": "flash_attention_bwd",
              "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
@@ -2911,6 +3020,7 @@ class Counters:
         self.brgemm.BLOCKED_SIMT_LAUNCHES = 0
         self.conv.LAUNCHES = 0
         self.fa.ATTENTION_LAUNCHES = 0
+        self.fa.ATTENTION_WGMMA_LAUNCHES = 0
         self.fa.BACKWARD_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
         self.fa.PAGED_DECODE_LAUNCHES = 0
@@ -2926,6 +3036,8 @@ class Counters:
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
                 "gemm_transposed": self.brgemm.TRANSPOSED_LAUNCHES,
                 "flash_attention": self.fa.ATTENTION_LAUNCHES,
+                # K2's bf16 kernel among them (not a kernel row of its own)
+                "flash_attention_wgmma": self.fa.ATTENTION_WGMMA_LAUNCHES,
                 "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
@@ -3118,6 +3230,9 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         for name, n in want.items():
             check(launches[name] == n, f"{name} launched {launches[name]} times in {steps} steps"
                                        f" of {cfg.num_layers} layers, want {n}")
+        check(launches["flash_attention_wgmma"] == want["flash_attention"],
+              f"K2's bf16 wgmma kernel launched {launches['flash_attention_wgmma']} times in"
+              f" {steps} steps, want {want['flash_attention']}")
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
     step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
@@ -3216,6 +3331,7 @@ def main() -> int:
         for line in log.splitlines():
             if "spill" in line and " 0 bytes spill stores" not in line:
                 print(f"  {name}: {line.strip()}")
+    k2_build = k2_build_report(_build, fa, logs["flash_attention"])
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -3328,7 +3444,8 @@ def main() -> int:
                       "scheduled": scheduled,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
-                      "bert_fused_training": bert_fused, "phase3_extra": bench.extra}))
+                      "bert_fused_training": bert_fused, "phase3_extra": bench.extra,
+                      "k2_build": k2_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -51,9 +51,10 @@ SIGNATURES = {
         "brgemm_blocked": (_P,) * 4 + (_I,) * 11 + (_P,),
     },
     "flash_attention": {
-        # q, k, v, o, lse, bf16, B, H, Hk, Sq, Skv, D,
-        # q/k/v/o strides (batch, head, seq) x 4, causal, window, scale, stream
-        "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
+        # q, k, v, o, lse, bf16, B, H, Hk, Sq, Skv, D, the plan's rows, bn,
+        # stages and smem, q/k/v/o strides (batch, head, seq) x 4, causal,
+        # window, scale, stream
+        "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I)
         + (_L,) * 12 + (_I, _I, _F, _P),
         # q, k, v, length, o, bf16, B, H, Hk, S, D,
         # q (batch, head), k/v (batch, head, seq), o (batch, head), window,

@@ -9,15 +9,20 @@ Phases, each of which must pass:
      K5 sources generated from ``csrc/fused_gemm.cuh`` and
      ``csrc/fused_chain.cuh`` for every fused graph phases 3, 4, 7, 8, 10
      and 10b launch, forward and derived backward (one nvcc per source, all at
-     once) and print the build time, and each K2 instantiation's
-     ``-Xptxas -v`` figures, shared memory and (with ``cuobjdump``) HGMMA
-     instructions;
+     once, with the chained backward sources of ``csrc/attention_bwd.cuh``
+     per chained graph and head dim) and print the build time, and each K2,
+     K6 and chained-backward instantiation's ``-Xptxas -v`` figures, shared
+     memory and (with ``cuobjdump``) HGMMA instructions;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
-     attention, K6 its backward, K3 flash decode, K4 paged decode, K5 fused
+     attention, K6 its backward at D 16 to 256, GQA, windows, Sq < Skv,
+     ragged, bidirectional and fully masked rows, two calls bitwise equal;
+     K3 flash decode and K4 paged decode, also at gpt-j-6b's D 256; K5 fused
      TppGraphs: serving's graphs, and the fused training path's chained
-     attention, its six derived backward graphs, the projections' derived
-     backward graphs, in-kernel dropout bits and row panels, and the
-     chained root and its six derived graphs without a causal mask at
+     attention, its chained backward kernel (against its plain version and
+     against the six derived graphs, at minicpm-2b's and bert-large's
+     shapes, bitwise equal reruns), its six derived backward graphs, the
+     projections' derived backward graphs, in-kernel dropout bits and row
+     panels, and the chained root and its six derived graphs without a causal mask at
      bert-large's shape; K8 selective scan at falcon-mamba-7b's prefill and
      engine-decode shapes; K10 Block-SpMM over the Fig. 8 sweep (4096^3,
      16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
@@ -56,6 +61,10 @@ Phases, each of which must pass:
      beside the unfused path's and the bounds, and how far the fused logits
      and tokens are from the unfused ones; then drain 8 requests through the
      engine on 8 slots and on 3: equal tokens, ``validate()`` clean;
+ 7f. (after 7e) serve full-width gpt-j-6b (bf16, all 28 layers, head dim
+     256) through the engine: 8 ragged requests on 8 slots with
+     ``validate()`` after every step, K4 at D 256 once a layer a decode
+     step, and a 3-slot drain with equal tokens;
  7b. free llama2-13b and serve full-width falcon-mamba-7b (bf16, all 64
      layers, random weights from a seed): K8 must launch once per layer per
      prefill and per decode step and K1 four times per layer plus the
@@ -88,13 +97,17 @@ Phases, each of which must pass:
      B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
      to 0 just before and read just after: losses and grad norms finite, K1
      (plain and transposed), K2 and K6 launched as often as the layer count
-     implies; then 3 steps on one repeated batch, whose loss must fall at
+     implies, every K6 launch on its tensor-core kernels
+     (``ATTENTION_BWD_WGMMA_LAUNCHES``); then 3 steps on one repeated
+     batch, whose loss must fall at
      each step; print step time, tokens/s, model-FLOPs share, bound, peak
      memory and one profiled step's device breakdown;
  10. train the same model with ``use_fusion=True`` from phase 9's initial
      parameters and batches (4 trainer steps): K5's launches by graph must
      be what the derived backward plans imply (forward graphs twice a layer
-     and step under remat, backward graphs once), K2 and K6 must not run,
+     and step under remat, backward graphs once; the attention's backward
+     is one chained-backward launch a layer and step, its six derived graphs
+     launch 0 times), K2 and K6 must not run,
      step 1's loss within rtol 2e-2 of phase 9's, and the loss must fall on
      a repeated batch; print the same numbers beside phase 9's;
  10b. train bert-large at full width and depth (24 bidirectional layers, d
@@ -170,7 +183,9 @@ SOURCE = {
     # src/repro_torch/kernels/fused_gemm.py
     "fused_gemm": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "fused_chain": "src/repro_torch/kernels/csrc/fused_chain.cuh",
-    "fused_attention_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
+    # the mainloop; one source per chained graph and head dim is generated
+    # around it by src/repro_torch/kernels/fused_gemm.py
+    "fused_attention_bwd": "src/repro_torch/kernels/csrc/attention_bwd.cuh",
     "fused_proj_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "block_spmm": "src/repro_torch/kernels/csrc/block_spmm.cu",
@@ -201,9 +216,9 @@ ROW = {
                   " at prefill (M 2048) plus one decode step (M 4)",
     "fused_chain": "one minicpm-2b layer's chained-root attention forward (B 4, H 36, S 1024, D 64,"
                    " causal)",
-    "fused_attention_bwd": "the six derived graphs of one minicpm-2b layer's attention backward"
-                           " (p, dp, dz, dq, dk, dv; B 4, H 36, S 1024, D 64, causal); library:"
-                           " SDPA's backward",
+    "fused_attention_bwd": "K5's chained backward of one minicpm-2b layer's attention (B 4, H 36,"
+                           " S 1024, D 64, causal): one generated kernel on csrc/attention_bwd.cuh"
+                           " in place of the six derived graphs; library: SDPA's backward",
     "fused_proj_bwd": "one minicpm-2b layer's derived backward graphs of fused_attn_out_res"
                       " (dlhs, drhs) and fused_gated_mlp_silu (dz0, dlhs, drhs) at 4096 tokens",
     "mamba_scan": "one falcon-mamba-7b layer's scan at prefill (B 4, L 512, D 8192, N 16, bf16)"
@@ -532,6 +547,46 @@ def k2_build_report(build, fa, log):
     return report
 
 
+def bwd_build_report(build, fa, logs, chained):
+    """Print the ``-Xptxas -v`` figures of each attention-backward
+    instantiation (csrc/attention_bwd.cuh's dk/dv and dq kernels, wgmma and
+    SIMT): K6's by head dim and each generated chained backward's
+    (``chained``: name → source), with the dynamic shared memory of its
+    plan and, where ``cuobjdump`` is on the path, each wgmma kernel's HGMMA
+    instructions; → those figures by library."""
+    import shutil
+    import torch
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    report = {}
+    for lib in ("flash_attention_bwd", *chained):
+        rows = {}
+        for mangled, figures in ptxas_by_kernel(logs[lib]).items():
+            found = re.search(r"((?:dkdv|dq)_(?:wgmma|simt)_kernel)ILi(\d+)E", mangled)
+            if not found:
+                continue
+            kernel, d = found.group(1), int(found.group(2))
+            t = torch.empty(1, 1, 1, d, dtype=torch.bfloat16 if "wgmma" in kernel else torch.float32)
+            plan = fa.backward_plan(t, t, t)
+            rows[f"{kernel}<{d}>"] = {"mangled": mangled, "ptxas": figures,
+                                      "dynamic_smem_bytes": plan.kv_smem if kernel.startswith("dkdv")
+                                      else plan.q_smem}
+        target = (build._target(lib) if lib == "flash_attention_bwd"
+                  else build._generated_target(lib, chained[lib]))
+        if Path(tool).exists():
+            sass = subprocess.run([tool, "-sass", str(target)], capture_output=True, text=True,
+                                  timeout=300).stdout
+            for part in sass.split("Function : ")[1:]:
+                for row in rows.values():
+                    if row["mangled"] == part.split()[0]:
+                        row["hgmma"] = part.count("HGMMA")
+        for name, row in sorted(rows.items()):
+            print(f"  {lib} {name}: {row['ptxas']}; dynamic smem {row['dynamic_smem_bytes']} bytes"
+                  + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
+        report[lib] = rows
+    return report
+
+
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
     windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
@@ -625,6 +680,11 @@ def attention_bwd_cases(torch, bench, ref, fa):
         ("check Sq200 H4 D64 window24", 2, 4, 4, 200, 200, 64, True, 24, torch.bfloat16, 0, False),
         ("check Sq300 H10 Hk2 D128 window100", 1, 10, 2, 300, 300, 128, True, 100, torch.bfloat16, 0, False),
         ("check Sq129 Skv257 H4 D256 noncausal", 1, 4, 4, 129, 257, 256, False, None, torch.bfloat16, 0, False),
+        ("gptj B1 H16 S512 D256 causal", 1, 16, 16, 512, 512, 256, True, None, torch.bfloat16, 0, True),
+        ("check Sq50 Skv77 H4 Hk2 D16", 2, 4, 2, 50, 77, 16, True, None, torch.bfloat16, 0, False),
+        ("check Sq64 Skv64 H2 D64 noncausal", 1, 2, 2, 64, 64, 64, False, None, torch.bfloat16, 0, False),
+        ("check Sq97 Skv61 H2 D256 masked rows", 1, 2, 2, 97, 61, 256, True, None, torch.bfloat16, 0, False),
+        ("check Sq200 Skv200 H5 Hk1 D32 noncausal window100", 2, 5, 1, 200, 200, 32, False, 100, torch.bfloat16, 0, False),
     ]
     for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed in cases:
         def proj(s, heads, scale=1.0):
@@ -654,18 +714,22 @@ def attention_bwd_cases(torch, bench, ref, fa):
                 out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep, enable_gqa=hk != h)
             library = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
         pairs = _pairs(torch, sq, skv, causal, window)
-        bench.run("flash_attention_bwd", f"{label} (K2 o err {o_err:.1e}, lse err {err:.1e})",
-                  lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window),
-                  lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window),
-                  library,
-                  flops=10 * b * h * d * pairs,
-                  nbytes=q.element_size() * (4 * b * h * sq * d + 4 * b * hk * skv * d) + 4 * b * h * sq,
-                  dtype=name, tol_kind="attn", weight=weight, timed=timed)
+        fn = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        got = bench.run("flash_attention_bwd", f"{label} (K2 o err {o_err:.1e}, lse err {err:.1e})",
+                        fn,
+                        lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window),
+                        library,
+                        flops=10 * b * h * d * pairs,
+                        nbytes=q.element_size() * (4 * b * h * sq * d + 4 * b * hk * skv * d) + 4 * b * h * sq,
+                        dtype=name, tol_kind="attn", weight=weight, timed=timed)
+        # no float atomics: a rerun gives the same bits
+        check(all(torch.equal(a, c) for a, c in zip(got, fn())),
+              f"K6 {label}: two identical calls differ")
 
 
 def decode_cases(torch, bench, ref, fa):
     """K3 at the decode shape (B 4, H 40, D 128, cache 528, length 520,
-    bf16), GQA, windowed, and ragged lengths."""
+    bf16), GQA, windowed, ragged lengths, and gpt-j-6b's D 256."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [  # label, B, H, Hk, S, D, lengths, window, dtype, weight, timed
@@ -675,6 +739,8 @@ def decode_cases(torch, bench, ref, fa):
         ("check ragged lens H40 Hk8 D128", 4, 40, 8, 528, 128, [1, 300, 528, 77], None, torch.bfloat16, 0, False),
         ("check ragged lens H4 Hk2 D16 window16 fp32", 3, 4, 2, 64, 16, [20, 64, 37], 16, torch.float32, 0, False),
         ("check H16 Hk1 D128 fp32", 2, 16, 1, 100, 128, [100, 61], None, torch.float32, 0, False),
+        ("gptj B4 H16 S528 D256 len520", 4, 16, 16, 528, 256, [520] * 4, None, torch.bfloat16, 0, True),
+        ("check ragged lens H16 D256 window64", 3, 16, 16, 300, 256, [1, 300, 129], 64, torch.bfloat16, 0, False),
     ]
     for label, b, h, hk, s, d, lens, window, dt, weight, timed in cases:
         q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)[:, :, 0]
@@ -713,8 +779,8 @@ def _page_table(torch, lens, ps, maxp, num_pages, seed):
 
 def paged_decode_cases(torch, bench, ref, fa):
     """K4 at the engine's shape (llama2-13b, B 8, H = Hk = 40, D 128, page
-    16, a 513-row pool, lengths 37..1000, bf16), GQA, windowed, and small
-    fp32 and bf16 checks."""
+    16, a 513-row pool, lengths 37..1000, bf16), GQA, windowed, gpt-j-6b's
+    (H = Hk = 16, D 256), and small fp32 and bf16 checks."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(4)
     engine_lens = [37, 1000, 513, 260, 777, 129, 400, 64]
@@ -725,6 +791,10 @@ def paged_decode_cases(torch, bench, ref, fa):
         ("check H4 Hk2 D16 ps4 window5 fp32", 3, 4, 2, 16, 4, 8, 20, [13, 32, 3], 5, torch.float32, 0, False),
         ("check H16 Hk1 D128 ps16 fp32", 2, 16, 1, 128, 16, 8, 20, [100, 61], None, torch.float32, 0, False),
         ("check H8 Hk2 D64 ps8 len1", 2, 8, 2, 64, 8, 8, 20, [50, 1], None, torch.bfloat16, 0, False),
+        # gpt-j-6b's engine shape: H = Hk = 16, D 256
+        ("gptj B8 H16 D256 ps16 len37..1000", 8, 16, 16, 256, 16, 64, 512, engine_lens, None, torch.bfloat16, 0, True),
+        ("check H4 Hk2 D256 ps4 window5 fp32", 3, 4, 2, 256, 4, 8, 20, [13, 32, 3], 5, torch.float32, 0, False),
+        ("check H16 D256 ps16 window100", 3, 16, 16, 256, 16, 8, 20, [100, 61, 1], 100, torch.bfloat16, 0, False),
     ]
     for label, b, h, hk, d, ps, maxp, npages, lens, window, dt, weight, timed in cases:
         q = torch.randn(b, h, d, generator=gen, device="cuda").to(dt)
@@ -1269,6 +1339,146 @@ def bert_attention_cases(torch, bench, fusion):
           flush=True)
 
 
+# K5's chained backward in phase 3: label, B, H, Sq, Skv, D, causal, window,
+# dtype, weight, timed (the graph: fused_attention_graph at scale D^-0.5 and
+# offset Skv - Sq)
+CHAINED_BWD_CASES = [
+    ("minicpm B4 H36 S1024 D64 causal", 4, 36, 1024, 1024, 64, True, 0, "bfloat16", 1, True),
+    ("bert B16 H16 S512 D64 bidirectional", 16, 16, 512, 512, 64, False, 0, "bfloat16", 0, True),
+    ("window256 B4 H36 S1024 D64", 4, 36, 1024, 1024, 64, True, 256, "bfloat16", 0, True),
+    ("check Sq53 Skv80 H3 D16 window24", 2, 3, 53, 80, 16, True, 24, "bfloat16", 0, False),
+    ("check Sq70 Skv40 H4 D32 masked rows", 2, 4, 70, 40, 32, True, 0, "bfloat16", 0, False),
+    ("check Sq100 H6 D16 window7 fp32", 2, 6, 100, 100, 16, True, 7, "float32", 0, False),
+    ("check Sq70 Skv100 H3 D16 fp32", 1, 3, 70, 100, 16, True, 0, "float32", 0, False),
+    ("check Sq97 H2 D128 bidirectional", 1, 2, 97, 97, 128, False, 0, "bfloat16", 0, False),
+    ("check Sq33 H2 D256 causal", 1, 2, 33, 33, 256, True, 0, "bfloat16", 0, False),
+]
+
+
+def chained_bwd_graph(fusion, sq, skv, d, causal, window):
+    return fusion.fused_attention_graph(causal=causal, window=window, scale=d ** -0.5,
+                                        offset=skv - sq)
+
+
+def chained_backward_sources(fusion, fused_gemm):
+    """name → generated chained-backward source (csrc/attention_bwd.cuh) of
+    every chained graph the fused training paths and phase 3 differentiate
+    on the card, at its head dim: one source per graph structure and head
+    dim."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+
+    pairs = [(fusion.fused_attention_graph(causal=True, window=256, scale=0.125), 64)]
+    for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
+                get_config("gptj_6b").reduced(), get_config("bert_large"),
+                get_config("bert_large").reduced()):
+        for kind in sorted(set(lm.layer_kinds(cfg))):
+            pairs.append((attention_graph(fusion, cfg, kind), cfg.head_dim))
+    for _, _, _, sq, skv, d, causal, window, *_ in CHAINED_BWD_CASES:
+        pairs.append((chained_bwd_graph(fusion, sq, skv, d, causal, window), d))
+    pairs.append((fusion.fused_attention_graph(causal=True, scale=0.125), 64))   # the GQA check
+    out = {}
+    for g, d in pairs:
+        src = fused_gemm.generate_backward_source(fusion.derive_vjp(g), d)
+        out[fused_gemm.backward_source_name(src)] = src
+    return out
+
+
+def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa):
+    """K5's chained backward (one generated kernel on csrc/attention_bwd.cuh
+    for the graph's own epilogue) against its plain version
+    (``ChainedBackward.plain``: ``ref.flash_bwd_ref`` on the graph's nodes)
+    from the chained forward's output and row lse, at minicpm-2b's training
+    shape (causal, and window 256) and bert-large's (bidirectional), beside
+    SDPA's backward; at those two shapes also against the six derived graphs
+    the CPU runs (on K5's card kernels); two calls bitwise equal; small fp32
+    and bf16 checks (ragged, Sq < Skv, rows with no key, D 16 to 256, the
+    last from K2's forward: K5's chained forward takes chains up to 128); and
+    GQA through ``fused_attention_apply`` under autograd against K6 through
+    ``ops.attention``, one chained-backward launch and none of the six."""
+    import torch.nn.functional as F
+    from repro_torch.fusion import autodiff
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for label, b, h, sq, skv, d, causal, window, dtname, weight, timed in CHAINED_BWD_CASES:
+        dt = torch.bfloat16 if dtname == "bfloat16" else torch.float32
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        k, v = (torch.randn(b, h, skv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
+        dy = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dt)
+        graph = chained_bwd_graph(fusion, sq, skv, d, causal, window)
+        plan = fusion.derive_vjp(graph)
+        kern = fused_gemm.ChainedBackward(plan)
+        if d <= fused_gemm.MAX_CHAIN:
+            y, lse = fusion.compile(graph, path="cuda").with_lse(q=q, k=k, v=v)
+        else:
+            # K5's chained forward takes chains of at most 128: K2 gives the
+            # same output and lse (the masks aligned at the ends, scale D^-0.5)
+            y, lse = fa.flash_attention(q, k, v, causal=causal, window=window or None,
+                                        with_lse=True)
+        library = None
+        if timed:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            if window:
+                keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril().triu(-(window - 1))
+                out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+            else:
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            library = lambda: torch.autograd.grad(out, (qg, kg, vg), dy, retain_graph=True)
+        fn = lambda: kern(q, k, v, y, lse, dy)
+        got = bench.run("fused_attention_bwd", f"{graph.name} {label}", fn,
+                        lambda: kern.plain(q, k, v, y, lse, dy), library,
+                        flops=10 * b * h * d * _pairs(torch, sq, skv, causal, window or None),
+                        nbytes=q.element_size() * (4 * b * h * sq * d + 4 * b * h * skv * d)
+                        + 4 * b * h * sq, dtype=dtname, tol_kind="attn", weight=weight,
+                        timed=timed)
+        check(all(torch.equal(a, c) for a, c in zip(got, fn())),
+              f"chained backward {label}: two identical calls differ")
+        if timed and window == 0:
+            # the six derived graphs on the card, as the CPU path runs them.
+            # They take D = rowsum(P * dP) from their fp32 panels, the kernel
+            # (and its plain version) D = rowsum(dO * O) from the bf16
+            # output: 2^-9 apart, which moves small gradients by ~1.6e-2, so
+            # this cross-check holds the repo's bf16 test tolerance
+            six = autodiff._run_backward_chained(plan, {"q": q, "k": k, "v": v}, dy)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, got, (six["q"], six["k"], six["v"]), *BF16_LOGITS)
+            six_ms = time_ms(torch, lambda: autodiff._run_backward_chained(
+                plan, {"q": q, "k": k, "v": v}, dy), warmup=1, reps=3)
+            bench.extra.setdefault("chained_bwd_vs_six_graphs", {})[label] = {
+                "max_abs_err": err, "six_graphs_ms": six_ms, "kernel_ms": bench.cases[
+                    "fused_attention_bwd"][-1]["ms"]}
+            print(f"  {'':15s} {label:38s} against the six derived graphs: max_abs_err"
+                  f" {err:.3e}; six graphs {six_ms:.4f} ms", flush=True)
+            check(ok, f"chained backward {label}: disagrees with the six derived graphs ({err:.3e})")
+            del six
+        if sq > skv and causal:
+            check(all(bool((t[..., :sq - skv, :] == 0).all()) for t in got[:1]),
+                  f"chained backward {label}: a row with no key got a gradient")
+
+    # GQA through the library helper under autograd, beside K6
+    b, h, hk, s, d = 2, 8, 2, 256, 64
+    q, k, v, dy = (torch.randn(b, hh, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   .requires_grad_(i < 3) for i, hh in enumerate((h, hk, hk, h)))
+    before = dict(fused_gemm.GRAPH_LAUNCHES)
+    got = torch.autograd.grad(fusion.fused_attention_apply(q, k, v, causal=True), (q, k, v), dy)
+    launched = {g: n - before.get(g, 0) for g, n in fused_gemm.GRAPH_LAUNCHES.items()
+                if n != before.get(g, 0)}
+    want = torch.autograd.grad(ops.attention(q, k, v, causal=True), (q, k, v), dy)
+    # two kernels' bf16 results, each within (1e-2, 1e-2) of its own plain
+    # version, from different forwards (K5's o against K2's) and with dk and
+    # dv summed over the group in bf16 by autograd's repeat: the repo's bf16
+    # test tolerance
+    err, ok = compare(torch, got, want, *BF16_LOGITS)
+    print(f"  GQA B{b} H{h} Hk{hk} S{s} D{d} through fused_attention_apply: gradients against K6's"
+          f" max_abs_err {err:.3e}; K5 launches {launched}", flush=True)
+    check(ok, f"chained backward under autograd (GQA) disagrees with K6: {err:.3e}")
+    check(sorted(launched.values()) == [1, 1]
+          and any(g.endswith(fused_gemm.BACKWARD_SUFFIX) for g in launched)
+          and not any("@bwd_" in g and not g.endswith(fused_gemm.BACKWARD_SUFFIX) for g in launched),
+          f"the chained attention under autograd launched {launched}: want its forward and one"
+          " chained backward")
+
+
 def sweep_graphs(fusion):
     """Small graphs that between them use every pointwise op K5's generator
     takes (and a graph of two distinct lhs operands)."""
@@ -1500,22 +1710,22 @@ def fused_training_cases(torch, bench, fusion, rng):
     g = {fusion.derive_vjp(causal).graph_role(nm): gr
          for nm, gr in fusion.backward_graphs(causal).items()}
     full = 2 * b * h * s * s * d
-    p = run("fused_attention_bwd", "P", g["p"], dict(q=q, k=k), weight=1, out_dtype=f32,
+    # (checks now: the chained backward kernel replaces them on the path)
+    p = run("fused_attention_bwd", "P", g["p"], dict(q=q, k=k), out_dtype=f32,
             flops=full, nbytes=_nbytes(q, k) + 4 * b * h * s * s)
-    dp = run("fused_attention_bwd", "dP = dy v^T", g["dp"], dict(dy=dy, v=v), weight=1,
+    dp = run("fused_attention_bwd", "dP = dy v^T", g["dp"], dict(dy=dy, v=v),
              out_dtype=f32, flops=full, nbytes=_nbytes(dy, v) + 4 * b * h * s * s)
     dz = run("fused_attention_bwd", "dZ (softmax_grad panel)", g["dz"], dict(q=q, k=k, dp=dp),
-             weight=1, out_dtype=f32, flops=full, nbytes=_nbytes(q, k, dp, dp))
+             out_dtype=f32, flops=full, nbytes=_nbytes(q, k, dp, dp))
     del dp
     for role, ops in (("dq", dict(dz=dz, k=k)), ("dk", dict(dz=dz, q=q)), ("dv", dict(p=p, dy=dy))):
-        run("fused_attention_bwd", role, g[role], ops, weight=1, out_dtype=f32, flops=full,
+        run("fused_attention_bwd", role, g[role], ops, out_dtype=f32, flops=full,
             nbytes=_nbytes(*ops.values()) + 4 * b * h * s * d)
     del p, dz
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    bench.library_row["fused_attention_bwd"] = time_ms(
-        torch, lambda: torch.autograd.grad(sdpa, (qg, kg, vg), dy, retain_graph=True))
-    del qg, kg, vg, sdpa, q, k, v, dy
+    rows = bench.cases["fused_attention_bwd"][-6:]
+    bench.extra["minicpm_six_graphs"] = {"ms": sum(r["ms"] for r in rows),
+                                         "bound_ms": sum(r["bound_ms"] for r in rows)}
+    del q, k, v, dy
 
     # the projections' backward graphs at 4096 tokens
     t, ff = b * s, 5760
@@ -2118,6 +2328,56 @@ def drain(torch, cfg, params, reqs, *, num_slots, validate=True, tracer=None, lo
     finally:
         engine_mod.sample_tokens = sample
     return eng, (time.perf_counter() - start) * 1e3
+
+
+def gptj_engine(torch, counters):
+    """gpt-j-6b at full width and depth (bf16, 28 layers of d 4096, 16 heads
+    of 256, random weights from a seed; ~12 GB) through the serving engine:
+    8 of phase 6's ragged requests, greedy and sampled, on 8 slots with
+    ``validate()`` after every step and every launch counter set to 0 just
+    before and read just after (K4, at head dim 256, once a layer a decode
+    step), then on 3 slots: the tokens must be equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("gptj_6b")
+    start = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, head dim"
+          f" {cfg.head_dim}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB of weights in"
+          f" {time.perf_counter() - start:.2f} s", flush=True)
+    reqs = engine_requests(cfg, n=8)
+    counters.reset()
+    eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"])
+    launches = counters.read()
+    steps = eng.decode_steps
+    tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
+    for uid, r in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"gpt-j request {uid} ended {eng.status(uid).value}")
+        check(len(tokens[uid]) == len(r["prompt"]) + r["max_new"],
+              f"gpt-j request {uid}: {len(tokens[uid])} tokens")
+    check(launches["paged_decode"] == cfg.num_layers * steps,
+          f"K4 launched {launches['paged_decode']} times in {steps} decode steps of"
+          f" {cfg.num_layers} layers")
+    generated = eng.tokens_generated
+    del eng
+    eng3, wall3_ms = drain(torch, cfg, params, reqs, num_slots=3)
+    tokens3 = {uid: eng3.collect(uid) for uid in range(len(reqs))}
+    del eng3
+    diff = first_difference(torch, cfg, params, tokens, tokens3)
+    result = {"requests": len(reqs), "decode_steps": steps, "generated_tokens": generated,
+              "drain_ms": wall_ms, "tokens_per_s": generated / (wall_ms / 1e3),
+              "slots3_drain_ms": wall3_ms, "schedule_invariant": diff is None,
+              "launches": launches}
+    print(f"  drain of {len(reqs)} requests on {ENGINE['num_slots']} slots: {wall_ms:.1f} ms,"
+          f" {generated} tokens, {steps} decode steps, validate() clean; K4 at D {cfg.head_dim}"
+          f" launched {launches['paged_decode']} times; on 3 slots {wall3_ms:.1f} ms, tokens"
+          f" equal: {diff is None}" + (f"; first difference {diff}" if diff else ""), flush=True)
+    check(diff is None, f"gpt-j-6b tokens depend on the number of slots: {diff}")
+    del params
+    torch.cuda.empty_cache()
+    return result
 
 
 def logits_divergence(torch, rec_a, rec_b, uid):
@@ -2931,8 +3191,7 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention",
              "flash_attention_wgmma_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
-             "paged_decode_kernel": "paged_decode", "dkdv_kernel": "flash_attention_bwd",
-             "dq_kernel": "flash_attention_bwd", "delta_kernel": "flash_attention_bwd",
+             "paged_decode_kernel": "paged_decode",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
@@ -2946,8 +3205,13 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
 def kernel_of(name):
     """The port's kernel that a profiled device kernel belongs to: the
     first word of its demangled name that is one of the port's kernel
-    names."""
-    return next((KERNEL_OF[w] for w in re.findall(r"\w+", name) if w in KERNEL_OF), "other")
+    names; the attention backward's mainloop (namespace attn_bwd) by its
+    epilogue, K6's or a generated one, and its stats pass apart."""
+    words = re.findall(r"\w+", name)
+    if "attn_bwd" in words:
+        return ("flash_attention_bwd" if "K6Epi" in words else "fused_attention_bwd"
+                if "Epi" in words else "attention_bwd_stats")
+    return next((KERNEL_OF[w] for w in words if w in KERNEL_OF), "other")
 
 
 # Named ranges of the port (torch.profiler.record_function) whose device
@@ -3022,6 +3286,7 @@ class Counters:
         self.fa.ATTENTION_LAUNCHES = 0
         self.fa.ATTENTION_WGMMA_LAUNCHES = 0
         self.fa.BACKWARD_LAUNCHES = 0
+        self.fa.ATTENTION_BWD_WGMMA_LAUNCHES = 0
         self.fa.DECODE_LAUNCHES = 0
         self.fa.PAGED_DECODE_LAUNCHES = 0
         self.fused_gemm.LAUNCHES = 0
@@ -3039,6 +3304,8 @@ class Counters:
                 # K2's bf16 kernel among them (not a kernel row of its own)
                 "flash_attention_wgmma": self.fa.ATTENTION_WGMMA_LAUNCHES,
                 "flash_attention_bwd": self.fa.BACKWARD_LAUNCHES,
+                # K6's launches on the tensor cores among them
+                "flash_attention_bwd_wgmma": self.fa.ATTENTION_BWD_WGMMA_LAUNCHES,
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
                 **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES),
@@ -3142,8 +3409,10 @@ def training_model_flops(cfg, batch, seq):
 def fused_training_launches(fusion, cfg, steps):
     """K5 launches by graph name that ``steps`` fused training steps of
     ``cfg`` must make: per layer and step, each forward graph twice (the
-    forward and remat's recompute) and each graph its derived backward plan
-    runs once."""
+    forward and remat's recompute), each graph its derived backward plan
+    runs once, and for the chained attention its one backward kernel
+    instead of the six graphs of its plan."""
+    from repro_torch.kernels import fused_gemm
     from repro_torch.models import lm
 
     fwd = [fusion.fused_attn_out_graph(True, dropout_rate=cfg.dropout_rate),
@@ -3154,7 +3423,10 @@ def fused_training_launches(fusion, cfg, steps):
         for g in [attention_graph(fusion, cfg, kind)] + fwd:
             g = fusion.simplify_graph(g)
             want[g.name] = want.get(g.name, 0) + 2 * steps
-            for name in fusion.backward_graphs(g):
+            # a chained graph's backward is one kernel, not its six graphs
+            names = ([g.name + fused_gemm.BACKWARD_SUFFIX] if g.chained_root() is not None
+                     else fusion.backward_graphs(g))
+            for name in names:
                 want[name] = want.get(name, 0) + steps
     return want
 
@@ -3219,6 +3491,9 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
             check(launches[name] > 0, f"K5's {name} graphs were not launched by fused training")
         check(launches["flash_attention"] == 0 and launches["flash_attention_bwd"] == 0,
               f"K2 or K6 ran on the fused path: {launches}")
+        six = {g: n for g, n in by_graph.items()
+               if any(g.endswith(f"@bwd_{r}") for r in ("p", "dp", "dz", "dq", "dk", "dv"))}
+        check(not six, f"the chained attention's six derived graphs ran on the card: {six}")
         rel = abs(hist["loss"][0] - unfused["loss"][0]) / abs(unfused["loss"][0])
         print(f"  step 1 loss {hist['loss'][0]:.6f} fused against {unfused['loss'][0]:.6f} unfused"
               f" (phase 9): {rel:.2e} relative (tol 2e-2)", flush=True)
@@ -3233,6 +3508,9 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         check(launches["flash_attention_wgmma"] == want["flash_attention"],
               f"K2's bf16 wgmma kernel launched {launches['flash_attention_wgmma']} times in"
               f" {steps} steps, want {want['flash_attention']}")
+        check(launches["flash_attention_bwd_wgmma"] == want["flash_attention_bwd"],
+              f"K6's wgmma kernels launched {launches['flash_attention_bwd_wgmma']} times in"
+              f" {steps} steps, want {want['flash_attention_bwd']}")
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
     step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
@@ -3324,7 +3602,8 @@ def main() -> int:
 
     phase("2. build")
     start = time.perf_counter()
-    logs = _build.build_all(generated=fused_sources(fusion, fused_gemm))
+    chained = chained_backward_sources(fusion, fused_gemm)
+    logs = _build.build_all(generated={**fused_sources(fusion, fused_gemm), **chained})
     build_s = time.perf_counter() - start
     print(f"  built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
@@ -3332,6 +3611,7 @@ def main() -> int:
             if "spill" in line and " 0 bytes spill stores" not in line:
                 print(f"  {name}: {line.strip()}")
     k2_build = k2_build_report(_build, fa, logs["flash_attention"])
+    bwd_build = bwd_build_report(_build, fa, logs, chained)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -3344,6 +3624,7 @@ def main() -> int:
     mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion)
     fused_training_cases(torch, bench, fusion, rng)
+    chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa)
     fused_spec_cases(torch, bench, fusion, fused_gemm, rng)
     hw_prng_cases(torch, bench, fusion, fused_gemm, rng)
     bert_attention_cases(torch, bench, fusion)
@@ -3354,10 +3635,11 @@ def main() -> int:
     gemm_spec_cases(torch, bench, ref, brgemm)
     conv1x1_cases(torch, bench, ref, ops)
     k6 = bench.summary("flash_attention_bwd")["ms"]
-    six = bench.summary("fused_attention_bwd")
-    print(f"  the six derived attention-backward graphs: {six['ms']:.4f} ms against K6's"
-          f" {k6:.4f} ms and SDPA's backward {six['library_ms']:.4f} ms at B 4, H 36, S 1024,"
-          f" D 64, causal", flush=True)
+    chained_row = bench.summary("fused_attention_bwd")
+    print(f"  the chained backward kernel: {chained_row['ms']:.4f} ms (the six derived graphs it"
+          f" replaces {bench.extra['minicpm_six_graphs']['ms']:.4f} ms) against K6's {k6:.4f} ms"
+          f" and SDPA's backward {chained_row['library_ms']:.4f} ms at B 4, H 36, S 1024, D 64,"
+          f" causal", flush=True)
 
     phase("4. reduced configs: CUDA kernels against CPU plain versions")
     counters = Counters(brgemm, fa, fused_gemm, scan, spmm, fo, conv)
@@ -3388,6 +3670,9 @@ def main() -> int:
 
     phase("7e. K5 scheduled from spec strings, and K13, through the library helpers")
     scheduled = scheduled_path(torch, counters, fusion, rng)
+
+    phase("7f. gpt-j-6b, full width and depth: the engine at head dim 256")
+    gptj = gptj_engine(torch, counters)
 
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
@@ -3424,7 +3709,8 @@ def main() -> int:
                    "parlooper_listing1": loops["listing1_launches"][name],
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
-                   "scheduled": scheduled["launches"][name]}
+                   "scheduled": scheduled["launches"][name],
+                   "gptj_engine": gptj["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -3441,11 +3727,11 @@ def main() -> int:
                if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
                       "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
-                      "scheduled": scheduled,
+                      "scheduled": scheduled, "gptj_engine": gptj,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "phase3_extra": bench.extra,
-                      "k2_build": k2_build}))
+                      "k2_build": k2_build, "bwd_build": bwd_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

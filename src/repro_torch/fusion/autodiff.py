@@ -21,7 +21,16 @@ composed reference on the CPU):
 
 A chained graph (flash attention as IR) has its own six-graph recompute
 decomposition, ``ChainedBackwardPlan``: p, dp, dz (whose ``softmax_grad``
-row panel holds the D = rowsum(dO ∘ O) term), dq, dk and dv.
+row panel holds the D = rowsum(dO ∘ O) term), dq, dk and dv.  On the CPU
+those six graphs run (the reference's decomposition, composed); on the card
+one generated kernel runs instead (``kernels/fused_gemm.py``
+``ChainedBackward``, the backward mainloop of ``csrc/attention_bwd.cuh``):
+the flash identity dZ = P ∘ (dP - D) in place of ``softmax_grad``, P rebuilt
+from the row log-sum-exp the chained forward writes, and the graph's own
+pre-reduce nodes and derivative nodes (:func:`chained_epilogue`) as its
+epilogue, so P, dP and dZ never reach device memory.  A row with every key
+masked gets zero gradients there (lse = -inf), as K6 gives them; the
+composed path differentiates the reference's uniform row instead.
 
 ``compile_with_vjp(graph)`` wraps the forward and the derived graphs in a
 memoized ``torch.autograd.Function``: the reference's ``custom_vjp``
@@ -40,11 +49,12 @@ import torch
 
 from repro_torch.fusion.graph import (EPILOGUE_OPS, ContractionRoot, FusionLegalityError, Node,
                                       OperandSpec, TppGraph, _check_grad_arity, simplify_graph)
+from repro_torch.fusion import lowering
 from repro_torch.fusion.lowering import (HW_PRNG_OPS, _freeze, compile_for_device,
                                         contraction_operand_values)
 
 __all__ = ["derive_vjp", "BackwardPlan", "ChainedBackwardPlan", "backward_graphs",
-           "compile_with_vjp"]
+           "compile_with_vjp", "chained_epilogue", "flash_node"]
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +342,52 @@ def _derive_chained(graph: TppGraph) -> ChainedBackwardPlan:
         rhs_trans=rhs_spec.trans)
 
 
+def flash_node(plan: ChainedBackwardPlan) -> Node:
+    """The dz graph's ``softmax_grad`` node, whose value the flash identity
+    P ∘ (dP - D) replaces in the chained backward kernel; raises
+    ``FusionLegalityError`` (TPP228) for a dz graph with no such node, or
+    one that reads dP elsewhere."""
+    dp = plan.names["dp"]
+    found = [nd for nd in plan.graphs["dz"].nodes if nd.op == "softmax_grad" and nd.inputs[0] == dp]
+    readers = [nd.name for nd in plan.graphs["dz"].nodes if dp in nd.inputs]
+    if len(found) != 1 or readers != [found[0].name]:
+        raise FusionLegalityError(
+            f"graph {plan.forward.name!r}: the chained backward needs one softmax_grad "
+            f"of dP in the dz graph, found {[nd.name for nd in found]} (dP read by "
+            f"{readers})", code="TPP228")
+    return found[0]
+
+
+def chained_epilogue(plan: ChainedBackwardPlan):
+    """(pre, grad) of a chained graph, the epilogue of its backward kernel
+    as fp32 functions of (..., Sq, Skv) tensors: ``pre(s)``, the forward's
+    pre-reduce nodes from the raw score to the softmax input, and
+    ``grad(dz, s)``, the dz graph's derivative nodes from the softmax
+    input's cotangent ``dz`` (the value of :func:`flash_node`) to the
+    score's.  ``kernels/fused_gemm.py`` emits the same nodes as C++."""
+    graph, dz_graph = plan.forward, plan.graphs["dz"]
+    red = graph.reducing_node()
+    z = red.inputs[EPILOGUE_OPS[red.op].stats_input or 0]
+    pre_nodes = graph.nodes[:graph.nodes.index(red)]
+    root = graph.base_roots[0].name
+    sg = flash_node(plan).name
+
+    def run(nodes, env):
+        for nd in nodes:
+            if nd.name not in env:
+                env[nd.name] = EPILOGUE_OPS[nd.op].apply(*(env[r] for r in nd.inputs),
+                                                         **nd.attr_dict())
+        return env
+
+    def pre(s):
+        return run(pre_nodes, {root: s, "acc": s})[z]
+
+    def grad(dz, s):
+        return run(dz_graph.nodes, {root: s, "acc": s, sg: dz})[dz_graph.outputs[0]]
+
+    return pre, grad
+
+
 def derive_vjp(graph: TppGraph, *, policy: str = "recompute") -> BackwardPlan:
     """Derive the backward pass of ``graph`` as new TppGraphs (see the module
     docstring).  ``graph`` is simplified first."""
@@ -537,12 +593,18 @@ def _run(graph: TppGraph, feed: dict):
     return compile_for_device(graph, out_dtype=_F32)(**feed)
 
 
-def _run_backward_chained(plan: ChainedBackwardPlan, ops_env: dict, dy):
-    """p → dp → dz → dq/dk/dv, each a derived graph; → {operand: fp32
-    cotangent}.  Operands may be batched (the attention's (B, H) axes)."""
+def _run_backward_chained(plan: ChainedBackwardPlan, ops_env: dict, dy, fwd=None, kernel=None):
+    """On the card (``fwd`` the forward's (output, row lse), ``kernel`` the
+    plan's ``fused_gemm.ChainedBackward``): the one chained backward kernel,
+    → {operand: cotangent in the compute dtype}.  On the CPU: p → dp → dz
+    → dq/dk/dv, each a derived graph; → {operand: fp32 cotangent}.
+    Operands may be batched (the attention's (B, H) axes)."""
     nm = plan.names
     g = plan.graphs
     q, k, v = ops_env[nm["lhs"]], ops_env[nm["rhs"]], ops_env[nm["crhs"]]
+    if fwd is not None:
+        dq, dk, dv = kernel(q, k, v, *fwd, dy)
+        return {nm["lhs"]: dq, nm["rhs"]: dk, nm["crhs"]: dv}
     p = _run(g["p"], {nm["lhs"]: q, nm["rhs"]: k})
     dp = _run(g["dp"], {nm["dy"]: dy, nm["crhs"]: v})
     dz = _run(g["dz"], {nm["lhs"]: q, nm["rhs"]: k, nm["dp"]: dp})
@@ -555,11 +617,12 @@ def _run_backward_chained(plan: ChainedBackwardPlan, ops_env: dict, dy):
     return {nm["lhs"]: dq, nm["rhs"]: dk, nm["crhs"]: dv}
 
 
-def _run_backward(plan, ops_env: dict, accs: Optional[dict], dy):
+def _run_backward(plan, ops_env: dict, accs: Optional[dict], dy, fwd=None, kernel=None):
     """Stage-1 dz values, stage-2 contraction cotangents, rowvec column
-    sums; → {operand name: fp32 cotangent} (``None`` for masks and seeds)."""
+    sums; → {operand name: fp32 cotangent} (``None`` for masks and seeds).
+    A chained plan runs :func:`_run_backward_chained`."""
     if isinstance(plan, ChainedBackwardPlan):
-        return _run_backward_chained(plan, ops_env, dy)
+        return _run_backward_chained(plan, ops_env, dy, fwd, kernel)
     graph = plan.forward
     n_out = len(graph.outputs)
     dy_vals = {d: (dy[i] if n_out > 1 else dy) for i, d in enumerate(plan.dy_names)}
@@ -660,7 +723,10 @@ def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
     a PRNG node raises ``FusionLegalityError``: the derived backward graphs
     regenerate the counter path's bits, which would not be the forward's
     mask (the reference hands ``hw_prng`` to the forward only and so takes
-    a wrong gradient).  Memoized per graph, ``residuals`` and schedule."""
+    a wrong gradient).  A chained graph on the card saves its output and
+    row log-sum-exp, which its forward kernel writes, and runs its backward
+    as one kernel (:func:`_run_backward_chained`).  Memoized per graph,
+    ``residuals`` and schedule."""
     key = (graph, residuals, _freeze(kw))
     hit = _VJP_CACHE.get(key)
     if hit is not None:
@@ -675,6 +741,17 @@ def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
     plan = derive_vjp(lowered, policy=residuals)
     names = tuple(s.name for s in lowered.contraction_operands + lowered.epilogue_operands)
     fwd_fn = compile_for_device(lowered, **kw)
+    chained = isinstance(plan, ChainedBackwardPlan)
+    # on the card a chained graph's forward also writes its row lse and its
+    # backward is one kernel: each built at its first CUDA call
+    card: dict = {}
+
+    def on_card(part):
+        if part not in card:
+            from repro_torch.kernels import fused_gemm
+            card[part] = (lowering.compile(lowered, path="cuda", simplify=False, **kw)
+                          if part == "forward" else fused_gemm.ChainedBackward(plan))
+        return card[part]
     aug_fn = (compile_for_device(plan.aug_forward, out_dtype=_F32)
               if plan.aug_forward is not None else None)
     n_out = len(lowered.outputs)
@@ -683,7 +760,7 @@ def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
         @staticmethod
         def forward(ctx, *args):
             env = dict(zip(names, args))
-            accs = None
+            accs = fwd = None
             if aug_fn is not None:
                 aug = aug_fn(**env)
                 idx = plan.aug_index
@@ -691,6 +768,9 @@ def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
                      if n_out > 1 else aug[..., idx[lowered.outputs[0]], :, :])
                 y = y.to(args[0].dtype)
                 accs = tuple(aug[..., idx[r], :, :] for r in lowered.root_names)
+            elif chained and args[0].device.type == "cuda":
+                y, lse = on_card("forward").with_lse(**env)
+                fwd = (y, lse)
             else:
                 y = fwd_fn(**env)
                 if plan.policy == "saved":
@@ -700,21 +780,25 @@ def compile_with_vjp(graph: TppGraph, *, residuals: str = "recompute", **kw):
                     accs = tuple((y[..., idx[r], :, :] if n_out > 1 else y).float()
                                  for r in lowered.root_names)
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
-            ctx.save_for_backward(*tensors, *(accs or ()))
+            ctx.save_for_backward(*tensors, *(accs or ()), *(fwd or ()))
             ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
             ctx.others = [None if t else a for a, t in zip(args, ctx.is_tensor)]
             ctx.has_accs = accs is not None
+            ctx.has_fwd = fwd is not None
             return y
 
         @staticmethod
         def backward(ctx, dy):
             saved = ctx.saved_tensors
-            it = iter(saved[:sum(ctx.is_tensor)])
+            n = sum(ctx.is_tensor)
+            it = iter(saved[:n])
             args = [next(it) if t else o for t, o in zip(ctx.is_tensor, ctx.others)]
-            accs = saved[sum(ctx.is_tensor):] if ctx.has_accs else None
+            accs = saved[n:] if ctx.has_accs else None
+            fwd = saved[n:] if ctx.has_fwd else None
             ops_env = dict(zip(names, args))
             acc_env = dict(zip(lowered.root_names, accs)) if accs is not None else None
-            cots = _run_backward(plan, ops_env, acc_env, dy)
+            cots = _run_backward(plan, ops_env, acc_env, dy, fwd,
+                                 on_card("backward") if fwd is not None else None)
             grads = []
             for nm, x in zip(names, args):
                 c = cots.get(nm)

@@ -365,24 +365,29 @@ def _compile_cuda(graph: TppGraph, *, out_dtype=None, ignore=frozenset(), schedu
     hw = bool((schedule or {}).get("hw_prng"))
     seen: set = set()
 
-    def launch(operands):
+    def launch(operands, with_lse):
         gp = _plan_call(graph, operands, schedule) if schedule else None
-        return kernel(operands, out_dtype=out_dtype, plan=gp, hw_prng=hw)
+        return kernel(operands, out_dtype=out_dtype, plan=gp, hw_prng=hw, with_lse=with_lse)
 
-    def fn(**operands):
+    def run(operands, with_lse):
         packed = _pack_operands(graph, operands, ignore)
         key = tuple((tuple(v.shape), v.dtype) for v in packed)
         if key in seen:
-            return launch(operands)
+            return launch(operands, with_lse)
         # a new operand shape: where the reference plans a new lowering;
         # here the first launch, which builds and loads the graph's kernel
         # on its first use
         obs_metrics.default_registry().counter("fusion.lowerings").inc()
         with obs_trace.get_tracer().span("fusion.lower", cat="fusion", graph=graph.name):
-            out = launch(operands)
+            out = launch(operands, with_lse)
         seen.add(key)
         return out
 
+    def fn(**operands):
+        return run(operands, False)
+
+    # a chained graph's forward with its row log-sum-exp: → (out, lse)
+    fn.with_lse = lambda **operands: run(operands, True)
     return fn
 
 

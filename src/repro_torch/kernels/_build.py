@@ -8,8 +8,8 @@ the headers and the flags so an edited source never loads a stale library,
 and loaded with ``ctypes``.  Generated sources (K5's, one per
 fused graph, from ``kernels/fused_gemm.py``) are written there beside their
 library, built with ``csrc`` on the include path and named by a hash of
-their text, of the headers they include (``csrc/fused_gemm.cuh``,
-``csrc/fused_chain.cuh``, ``csrc/philox.cuh``) and of the flags (``load_generated``).
+their text, of the headers they may include (``GENERATED_INCLUDES``) and of
+the flags (``load_generated``).
 ``build_all`` starts one ``nvcc`` per source, fixed and generated, at once
 and waits for all of them.
 
@@ -38,6 +38,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
+# The attention backward's entry (csrc/attention_bwd.cuh, K6's source and
+# every generated chained backward): q, k, v, o, lse, do, stats, dq, dk, dv,
+# bf16, B, H, Hk, Sq, Skv, D, plan (8 int32s on the host), strides (24
+# int64s on the host), causal, window, scale, stream.
+ATTENTION_BWD = (_P,) * 10 + (_I,) * 7 + (_P, _P, _I, _I, _F, _P)
+
 # C signature of every entry point, by source: (argtypes), restype is int.
 SIGNATURES = {
     "gemm": {
@@ -62,11 +68,7 @@ SIGNATURES = {
         "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)
         + (_L,) * 10 + (_I, _F, _P),
     },
-    "flash_attention_bwd": {
-        # q, k, v, o, lse, do, delta, dq, dk, dv, bf16, B, H, Hk, Sq, Skv, D,
-        # strides (24 int64s on the host), causal, window, scale, stream
-        "flash_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_P, _I, _I, _F, _P),
-    },
+    "flash_attention_bwd": {"attention_bwd": ATTENTION_BWD},
     "paged_decode": {
         # q, k_pool, v_pool, table, length, o, bf16, B, H, Hk, D, page_size,
         # max_pages, pool rows, q (batch, head), o (batch, head), window,
@@ -94,10 +96,13 @@ SIGNATURES = {
     },
 }
 SOURCES = tuple(SIGNATURES)
-# C signature of every generated source (K5), and the headers it includes.
-# fused_gemm: the FusedArgs struct, stream
-GENERATED_SIGNATURE = {"fused_gemm": (_P, _P)}
-GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh", CSRC / "philox.cuh")
+# C signature of a generated source (K5) by its entry point, and the headers
+# it may include.  fused_gemm: the FusedArgs struct, stream; attention_bwd:
+# a chained graph's backward, ATTENTION_BWD.
+GENERATED_SIGNATURES = {"fused_gemm": {"fused_gemm": (_P, _P)},
+                        "attention_bwd": {"attention_bwd": ATTENTION_BWD}}
+GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh", CSRC / "philox.cuh",
+                      CSRC / "attention_bwd.cuh", CSRC / "wgmma.cuh")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -205,14 +210,15 @@ def load(name: str) -> ctypes.CDLL:
     return _open(name, _target(name), SIGNATURES[name])
 
 
-def load_generated(name: str, source: str) -> ctypes.CDLL:
-    """The loaded library of a generated source, built first if needed."""
+def load_generated(name: str, source: str, entry: str = "fused_gemm") -> ctypes.CDLL:
+    """The loaded library of a generated source whose C entry point is
+    ``entry``, built first if needed."""
     target = _generated_target(name, source)
     lib = _LIBS.get(target.name)
     if lib is not None:
         return lib
     build_all((), {name: source})
-    return _open(target.name, target, GENERATED_SIGNATURE)
+    return _open(target.name, target, GENERATED_SIGNATURES[entry])
 
 
 def check(err: int, what: str) -> None:

@@ -59,7 +59,6 @@
 // heads of the group in it, so every key and value row is read from device
 // memory once for the whole group, in fp32 on the SIMT cores; split-KV decode
 // is for the PR that makes it fast.
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -589,66 +588,15 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link to
-// libcuda), or null.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                                  &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D tensor map (D, S, heads, B) of a bf16 operand with (seq, head,
-// batch) strides in elements, read in boxes of `rows` x `panel` columns
-// into `panel`-column swizzled panels; reads past S or D give zeros.  The
-// wrapper has checked that the base and every stride of a dimension longer
-// than 1 are multiples of 16 bytes; a dimension of length 1 is never
-// stepped, so its stride is set to 16 bytes.
-cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
-                     long long ss, long long sh, long long sb, int panel, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  auto bytes = [](long long stride, int n) -> cuuint64_t {
-    return n > 1 ? static_cast<cuuint64_t>(stride) * 2 : 16;
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {bytes(ss, S), bytes(sh, heads), bytes(sb, B)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(panel), static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = panel == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : panel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                          int H, int Hk, int Sq, int Skv, const long long* st, int causal,
                          int window, float scale, cudaStream_t s) {
   using T = FwdTile<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t e = tile_map(&tq, q, D, Sq, H, B, st[2], st[1], st[0], T::SW, T::BM);
-  if (e == cudaSuccess && Skv > 0) e = tile_map(&tk, k, D, Skv, Hk, B, st[5], st[4], st[3], T::SW, T::BN);
-  if (e == cudaSuccess && Skv > 0) e = tile_map(&tv, v, D, Skv, Hk, B, st[8], st[7], st[6], T::SW, T::BN);
+  cudaError_t e = hopper::tile_map(&tq, q, D, Sq, H, B, st[2], st[1], st[0], T::SW, T::BM);
+  if (e == cudaSuccess && Skv > 0) e = hopper::tile_map(&tk, k, D, Skv, Hk, B, st[5], st[4], st[3], T::SW, T::BN);
+  if (e == cudaSuccess && Skv > 0) e = hopper::tile_map(&tv, v, D, Skv, Hk, B, st[8], st[7], st[6], T::SW, T::BN);
   if (e != cudaSuccess) return e;
   if (Skv == 0) tk = tv = tq;  // no key tile is loaded
   auto kern = flash_attention_wgmma_kernel<D>;

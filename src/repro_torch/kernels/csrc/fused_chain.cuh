@@ -12,7 +12,10 @@
 // that rescales the chain accumulator, so the (M, N) panel never exists.
 // Scores at or below -1e29 (the mask fill, -1e30) add nothing to the sum; a
 // row with no live score outputs 0 (the sum floored at 1e-30), as the
-// reference's chained Pallas kernel does.  Leading batch axes run one
+// reference's chained Pallas kernel does.  Under compile_with_vjp the
+// kernel also writes each row's log-sum-exp of its live scores, m + log(l)
+// (-inf for a row with none), to FusedArgs::lse: the chained backward
+// (csrc/attention_bwd.cuh) rebuilds P from it.  Leading batch axes run one
 // problem (a (batch, head) pair of attention) per grid.z index.  Under a
 // schedule a block takes its 64 rows from the order table (the plan's M
 // order), as fused_gemm.cuh's row panels do.
@@ -184,6 +187,8 @@ fused_chain_f32_simt(FusedArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty + 16 * i;
     if (gm >= M) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(long long)blockIdx.z * M + gm] = lrow[i] > 0.0f ? mrow[i] + logf(lrow[i]) : -INFINITY;
     const float l = fmaxf(lrow[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -206,9 +211,10 @@ void launch_chain(const FusedArgs& a, cudaStream_t s) {
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // lhs[0], rhs[0]: the base root's operands; crhs: the chain operand
 // (N, N2) with leading dimension ldc; the output (batch, M, N2)
-// contiguous.  N2 <= 128.  order (if not null): the origins of 64-row
-// blocks in the plan's M order.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a chain wider than 128.
+// contiguous; lse (if not null) (batch, M) contiguous.  N2 <= 128.  order
+// (if not null): the origins of 64-row blocks in the plan's M order.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a chain wider than 128.
 template <class E>
 int chain_entry(const FusedArgs* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -95,7 +95,8 @@ typedef __nv_bfloat16 fg_bf16;
 // (the fixed grid) or n_order (row, column) tile origins, block i taking
 // entry i (a row panel or a chained root reads the rows only).  hw: draw
 // dropout_rng from K13 on (prng_tm, prng_tn) tiles (full rows after the
-// reducing node).
+// reducing node).  lse: null, or a chained root's (batch, M) fp32 row
+// log-sum-exp output (the chained backward's row statistics).
 struct FusedArgs {
   const void* lhs[FG_MAX_ROOTS];
   const void* rhs[FG_MAX_ROOTS];
@@ -125,6 +126,7 @@ struct FusedArgs {
   const int* order;
   int n_order;
   int prng_tm, prng_tn, hw;
+  float* lse;
 };
 
 // The block's problem: its two batch indices.
@@ -222,11 +224,21 @@ __device__ __forceinline__ FgCtx block_ctx(const FusedArgs& a) {
 }
 
 // The block's tile origin (row, column): entry blockIdx.x of the order
-// table, or the fixed grid's (blockIdx.y * bm, blockIdx.x * bn).
+// table (ORDERED), or the fixed grid's (blockIdx.y * bm, blockIdx.x * bn).
+template <bool ORDERED>
 __device__ __forceinline__ int2 tile_origin(const FusedArgs& a, int bm, int bn) {
-  if (a.order != nullptr)
+  if constexpr (ORDERED)
     return make_int2(a.order[2 * blockIdx.x], a.order[2 * blockIdx.x + 1]);
-  return make_int2(static_cast<int>(blockIdx.y) * bm, static_cast<int>(blockIdx.x) * bn);
+  else
+    return make_int2(static_cast<int>(blockIdx.y) * bm, static_cast<int>(blockIdx.x) * bn);
+}
+
+// The same, whether there is a table read at run time.  The bf16 pointwise
+// kernel is instantiated on ORDERED instead: there the branch alone raised a
+// three-root 128 x 64 tile's registers so far that one CTA fit an SM
+// instead of two, and fused_qkv ran 1.6x slower on the fixed grid.
+__device__ __forceinline__ int2 tile_origin(const FusedArgs& a, int bm, int bn) {
+  return a.order != nullptr ? tile_origin<true>(a, bm, bn) : tile_origin<false>(a, bm, bn);
 }
 
 // The launch grid: one block per table entry, else tiles_n x tiles_m.
@@ -656,11 +668,11 @@ __device__ void close_rows(const FusedArgs& a, const FgCtx& c, int m0, int rows,
 }
 
 // --- kernels ------------------------------------------------------------------
-template <class E, class T, typename TOut>
+template <class E, class T, typename TOut, bool ORDERED>
 __global__ void __launch_bounds__(T::NT)
 fused_gemm_bf16_wmma(FusedArgs a) {
   __shared__ __align__(128) unsigned char smem[Bf16Smem<T, E::R, E::NLHS>::BYTES];
-  const int2 t = tile_origin(a, T::BM, T::BN);
+  const int2 t = tile_origin<ORDERED>(a, T::BM, T::BN);
   bf16_tile<E, T, PLAIN, TOut>(a, block_ctx(a), t.x, t.y, smem);
 }
 
@@ -700,7 +712,10 @@ fused_panel_f32_simt(FusedArgs a) {
 
 template <class E, class T, typename TOut>
 void launch_bf16(const FusedArgs& a, cudaStream_t s) {
-  fused_gemm_bf16_wmma<E, T, TOut><<<tile_grid(a, T::BM, T::BN), T::NT, 0, s>>>(a);
+  if (a.order != nullptr)
+    fused_gemm_bf16_wmma<E, T, TOut, true><<<tile_grid(a, T::BM, T::BN), T::NT, 0, s>>>(a);
+  else
+    fused_gemm_bf16_wmma<E, T, TOut, false><<<tile_grid(a, T::BM, T::BN), T::NT, 0, s>>>(a);
 }
 
 template <class E, typename TOut>

@@ -27,7 +27,9 @@
 // int32 read per key and no gather copy.  Scores and p @ V run in fp32 on
 // the SIMT cores, like K3 (csrc/flash_attention.cu); the split over the KV
 // length with a combine pass (flash-decoding) and asynchronous copies are
-// left for the PR that makes it fast.
+// left for the PR that makes it fast.  Head dims 16 to 256: at gpt-j-6b's
+// D 256 (G = 1) a thread holds 2 of the 256 (head, dim) pairs and the block's
+// shared memory is ~67 KB, over the 48 KB default, which `launch` raises.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -235,6 +237,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, const i
     case 32: return launch<T, 32>(q, k, v, table, length, o, B, H, Hk, ps, maxp, last_page, st, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, table, length, o, B, H, Hk, ps, maxp, last_page, st, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, table, length, o, B, H, Hk, ps, maxp, last_page, st, window, scale, s);
+    case 256: return launch<T, 256>(q, k, v, table, length, o, B, H, Hk, ps, maxp, last_page, st, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

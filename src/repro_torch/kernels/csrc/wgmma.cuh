@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: warpgroup
 // matrix products (wgmma) with operands in swizzled shared-memory tiles or,
 // for A, in registers; the 64-bit descriptor of such a tile; mbarriers; and
-// TMA tile loads that complete on an mbarrier.  K2's bf16 forward
-// (csrc/flash_attention.cu) is built from them.
+// TMA tile and bulk loads that complete on an mbarrier.  K2's bf16 forward
+// (csrc/flash_attention.cu) and the attention backward (csrc/attention_bwd.cuh:
+// K6 and K5's chained backward) are built from them.
 //
 // A tile operand lives in shared memory as panels of `rows` x (W / 2) bf16,
 // one W-byte row per matrix row, W the swizzle span (32, 64 or 128 bytes),
@@ -17,8 +18,13 @@
 //     with the transpose bit): SBO = 8 rows x W bytes between 8-row groups of
 //     the reduction dimension, LBO = the panel size between the W / 2-column
 //     atoms of the output dimension; a k16 step moves 16 rows.
+// On the host: the 4-D tensor map of a bf16 (B, heads, S, D) operand whose
+// TMA loads write those panels (tile_map), built per call from the
+// wrapper's strides.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is found at run time
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -124,6 +130,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory at `dst`; its bytes
+// complete on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -289,5 +306,56 @@ struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TB));
   }
 };
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no link to
+// libcuda), or null.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                                  &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D tensor map (D, S, heads, B) of a bf16 operand with (seq, head,
+// batch) strides in elements, read in boxes of `rows` x `panel` columns
+// into `panel`-column swizzled panels; reads past S or D give zeros.  The
+// wrapper has checked that the base and every stride of a dimension longer
+// than 1 are multiples of 16 bytes; a dimension of length 1 is never
+// stepped, so its stride is set to 16 bytes.
+inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
+                            long long ss, long long sh, long long sb, int panel, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  auto bytes = [](long long stride, int n) -> cuuint64_t {
+    return n > 1 ? static_cast<cuuint64_t>(stride) * 2 : 16;
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {bytes(ss, S), bytes(sh, heads), bytes(sb, B)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(panel), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = panel == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : panel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace hopper

@@ -9,12 +9,17 @@ then ``flash_decode_pallas``).  K6 replaces the attention backward that
 ``repro/fusion/autodiff.py::ChainedBackwardPlan`` derives (run by
 ``_run_backward_chained``, attached by ``compile_with_vjp``).  The CUDA
 sources are ``csrc/flash_attention.cu`` (K2, K3),
-``csrc/flash_attention_bwd.cu`` (K6) and ``csrc/paged_decode.cu`` (K4),
-whose headers say what bounds each kernel on an H100 and what its design
-does about it.  K2 has two kernels, chosen by dtype in
-:func:`forward_plan`: bf16 on the tensor cores (wgmma, a TMA-fed K/V ring;
-``ATTENTION_WGMMA_LAUNCHES`` counts its launches) and fp32 on the SIMT
-cores; :func:`key_tile_range` is the spec of the key tiles both visit.
+``csrc/flash_attention_bwd.cu`` (K6, on the backward mainloop of
+``csrc/attention_bwd.cuh``) and ``csrc/paged_decode.cu`` (K4), whose headers
+say what bounds each kernel on an H100 and what its design does about it.
+K2 and K6 each have two routes, chosen by dtype in :func:`forward_plan` and
+:func:`backward_plan`: bf16 on the tensor cores (wgmma, TMA-fed rings;
+``ATTENTION_WGMMA_LAUNCHES`` and ``ATTENTION_BWD_WGMMA_LAUNCHES`` count
+those launches) and fp32 on the SIMT cores; :func:`key_tile_range` is the
+spec of the key tiles K2 visits, :func:`query_tile_range` of the query
+tiles K6's dk/dv kernel visits.  :func:`attention_backward` launches the
+backward mainloop of any source built on it, K6's or a K5 chained graph's
+(``kernels/fused_gemm.py``).
 The plain versions are ``kernels.ref.attention_ref``,
 ``attention_bwd_ref``, ``decode_attention_ref`` and
 ``paged_decode_attention_ref``;
@@ -30,23 +35,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_decode", "paged_decode",
-           "forward_plan", "key_tile_range", "ForwardPlan",
+__all__ = ["flash_attention", "flash_attention_bwd", "attention_backward", "flash_decode",
+           "paged_decode", "forward_plan", "backward_plan", "key_tile_range",
+           "query_tile_range", "tma_readable", "ForwardPlan", "BackwardPlan",
            "ATTENTION_LAUNCHES", "ATTENTION_WGMMA_LAUNCHES", "BACKWARD_LAUNCHES",
-           "DECODE_LAUNCHES", "PAGED_DECODE_LAUNCHES",
-           "HEAD_DIMS", "PAGED_HEAD_DIMS", "WGMMA_TILES", "SMEM_LIMIT"]
+           "ATTENTION_BWD_WGMMA_LAUNCHES", "DECODE_LAUNCHES", "PAGED_DECODE_LAUNCHES",
+           "HEAD_DIMS", "PAGED_HEAD_DIMS", "WGMMA_TILES", "BWD_TILES", "SMEM_LIMIT"]
 
 # Launches of each CUDA kernel since import (or since a caller reset them);
 # ATTENTION_LAUNCHES counts both K2 kernels, ATTENTION_WGMMA_LAUNCHES the
-# bf16 one of them.
+# bf16 one of them; BACKWARD_LAUNCHES counts K6's calls,
+# ATTENTION_BWD_WGMMA_LAUNCHES those on the tensor cores.
 ATTENTION_LAUNCHES = 0
 ATTENTION_WGMMA_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+ATTENTION_BWD_WGMMA_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 PAGED_DECODE_LAUNCHES = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-PAGED_HEAD_DIMS = (16, 32, 64, 128)
+PAGED_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _DECODE_MAX_GROUP = 16      # query heads per kv head in one decode block
 _DECODE_MAX_PAIRS = 2048    # group size x head dim one decode block holds
@@ -55,8 +63,17 @@ _DECODE_MAX_PAIRS = 2048    # group size x head dim one decode block holds
 # a K/V tile, stages of the K/V ring), csrc/flash_attention.cu's FwdConfig.
 WGMMA_TILES = {16: (2, 128, 2), 32: (2, 128, 2), 64: (2, 64, 4), 128: (1, 64, 2),
                256: (1, 64, 2)}
-_SIMT_ROWS = _SIMT_KEYS = 32    # the fp32 kernel's query and key tiles
+_SIMT_ROWS = _SIMT_KEYS = 32    # the fp32 kernels' query and key tiles
 SMEM_LIMIT = 232448             # dynamic shared memory one H100 block may use
+# The bf16 backward by head dim: the dk/dv kernel's warpgroups, warpgroups
+# sharing one 64-key block (each holding D / dsplit of dK's and dV's
+# columns) and ring stages of 64 queries; the dq kernel's warpgroups of 64
+# query rows, keys a K/V tile and ring stages (csrc/attention_bwd.cuh's
+# BwdConfig: the C entry refuses a plan that differs).
+BWD_TILES = {16: (2, 1, 4, 2, 64, 4), 32: (2, 1, 4, 2, 64, 4), 64: (2, 1, 4, 2, 64, 4),
+             128: (2, 1, 3, 2, 64, 2), 256: (2, 2, 2, 1, 64, 2)}
+_BWD_QUERIES = 64               # queries a ring tile of the bf16 dk/dv kernel
+_SQ_ALIGN = 128                 # Sq padded to whole query tiles of every kernel
 
 
 class ForwardPlan(NamedTuple):
@@ -91,6 +108,17 @@ def _aligned(t):
     return True
 
 
+def tma_readable(name, t):
+    """Raise ``ValueError`` unless TMA can read the bf16 operand ``t``: a
+    unit last stride, and the base pointer and every other stride of a
+    dimension longer than 1 multiples of 16 bytes.  No silent copy."""
+    if t.stride(-1) != 1 or not _aligned(t):
+        raise ValueError(
+            f"bf16 flash attention reads {name} by TMA: its base pointer and every"
+            f" stride but the unit last one must be multiples of 16 bytes (pointer"
+            f" {t.data_ptr()} % 16 = {t.data_ptr() % 16}, strides {tuple(t.stride())})")
+
+
 def forward_plan(q, k, v):
     """K2's plan for q (B, H, Sq, D) and k/v (B, Hk, Skv, D), from their
     dtype, shapes, strides and base pointers alone (nothing is launched):
@@ -103,11 +131,7 @@ def forward_plan(q, k, v):
         raise ValueError(f"head dim {d}: need one of {HEAD_DIMS}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.stride(-1) != 1 or not _aligned(t):
-                raise ValueError(
-                    f"bf16 flash attention reads {name} by TMA: its base pointer and every"
-                    f" stride but the unit last one must be multiples of 16 bytes (pointer"
-                    f" {t.data_ptr()} % 16 = {t.data_ptr() % 16}, strides {tuple(t.stride())})")
+            tma_readable(name, t)
         wg, bn, stages = WGMMA_TILES[d]
         rows = 64 * wg
         return ForwardPlan("wgmma", rows, bn, stages, _wgmma_smem(d, rows, bn, stages),
@@ -115,6 +139,89 @@ def forward_plan(q, k, v):
     smem = 4 * (_SIMT_ROWS * (d + 1) + _SIMT_KEYS * (d + 1) + _SIMT_KEYS * d
                 + _SIMT_ROWS * (_SIMT_KEYS + 1))
     return ForwardPlan("simt", _SIMT_ROWS, _SIMT_KEYS, 1, smem, (-(-sq // _SIMT_ROWS), h, b))
+
+
+class BackwardPlan(NamedTuple):
+    """How K6 (or a chained graph's backward) runs one call: ``variant``
+    "wgmma" (bf16) or "simt" (fp32); the dk/dv kernel's ``kv_rows`` keys a
+    CTA, ``kv_stages`` ring stages and ``kv_smem`` bytes of dynamic shared
+    memory; the dq kernel's ``q_rows`` query rows a CTA, ``q_bn`` keys a
+    tile, ``q_stages`` and ``q_smem``; ``sq_pad``, Sq padded to whole
+    tiles (the rows of the stats scratch); and both grids."""
+    variant: str
+    kv_rows: int
+    kv_stages: int
+    kv_smem: int
+    q_rows: int
+    q_bn: int
+    q_stages: int
+    q_smem: int
+    sq_pad: int
+    kv_grid: tuple
+    q_grid: tuple
+
+    def ints(self):
+        """The 8 ints the C entry point reads (attn_bwd::Plan)."""
+        return (self.kv_rows, self.kv_stages, self.kv_smem, self.q_rows, self.q_bn,
+                self.q_stages, self.q_smem, self.sq_pad)
+
+
+def _bwd_smem(d, wg, dsplit, stages, qwg, qbn, qstages):
+    """(dk/dv, dq) dynamic shared memory: 1024 bytes to align the panels;
+    K and V of the key block, a ring of (Q, dO, lse and D rows) tiles, one
+    mbarrier for K/V and each stage and a count a stage; Q and dO of the
+    query rows, a ring of (K, V) tiles, the same mbarriers and counts."""
+    bn, bm = 64 * wg // dsplit, _BWD_QUERIES
+    kv = 1024 + 2 * bn * d * 2 + stages * (2 * bm * d * 2 + 2 * bm * 4) + 8 * (stages + 1) \
+        + 4 * stages
+    q = 1024 + 2 * 64 * qwg * d * 2 + qstages * 2 * qbn * d * 2 + 8 * (qstages + 1) + 4 * qstages
+    return kv, q
+
+
+def backward_plan(q, k, v):
+    """The attention backward's plan for q (B, H, Sq, D) and k/v (B, Hk,
+    Skv, D), from their dtype, shapes, strides and base pointers alone
+    (nothing is launched): bf16 runs the tensor-core kernels, fp32 the SIMT
+    kernels.  Raises ``ValueError`` for a head dim the kernels do not
+    build and for a bf16 operand whose base pointer or strides (but the
+    unit last one) are not multiples of 16 bytes: q, k, v and dO are read
+    by TMA (the caller checks dO with :func:`tma_readable`)."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: need one of {HEAD_DIMS}")
+    sq_pad = -(-max(sq, 1) // _SQ_ALIGN) * _SQ_ALIGN
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            tma_readable(name, t)
+        wg, dsplit, stages, qwg, qbn, qstages = BWD_TILES[d]
+        kv_smem, q_smem = _bwd_smem(d, wg, dsplit, stages, qwg, qbn, qstages)
+        kv_rows, q_rows = 64 * wg // dsplit, 64 * qwg
+        return BackwardPlan("wgmma", kv_rows, stages, kv_smem, q_rows, qbn, qstages, q_smem,
+                            sq_pad, (-(-skv // kv_rows), hk, b), (-(-sq // q_rows), h, b))
+    kv_smem = 4 * (4 * 32 * (d + 1) + 2 * _SIMT_ROWS * (_SIMT_KEYS + 1) + 2 * _SIMT_ROWS)
+    q_smem = 4 * (4 * 32 * (d + 1) + _SIMT_ROWS * (_SIMT_KEYS + 1) + 2 * _SIMT_ROWS)
+    return BackwardPlan("simt", _SIMT_KEYS, 1, kv_smem, _SIMT_ROWS, _SIMT_KEYS, 1, q_smem,
+                        sq_pad, (-(-skv // _SIMT_KEYS), hk, b), (-(-sq // _SIMT_ROWS), h, b))
+
+
+def _tile_dead(m0, bm, n0, bn, sq, skv, causal, window):
+    """K6's ``tile_dead`` (csrc/flash_attention_bwd.cu): queries [m0, m0 +
+    bm) and keys [n0, n0 + bn) hold no live pair under the masks."""
+    off = skv - sq
+    return bool((causal and n0 > m0 + bm - 1 + off)
+                or (window and n0 + bn - 1 <= m0 + off - window))
+
+
+def query_tile_range(n0, keys, sq, skv, causal, window, bm):
+    """The query tiles of ``bm`` rows that K6's dk/dv kernel visits for the
+    keys [n0, n0 + keys) (row i at key position i + skv - sq; ``window``
+    None or >= 1): from the first tile ``tile_dead`` leaves live to the
+    last, as ``query_range`` in csrc/attention_bwd.cuh scans them; every
+    tile outside the range holds only masked (row, key) pairs."""
+    live = [t for t in range(-(-sq // bm))
+            if not _tile_dead(t * bm, bm, n0, keys, sq, skv, causal, window)]
+    return range(live[0], live[-1] + 1) if live else range(0)
 
 
 def key_tile_range(q0, rows, sq, skv, causal, window, bn):
@@ -201,11 +308,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                         scale=None):
     """K6: the gradients of :func:`flash_attention` for the output cotangent
     ``do``.  q, o and do (B, H, Sq, D), k/v (B, Hk, Skv, D), one dtype, any
-    strides with a unit-stride last dim; ``lse`` the forward's (B, H, Sq)
-    fp32 row log-sum-exp.  → (dq, dk, dv) in q's dtype, each a view of a
-    (B, S, heads, D) buffer, so the gradient of the caller's
-    token-to-head transpose is free."""
-    global BACKWARD_LAUNCHES
+    strides with a unit-stride last dim (bf16: 16-byte aligned, as
+    :func:`backward_plan` checks); ``lse`` the forward's (B, H, Sq) fp32
+    row log-sum-exp.  → (dq, dk, dv) in q's dtype, each a view of a (B, S,
+    heads, D) buffer, so the gradient of the caller's token-to-head
+    transpose is free."""
+    global BACKWARD_LAUNCHES, ATTENTION_BWD_WGMMA_LAUNCHES
+    grads, variant = attention_backward(lambda: _build.load("flash_attention_bwd"),
+                                        "flash_attention_bwd", q, k, v, o, lse, do,
+                                        causal=causal, window=window, scale=scale)
+    BACKWARD_LAUNCHES += 1
+    if variant == "wgmma":
+        ATTENTION_BWD_WGMMA_LAUNCHES += 1
+    return grads
+
+
+def attention_backward(load, what, q, k, v, o, lse, do, *, causal=True, window=None,
+                       scale=None):
+    """Launch the backward mainloop (csrc/attention_bwd.cuh) of the library
+    ``load()`` returns, K6's or a chained graph's generated source (whose
+    ``Epi`` has its own scale and masks baked in and ignores ``causal``,
+    ``window`` and ``scale``), with the shapes and layouts of
+    :func:`flash_attention_bwd`; → ((dq, dk, dv), the plan's variant).
+    Raises before launching on what the kernels do not take."""
     _check(q, k, v)
     _check(o, do, do)
     if o.dtype != q.dtype:
@@ -219,26 +344,28 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
                          f"v {tuple(v.shape)}, o {tuple(o.shape)}, do {tuple(do.shape)}")
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be fp32 ({b}, {h}, {sq}) on {q.device}")
+    plan = backward_plan(q, k, v)
+    if plan.variant == "wgmma":
+        tma_readable("do", do)
     lse = lse.contiguous()
     dq = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty(b, skv, hk, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty(b, skv, hk, d, dtype=q.dtype, device=q.device).transpose(1, 2)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+        return (dq.zero_(), dk.zero_(), dv.zero_()), plan.variant
+    stats = torch.empty(2, b * h * plan.sq_pad, dtype=torch.float32, device=q.device)
     strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]],
                            dtype=torch.int64)
+    ints = torch.tensor(plan.ints(), dtype=torch.int32)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    lib = _build.load("flash_attention_bwd")
-    err = lib.flash_attention_bwd(
+    err = load().attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, h, hk, sq, skv, d, strides.data_ptr(),
-        int(bool(causal)), _window(window), scale,
+        do.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        int(q.dtype == torch.bfloat16), b, h, hk, sq, skv, d, ints.data_ptr(),
+        strides.data_ptr(), int(bool(causal)), _window(window), scale,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_bwd")
-    BACKWARD_LAUNCHES += 1
-    return dq, dk, dv
+    _build.check(err, what)
+    return (dq, dk, dv), plan.variant
 
 
 def flash_decode(q, k_cache, v_cache, *, length, window=None):

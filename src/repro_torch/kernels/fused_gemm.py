@@ -18,6 +18,16 @@ kernel on an H100 and what the design does about it:
   * ``csrc/fused_chain.cuh``: a chained root, ``softmax_online(...) @ v``
     streamed over the base root's N tiles (flash attention as IR).
 
+And for a chained graph's gradient, ``generate_backward_source`` emits one
+source per graph and head dim around ``csrc/attention_bwd.cuh`` (the
+backward mainloop K6 also runs): its ``Epi`` is the graph's pre-reduce
+nodes (``pre``, what the forward's ``chain_pre`` computes), the derivative
+nodes its derived dz graph holds after ``softmax_grad`` (``grad``, with
+``softmax_grad`` replaced by the flash identity P ∘ (dP - D), P rebuilt from
+the forward's row log-sum-exp) and the forward's dead-tile rule
+(``tile_dead``); ``ChainedBackward`` launches it in place of the six
+derived graphs of ``fusion.autodiff.ChainedBackwardPlan``.
+
 Both take operands stored transposed (``trans=True``, read in place), lhs
 and rhs of either dtype (all-bf16 runs the tensor cores; any fp32 operand
 an fp32 SIMT mainloop, the reference's promotion to fp32), leading batch
@@ -50,6 +60,9 @@ these:
             this generator was written)
   TPP226    a chained graph with more than one base root; or, at call
             time, a chain wider than 128
+  TPP228    a chained backward whose k is not stored (N, K), whose dz
+            graph holds no single softmax_grad of dP, or whose head dim
+            the backward mainloop does not build
   ========  ==========================================================
 """
 from __future__ import annotations
@@ -66,13 +79,15 @@ from repro_torch.fusion.lowering import HW_PRNG_OPS, contraction_operand_values
 from repro_torch.kernels import _build
 from repro_torch.kernels.brgemm import _device_table, tile_order
 
-__all__ = ["FusedKernel", "generate_source", "source_name", "check_supported", "cta_tile",
-           "order_table", "LAUNCHES", "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES", "MAX_ROOTS",
-           "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN"]
+__all__ = ["FusedKernel", "ChainedBackward", "generate_source", "generate_backward_source",
+           "source_name", "check_supported", "cta_tile", "order_table", "LAUNCHES",
+           "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES", "MAX_ROOTS", "MAX_EPILOGUE_OPERANDS",
+           "MAX_CHAIN", "BACKWARD_SUFFIX"]
 
 # Launches of a generated kernel since import (or since a caller reset them),
-# in all and by graph name; and those that drew K13's bits (hw_prng=True on
-# a graph with a dropout_rng node).
+# in all and by graph name (a chained backward under its forward graph's
+# name + BACKWARD_SUFFIX); and those that drew K13's bits (hw_prng=True on a
+# graph with a dropout_rng node).
 LAUNCHES = 0
 GRAPH_LAUNCHES: dict[str, int] = {}
 HW_PRNG_LAUNCHES = 0
@@ -80,6 +95,7 @@ HW_PRNG_LAUNCHES = 0
 MAX_ROOTS = 3
 MAX_EPILOGUE_OPERANDS = 8
 MAX_CHAIN = 128
+BACKWARD_SUFFIX = "@bwd_flash"
 _DTYPES = (torch.float32, torch.bfloat16)
 _EP_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2}
 _SCALAR = 3
@@ -312,7 +328,10 @@ def _panel_body(graph: TppGraph) -> list[str]:
     ]
 
 
-def _chain_body(graph: TppGraph) -> list[str]:
+def _chain_pre(graph: TppGraph):
+    """(C++ lines of the pre-reduce nodes on a score ``s``, the softmax
+    input's variable, the dead-tile condition): a chained graph's
+    ``chain_pre`` and ``tile_dead``."""
     red = graph.reducing_node()
     idx = graph.nodes.index(red)
     em = _Emitter(graph)
@@ -332,10 +351,15 @@ def _chain_body(graph: TppGraph) -> list[str]:
         if win > 0:
             parts.append(f"n0 + bn - 1 <= m0 + {off} - {win}")
         dead = " || ".join(parts) or "false"
+    return em.lines, em.env[z], dead
+
+
+def _chain_body(graph: TppGraph) -> list[str]:
+    lines, z, dead = _chain_pre(graph)
     return [
         "  // the pre-reduce nodes on a score s at (gm, gn): the softmax_online input",
         f"  __device__ __forceinline__ static float chain_pre(float s, {_ARGS}) {{",
-        *em.lines, f"    return {em.env[z]};", "  }",
+        *lines, f"    return {z};", "  }",
         "  // a score tile (rows m0.., columns n0..) whose every score is masked",
         "  __host__ __device__ static constexpr bool tile_dead(int m0, int bm, int n0, int bn) {",
         f"    return {dead};", "  }",
@@ -389,6 +413,80 @@ def generate_source(graph: TppGraph) -> str:
     ])
 
 
+def generate_backward_source(plan, head_dim: int) -> str:
+    """The CUDA source of K5's chained backward for ``plan`` (the
+    ``fusion.autodiff.ChainedBackwardPlan`` of a simplified chained graph)
+    at ``head_dim``: the same text for the same graph and head dim, every
+    run, naming no graph.  Raises ``FusionLegalityError`` (TPP228) for a
+    graph or head dim the backward mainloop does not take."""
+    from repro_torch.fusion.autodiff import flash_node
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    graph, dz = plan.forward, plan.graphs["dz"]
+    check_supported(graph)
+    if not plan.rhs_trans or head_dim not in HEAD_DIMS:
+        raise FusionLegalityError(
+            f"graph {graph.name!r}: the chained backward reads k stored (N, K) at a head "
+            f"dim in {HEAD_DIMS}; k trans={plan.rhs_trans}, head dim {head_dim}", code="TPP228")
+    sg = flash_node(plan)
+    lines, z, dead = _chain_pre(graph)
+    em = _Emitter(dz)
+    em.roots(["s"])
+    at = dz.nodes.index(sg)
+    em.nodes(dz.nodes[:at])
+    em.env[sg.name] = "dz"
+    em.lines.append(f"    // {sg.name} = softmax_grad({', '.join(sg.inputs)}): dz, the flash identity")
+    em.nodes(dz.nodes[at + 1:])
+    for nd in dz.nodes:
+        if nd.op not in _EXPR and nd is not sg:
+            raise FusionLegalityError(
+                f"graph {dz.name!r}: node {nd.name!r} ({nd.op}) has no CUDA expression",
+                code="TPP225")
+    described = "\n".join(f"//   {line}" for line in graph.describe().splitlines()[1:])
+    params = "const attn_bwd::Params&"
+    return "\n".join([
+        "// K5's chained backward, generated by repro_torch/kernels/fused_gemm.py for the TppGraph",
+        described,
+        f"// at head dim {head_dim}: the backward mainloop of csrc/attention_bwd.cuh on the",
+        "// graph's pre-reduce nodes (pre) and the derivative nodes of its dz graph (grad),",
+        "// softmax_grad replaced by the flash identity P * (dP - D).",
+        "//",
+        "// Replaces the TPU kernels repro/fusion/lowering.py:330 `_compile_pallas` runs for",
+        "// the six graphs of repro/fusion/autodiff.py:236 ChainedBackwardPlan.  What bounds it",
+        "// on an H100 and what the design does about it is in the mainloop's header.",
+        '#include "fused_gemm.cuh"',
+        '#include "attention_bwd.cuh"',
+        "",
+        "struct Epi {",
+        "  // the pre-reduce nodes on a score s at (gm, gn): the softmax_online input",
+        f"  __device__ __forceinline__ static float pre(float s, int gm, int gn, {params}) {{",
+        *lines, f"    return {z};", "  }",
+        "  // the dz graph's nodes on dz, the softmax input's cotangent: the score's",
+        f"  __device__ __forceinline__ static float grad(float dz, float s, int gm, int gn, {params}) {{",
+        *em.lines, f"    return {em.env[dz.outputs[0]]};", "  }",
+        "  // a score tile (rows m0.., columns n0..) whose every score is masked",
+        f"  __host__ __device__ static bool tile_dead(int m0, int bm, int n0, int bn, {params}) {{",
+        f"    return {dead};", "  }",
+        "};",
+        "",
+        'extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* o,',
+        "                             const void* lse, const void* dout, void* stats, void* dq,",
+        "                             void* dk, void* dv, int bf16_, int B, int H, int Hk, int Sq,",
+        "                             int Skv, int D, const int* plan, const long long* strides,",
+        "                             int causal, int window, float scale, void* stream) {",
+        f"  return attn_bwd::entry<Epi, {head_dim}>(q, k, v, o, lse, dout, stats, dq, dk, dv, bf16_,",
+        "                                     B, H, Hk, Sq, Skv, D, plan, strides, causal, window,",
+        "                                     scale, stream);",
+        "}",
+        "",
+    ])
+
+
+def backward_source_name(source: str) -> str:
+    """The build name of a chained backward source: a hash of its text."""
+    return f"fused_attention_bwd_{hashlib.sha256(source.encode()).hexdigest()[:12]}"
+
+
 def source_name(graph: TppGraph, source: str) -> str:
     """The build name of a graph's source: a hash of the text, which is
     the same for every graph of one structure."""
@@ -427,7 +525,8 @@ class _Args(ctypes.Structure):
                 ("B1", ctypes.c_int), ("batch", ctypes.c_int),
                 ("all_bf16", ctypes.c_int), ("out_bf16", ctypes.c_int), ("vec", ctypes.c_int),
                 ("order", ctypes.c_void_p), ("n_order", ctypes.c_int),
-                ("prng_tm", ctypes.c_int), ("prng_tn", ctypes.c_int), ("hw", ctypes.c_int)]
+                ("prng_tm", ctypes.c_int), ("prng_tn", ctypes.c_int), ("hw", ctypes.c_int),
+                ("lse", ctypes.c_void_p)]
 
 
 def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool) -> tuple[int, int]:
@@ -598,14 +697,19 @@ class FusedKernel:
                 raise ValueError(f"graph {g.name!r}: K5 needs CUDA tensors, got {v.device}")
         return m, k, n, widths, n2, batch, odt
 
-    def __call__(self, operands, *, out_dtype=None, plan=None, hw_prng=False):
+    def __call__(self, operands, *, out_dtype=None, plan=None, hw_prng=False, with_lse=False):
         """Launch on ``operands``; ``plan`` (a ``fusion.lowering.GraphPlan``
         at these shapes) orders the CTA tiles by its visit order and sets
-        K13's tile, which ``hw_prng`` draws ``dropout_rng`` from."""
+        K13's tile, which ``hw_prng`` draws ``dropout_rng`` from.  With
+        ``with_lse`` (a chained graph) → (out, lse): lse (*batch, M) fp32,
+        each row's log-sum-exp of its live softmax inputs (-inf for a row
+        with none), the chained backward's row statistics."""
         global LAUNCHES, HW_PRNG_LAUNCHES
         g = self.graph
         if hw_prng and plan is None:
             raise ValueError(f"graph {g.name!r}: hw_prng needs a plan (its tiles key K13)")
+        if with_lse and self.chain is None:
+            raise ValueError(f"graph {g.name!r}: only a chained root writes row statistics")
         m, k, n, widths, n2, batch, odt = self._check(operands, out_dtype)
         nout = len(g.outputs)
         nb = len(batch)
@@ -618,8 +722,9 @@ class FusedKernel:
         else:
             shape = (*batch, nout, m, n) if nout > 1 else (*batch, m, n)
         out = torch.empty(shape, dtype=odt, device=dev)
+        lse = torch.empty((*batch, m), dtype=torch.float32, device=dev) if with_lse else None
         if out.numel() == 0:
-            return out
+            return (out, lse.fill_(float("-inf"))) if with_lse else out
         args = _Args()
         keep = [out]       # the tensors whose pointers the struct holds
         vec = True
@@ -688,6 +793,8 @@ class FusedKernel:
         args.vec = int(vec)
         args.prng_tm, args.prng_tn = plan.prng_tile if plan is not None else (1, 1)
         args.hw = int(bool(hw_prng) and self.draws)
+        if with_lse:
+            args.lse = lse.data_ptr()
         if plan is not None:
             cta = cta_tile(g, m, n, bool(args.all_bf16))
             order = _device_table((plan, m, n, cta), lambda: order_table(plan, m, n, cta), dev)
@@ -699,4 +806,65 @@ class FusedKernel:
         GRAPH_LAUNCHES[g.name] = GRAPH_LAUNCHES.get(g.name, 0) + 1
         if args.hw:
             HW_PRNG_LAUNCHES += 1
-        return out
+        return (out, lse) if with_lse else out
+
+
+class ChainedBackward:
+    """K5's chained backward for one ``fusion.autodiff.ChainedBackwardPlan``:
+    ``kernel(q, k, v, o, lse, do)`` on CUDA tensors, the chained graph's
+    operands (``(*batch, S, D)``, up to two batch axes, k stored (Skv, D)),
+    its output ``o`` and row log-sum-exp ``lse`` (``(*batch, Sq)``, from
+    ``FusedKernel(..., with_lse=True)``) and the output's cotangent → (dq,
+    dk, dv) in the compute dtype, shaped as the operands (operands of
+    mixed dtypes run in fp32).  The source is generated per head dim and
+    built and loaded at its first launch; the checks are
+    ``flash_attention.attention_backward``'s."""
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.name = plan.forward.name + BACKWARD_SUFFIX
+        generate_backward_source(plan, 64)     # raises for a graph it does not take
+        self._libs: dict[int, ctypes.CDLL] = {}
+
+    def source(self, head_dim: int) -> str:
+        return generate_backward_source(self.plan, head_dim)
+
+    def library(self, head_dim: int):
+        if head_dim not in self._libs:
+            src = self.source(head_dim)
+            self._libs[head_dim] = _build.load_generated(backward_source_name(src), src,
+                                                         "attention_bwd")
+        return self._libs[head_dim]
+
+    def plain(self, q, k, v, o, lse, do):
+        """The plain version on the same arguments: ``ref.flash_bwd_ref``
+        on the graph's ``pre`` and ``grad`` (``autodiff.chained_epilogue``),
+        fp32 results shaped as the operands."""
+        from repro_torch.fusion.autodiff import chained_epilogue
+        from repro_torch.kernels.ref import flash_bwd_ref
+
+        pre, grad = chained_epilogue(self.plan)
+        four = [_four(t) for t in (q, k, v, o, do)]
+        grads = flash_bwd_ref(*four[:4], _four(lse[..., None])[..., 0], four[4], pre=pre, grad=grad)
+        return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
+
+    def __call__(self, q, k, v, o, lse, do):
+        global LAUNCHES
+        from repro_torch.kernels import flash_attention as fa
+
+        dt = q.dtype if k.dtype == v.dtype == q.dtype else torch.float32
+        q4, k4, v4, o4, do4 = (_four(t.to(dt)) for t in (q, k, v, o, do))
+        lse4 = _four(lse[..., None])[..., 0]
+        d = q4.shape[-1]
+        (dq, dk, dv), _ = fa.attention_backward(lambda: self.library(d), self.name, q4, k4, v4,
+                                                o4, lse4, do4)
+        LAUNCHES += 1
+        GRAPH_LAUNCHES[self.name] = GRAPH_LAUNCHES.get(self.name, 0) + 1
+        return tuple(g.reshape(t.shape) for g, t in zip((dq, dk, dv), (q, k, v)))
+
+
+def _four(t: torch.Tensor) -> torch.Tensor:
+    """A (*batch, S, D) operand with up to two batch axes as (B, H, S, D)."""
+    while t.dim() < 4:
+        t = t.unsqueeze(0)
+    return t

@@ -3,7 +3,9 @@
 Each forward mirrors its oracle in ``repro/kernels/ref.py``; each backward
 is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``) or what
 ``repro/fusion/autodiff.py``'s recompute backward derives
-(``attention_bwd_ref``); ``mlp_ref``, ``bcsr_to_dense``,
+(``attention_bwd_ref``, on the flash identity of ``flash_bwd_ref``, the
+plain version of the backward mainloop that K6 and K5's chained backward
+share); ``mlp_ref``, ``bcsr_to_dense``,
 ``block_spmm_ref``, ``grouped_matmul_ref``, ``brgemm_blocked_ref`` and
 ``conv2d_ref`` mirror the oracles of the same names.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
 backward there runs ``matmul_ref`` on transposed views, as K1 reads them on
@@ -20,7 +22,7 @@ import torch
 from repro_torch.core import tpp
 
 __all__ = ["matmul_ref", "matmul_bwd_ref", "brgemm_blocked_ref", "conv2d_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
-           "grouped_matmul_ref", "attention_ref", "attention_fwd_ref", "attention_bwd_ref",
+           "grouped_matmul_ref", "attention_ref", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
            "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref"]
 
 
@@ -175,26 +177,46 @@ def attention_fwd_ref(q, k, v, *, causal=True, window=None, scale=None):
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=None,
                       scale=None):
     """Gradients of the attention for the output cotangent ``do``, from the
-    forward's output ``o`` and row log-sum-exp ``lse``: P = exp(S - lse) on
-    the kept keys, dP = dO V^T, dS = P * (dP - D) with D = rowsum(dO * O)
-    (the softmax gradient of ``repro/fusion/autodiff.py``'s dz graph),
-    dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO, the last two summed
-    over each kv head's group of query heads.  → (dq, dk, dv) fp32.  A row
-    with every key masked gets zero gradients."""
+    forward's output ``o`` and row log-sum-exp ``lse``: :func:`flash_bwd_ref`
+    on K6's epilogue, the scores scaled and masked (-inf) as
+    :func:`attention_fwd_ref` masks them, their derivative the scale.
+    → (dq, dk, dv) fp32.  A row with every key masked gets zero gradients."""
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    _, mask = _masked_scores(q[..., :1, :, :], k[..., :1, :, :], causal=causal, window=window,
+                             scale=scale)
+    return flash_bwd_ref(q, k, v, o, lse, do,
+                         pre=lambda s: torch.where(mask, s * scale, float("-inf")),
+                         grad=lambda dz, s: dz * scale)
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, *, pre, grad):
+    """The attention backward by the flash identity, from the forward's
+    output ``o`` and row log-sum-exp ``lse`` (B, H, Sq): S = q k^T in fp32
+    (k and v broadcast over each kv head's group), P = exp(pre(S) - lse)
+    where pre leaves a live score (above -1e29, the mask fill's floor) and
+    lse is finite, else 0; dP = dO v^T, dZ = P * (dP - D) with D =
+    rowsum(dO * O) (the softmax gradient of ``repro/fusion/autodiff.py``'s dz
+    graph), dS = grad(dZ, S); dQ = dS k, dK = dS^T q and dV = P^T dO, the
+    last two summed over each kv head's group of query heads.  ``pre(S)``
+    and ``grad(dZ, S)`` act on fp32 (B, H, Sq, Skv) tensors: the epilogue
+    of csrc/attention_bwd.cuh.  → (dq, dk, dv) fp32."""
     b, h, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     g = h // hk
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    s, mask = _masked_scores(q, k, causal=causal, window=window, scale=scale)
-    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), torch.zeros((), device=q.device))
-    dof, qf = do.float(), q.float()
+    qf, dof = q.float(), do.float()
     kq = k.repeat_interleave(g, dim=1).float()
     vq = v.repeat_interleave(g, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kq)
+    z = pre(s)
+    lse = lse.float()[..., None]
+    live = (z > -1e29) & torch.isfinite(lse)
+    p = torch.where(live, torch.exp(z - lse), torch.zeros((), device=q.device))
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
     delta = (dof * o.float()).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    ds = grad(p * (dp - delta), s)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kq)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     return (dq, dk.view(b, hk, g, skv, d).sum(2), dv.view(b, hk, g, skv, d).sum(2))
 

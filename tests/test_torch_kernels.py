@@ -155,6 +155,33 @@ def test_paged_decode_attention_matches_reference_and_pallas(hk, window, dtype):
                                    err_msg=backend)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_attention_at_head_dim_256(dtype):
+    """gpt-j-6b's head dim (256, H = Hk): K4's plain version against the
+    reference and its Pallas kernel in interpret mode, ragged lengths and a
+    window."""
+    rng = np.random.default_rng(11)
+    b, h, d, ps, maxp, num_pages = 2, 2, 256, 4, 8, 10
+    lens = np.asarray([21, 6], np.int32)
+    table = np.full((b, maxp), num_pages, np.int32)
+    table[0, :6], table[1, :2] = rng.permutation(num_pages)[:6], rng.permutation(num_pages)[6:8]
+    jq, tq = _pair(rng.normal(size=(b, h, d)).astype(np.float32), dtype)
+    pool = (num_pages + 1, ps, h, d)
+    jk, tk = _pair(rng.normal(size=pool).astype(np.float32), dtype)
+    jv, tv = _pair(rng.normal(size=pool).astype(np.float32), dtype)
+    assert d in tfa.PAGED_HEAD_DIMS
+    for window in (None, 9):
+        got = tops.paged_decode_attention(tq, tk, tv, torch.from_numpy(table), page_size=ps,
+                                          length=torch.from_numpy(lens), window=window)
+        assert got.shape == (b, h, d) and got.dtype == tq.dtype
+        for backend in ("xla", "pallas_interpret"):
+            want = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(table), page_size=ps,
+                                               length=jnp.asarray(lens), window=window,
+                                               backend=backend, block_kv=16)
+            np.testing.assert_allclose(_f32(got), _f32(want), **ATTN_TOL[dtype],
+                                       err_msg=f"{backend} window {window}")
+
+
 def test_dispatch_follows_the_device_with_no_fallback():
     """CPU tensors run the plain version and launch nothing; the CUDA
     wrappers refuse CPU tensors instead of computing on them; mixed or other

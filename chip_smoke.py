@@ -11,14 +11,20 @@ Phases, each of which must pass:
      and 10b launch, forward and derived backward (one nvcc per source, all at
      once, with the chained backward sources of ``csrc/attention_bwd.cuh``
      per chained graph and head dim) and print the build time, and each K2,
-     K6 and chained-backward instantiation's ``-Xptxas -v`` figures, shared
+     K6, chained-forward (minicpm-2b's, bert-large's and gpt-j-6b's
+     attention graphs, ``csrc/attention_fwd.cuh`` on the generated epilogue)
+     and chained-backward instantiation's ``-Xptxas -v`` figures, shared
      memory and (with ``cuobjdump``) HGMMA instructions;
   3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
      attention, K6 its backward at D 16 to 256, GQA, windows, Sq < Skv,
      ragged, bidirectional and fully masked rows, two calls bitwise equal;
      K3 flash decode and K4 paged decode, also at gpt-j-6b's D 256; K5 fused
      TppGraphs: serving's graphs, and the fused training path's chained
-     attention, its chained backward kernel (against its plain version and
+     attention (on K2's mainloop; beside K2 at minicpm-2b's, bert-large's
+     and gpt-j-6b's D 256 rows, each timed alone and 20 calls back to back;
+     checks at D 16 to 256, Sq < Skv, a row with no key, operands every
+     problem shares, fp32 on the SIMT variant, a misaligned bf16 operand
+     refused, two calls bitwise equal), its chained backward kernel (against its plain version and
      against the six derived graphs, at minicpm-2b's and bert-large's
      shapes, bitwise equal reruns), its six derived backward graphs, the
      projections' derived backward graphs, in-kernel dropout bits and row
@@ -107,7 +113,8 @@ Phases, each of which must pass:
      be what the derived backward plans imply (forward graphs twice a layer
      and step under remat, backward graphs once; the attention's backward
      is one chained-backward launch a layer and step, its six derived graphs
-     launch 0 times), K2 and K6 must not run,
+     launch 0 times; every chained forward and backward runs on wgmma), K2
+     and K6 must not run,
      step 1's loss within rtol 2e-2 of phase 9's, and the loss must fall on
      a repeated batch; print the same numbers beside phase 9's;
  10b. train bert-large at full width and depth (24 bidirectional layers, d
@@ -116,6 +123,13 @@ Phases, each of which must pass:
      K2 and K6 launches as the layer count implies, K5's by graph, step 1's
      fused loss within rtol 2e-2 of the unfused one; print step time,
      sequences/s, tokens/s, the model-FLOPs share and peak memory;
+ 10c. train gpt-j-6b at full width (d 4096, 16 heads of 256, d_ff 16384;
+     8 of its 28 layers, B 2 x S 2048) for 2 unfused trainer steps, then 4
+     with ``use_fusion=True`` from the same state: K5's launches by graph as
+     the derived plans imply, every chained forward and backward at D 256
+     on wgmma, step 1's fused loss within rtol 2e-2 of the unfused one, a
+     falling loss on a repeated batch; print step time, tokens/s, the
+     model-FLOPs share and peak memory with the card's name and power limit;
  11. print one JSON line with every kernel's numbers;
  12. print the last line, ``{"ok": true, "device": {...}}``.
 
@@ -513,7 +527,8 @@ def ptxas_by_kernel(log):
 
 def k2_build_report(build, fa, log):
     """Print the ``-Xptxas -v`` figures of each K2 instantiation (the bf16
-    wgmma kernel and the fp32 SIMT kernel, by head dim), with the dynamic
+    kernel, csrc/attention_fwd.cuh's mainloop on K2's epilogue, and the
+    fp32 SIMT kernel, by head dim), with the dynamic
     shared memory of its plan, and, where ``cuobjdump`` is on the path, the
     HGMMA instructions of each bf16 instantiation; → those figures."""
     import shutil
@@ -521,7 +536,8 @@ def k2_build_report(build, fa, log):
 
     report = {}
     for mangled, figures in ptxas_by_kernel(log).items():
-        found = re.search(r"(flash_attention(?:_wgmma)?_kernel)I(?:f)?Li(\d+)E", mangled)
+        found = re.search(r"(flash_attention_kernel|attention_fwd_wgmma_kernel)I(?:f)?Li(\d+)E",
+                          mangled)
         if not found:
             continue
         kernel, d = found.group(1), int(found.group(2))
@@ -584,6 +600,47 @@ def bwd_build_report(build, fa, logs, chained):
             print(f"  {lib} {name}: {row['ptxas']}; dynamic smem {row['dynamic_smem_bytes']} bytes"
                   + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
         report[lib] = rows
+    return report
+
+
+def chain_build_report(build, fusion, fused_gemm, fa, logs):
+    """Print the ``-Xptxas -v`` figures of the chained forward's wgmma
+    instantiations (csrc/attention_fwd.cuh on the generated epilogue) in
+    the sources of minicpm-2b's, bert-large's and gpt-j-6b's attention
+    graphs, by head dim, with the dynamic shared memory of the plan and,
+    where ``cuobjdump`` is on the path, the HGMMA instructions; → those
+    figures by config."""
+    import shutil
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    report = {}
+    for arch in ("minicpm_2b", "bert_large", "gptj_6b"):
+        cfg = get_config(arch)
+        graph = fusion.simplify_graph(attention_graph(fusion, cfg, lm.layer_kinds(cfg)[0]))
+        src = fused_gemm.generate_source(graph)
+        name = fused_gemm.source_name(graph, src)
+        rows = {}
+        for mangled, figures in ptxas_by_kernel(logs[name]).items():
+            found = re.search(r"attention_fwd_wgmma_kernelILi(\d+)E", mangled)
+            if found:
+                d = int(found.group(1))
+                wg, bn, stages = fa.WGMMA_TILES[d]
+                rows[d] = {"mangled": mangled, "ptxas": figures,
+                           "dynamic_smem_bytes": fa.wgmma_smem(d, 64 * wg, bn, stages)}
+        if Path(tool).exists():
+            sass = subprocess.run([tool, "-sass", str(build._generated_target(name, src))],
+                                  capture_output=True, text=True, timeout=300).stdout
+            for part in sass.split("Function : ")[1:]:
+                for row in rows.values():
+                    if row["mangled"] == part.split()[0]:
+                        row["hgmma"] = part.count("HGMMA")
+        for d, row in sorted(rows.items()):
+            print(f"  chained forward ({cfg.name}, {name}) D {d}: {row['ptxas']}; dynamic smem"
+                  f" {row['dynamic_smem_bytes']} bytes"
+                  + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
+        report[arch] = {"source": name, "by_head_dim": rows}
     return report
 
 
@@ -1370,7 +1427,7 @@ def chained_backward_sources(fusion, fused_gemm):
 
     pairs = [(fusion.fused_attention_graph(causal=True, window=256, scale=0.125), 64)]
     for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
-                get_config("gptj_6b").reduced(), get_config("bert_large"),
+                get_config("gptj_6b"), get_config("gptj_6b").reduced(), get_config("bert_large"),
                 get_config("bert_large").reduced()):
         for kind in sorted(set(lm.layer_kinds(cfg))):
             pairs.append((attention_graph(fusion, cfg, kind), cfg.head_dim))
@@ -1384,7 +1441,7 @@ def chained_backward_sources(fusion, fused_gemm):
     return out
 
 
-def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa):
+def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops):
     """K5's chained backward (one generated kernel on csrc/attention_bwd.cuh
     for the graph's own epilogue) against its plain version
     (``ChainedBackward.plain``: ``ref.flash_bwd_ref`` on the graph's nodes)
@@ -1392,8 +1449,8 @@ def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa):
     shape (causal, and window 256) and bert-large's (bidirectional), beside
     SDPA's backward; at those two shapes also against the six derived graphs
     the CPU runs (on K5's card kernels); two calls bitwise equal; small fp32
-    and bf16 checks (ragged, Sq < Skv, rows with no key, D 16 to 256, the
-    last from K2's forward: K5's chained forward takes chains up to 128); and
+    and bf16 checks (ragged, Sq < Skv, rows with no key, D 16 to 256, each
+    from K5's own chained forward); and
     GQA through ``fused_attention_apply`` under autograd against K6 through
     ``ops.attention``, one chained-backward launch and none of the six."""
     import torch.nn.functional as F
@@ -1408,13 +1465,7 @@ def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa):
         graph = chained_bwd_graph(fusion, sq, skv, d, causal, window)
         plan = fusion.derive_vjp(graph)
         kern = fused_gemm.ChainedBackward(plan)
-        if d <= fused_gemm.MAX_CHAIN:
-            y, lse = fusion.compile(graph, path="cuda").with_lse(q=q, k=k, v=v)
-        else:
-            # K5's chained forward takes chains of at most 128: K2 gives the
-            # same output and lse (the masks aligned at the ends, scale D^-0.5)
-            y, lse = fa.flash_attention(q, k, v, causal=causal, window=window or None,
-                                        with_lse=True)
+        y, lse = fusion.compile(graph, path="cuda").with_lse(q=q, k=k, v=v)
         library = None
         if timed:
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1479,6 +1530,130 @@ def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa):
           " chained backward")
 
 
+# K5's chained forward beside K2 in phase 3: label, B, H, Sq, Skv, D, causal,
+# window (the graph: fused_attention_graph at scale D^-0.5, offset Skv - Sq;
+# q a strided view of the (B, S, H, D) projection, k and v contiguous)
+CHAINED_FWD_ROWS = [
+    ("minicpm B4 H36 S1024 D64 causal", 4, 36, 1024, 1024, 64, True, 0),
+    ("window256 B4 H36 S1024 D64", 4, 36, 1024, 1024, 64, True, 256),
+    ("bert B16 H16 S512 D64 bidirectional", 16, 16, 512, 512, 64, False, 0),
+    ("gptj B2 H16 S2048 D256 causal", 2, 16, 2048, 2048, 256, True, 0),
+]
+
+
+def chained_forward_cases(torch, bench, fusion, fused_gemm, fa):
+    """K5's chained forward (csrc/attention_fwd.cuh on the generated
+    epilogue) against its plain version at gpt-j-6b's row (B 2, H 16, S
+    2048, D 256, causal: the repaired D 256), then at the four rows of
+    ``CHAINED_FWD_ROWS`` beside K2 and SDPA on the same inputs, each timed
+    alone and 20 calls back to back (the minicpm-2b, window and bert-large
+    rows' checks are ``fused_training_cases``' and ``bert_attention_cases``');
+    every bf16 launch on wgmma (``CHAIN_WGMMA_LAUNCHES``).  Untimed checks:
+    D 16, 32 and 128; Sq < Skv; offset -1, whose first row has no key (0
+    and lse -inf, where the plain version's composed path gives a uniform
+    row); k and v shared by every problem (2-D) and by the heads (stride 0);
+    fp32 at D 256 on the SIMT variant; a misaligned bf16 operand, which must
+    raise ValueError; two calls bitwise equal."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def counted(fn):
+        before = fused_gemm.CHAIN_WGMMA_LAUNCHES
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fused_gemm.CHAIN_WGMMA_LAUNCHES - before
+
+    def back_to_back(fn):
+        return time_ms(torch, lambda: [fn() for _ in range(20)], warmup=1, reps=5) / 20
+
+    rows = {}
+    for label, b, h, sq, skv, d, causal, window in CHAINED_FWD_ROWS:
+        q = randn(b, sq, h, d).transpose(1, 2)
+        k, v = randn(b, h, skv, d), randn(b, h, skv, d)
+        graph = fusion.fused_attention_graph(causal=causal, window=window, scale=d ** -0.5,
+                                             offset=skv - sq)
+        k5, plain = _graph_run(torch, fusion, graph)
+        chain = lambda: k5(q=q, k=k, v=v)
+        k2 = lambda: fa.flash_attention(q, k, v, causal=causal, window=window or None)
+        if window:
+            keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda").tril().triu(-(window - 1))
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        else:
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        pairs = _pairs(torch, sq, skv, causal, window or None)
+        got, n = counted(chain)
+        check(n == 1, f"chained forward {label}: {n} wgmma launches, want 1")
+        check(torch.equal(got, chain()), f"chained forward {label}: two identical calls differ")
+        if d == 256:
+            bench.run("fused_chain", f"{graph.name} {label}", chain, lambda: plain(q=q, k=k, v=v),
+                      library, flops=4 * b * h * d * pairs, nbytes=_nbytes(q, k, v, q),
+                      dtype="bfloat16", tol_kind="attn")
+        row = {"chain_ms": time_ms(torch, chain), "k2_ms": time_ms(torch, k2),
+               "sdpa_ms": time_ms(torch, library), "chain_back_to_back_ms": back_to_back(chain),
+               "k2_back_to_back_ms": back_to_back(k2), "sdpa_back_to_back_ms": back_to_back(library),
+               "bound_ms": bench.bound(4 * b * h * d * pairs, _nbytes(q, k, v, q), "bf16")[0]}
+        rows[label] = row
+        print(f"  {'fused_chain':15s} {label:38s} chained {row['chain_ms']:.4f} ms, K2"
+              f" {row['k2_ms']:.4f}, SDPA {row['sdpa_ms']:.4f}; 20 back to back: chained"
+              f" {row['chain_back_to_back_ms']:.4f}, K2 {row['k2_back_to_back_ms']:.4f}, SDPA"
+              f" {row['sdpa_back_to_back_ms']:.4f}; bound {row['bound_ms']:.4f} ms", flush=True)
+        del q, k, v, got
+    bench.extra["chained_forward_vs_k2"] = rows
+
+    def check_case(label, graph, ops, *, dtype="bfloat16", wgmma=1, no_key_rows=0):
+        k5, plain = _graph_run(torch, fusion, graph)
+        if no_key_rows:
+            # the kernel gives 0 there, the plain version (the composed
+            # path) a uniform row: compare the rows that have a key
+            def want():
+                return torch.cat([torch.zeros_like(k5(**ops)[..., :no_key_rows, :]),
+                                  plain(**ops)[..., no_key_rows:, :]], dim=-2)
+        else:
+            want = lambda: plain(**ops)
+        got, n = counted(lambda: k5(**ops))
+        check(n == wgmma, f"chained forward {label}: {n} wgmma launches, want {wgmma}")
+        bench.run("fused_chain", f"check {label}", lambda: k5(**ops), want, None, flops=0,
+                  nbytes=0, dtype=dtype, tol_kind="attn", timed=False)
+        check(torch.equal(got, k5(**ops)), f"chained forward {label}: two identical calls differ")
+        return k5
+
+    for d in (16, 32, 128):
+        check_case(f"D{d} B2 H3 Sq150", fusion.fused_attention_graph(causal=True, scale=d ** -0.5),
+                   dict(q=randn(2, 150, 3, d).transpose(1, 2), k=randn(2, 3, 150, d),
+                        v=randn(2, 3, 150, d)))
+    check_case("Sq70 Skv200 D64", fusion.fused_attention_graph(causal=True, scale=0.125, offset=130),
+               dict(q=randn(1, 4, 70, 64), k=randn(1, 4, 200, 64), v=randn(1, 4, 200, 64)))
+    ops = dict(q=randn(1, 2, 100, 32), k=randn(1, 2, 100, 32), v=randn(1, 2, 100, 32))
+    one = check_case("offset -1 D32, row 0 with no key",
+                     fusion.fused_attention_graph(causal=True, scale=32 ** -0.5, offset=-1), ops,
+                     no_key_rows=1)
+    out, lse = one.with_lse(**ops)
+    check(bool((out[..., 0, :] == 0).all()) and bool(torch.isneginf(lse[..., 0]).all())
+          and bool(torch.isfinite(lse[..., 1:]).all()),
+          "chained forward offset -1: the row with no key is not 0 with lse -inf")
+    check_case("k, v shared by every problem", fusion.fused_attention_graph(causal=True, scale=0.125),
+               dict(q=randn(2, 3, 200, 64), k=randn(200, 64), v=randn(200, 64)))
+    check_case("k, v shared by the heads (stride 0)",
+               fusion.fused_attention_graph(causal=False, scale=0.125),
+               dict(q=randn(2, 200, 3, 64).transpose(1, 2), k=randn(2, 1, 200, 64).expand(2, 3, 200, 64),
+                    v=randn(2, 1, 200, 64).expand(2, 3, 200, 64)))
+    check_case("D256 fp32 (SIMT)", fusion.fused_attention_graph(causal=True, scale=1 / 16),
+               dict(q=randn(1, 2, 70, 256, dtype=torch.float32),
+                    k=randn(1, 2, 70, 256, dtype=torch.float32),
+                    v=randn(1, 2, 70, 256, dtype=torch.float32)), dtype="float32", wgmma=0)
+    bad = torch.empty(2 * 64 * 64 + 8, dtype=torch.bfloat16, device="cuda")[1:1 + 2 * 64 * 64]
+    try:
+        fusion.compile(fusion.fused_attention_graph(causal=True, scale=0.125), path="cuda")(
+            q=bad.view(2, 64, 64), k=randn(2, 64, 64), v=randn(2, 64, 64))
+    except ValueError as e:
+        print(f"  a misaligned bf16 q (2 bytes off): ValueError, {str(e)[:60]}...", flush=True)
+    else:
+        check(False, "a misaligned bf16 operand of the chained forward did not raise ValueError")
+
+
 def sweep_graphs(fusion):
     """Small graphs that between them use every pointwise op K5's generator
     takes (and a graph of two distinct lhs operands)."""
@@ -1525,7 +1700,7 @@ def fused_graphs(fusion):
 
 def training_graphs(fusion):
     """Every K5 graph the fused training path launches for full-width
-    minicpm-2b and bert-large and the reduced minicpm-2b, gpt-j-6b and
+    minicpm-2b, gpt-j-6b and bert-large and the reduced minicpm-2b, gpt-j-6b and
     bert-large of phase 8 (the chained attention at each config's scale and
     kind, causal or bidirectional, fused_attn_out with and without dropout,
     the gated and plain MLP up projections, and all their derived backward
@@ -1538,7 +1713,7 @@ def training_graphs(fusion):
            fusion.fused_attention_graph(causal=True, window=256, scale=0.125),
            fusion.fused_output_graph(0.1), fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6)]
     for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
-                get_config("gptj_6b").reduced(), get_config("bert_large"),
+                get_config("gptj_6b"), get_config("gptj_6b").reduced(), get_config("bert_large"),
                 get_config("bert_large").reduced()):
         for kind in sorted(set(lm.layer_kinds(cfg))):
             fwd.append(attention_graph(fusion, cfg, kind))
@@ -3185,12 +3360,14 @@ def scheduled_path(torch, counters, fusion, rng):
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
-# fused_panel (a row panel), fused_chain (a chained root).
+# fused_panel (a row panel), fused_chain (a chained root: the SIMT kernel,
+# or the forward mainloop of csrc/attention_fwd.cuh on a generated
+# epilogue, which K2 instantiates on K2Epi).
 KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_bf16_wmma": "gemm_transposed",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention",
-             "flash_attention_wgmma_kernel": "flash_attention", "flash_decode_kernel": "flash_decode",
+             "attention_fwd_wgmma_kernel": "fused_chain", "flash_decode_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
@@ -3206,8 +3383,11 @@ def kernel_of(name):
     """The port's kernel that a profiled device kernel belongs to: the
     first word of its demangled name that is one of the port's kernel
     names; the attention backward's mainloop (namespace attn_bwd) by its
-    epilogue, K6's or a generated one, and its stats pass apart."""
+    epilogue, K6's or a generated one, and its stats pass apart; the
+    forward mainloop (namespace attn_fwd) on K2's epilogue is K2."""
     words = re.findall(r"\w+", name)
+    if "attn_fwd" in words and "K2Epi" in words:
+        return "flash_attention"
     if "attn_bwd" in words:
         return ("flash_attention_bwd" if "K6Epi" in words else "fused_attention_bwd"
                 if "Epi" in words else "attention_bwd_stats")
@@ -3292,6 +3472,8 @@ class Counters:
         self.fused_gemm.LAUNCHES = 0
         self.fused_gemm.GRAPH_LAUNCHES.clear()
         self.fused_gemm.HW_PRNG_LAUNCHES = 0
+        self.fused_gemm.CHAIN_WGMMA_LAUNCHES = 0
+        self.fused_gemm.CHAIN_BWD_WGMMA_LAUNCHES = 0
         self.scan.SCAN_LAUNCHES = 0
         self.spmm.SPMM_LAUNCHES = 0
         self.spmm.GROUPED_LAUNCHES = 0
@@ -3309,6 +3491,10 @@ class Counters:
                 "flash_decode": self.fa.DECODE_LAUNCHES,
                 "paged_decode": self.fa.PAGED_DECODE_LAUNCHES,
                 **k5_kinds(self.fused_gemm.GRAPH_LAUNCHES),
+                # the chained forwards and backwards on the tensor cores
+                # among them (not kernel rows of their own)
+                "fused_chain_wgmma": self.fused_gemm.CHAIN_WGMMA_LAUNCHES,
+                "fused_attention_bwd_wgmma": self.fused_gemm.CHAIN_BWD_WGMMA_LAUNCHES,
                 "mamba_scan": self.scan.SCAN_LAUNCHES,
                 "block_spmm": self.spmm.SPMM_LAUNCHES,
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
@@ -3448,15 +3634,17 @@ def unfused_training_launches(cfg, seq, loss_chunk):
 
 
 def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=1024,
-                     fused=False, unfused=None):
-    """``arch`` at full width and depth: 6 trainer steps (fp32 masters, bf16
+                     fused=False, unfused=None, layers=None, steps=None, downhill=True):
+    """``arch`` at full width and depth (``layers``: the depth cut to that
+    many layers): 6 trainer steps (``steps``; fp32 masters, bf16
     compute, B ``batch`` x S ``seq``, loss_chunk 512, remat, AdamW defaults,
     WSD) whose K1, K2 and K6 launches must be what the layer count implies,
-    then 3 steps at a small constant learning rate on one repeated batch,
-    whose loss must fall at each step, and one profiled step.  With
-    ``fused``, ``use_fusion=True`` from the same initial parameters and
-    batches (4 trainer steps): K5's launches by graph must be what the
-    derived plans imply, and step 1's loss within rtol 2e-2 of ``unfused``
+    then (with ``downhill``) 3 steps at a small constant learning rate on
+    one repeated batch, whose loss must fall at each step, and one profiled
+    step.  With ``fused``, ``use_fusion=True`` from the same initial
+    parameters and batches (4 trainer steps): K5's launches by graph must
+    be what the derived plans imply, every chained forward and backward
+    must run on wgmma, and step 1's loss within rtol 2e-2 of ``unfused``
     (the unfused run's result) step 1's."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import DataConfig, SyntheticCorpus, to_device
@@ -3469,7 +3657,9 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
     from repro_torch import fusion
 
     cfg = dataclasses.replace(get_config(arch), use_fusion=fused)
-    steps = 4 if fused else 6
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    steps = steps or (4 if fused else 6)
     tcfg = TrainConfig(schedule="wsd", peak_lr=3e-4, warmup_steps=2, total_steps=100,
                        loss_chunk=512, remat=True)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
@@ -3494,6 +3684,11 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         six = {g: n for g, n in by_graph.items()
                if any(g.endswith(f"@bwd_{r}") for r in ("p", "dp", "dz", "dq", "dk", "dv"))}
         check(not six, f"the chained attention's six derived graphs ran on the card: {six}")
+        for kind in ("fused_chain", "fused_attention_bwd"):
+            check(launches[f"{kind}_wgmma"] == launches[kind],
+                  f"{launches[f'{kind}_wgmma']} of {launches[kind]} {kind} launches ran on wgmma")
+        print(f"  chained attention at D {cfg.head_dim}: {launches['fused_chain_wgmma']} forward and"
+              f" {launches['fused_attention_bwd_wgmma']} backward launches, all on wgmma", flush=True)
         rel = abs(hist["loss"][0] - unfused["loss"][0]) / abs(unfused["loss"][0])
         print(f"  step 1 loss {hist['loss'][0]:.6f} fused against {unfused['loss'][0]:.6f} unfused"
               f" (phase 9): {rel:.2e} relative (tol 2e-2)", flush=True)
@@ -3519,7 +3714,8 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
     # the model's work (remat, a choice that trades FLOPs for memory, beside it)
     bound_ms = max(model_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
     remat_bound_ms = max(remat_flops / peaks["bf16"], state_bytes / peaks["hbm"]) * 1e3
-    result = {"arch": arch, "batch": batch, "seq": seq, "steps": steps, "step_ms_median": step_ms,
+    result = {"arch": arch, "layers": cfg.num_layers, "batch": batch, "seq": seq, "steps": steps,
+              "step_ms_median": step_ms,
               "step_times_ms": [t * 1e3 for t in hist["step_time"]],
               "sequences_per_s": batch / (step_ms / 1e3), "tokens_per_s": tokens / (step_ms / 1e3),
               "model_flops_per_step": model_flops, "flops_per_step_with_remat": remat_flops,
@@ -3532,7 +3728,7 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
                        "unfused_step_ms_median_2_6": unfused["step_ms_median"],
                        "unfused_max_memory_allocated_gib": unfused["max_memory_allocated_gib"],
                        "unfused_step1_loss": unfused["loss"][0]})
-    print(f"  {cfg.name} {'use_fusion ' if fused else ''}trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
+    print(f"  {cfg.name} ({cfg.num_layers} layers) {'use_fusion ' if fused else ''}trainer, {steps} steps of B{batch} x S{seq}: losses {[round(x, 4) for x in hist['loss']]},"
           f" grad norms {[round(x, 3) for x in hist['grad_norm']]}; step {step_ms:.1f} ms"
           f" (median of steps 2-{steps}"
           + (f"; unfused {unfused['step_ms_median']:.1f} ms" if fused else "")
@@ -3546,6 +3742,10 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
     # Downhill: a fresh AdamW state, one repeated batch, a small constant lr.
     del opt
     torch.cuda.empty_cache()
+    if not downhill:
+        del params
+        torch.cuda.empty_cache()
+        return result
     fixed = TrainConfig(schedule="wsd", peak_lr=1e-5, warmup_steps=0, total_steps=10**6,
                         loss_chunk=512, remat=True)
     opt = init_state(params, AdamWConfig())
@@ -3611,6 +3811,7 @@ def main() -> int:
             if "spill" in line and " 0 bytes spill stores" not in line:
                 print(f"  {name}: {line.strip()}")
     k2_build = k2_build_report(_build, fa, logs["flash_attention"])
+    chain_build = chain_build_report(_build, fusion, fused_gemm, fa, logs)
     bwd_build = bwd_build_report(_build, fa, logs, chained)
 
     phase("3. kernels against their plain versions")
@@ -3624,7 +3825,8 @@ def main() -> int:
     mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion)
     fused_training_cases(torch, bench, fusion, rng)
-    chained_bwd_cases(torch, bench, fusion, fused_gemm, ops, fa)
+    chained_bwd_cases(torch, bench, fusion, fused_gemm, ops)
+    chained_forward_cases(torch, bench, fusion, fused_gemm, fa)
     fused_spec_cases(torch, bench, fusion, fused_gemm, rng)
     hw_prng_cases(torch, bench, fusion, fused_gemm, rng)
     bert_attention_cases(torch, bench, fusion)
@@ -3688,6 +3890,20 @@ def main() -> int:
     bert = train_full_width(torch, counters, peaks, **bert_kw)
     bert_fused = train_full_width(torch, counters, peaks, fused=True, unfused=bert, **bert_kw)
 
+    phase("10c. gpt-j-6b, full width (8 of 28 layers), training, unfused and use_fusion=True")
+    # d 4096 and 16 heads of 256 as published; 8 layers: 28 layers' fp32
+    # masters, gradients, AdamW moments and bf16 copies (18 bytes a
+    # parameter) would not fit in 80 GB
+    gptj_kw = dict(arch="gptj_6b", batch=2, seq=2048, layers=8)
+    gptj_train = train_full_width(torch, counters, peaks, steps=2, downhill=False, **gptj_kw)
+    gptj_fused = train_full_width(torch, counters, peaks, fused=True, unfused=gptj_train, **gptj_kw)
+    print(f"  gpt-j-6b (8 layers) B2 x S2048 on {card_line}: step {gptj_train['step_ms_median']:.1f} ms"
+          f" unfused, {gptj_fused['step_ms_median']:.1f} ms fused; {gptj_fused['tokens_per_s']:.1f}"
+          f" tokens/s fused ({gptj_train['tokens_per_s']:.1f} unfused); model-FLOPs share"
+          f" {100 * gptj_fused['mfu_bf16_peak']:.2f} % fused ({100 * gptj_train['mfu_bf16_peak']:.2f}"
+          f" % unfused); peak {gptj_fused['max_memory_allocated_gib']:.2f} GiB fused"
+          f" ({gptj_train['max_memory_allocated_gib']:.2f} unfused)", flush=True)
+
     phase("11. kernels")
     kernels = []
     for name in KERNELS:
@@ -3706,6 +3922,8 @@ def main() -> int:
                    "grouped_experts": sparse["grouped_launches"][name],
                    "bert_training": bert["launches"][name],
                    "bert_fused_training": bert_fused["launches"][name],
+                   "gptj_training": gptj_train["launches"][name],
+                   "gptj_fused_training": gptj_fused["launches"][name],
                    "parlooper_listing1": loops["listing1_launches"][name],
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
@@ -3730,8 +3948,9 @@ def main() -> int:
                       "scheduled": scheduled, "gptj_engine": gptj,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
-                      "bert_fused_training": bert_fused, "phase3_extra": bench.extra,
-                      "k2_build": k2_build, "bwd_build": bwd_build}))
+                      "bert_fused_training": bert_fused, "gptj_training": gptj_train,
+                      "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
+                      "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

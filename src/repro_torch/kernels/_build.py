@@ -102,7 +102,7 @@ SOURCES = tuple(SIGNATURES)
 GENERATED_SIGNATURES = {"fused_gemm": {"fused_gemm": (_P, _P)},
                         "attention_bwd": {"attention_bwd": ATTENTION_BWD}}
 GENERATED_INCLUDES = (CSRC / "fused_gemm.cuh", CSRC / "fused_chain.cuh", CSRC / "philox.cuh",
-                      CSRC / "attention_bwd.cuh", CSRC / "wgmma.cuh")
+                      CSRC / "attention_fwd.cuh", CSRC / "attention_bwd.cuh", CSRC / "wgmma.cuh")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

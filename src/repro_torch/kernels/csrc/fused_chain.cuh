@@ -1,9 +1,11 @@
 // K5's chained root: flash attention generated from a TppGraph.
 // kernels/fused_gemm.py generates one source per chained graph, which
 // includes this file, defines a struct `Epi` (the base root's operand
-// layouts, the pre-reduce nodes as straight-line fp32 C++ and which score
-// tiles the graph's attn_mask node leaves fully masked) and the C entry point
-// `fused_gemm` as `fg::chain_entry<Epi>`.
+// layouts; the pre-reduce nodes as straight-line fp32 C++, `pre`; and, from
+// the graph's attn_mask node, which key tiles a block of rows can see,
+// `key_range`, which tiles the mask crosses, `tile_mixed`, and which it
+// masks whole, `tile_dead`) and the C entry point `fused_gemm` as
+// `fg::chain_entry<Epi>`.
 //
 // Replaces the chained branch of the TPU kernel repro/fusion/lowering.py:330
 // `_compile_pallas` (:345-370 and :558-596): O = softmax_online(z) @ V with
@@ -16,27 +18,43 @@
 // kernel also writes each row's log-sum-exp of its live scores, m + log(l)
 // (-inf for a row with none), to FusedArgs::lse: the chained backward
 // (csrc/attention_bwd.cuh) rebuilds P from it.  Leading batch axes run one
-// problem (a (batch, head) pair of attention) per grid.z index.  Under a
-// schedule a block takes its 64 rows from the order table (the plan's M
-// order), as fused_gemm.cuh's row panels do.
+// problem (a (batch, head) pair of attention) per (grid.z, grid.y) index.
+// Under a schedule a block takes its rows from the order table (the plan's
+// M order), as fused_gemm.cuh's row panels do.  Results are deterministic:
+// no float atomics.
 //
 // What bounds it on an H100: at the minicpm-2b training shape (144 heads of
 // 1024 x 1024 x 64, causal, bf16) both limits sit near 20 us: 75 MB of q, k,
 // v and o against the HBM rate, and 19 GFLOP for the live half of the
-// scores against the bf16 tensor-core peak.
+// scores against the bf16 tensor-core peak; at gpt-j-6b's (32 heads of
+// 2048 x 2048 x 256) 69 GFLOP against 134 MB, operations.
 //
-// What the design does about it: simple and exact first.  A block of 256
-// threads owns 64 query rows of one problem and walks the 64-column score
-// tiles; a tile whose every score the graph's attn_mask node masks (causal:
-// all columns past the rows; window: all columns before them) is skipped,
-// which leaves the result unchanged.  S = q k^T and O += P V run as fp32 FMA
-// on the SIMT cores (4 x 4 scores and 4 x N2/16 outputs a thread), each
-// operand converted to fp32 as it is copied to shared memory in its stored
-// layout; the row max and sum reduce over the 16 threads of a row with
-// warp shuffles, in a fixed order (deterministic).  The tensor cores (WMMA
-// or wgmma for both products) are left for the PR that makes K5 fast.
+// What the design does about it: two variants behind one generated Epi,
+// chosen by the wrapper's plan (kernels/fused_gemm.py::chain_plan), which
+// the entry refuses if it differs from what it builds.
+//   - wgmma (every contraction operand bf16, q stored (M, K), k stored
+//     (N, K), K = N2 in {16, 32, 64, 128, 256}): K2's mainloop,
+//     csrc/attention_fwd.cuh, on the generated Epi; both products on the
+//     tensor cores, a TMA-fed K/V ring, P rounded to bf16 before P V (as
+//     K2; the SIMT variant keeps P in fp32).  Zero, one or two batch axes
+//     go onto the (head, batch) grid axes with one kv head a query head
+//     (fused_attention_apply has already repeated GQA's kv heads); an
+//     operand every problem shares (batch stride 0) gets a tensor map
+//     without that axis.  The fixed grid reverses the query tiles under a
+//     causal mask, as K2's does.
+//   - SIMT, every other graph (fp32 or mixed dtypes, other widths, a
+//     transposed q, an rhs stored (K, N)): a block of 256 threads owns 64
+//     query rows of one problem and walks the 64-column score tiles,
+//     skipping a tile the attn_mask node masks whole (tile_dead).  S = q k^T
+//     and O += P V run as fp32 FMA on the SIMT cores (4 x 4 scores and
+//     4 x N2/16 outputs a thread, N2 <= 256), each operand converted to fp32
+//     as it is copied to shared memory in its stored layout; the row max and
+//     sum reduce over the 16 threads of a row with warp shuffles, in a fixed
+//     order.  Its static shared memory stays under 48 KB at N2 256 (Qs and
+//     Ks 4352 bytes each, Ps 17408, Vs 16640).
 #pragma once
 #include "fused_gemm.cuh"
+#include "attention_fwd.cuh"
 
 namespace fg {
 
@@ -64,12 +82,19 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
+// The shapes a generated Epi reads: one kv head a query head, B1 problems
+// on the head axis.
+__host__ __device__ __forceinline__ attn_fwd::Params chain_params(const FusedArgs& a) {
+  return attn_fwd::Params{a.B1, a.B1, a.M, a.N, 0, 0, 0.0f};
+}
+
 template <class E, int NJ, typename TOut>
 __global__ void __launch_bounds__(256)
 fused_chain_f32_simt(FusedArgs a) {
   constexpr int BM = 64, BN = 64, BK = 16;
   __shared__ ChainSmem<NJ> sm;
   const FgCtx c = block_ctx(a);
+  const attn_fwd::Params p = chain_params(a);
   const int M = a.M, N = a.N, K = a.K, N2 = a.N2;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = tile_origin(a, BM, 0).x;
@@ -142,7 +167,7 @@ fused_chain_f32_simt(FusedArgs a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int gn = n0 + tx + 16 * j;
-        z[j] = gn < N ? E::chain_pre(s[i][j], gm, gn, a, c) : FG_NEG_INF;
+        z[j] = gn < N ? E::template pre<true>(s[i][j], gm, gn, p) : FG_NEG_INF;
         mt = fmaxf(mt, z[j]);
       }
       const float m_new = fmaxf(mrow[i], row_max16(mt));
@@ -150,9 +175,9 @@ fused_chain_f32_simt(FusedArgs a) {
       float ps = 0.0f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = z[j] > FG_MASK_FLOOR ? expf(z[j] - m_new) : 0.0f;
-        sm.Ps[ty + 16 * i][tx + 16 * j] = p;
-        ps += p;
+        const float pr = z[j] > FG_MASK_FLOOR ? expf(z[j] - m_new) : 0.0f;
+        sm.Ps[ty + 16 * i][tx + 16 * j] = pr;
+        ps += pr;
       }
       lrow[i] = lrow[i] * alpha + row_sum16(ps);
       mrow[i] = m_new;
@@ -207,21 +232,85 @@ void launch_chain(const FusedArgs& a, cudaStream_t s) {
     fused_chain_f32_simt<E, NJ, float><<<grid, 256, 0, s>>>(a);
 }
 
+// The tensor map of a chained graph's bf16 operand, `rows` x `cols` with
+// leading dimension `ld` and problem-axis strides `sb` (B0, B1), read in
+// boxes of `box_rows` x `box_cols`; an axis of stride 0 (an operand every
+// problem shares along it) gets extent 1, and its coordinate multiplier
+// (mul_h for B1, mul_b for B0) 0.
+inline cudaError_t chain_map(CUtensorMap* map, const void* ptr, int cols, int rows, long long ld,
+                             const long long (&sb)[2], int B0, int B1, int box_cols,
+                             int box_rows, int& mul_h, int& mul_b) {
+  mul_h = sb[1] != 0;
+  mul_b = sb[0] != 0;
+  return hopper::tile_map(map, ptr, cols, rows, mul_h ? B1 : 1, mul_b ? B0 : 1, ld, sb[1], sb[0],
+                          box_cols, box_rows);
+}
+
+// The wgmma variant at head dim D = K = N2: q (M, K), k stored (N, K) and
+// v (N, N2) K-major rows, problem (b0, b1) at grid (z, y).
+template <int D, class E>
+cudaError_t launch_chain_wgmma(const FusedArgs& a, cudaStream_t s) {
+  using T = attn_fwd::FwdTile<D>;
+  if (!attn_fwd::plan_is<D>(a.chain_plan + 1)) return cudaErrorInvalidConfiguration;
+  const int B1 = a.B1, B0 = a.batch / a.B1;
+  attn_fwd::Layout L{};
+  CUtensorMap tq, tk, tv;
+  cudaError_t e =
+      chain_map(&tq, a.lhs[0], D, a.M, a.lda[0], a.s_lhs[0], B0, B1, T::SW, T::BM, L.q_h, L.q_b);
+  if (e == cudaSuccess && a.N > 0)
+    e = chain_map(&tk, a.rhs[0], D, a.N, a.ldb[0], a.s_rhs[0], B0, B1, T::SW, T::BN, L.k_h, L.k_b);
+  if (e == cudaSuccess && a.N > 0)
+    e = chain_map(&tv, a.crhs, D, a.N, a.ldc, a.s_crhs, B0, B1, T::SW, T::BN, L.v_h, L.v_b);
+  if (e != cudaSuccess) return e;
+  if (a.N == 0) tk = tv = tq;  // no key tile is loaded
+  L.o = a.out;
+  L.lse = a.lse;
+  L.o_sb = a.s_out[0];
+  L.o_sh = a.s_out[1];
+  L.o_ss = a.N2;
+  L.out_f32 = !a.out_bf16;
+  L.order = a.order;
+  L.reverse = E::CAUSAL;
+  const int tiles = a.order != nullptr ? a.n_order : (a.M + T::BM - 1) / T::BM;
+  return attn_fwd::launch<D, E>(tq, tk, tv, L, chain_params(a), tiles, B0, s);
+}
+
 // The body of the C entry point of a chained graph's source:
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // lhs[0], rhs[0]: the base root's operands; crhs: the chain operand
 // (N, N2) with leading dimension ldc; the output (batch, M, N2)
-// contiguous; lse (if not null) (batch, M) contiguous.  N2 <= 128.  order
-// (if not null): the origins of 64-row blocks in the plan's M order.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a chain wider than 128.
+// contiguous; lse (if not null) (batch, M) contiguous.  N2 <= 256.  order
+// (if not null): the origins of the blocks' rows in the plan's M order.
+// chain_plan: the wrapper's plan (wgmma 1 or 0, rows a block, keys a tile,
+// ring stages, dynamic shared memory).  Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidConfiguration for a plan this source does
+// not build, or cudaErrorInvalidValue for operands the planned variant
+// does not take (a chain wider than 256 on the SIMT variant).
 template <class E>
 int chain_entry(const FusedArgs* args, void* stream) {
+  const FusedArgs& a = *args;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->N2 <= 64)
-    launch_chain<E, 4>(*args, s);
-  else if (args->N2 <= 128)
-    launch_chain<E, 8>(*args, s);
+  if (a.chain_plan[0]) {
+    if (!a.all_bf16 || !a.crhs_bf16 || E::trans_lhs(0) || !E::trans_rhs(0) || a.K != a.N2)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (a.N2) {
+      case 16: return static_cast<int>(launch_chain_wgmma<16, E>(a, s));
+      case 32: return static_cast<int>(launch_chain_wgmma<32, E>(a, s));
+      case 64: return static_cast<int>(launch_chain_wgmma<64, E>(a, s));
+      case 128: return static_cast<int>(launch_chain_wgmma<128, E>(a, s));
+      case 256: return static_cast<int>(launch_chain_wgmma<256, E>(a, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (a.chain_plan[1] != 64 || a.chain_plan[2] != 64 || a.chain_plan[3] != 1 ||
+      a.chain_plan[4] != 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (a.N2 <= 64)
+    launch_chain<E, 4>(a, s);
+  else if (a.N2 <= 128)
+    launch_chain<E, 8>(a, s);
+  else if (a.N2 <= 256)
+    launch_chain<E, 16>(a, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -3,7 +3,8 @@
 // struct `Epi` (the graph's roots, their operands' layouts and its epilogue
 // DAG as straight-line fp32 C++) and the C entry point `fused_gemm` as
 // `fg::entry<Epi>`, which instantiates the kernels below on it.  A graph
-// with a chained root instantiates csrc/fused_chain.cuh instead.
+// with a chained root instantiates csrc/fused_chain.cuh instead (and
+// through it the forward mainloop of csrc/attention_fwd.cuh).
 //
 // Replaces the TPU kernel repro/fusion/lowering.py:330 `_compile_pallas`
 // (launched through repro/core/pallas_lowering.py `make_pallas_fn`): R <= 3
@@ -96,7 +97,9 @@ typedef __nv_bfloat16 fg_bf16;
 // entry i (a row panel or a chained root reads the rows only).  hw: draw
 // dropout_rng from K13 on (prng_tm, prng_tn) tiles (full rows after the
 // reducing node).  lse: null, or a chained root's (batch, M) fp32 row
-// log-sum-exp output (the chained backward's row statistics).
+// log-sum-exp output (the chained backward's row statistics).  chain_plan:
+// a chained root's plan (kernels/fused_gemm.py::chain_plan): wgmma 1 or
+// 0, rows a block, keys a tile, ring stages, dynamic shared memory.
 struct FusedArgs {
   const void* lhs[FG_MAX_ROOTS];
   const void* rhs[FG_MAX_ROOTS];
@@ -127,6 +130,7 @@ struct FusedArgs {
   int n_order;
   int prng_tm, prng_tn, hw;
   float* lse;
+  int chain_plan[5];
 };
 
 // The block's problem: its two batch indices.

@@ -8,7 +8,8 @@ K2 replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``
 then ``flash_decode_pallas``).  K6 replaces the attention backward that
 ``repro/fusion/autodiff.py::ChainedBackwardPlan`` derives (run by
 ``_run_backward_chained``, attached by ``compile_with_vjp``).  The CUDA
-sources are ``csrc/flash_attention.cu`` (K2, K3),
+sources are ``csrc/flash_attention.cu`` (K2 on the forward mainloop of
+``csrc/attention_fwd.cuh``, K3),
 ``csrc/flash_attention_bwd.cu`` (K6, on the backward mainloop of
 ``csrc/attention_bwd.cuh``) and ``csrc/paged_decode.cu`` (K4), whose headers
 say what bounds each kernel on an H100 and what its design does about it.
@@ -37,7 +38,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_backward", "flash_decode",
            "paged_decode", "forward_plan", "backward_plan", "key_tile_range",
-           "query_tile_range", "tma_readable", "ForwardPlan", "BackwardPlan",
+           "query_tile_range", "tma_readable", "wgmma_smem", "ForwardPlan", "BackwardPlan",
            "ATTENTION_LAUNCHES", "ATTENTION_WGMMA_LAUNCHES", "BACKWARD_LAUNCHES",
            "ATTENTION_BWD_WGMMA_LAUNCHES", "DECODE_LAUNCHES", "PAGED_DECODE_LAUNCHES",
            "HEAD_DIMS", "PAGED_HEAD_DIMS", "WGMMA_TILES", "BWD_TILES", "SMEM_LIMIT"]
@@ -59,8 +60,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _DECODE_MAX_GROUP = 16      # query heads per kv head in one decode block
 _DECODE_MAX_PAIRS = 2048    # group size x head dim one decode block holds
 
-# K2's bf16 kernel by head dim: (consumer warpgroups of 64 query rows, keys
-# a K/V tile, stages of the K/V ring), csrc/flash_attention.cu's FwdConfig.
+# K2's bf16 kernel (and K5's chained forward on the same mainloop) by head
+# dim: (consumer warpgroups of 64 query rows, keys a K/V tile, stages of the
+# K/V ring), csrc/attention_fwd.cuh's FwdConfig.
 WGMMA_TILES = {16: (2, 128, 2), 32: (2, 128, 2), 64: (2, 64, 4), 128: (1, 64, 2),
                256: (1, 64, 2)}
 _SIMT_ROWS = _SIMT_KEYS = 32    # the fp32 kernels' query and key tiles
@@ -89,10 +91,12 @@ class ForwardPlan(NamedTuple):
     grid: tuple
 
 
-def _wgmma_smem(d, rows, bn, stages):
-    """1024 bytes to align the swizzled panels, the bf16 Q tile, the K and
-    V tiles of each stage, one 8-byte mbarrier for Q and each stage, and a
-    4-byte count a stage of the warpgroups done with it."""
+def wgmma_smem(d, rows, bn, stages):
+    """Dynamic shared memory of the forward mainloop (csrc/attention_fwd.cuh,
+    K2's and K5's chained forward): 1024 bytes to align the swizzled panels,
+    the bf16 Q tile, the K and V tiles of each stage, one 8-byte mbarrier
+    for Q and each stage, and a 4-byte count a stage of the warpgroups done
+    with it."""
     return 1024 + rows * d * 2 + stages * 2 * bn * d * 2 + 8 * (stages + 1) + 4 * stages
 
 
@@ -134,7 +138,7 @@ def forward_plan(q, k, v):
             tma_readable(name, t)
         wg, bn, stages = WGMMA_TILES[d]
         rows = 64 * wg
-        return ForwardPlan("wgmma", rows, bn, stages, _wgmma_smem(d, rows, bn, stages),
+        return ForwardPlan("wgmma", rows, bn, stages, wgmma_smem(d, rows, bn, stages),
                            (-(-sq // rows), h, b))
     smem = 4 * (_SIMT_ROWS * (d + 1) + _SIMT_KEYS * (d + 1) + _SIMT_KEYS * d
                 + _SIMT_ROWS * (_SIMT_KEYS + 1))
@@ -229,7 +233,7 @@ def key_tile_range(q0, rows, sq, skv, causal, window, bn):
     ``sq`` can see under the masks (row i at key position i + skv - sq;
     ``window`` None or >= 1): every tile outside the range holds only
     masked (row, key) pairs.  Both K2 kernels visit exactly these tiles
-    (``key_tiles`` in csrc/flash_attention.cu)."""
+    (``key_tiles`` in csrc/attention_fwd.cuh)."""
     last = min(q0 + rows, sq) - 1
     off = skv - sq
     end = min(skv, last + off + 1) if causal else skv

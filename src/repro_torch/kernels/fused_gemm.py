@@ -16,7 +16,16 @@ kernel on an H100 and what the design does about it:
     stage the reducer's inputs, the reducer's close and the post-reduce
     nodes);
   * ``csrc/fused_chain.cuh``: a chained root, ``softmax_online(...) @ v``
-    streamed over the base root's N tiles (flash attention as IR).
+    streamed over the base root's N tiles (flash attention as IR): its
+    ``Epi`` is the pre-reduce nodes (``pre``) and, from the graph's
+    attn_mask node, the key tiles a block of rows can see (``key_range``),
+    the tiles the mask crosses (``tile_mixed``) and those it masks whole
+    (``tile_dead``).  One generated text serves both variants
+    ``chain_plan`` picks: bf16 operands laid out as attention's (q (M, K),
+    k stored (N, K), K = N2 a head dim of ``flash_attention.HEAD_DIMS``)
+    run K2's forward mainloop ``csrc/attention_fwd.cuh`` (wgmma, a TMA-fed
+    K/V ring; ``CHAIN_WGMMA_LAUNCHES`` counts them), every other graph an
+    fp32 SIMT kernel.
 
 And for a chained graph's gradient, ``generate_backward_source`` emits one
 source per graph and head dim around ``csrc/attention_bwd.cuh`` (the
@@ -58,8 +67,10 @@ these:
   TPP224    more than 3 roots or 8 epilogue operands
   TPP225    an op without a CUDA expression or close (registered after
             this generator was written)
-  TPP226    a chained graph with more than one base root; or, at call
-            time, a chain wider than 128
+  TPP226    a chained graph with more than one base root or with an
+            epilogue operand (its pre-reduce nodes run inside the
+            attention mainloops, which read q, k and v only); or, at call
+            time, a chain wider than 256
   TPP228    a chained backward whose k is not stored (N, K), whose dz
             graph holds no single softmax_grad of dP, or whose head dim
             the backward mainloop does not build
@@ -70,6 +81,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import struct
+from typing import NamedTuple
 
 import torch
 
@@ -80,21 +92,25 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.brgemm import _device_table, tile_order
 
 __all__ = ["FusedKernel", "ChainedBackward", "generate_source", "generate_backward_source",
-           "source_name", "check_supported", "cta_tile", "order_table", "LAUNCHES",
-           "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES", "MAX_ROOTS", "MAX_EPILOGUE_OPERANDS",
-           "MAX_CHAIN", "BACKWARD_SUFFIX"]
+           "source_name", "check_supported", "cta_tile", "order_table", "chain_plan",
+           "chain_key_range", "chain_tile_mixed", "ChainPlan", "LAUNCHES", "GRAPH_LAUNCHES",
+           "HW_PRNG_LAUNCHES", "CHAIN_WGMMA_LAUNCHES", "CHAIN_BWD_WGMMA_LAUNCHES", "MAX_ROOTS",
+           "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN", "BACKWARD_SUFFIX"]
 
 # Launches of a generated kernel since import (or since a caller reset them),
 # in all and by graph name (a chained backward under its forward graph's
-# name + BACKWARD_SUFFIX); and those that drew K13's bits (hw_prng=True on a
-# graph with a dropout_rng node).
+# name + BACKWARD_SUFFIX); those that drew K13's bits (hw_prng=True on a
+# graph with a dropout_rng node); and the chained forwards and backwards
+# that ran on the tensor cores (wgmma).
 LAUNCHES = 0
 GRAPH_LAUNCHES: dict[str, int] = {}
 HW_PRNG_LAUNCHES = 0
+CHAIN_WGMMA_LAUNCHES = 0
+CHAIN_BWD_WGMMA_LAUNCHES = 0
 
 MAX_ROOTS = 3
 MAX_EPILOGUE_OPERANDS = 8
-MAX_CHAIN = 128
+MAX_CHAIN = 256             # the widest of flash_attention.HEAD_DIMS
 BACKWARD_SUFFIX = "@bwd_flash"
 _DTYPES = (torch.float32, torch.bfloat16)
 _EP_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2}
@@ -182,6 +198,11 @@ def check_supported(graph: TppGraph) -> None:
         raise FusionLegalityError(
             f"graph {graph.name!r}: a chained root over {len(graph.base_roots)} base "
             "roots; the chained kernel streams one", code="TPP226")
+    if graph.chained_root() is not None and graph.epilogue_operands:
+        raise FusionLegalityError(
+            f"graph {graph.name!r}: a chained root with epilogue operands "
+            f"{[o.name for o in graph.epilogue_operands]}; the attention mainloops read "
+            "q, k and v only", code="TPP226")
     for nd in graph.nodes:
         if nd.op not in _EXPR and nd.op not in _RED:
             raise FusionLegalityError(
@@ -328,41 +349,131 @@ def _panel_body(graph: TppGraph) -> list[str]:
     ]
 
 
-def _chain_pre(graph: TppGraph):
-    """(C++ lines of the pre-reduce nodes on a score ``s``, the softmax
-    input's variable, the dead-tile condition): a chained graph's
-    ``chain_pre`` and ``tile_dead``."""
+def _chain_mask(graph: TppGraph):
+    """The attrs of the attn_mask node the graph's reducer reads directly
+    (what ``key_range``, ``tile_mixed`` and ``tile_dead`` are computed
+    from), or None."""
+    red = graph.reducing_node()
+    z = red.inputs[EPILOGUE_OPS[red.op].stats_input or 0]
+    by_name = {nd.name: nd for nd in graph.nodes}
+    if z in by_name and by_name[z].op == "attn_mask":
+        return by_name[z].attr_dict()
+    return None
+
+
+def _mask_ints(mask):
+    return bool(mask.get("causal", True)), int(mask.get("window", 0)), int(mask.get("offset", 0))
+
+
+def chain_key_range(mask, q0: int, rows: int, sq: int, skv: int, bn: int) -> range:
+    """The key tiles of ``bn`` keys that the query rows [q0, q0 + rows)
+    below ``sq`` of a chained graph can see, from its attn_mask node's
+    attrs ``mask`` (``_chain_mask``; None: every key): the generated
+    ``key_range``, which the wgmma mainloop visits; every tile outside
+    holds only masked pairs.  Row i sits at key position i + offset."""
+    last = min(q0 + rows, sq) - 1
+    begin, end = 0, skv
+    if mask is not None:
+        causal, win, off = _mask_ints(mask)
+        if causal:
+            end = min(skv, last + off + 1)
+        if win > 0:
+            begin = max(0, q0 + off - win + 1)
+    if last < q0 or end <= begin:
+        return range(0)
+    return range(begin // bn, -(-end // bn))
+
+
+def chain_tile_mixed(mask, m0: int, bm: int, n0: int, bn: int) -> bool:
+    """Whether the chained graph's attn_mask node (attrs ``mask``, or None)
+    drops some pair of the tile of rows [m0, m0 + bm) and keys [n0, n0 +
+    bn): the generated ``tile_mixed`` (on a tile ``key_range`` visits, one
+    the mask cuts).  Elsewhere the mainloop runs ``pre`` without that
+    mask's test."""
+    if mask is None:
+        return False
+    causal, win, off = _mask_ints(mask)
+    return bool((causal and n0 + bn - 1 > m0 + off) or (win > 0 and n0 <= m0 + bm - 1 + off - win))
+
+
+class _ChainPre(NamedTuple):
+    lines: list          # C++ lines of the pre-reduce nodes on a score s
+    z: str               # the softmax input's variable
+    dead: str            # tile_dead's condition
+    mixed: str           # tile_mixed's condition
+    key_range: list      # key_range's body
+    causal: bool
+
+
+def _chain_pre(graph: TppGraph, guard: bool = False) -> _ChainPre:
+    """A chained graph's pre-reduce nodes on a score ``s`` and its mask's
+    tile rules.  With ``guard`` the reducer's attn_mask node tests its pairs
+    only under the template flag ``MIXED`` (``pre<false>`` runs on tiles
+    where the mask keeps every pair)."""
     red = graph.reducing_node()
     idx = graph.nodes.index(red)
     em = _Emitter(graph)
     em.roots(["s"])
     em.nodes(graph.nodes[:idx])
     z = red.inputs[EPILOGUE_OPS[red.op].stats_input or 0]
-    dead = "false"
-    by_name = {nd.name: nd for nd in graph.nodes}
-    if z in by_name and by_name[z].op == "attn_mask":
+    mask = _chain_mask(graph)
+    dead, mixed, causal = "false", "false", False
+    end, begin = "p.Skv", "0"
+    if mask is not None:
         # the reducer reads the mask's fills directly: a tile every score
         # of which is masked adds nothing, and is skipped
-        at = by_name[z].attr_dict()
-        off, win = int(at.get("offset", 0)), int(at.get("window", 0))
-        parts = []
-        if at.get("causal", True):
-            parts.append(f"n0 > m0 + bm - 1 + {off}")
+        causal, win, off = _mask_ints(mask)
+        dead_parts, mixed_parts = [], []
+        if causal:
+            dead_parts.append(f"n0 > m0 + bm - 1 + {off}")
+            mixed_parts.append(f"n0 + bn - 1 > m0 + {off}")
+            end = f"min(p.Skv, last + {off} + 1)"
         if win > 0:
-            parts.append(f"n0 + bn - 1 <= m0 + {off} - {win}")
-        dead = " || ".join(parts) or "false"
-    return em.lines, em.env[z], dead
+            dead_parts.append(f"n0 + bn - 1 <= m0 + {off} - {win}")
+            mixed_parts.append(f"n0 <= m0 + bm - 1 + {off} - {win}")
+            begin = f"max(0, q0 + {off} - {win} + 1)"
+        dead = " || ".join(dead_parts) or "false"
+        mixed = " || ".join(mixed_parts) or "false"
+        if guard:
+            keep = _keep(mask)
+            head = f"    const float {em.env[z]} = "
+            em.lines = [ln.replace(f"({keep} ?", f"((!MIXED || {keep}) ?", 1)
+                        if ln.startswith(head) else ln for ln in em.lines]
+    key_range = [
+        "    const int last = min(q0 + rows, p.Sq) - 1;",
+        f"    const int end = {end}, begin = {begin};",
+        "    if (last < q0 || end <= begin) {",
+        "      lo = hi = 0;",
+        "      return;",
+        "    }",
+        "    lo = begin / bn;",
+        "    hi = (end + bn - 1) / bn;",
+    ]
+    return _ChainPre(em.lines, em.env[z], dead, mixed, key_range, causal)
 
 
 def _chain_body(graph: TppGraph) -> list[str]:
-    lines, z, dead = _chain_pre(graph)
+    c = _chain_pre(graph, guard=True)
+    params = "const attn_fwd::Params& p"
     return [
-        "  // the pre-reduce nodes on a score s at (gm, gn): the softmax_online input",
-        f"  __device__ __forceinline__ static float chain_pre(float s, {_ARGS}) {{",
-        *lines, f"    return {z};", "  }",
+        "  // the pre-reduce nodes on a score s at (gm, gn): the softmax_online input;",
+        "  // MIXED false on a tile where the mask keeps every pair (tile_mixed false)",
+        "  template <bool MIXED = true>",
+        f"  __device__ __forceinline__ static float pre(float s, int gm, int gn, {params}) {{",
+        *c.lines, f"    return {c.z};", "  }",
         "  // a score tile (rows m0.., columns n0..) whose every score is masked",
         "  __host__ __device__ static constexpr bool tile_dead(int m0, int bm, int n0, int bn) {",
-        f"    return {dead};", "  }",
+        f"    return {c.dead};", "  }",
+        "  // a score tile where the mask drops some pair (cuts it, if key_range visits it)",
+        "  __host__ __device__ static constexpr bool tile_mixed(int m0, int bm, int n0, int bn,",
+        "                                                       const attn_fwd::Params&) {",
+        f"    return {c.mixed};", "  }",
+        "  // the key tiles [lo, hi) of bn keys the query rows [q0, q0 + rows) below Sq can see",
+        "  __device__ __forceinline__ static void key_range(int q0, int rows, int bn, int& lo,",
+        f"                                                   int& hi, {params}) {{",
+        *c.key_range, "  }",
+        "  // the fixed grid takes the heaviest query tiles first under a causal mask",
+        f"  static constexpr bool CAUSAL = {_bool(c.causal)};",
     ]
 
 
@@ -429,7 +540,7 @@ def generate_backward_source(plan, head_dim: int) -> str:
             f"graph {graph.name!r}: the chained backward reads k stored (N, K) at a head "
             f"dim in {HEAD_DIMS}; k trans={plan.rhs_trans}, head dim {head_dim}", code="TPP228")
     sg = flash_node(plan)
-    lines, z, dead = _chain_pre(graph)
+    lines, z, dead = _chain_pre(graph)[:3]
     em = _Emitter(dz)
     em.roots(["s"])
     at = dz.nodes.index(sg)
@@ -526,15 +637,33 @@ class _Args(ctypes.Structure):
                 ("all_bf16", ctypes.c_int), ("out_bf16", ctypes.c_int), ("vec", ctypes.c_int),
                 ("order", ctypes.c_void_p), ("n_order", ctypes.c_int),
                 ("prng_tm", ctypes.c_int), ("prng_tn", ctypes.c_int), ("hw", ctypes.c_int),
-                ("lse", ctypes.c_void_p)]
+                ("lse", ctypes.c_void_p), ("chain_plan", ctypes.c_int * 5)]
 
 
-def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool) -> tuple[int, int]:
+def _chain_wgmma(graph: TppGraph, all_bf16: bool, head_dim: int) -> bool:
+    """The rule that runs a chained graph on the wgmma mainloop: every
+    contraction operand bf16, the lhs stored (M, K), the rhs stored (N, K)
+    and K = N2 = ``head_dim`` one of ``flash_attention.HEAD_DIMS`` (pass 0
+    when K and N2 differ)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    root = graph.base_roots[0]
+    return bool(all_bf16 and not graph.operand(root.lhs).trans and graph.operand(root.rhs).trans
+                and head_dim in HEAD_DIMS)
+
+
+def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool, head_dim: int = 0) -> tuple[int, int]:
     """The (rows, columns) of the output one K5 block computes, as the
-    templates' dispatch picks them: a chained root 64 rows, a row panel 64
-    (bf16) or 128 (SIMT) whole rows; else SIMT 128x64, bf16 16x64 for M <=
-    16, 128x128 for one root and 128x64 for two or three."""
+    templates' dispatch picks them: a chained root on the wgmma mainloop
+    (``_chain_wgmma``; ``head_dim`` = K = N2, or 0) 64 rows a warpgroup of
+    ``flash_attention.WGMMA_TILES`` (128 at D <= 64, 64 at D 128 and 256),
+    on the SIMT kernel 64 rows; a row panel 64 (bf16) or 128 (SIMT) whole
+    rows; else SIMT 128x64, bf16 16x64 for M <= 16, 128x128 for one root
+    and 128x64 for two or three."""
     if graph.chained_root() is not None:
+        if _chain_wgmma(graph, all_bf16, head_dim):
+            from repro_torch.kernels.flash_attention import WGMMA_TILES
+            return 64 * WGMMA_TILES[head_dim][0], n
         return 64, n
     if graph.reducing_node() is not None:
         return (64 if all_bf16 else 128), n
@@ -543,6 +672,77 @@ def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool) -> tuple[int, int]
     if m <= 16:
         return 16, 64
     return (128, 128) if len(graph.base_roots) == 1 else (128, 64)
+
+
+class ChainPlan(NamedTuple):
+    """How a chained graph's forward runs one call: ``variant`` "wgmma"
+    (K2's mainloop, csrc/attention_fwd.cuh) or "simt"; ``rows`` query rows
+    a block; ``bn`` keys a tile; ``stages`` tiles in the K/V ring;
+    ``smem_bytes`` of dynamic shared memory; ``grid`` of the fixed order
+    (query tiles, B1, B0); a schedule's grid has one block an order-table
+    entry instead."""
+    variant: str
+    rows: int
+    bn: int
+    stages: int
+    smem_bytes: int
+    grid: tuple
+
+    def ints(self):
+        """The 5 ints of FusedArgs::chain_plan."""
+        return (int(self.variant == "wgmma"), self.rows, self.bn, self.stages, self.smem_bytes)
+
+
+def _tma_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without the leading batch axes it shares (stride 0): the
+    tensor map of such an operand has extent 1 there."""
+    for ax in reversed(range(t.dim() - 2)):
+        if t.stride(ax) == 0:
+            t = t.select(ax, 0)
+    return t
+
+
+def chain_plan(graph: TppGraph, operands) -> ChainPlan:
+    """The plan of a chained graph's forward on ``operands`` (the graph's
+    q, k and v, shaped as ``FusedKernel`` takes them), from their dtypes,
+    shapes, strides and base pointers alone (nothing is launched): the
+    wgmma variant when every contraction operand is bf16, the lhs is stored
+    (M, K), the rhs (N, K) and K = N2 is one of
+    ``flash_attention.HEAD_DIMS``; the SIMT variant for every other graph.
+    Raises ``FusionLegalityError`` (TPP226) for a chain wider than
+    ``MAX_CHAIN`` and ``ValueError`` for a wgmma operand whose base pointer
+    or strides (but the unit last one, and those of the batch axes it
+    shares) are not multiples of 16 bytes: TMA reads its rows, and there is
+    no silent copy."""
+    from repro_torch.kernels import flash_attention as fa
+
+    chain = graph.chained_root()
+    if chain is None:
+        raise ValueError(f"graph {graph.name!r} has no chained root")
+    root = graph.base_roots[0]
+    names = {"q": root.lhs, "k": root.rhs, "v": chain.rhs}
+    ops = {role: operands[nm] for role, nm in names.items()}
+    q, v = ops["q"], ops["v"]
+    m, k = (q.shape[-1], q.shape[-2]) if graph.operand(root.lhs).trans else q.shape[-2:]
+    n, n2 = v.shape[-2:]
+    if n2 > MAX_CHAIN:
+        raise FusionLegalityError(
+            f"graph {graph.name!r}: chain width {n2}; the chained kernel takes at most "
+            f"{MAX_CHAIN}", code="TPP226")
+    batch = next((tuple(t.shape[:-2]) for t in ops.values() if t.dim() > 2), ())
+    b1 = batch[-1] if batch else 1
+    b0 = batch[0] if len(batch) == 2 else 1
+    all_bf16 = all(t.dtype == torch.bfloat16 for t in ops.values())
+    head_dim = int(n2) if k == n2 else 0
+    rows = cta_tile(graph, m, n, all_bf16, head_dim)[0]
+    if not _chain_wgmma(graph, all_bf16, head_dim):
+        return ChainPlan("simt", rows, 64, 1, 0, (-(-m // rows), 1, b0 * b1))
+    for role, t in ops.items():
+        if _rows(t) is t:       # a copy (K-major rows, 16-byte aligned) is always readable
+            fa.tma_readable(role, _tma_view(t))
+    _, bn, stages = fa.WGMMA_TILES[head_dim]
+    return ChainPlan("wgmma", rows, bn, stages, fa.wgmma_smem(head_dim, rows, bn, stages),
+                     (-(-m // rows), b1, b0))
 
 
 def order_table(gp, m: int, n: int, cta: tuple[int, int]) -> torch.Tensor:
@@ -600,6 +800,21 @@ class FusedKernel:
         # draws counter or K13 bits: a dropout_rng node that simplification kept
         self.draws = any(nd.op in HW_PRNG_OPS for nd in graph.nodes)
         self._lib = None
+        # a chained graph's plans by what decides them: each of q, k and v's
+        # shape, strides, dtype and base pointer modulo 16 bytes
+        self._plans: dict = {}
+        self._planned = ((self.roots[0].lhs, self.roots[0].rhs, self.chain.rhs)
+                         if self.chain is not None else ())
+
+    def planned(self, operands) -> ChainPlan:
+        """``chain_plan`` on ``operands``, kept for the next call whose q, k
+        and v agree in what decides it."""
+        ts = [operands[nm] for nm in self._planned]
+        key = tuple((t.shape, t.stride(), t.dtype, t.data_ptr() % 16) for t in ts)
+        found = self._plans.get(key)
+        if found is None:
+            found = self._plans[key] = chain_plan(self.graph, operands)
+        return found
 
     def library(self):
         """The built and loaded library, held after the first call so a
@@ -653,10 +868,6 @@ class FusedKernel:
                 raise FusionLegalityError(
                     f"graph {g.name!r}: chain operand {self.chain.rhs!r} has "
                     f"{nn} rows, expected N = {n}")
-            if n2 > MAX_CHAIN:
-                raise FusionLegalityError(
-                    f"graph {g.name!r}: chain width {n2}; the chained kernel takes at "
-                    f"most {MAX_CHAIN}", code="TPP226")
         batched = [tuple(operands[s.name].shape[:-2]) for s in self.contraction + self.epilogue
                    if s.kind in ("lhs", "rhs", "crhs", "tile", "mask")
                    and operands[s.name].dim() > 2]
@@ -704,13 +915,14 @@ class FusedKernel:
         ``with_lse`` (a chained graph) → (out, lse): lse (*batch, M) fp32,
         each row's log-sum-exp of its live softmax inputs (-inf for a row
         with none), the chained backward's row statistics."""
-        global LAUNCHES, HW_PRNG_LAUNCHES
+        global LAUNCHES, HW_PRNG_LAUNCHES, CHAIN_WGMMA_LAUNCHES
         g = self.graph
         if hw_prng and plan is None:
             raise ValueError(f"graph {g.name!r}: hw_prng needs a plan (its tiles key K13)")
         if with_lse and self.chain is None:
             raise ValueError(f"graph {g.name!r}: only a chained root writes row statistics")
         m, k, n, widths, n2, batch, odt = self._check(operands, out_dtype)
+        cplan = self.planned(operands) if self.chain is not None else None
         nout = len(g.outputs)
         nb = len(batch)
         nprob = 1
@@ -795,8 +1007,10 @@ class FusedKernel:
         args.hw = int(bool(hw_prng) and self.draws)
         if with_lse:
             args.lse = lse.data_ptr()
+        if cplan is not None:
+            args.chain_plan[:] = cplan.ints()
         if plan is not None:
-            cta = cta_tile(g, m, n, bool(args.all_bf16))
+            cta = (cplan.rows, n) if cplan is not None else cta_tile(g, m, n, bool(args.all_bf16))
             order = _device_table((plan, m, n, cta), lambda: order_table(plan, m, n, cta), dev)
             args.order, args.n_order = order.data_ptr(), order.shape[0]
         lib = self.library()
@@ -806,6 +1020,8 @@ class FusedKernel:
         GRAPH_LAUNCHES[g.name] = GRAPH_LAUNCHES.get(g.name, 0) + 1
         if args.hw:
             HW_PRNG_LAUNCHES += 1
+        if cplan is not None and cplan.variant == "wgmma":
+            CHAIN_WGMMA_LAUNCHES += 1
         return (out, lse) if with_lse else out
 
 
@@ -849,17 +1065,19 @@ class ChainedBackward:
         return tuple(g.reshape(t.shape) for g, t in zip(grads, (q, k, v)))
 
     def __call__(self, q, k, v, o, lse, do):
-        global LAUNCHES
+        global LAUNCHES, CHAIN_BWD_WGMMA_LAUNCHES
         from repro_torch.kernels import flash_attention as fa
 
         dt = q.dtype if k.dtype == v.dtype == q.dtype else torch.float32
         q4, k4, v4, o4, do4 = (_four(t.to(dt)) for t in (q, k, v, o, do))
         lse4 = _four(lse[..., None])[..., 0]
         d = q4.shape[-1]
-        (dq, dk, dv), _ = fa.attention_backward(lambda: self.library(d), self.name, q4, k4, v4,
-                                                o4, lse4, do4)
+        (dq, dk, dv), variant = fa.attention_backward(lambda: self.library(d), self.name, q4, k4,
+                                                      v4, o4, lse4, do4)
         LAUNCHES += 1
         GRAPH_LAUNCHES[self.name] = GRAPH_LAUNCHES.get(self.name, 0) + 1
+        if variant == "wgmma":
+            CHAIN_BWD_WGMMA_LAUNCHES += 1
         return tuple(g.reshape(t.shape) for g, t in zip((dq, dk, dv), (q, k, v)))
 
 

@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gemm-tiles   # only: K1's wgmma tile choices, timed
 
 Phases, each of which must pass:
   1. print the card's name and power limit (nvidia-smi);
@@ -14,8 +15,15 @@ Phases, each of which must pass:
      K6, chained-forward (minicpm-2b's, bert-large's and gpt-j-6b's
      attention graphs, ``csrc/attention_fwd.cuh`` on the generated epilogue)
      and chained-backward instantiation's ``-Xptxas -v`` figures, shared
-     memory and (with ``cuobjdump``) HGMMA instructions;
-  3. hold each kernel (K1 GEMM, K1 on transposed operands, K2 flash
+     memory and (with ``cuobjdump``) HGMMA instructions, and the same for
+     each instantiation of the GEMM mainloop (``csrc/gemm_mainloop.cuh``:
+     K1's wgmma and wgmma_decode kernels, K11's wgmma kernel);
+  3. hold each kernel (K1 GEMM on its wgmma variants, the WMMA variant
+     it replaced timed beside it at the prefill and decode rows, device
+     times without the host's launch cost, all four transpositions, ragged
+     TMA-aligned shapes, bias with each activation, fp32 out, rows of M 3 =
+     M 8 = M 16 bitwise, two calls bitwise, the host's microseconds a
+     decode call; K1 on transposed operands, K2 flash
      attention, K6 its backward at D 16 to 256, GQA, windows, Sq < Skv,
      ragged, bidirectional and fully masked rows, two calls bitwise equal;
      K3 flash decode and K4 paged decode, also at gpt-j-6b's D 256; K5 fused
@@ -36,8 +44,9 @@ Phases, each of which must pass:
      products; K9 at qwen3-moe's expert widths; K7 Listing 6 at
      bert-large's output layers and N 5120, beside K5's keep-mask graph;
      K2 and K6 without a causal mask at bert-large's shape; K11 Listing 1 at
-     benchmarks/bench_gemm.py's seven shapes under five spec strings, each
-     bitwise equal to "bca"'s, K1 on the flat product beside it; K1 under
+     benchmarks/bench_gemm.py's seven shapes under five spec strings on its
+     wgmma variant, each bitwise equal to "bca"'s, K1 on the flat product
+     and (at 2048^3) the WMMA variant beside it; K1 under
      those spec strings at llama2-13b's 5120x5120 projection, bitwise equal
      to its fixed grid; K12 at ResNet-50's 1x1 layers) against its
      plain PyTorch version on the card, at the main paths' shapes plus GQA,
@@ -54,8 +63,9 @@ Phases, each of which must pass:
      seed, batch 4, prompt 512, 16 new tokens) through ``generate_loop`` with
      every launch counter set to 0 just before and read just after: K1, K2
      and K3 must have launched, K2 once a layer and all on its bf16 wgmma
-     kernel (``ATTENTION_WGMMA_LAUNCHES``, as in phases 6, 9 and 10b), the
-     logits must be finite;
+     kernel (``ATTENTION_WGMMA_LAUNCHES``, as in phases 6, 9 and 10b), every
+     K1 launch on ``wgmma`` or ``wgmma_decode`` and none on ``wmma`` (as in
+     phases 6, 7, 7b, 7f and 9 to 10c), the logits must be finite;
   6. serve the same model through the continuous-batching engine (8 slots,
      16-token pages, 16 ragged requests, greedy and sampled): paged logits
      must equal dense ones, every request must finish with ``validate()``
@@ -291,6 +301,37 @@ def time_ms(torch, fn, warmup=3, reps=10):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps=20):
+    """Device milliseconds per call of ``fn``: ``reps`` calls enqueued
+    behind a kernel that sleeps longer than the host takes to enqueue them,
+    so the events time the kernels alone and not the host's launch cost
+    (``time_ms`` of one call includes it while the card waits for it)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 400_000)      # ~0.2 ms of cycles a call at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps=20):
+    """Host microseconds per call of ``fn`` over ``reps`` calls back to
+    back (the card synchronised before and after, not between)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def compare(torch, got, want, rtol, atol):
     """→ (max abs error, within tolerance); tuples of tensors are compared
     as one flat tensor."""
@@ -371,31 +412,76 @@ class Bench:
 
 def gemm_cases(torch, bench, ref, brgemm):
     """K1 at the main path's projections of one llama2-13b layer (prefill
-    M = 4 x 512, decode M = 4), plus ragged and fp32 checks."""
+    M = 4 x 512, decode M = 4; the engine's decode, M 8, beside them), each
+    on its wgmma variant, with the WMMA variant it replaced timed on the
+    same operands ("was") and each layer's device time without the host's
+    launch cost (``device_ms``, K1 and cuBLAS); the engine's logits; then
+    checks: all four transpositions on wgmma and wgmma_decode, ragged but
+    TMA-aligned shapes, bias with each activation, bf16 in with fp32 out,
+    the rows of an M 3 product bitwise equal to the same rows at M 8 and
+    M 16, two calls bitwise equal, operands TMA cannot read on wmma and fp32
+    on simt; and K1's host microseconds per decode-shaped call."""
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def operands(m, k, n, dtype, bias=False):
-        a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-        b = (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
+    def operands(m, k, n, dtype, bias=False, ta=False, tb=False):
+        a = torch.randn(k, m, generator=gen, device=dev).to(dtype).T if ta else \
+            torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        b = (torch.randn(n, k, generator=gen, device=dev) / math.sqrt(k)).to(dtype).T if tb else \
+            (torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)).to(dtype)
         c = torch.randn(n, generator=gen, device=dev).to(dtype) if bias else None
         return a, b, c
 
-    d, ff = 5120, 13824
-    # (K, N, activation, occurrences per layer): wq wk wv wo | wg (silu) | wu | wd
-    layer = [(d, d, None, 4), (d, ff, "silu", 1), (d, ff, None, 1), (ff, d, None, 1)]
+    def on(variant, label, a, b, *, bias=None, act=None, out=None):
+        """One check of K1 against its plain version, on ``variant``."""
+        check(brgemm.variant_of(a, b) == variant, f"K1 {label}: not on {variant}")
+        counter = brgemm.VARIANT_COUNTERS[variant]
+        before = getattr(brgemm, counter)
+        m, k = a.shape
+        n = b.shape[1]
+        out_size = (out or a.dtype).itemsize
+        got = bench.run("gemm", f"check {variant} {label}",
+                        lambda: brgemm.matmul(a, b, bias=bias, activation=act, out_dtype=out),
+                        lambda: ref.matmul_ref(a, b, bias=bias, activation=act, out_dtype=out),
+                        None, flops=2 * m * n * k,
+                        nbytes=a.element_size() * (m * k + k * n) + m * n * out_size,
+                        dtype="bfloat16" if a.dtype == torch.bfloat16 else "float32",
+                        tol_kind="gemm", timed=False)
+        check(getattr(brgemm, counter) == before + 1, f"K1 {label}: {variant} did not launch")
+        return got
+
     # prefill and generate_loop decode make up K1's row; the engine's decode
     # (M 8) is timed beside them
+    layers = {}
     for m, phase_name, main in ((2048, "prefill", True), (4, "decode", True),
                                 (8, "engine decode", False)):
-        for k, n, act, count in layer:
+        tot = dict.fromkeys(("ms", "device_ms", "wmma_ms", "wmma_device_ms", "library_ms",
+                             "library_device_ms"), 0.0)
+        for k, n, act, count in llama_layer():
             a, b, _ = operands(m, k, n, torch.bfloat16)
-            bench.run("gemm", f"{phase_name} {m}x{k}x{n} {act or ''}",
-                      lambda: brgemm.matmul(a, b, activation=act),
-                      lambda: ref.matmul_ref(a, b, activation=act),
-                      lambda: torch.matmul(a, b),
+            check(brgemm.variant_of(a, b) == ("wgmma" if m > 16 else "wgmma_decode"),
+                  f"K1 {phase_name} {m}x{k}x{n} is not on its wgmma variant")
+            run = lambda: brgemm.matmul(a, b, activation=act)
+            was = lambda: brgemm.matmul(a, b, activation=act, variant="wmma")
+            lib = lambda: torch.matmul(a, b)
+            bench.run("gemm", f"{phase_name} {m}x{k}x{n} {act or ''}", run,
+                      lambda: ref.matmul_ref(a, b, activation=act), lib,
                       flops=2 * m * n * k, nbytes=2 * (m * k + k * n + m * n),
                       dtype="bfloat16", tol_kind="gemm", weight=count if main else 0)
+            row = bench.cases["gemm"][-1]
+            tot["ms"] += count * row["ms"]
+            tot["library_ms"] += count * row["library_ms"]
+            tot["device_ms"] += count * device_ms(torch, run)
+            tot["wmma_ms"] += count * time_ms(torch, was)
+            tot["wmma_device_ms"] += count * device_ms(torch, was)
+            tot["library_device_ms"] += count * device_ms(torch, lib)
+        layers[phase_name] = tot
+        print(f"    K1 {phase_name} layer (M {m}, 7 projections): {tot['ms']:.4f} ms lone calls,"
+              f" {tot['device_ms']:.4f} ms on the device; was (wmma) {tot['wmma_ms']:.4f} /"
+              f" {tot['wmma_device_ms']:.4f}; cuBLAS {tot['library_ms']:.4f} /"
+              f" {tot['library_device_ms']:.4f}", flush=True)
+    bench.extra["gemm_layer_ms"] = layers
+    d = 5120
     # the engine's logits: bf16 operands, fp32 output (library: bf16 out)
     m, k, n = 8, d, 32000
     a, b, _ = operands(m, k, n, torch.bfloat16)
@@ -405,25 +491,62 @@ def gemm_cases(torch, bench, ref, brgemm):
               lambda: torch.matmul(a, b),
               flops=2 * m * n * k, nbytes=2 * (m * k + k * n) + 4 * m * n,
               dtype="bfloat16", tol_kind="gemm")
+    bench.extra["gemm_logits_device_ms"] = device_ms(
+        torch, lambda: brgemm.matmul(a, b, out_dtype=torch.float32))
+    # every transposition on both wgmma variants
+    for ta in (False, True):
+        for tb in (False, True):
+            for variant, (m, k, n) in (("wgmma", (256, 192, 512)), ("wgmma_decode", (8, 512, 384))):
+                a, b, _ = operands(m, k, n, torch.bfloat16, ta=ta, tb=tb)
+                on(variant, f"{m}x{k}x{n} trans_a {ta} trans_b {tb}", a, b)
+    # ragged but TMA-aligned edges in M, N and K
+    for variant, (m, k, n) in (("wgmma", (200, 136, 520)), ("wgmma", (2100, 5120, 136)),
+                               ("wgmma_decode", (5, 136, 520))):
+        a, b, _ = operands(m, k, n, torch.bfloat16)
+        on(variant, f"ragged {m}x{k}x{n}", a, b)
+    # bias with each activation, and bf16 in with fp32 out
+    for act in (None, "relu", "gelu", "silu", "sigmoid"):
+        for variant, m in (("wgmma", 300), ("wgmma_decode", 7)):
+            a, b, c = operands(m, 256, 384, torch.bfloat16, bias=True)
+            on(variant, f"{m}x256x384 bias {act}", a, b, bias=c, act=act)
+    for variant, m in (("wgmma", 300), ("wgmma_decode", 16)):
+        a, b, _ = operands(m, 256, 384, torch.bfloat16)
+        on(variant, f"{m}x256x384 fp32 out", a, b, out=torch.float32)
+    # a row of C has the same bits at M 3, 8 and 16 (the split of K is fixed
+    # from (K, N)), and two calls give the same bits
+    for k, n, act in ((d, d, None), (d, 13824, "silu"), (13824, d, None)):
+        a16, b, _ = operands(16, k, n, torch.bfloat16)
+        c16 = brgemm.matmul(a16, b, activation=act)
+        c8 = brgemm.matmul(a16[:8], b, activation=act)
+        c3 = brgemm.matmul(a16[:3], b, activation=act)
+        again = brgemm.matmul(a16, b, activation=act)
+        torch.cuda.synchronize()
+        check(torch.equal(c16[:3], c3) and torch.equal(c8[:3], c3),
+              f"K1 wgmma_decode {k}x{n}: rows at M 3, 8 and 16 differ")
+        check(torch.equal(c16, again), f"K1 wgmma_decode {k}x{n}: two calls differ")
+    a, b, _ = operands(2048, d, d, torch.bfloat16)
+    check(torch.equal(brgemm.matmul(a, b), brgemm.matmul(a, b)), "K1 wgmma: two calls differ")
+    print("    K1: rows of M 3 = M 8 = M 16 bitwise at 5120x5120, 5120x13824 silu and 13824x5120;"
+          " two calls bitwise equal (wgmma_decode, wgmma)", flush=True)
+    # operands TMA cannot read run on wmma, fp32 on simt
     for m, k, n, act, dt in ((37, 200, 100, "gelu", torch.bfloat16),
                              (16, 96, 130, "relu", torch.bfloat16),
                              (70, 300, 96, "sigmoid", torch.float32),
                              (16, 64, 128, "silu", torch.float32)):
         a, b, c = operands(m, k, n, dt, bias=True)
-        name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        bench.run("gemm", f"check {m}x{k}x{n} bias {act} {name}",
-                  lambda: brgemm.matmul(a, b, bias=c, activation=act),
-                  lambda: ref.matmul_ref(a, b, bias=c, activation=act), None,
-                  flops=2 * m * n * k, nbytes=a.element_size() * (m * k + k * n + m * n),
-                  dtype=name, tol_kind="gemm", timed=False)
+        on("wmma" if dt == torch.bfloat16 else "simt", f"{m}x{k}x{n} bias {act}", a, b, bias=c,
+           act=act)
     # bf16 in, fp32 out, unaligned leading dimension (scalar loads)
-    m, k, n = 48, 77, 64
-    a, b, _ = operands(m, k, n, torch.bfloat16)
-    bench.run("gemm", f"check {m}x{k}x{n} fp32 out",
-              lambda: brgemm.matmul(a, b, out_dtype=torch.float32),
-              lambda: ref.matmul_ref(a, b, out_dtype=torch.float32), None,
-              flops=2 * m * n * k, nbytes=2 * (m * k + k * n) + 4 * m * n,
-              dtype="bfloat16", tol_kind="gemm", timed=False)
+    a, b, _ = operands(48, 77, 64, torch.bfloat16)
+    on("wmma", "48x77x64 fp32 out", a, b, out=torch.float32)
+    # the host's cost of one decode-shaped call
+    a, b, _ = operands(4, d, d, torch.bfloat16)
+    host = {"k1_wgmma_decode": host_us(torch, lambda: brgemm.matmul(a, b)),
+            "k1_wmma": host_us(torch, lambda: brgemm.matmul(a, b, variant="wmma")),
+            "torch_matmul": host_us(torch, lambda: torch.matmul(a, b))}
+    bench.extra["gemm_host_us_per_decode_call"] = host
+    print(f"    K1 host us a decode-shaped call (4x5120x5120, 20 back to back): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()), flush=True)
 
 
 def gemm_training_cases(torch, bench, ref, brgemm):
@@ -459,6 +582,7 @@ def gemm_training_cases(torch, bench, ref, brgemm):
     # stored: no operand is transposed, so they are K1's plain layout.
     for k, n, act in ((d, d, None), (d, ff, "silu"), (d, ff, None), (ff, d, None)):
         x, w = randn(t, k), randn(k, n, scale=k ** -0.5)
+        check(brgemm.variant_of(x, w) == "wgmma", f"K1 train fwd {t}x{k}x{n}: not on wgmma")
         bench.run("gemm", f"train fwd {t}x{k}x{n} {act or ''}",
                   lambda: brgemm.matmul(x, w, activation=act),
                   lambda: ref.matmul_ref(x, w, activation=act),
@@ -466,6 +590,7 @@ def gemm_training_cases(torch, bench, ref, brgemm):
                   nbytes=2 * (t * k + k * n + t * n), dtype="bfloat16", tol_kind="gemm")
     del x, w
     dl, emb = randn(chunk, v, scale=1e-3), randn(v, d, scale=0.02)
+    check(brgemm.variant_of(dl, emb) == "wgmma", "K1 dX logits: not on wgmma")
     bench.run("gemm", "dX logits (2048x122880)·(122880x2304)",
               lambda: brgemm.matmul(dl, emb), lambda: ref.matmul_ref(dl, emb),
               lambda: torch.matmul(dl, emb), flops=2 * chunk * v * d,
@@ -475,6 +600,8 @@ def gemm_training_cases(torch, bench, ref, brgemm):
         m, k = a.shape
         n = b.shape[1]
         dt = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+        want = "wgmma" if weight else ("simt" if dt == "float32" else "wmma")
+        check(brgemm.variant_of(a, b) == want, f"K1 {label}: not on {want}")
         bench.run("gemm_transposed", label,
                   lambda: brgemm.matmul(a, b, out_dtype=out),
                   lambda: ref.matmul_ref(a, b, out_dtype=out),
@@ -560,6 +687,46 @@ def k2_build_report(build, fa, log):
         print(f"  K2 {name}: {row['ptxas']}; dynamic smem {row['dynamic_smem_bytes']} bytes"
               f" ({row['rows']} rows, BN {row['bn']}, {row['stages']} stages)"
               + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
+    return report
+
+
+def gemm_build_report(build, logs):
+    """Print the ``-Xptxas -v`` figures of each instantiation of the GEMM
+    mainloop (csrc/gemm_mainloop.cuh: K1's wgmma and wgmma_decode kernels,
+    plain and transposed, and K11's wgmma kernel by tile), its CTA shape,
+    dynamic shared memory and, where ``cuobjdump`` is on the path, its HGMMA
+    instructions; → those figures by kernel."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    report = {}
+    for lib in ("gemm", "brgemm_blocked"):
+        rows = {}
+        for mangled, figures in ptxas_by_kernel(logs[lib]).items():
+            found = re.search(r"((?:gemm_transposed_bf16|gemm_bf16|brgemm_blocked_bf16)_wgmma"
+                              r"(?:_decode)?)IN7gemm_ml6ConfigILi(\d+)ELi(\d+)ELi(\d+)"
+                              r"ELb([01])ELb([01])EE(?:ELb([01])E)?", mangled)
+            if not found:
+                continue
+            kernel, wg, bn, stages, a_mn, b_mn, paired = found.groups()
+            wg, bn, stages = int(wg), int(bn), int(stages)
+            smem = 1024 + stages * (64 * wg + bn) * 128 + 16 * stages + 16
+            rows[f"{kernel}<{64 * wg}x{bn}, {stages} stages, A_MN {a_mn}, B_MN {b_mn}"
+                 + (", paired" if paired == "1" else "") + ">"] = {
+                "mangled": mangled, "ptxas": figures, "dynamic_smem_bytes": smem,
+                "threads": 128 * wg + 32}
+        if Path(tool).exists():
+            sass = subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
+                                  text=True, timeout=300).stdout
+            for part in sass.split("Function : ")[1:]:
+                for row in rows.values():
+                    if row["mangled"] == part.split()[0]:
+                        row["hgmma"] = part.count("HGMMA")
+        for name, row in sorted(rows.items()):
+            print(f"  {lib} {name}: {row['ptxas']}; {row['threads']} threads, dynamic smem"
+                  f" {row['dynamic_smem_bytes']} bytes"
+                  + (f"; {row['hgmma']} HGMMA instructions" if "hgmma" in row else ""), flush=True)
+        report[lib] = rows
     return report
 
 
@@ -1193,9 +1360,14 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
     output bitwise equal to "bca"'s and within tolerance of
     ``brgemm_blocked_ref``; "bca" is K11's row, timed beside the plain
     version, ``torch.matmul`` on the flat matrices (the library) and K1 on
-    the same flat product; every spec's time kept.  Then fp32 (the SIMT
-    variant) at 1024^3, and the test shapes (8x16 and 4x8 A blocks, fp32 and
-    bf16 in SIMT; 16x16 and 32x16 in WMMA, one with an fp32 output), each
+    the same flat product, every launch on the wgmma variant (two blocks of
+    a block row a CTA where the table lists them together,
+    ``brgemm.blocked_pairs``; one block a CTA timed beside it, bitwise
+    equal); every spec's time kept, and at 2048^3 the WMMA variant it
+    replaced timed on the same blocks ("was").  Then fp32 (the SIMT variant) at 1024^3, and the
+    test shapes (8x16 and 4x8 A blocks, fp32 and bf16 in SIMT; 16x16 and
+    32x16 in WMMA, one with an fp32 output; 64- and 128-row blocks with bk
+    16 to 128 and bn 48 to 256 on wgmma, one with an fp32 output), each
     checking that its variant launched."""
     gen = torch.Generator(device="cuda").manual_seed(18)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1211,6 +1383,8 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
         flops, nbytes = 2 * m * n * k, 2 * (m * k + k * n + m * n)
         kb_outer = 16 if kb % 16 == 0 else kb
         base, times = None, {}
+        before = (brgemm.BLOCKED_WGMMA_LAUNCHES, brgemm.BLOCKED_WMMA_LAUNCHES,
+                  brgemm.BLOCKED_SIMT_LAUNCHES)
         for spec, steps in spec_strings(kb_outer):
             run = lambda: brgemm.brgemm_blocked(a, b, spec_string=spec, k_step=k_step,
                                                 block_steps=steps)
@@ -1224,7 +1398,18 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
             else:
                 check(torch.equal(got, base), f"K11 {shape}: {spec} {steps} differs from 'bca'")
                 times[f"{spec} {steps or ''}".strip()] = time_ms(torch, run, reps=5)
+        check(brgemm.BLOCKED_WGMMA_LAUNCHES > before[0]
+              and (brgemm.BLOCKED_WMMA_LAUNCHES, brgemm.BLOCKED_SIMT_LAUNCHES) == before[1:],
+              f"K11 {shape}: not every launch ran on the wgmma variant")
+        alone = lambda: brgemm.brgemm_blocked(a, b, k_step=k_step, pairs=False)
+        check(torch.equal(alone(), base), f"K11 {shape}: one block a CTA differs from pairs")
+        times["bca one block a CTA"] = time_ms(torch, alone)
         k1_ms[shape] = time_ms(torch, lambda: brgemm.matmul(flat_a, flat_b))
+        if shape == "2048x2048x2048":
+            was = lambda: brgemm.brgemm_blocked(a, b, k_step=k_step, variant="wmma")
+            check(torch.equal(was(), base) or compare(torch, was(), base, 1e-2, 1e-2)[1],
+                  "K11 wmma disagrees with wgmma")
+            times["bca (wmma, was)"] = time_ms(torch, was)
         by_spec[shape] = times
         print(f"    {shape}: K11 by spec {', '.join(f'{s} {t:.4f}' for s, t in times.items())} ms"
               f" (bitwise equal); K1 on the flat product {k1_ms[shape]:.4f} ms", flush=True)
@@ -1244,13 +1429,21 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
             ("check bf16 A 16x16 B 16x32 fp32 out", (4, 6, 16, 16), (3, 6, 16, 32), 2, bf16, f32,
              "Bca", "wmma", False),
             ("check bf16 A 32x16 B 16x48 k_step 1 bf16 out", (3, 5, 32, 16), (2, 5, 16, 48), 1, bf16,
-             None, "cBa", "wmma", False)):
+             None, "cBa", "wmma", False),
+            ("check bf16 A 128x64 B 64x128 fp32 out", (3, 5, 128, 64), (2, 5, 64, 128), 1, bf16,
+             f32, "cba", "wgmma", False),
+            ("check bf16 A 64x16 B 16x48 k_step 5", (3, 5, 64, 16), (2, 5, 16, 48), 5, bf16, None,
+             "bca", "wgmma", False),
+            ("check bf16 A 64x128 B 128x80", (2, 3, 64, 128), (3, 3, 128, 80), 1, bf16, None,
+             "Bca", "wgmma", False),
+            ("check bf16 A 128x32 B 32x256 bBcCa", (4, 6, 128, 32), (6, 6, 32, 256), 2, bf16, None,
+             "bBcCa", "wgmma", False)):
         a = torch.randn(*a_shape, generator=gen, device="cuda").to(dt)
         b = torch.randn(*b_shape, generator=gen, device="cuda").to(dt)
         steps = {"b": (2,), "c": (3,)} if spec == "bBcCa" else None
         m, k, n = a_shape[0] * a_shape[2], a_shape[1] * a_shape[3], b_shape[0] * b_shape[3]
         name = "bfloat16" if (out or dt) == bf16 else "float32"
-        before = brgemm.BLOCKED_WMMA_LAUNCHES if variant == "wmma" else brgemm.BLOCKED_SIMT_LAUNCHES
+        before = getattr(brgemm, brgemm.BLOCKED_COUNTERS[variant])
         library = None
         if timed:     # torch.matmul on the same flat product, fp32 (no TF32)
             flat_a = a.permute(0, 2, 1, 3).reshape(m, k)
@@ -1263,17 +1456,18 @@ def brgemm_blocked_cases(torch, bench, ref, brgemm):
                   flops=2 * m * n * k,
                   nbytes=a.element_size() * (m * k + k * n) + m * n * (out or dt).itemsize,
                   dtype=name, tol_kind="gemm", timed=timed)
-        after = brgemm.BLOCKED_WMMA_LAUNCHES if variant == "wmma" else brgemm.BLOCKED_SIMT_LAUNCHES
+        after = getattr(brgemm, brgemm.BLOCKED_COUNTERS[variant])
         check(after > before, f"K11 {label}: the {variant} variant did not launch")
 
 
 def gemm_spec_cases(torch, bench, ref, brgemm):
     """K1 under spec strings at llama2-13b's 5120x5120 projection at M 2048
-    (bf16, tiles = K1's 128x128 CTA tile and K 32, so that a plan block is a
-    CTA tile), ``spec_strings``' specs plus "bca" on ``pick_tiles``' 512x512
-    blocks: every output bitwise equal to the fixed grid's, each spec's time
-    beside the fixed grid's.  Then bitwise checks on the decode tile (M 16)
-    and the fp32 tile."""
+    (bf16, tiles = the wgmma variant's 128x128 CTA tile and K 32, so that a
+    plan block is a CTA tile), ``spec_strings``' specs plus "bca" on
+    ``pick_tiles``' 512x512 blocks: every output bitwise equal to the fixed
+    grid's (whose raster is grouped), each spec's time beside the fixed
+    grid's.  Then bitwise checks on the decode tile (M 16, wgmma_decode) and
+    the fp32 tile."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     m, k, n = 2048, 5120, 5120
     a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1301,6 +1495,100 @@ def gemm_spec_cases(torch, bench, ref, brgemm):
         b = torch.randn(k, n, generator=gen, device="cuda").to(dt)
         check(torch.equal(brgemm.matmul(a, b, spec_string=spec, tiles=tiles), brgemm.matmul(a, b)),
               f"K1 {m}x{k}x{n} {dt} under {spec} differs from the fixed grid")
+
+
+# Tile choices of K1's wgmma variants that ``--gemm-tiles`` times beside
+# the default build (csrc/gemm.cu's K1_BN, K1_STAGES, K1_DECODE_STAGES).
+GEMM_TILE_CHOICES = (
+    {"K1_BN": 128, "K1_STAGES": 3, "K1_CTAS": 2, "K1_GROUP": 8},     # the default build
+    {"K1_BN": 256, "K1_STAGES": 4, "K1_CTAS": 1, "K1_GROUP": 1},
+    {"K1_BN": 256, "K1_STAGES": 4, "K1_CTAS": 1, "K1_GROUP": 8},
+    {"K1_BN": 128, "K1_STAGES": 6, "K1_CTAS": 1, "K1_GROUP": 1},
+    {"K1_BN": 128, "K1_STAGES": 7, "K1_CTAS": 1, "K1_GROUP": 8},
+    {"K1_BN": 128, "K1_STAGES": 3, "K1_CTAS": 2, "K1_GROUP": 1},
+    {"K1_BN": 128, "K1_STAGES": 3, "K1_CTAS": 2, "K1_GROUP": 16},
+    {"K1_WG": 4, "K1_BN": 128, "K1_STAGES": 4, "K1_CTAS": 1, "K1_GROUP": 8},
+    {"K1_WG": 3, "K1_BN": 128, "K1_STAGES": 5, "K1_CTAS": 1, "K1_GROUP": 8},
+    {"K1_WG": 4, "K1_BN": 64, "K1_STAGES": 5, "K1_CTAS": 1, "K1_GROUP": 8},
+)
+
+
+def llama_layer(d=5120, ff=13824):
+    """(K, N, activation, occurrences) of one llama2-13b layer's projections:
+    wq wk wv wo | wg (silu) | wu | wd."""
+    return [(d, d, None, 4), (d, ff, "silu", 1), (d, ff, None, 1), (ff, d, None, 1)]
+
+
+def gemm_tile_sweep(torch, build, brgemm):
+    """K1's wgmma tile choices (``GEMM_TILE_CHOICES``, each a build of
+    csrc/gemm.cu with -D macros) at one llama2-13b layer's 7 projections,
+    prefill (M 2048) and decode (M 4): device ms per layer (``device_ms``)
+    and one lone call's ms as phase 3 times it, each choice checked at
+    ragged and transposed shapes against the plain product and compared
+    bit for bit with the default build; plus the host's cost of one
+    decode-shaped call and of its parts.  → the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    libs = build.load_variants("gemm", list(GEMM_TILE_CHOICES))
+    saved = build._LIBS.get("gemm")
+    rows = []
+    ops = {}
+    for m in (2048, 4):
+        ops[m] = [(torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16),
+                   (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16),
+                   act, count) for k, n, act, count in llama_layer()]
+    # checks: ragged and transposed products against the plain version, and
+    # each choice's bits against the default build's
+    checks = []
+    for m, k, n, ta, tb in ((2100, 136, 5120, False, False), (200, 136, 520, False, False),
+                            (256, 192, 512, True, False), (256, 192, 512, False, True),
+                            (384, 192, 512, True, True), (2048, 5120, 5120, False, False)):
+        a = torch.randn(k, m, generator=gen, device="cuda").to(torch.bfloat16).T if ta else \
+            torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(n, k, generator=gen, device="cuda").to(torch.bfloat16).T if tb else \
+            torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+        checks.append((f"{m}x{k}x{n} trans {ta} {tb}", a, b))
+    first = None
+    try:
+        for choice, lib in zip(GEMM_TILE_CHOICES, libs):
+            build._LIBS["gemm"] = lib
+            outs = [brgemm.matmul(a, b) for _, a, b in checks]
+            torch.cuda.synchronize()
+            for (label, a, b), got in zip(checks, outs):
+                err, ok = compare(torch, got, a.float() @ b.float(), 1e-2, 1e-2)
+                check(ok, f"K1 tiles {choice} {label}: max abs err {err:.3e}")
+            if first is None:
+                first = outs
+            row = {"tiles": choice,
+                   "bits_equal_to_default": all(torch.equal(x, y) for x, y in zip(outs, first))}
+            for m, label in ((2048, "prefill"), (4, "decode")):
+                dev = lone = 0.0
+                for a, b, act, count in ops[m]:
+                    fn = lambda: brgemm.matmul(a, b, activation=act)
+                    dev += count * device_ms(torch, fn)
+                    lone += count * time_ms(torch, fn)
+                row[f"{label}_device_ms"], row[f"{label}_lone_ms"] = dev, lone
+            rows.append(row)
+            print(f"  K1 tiles {choice}: prefill layer {row['prefill_device_ms']:.4f} ms on the"
+                  f" device ({row['prefill_lone_ms']:.4f} lone calls), decode layer"
+                  f" {row['decode_device_ms']:.4f} ({row['decode_lone_ms']:.4f}); bits equal to"
+                  f" the default build: {row['bits_equal_to_default']}", flush=True)
+    finally:
+        if saved is not None:
+            build._LIBS["gemm"] = saved
+        else:
+            build._LIBS.pop("gemm", None)
+    a, b, _, _ = ops[4][0]
+    dev = a.device
+    parts = {"matmul wgmma_decode": lambda: brgemm.matmul(a, b),
+             "matmul wmma": lambda: brgemm.matmul(a, b, variant="wmma"),
+             "torch.matmul": lambda: torch.matmul(a, b),
+             "torch.empty": lambda: torch.empty(4, 5120, dtype=torch.bfloat16, device=dev),
+             "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "variant_of": lambda: brgemm.variant_of(a, b)}
+    host = {k: host_us(torch, f) for k, f in parts.items()}
+    print("  host us a call (20 back to back): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in host.items()), flush=True)
+    return {"choices": rows, "host_us": host}
 
 
 # ResNet-50's 1x1 layers (He et al., arXiv:1512.03385, Table 1): (H = W of
@@ -2431,6 +2719,7 @@ def full_width(torch, counters, peaks, cfg, params):
     counters.reset()
     out, total_ms = serve(new)        # the main path
     launches = counters.read()
+    k1_on_wgmma(launches, "phase 5 generate_loop")
     peak = torch.cuda.max_memory_allocated()
     check(out.shape == (batch, prompt_len + new), f"generate_loop output {tuple(out.shape)}")
     check(torch.equal(out[:, :prompt_len], prompts), "generate_loop changed the prompt")
@@ -2526,6 +2815,7 @@ def gptj_engine(torch, counters):
     counters.reset()
     eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"])
     launches = counters.read()
+    k1_on_wgmma(launches, "phase 7f gpt-j-6b engine")
     steps = eng.decode_steps
     tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
     for uid, r in enumerate(reqs):
@@ -2690,6 +2980,7 @@ def engine_full_width(torch, counters, peaks, cfg, params):
     eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer,
                          logits=rec8)
     launches = counters.read()                  # the main path's run
+    k1_on_wgmma(launches, "phase 6 engine")
     peak = torch.cuda.max_memory_allocated()
     tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
     for uid, r in enumerate(reqs):
@@ -2806,6 +3097,7 @@ def fused_full_width(torch, counters, peaks, cfg, params, unfused):
     counters.reset()
     out, total_ms = serve(fcfg, new)          # the fused main path
     launches = counters.read()
+    k1_on_wgmma(launches, "phase 7 fused generate_loop")
     by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     steps = launches["flash_decode"] // L
@@ -2856,6 +3148,7 @@ def fused_engine(torch, counters, cfg, params):
     counters.reset()
     eng, wall_ms = drain(torch, fcfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer)
     launches = counters.read()                  # the fused engine's run
+    k1_on_wgmma(launches, "phase 7 fused engine")
     prefills = sum(1 for sp in tracer.spans() if sp.name == "engine.prefill")
     steps = eng.decode_steps
     tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
@@ -2939,8 +3232,9 @@ def mamba_full_width(torch, counters, peaks):
     def launched(n, what, calls):
         want = {"gemm": (4 * L + 1) * calls, "mamba_scan": L * calls}
         for name, count in n.items():
-            check(count == want.get(name, 0),
+            check(name in SUB_COUNTS or count == want.get(name, 0),
                   f"{name} launched {count} times in {what}, want {want.get(name, 0)}")
+        k1_on_wgmma(n, what)
 
     batch, prompt_len, new = 4, 512, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2997,6 +3291,7 @@ def mamba_full_width(torch, counters, peaks):
     counters.reset()
     out, total_ms = serve(new)        # the main path
     launches = counters.read()
+    k1_on_wgmma(launches, "phase 7b generate_loop")
     peak = torch.cuda.max_memory_allocated()
     launched(launches, "generate_loop (1 prefill, 15 decode steps)", new)
     check(out.shape == (batch, prompt_len + new), f"generate_loop output {tuple(out.shape)}")
@@ -3036,6 +3331,7 @@ def mamba_full_width(torch, counters, peaks):
     counters.reset()
     eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer)
     elaunches = counters.read()                 # the engine's run
+    k1_on_wgmma(elaunches, "phase 7b engine")
     epeak = torch.cuda.max_memory_allocated()
     spans = tracer.spans()
     prefill_spans = [sp.duration * 1e3 for sp in spans if sp.name == "engine.prefill"]
@@ -3127,7 +3423,7 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     y = linear(layers["W_down"], h)
     torch.cuda.synchronize()
     launches = counters.read()
-    check(launches["block_spmm"] == 2 and sum(launches.values()) == 2,
+    check(launches["block_spmm"] == 2 and kernel_total(launches) == 2,
           f"the sparse FFN launched {launches}, want K10 twice and nothing else")
     check(y.shape == (tokens, 1024) and bool(torch.isfinite(y).all()), "sparse FFN output not finite")
     result = {"tokens": tokens, "launches": launches, "layers": {}}
@@ -3232,8 +3528,9 @@ def parlooper(torch, counters, peaks, ops, ref):
     c = ops.brgemm_blocked(a, b, spec_string="bca", k_step=4)
     torch.cuda.synchronize()
     launches = counters.read()
-    check(launches["brgemm_blocked"] == 1 and sum(launches.values()) == 1,
-          f"Listing 1 launched {launches}, want K11 once and nothing else")
+    check(launches["brgemm_blocked"] == 1 and launches["brgemm_blocked_wgmma"] == 1
+          and kernel_total(launches) == 1,
+          f"Listing 1 launched {launches}, want K11 once on wgmma and nothing else")
     err, ok = compare(torch, c, ref.brgemm_blocked_ref(a, b), rtol, atol)
     check(ok, f"Listing 1: K11 differs from brgemm_blocked_ref by {err:.3e}")
     result["listing1"] = {"shape": [size] * 3, "max_abs_err": err}
@@ -3250,7 +3547,7 @@ def parlooper(torch, counters, peaks, ops, ref):
         y = ops.conv2d(x, w, stride=st)
         torch.cuda.synchronize()
         launches = counters.read()
-        check(launches["conv2d_1x1"] == 1 and launches["gemm"] == 1 and sum(launches.values()) == 2,
+        check(launches["conv2d_1x1"] == 1 and launches["gemm"] == 1 and kernel_total(launches) == 2,
               f"1x1 {hw}x{hw} {ci}->{co}: launched {launches}, want K12 once on one K1 and nothing else")
         for name, count in launches.items():
             total[name] += count
@@ -3270,7 +3567,7 @@ def parlooper(torch, counters, peaks, ops, ref):
         y = ops.conv2d(x, w)
         torch.cuda.synchronize()
         launches = counters.read()
-        check(sum(launches.values()) == 0, f"3x3 {hw}x{hw} {ch}: the executor path launched {launches}")
+        check(kernel_total(launches) == 0, f"3x3 {hw}x{hw} {ch}: the executor path launched {launches}")
         for name, count in launches.items():
             total[name] += count
         err, ok = compare(torch, y, ref.conv2d_ref(x, w), rtol, atol)
@@ -3320,7 +3617,7 @@ def scheduled_path(torch, counters, fusion, rng):
     y = fusion.fused_gated_mlp_apply(x, wg, wu, vjp=False, **sched)
     torch.cuda.synchronize()
     launches = counters.read()
-    check(launches["fused_gemm"] == 1 and sum(launches.values()) == 1,
+    check(launches["fused_gemm"] == 1 and kernel_total(launches) == 1,
           f"the scheduled gated MLP launched {launches}, want K5 once and nothing else")
     check(torch.equal(y, fusion.fused_gated_mlp_apply(x, wg, wu, vjp=False)),
           "the scheduled gated MLP differs from the fixed grid")
@@ -3339,7 +3636,7 @@ def scheduled_path(torch, counters, fusion, rng):
     torch.cuda.synchronize()
     launches = counters.read()
     check(launches["fused_gemm"] == 1 and launches["hw_tile_bits"] == 1
-          and sum(launches.values()) == 2,
+          and kernel_total(launches) == 2,
           f"hw_prng fused_attn_out_apply launched {launches}, want K5 once drawing from K13")
     g = fusion.fused_attn_out_graph(True, dropout_rate=rate)
     want = fusion.plain_version(g, hw_prng=True)(o=o, wo=wo, seed=seed, residual=res)
@@ -3363,7 +3660,10 @@ def scheduled_path(torch, counters, fusion, rng):
 # fused_panel (a row panel), fused_chain (a chained root: the SIMT kernel,
 # or the forward mainloop of csrc/attention_fwd.cuh on a generated
 # epilogue, which K2 instantiates on K2Epi).
-KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
+KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
+             "gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
+             "gemm_transposed_bf16_wgmma": "gemm_transposed",
+             "gemm_transposed_bf16_wgmma_decode": "gemm_transposed",
              "gemm_transposed_bf16_wmma": "gemm_transposed",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention",
@@ -3375,6 +3675,7 @@ KERNEL_OF = {"gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
              "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
+             "brgemm_blocked_bf16_wgmma": "brgemm_blocked",
              "brgemm_blocked_bf16_wmma": "brgemm_blocked",
              "brgemm_blocked_simt": "brgemm_blocked"}
 
@@ -3459,7 +3760,12 @@ class Counters:
     def reset(self):
         self.brgemm.LAUNCHES = 0
         self.brgemm.TRANSPOSED_LAUNCHES = 0
+        self.brgemm.GEMM_WGMMA_LAUNCHES = 0
+        self.brgemm.GEMM_WGMMA_DECODE_LAUNCHES = 0
+        self.brgemm.GEMM_WMMA_LAUNCHES = 0
+        self.brgemm.GEMM_SIMT_LAUNCHES = 0
         self.brgemm.BLOCKED_LAUNCHES = 0
+        self.brgemm.BLOCKED_WGMMA_LAUNCHES = 0
         self.brgemm.BLOCKED_WMMA_LAUNCHES = 0
         self.brgemm.BLOCKED_SIMT_LAUNCHES = 0
         self.conv.LAUNCHES = 0
@@ -3482,6 +3788,12 @@ class Counters:
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
                 "gemm_transposed": self.brgemm.TRANSPOSED_LAUNCHES,
+                # K1's launches (plain and transposed) by variant (not kernel
+                # rows of their own)
+                "gemm_wgmma": self.brgemm.GEMM_WGMMA_LAUNCHES,
+                "gemm_wgmma_decode": self.brgemm.GEMM_WGMMA_DECODE_LAUNCHES,
+                "gemm_wmma": self.brgemm.GEMM_WMMA_LAUNCHES,
+                "gemm_simt": self.brgemm.GEMM_SIMT_LAUNCHES,
                 "flash_attention": self.fa.ATTENTION_LAUNCHES,
                 # K2's bf16 kernel among them (not a kernel row of its own)
                 "flash_attention_wgmma": self.fa.ATTENTION_WGMMA_LAUNCHES,
@@ -3500,8 +3812,35 @@ class Counters:
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
                 "fused_output": self.fo.LAUNCHES,
                 "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
+                "brgemm_blocked_wgmma": self.brgemm.BLOCKED_WGMMA_LAUNCHES,
                 "conv2d_1x1": self.conv.LAUNCHES,
                 "hw_tile_bits": self.fused_gemm.HW_PRNG_LAUNCHES}
+
+
+# Counters.read's keys that split one kernel's launches (by variant, or
+# those on the tensor cores), not kernels of their own
+SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_simt",
+                        "flash_attention_wgmma", "flash_attention_bwd_wgmma",
+                        "fused_chain_wgmma", "fused_attention_bwd_wgmma",
+                        "brgemm_blocked_wgmma"})
+
+
+def kernel_total(launches):
+    """All kernel launches in a ``Counters.read`` dict, each counted once."""
+    return sum(count for name, count in launches.items() if name not in SUB_COUNTS)
+
+
+def k1_on_wgmma(launches, what):
+    """Every K1 launch of a full-width bf16 path on a wgmma variant
+    (``wgmma`` or ``wgmma_decode``), none on ``wmma``."""
+    k1 = launches["gemm"] + launches["gemm_transposed"]
+    on = launches["gemm_wgmma"] + launches["gemm_wgmma_decode"]
+    print(f"  {what}: K1 {k1} launches, {launches['gemm_wgmma']} on wgmma,"
+          f" {launches['gemm_wgmma_decode']} on wgmma_decode, {launches['gemm_wmma']} on wmma",
+          flush=True)
+    check(k1 > 0 and on == k1 and launches["gemm_wmma"] == 0,
+          f"{what}: K1 launched {k1} times, {on} on the wgmma variants,"
+          f" {launches['gemm_wmma']} on wmma")
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -3669,6 +4008,7 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
     params, opt, hist = train(cfg, tcfg, dcfg, TrainerConfig(num_steps=steps, log_every=1),
                               seed=0, device="cuda")
     launches = counters.read()                    # the main path's run
+    k1_on_wgmma(launches, f"training {arch}" + (" fused" if fused else ""))
     by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -3800,6 +4140,11 @@ def main() -> int:
           f" bounds use {peak_name} peaks: {peaks['bf16'] / 1e12:g} TFLOP/s bf16,"
           f" {peaks['fp32'] / 1e12:g} TFLOP/s fp32, {peaks['hbm'] / 1e12:g} TB/s", flush=True)
 
+    if "--gemm-tiles" in sys.argv[1:]:
+        phase("K1's wgmma tile choices")
+        print(json.dumps(gemm_tile_sweep(torch, _build, brgemm)))
+        return 0
+
     phase("2. build")
     start = time.perf_counter()
     chained = chained_backward_sources(fusion, fused_gemm)
@@ -3813,6 +4158,7 @@ def main() -> int:
     k2_build = k2_build_report(_build, fa, logs["flash_attention"])
     chain_build = chain_build_report(_build, fusion, fused_gemm, fa, logs)
     bwd_build = bwd_build_report(_build, fa, logs, chained)
+    gemm_build = gemm_build_report(_build, logs)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -3950,7 +4296,8 @@ def main() -> int:
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,
                       "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
-                      "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build}))
+                      "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
+                      "gemm_build": gemm_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

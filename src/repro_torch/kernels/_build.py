@@ -27,7 +27,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "load_generated", "check"]
+__all__ = ["SOURCES", "build_all", "load", "load_generated", "load_variants", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,13 +48,16 @@ ATTENTION_BWD = (_P,) * 10 + (_I,) * 7 + (_P, _P, _I, _I, _F, _P)
 SIGNATURES = {
     "gemm": {
         # a, b, bias, c, in_bf16, out_bf16, M, N, K, lda, ldb, trans_a,
-        # trans_b, act, vec, order, n_order, stream
-        "gemm": (_P, _P, _P, _P) + (_I,) * 11 + (_P, _I, _P),
+        # trans_b, act, vec, order, n_order, variant, cta_n, workspace,
+        # counters, splits, split_steps, stream
+        "gemm": (_P, _P, _P, _P) + (_I,) * 11 + (_P, _I, _I, _I, _P, _P, _I, _I, _P),
+        # out (5 int32s on the host): the wgmma tiles as built
+        "gemm_tiles": (_P,),
     },
     "brgemm_blocked": {
-        # a, b, c, order, n_order, in_bf16, out_bf16, wmma, Mb, Kb, bm, bn,
-        # bk, k_step, vec, stream
-        "brgemm_blocked": (_P,) * 4 + (_I,) * 11 + (_P,),
+        # a, b, c, order, n_order, paired, in_bf16, out_bf16, variant, Mb,
+        # Nb, Kb, bm, bn, bk, k_step, vec, stream
+        "brgemm_blocked": (_P,) * 4 + (_I,) * 13 + (_P,),
     },
     "flash_attention": {
         # q, k, v, o, lse, bf16, B, H, Hk, Sq, Skv, D, the plan's rows, bn,
@@ -219,6 +222,26 @@ def load_generated(name: str, source: str, entry: str = "fused_gemm") -> ctypes.
         return lib
     build_all((), {name: source})
     return _open(target.name, target, GENERATED_SIGNATURES[entry])
+
+
+def load_variants(name: str, defines: list[dict]) -> list[ctypes.CDLL]:
+    """``csrc/<name>.cu`` built once for each dict of ``-D`` macros (a tile
+    choice timed beside the default build), all at once; → the loaded
+    libraries, in order.  Each is named by the hash of the source, the
+    headers, the flags and its macros."""
+    flags = [tuple(f"-D{k}={v}" for k, v in sorted(d.items())) for d in defines]
+    base = _target(name)
+    targets = [base.with_name(f"{base.stem}-" + hashlib.sha256(" ".join(f).encode())
+                              .hexdigest()[:8] + ".so") for f in flags]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _LOCK:
+        jobs = [_run_nvcc(CSRC / f"{name}.cu", t, f) for t, f in zip(targets, flags)
+                if not t.exists()]
+        for (proc, target, tmp, log) in jobs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed for {target.name}:\n{log.read_text()}")
+            os.replace(tmp, target)
+    return [_open(t.name, t, SIGNATURES[name]) for t in targets]
 
 
 def check(err: int, what: str) -> None:

@@ -15,11 +15,20 @@ string sets the order in which the tiles are rasterised.  Each tile is still
 computed by one block in one K order, so every legal spec gives the same
 bits.
 
+K1 has four variants (``gemm_variant``), chosen from the dtype, M and
+whether TMA can read the operands where they lie, never from a build or
+launch that failed: ``wgmma`` (bf16, M > 16) and ``wgmma_decode`` (bf16,
+M <= 16: the split-K weight stream, ``decode_splits``) on the Hopper
+mainloop ``csrc/gemm_mainloop.cuh``; ``wmma`` for bf16 operands TMA cannot
+read; ``simt`` for fp32.
+
 K11 (``brgemm_blocked``) replaces ``brgemm_blocked_pallas``: A (Mb, Kb, bm,
 bk) × B (Nb, Kb, bk, bn) → C (Nb, Mb, bm, bn), each visit batch-reducing
-``k_step`` block pairs, read in the paper's layouts in place.  The CUDA
-sources are ``csrc/gemm.cu`` and ``csrc/brgemm_blocked.cu``, whose headers
-say what bounds each kernel on an H100 and what its design does about it.
+``k_step`` block pairs, read in the paper's layouts in place; its bf16
+blocks of 64 or 128 rows run on the same mainloop (``blocked_variant``).
+The CUDA sources are ``csrc/gemm.cu`` and ``csrc/brgemm_blocked.cu``, whose
+headers say what bounds each kernel on an H100 and what its design does
+about it.
 The plain versions are ``kernels.ref.matmul_ref`` and
 ``kernels.ref.brgemm_blocked_ref``; ``kernels.ops`` picks between kernel
 and plain version by the device of the tensors.
@@ -37,19 +46,44 @@ from repro_torch.core.loops import LoopSpec, ThreadedLoop
 from repro_torch.kernels import _build
 
 __all__ = ["matmul", "brgemm_blocked", "schedule", "blocked_schedule", "cta_tile",
-           "cta_order", "tile_order", "pick_tiles", "DEFAULT_SPEC", "LAUNCHES", "TRANSPOSED_LAUNCHES",
-           "BLOCKED_LAUNCHES", "BLOCKED_WMMA_LAUNCHES", "BLOCKED_SIMT_LAUNCHES", "ACT_CODES"]
+           "cta_order", "tile_order", "pick_tiles", "gemm_variant", "variant_of",
+           "decode_splits", "blocked_variant", "blocked_pairs", "DEFAULT_SPEC", "VARIANTS",
+           "WGMMA_TILE", "DECODE_ROWS", "DECODE_COLUMNS", "VARIANT_COUNTERS", "BLOCKED_COUNTERS",
+           "LAUNCHES", "TRANSPOSED_LAUNCHES", "GEMM_WGMMA_LAUNCHES", "GEMM_WGMMA_DECODE_LAUNCHES",
+           "GEMM_WMMA_LAUNCHES", "GEMM_SIMT_LAUNCHES", "BLOCKED_LAUNCHES", "BLOCKED_WGMMA_LAUNCHES",
+           "BLOCKED_WMMA_LAUNCHES", "BLOCKED_SIMT_LAUNCHES", "ACT_CODES"]
 
 DEFAULT_SPEC = "bca"  # output-stationary: M, N outer; K (reduction) innermost
 
-# Launches of K1 since import (or since a caller reset it), and how many of
-# them read a transposed operand.
+# Launches of K1 since import (or since a caller reset it), how many of
+# them read a transposed operand, and how many ran each variant.
 LAUNCHES = 0
 TRANSPOSED_LAUNCHES = 0
-# Launches of K11, and of each of its variants (tensor cores, SIMT).
+GEMM_WGMMA_LAUNCHES = 0
+GEMM_WGMMA_DECODE_LAUNCHES = 0
+GEMM_WMMA_LAUNCHES = 0
+GEMM_SIMT_LAUNCHES = 0
+# Launches of K11, and of each of its variants (wgmma, WMMA, SIMT).
 BLOCKED_LAUNCHES = 0
+BLOCKED_WGMMA_LAUNCHES = 0
 BLOCKED_WMMA_LAUNCHES = 0
 BLOCKED_SIMT_LAUNCHES = 0
+
+# K1's variants, by the code the C entry takes (wmma and simt share 0: the
+# dtype tells them apart), and the counter each adds to.
+VARIANTS = {"wgmma": 1, "wgmma_decode": 2, "wmma": 0, "simt": 0}
+VARIANT_COUNTERS = {"wgmma": "GEMM_WGMMA_LAUNCHES", "wgmma_decode": "GEMM_WGMMA_DECODE_LAUNCHES",
+                    "wmma": "GEMM_WMMA_LAUNCHES", "simt": "GEMM_SIMT_LAUNCHES"}
+# The wgmma variant's CTA tile (rows, columns), as csrc/gemm.cu builds it
+# (K1_BN); the C entry refuses an order table made for another.
+WGMMA_TILE = (128, 128)
+# wgmma_decode: M <= DECODE_ROWS, DECODE_COLUMNS columns of C a CTA, K split
+# so that about _DECODE_CTAS_PER_SM CTAs land on each of _SMS SMs.
+DECODE_ROWS = 16
+DECODE_COLUMNS = 128
+_SMS = 132
+_DECODE_CTAS_PER_SM = 2
+_K_STEP = 64   # the mainloop's k-step (csrc/gemm_mainloop.cuh::BK)
 
 ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "sigmoid": 4}
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -126,13 +160,51 @@ def schedule(m, k, n, dtype, spec_string=None, tiles=None, block_steps=None):
                         tuple(tiles) if tiles else None, _steps_key(block_steps))
 
 
-def cta_tile(m: int, in_bf16: bool) -> tuple[int, int]:
-    """The (rows, columns) of C that one K1 block computes, as
-    ``csrc/gemm.cu``'s launch picks them: 128x128 on the tensor cores, 16x64
-    for M <= 16 (decode), 64x64 in fp32."""
-    if not in_bf16:
+def gemm_variant(m: int, n: int, k: int, dtype, trans_a: bool = False, trans_b: bool = False,
+                 aligned: bool = True) -> str:
+    """Which variant of K1 computes an (m, k) @ (k, n) product of ``dtype``
+    operands: ``"simt"`` for fp32; for bf16, ``"wmma"`` when TMA cannot read
+    an operand where it lies (``aligned`` false: a base pointer, or the row
+    stride of a stored matrix with more than one row, not a multiple of 16
+    bytes), else ``"wgmma_decode"`` for m <= ``DECODE_ROWS`` and ``"wgmma"``
+    above.  Every transposition runs on every variant, and n and k choose
+    nothing: the choice follows the dtype, M and the layout alone."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if not aligned:
+        return "wmma"
+    return "wgmma_decode" if m <= DECODE_ROWS else "wgmma"
+
+
+def decode_splits(k: int, n: int) -> tuple[int, int]:
+    """→ (splits, steps a split) of wgmma_decode's K: from (k, n) alone,
+    never from M, so that a row of C has the same bits at every M <= 16.
+    The ``ceil(n / DECODE_COLUMNS)`` column panels times the splits fill
+    the SMs about ``_DECODE_CTAS_PER_SM`` times over, and no more; a split
+    holds at least one 64-deep step, and every split some."""
+    steps = -(-k // _K_STEP)
+    panels = -(-n // DECODE_COLUMNS)
+    if steps == 0:
+        return 1, 1
+    want = max(1, min(steps, _SMS * _DECODE_CTAS_PER_SM // panels))
+    per = -(-steps // want)
+    return -(-steps // per), per
+
+
+def cta_tile(m: int, variant: str) -> tuple[int, int]:
+    """The (rows, columns) of C that one K1 block of ``variant`` computes,
+    as ``csrc/gemm.cu``'s launch picks them: ``WGMMA_TILE`` for wgmma,
+    (16, 128) for wgmma_decode (its K splits share one tile), 128x128 in
+    WMMA (16x64 for M <= 16), 64x64 in fp32."""
+    if variant == "simt":
         return 64, 64
-    return (16, 64) if m <= 16 else (128, 128)
+    if variant == "wmma":
+        return (16, 64) if m <= 16 else (128, 128)
+    if variant == "wgmma":
+        return WGMMA_TILE
+    if variant == "wgmma_decode":
+        return DECODE_ROWS, DECODE_COLUMNS
+    raise ValueError(f"unknown K1 variant {variant!r}")
 
 
 def tile_order(visits, block: tuple[int, int], cta: tuple[int, int]) -> torch.Tensor:
@@ -183,14 +255,60 @@ def _layout(t: torch.Tensor):
     return t, False, max(t.stride(0), 1)
 
 
+def _tma_readable(t: torch.Tensor, ld: int, rows: int) -> bool:
+    """Whether TMA reads the stored matrix of ``rows`` rows (row stride
+    ``ld``) under ``t``: a 16-byte aligned base, and a 16-byte multiple row
+    stride when there is more than one row."""
+    return t.data_ptr() % 16 == 0 and (rows <= 1 or ld * t.element_size() % 16 == 0)
+
+
+def _operands(a, b):
+    """→ (a, trans_a, lda, b, trans_b, ldb, aligned) for ``a @ b``: each
+    operand as ``_layout`` reads it, and whether TMA can read both (bf16
+    only)."""
+    m, k = a.shape
+    n = b.shape[1]
+    a, trans_a, lda = _layout(a)
+    b, trans_b, ldb = _layout(b)
+    aligned = (a.dtype == torch.bfloat16 and _tma_readable(a, lda, k if trans_a else m)
+               and _tma_readable(b, ldb, n if trans_b else k))
+    return a, trans_a, lda, b, trans_b, ldb, aligned
+
+
+def variant_of(a, b) -> str:
+    """The variant ``matmul`` launches for ``a @ b`` (2-D tensors of one
+    dtype, on any device): ``gemm_variant`` of their dtype, M,
+    transpositions and whether TMA reads them where they lie."""
+    _, trans_a, _, _, trans_b, _, aligned = _operands(a, b)
+    return gemm_variant(a.shape[0], b.shape[1], a.shape[1], a.dtype, trans_a, trans_b, aligned)
+
+
+# wgmma_decode's split counters by (device, stream): one zero int32 a
+# column panel, reset by the kernel's last split.  A launch on one stream
+# follows the one before it, so launches on a stream may share them.
+_DECODE_COUNTERS: dict = {}
+
+
+def _decode_counters(device, stream, panels: int) -> torch.Tensor:
+    key = (device, stream)
+    counters = _DECODE_COUNTERS.get(key)
+    if counters is None or counters.numel() < panels:
+        counters = _DECODE_COUNTERS[key] = torch.zeros(max(panels, 256), dtype=torch.int32,
+                                                       device=device)
+    return counters
+
+
 def matmul(a, b, *, bias=None, activation=None, out_dtype=None, spec_string=None,
-           tiles=None, block_steps=None):
+           tiles=None, block_steps=None, variant=None):
     """act(a @ b + bias) on the GPU: a (M, K) and b (K, N) CUDA tensors of
     one dtype (fp32 or bf16), each row-major or a transposed view, bias
     (N,); returns (M, N) in ``out_dtype`` (default ``a.dtype``).
     ``spec_string``, ``tiles`` (bm, bk, bn) and ``block_steps`` (per-letter
     blocking lists, in tiles) schedule the blocks as ``schedule`` plans
-    them.  Raises on anything the kernel does not take."""
+    them.  ``variant`` is ``gemm_variant``'s choice unless given (to time
+    one variant beside another on the same operands); one the operands'
+    dtype, M or layout does not allow raises.  Raises on anything the
+    kernel does not take."""
     global LAUNCHES, TRANSPOSED_LAUNCHES
     if a.device.type != "cuda" or b.device.type != "cuda":
         raise ValueError(f"brgemm.matmul needs CUDA tensors, got {a.device} and {b.device}")
@@ -206,8 +324,18 @@ def matmul(a, b, *, bias=None, activation=None, out_dtype=None, spec_string=None
     m, k = a.shape
     n = b.shape[1]
     plan = schedule(m, k, n, a.dtype, spec_string, tiles, block_steps)
-    a, trans_a, lda = _layout(a)
-    b, trans_b, ldb = _layout(b)
+    a, trans_a, lda, b, trans_b, ldb, aligned = _operands(a, b)
+    bf16 = a.dtype == torch.bfloat16
+    variant = variant or gemm_variant(m, n, k, a.dtype, trans_a, trans_b, aligned)
+    if not bf16:
+        allowed = {"simt"}
+    elif not aligned:
+        allowed = {"wmma"}
+    else:
+        allowed = {"wmma", "wgmma"} | ({"wgmma_decode"} if m <= DECODE_ROWS else set())
+    if variant not in allowed:
+        raise ValueError(f"K1 variant {variant!r} does not take this product ({a.dtype}, M {m},"
+                         f" TMA-readable {aligned}): {sorted(allowed)}")
     if bias is not None:
         if bias.shape != (n,):
             raise ValueError(f"bias shape {tuple(bias.shape)}, want ({n},)")
@@ -215,25 +343,35 @@ def matmul(a, b, *, bias=None, activation=None, out_dtype=None, spec_string=None
     c = torch.empty(m, n, dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
+    cta = cta_tile(m, variant)
     order, n_order = None, 0
     if plan is not None:
-        cta = cta_tile(m, a.dtype == torch.bfloat16)
         order = _device_table((plan, m, n, cta), lambda: cta_order(plan, m, n, cta), a.device)
         n_order = order.shape[0]
-    # 16-byte vector loads need 16-byte aligned stored rows (bf16 only).
-    vec = (a.dtype == torch.bfloat16 and lda % 8 == 0 and ldb % 8 == 0
+    stream = torch._C._cuda_getCurrentRawStream(a.device.index)  # current_stream's, cheaper
+    ws, counters, splits, split_steps = None, None, 1, 1
+    if variant == "wgmma_decode":
+        splits, split_steps = decode_splits(k, n)
+        if splits > 1:
+            ws = torch.empty(splits, m, n, dtype=torch.float32, device=a.device)
+            counters = _decode_counters(a.device, stream, -(-n // DECODE_COLUMNS))
+    # wmma's 16-byte vector loads need 16-byte aligned stored rows
+    vec = (bf16 and lda % 8 == 0 and ldb % 8 == 0
            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     lib = _build.load("gemm")
     err = lib.gemm(a.data_ptr(), b.data_ptr(),
                    bias.data_ptr() if bias is not None else None, c.data_ptr(),
-                   int(a.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                   int(bf16), int(out_dtype == torch.bfloat16),
                    m, n, k, lda, ldb, int(trans_a), int(trans_b), ACT_CODES[activation], int(vec),
                    order.data_ptr() if order is not None else None, n_order,
-                   torch.cuda.current_stream(a.device).cuda_stream)
+                   VARIANTS[variant], cta[1], ws.data_ptr() if ws is not None else None,
+                   counters.data_ptr() if counters is not None else None, splits, split_steps,
+                   stream)
     _build.check(err, "gemm")
     LAUNCHES += 1
     if trans_a or trans_b:
         TRANSPOSED_LAUNCHES += 1
+    globals()[VARIANT_COUNTERS[variant]] += 1
     return c
 
 
@@ -271,27 +409,62 @@ def blocked_schedule(a_shape, b_shape, spec_string="bca", k_step=1, block_steps=
     return _blocked_plan(mb, kb, nb, bm, bk, bn, spec_string, k_step, _steps_key(block_steps))
 
 
-def blocked_variant(dtype, bm, bk, bn) -> str:
-    """Which variant of K11 runs: ``"wmma"`` (bf16 with bm, bn, bk multiples
-    of 16) or ``"simt"``; raises for a block K11 does not take."""
+def blocked_variant(dtype, bm, bk, bn, aligned: bool = True) -> str:
+    """Which variant of K11 runs: ``"wgmma"`` (bf16, bm 64 or 128, bn a
+    multiple of 16 up to 256, bk a multiple of 16, operands TMA can read:
+    ``aligned``), ``"wmma"`` (other bf16 blocks with bm, bn, bk multiples of
+    16) or ``"simt"``; raises for a block K11 does not take."""
+    if (dtype == torch.bfloat16 and aligned and bm in (64, 128) and bn % 16 == 0
+            and bn <= 256 and bk % 16 == 0):
+        return "wgmma"
     if (dtype == torch.bfloat16 and bm % 16 == 0 and bn % 16 == 0 and bk % 16 == 0
             and (bm // 16) * (bn // 16) <= _WMMA_MAX_FRAGMENTS):
         return "wmma"
     if bm * bn > _SIMT_MAX_ELEMENTS or (bm + bn) * 16 * 4 > _SMEM_MAX:
         raise ValueError(f"brgemm_blocked takes output blocks of at most {_SIMT_MAX_ELEMENTS} "
-                         f"elements in SIMT (or {_WMMA_MAX_FRAGMENTS} 16x16 fragments in bf16), "
-                         f"got {bm}x{bn}")
+                         f"elements in SIMT (or {_WMMA_MAX_FRAGMENTS} 16x16 fragments in bf16, "
+                         f"or bm 64 or 128 by bn up to 256 on wgmma), got {bm}x{bn}")
     return "simt"
 
 
-def brgemm_blocked(a, b, *, spec_string="bca", k_step=1, block_steps=None, out_dtype=None):
+def blocked_pairs(visits) -> torch.Tensor:
+    """(P, 3) int32 (n, m, n_hi): the output blocks of ``visits`` ((n, m),
+    each once) in order, two that follow one another in one block row m
+    joined into one entry (n_hi the second's n), a block alone with n_hi
+    -1.  The wgmma variant of K11 computes an entry a CTA, loading A's block
+    row once for both blocks."""
+    out, i = [], 0
+    while i < len(visits):
+        n, m = visits[i]
+        if i + 1 < len(visits) and visits[i + 1][1] == m:
+            out.append((n, m, visits[i + 1][0]))
+            i += 2
+        else:
+            out.append((n, m, -1))
+            i += 1
+    return torch.tensor(out, dtype=torch.int32).reshape(-1, 3)
+
+
+_BLOCKED_CODES = {"simt": 0, "wmma": 1, "wgmma": 2}
+BLOCKED_COUNTERS = {"simt": "BLOCKED_SIMT_LAUNCHES", "wmma": "BLOCKED_WMMA_LAUNCHES",
+                    "wgmma": "BLOCKED_WGMMA_LAUNCHES"}
+
+
+def brgemm_blocked(a, b, *, spec_string="bca", k_step=1, block_steps=None, out_dtype=None,
+                   variant=None, pairs=True):
     """Paper Listing 1 on the GPU: A (Mb, Kb, bm, bk) × B (Nb, Kb, bk, bn) →
     C (Nb, Mb, bm, bn) in ``out_dtype`` (default ``a.dtype``), fp32
     accumulator; contiguous CUDA tensors of one dtype (fp32 or bf16).
     ``spec_string`` over a = K (``k_step`` blocks a visit), b = M, c = N
     sets the order of the output blocks; ``block_steps`` the multi-level
-    blocking.  Raises on anything the kernel does not take."""
-    global BLOCKED_LAUNCHES, BLOCKED_WMMA_LAUNCHES, BLOCKED_SIMT_LAUNCHES
+    blocking.  ``variant`` is ``blocked_variant``'s choice unless given (to
+    time one variant beside another; the kernel refuses a block its
+    variant does not take).  With ``pairs``, the wgmma variant at 64-row
+    blocks at most 64 wide computes two blocks of one block row a CTA where
+    the order table lists them one after the other (``blocked_pairs``):
+    the same bits, A's loads shared.  Raises on anything the kernel does
+    not take."""
+    global BLOCKED_LAUNCHES
     if a.device.type != "cuda" or b.device.type != "cuda":
         raise ValueError(f"brgemm_blocked needs CUDA tensors, got {a.device} and {b.device}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
@@ -305,22 +478,24 @@ def brgemm_blocked(a, b, *, spec_string="bca", k_step=1, block_steps=None, out_d
     plan = blocked_schedule(tuple(a.shape), tuple(b.shape), spec_string, k_step, block_steps)
     mb, kb, bm, bk = a.shape
     nb, bn = b.shape[0], b.shape[3]
-    variant = blocked_variant(a.dtype, bm, bk, bn)
+    vec = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    variant = variant or blocked_variant(a.dtype, bm, bk, bn, aligned=vec)
     c = torch.empty(nb, mb, bm, bn, dtype=out_dtype, device=a.device)
     if c.numel() == 0:
         return c
-    order = _device_table(plan, lambda: plan.visit_order.contiguous(), a.device)
-    vec = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    paired = pairs and variant == "wgmma" and bm == 64 and bn <= 64
+    if paired:
+        order = _device_table(("pairs", plan), lambda: blocked_pairs(plan.visit_order.tolist()),
+                              a.device)
+    else:
+        order = _device_table(plan, lambda: plan.visit_order.contiguous(), a.device)
     lib = _build.load("brgemm_blocked")
     err = lib.brgemm_blocked(a.data_ptr(), b.data_ptr(), c.data_ptr(), order.data_ptr(),
-                             order.shape[0], int(a.dtype == torch.bfloat16),
-                             int(out_dtype == torch.bfloat16), int(variant == "wmma"),
-                             mb, kb, bm, bn, bk, k_step, int(vec),
+                             order.shape[0], int(paired), int(a.dtype == torch.bfloat16),
+                             int(out_dtype == torch.bfloat16), _BLOCKED_CODES[variant],
+                             mb, nb, kb, bm, bn, bk, k_step, int(vec),
                              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "brgemm_blocked")
     BLOCKED_LAUNCHES += 1
-    if variant == "wmma":
-        BLOCKED_WMMA_LAUNCHES += 1
-    else:
-        BLOCKED_SIMT_LAUNCHES += 1
+    globals()[BLOCKED_COUNTERS[variant]] += 1
     return c

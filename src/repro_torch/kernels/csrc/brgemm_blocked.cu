@@ -26,19 +26,28 @@
 //
 // What bounds it on an H100: at the paper's GEMM shapes (bench_gemm.py,
 // 1024^3 to 4096x4096x11008, bf16) the work is far above the card's ~295
-// flop/byte ridge, so tensor-core operations bound it.  A 64x64 output block
-// fed 32-deep chunks does 32 flop per byte it loads, so it leans on the L2
-// cache for A's block rows and B's block columns, which its neighbours in
-// the order table read too.
+// flop/byte ridge, so tensor-core operations bound it, and only wgmma fed
+// ahead of time reaches their rate.  A 64x64 output block does 32 flop per
+// byte it loads, so it leans on the L2 cache for A's block rows and B's
+// block columns, which its neighbours in the order table read too.
 //
-// What the design does about it: bf16 blocks whose bm, bn and bk are
-// multiples of 16 run on the tensor cores through WMMA 16x16x16 fragments
-// (4 warps, each holding up to 16 accumulator fragments in registers), with
-// A and B staged through shared memory 32 (or 16) deep in 16-byte vectors.
-// fp32 runs a SIMT variant in full fp32 FMA, never TF32, and so does any
-// other block size (up to 8192 outputs a block): one thread per output
-// element, 16-deep chunks.  Loads are not pipelined (no cp.async, TMA or
-// wgmma): that is left for the PR that makes this kernel fast.
+// What the design does about it: bf16 blocks with bm 64 or 128, bn a
+// multiple of 16 up to 256 and bk a multiple of 16, from 16-byte aligned
+// tensors, run the wgmma variant on csrc/gemm_mainloop.cuh (one consumer
+// warpgroup per 64 rows of the block plus a producer warp, a 4-stage TMA
+// ring): A's block row through a 3-D tensor map (bk, bm, Mb*Kb), each box
+// one bm x 64 slice of one block, K-major; B's block column through a 3-D
+// map (bn, bk, Nb*Kb), read MN-major with the transpose bit; K runs
+// kb = 0 .. Kb-1 in 64-deep steps (zero-filled past bk) under every spec,
+// so every spec gives "bca"'s bits.  The CTA's N extent is bn rounded up to
+// 64, 128 or 256 (the columns past bn arrive as zeros and are not stored).
+// The other bf16 blocks whose bm, bn and bk are multiples of 16 run the WMMA
+// variant (4 warps, each holding up to 16 accumulator fragments in
+// registers, A and B staged through shared memory 32 (or 16) deep in
+// 16-byte vectors, unpipelined).  fp32 runs a SIMT variant in full fp32
+// FMA, never TF32, and so does any other block size (up to 8192 outputs a
+// block): one thread per output element, 16-deep chunks.
+#include "gemm_mainloop.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -48,6 +57,73 @@ using namespace gemm_tile;
 constexpr int kWarps = 4;           // WMMA variant: warps a block
 constexpr int kSimtThreads = 256;   // SIMT variant: threads a block
 constexpr int kSimtKc = 16;         // SIMT variant: K depth a chunk
+
+// The wgmma variant: WG consumer warpgroups (bm = 64 WG) by WN >= bn
+// columns.  Block (n, m) of the order table; k-step it is 64-deep step
+// it % spb of block kb = it / spb (spb = ceil(bk / 64)).  A pair also loads
+// block column n_hi into B's upper panels.
+struct BlockedCoords {
+  int m, n, n_hi, Kb, spb;
+  __device__ __forceinline__ void coords(int it, int& ar, int& ak, int& az, int& br, int& bk,
+                                         int& bz, int& bz_hi) const {
+    const int kb = it / spb;
+    ar = br = 0;
+    ak = bk = (it % spb) * gemm_ml::BK;
+    az = m * Kb + kb;
+    bz = n * Kb + kb;
+    bz_hi = n_hi * Kb + kb;
+  }
+};
+
+template <int WG, int WN>
+using BlockedCfg = gemm_ml::Config<WG, WN, 4, false, true>;
+
+// PAIRED (64-row blocks at most 64 wide, C::BN = 128): `order` holds
+// (n, m, n_hi) triples, and the CTA computes block (n, m) in its lower 64
+// columns and block (n_hi, m) in its upper 64, sharing A's loads; n_hi < 0
+// for a block alone.  Every column is summed the same way in either half,
+// so a block has the same bits paired or alone.
+template <class C, bool PAIRED>
+__global__ void __launch_bounds__(C::THREADS)
+brgemm_blocked_bf16_wgmma(const __grid_constant__ CUtensorMap ta,
+                          const __grid_constant__ CUtensorMap tb, void* __restrict__ c,
+                          int out_f32, const int* __restrict__ order, int Mb, int Kb, int bn,
+                          int bk) {
+  extern __shared__ unsigned char smem_raw[];
+  const gemm_ml::Smem<C> sm(smem_raw);
+  const int n = order[(PAIRED ? 3 : 2) * blockIdx.x], m = order[(PAIRED ? 3 : 2) * blockIdx.x + 1];
+  const int n_hi = PAIRED ? order[3 * blockIdx.x + 2] : -1;
+  const int spb = (bk + gemm_ml::BK - 1) / gemm_ml::BK;
+  gemm_ml::init<C>(sm);
+  const int wg = gemm_ml::warpgroup();
+  if (wg == C::WG) {
+    gemm_ml::produce<C>(sm, &ta, &tb, BlockedCoords{m, n, n_hi >= 0 ? n_hi : n, Kb, spb},
+                        Kb * spb);
+    return;
+  }
+  float acc[C::BN / 2];
+  gemm_ml::consume<C>(acc, sm, Kb * spb, wg);
+  // C blocks (n, m) and (n_hi, m), row-major bm x bn; bn is even, so every
+  // pair of columns is aligned
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; i += 2) {
+    const int r = 64 * wg + gemm_ml::acc_row(i);
+    int col = gemm_ml::acc_col(i), bn_of = n;
+    if (PAIRED && col >= 64) {
+      if (n_hi < 0) continue;
+      bn_of = n_hi;
+      col -= 64;
+    }
+    if (col < bn) {
+      const size_t at = ((size_t)bn_of * Mb + m) * C::BM * bn + (size_t)r * bn + col;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(c) + at) = make_float2(acc[i], acc[i + 1]);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(c) + at) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
 
 // The tensor-core variant.  Fragment f of the bm x bn output block (row
 // f / (bn/16), column f % (bn/16)) belongs to warp f % kWarps, slot
@@ -207,6 +283,42 @@ void launch_wmma(const bf16* A, const bf16* B, TOut* C, const int* order, int n_
     run_wmma<16, TOut>(A, B, C, order, n_order, Mb, Kb, bm, bn, bk, k_step, vec, s);
 }
 
+template <int WG, int WN, bool PAIRED>
+cudaError_t run_wgmma(const bf16* A, const bf16* B, void* C, int out_f32, const int* order,
+                      int n_order, int Mb, int Nb, int Kb, int bm, int bn, int bk,
+                      cudaStream_t s) {
+  using Cfg = BlockedCfg<WG, WN>;
+  CUtensorMap ta, tb;
+  cudaError_t e = hopper::tile_map(&ta, A, bk, bm, Mb * Kb, 1, bk, (long long)bm * bk, 0,
+                                           gemm_ml::BK, bm);
+  if (e == cudaSuccess)
+    e = hopper::tile_map(&tb, B, bn, bk, Nb * Kb, 1, bn, (long long)bk * bn, 0,
+                                 Cfg::B::SW, gemm_ml::BK);
+  if (e != cudaSuccess) return e;
+  auto kern = brgemm_blocked_bf16_wgmma<Cfg, PAIRED>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kern<<<n_order, Cfg::THREADS, Cfg::SMEM, s>>>(ta, tb, C, out_f32, order, Mb, Kb, bn, bk);
+  return cudaGetLastError();
+}
+
+// The CTA's N extent: bn rounded up to 64, 128 or 256; paired 64-row
+// blocks up to 64 wide: 128.
+template <int WG>
+cudaError_t launch_wgmma(const bf16* A, const bf16* B, void* C, int out_f32, const int* order,
+                         int n_order, int paired, int Mb, int Nb, int Kb, int bm, int bn, int bk,
+                         cudaStream_t s) {
+  if (paired)
+    return run_wgmma<1, 128, true>(A, B, C, out_f32, order, n_order, Mb, Nb, Kb, bm, bn, bk, s);
+  if (bn <= 64)
+    return run_wgmma<WG, 64, false>(A, B, C, out_f32, order, n_order, Mb, Nb, Kb, bm, bn, bk, s);
+  if (bn <= 128)
+    return run_wgmma<WG, 128, false>(A, B, C, out_f32, order, n_order, Mb, Nb, Kb, bm, bn, bk,
+                                     s);
+  return run_wgmma<WG, 256, false>(A, B, C, out_f32, order, n_order, Mb, Nb, Kb, bm, bn, bk, s);
+}
+
 template <int EPT, typename T, typename TOut>
 void run_simt(const T* A, const T* B, TOut* C, const int* order, int n_order, int Mb, int Kb,
               int bm, int bn, int bk, int k_step, cudaStream_t s) {
@@ -248,16 +360,34 @@ void dispatch_simt(const T* A, const T* B, void* c, int out_bf16, const int* ord
 // A (Mb, Kb, bm, bk) and B (Nb, Kb, bk, bn) contiguous, both bf16 if in_bf16
 // else fp32; C (Nb, Mb, bm, bn) contiguous, bf16 if out_bf16 else fp32.
 // order: n_order (n, m) int32 output blocks on the device, each block of C
-// once.  wmma picks the tensor-core variant (bf16, bm, bn, bk multiples of
-// 16, at most 64 fragments a block), else the SIMT variant (at most 8192
-// outputs a block).  vec: A and B start 16-byte aligned.  Returns
-// cudaErrorInvalidValue without launching for a variant that does not take
-// the block, else cudaGetLastError() after the launch.
+// once; with `paired` (wgmma, bm 64, bn at most 64) n_order (n, m, n_hi)
+// triples instead, two blocks of one block row a CTA (n_hi < 0: a block
+// alone).  variant: 2 wgmma (bf16, bm 64 or 128, bn a multiple of 16 up to
+// 256, bk a multiple of 16, A and B 16-byte aligned), 1 the WMMA variant
+// (bf16, bm, bn, bk multiples of 16, at most 64 fragments a block), 0 the
+// SIMT variant (at most 8192 outputs a block).  vec: A and B start 16-byte
+// aligned.  Returns cudaErrorInvalidValue without launching for a variant
+// that does not take the block, else cudaGetLastError() after the launch.
 extern "C" int brgemm_blocked(const void* a, const void* b, void* c, const int* order,
-                              int n_order, int in_bf16, int out_bf16, int wmma, int Mb, int Kb,
-                              int bm, int bn, int bk, int k_step, int vec, void* stream) {
+                              int n_order, int paired, int in_bf16, int out_bf16, int variant,
+                              int Mb, int Nb, int Kb, int bm, int bn, int bk, int k_step, int vec,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wmma) {
+  if (variant == 2) {
+    if (!in_bf16 || !vec || (bm != 64 && bm != 128) || bn % 16 || bn > 256 || bk % 16 ||
+        (paired && (bm != 64 || bn > 64)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const bf16* A = static_cast<const bf16*>(a);
+    const bf16* B = static_cast<const bf16*>(b);
+    const cudaError_t e =
+        bm == 64 ? launch_wgmma<1>(A, B, c, !out_bf16, order, n_order, paired, Mb, Nb, Kb, bm, bn,
+                                   bk, s)
+                 : launch_wgmma<2>(A, B, c, !out_bf16, order, n_order, 0, Mb, Nb, Kb, bm, bn, bk,
+                                   s);
+    return static_cast<int>(e);
+  }
+  if (paired) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 1) {
     if (!in_bf16 || bm % 16 || bn % 16 || bk % 16 || (bm / 16) * (bn / 16) > 16 * kWarps)
       return static_cast<int>(cudaErrorInvalidValue);
     const bf16* A = static_cast<const bf16*>(a);

@@ -108,8 +108,10 @@ def test_brgemm_blocked_illegal_schedules_raise_the_reference_codes(spec, k_step
 
 
 def test_brgemm_blocked_variants_and_refusals():
-    assert brgemm.blocked_variant(torch.bfloat16, 64, 64, 64) == "wmma"
-    assert brgemm.blocked_variant(torch.bfloat16, 128, 64, 128) == "wmma"
+    assert brgemm.blocked_variant(torch.bfloat16, 64, 64, 64) == "wgmma"
+    assert brgemm.blocked_variant(torch.bfloat16, 128, 64, 128) == "wgmma"
+    assert brgemm.blocked_variant(torch.bfloat16, 64, 64, 64, aligned=False) == "wmma"
+    assert brgemm.blocked_variant(torch.bfloat16, 32, 16, 48) == "wmma"
     assert brgemm.blocked_variant(torch.bfloat16, 8, 16, 32) == "simt"
     assert brgemm.blocked_variant(torch.bfloat16, 16, 8, 16) == "simt"
     assert brgemm.blocked_variant(torch.float32, 64, 64, 64) == "simt"

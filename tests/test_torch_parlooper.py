@@ -384,10 +384,11 @@ def test_mesh_levels_parse_and_plan_but_do_not_run():
 # K1's order table: every CTA tile once, in the plan's order
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m,in_bf16,tile", [(2048, True, (128, 128)), (16, True, (16, 64)),
-                                            (4, True, (16, 64)), (300, False, (64, 64))])
-def test_cta_tile_follows_the_launch(m, in_bf16, tile):
-    assert brgemm.cta_tile(m, in_bf16) == tile
+@pytest.mark.parametrize("m,variant,tile", [(2048, "wgmma", (128, 128)),
+                                            (16, "wgmma_decode", (16, 128)),
+                                            (4, "wmma", (16, 64)), (300, "simt", (64, 64))])
+def test_cta_tile_follows_the_launch(m, variant, tile):
+    assert brgemm.cta_tile(m, variant) == tile
 
 
 def test_cta_order_of_bca_is_the_fixed_grids_raster():

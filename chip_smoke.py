@@ -17,7 +17,9 @@ Phases, each of which must pass:
      and chained-backward instantiation's ``-Xptxas -v`` figures, shared
      memory and (with ``cuobjdump``) HGMMA instructions, and the same for
      each instantiation of the GEMM mainloop (``csrc/gemm_mainloop.cuh``:
-     K1's wgmma and wgmma_decode kernels, K11's wgmma kernel);
+     K1's wgmma and wgmma_decode kernels, K11's wgmma kernel; K5's wgmma,
+     wgmma_split, wgmma_decode and row-panel kernels grouped by tile over
+     every generated source; K10's wgmma kernel), and any C7518 warning;
   3. hold each kernel (K1 GEMM on its wgmma variants, the WMMA variant
      it replaced timed beside it at the prefill and decode rows, device
      times without the host's launch cost, all four transpositions, ragged
@@ -27,7 +29,11 @@ Phases, each of which must pass:
      attention, K6 its backward at D 16 to 256, GQA, windows, Sq < Skv,
      ragged, bidirectional and fully masked rows, two calls bitwise equal;
      K3 flash decode and K4 paged decode, also at gpt-j-6b's D 256; K5 fused
-     TppGraphs: serving's graphs, and the fused training path's chained
+     TppGraphs (each GEMM-rooted row beside the WMMA or SIMT variant it
+     replaced on the same inputs; decoded rows bitwise equal at M 1, 3, 8
+     and 16; the fp32-operand backward graphs on wgmma_split at the fp32
+     tolerance; ragged, transposed, narrow and batched operands on the
+     wgmma variants): serving's graphs, and the fused training path's chained
      attention (on K2's mainloop; beside K2 at minicpm-2b's, bert-large's
      and gpt-j-6b's D 256 rows, each timed alone and 20 calls back to back;
      checks at D 16 to 256, Sq < Skv, a row with no key, operands every
@@ -41,7 +47,9 @@ Phases, each of which must pass:
      engine-decode shapes; K10 Block-SpMM over the Fig. 8 sweep (4096^3,
      16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
-     products; K9 at qwen3-moe's expert widths; K7 Listing 6 at
+     products, each bf16 row on the wgmma kernel (its 64-row work list)
+     beside the WMMA one (the pruned blocks' list); K9 at qwen3-moe's
+     expert widths; K7 Listing 6 at
      bert-large's output layers and N 5120, beside K5's keep-mask graph;
      K2 and K6 without a causal mask at bert-large's shape; K11 Listing 1 at
      benchmarks/bench_gemm.py's seven shapes under five spec strings on its
@@ -72,8 +80,10 @@ Phases, each of which must pass:
      clean after every step, K4 must launch once per layer per decode step,
      and a drain on 3 slots must give the same tokens (schedule invariance);
   7. serve the same model with ``use_fusion=True``: K5 must launch twice per
-     layer per prefill and per decode step and K1 four times per layer plus
-     the logits, the logits must be finite; print prefill and decode times
+     layer per prefill and per decode step, every launch on wgmma or
+     wgmma_decode (as in 7e, 10, 10b and 10c, where wgmma_split joins
+     them), and K1 four times per layer plus the logits, the logits must be
+     finite; print prefill and decode times
      beside the unfused path's and the bounds, and how far the fused logits
      and tokens are from the unfused ones; then drain 8 requests through the
      engine on 8 slots and on 3: equal tokens, ``validate()`` clean;
@@ -92,9 +102,11 @@ Phases, each of which must pass:
      and a 3-slot drain with equal tokens;
  7c. the paper's Block-SpMM path (``examples/sparse_inference.py``,
      ``benchmarks/bench_e2e.py``'s sparse row) at bert-large's widths: both
-     FFN weights magnitude-pruned to 80 % of 8x8 blocks, up, gelu and down
+     FFN weights magnitude-pruned to 80 % of 8x8 blocks and stored once in
+     64x8 blocks, up, gelu and down
      through ``ops.block_spmm`` on 4096 tokens with every counter set to 0
-     just before and read just after (one K10 launch a call, nothing else),
+     just before and read just after (one K10 launch a call, on its wgmma
+     kernel, nothing else),
      each against the dense pruned product, timed beside the dense
      ``torch.matmul``, K1 and the work list at 0 %; then Listing 6 through
      ``kernels.fused_output`` and qwen3-moe's experts through
@@ -158,11 +170,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published dense peaks by card (NVIDIA data sheets): bf16 tensor-core and
-# fp32 non-tensor FLOP/s, HBM bytes/s.
+# Published dense peaks by card (NVIDIA data sheets): bf16 and TF32
+# tensor-core and fp32 non-tensor FLOP/s, HBM bytes/s.
 PEAKS = {
-    "H100 SXM": {"bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12},
-    "H100 PCIe": {"bf16": 756e12, "fp32": 51e12, "hbm": 2.0e12},
+    "H100 SXM": {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "hbm": 3.35e12},
+    "H100 PCIe": {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "hbm": 2.0e12},
 }
 
 # Kernel against plain version on the card.  Both sides read the same inputs
@@ -811,6 +823,77 @@ def chain_build_report(build, fusion, fused_gemm, fa, logs):
     return report
 
 
+def _ptxas_numbers(figures):
+    """(registers, spill stores + loads, stack frame) bytes of one
+    ``ptxas_by_kernel`` entry."""
+    def num(pattern):
+        found = re.search(pattern, figures)
+        return int(found.group(1)) if found else 0
+    return (num(r"Used (\d+) registers"),
+            num(r"(\d+) bytes spill stores") + num(r"(\d+) bytes spill loads"),
+            num(r"(\d+) bytes stack frame"))
+
+
+def k5_k10_build_report(logs, sources, fused_gemm):
+    """Print, for the tensor-core instantiations of K5's GEMM-rooted graphs
+    (csrc/fused_gemm.cuh: fused_gemm_bf16_wgmma by its WTile (consumer
+    warpgroups, lhs and rhs pieces), fused_gemm_bf16_wgmma_decode,
+    fused_panel_bf16_wgmma) grouped by (kernel, roots, distinct lhs, tile)
+    over every generated source, the sources, registers (min-max), spilled
+    and stack bytes and the dynamic shared memory of the tile; then K10's
+    block_spmm_bf16_wgmma by block depth and B's layout; and any ptxas
+    C7518 warning (serialized wgmma).  → those figures."""
+    groups, warnings = {}, []
+    for name, src in sources.items():
+        if "fused_chain.cuh" in src:
+            continue
+        roots = int(re.search(r"static constexpr int R = (\d+);", src).group(1))
+        nl = int(re.search(r"static constexpr int NLHS = (\d+);", src).group(1))
+        warnings += [f"{name}: {ln.strip()}" for ln in logs[name].splitlines() if "C7518" in ln]
+        for mangled, figures in ptxas_by_kernel(logs[name]).items():
+            kind = re.search(r"(fused_gemm_bf16_wgmma_decode|fused_gemm_bf16_wgmma|"
+                             r"fused_panel_bf16_wgmma)I", mangled)
+            if not kind:
+                continue
+            tile = re.search(r"WTileI\w+?Li(\d)ELi(\d)ELi(\d)E", mangled)
+            if tile:
+                wg, pa, pb = (int(x) for x in tile.groups())
+                smem = fused_gemm.wgmma_tile(roots, nl, (pa, pb), wg == 1)[3]
+                key = f"{kind.group(1)}<R {roots}, NL {nl}, WG {wg}, pieces ({pa}, {pb})>"
+            else:
+                stages = min(6, max(2, 112 * 1024 // ((roots * 128 + nl * 16) * 128)))
+                smem = 1024 + stages * (roots * 128 + nl * 16) * 128 + 16 * stages + 16
+                key = f"{kind.group(1)}<R {roots}, NL {nl}, {stages} stages>"
+            row = groups.setdefault(key, {"sources": 0, "registers": [], "spill_bytes": 0,
+                                          "stack_bytes": 0, "dynamic_smem_bytes": smem})
+            regs, spill, stack = _ptxas_numbers(figures)
+            row["sources"] += 1
+            row["registers"].append(regs)
+            row["spill_bytes"] = max(row["spill_bytes"], spill)
+            row["stack_bytes"] = max(row["stack_bytes"], stack)
+    for key, row in sorted(groups.items()):
+        regs = row.pop("registers")
+        row["registers"] = [min(regs), max(regs)]
+        print(f"  K5 {key}: {row['sources']} sources, {min(regs)}-{max(regs)} registers,"
+              f" spills {row['spill_bytes']} bytes, stack {row['stack_bytes']} bytes, dynamic"
+              f" smem {row['dynamic_smem_bytes']} bytes", flush=True)
+    k10 = {}
+    for mangled, figures in ptxas_by_kernel(logs["block_spmm"]).items():
+        found = re.search(r"block_spmm_bf16_wgmmaILi(\d+)ELb([01])E", mangled)
+        if found:
+            bk, tb = int(found.group(1)), found.group(2) == "1"
+            # spmm_wg::Cfg: 4 stages of 4 k16 steps, each B's 16 x 128 and
+            # the step's 64 x 16 blocks
+            k10[f"64x{bk}, B {'stored (N, K)' if tb else '(K, N)'}"] = {
+                "ptxas": figures, "dynamic_smem_bytes": 1024 + 4 * 4 * (4096 + 2048) + 16 * 4}
+    for key, row in sorted(k10.items()):
+        print(f"  K10 block_spmm_bf16_wgmma {key}: {row['ptxas']}; dynamic smem"
+              f" {row['dynamic_smem_bytes']} bytes", flush=True)
+    print(f"  ptxas C7518 (serialized wgmma) warnings: {len(warnings)}"
+          + "".join(f"\n    {w}" for w in warnings[:10]), flush=True)
+    return {"k5": groups, "k10": k10, "c7518": warnings}
+
+
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
     windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
@@ -1150,91 +1233,135 @@ def block_spmm_cases(torch, bench, ref, spmm, brgemm):
     dense pruned matrix; K1 on the same dense matrix beside it), 8x8 blocks
     at 80 %, bert-large's two 80 % sparse FFN products on 4096 tokens with
     B a transposed view (phase 7c's calls: K10's row), and small checks (an
-    empty block row without padding, ragged N, both layouts of B, fp32
-    out)."""
+    empty 64-row block row without padding, ragged N, both layouts of B on
+    each variant, all-zero work lists, fp32 out).  A matrix pruned in bs x
+    bs blocks runs in bf16 as its 64-row work list (``densify_to_bcsr(a, 64,
+    bs)``, wgmma where TMA reads B), beside the WMMA kernel it replaced on
+    the bs x bs list; in fp32 as the bs x bs list (SIMT).  Every bound counts
+    the pruned blocks, not the 64-row blocks' zeros."""
     import numpy as np
     rng = np.random.default_rng(12)
     gen = torch.Generator(device="cuda").manual_seed(12)
     bf16, f32 = torch.bfloat16, torch.float32
+    rows64 = spmm.WGMMA_ROWS
 
-    def run(label, blocks, rid, cid, b, nrows, dense=None, weight=0, timed=True, out_dtype=None):
+    def run(label, a, bs, b, dense=None, weight=0, timed=True, out_dtype=None, pad=True):
         name = "bfloat16" if b.dtype == bf16 else "float32"
         out = out_dtype or b.dtype
-        flops = 2 * blocks.shape[0] * blocks.shape[1] * blocks.shape[2] * b.shape[1]
-        nbytes = (blocks.numel() * blocks.element_size() + 8 * blocks.shape[0]
-                  + b.numel() * b.element_size() + nrows * blocks.shape[1] * b.shape[1] * out.itemsize)
-        bench.run("block_spmm", label,
+        fine = spmm.densify_to_bcsr(a, bs, bs, pad_empty_rows=pad)
+        work = spmm.densify_to_bcsr(a, rows64, bs, pad_empty_rows=pad) if b.dtype == bf16 else fine
+        blocks, rid, cid = work[0].to(b.dtype), work[1], work[2]
+        nrows = a.shape[0] // blocks.shape[1]
+        items = int((fine[0].abs().sum((1, 2)) != 0).sum())
+        flops = 2 * items * bs * bs * b.shape[1]
+        nbytes = (items * bs * bs * b.element_size() + 8 * items + b.numel() * b.element_size()
+                  + a.shape[0] * b.shape[1] * out.itemsize)
+        before = {v: getattr(spmm, c) for v, c in spmm.SPMM_COUNTERS.items()}
+        spmm.block_spmm(blocks, rid, cid, b, nrows_b=nrows, out_dtype=out_dtype)
+        variant = next(v for v, c in spmm.SPMM_COUNTERS.items() if getattr(spmm, c) > before[v])
+        bench.run("block_spmm", f"{label} [{variant}]",
                   lambda: spmm.block_spmm(blocks, rid, cid, b, nrows_b=nrows, out_dtype=out_dtype),
                   lambda: ref.block_spmm_ref(blocks, rid, cid, b, nrows_b=nrows, out_dtype=out_dtype),
                   (lambda: torch.matmul(dense, b)) if dense is not None else None,
                   flops=flops, nbytes=nbytes, dtype=name, tol_kind="gemm", weight=weight,
                   timed=timed)
-        return bench.cases["block_spmm"][-1]
+        row = bench.cases["block_spmm"][-1]
+        row["blocks"] = f"{blocks.shape[0]} of {blocks.shape[1]}x{bs} ({items} of {bs}x{bs})"
+        fn = lambda: spmm.block_spmm(blocks, rid, cid, b, nrows_b=nrows,  # noqa: E731
+                                     out_dtype=out_dtype)
+        if variant == "wgmma":
+            # the WMMA kernel it replaced, on the bs x bs work list
+            fb, fr, fc = fine[0].to(b.dtype), fine[1], fine[2]
+            was = lambda: spmm.block_spmm(fb, fr, fc, b, nrows_b=a.shape[0] // bs,  # noqa: E731
+                                          out_dtype=out_dtype)
+            before = spmm.SPMM_WMMA_LAUNCHES
+            err, ok = compare(torch, was(), fn(), *TOL["bfloat16"]["gemm"])
+            check(ok and spmm.SPMM_WMMA_LAUNCHES == before + 1,
+                  f"K10 {label}: the wmma variant on the {bs}x{bs} list differs from wgmma by"
+                  f" {err:.3e} (or did not run on wmma)")
+            if timed:
+                row["wmma_ms"] = time_ms(torch, was)
+                print(f"    beside: the wmma variant it replaced ({bs}x{bs} blocks)"
+                      f" {row['wmma_ms']:.4f} ms", flush=True)
+        return row, fn
 
     m = k = n = 4096
     b32 = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
     sweep = []
     for sparsity in (0.0, 0.5, 0.7, 0.9):
         dense_np = random_block_sparse(rng, m, k, 16, sparsity)
-        blocks32, rid, cid = spmm.densify_to_bcsr(dense_np, 16, 16)
         dense32 = torch.from_numpy(dense_np).cuda()
         for dt in (bf16, f32):
-            blocks, b, dense = blocks32.to(dt), b32.to(dt), dense32.to(dt)
-            row = run(f"fig8 4096^3 16x16 sparsity {sparsity} {str(dt)[6:]}", blocks, rid, cid, b,
-                      m // 16, dense)
-            entry = {"sparsity": sparsity, "dtype": str(dt)[6:], "nnzb": int(blocks.shape[0]),
-                     "k10_ms": row["ms"], "cublas_dense_ms": row["library_ms"],
-                     "bound_ms": row["bound_ms"]}
+            b, dense = b32.to(dt), dense32.to(dt)
+            row, _ = run(f"fig8 4096^3 16x16 sparsity {sparsity} {str(dt)[6:]}", dense_np, 16, b,
+                         dense)
+            entry = {"sparsity": sparsity, "dtype": str(dt)[6:], "blocks": row["blocks"],
+                     "k10_ms": row["ms"], "k10_wmma_ms": row.get("wmma_ms"),
+                     "cublas_dense_ms": row["library_ms"], "bound_ms": row["bound_ms"]}
             # the port's own dense GEMM on the same (pruned) matrix
             entry["k1_dense_ms"] = time_ms(torch, lambda: brgemm.matmul(dense, b))
             sweep.append(entry)
-            del blocks, dense
-        del blocks32, dense32
+            del dense
+        del dense32
     for dt in ("bfloat16", "float32"):
         rows = [e for e in sweep if e["dtype"] == dt]
         base = rows[0]["k10_ms"]
         for e in rows:
             e["speedup_vs_k10_at_0"] = base / e["k10_ms"]
         print(f"  Fig. 8 sweep {dt}: " + "; ".join(
-            f"{e['sparsity']:.0%} K10 {e['k10_ms']:.4f} ms ({e['speedup_vs_k10_at_0']:.2f}x of 0 %,"
+            f"{e['sparsity']:.0%} K10 {e['k10_ms']:.4f} ms"
+            + (f" (wmma {e['k10_wmma_ms']:.4f})" if e["k10_wmma_ms"] is not None else "")
+            + f" ({e['speedup_vs_k10_at_0']:.2f}x of 0 %,"
             f" bound {e['bound_ms']:.4f}), K1 dense {e['k1_dense_ms']:.4f},"
             f" cuBLAS dense {e['cublas_dense_ms']:.4f}" for e in rows), flush=True)
     bench.extra["fig8_sweep"] = sweep
 
     dense_np = random_block_sparse(rng, m, k, 8, 0.8)
-    blocks, rid, cid = spmm.densify_to_bcsr(dense_np, 8, 8)
     dense = torch.from_numpy(dense_np).cuda().to(bf16)
-    run("4096^3 8x8 sparsity 0.8 bfloat16", blocks.to(bf16), rid, cid, b32.to(bf16), m // 8, dense)
-    del blocks, dense, b32
+    run("4096^3 8x8 sparsity 0.8 bfloat16", dense_np, 8, b32.to(bf16), dense)
+    del dense, b32
 
     # phase 7c's two calls: the pruned weight (out, in) times x^T, read in place
     w_up, w_down = bert_ffn_weights()
     t = 4096
     for name, w in (("W_up 4096x1024", w_up), ("W_down 1024x4096", w_down)):
         w_sp = block_prune(w, 0.8)
-        blocks, rid, cid = spmm.densify_to_bcsr(w_sp, 8, 8)
         x = torch.randn(t, w.shape[1], generator=gen, device="cuda").to(bf16)
         dense = torch.from_numpy(w_sp).cuda().to(bf16)
-        run(f"bert {name} 80 % 8x8 @ x^T (T {t})", blocks.to(bf16), rid, cid, x.T, w.shape[0] // 8,
-            dense, weight=1)
-    del blocks, x, dense
+        row, fn = run(f"bert {name} 80 % 8x8 @ x^T (T {t})", w_sp, 8, x.T, dense, weight=1)
+        row["device_ms"] = device_ms(torch, fn)
+        print(f"    device {row['device_ms']:.4f} ms", flush=True)
+    del x, dense
 
-    # checks: an empty block row without a padding block, ragged N, both
-    # layouts of B, fp32 out
+    # checks: an empty 64-row block row (without a padding block where pad
+    # is off), ragged N, both layouts of B on each variant (wgmma where TMA
+    # reads B: its stored rows a multiple of 16 bytes; wmma else; simt in
+    # fp32), odd item counts, fp32 out
     for bs, mm, kk, nn, dt, trans, pad, out in (
-            (8, 64, 96, 300, f32, False, False, None), (8, 64, 96, 300, bf16, True, False, None),
-            (16, 96, 64, 200, bf16, True, True, f32), (16, 48, 64, 129, bf16, False, False, None),
-            (16, 64, 48, 77, f32, True, False, None), (8, 40, 72, 136, bf16, False, True, None)):
+            (8, 128, 96, 300, f32, False, False, None), (8, 128, 96, 300, bf16, True, False, None),
+            (16, 192, 64, 200, bf16, True, True, f32), (16, 128, 64, 129, bf16, False, False, None),
+            (16, 128, 48, 77, f32, True, False, None), (8, 128, 72, 136, bf16, False, True, None),
+            (8, 192, 200, 200, bf16, False, False, None), (16, 128, 96, 64, bf16, True, False, f32),
+            (16, 128, 128, 264, bf16, False, True, None), (8, 128, 40, 1000, bf16, True, True, None),
+            (8, 128, 64, 99, bf16, True, False, None)):
         a = random_block_sparse(rng, mm, kk, bs, 0.5)
-        a[bs:2 * bs] = 0   # block row 1 is empty
-        blocks, rid, cid = spmm.densify_to_bcsr(a, bs, bs, pad_empty_rows=pad)
+        a[rows64:2 * rows64] = 0   # 64-row block row 1 is empty
         bmat = (torch.randn(nn, kk, generator=gen, device="cuda").T if trans else
                 torch.randn(kk, nn, generator=gen, device="cuda")).to(dt)
-        run(f"check {bs}x{bs} {mm}x{kk} N {nn} {'B^T ' if trans else ''}{str(dt)[6:]}"
-            f"{' no pad' if not pad else ''}{' fp32 out' if out else ''}",
-            blocks.to(dt), rid, cid, bmat, mm // bs, timed=False, out_dtype=out)
-        check(float(spmm.block_spmm(blocks.to(dt), rid, cid, bmat, nrows_b=mm // bs)[bs:2 * bs]
-                    .abs().max()) == 0.0, "K10: the empty block row is not zero")
+        _, fn = run(f"check {bs}x{bs} {mm}x{kk} N {nn} {'B^T ' if trans else ''}{str(dt)[6:]}"
+                    f"{' no pad' if not pad else ''}{' fp32 out' if out else ''}",
+                    a, bs, bmat, timed=False, out_dtype=out, pad=pad)
+        check(float(fn()[rows64:2 * rows64].abs().max()) == 0.0,
+              "K10: the empty block row is not zero")
+    # an all-zero matrix without padding: no items, on wmma (bf16) and simt
+    for dt in (bf16, f32):
+        a = np.zeros((128, 64), np.float32)
+        blocks, rid, cid = spmm.densify_to_bcsr(a, rows64, 8, pad_empty_rows=False)
+        bmat = torch.randn(64, 256, generator=gen, device="cuda").to(dt)
+        before = spmm.SPMM_LAUNCHES
+        got = spmm.block_spmm(blocks.to(dt), rid, cid, bmat, nrows_b=2)
+        check(spmm.SPMM_LAUNCHES == before + 1 and float(got.abs().max()) == 0.0,
+              f"K10: an empty {str(dt)[6:]} work list did not launch or is not zero")
 
 
 def grouped_matmul_cases(torch, bench, ref, spmm):
@@ -1639,6 +1766,7 @@ def bert_attention_cases(torch, bench, fusion):
     before it), beside SDPA and SDPA's backward; K2 and K6 at this shape
     are cases of ``attention_cases`` and ``attention_bwd_cases``."""
     import torch.nn.functional as F
+    from repro_torch.kernels import fused_gemm
     gen = torch.Generator(device="cuda").manual_seed(16)
     f32 = torch.float32
     b, h, s, d = 16, 16, 512, 64
@@ -1646,11 +1774,12 @@ def bert_attention_cases(torch, bench, fusion):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    def run(kernel, label, graph, ops, *, flops, nbytes, library=None, out_dtype=None, peak="bf16"):
+    def run(kernel, label, graph, ops, *, flops, nbytes, library=None, out_dtype=None):
         k5, plain = _graph_run(torch, fusion, graph, out_dtype)
         tol = "bfloat16" if out_dtype is None else "float32"
         return bench.run(kernel, f"{graph.name} {label}", lambda: k5(**ops), lambda: plain(**ops),
-                         library, flops=flops, nbytes=nbytes, dtype=tol, tol_kind="gemm", peak=peak)
+                         library, flops=flops, nbytes=nbytes, dtype=tol, tol_kind="gemm",
+                         peak=k5_peak(torch, fusion, fused_gemm, graph, ops))
 
     q = randn(b, s, h, d).transpose(1, 2)
     k, v, dy = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
@@ -1670,7 +1799,7 @@ def bert_attention_cases(torch, bench, fusion):
     del dp
     for role, ops in (("dq", dict(dz=dz, k=k)), ("dk", dict(dz=dz, q=q)), ("dv", dict(p=p, dy=dy))):
         run("fused_attention_bwd", f"{role} {label}", g[role], ops, out_dtype=f32, flops=full,
-            nbytes=_nbytes(*ops.values()) + 4 * b * h * s * d, peak="fp32")
+            nbytes=_nbytes(*ops.values()) + 4 * b * h * s * d)
     del p, dz
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qg, kg, vg)
@@ -2032,12 +2161,16 @@ def fused_sources(fusion, fused_gemm, graphs=None):
     return out
 
 
-def fused_gemm_cases(torch, bench, fusion):
+def fused_gemm_cases(torch, bench, fusion, fused_gemm):
     """K5 (each graph's generated kernel) against its plain version, the
     composed reference path, on the card: llama2-13b's fused_gated_mlp_silu
     and fused_attn_out_res at prefill (M 2048) and decode (M 4), gpt-j-6b's
     fused_mlp_gelu, fused_qkv at llama2 GQA widths (5120 → 5120/1024/1024),
-    ragged and fp32 cases, and the op sweep in fp32 and bf16."""
+    each timed beside the WMMA variant it replaced (``k5_beside``); decoded
+    rows bitwise equal at M 1, 3, 8 and 16 (wgmma_decode); ragged
+    TMA-readable shapes on wgmma (narrow roots, both operands stored
+    transposed, two batch axes with a shared rhs, at M <= 16 too), ragged
+    misaligned (wmma) and fp32 cases, and the op sweep in fp32 and bf16."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(11)
 
@@ -2050,9 +2183,15 @@ def fused_gemm_cases(torch, bench, fusion):
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
         kernel = fusion.compile(graph, path="cuda", out_dtype=out_dtype)
         plain = fusion.compile(graph, path="reference", out_dtype=out_dtype)
-        bench.run("fused_gemm", f"{graph.name} {label}", lambda: kernel(**ops),
+        g = fusion.simplify_graph(graph)
+        variant = fused_gemm.variant_of(g, {k: v for k, v in ops.items() if k in g.operand_names})
+        bench.run("fused_gemm", f"{graph.name} {label} [{variant}]", lambda: kernel(**ops),
                   lambda: plain(**ops), library if timed else None, flops=flops,
-                  nbytes=nbytes, dtype=name, tol_kind="gemm", weight=weight, timed=timed)
+                  nbytes=nbytes, dtype=name, tol_kind="gemm", weight=weight, timed=timed,
+                  peak=k5_peak(torch, fusion, fused_gemm, graph, ops))
+        if timed:
+            k5_beside(torch, bench, fusion, fused_gemm, f"{graph.name} {label}", graph, ops,
+                      out_dtype)
 
     d, ff = 5120, 13824
     gated = fusion.fused_gated_mlp_graph("silu")
@@ -2068,6 +2207,18 @@ def fused_gemm_cases(torch, bench, fusion):
             flops=2 * m * d * d, nbytes=2 * (m * d + d * d + 2 * m * d),
             library=lambda: torch.addmm(res, o, wo))
         del o, wo, res
+    # decoded rows: bitwise the same at every M <= 16 (the K split is (K, N)'s)
+    x, wg, wu = randn(16, d), randn(d, ff, scale=d ** -0.5), randn(d, ff, scale=d ** -0.5)
+    wo, res = randn(d, d, scale=d ** -0.5), randn(16, d)
+    kg, ka = fusion.compile(gated, path="cuda"), fusion.compile(attn_out, path="cuda")
+    full_g, full_a = kg(x=x, wg=wg, wu=wu), ka(o=x, wo=wo, residual=res)
+    for m in (1, 3, 8):
+        check(torch.equal(kg(x=x[:m], wg=wg, wu=wu), full_g[:m])
+              and torch.equal(ka(o=x[:m], wo=wo, residual=res[:m]), full_a[:m]),
+              f"K5 decode: rows of M {m} differ from the same rows at M 16")
+    print("  K5 decode (wgmma_decode): rows bitwise equal at M 1, 3, 8 and 16 for both graphs",
+          flush=True)
+    del x, wg, wu, wo, res, full_g, full_a
     # gpt-j-6b's up projection, 4096 -> 16384 with bias and tanh gelu
     m, k, n = 2048, 4096, 16384
     x, w, b = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
@@ -2110,6 +2261,62 @@ def fused_gemm_cases(torch, bench, fusion):
     x, wg, wu = randn(37, 200), randn(200, 100), randn(200, 100)
     run("check bf16 in, fp32 out", gated, dict(x=x, wg=wg, wu=wu), timed=False,
         flops=4 * 37 * 200 * 100, nbytes=0, out_dtype=torch.float32)
+    # the tensor-core variants at ragged TMA-readable shapes
+    for m, k, n in ((70, 136, 200), (300, 64, 72), (5, 200, 136), (16, 72, 520)):
+        x, wg, wu = randn(m, k), randn(k, n, scale=k ** -0.5), randn(k, n, scale=k ** -0.5)
+        run(f"check aligned M{m} K{k} N{n}", gated, dict(x=x, wg=wg, wu=wu), timed=False,
+            flops=0, nbytes=0)
+        run(f"check aligned M{m} K{k} N{n} fp32 out", attn_out,
+            dict(o=x, wo=wg, residual=randn(m, n)), timed=False, flops=0, nbytes=0,
+            out_dtype=torch.float32)
+    for m in (130, 6):
+        run(f"check narrow aligned M{m} K64 N96/32/32", fusion.fused_qkv_graph(),
+            dict(x=randn(m, 64), wq=randn(64, 96), wk=randn(64, 32), wv=randn(64, 32)),
+            timed=False, flops=0, nbytes=0)
+    Op, Node = fusion.OperandSpec, fusion.Node
+    both = fusion.TppGraph("trans_both", (Op("x", "lhs", trans=True), Op("w", "rhs", trans=True),
+                                          Op("b", "rowvec")),
+                           nodes=(Node("n0", "bias_add", ("acc", "b")), Node("n1", "gelu", ("n0",))))
+    for m, k, n in ((304, 136, 200), (16, 256, 520), (2048, 512, 384)):
+        run(f"check both transposed M{m} K{k} N{n}", both,
+            dict(x=randn(k, m), w=randn(n, k, scale=k ** -0.5), b=randn(n)), timed=False,
+            flops=0, nbytes=0)
+    for m in (96, 8):
+        run(f"check batch (3, 5) shared rhs M{m} K128 N192", gated,
+            dict(x=randn(3, 5, m, 128), wg=randn(128, 192), wu=randn(128, 192)), timed=False,
+            flops=0, nbytes=0)
+
+
+# The variant each of K5's tensor-core variants replaced, timed beside it
+# on the same operands.
+OLD_VARIANT = {"wgmma": "wmma", "wgmma_decode": "wmma", "wgmma_split": "simt"}
+
+
+def k5_beside(torch, bench, fusion, fused_gemm, label, graph, ops, out_dtype=None):
+    """Time K5's planned variant of ``graph`` (without a chained root), a
+    lone call and its device time without the host's launch cost
+    (``device_ms``), and the variant it replaced (``OLD_VARIANT``: WMMA for
+    bf16 operands, SIMT for fp32 ones) on the same operands, the old one
+    also within the tolerance of the new; → the record kept in
+    bench.extra["k5_beside"]."""
+    g = fusion.simplify_graph(graph)
+    kern = fused_gemm.FusedKernel(g)
+    feed = {k: v for k, v in ops.items() if k in g.operand_names}
+    variant = fused_gemm.variant_of(g, feed)
+    rec = {"variant": variant, "ms": time_ms(torch, lambda: kern(feed, out_dtype=out_dtype)),
+           "device_ms": device_ms(torch, lambda: kern(feed, out_dtype=out_dtype))}
+    old = OLD_VARIANT.get(variant)
+    if old:
+        new, was = kern(feed, out_dtype=out_dtype), kern(feed, out_dtype=out_dtype, variant=old)
+        dtype = "bfloat16" if (out_dtype or new.dtype) == torch.bfloat16 else "float32"
+        err, ok = compare(torch, was, new, *TOL[dtype]["gemm"])
+        check(ok, f"K5 {label}: the {old} variant differs from {variant} by {err:.3e}")
+        rec.update(old_variant=old, old_ms=time_ms(torch, lambda: kern(feed, out_dtype=out_dtype,
+                                                                       variant=old)))
+    bench.extra.setdefault("k5_beside", {})[label] = rec
+    print(f"    beside: {variant} {rec['ms']:.4f} ms [device {rec['device_ms']:.4f}]"
+          + (f", the {old} variant it replaced {rec['old_ms']:.4f} ms" if old else ""), flush=True)
+    return rec
 
 
 def _graph_run(torch, fusion, graph, out_dtype=None):
@@ -2120,6 +2327,21 @@ def _graph_run(torch, fusion, graph, out_dtype=None):
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k5_peak(torch, fusion, fused_gemm, graph, ops):
+    """The rate K5's bound takes for ``graph`` on ``ops``: bf16 operands at
+    the bf16 rate; an fp32 operand against bf16 ones on wgmma_split at the
+    tensor cores' TF32 rate (the same as the hi + lo pieces' two bf16
+    products at the bf16 rate); fp32 on SIMT at the fp32 rate."""
+    if all(ops[sp.name].dtype == torch.bfloat16 for sp in graph.contraction_operands):
+        return "bf16"
+    if graph.chained_root() is None:
+        g = fusion.simplify_graph(graph)
+        if fused_gemm.variant_of(g, {k: v for k, v in ops.items() if k in g.operand_names}) \
+                == "wgmma_split":
+            return "tf32"
+    return "fp32"
 
 
 def fused_training_cases(torch, bench, fusion, rng):
@@ -2133,24 +2355,34 @@ def fused_training_cases(torch, bench, fusion, rng):
     2304 (keep pattern checked bit for bit, forward and a backward graph's
     regeneration), fused_output_graph(0.1) at N 1024 and 5120 (layernorm
     panels) and its dz graph, an rmsnorm panel, and small fp32 checks
-    (ragged, Sq != Skv, one batch axis, a chain of 128)."""
+    (ragged, Sq != Skv, one batch axis, a chain of 128).  Each graph without
+    a chained root is timed beside the variant it replaced (WMMA for bf16
+    operands, SIMT for the fp32 dz of the backward graphs: ``k5_beside``),
+    and ragged fp32-operand graphs check wgmma_split at the fp32 tolerance."""
     import torch.nn.functional as F
+    from repro_torch.kernels import fused_gemm
     gen = torch.Generator(device="cuda").manual_seed(21)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
 
     def run(kernel, label, graph, ops, *, flops, nbytes, weight=0, timed=True, library=None,
-            out_dtype=None, peak=None, tol=None):
+            out_dtype=None, tol=None):
         k5, plain = _graph_run(torch, fusion, graph, out_dtype)
         dts = [ops[sp.name].dtype for sp in graph.contraction_operands]
         tol = tol or ("bfloat16" if (out_dtype or dts[0]) == torch.bfloat16 else "float32")
-        # all-bf16 operands run on the tensor cores; any fp32 one in fp32
-        bf16 = all(dt == torch.bfloat16 for dt in dts)
-        return bench.run(kernel, f"{graph.name} {label}", lambda: k5(**ops), lambda: plain(**ops),
-                         library if timed else None, flops=flops, nbytes=nbytes, dtype=tol,
-                         tol_kind="gemm", weight=weight, timed=timed,
-                         peak=peak or ("bf16" if bf16 else "fp32"))
+        chained = graph.chained_root() is not None
+        if not chained:
+            g = fusion.simplify_graph(graph)
+            label += f" [{fused_gemm.variant_of(g, {k: v for k, v in ops.items() if k in g.operand_names})}]"
+        got = bench.run(kernel, f"{graph.name} {label}", lambda: k5(**ops), lambda: plain(**ops),
+                        library if timed else None, flops=flops, nbytes=nbytes, dtype=tol,
+                        tol_kind="gemm", weight=weight, timed=timed,
+                        peak=k5_peak(torch, fusion, fused_gemm, graph, ops))
+        if timed and not chained:
+            k5_beside(torch, bench, fusion, fused_gemm, f"{graph.name} {label}", graph, ops,
+                      out_dtype)
+        return got
 
     f32 = torch.float32
     b, h, s, d = 4, 36, 1024, 64
@@ -2221,6 +2453,18 @@ def fused_training_cases(torch, bench, fusion, rng):
         nbytes=_nbytes(x, dzg, dzu) + 8 * dm * ff,
         library=lambda: x.float().T @ torch.cat([dzg, dzu], 1))
     del x, wg, wu, dyg, dz0, dzg, dzu
+    # wgmma_split at ragged shapes: fp32 dz against bf16 weights read in
+    # place (dX) and bf16 x read transposed (dW), the fp32 tolerance
+    for mm, kk, nn in ((100, 200, 72), (256, 40, 136), (9, 128, 64)):
+        xs, ws_g, ws_u = randn(mm, nn), randn(nn, kk), randn(nn, kk)
+        dz_g, dz_u = randn(mm, kk, dtype=f32), randn(mm, kk, dtype=f32)
+        run("fused_proj_bwd", f"check split dX M{mm} K{kk} N{nn}",
+            gb["fused_gated_mlp_silu@bwd_dlhs[x]"], dict(dz_g=dz_g, wg=ws_g, dz_u=dz_u, wu=ws_u),
+            timed=False, out_dtype=f32, flops=0, nbytes=0)
+        run("fused_proj_bwd", f"check split dW M{mm} K{kk} N{nn}",
+            gb["fused_gated_mlp_silu@bwd_drhs"], dict(x=xs, dz_g=dz_g, dz_u=dz_u), timed=False,
+            out_dtype=f32, flops=0, nbytes=0)
+    del xs, ws_g, ws_u, dz_g, dz_u
 
     # dropout_rng in the kernel: the forward's keep pattern and a backward
     # graph's regeneration, bit for bit, against fusion.rng at M 4096 x N 2304
@@ -3098,6 +3342,7 @@ def fused_full_width(torch, counters, peaks, cfg, params, unfused):
     out, total_ms = serve(fcfg, new)          # the fused main path
     launches = counters.read()
     k1_on_wgmma(launches, "phase 7 fused generate_loop")
+    k5_on_wgmma(launches, "phase 7 fused generate_loop")
     by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     steps = launches["flash_decode"] // L
@@ -3149,6 +3394,7 @@ def fused_engine(torch, counters, cfg, params):
     eng, wall_ms = drain(torch, fcfg, params, reqs, num_slots=ENGINE["num_slots"], tracer=tracer)
     launches = counters.read()                  # the fused engine's run
     k1_on_wgmma(launches, "phase 7 fused engine")
+    k5_on_wgmma(launches, "phase 7 fused engine")
     prefills = sum(1 for sp in tracer.spans() if sp.name == "engine.prefill")
     steps = eng.decode_steps
     tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
@@ -3385,8 +3631,10 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     """Phase 7c, the paper's Block-SpMM path at bert-large's widths (what
     ``examples/sparse_inference.py`` and ``benchmarks/bench_e2e.py``'s
     sparse row do): both FFN weights magnitude-pruned to 80 % block sparsity
-    in 8x8 blocks, each linear ``ops.block_spmm(blocks, rid, cid, x.T,
-    nrows_b=out // 8).T`` on 4096 tokens (B 8 x S 512) in bf16, up, gelu,
+    in 8x8 blocks and stored once in 64x8 blocks (the wgmma variant's work
+    list, ``densify_to_bcsr(w, 64, 8)``), each linear ``ops.block_spmm(
+    blocks, rid, cid, x.T, nrows_b=out // 64).T`` on 4096 tokens (B 8 x S
+    512) in bf16, up, gelu,
     down, with every counter set to 0 just before and read just after: one
     K10 launch a call and nothing else; each output against the dense
     product of its pruned weight; times of the dense ``torch.matmul``, K1
@@ -3406,15 +3654,15 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     for name, w in zip(("W_up", "W_down"), bert_ffn_weights()):
         w_sp = block_prune(w, sparsity)
         nz = np.abs(w_sp.reshape(w.shape[0] // 8, 8, w.shape[1] // 8, 8)).sum((1, 3)) != 0
-        blocks, rid, cid = spmm.densify_to_bcsr(w_sp, 8, 8)
-        blocks0, rid0, cid0 = spmm.densify_to_bcsr(w, 8, 8)
+        blocks, rid, cid = spmm.densify_to_bcsr(w_sp, spmm.WGMMA_ROWS, 8)
+        blocks0, rid0, cid0 = spmm.densify_to_bcsr(w, spmm.WGMMA_ROWS, 8)
         layers[name] = {"sparse": (blocks.to(bf16), rid, cid), "full": (blocks0.to(bf16), rid0, cid0),
                         "dense": torch.from_numpy(w_sp).cuda().to(bf16), "out": w.shape[0],
-                        "sparsity": float(1 - nz.mean())}
+                        "sparsity": float(1 - nz.mean()), "items": int(nz.sum()), "items_0": nz.size}
 
     def linear(layer, inp, which="sparse"):
         blocks, rid, cid = layer[which]
-        return ops.block_spmm(blocks, rid, cid, inp.T, nrows_b=layer["out"] // 8).T
+        return ops.block_spmm(blocks, rid, cid, inp.T, nrows_b=layer["out"] // spmm.WGMMA_ROWS).T
 
     # the path: up, gelu, down
     counters.reset()
@@ -3425,6 +3673,11 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     launches = counters.read()
     check(launches["block_spmm"] == 2 and kernel_total(launches) == 2,
           f"the sparse FFN launched {launches}, want K10 twice and nothing else")
+    check(launches["block_spmm_wgmma"] == 2,
+          f"K10's launches by variant in the sparse FFN: {launches['block_spmm_wgmma']} wgmma,"
+          f" {launches['block_spmm_wmma']} wmma, {launches['block_spmm_simt']} simt")
+    print(f"  the sparse FFN: K10 launches {launches['block_spmm']}, on wgmma"
+          f" {launches['block_spmm_wgmma']}", flush=True)
     check(y.shape == (tokens, 1024) and bool(torch.isfinite(y).all()), "sparse FFN output not finite")
     result = {"tokens": tokens, "launches": launches, "layers": {}}
     rtol, atol = TOL["bfloat16"]["gemm"]
@@ -3438,8 +3691,8 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
         err, ok = compare(torch, got, want, rtol, atol)
         check(ok, f"{name}: the sparse product differs from the dense pruned one by {err:.3e}")
         out, k = layer["dense"].shape
-        nnzb = layer["sparse"][0].shape[0]
-        nnzb0 = layer["full"][0].shape[0]
+        # the bounds count the pruned 8x8 blocks, not the 64x8 ones' zeros
+        nnzb, nnzb0 = layer["items"], layer["items_0"]
 
         def bound(items, dense=False):
             flops = 2 * (out * k if dense else items * 64) * tokens
@@ -3447,7 +3700,8 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
                 + (0 if dense else 8 * items)
             return max(flops / peaks["bf16"], nbytes / peaks["hbm"]) * 1e3
         dense_w = layer["dense"]
-        row = {"sparsity": layer["sparsity"], "nnzb": nnzb, "nnzb_at_0": nnzb0, "max_abs_err": err,
+        row = {"sparsity": layer["sparsity"], "nnzb": nnzb, "nnzb_at_0": nnzb0,
+               "blocks_64x8": layer["sparse"][0].shape[0], "max_abs_err": err,
                "dense_torch_matmul_ms": time_ms(torch, lambda: torch.matmul(inp, dense_w.T)),
                "dense_k1_ms": time_ms(torch, lambda: brgemm.matmul(inp, dense_w.T)),
                "work_list_0_ms": time_ms(torch, lambda: linear(layer, inp, "full")),
@@ -3458,7 +3712,7 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
         row["speedup_vs_dense"] = row["dense_torch_matmul_ms"] / row["work_list_ms"]
         result["layers"][name] = row
         print(f"  {name} ({out}x{k}, block sparsity {layer['sparsity']:.1%}, {nnzb} of {nnzb0} 8x8"
-              f" blocks) on {tokens} tokens: max err {err:.3e} (rtol {rtol}, atol {atol});"
+              f" blocks in {row['blocks_64x8']} 64x8 ones) on {tokens} tokens: max err {err:.3e} (rtol {rtol}, atol {atol});"
               f" dense torch.matmul {row['dense_torch_matmul_ms']:.4f} ms (bound"
               f" {row['dense_bound_ms']:.4f}), K1 dense {row['dense_k1_ms']:.4f} ms, work list at 0 %"
               f" {row['work_list_0_ms']:.4f} ms (bound {row['work_list_0_bound_ms']:.4f}), at 80 %"
@@ -3648,6 +3902,7 @@ def scheduled_path(torch, counters, fusion, rng):
     result["attn_out_hw_prng"] = {"shape": [t, dm, dm], "rate": rate, "max_abs_err": err,
                                   "launches": launches}
     result["launches"] = total
+    k5_on_wgmma(total, "phase 7e")
     print(f"  fused_attn_out_apply M{t} {dm}->{dm} dropout {rate} hw_prng: launches"
           f" {launches['fused_gemm']} K5, {launches['hw_tile_bits']} K13; max err {err:.3e}"
           f" against K13's plain version (rtol {rtol}, atol {atol})", flush=True)
@@ -3656,10 +3911,11 @@ def scheduled_path(torch, counters, fusion, rng):
 
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
-# K5's generated kernels go by template: fused_gemm (a pointwise epilogue),
-# fused_panel (a row panel), fused_chain (a chained root: the SIMT kernel,
-# or the forward mainloop of csrc/attention_fwd.cuh on a generated
-# epilogue, which K2 instantiates on K2Epi).
+# K5's generated kernels go by template: fused_gemm (a pointwise epilogue,
+# and wgmma_split's pre-pass), fused_panel (a row panel), fused_chain (a
+# chained root: the SIMT kernel, or the forward mainloop of
+# csrc/attention_fwd.cuh on a generated epilogue, which K2 instantiates on
+# K2Epi).
 KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "gemm_bf16_wmma": "gemm", "gemm_f32_simt": "gemm",
              "gemm_transposed_bf16_wgmma": "gemm_transposed",
@@ -3669,9 +3925,13 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "flash_attention_kernel": "flash_attention",
              "attention_fwd_wgmma_kernel": "fused_chain", "flash_decode_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode",
+             "fused_gemm_bf16_wgmma": "fused_gemm", "fused_gemm_bf16_wgmma_decode": "fused_gemm",
+             "fg_split_bf16": "fused_gemm",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
+             "fused_panel_bf16_wgmma": "fused_panel",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
+             "block_spmm_bf16_wgmma": "block_spmm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
              "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
@@ -3780,8 +4040,12 @@ class Counters:
         self.fused_gemm.HW_PRNG_LAUNCHES = 0
         self.fused_gemm.CHAIN_WGMMA_LAUNCHES = 0
         self.fused_gemm.CHAIN_BWD_WGMMA_LAUNCHES = 0
+        for counter in self.fused_gemm.VARIANT_COUNTERS.values():
+            setattr(self.fused_gemm, counter, 0)
         self.scan.SCAN_LAUNCHES = 0
         self.spmm.SPMM_LAUNCHES = 0
+        for counter in self.spmm.SPMM_COUNTERS.values():
+            setattr(self.spmm, counter, 0)
         self.spmm.GROUPED_LAUNCHES = 0
         self.fo.LAUNCHES = 0
 
@@ -3807,8 +4071,15 @@ class Counters:
                 # among them (not kernel rows of their own)
                 "fused_chain_wgmma": self.fused_gemm.CHAIN_WGMMA_LAUNCHES,
                 "fused_attention_bwd_wgmma": self.fused_gemm.CHAIN_BWD_WGMMA_LAUNCHES,
+                # the launches of K5's graphs without a chained root by
+                # variant (not kernel rows of their own)
+                **{f"fused_{v}": getattr(self.fused_gemm, c)
+                   for v, c in self.fused_gemm.VARIANT_COUNTERS.items()},
                 "mamba_scan": self.scan.SCAN_LAUNCHES,
                 "block_spmm": self.spmm.SPMM_LAUNCHES,
+                # K10's launches by variant (not kernel rows of their own)
+                **{f"block_spmm_{v}": getattr(self.spmm, c)
+                   for v, c in self.spmm.SPMM_COUNTERS.items()},
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
                 "fused_output": self.fo.LAUNCHES,
                 "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
@@ -3822,6 +4093,8 @@ class Counters:
 SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_simt",
                         "flash_attention_wgmma", "flash_attention_bwd_wgmma",
                         "fused_chain_wgmma", "fused_attention_bwd_wgmma",
+                        "fused_wgmma", "fused_wgmma_decode", "fused_wgmma_split", "fused_wmma",
+                        "fused_simt", "block_spmm_wgmma", "block_spmm_wmma", "block_spmm_simt",
                         "brgemm_blocked_wgmma"})
 
 
@@ -3841,6 +4114,17 @@ def k1_on_wgmma(launches, what):
     check(k1 > 0 and on == k1 and launches["gemm_wmma"] == 0,
           f"{what}: K1 launched {k1} times, {on} on the wgmma variants,"
           f" {launches['gemm_wmma']} on wmma")
+
+
+def k5_on_wgmma(launches, what):
+    """Every launch of a K5 graph without a chained root on a full-width
+    bf16 path on a wgmma variant (``wgmma``, ``wgmma_decode`` or
+    ``wgmma_split``), none on ``wmma`` or ``simt``."""
+    on = {v: launches[f"fused_{v}"] for v in ("wgmma", "wgmma_decode", "wgmma_split")}
+    off = {v: launches[f"fused_{v}"] for v in ("wmma", "simt")}
+    print(f"  {what}: K5 graphs without a chained root by variant {on}, {off}", flush=True)
+    check(sum(on.values()) > 0 and not any(off.values()),
+          f"{what}: K5's GEMM-rooted launches by variant {on}, {off}")
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -4015,6 +4299,7 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
     check(all(math.isfinite(x) for x in hist["loss"] + hist["grad_norm"]),
           f"non-finite loss or grad norm: {hist['loss']}, {hist['grad_norm']}")
     if fused:
+        k5_on_wgmma(launches, f"training {arch} fused")
         want = fused_training_launches(fusion, cfg, steps)
         check(by_graph == want, f"K5 launches by graph {by_graph}, want {want}")
         for name in ("fused_gemm", "fused_chain", "fused_attention_bwd", "fused_proj_bwd"):
@@ -4138,7 +4423,8 @@ def main() -> int:
     peaks = PEAKS[peak_name]
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind};"
           f" bounds use {peak_name} peaks: {peaks['bf16'] / 1e12:g} TFLOP/s bf16,"
-          f" {peaks['fp32'] / 1e12:g} TFLOP/s fp32, {peaks['hbm'] / 1e12:g} TB/s", flush=True)
+          f" {peaks['tf32'] / 1e12:g} TFLOP/s TF32, {peaks['fp32'] / 1e12:g} TFLOP/s fp32,"
+          f" {peaks['hbm'] / 1e12:g} TB/s", flush=True)
 
     if "--gemm-tiles" in sys.argv[1:]:
         phase("K1's wgmma tile choices")
@@ -4159,6 +4445,7 @@ def main() -> int:
     chain_build = chain_build_report(_build, fusion, fused_gemm, fa, logs)
     bwd_build = bwd_build_report(_build, fa, logs, chained)
     gemm_build = gemm_build_report(_build, logs)
+    k5_k10_build = k5_k10_build_report(logs, fused_sources(fusion, fused_gemm), fused_gemm)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -4169,7 +4456,7 @@ def main() -> int:
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
     mamba_scan_cases(torch, bench, ref, scan)
-    fused_gemm_cases(torch, bench, fusion)
+    fused_gemm_cases(torch, bench, fusion, fused_gemm)
     fused_training_cases(torch, bench, fusion, rng)
     chained_bwd_cases(torch, bench, fusion, fused_gemm, ops)
     chained_forward_cases(torch, bench, fusion, fused_gemm, fa)
@@ -4297,7 +4584,7 @@ def main() -> int:
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,
                       "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
-                      "gemm_build": gemm_build}))
+                      "gemm_build": gemm_build, "k5_k10_build": k5_k10_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -85,8 +85,9 @@ SIGNATURES = {
     },
     "block_spmm": {
         # blocks, row_ptr, col_id, b, c, in_bf16, out_bf16, nrows, bm, bk,
-        # N, K, ldb, trans_b, vec, stream
-        "block_spmm": (_P,) * 5 + (_I,) * 10 + (_P,),
+        # N, K, ldb, trans_b, vec, variant, nnzb, rows_per, workspace,
+        # stream
+        "block_spmm": (_P,) * 5 + (_I,) * 13 + (_P,) * 2,
         # x, group_id, w, out, in_bf16, out_bf16, tiles, rows, E, d, f, vec,
         # stream
         "grouped_matmul": (_P,) * 4 + (_I,) * 8 + (_P,),

@@ -4,9 +4,14 @@ grouped per-row-tile expert product.
 Replaces ``repro/kernels/block_spmm.py::block_spmm_pallas`` (line 72) and
 ``::grouped_matmul_pallas`` (line 137).  The CUDA source is
 ``csrc/block_spmm.cu``, whose header says what bounds each kernel on an
-H100 and what its design does about it: one block per (block row, 128
-columns) looping over that row's work items for K10, K1's mainloop on each
-row tile's expert for K9.  The plain versions are
+H100 and what its design does about it: for K10 in bf16 a wgmma kernel fed
+by a TMA ring over a work list of 64-row blocks (``spmm_plan``: 128
+columns of C and a run of block rows a CTA; a matrix pruned in 8x8 or
+16x16 blocks is stored once as ``densify_to_bcsr(a, 64, bk)``, each block
+the union of 8 or 4 pruned block rows at one column; two 8-deep items or
+one 16-deep item a k16 step, ``paired_steps``), WMMA for bf16 blocks of 8
+or 16 rows and for operands TMA cannot read, SIMT for fp32; K1's mainloop
+on each row tile's expert for K9.  The plain versions are
 ``kernels.ref.block_spmm_ref`` and ``kernels.ref.grouped_matmul_ref``;
 ``kernels.ops.block_spmm`` and ``kernels.ops.grouped_matmul`` pick between
 kernel and plain version by the device of the tensors.
@@ -16,21 +21,81 @@ host, as the reference's helper of the same name does.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import _build
 
-__all__ = ["densify_to_bcsr", "block_spmm", "grouped_matmul", "SPMM_LAUNCHES",
-           "GROUPED_LAUNCHES", "BLOCK_SIZES"]
+__all__ = ["densify_to_bcsr", "block_spmm", "grouped_matmul", "spmm_plan", "paired_steps",
+           "SpmmPlan", "WGMMA_ROWS", "SPMM_LAUNCHES", "SPMM_WGMMA_LAUNCHES", "SPMM_WMMA_LAUNCHES",
+           "SPMM_SIMT_LAUNCHES", "SPMM_COUNTERS", "GROUPED_LAUNCHES", "BLOCK_SHAPES"]
 
-# Launches of each CUDA kernel since import (or since a caller reset them).
+# Launches of each CUDA kernel since import (or since a caller reset them),
+# and K10's by variant.
 SPMM_LAUNCHES = 0
+SPMM_WGMMA_LAUNCHES = 0
+SPMM_WMMA_LAUNCHES = 0
+SPMM_SIMT_LAUNCHES = 0
 GROUPED_LAUNCHES = 0
 
-BLOCK_SIZES = (8, 16)        # K10 has kernels for 8x8 and 16x16 blocks
+WGMMA_ROWS = 64              # wgmma: rows of a block (csrc/block_spmm.cu spmm_wg::BM)
+BLOCK_SHAPES = ((8, 8), (16, 16), (WGMMA_ROWS, 8), (WGMMA_ROWS, 16))   # K10's (bm, bk)
 _DTYPES = (torch.float32, torch.bfloat16)
+SPMM_VARIANTS = {"wgmma": 1, "wmma": 0, "simt": 0}
+SPMM_COUNTERS = {"wgmma": "SPMM_WGMMA_LAUNCHES", "wmma": "SPMM_WMMA_LAUNCHES",
+                 "simt": "SPMM_SIMT_LAUNCHES"}
+_TILE_N = 128                # wgmma: columns of C a CTA (spmm_wg::BN)
+_TARGET_CTAS = 4 * 132       # wgmma: about four CTAs on each of the H100's SMs
+
+
+class SpmmPlan(NamedTuple):
+    """How K10 runs one call: ``variant`` (wgmma, wmma or simt); for wgmma
+    ``rows_per_cta`` block rows a CTA walks, and its ``grid`` (runs of block
+    rows, 128-column tiles of C)."""
+    variant: str
+    rows_per_cta: int
+    grid: tuple
+
+
+def spmm_plan(nrows: int, n: int, dtype, aligned: bool = True, nnzb: int = 1,
+              bm: int = WGMMA_ROWS) -> SpmmPlan:
+    """K10's plan for ``nrows`` block rows of ``bm`` rows times an N =
+    ``n`` wide B of ``dtype``: fp32 → ``simt``; bf16 → ``wgmma`` for
+    64-row blocks where TMA reads B and the blocks where they lie
+    (``aligned``: 16-byte aligned bases and B's row stride) and there is an
+    item (``nnzb`` > 0), else ``wmma``.  The grid holds every 128-column
+    tile of C by runs of consecutive block rows, sized so that about
+    ``_TARGET_CTAS`` CTAs share the card; each CTA walks its run through one
+    ring, so a short block row costs no launch of its own."""
+    cols = -(-n // _TILE_N)
+    if dtype != torch.bfloat16:
+        return SpmmPlan("simt", 1, (nrows, cols))
+    if bm != WGMMA_ROWS or not aligned or nnzb < 1:
+        return SpmmPlan("wmma", 1, (nrows, cols))
+    runs = max(1, min(nrows, _TARGET_CTAS // cols))
+    per = -(-nrows // runs)
+    return SpmmPlan("wgmma", per, (-(-nrows // per), cols))
+
+
+def paired_steps(row_ptr, bk: int) -> list[list[tuple[int, int]]]:
+    """The k16 steps the wgmma variant takes for each block row of a
+    row-sorted work list (``row_ptr``: the first item of each block row, and
+    the end): a 16-deep item alone (its second slot -1), two consecutive
+    8-deep items of one block row together, an odd last item with -1 (a
+    zero block against zero rows of B).  A block row without items has no
+    step and comes out zero."""
+    ptr = [int(x) for x in row_ptr]
+    per = 2 if bk == 8 else 1
+    out = []
+    for beg, end in zip(ptr[:-1], ptr[1:]):
+        steps = []
+        for t in range(beg, end, per):
+            steps.append((t, t + 1 if per == 2 and t + 1 < end else -1))
+        out.append(steps)
+    return out
 
 
 def densify_to_bcsr(a, bm: int, bk: int, *, pad_empty_rows: bool = True, device="cuda"):
@@ -77,21 +142,23 @@ def _ids(name, t, n):
 
 
 def block_spmm(blocks, row_id, col_id, b, *, nrows_b, out_dtype=None):
-    """C = A_sparse @ B on the GPU.  ``blocks`` (nnzb, bm, bk), 8x8 or
-    16x16; ``row_id``/``col_id`` (nnzb,) int32, sorted row-major
-    as ``densify_to_bcsr`` gives them; ``b`` (K, N) of the blocks' dtype
-    (fp32 or bf16), row-major or a transposed view (read in place), K a
-    multiple of bk; → (nrows_b·bm, N) in ``out_dtype`` (default ``b.dtype``).
-    A block row without items comes out zero.  Raises on anything the
-    kernel does not take."""
+    """C = A_sparse @ B on the GPU.  ``blocks`` (nnzb, bm, bk) of one of
+    ``BLOCK_SHAPES`` (64-row blocks run on wgmma in bf16:
+    ``densify_to_bcsr(a, 64, bk)`` of a matrix pruned in bk x bk blocks);
+    ``row_id``/``col_id`` (nnzb,) int32, sorted row-major as
+    ``densify_to_bcsr`` gives them; ``b`` (K, N) of the blocks' dtype (fp32
+    or bf16), row-major or a transposed view (read in place), K a multiple
+    of bk; → (nrows_b·bm, N) in ``out_dtype`` (default ``b.dtype``).  A
+    block row without items comes out zero.  The variant is ``spmm_plan``'s.
+    Raises on anything the kernel does not take."""
     global SPMM_LAUNCHES
     _check_cuda("block_spmm", blocks, row_id, col_id, b)
     if blocks.dim() != 3 or b.dim() != 2:
         raise ValueError(f"block_spmm blocks {tuple(blocks.shape)}, b {tuple(b.shape)}")
     nnzb, bm, bk = blocks.shape
     k, n = b.shape
-    if bm != bk or bm not in BLOCK_SIZES:
-        raise ValueError(f"block_spmm {bm}x{bk} blocks: need square blocks of {BLOCK_SIZES}")
+    if (bm, bk) not in BLOCK_SHAPES:
+        raise ValueError(f"block_spmm {bm}x{bk} blocks: need one of {BLOCK_SHAPES}")
     if k % bk:
         raise ValueError(f"block_spmm: K {k} is not a multiple of bk {bk}")
     if blocks.dtype != b.dtype:
@@ -114,12 +181,24 @@ def block_spmm(blocks, row_id, col_id, b, *, nrows_b, out_dtype=None):
     row_ptr = torch.searchsorted(
         row_id, torch.arange(nrows_b + 1, dtype=torch.int32, device=b.device), out_int32=True)
     vec = ldb % 8 == 0 and b.data_ptr() % 16 == 0
+    stored_rows = n if trans else k
+    aligned = (b.data_ptr() % 16 == 0 and blocks.data_ptr() % 16 == 0
+               and (stored_rows <= 1 or ldb * b.element_size() % 16 == 0))
+    plan = spmm_plan(nrows_b, n, b.dtype, aligned, nnzb, bm)
+    # wgmma's scratch: for B stored (N, K) against 8-deep items the (K, N)
+    # copy the kernel writes (bf16)
+    workspace = None
+    if plan.variant == "wgmma" and trans and bk == 8:
+        workspace = torch.empty(k, -(-n // 8) * 8, dtype=torch.bfloat16, device=b.device)
     lib = _build.load("block_spmm")
     err = lib.block_spmm(blocks.data_ptr(), row_ptr.data_ptr(), col_id.data_ptr(), b.data_ptr(),
                          c.data_ptr(), *codes, nrows_b, bm, bk, n, k, ldb, int(trans), int(vec),
+                         SPMM_VARIANTS[plan.variant], nnzb, plan.rows_per_cta,
+                         workspace.data_ptr() if workspace is not None else None,
                          torch.cuda.current_stream(b.device).cuda_stream)
     _build.check(err, "block_spmm")
     SPMM_LAUNCHES += 1
+    globals()[SPMM_COUNTERS[plan.variant]] += 1
     return c
 
 

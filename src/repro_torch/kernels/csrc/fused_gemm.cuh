@@ -49,29 +49,55 @@
 // table the grid is the fixed 2-D raster, "bca"'s order.
 //
 // What bounds it on an H100: at prefill and training (M in the thousands
-// against the 2304..13824-wide weights) tensor-core operations; at decode
-// (M <= 16) one pass over the R weight matrices, HBM bytes; a row panel
-// adds two to four fp32 passes over its staged rows (L2).  Fusing saves
-// bytes only: the lhs is read once per K step for all roots, the roots'
-// accumulators never go to device memory, the output is written once.
+// against the 2304..13824-wide weights) tensor-core operations, which only
+// wgmma fed ahead of time reaches; at decode (M <= 16) one pass over the R
+// weight matrices, HBM bytes; a row panel adds two to four fp32 passes over
+// its staged rows (L2).  Fusing saves bytes only: the lhs is read once per
+// K step for all roots, the roots' accumulators never go to device memory,
+// the output is written once.
 //
-// What the design does about it: K1's mainloop (csrc/gemm.cu) with R
-// accumulators.  All-bf16 operands run WMMA 16x16x16 fragments on the tensor
-// cores: BM x BN = 128 x 128 tiles for one root, 128 x 64 for two or three
-// (so the R accumulators stay in registers), 16 x 64 for M <= 16 (a row's
-// sums do not depend on M there, so a decoded row is the same at any batch
-// of up to 16 rows), 64 x 128 for a row panel.  Each K step copies the
-// distinct lhs tiles to shared memory once and the R rhs tiles beside them,
-// in their stored layouts with 16-byte loads where aligned (a transposed
-// tile is read by column-major fragments); ragged M, N and K are
-// zero-filled.  At the end of K each warp stages its fragments through
-// shared memory and each lane evaluates the generated epilogue per element.
-// Any fp32 operand (the fp32 test configs, and the backward graphs that
-// read fp32 panels against bf16 weights, where the reference promotes the
-// product to fp32) runs a SIMT mainloop in full fp32 FMA (no TF32): a
-// 128 x 64 tile, an 8 x 4 micro-tile a thread, each operand converted to
-// fp32 as it is copied to shared memory.  Loads are not pipelined (no
-// cp.async, TMA or wgmma): left for the PR that makes K1 and K5 fast.
+// What the design does about it: five variants, which the wrapper's plan
+// (kernels/fused_gemm.py gemm_plan) names from the operands' dtypes, M and
+// layout, and the C entry launches or refuses (no fallback):
+//   wgmma (bf16, M > 16, every operand TMA can read): the producer warp and
+//     wgmma consumers of csrc/gemm_mainloop.cuh, with the distinct lhs
+//     tiles and the R rhs tiles of a k-step in one ring stage, one tensor
+//     map each (an axis every problem shares has extent 1), each read where
+//     it lies (a transposed operand MN-major, with wgmma's transpose bit).
+//     Two consumer warpgroups of 64 rows each run R wgmma groups a k16
+//     step into R accumulators in registers: a 128 x 128 tile for one root,
+//     128 x 64 for two or three (R x BN / 2 fp32 a thread: 64, 64, 96), two
+//     CTAs an SM where 64 do (WTile).  A narrow root's tiles past its width
+//     load nothing and run no product (the producer expects fewer bytes);
+//     the fixed grid is rasterised in groups of 8 row tiles as K1's.  The
+//     generated Epi::apply runs from the accumulator registers (acc_row /
+//     acc_col), two adjacent columns a call, stored as pairs.
+//   wgmma_decode (bf16, M <= 16): K1's weight stream (csrc/gemm.cu): the
+//     operands swap so the R weight tiles are wgmma's 64-row side and the
+//     rows its n 16; K is split by (K, N) alone into fp32 partials that the
+//     last CTA of each 128-column panel sums in split order (a counter in
+//     device memory it resets; no float atomics), so a decoded row has the
+//     same bits at every M <= 16.
+//   wgmma_split (an fp32 lhs against bf16 rhs, or a bf16 lhs against fp32
+//     rhs: the derived backward graphs, which read fp32 dz): a pre-pass
+//     (fg_split_bf16) writes each fp32 operand x as two bf16 pieces, hi =
+//     bf16(x) and lo = bf16(x - hi), and the wgmma tile runs hi and lo
+//     against the exact bf16 operand, hi first, a k16 step at a time, each
+//     64-deep step into a fresh accumulator that the CUDA cores add to the
+//     fp32 sum (the tensor cores truncate long partial sums): x = hi + lo
+//     to about 2^-17 of |x|, so the product keeps the fp32 tolerance on the
+//     tensor cores, with the transpose bit that TF32 wgmma lacks (x.T @ dz
+//     reads dz MN-major).  One CTA an SM: a thread holds both sums.
+//   wmma (bf16 operands TMA cannot read: a base or stride not a multiple
+//     of 16 bytes): WMMA 16x16x16 fragments copied by threads, unpipelined:
+//     128 x 128 (one root), 128 x 64 (two or three), 16 x 64 (M <= 16),
+//     64 x 128 for a row panel.
+//   simt (every operand fp32, the fp32 test configs; and mixed operands the
+//     split does not take): full fp32 FMA, never TF32, 128 x 64 tiles.
+// A row panel runs the wgmma tile (one consumer warpgroup, 64 rows) over its
+// N tiles in PANEL mode, its producer walking every tile's k-steps through
+// one ring, then closes its rows (four warps); wmma and simt keep their
+// panels.  At M 4096 a 64-row band is 64 CTAs on 132 SMs.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +106,12 @@
 
 #include <type_traits>
 
+#include "gemm_mainloop.cuh"
 #include "philox.cuh"
 
 #define FG_MAX_ROOTS 3
 #define FG_MAX_EP 8
+#define FG_MAX_SLOTS 6   // a wgmma ring stage's tiles of one side: 3 operands x 2 pieces
 
 typedef __nv_bfloat16 fg_bf16;
 
@@ -99,7 +127,13 @@ typedef __nv_bfloat16 fg_bf16;
 // reducing node).  lse: null, or a chained root's (batch, M) fp32 row
 // log-sum-exp output (the chained backward's row statistics).  chain_plan:
 // a chained root's plan (kernels/fused_gemm.py::chain_plan): wgmma 1 or
-// 0, rows a block, keys a tile, ring stages, dynamic shared memory.
+// 0, rows a block, keys a tile, ring stages, dynamic shared memory.  The
+// rest is a graph without a chained root's plan (fused_gemm.py gemm_plan):
+// variant (enum Variant), the (rows, columns) tile the order table was made
+// for (checked), wgmma_decode's partials (batch, splits, R, M, N) fp32 and
+// counters (batch x 128-column panels, zero between launches) and its K
+// split (splits parts of split_steps 64-deep steps), and wgmma_split's
+// (2, B0 or 1, B1 or 1, rows, cols) bf16 pieces of each fp32 lhs and rhs.
 struct FusedArgs {
   const void* lhs[FG_MAX_ROOTS];
   const void* rhs[FG_MAX_ROOTS];
@@ -131,6 +165,13 @@ struct FusedArgs {
   int prng_tm, prng_tn, hw;
   float* lse;
   int chain_plan[5];
+  int variant;
+  int cta_m, cta_n;
+  float* ws;
+  int* counters;
+  int splits, split_steps;
+  void* lhs_split[FG_MAX_ROOTS];
+  void* rhs_split[FG_MAX_ROOTS];
 };
 
 // The block's problem: its two batch indices.
@@ -255,11 +296,33 @@ inline dim3 tile_grid(const FusedArgs& a, int bm, int bn) {
 // stored), or a row panel's pre-reduce pass (the staged values to scratch).
 enum Mode { PLAIN = 0, PANEL = 1 };
 
+// A row panel's staged values of element (gm, gn) (`two`: and of gn + 1, v1)
+// into its fp32 scratch panel, value j at ((j M + gm) N + gn) of the
+// problem's slab; a pair as one 8-byte store where N is even.
+template <int NS>
+__device__ __forceinline__ void stage(const float* v0, const float* v1, int gm, int gn, bool two,
+                                      const FusedArgs& a, const FgCtx& c) {
+  float* s = a.scratch + c.off(a.s_scratch) + (long long)gm * a.N + gn;
+  const long long slab = (long long)a.M * a.N;
+  const bool pair = two && a.N % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    if (pair) {
+      *reinterpret_cast<float2*>(s + j * slab) = make_float2(v0[j], v1[j]);
+    } else {
+      s[j * slab] = v0[j];
+      if (two) s[j * slab + 1] = v1[j];
+    }
+  }
+}
+
 template <class E, int MODE, typename TOut>
 __device__ __forceinline__ void emit(const float* acc, int gm, int gn, const FusedArgs& a,
                                      const FgCtx& c) {
   if constexpr (MODE == PANEL) {
-    E::pre(acc, gm, gn, a, c);
+    float v[E::NSTAGED];
+    E::pre(acc, gm, gn, a, c, v);
+    stage<E::NSTAGED>(v, v, gm, gn, false, a, c);
   } else {
     float out[E::NOUT];
     E::apply(acc, gm, gn, a, c, out);
@@ -579,11 +642,14 @@ __device__ __forceinline__ void warp_online(float& m, float& l) {
   }
 }
 
-// Close the block's rows m0 .. m0+rows-1: one warp a row, in a fixed order.
-// The strip (two floats a row) lives in shared memory between the passes.
+// Close the block's rows m0 .. m0+rows-1 with its first `nw` warps: one warp
+// a row, in a fixed order.  The strip (two floats a row) lives in shared
+// memory between the passes.
 template <class E, typename TOut>
-__device__ void close_rows(const FusedArgs& a, const FgCtx& c, int m0, int rows, float* strip) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nw = blockDim.x / 32;
+__device__ void close_rows(const FusedArgs& a, const FgCtx& c, int m0, int rows, float* strip,
+                           int nw) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= nw) return;
   const int N = a.N;
   const float n = static_cast<float>(N);
   TOut* o = static_cast<TOut*>(a.out) + c.off(a.s_out);
@@ -671,6 +737,710 @@ __device__ void close_rows(const FusedArgs& a, const FgCtx& c, int m0, int rows,
   }
 }
 
+// --- the tensor-core variants on csrc/gemm_mainloop.cuh ----------------------
+enum Variant { V_CLASSIC = 0, V_WGMMA = 1, V_DECODE = 2, V_SPLIT = 3 };
+
+constexpr int kBK = gemm_ml::BK;        // k elements a ring stage
+constexpr int kDecodeRows = 16;         // wgmma_decode: M <= 16, wgmma's n
+constexpr int kDecodeCols = 128;        // wgmma_decode: columns of C a CTA
+
+// f(std::integral_constant<int, I>{}) for I = 0 .. N-1, each a compile-time
+// index (an operand's layout is a template argument).
+template <int... I>
+struct Seq {};
+template <int N, int... I>
+struct MakeSeq : MakeSeq<N - 1, N - 1, I...> {};
+template <int... I>
+struct MakeSeq<0, I...> {
+  using type = Seq<I...>;
+};
+template <class F, int... I>
+__device__ __forceinline__ void each_impl(F& f, Seq<I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void each(F f) {
+  each_impl(f, typename MakeSeq<N>::type{});
+}
+
+constexpr int clamp_int(int x, int lo, int hi) { return x < lo ? lo : x > hi ? hi : x; }
+
+// One tensor map a ring slot: a[] for wgmma's M side, b[] for its N side.
+struct FusedMaps {
+  CUtensorMap a[FG_MAX_SLOTS];
+  CUtensorMap b[FG_MAX_SLOTS];
+};
+
+// A ring of STAGES stages of NA tiles of AR rows then NB tiles of BR rows,
+// each BK deep, behind WG consumer warpgroups and one producer warp; the
+// full and empty mbarriers of each stage after it.
+template <int WG_, int AR, int BR, int NA_, int NB_, int STAGES_>
+struct Ring {
+  static constexpr int WG = WG_, NA = NA_, NB = NB_, STAGES = STAGES_;
+  static constexpr int A_BYTES = AR * kBK * 2, B_BYTES = BR * kBK * 2;
+  static constexpr int STAGE_BYTES = NA * A_BYTES + NB * B_BYTES;
+  static constexpr int THREADS = 128 * WG + 32;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES + 16;
+  static_assert(A_BYTES % 1024 == 0 && B_BYTES % 1024 == 0, "1024-byte aligned tiles");
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
+  static_assert(NA <= FG_MAX_SLOTS && NB <= FG_MAX_SLOTS, "tensor maps a side");
+};
+
+template <class RG>
+struct RingSmem {
+  uint32_t ring, full, empty;
+  int* flag;
+  __device__ __forceinline__ explicit RingSmem(unsigned char* raw) {
+    const uint32_t at = hopper::smem_u32(raw);
+    ring = (at + 1023u) & ~1023u;
+    full = ring + RG::STAGES * RG::STAGE_BYTES;
+    empty = full + 8 * RG::STAGES;
+    flag = reinterpret_cast<int*>(raw + (empty + 8 * RG::STAGES - at));
+  }
+  __device__ __forceinline__ uint32_t a(int s, int j) const {
+    return ring + s * RG::STAGE_BYTES + j * RG::A_BYTES;
+  }
+  __device__ __forceinline__ uint32_t b(int s, int j) const {
+    return ring + s * RG::STAGE_BYTES + RG::NA * RG::A_BYTES + j * RG::B_BYTES;
+  }
+  __device__ __forceinline__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < RG::STAGES; ++s) {
+        hopper::mbar_init(full + 8 * s, 1);
+        hopper::mbar_init(empty + 8 * s, RG::WG);
+      }
+      hopper::mbar_init_fence();
+    }
+    __syncthreads();
+  }
+  // the producer: wait until the stage of ring step `it` is free and
+  // expect `bytes` on its full barrier; → that barrier
+  __device__ __forceinline__ uint32_t acquire(int it, uint32_t bytes) const {
+    const int s = it % RG::STAGES;
+    if (it >= RG::STAGES) gemm_ml::wait(empty + 8 * s, ((it / RG::STAGES) - 1) & 1);
+    hopper::mbar_expect_tx(full + 8 * s, bytes);
+    return full + 8 * s;
+  }
+  // a consumer warpgroup: wait until ring step `it` has landed
+  __device__ __forceinline__ void landed(int it) const {
+    gemm_ml::wait(full + 8 * (it % RG::STAGES), (it / RG::STAGES) & 1);
+  }
+  // a consumer warpgroup: the products that read ring step `it` are done
+  __device__ __forceinline__ void release(int it) const {
+    gemm_ml::arrive_if(empty + 8 * (it % RG::STAGES), threadIdx.x % 128 == 0);
+  }
+};
+
+// The M > 16 tile of a graph E: WG consumer warpgroups of 64 rows by BN
+// columns of every root (128 for one root, 64 for two or three); PA bf16
+// pieces of each lhs, PB of each rhs (2: an fp32 operand's hi and lo).  The
+// ring holds the pieces of the distinct lhs operands (A slot l PA + p) and
+// of each root's rhs (B slot r PB + p).  Two CTAs an SM where a thread's
+// accumulators are at most 64 and the ring fits twice, else one with a
+// deeper ring (and for the split a second, per-step set of accumulators).
+template <class E, int WG_, int PA_, int PB_>
+struct WTile {
+  static constexpr int R = E::R, NL = E::NLHS, WG = WG_, PA = PA_, PB = PB_;
+  static constexpr int BM = 64 * WG, BN = R == 1 ? 128 : 64;
+  static constexpr bool SMALL = R * BN <= 128;
+  static constexpr int STAGE_BYTES = (NL * PA * BM + R * PB * BN) * kBK * 2;
+  static constexpr int STAGES = clamp_int((SMALL ? 112 : 224) * 1024 / STAGE_BYTES, 2, 4);
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 16 * STAGES + 16;
+  static constexpr bool FITS = SMEM <= 232448;  // else the plan runs the graph elsewhere
+  // two CTAs an SM where a thread holds at most 64 accumulators (the split's
+  // second, per-step set rules that out) and the ring fits twice
+  static constexpr int CTAS = SMALL && PA * PB == 1 && 2 * SMEM <= 227 * 1024 ? 2 : 1;
+  using RG = Ring<WG, BM, BN, NL * PA, R * PB, STAGES>;
+  template <int L>
+  using A = gemm_ml::Operand<BM, E::trans_lhs(L)>;   // stored (K, M): MN-major
+  template <int Q>
+  using B = gemm_ml::Operand<BN, !E::trans_rhs(Q)>;  // stored (K, N): MN-major
+};
+
+// wgmma_decode's tile: the R weight tiles (op(B_r)^T, 128 columns of C on
+// wgmma's M side) and the NL row tiles (op(A_l)^T, 16 rows on its n side)
+// of a k-step in one stage, two CTAs an SM.
+template <class E>
+struct DTile {
+  static constexpr int R = E::R, NL = E::NLHS, WG = 2;
+  static constexpr int STAGE_BYTES = (R * 128 + NL * kDecodeRows) * kBK * 2;
+  static constexpr int STAGES = clamp_int(112 * 1024 / STAGE_BYTES, 2, 6);
+  using RG = Ring<WG, 128, kDecodeRows, R, NL, STAGES>;
+  template <int Q>
+  using A = gemm_ml::Operand<128, !E::trans_rhs(Q)>;
+  template <int L>
+  using B = gemm_ml::Operand<kDecodeRows, E::trans_lhs(L)>;
+};
+
+// An operand's outer TMA coordinates for problem c: its B1 and B0 indices,
+// 0 along an axis it shares (its map has extent 1 there).
+__device__ __forceinline__ int2 batch_coords(const long long (&s)[2], const FgCtx& c) {
+  return make_int2(s[1] != 0 ? c.b1 : 0, s[0] != 0 ? c.b0 : 0);
+}
+
+// The roots whose tiles from column n0 hold some column: bit r set while n0
+// is under root r's width (a narrow root's tiles past it load and multiply
+// nothing).
+template <int R>
+__device__ __forceinline__ unsigned live_roots(const FusedArgs& a, int n0) {
+  unsigned live = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) live |= (n0 < a.width[r] ? 1u : 0u) << r;
+  return live;
+}
+
+// The producer's k-steps it0 .. it0 + n - 1 of an M > 16 tile at (m0, n0):
+// every lhs piece at rows m0, every live root's rhs pieces at rows n0.
+template <class E, class T>
+__device__ __forceinline__ void produce_tile(const RingSmem<typename T::RG>& sm,
+                                             const FusedMaps& maps, const FusedArgs& a,
+                                             const FgCtx& c, int m0, int n0, unsigned live,
+                                             int it0, int n) {
+  const uint32_t bytes = T::RG::NA * T::RG::A_BYTES + __popc(live) * T::PB * T::RG::B_BYTES;
+  for (int i = 0; i < n; ++i) {
+    const int it = it0 + i, s = it % T::STAGES, k = i * kBK;
+    const uint32_t bar = sm.acquire(it, bytes);
+    each<T::NL>([&](auto l_) {
+      constexpr int L = decltype(l_)::value;
+      const int2 z = batch_coords(a.s_lhs[L], c);
+      each<T::PA>([&](auto p_) {
+        constexpr int J = L * T::PA + decltype(p_)::value;
+        T::template A<L>::load(sm.a(s, J), &maps.a[J], bar, m0, k, z.x, z.x, z.y);
+      });
+    });
+    each<T::R>([&](auto q_) {
+      constexpr int Q = decltype(q_)::value;
+      if (live >> Q & 1u) {
+        const int2 z = batch_coords(a.s_rhs[Q], c);
+        each<T::PB>([&](auto p_) {
+          constexpr int J = Q * T::PB + decltype(p_)::value;
+          T::template B<Q>::load(sm.b(s, J), &maps.b[J], bar, n0, k, z.x, z.x, z.y);
+        });
+      }
+    });
+  }
+}
+
+// The products of one ring stage into d: every live root's pieces, k16 by
+// k16 (lhs pieces outer, rhs pieces inner: hi before lo); FRESH: the first
+// product overwrites d instead of adding to it.
+template <class E, class T, bool FRESH>
+__device__ __forceinline__ void stage_products(float (&d)[T::R][T::BN / 2],
+                                               const RingSmem<typename T::RG>& sm, int s,
+                                               unsigned live, int wg) {
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    each<T::R>([&](auto q_) {
+      constexpr int Q = decltype(q_)::value, L = E::lhs_of(Q);
+      using OA = typename T::template A<L>;
+      using OB = typename T::template B<Q>;
+      if (live >> Q & 1u) {
+        each<T::PA>([&](auto pa_) {
+          each<T::PB>([&](auto pb_) {
+            constexpr int PA = decltype(pa_)::value, PB = decltype(pb_)::value;
+            hopper::Wgmma<T::BN>::template ss<OA::kMN ? 1 : 0, OB::kMN ? 1 : 0>(
+                d[Q], OA::desc(sm.a(s, L * T::PA + PA), 64 * wg, ks),
+                OB::desc(sm.b(s, Q * T::PB + PB), 0, ks), !FRESH || ks > 0 || PA > 0 || PB > 0);
+          });
+        });
+      }
+    });
+  }
+}
+
+// A consumer warpgroup's k-steps it0 .. it0 + n - 1: acc[r] (its 64 rows by
+// BN, wgmma's layout) = the sum over them of every piece product of root r,
+// k16 by k16 (lhs pieces outer, rhs pieces inner: hi before lo); each step's
+// stage is released once the products that read it are done, the last one
+// too (a row panel's ring goes on into its next tile).  `live` must be the
+// same across the warp.  With one piece a side, one wgmma group stays in
+// flight behind the next and the tensor cores accumulate all of K.  With
+// wgmma_split's pieces each 64-deep step is summed into a fresh
+// accumulator, then added to acc in fp32 on the CUDA cores: the tensor
+// cores' own accumulation truncates its partial sums, which over K 4096
+// moved a unit-scale product by 2.4e-3, past the fp32 tolerance.
+template <class E, class T>
+__device__ __forceinline__ void consume_tile(float (&acc)[T::R][T::BN / 2],
+                                             const RingSmem<typename T::RG>& sm, unsigned live,
+                                             int it0, int n, int wg) {
+#pragma unroll
+  for (int q = 0; q < T::R; ++q)
+#pragma unroll
+    for (int i = 0; i < T::BN / 2; ++i) acc[q][i] = 0.0f;
+  if constexpr (T::PA * T::PB > 1) {
+    float part[T::R][T::BN / 2];
+    for (int i = 0; i < n; ++i) {
+      const int it = it0 + i;
+      sm.landed(it);
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) hopper::fence_regs(part[q]);
+      hopper::wgmma_fence();
+      stage_products<E, T, true>(part, sm, it % T::STAGES, live, wg);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) hopper::fence_regs(part[q]);
+      sm.release(it);
+#pragma unroll
+      for (int q = 0; q < T::R; ++q)
+        if (live >> q & 1u)
+#pragma unroll
+          for (int j = 0; j < T::BN / 2; ++j) acc[q][j] += part[q][j];
+    }
+  } else {
+    for (int i = 0; i < n; ++i) {
+      const int it = it0 + i;
+      sm.landed(it);
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+      hopper::wgmma_fence();
+      stage_products<E, T, false>(acc, sm, it % T::STAGES, live, wg);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the group of step it - 1 is done: free its stage
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+      if (i > 0) sm.release(it - 1);
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+    if (n > 0) sm.release(it0 + n - 1);
+  }
+}
+
+// The plain epilogue of two adjacent columns (gn, and gn + 1 when `two`) of
+// row gm: every output stored, as one pair where N is even; or a row
+// panel's pre-reduce pass.
+template <class E, int MODE>
+__device__ __forceinline__ void emit2(const float* v0, const float* v1, int gm, int gn, bool two,
+                                      const FusedArgs& a, const FgCtx& c) {
+  if constexpr (MODE == PANEL) {
+    float s0[E::NSTAGED], s1[E::NSTAGED];
+    E::pre(v0, gm, gn, a, c, s0);
+    if (two) E::pre(v1, gm, gn + 1, a, c, s1);
+    stage<E::NSTAGED>(s0, s1, gm, gn, two, a, c);
+  } else {
+    float o0[E::NOUT], o1[E::NOUT];
+    E::apply(v0, gm, gn, a, c, o0);
+    if (two) E::apply(v1, gm, gn + 1, a, c, o1);
+    const long long base = c.off(a.s_out) + (long long)gm * a.N + gn;
+    const bool pair = two && a.N % 2 == 0;
+#pragma unroll
+    for (int q = 0; q < E::NOUT; ++q) {
+      const long long at = base + (long long)q * a.M * a.N;
+      if (a.out_bf16) {
+        fg_bf16* o = static_cast<fg_bf16*>(a.out) + at;
+        if (pair) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(o0[q], o1[q]);
+        } else {
+          o[0] = __float2bfloat16(o0[q]);
+          if (two) o[1] = __float2bfloat16(o1[q]);
+        }
+      } else {
+        float* o = static_cast<float*>(a.out) + at;
+        if (pair) {
+          *reinterpret_cast<float2*>(o) = make_float2(o0[q], o1[q]);
+        } else {
+          o[0] = o0[q];
+          if (two) o[1] = o1[q];
+        }
+      }
+    }
+  }
+}
+
+// A consumer warpgroup's epilogue of its 64 rows of the tile at (m0, n0).
+template <class E, class T, int MODE>
+__device__ __forceinline__ void epilogue_tile(const float (&acc)[T::R][T::BN / 2],
+                                              const FusedArgs& a, const FgCtx& c, int m0, int n0,
+                                              int wg) {
+  const int row0 = m0 + 64 * wg;
+#pragma unroll
+  for (int i = 0; i < T::BN / 2; i += 2) {
+    const int gm = row0 + gemm_ml::acc_row(i), gn = n0 + gemm_ml::acc_col(i);
+    if (gm < a.M && gn < a.N) {
+      float v0[T::R], v1[T::R];
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) {
+        v0[q] = acc[q][i];
+        v1[q] = acc[q][i + 1];
+      }
+      emit2<E, MODE>(v0, v1, gm, gn, gn + 1 < a.N, a, c);
+    }
+  }
+}
+
+// The tile origin of an M > 16 launch: the order table's entry, or the fixed
+// grid rasterised in groups of 8 row tiles (the CTAs on the card at once
+// share their lhs and rhs tiles in L2), as K1's.
+__device__ __forceinline__ int2 wgmma_origin(const FusedArgs& a, int bm, int bn) {
+  if (a.order != nullptr) return make_int2(a.order[2 * blockIdx.x], a.order[2 * blockIdx.x + 1]);
+  constexpr int G = 8;
+  const int cols = gridDim.x, rows = gridDim.y;
+  const int id = blockIdx.y * cols + blockIdx.x, group = id / (G * cols);
+  const int first = group * G, in_group = min(G, rows - first), local = id % (G * cols);
+  return make_int2((first + local % in_group) * bm, (local / in_group) * bn);
+}
+
+// wgmma and wgmma_split: one tile of every root.
+template <class E, class T>
+__global__ void __launch_bounds__(T::RG::THREADS, T::CTAS)
+fused_gemm_bf16_wgmma(const __grid_constant__ FusedArgs a, const __grid_constant__ FusedMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem<typename T::RG> sm(smem_raw);
+  const FgCtx c = block_ctx(a);
+  const int2 org = wgmma_origin(a, T::BM, T::BN);
+  // the same in every lane (a shuffle), so that the products' branches are
+  // uniform to ptxas (which would otherwise serialize the wgmma)
+  const unsigned live = __shfl_sync(0xffffffffu, live_roots<T::R>(a, org.y), 0);
+  const int n = (a.K + kBK - 1) / kBK;
+  sm.init();
+  const int wg = gemm_ml::warpgroup();
+  if (wg == T::WG) {
+    if (threadIdx.x == 128 * T::WG) produce_tile<E, T>(sm, maps, a, c, org.x, org.y, live, 0, n);
+    return;
+  }
+  float acc[T::R][T::BN / 2];
+  consume_tile<E, T>(acc, sm, live, 0, n, wg);
+  epilogue_tile<E, T, PLAIN>(acc, a, c, org.x, org.y, wg);
+}
+
+// A row panel: one band of BM rows walks its N tiles (the producer ahead
+// through one ring), stages each tile's pre-reduce values, then its
+// consumer warps close the rows.
+template <class E, class T, typename TOut>
+__global__ void __launch_bounds__(T::RG::THREADS, 1)
+fused_panel_bf16_wgmma(const __grid_constant__ FusedArgs a, const __grid_constant__ FusedMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float strip[2 * T::BM];
+  const RingSmem<typename T::RG> sm(smem_raw);
+  const FgCtx c = block_ctx(a);
+  const int m0 = tile_origin(a, T::BM, 0).x;
+  const int n = (a.K + kBK - 1) / kBK, tiles = (a.N + T::BN - 1) / T::BN;
+  sm.init();
+  const int wg = gemm_ml::warpgroup();
+  if (wg == T::WG) {
+    if (threadIdx.x == 128 * T::WG)
+      for (int t = 0; t < tiles; ++t)
+        produce_tile<E, T>(sm, maps, a, c, m0, t * T::BN, live_roots<T::R>(a, t * T::BN), t * n, n);
+    return;
+  }
+  float acc[T::R][T::BN / 2];
+  for (int t = 0; t < tiles; ++t) {
+    consume_tile<E, T>(acc, sm, live_roots<T::R>(a, t * T::BN), t * n, n, wg);
+    epilogue_tile<E, T, PANEL>(acc, a, c, m0, t * T::BN, wg);
+  }
+  hopper::named_sync<1, 128 * T::WG>();   // the staged panel is complete (and visible)
+  close_rows<E, TOut>(a, c, m0, T::BM, strip, 4 * T::WG);
+}
+
+// wgmma_decode: C^T = op(B_r)^T op(A_l)^T for each root, the weight tiles
+// on wgmma's M side; this CTA's split of K, into the partials or (one
+// split) straight through the epilogue.
+template <class E, class T>
+__global__ void __launch_bounds__(T::RG::THREADS, 2)
+fused_gemm_bf16_wgmma_decode(const __grid_constant__ FusedArgs a,
+                             const __grid_constant__ FusedMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  const RingSmem<typename T::RG> sm(smem_raw);
+  const FgCtx c = block_ctx(a);
+  const int n0 = a.order != nullptr ? a.order[2 * blockIdx.x + 1] : blockIdx.x * kDecodeCols;
+  const int steps = (a.K + kBK - 1) / kBK, t0 = blockIdx.y * a.split_steps;
+  const int n = max(0, min(t0 + a.split_steps, steps) - t0);
+  const unsigned live = __shfl_sync(0xffffffffu, live_roots<T::R>(a, n0), 0);
+  sm.init();
+  const int wg = gemm_ml::warpgroup();
+  if (wg == T::WG) {
+    if (threadIdx.x != 128 * T::WG) return;
+    const uint32_t bytes = __popc(live) * T::RG::A_BYTES + T::NL * T::RG::B_BYTES;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % T::STAGES, k = (t0 + i) * kBK;
+      const uint32_t bar = sm.acquire(i, bytes);
+      each<T::R>([&](auto q_) {
+        constexpr int Q = decltype(q_)::value;
+        if (live >> Q & 1u) {
+          const int2 z = batch_coords(a.s_rhs[Q], c);
+          T::template A<Q>::load(sm.a(s, Q), &maps.a[Q], bar, n0, k, z.x, z.x, z.y);
+        }
+      });
+      each<T::NL>([&](auto l_) {
+        constexpr int L = decltype(l_)::value;
+        const int2 z = batch_coords(a.s_lhs[L], c);
+        T::template B<L>::load(sm.b(s, L), &maps.b[L], bar, 0, k, z.x, z.x, z.y);
+      });
+    }
+    return;
+  }
+  float acc[T::R][8];
+#pragma unroll
+  for (int q = 0; q < T::R; ++q)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[q][i] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % T::STAGES;
+    sm.landed(i);
+#pragma unroll
+    for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      each<T::R>([&](auto q_) {
+        constexpr int Q = decltype(q_)::value, L = E::lhs_of(Q);
+        using OA = typename T::template A<Q>;
+        using OB = typename T::template B<L>;
+        if (live >> Q & 1u)
+          hopper::Wgmma<kDecodeRows>::template ss<OA::kMN ? 1 : 0, OB::kMN ? 1 : 0>(
+              acc[Q], OA::desc(sm.a(s, Q), 64 * wg, ks), OB::desc(sm.b(s, L), 0, ks), 1);
+      });
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+#pragma unroll
+    for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+    if (i > 0) sm.release(i - 1);
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
+  // acc[q][i]: root q at C's column n0 + 64 wg + acc_row(i), row acc_col(i)
+  const int col0 = n0 + 64 * wg, M = a.M, N = a.N;
+  if (a.splits == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = col0 + gemm_ml::acc_row(i), m = gemm_ml::acc_col(i);
+      if (m < M && col < N) {
+        float v[T::R];
+#pragma unroll
+        for (int q = 0; q < T::R; ++q) v[q] = acc[q][i];
+        emit2<E, PLAIN>(v, v, m, col, false, a, c);
+      }
+    }
+    return;
+  }
+  const long long slab = (long long)M * N;
+  float* part = a.ws + ((long long)blockIdx.z * a.splits + blockIdx.y) * T::R * slab;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = col0 + gemm_ml::acc_row(i), m = gemm_ml::acc_col(i);
+    if (m < M && col < N)
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) __stcg(part + q * slab + (long long)m * N + col, acc[q][i]);
+  }
+  __threadfence();
+  hopper::named_sync<1, 128 * T::WG>();
+  const int panels = (N + kDecodeCols - 1) / kDecodeCols;
+  int* counter = a.counters + (long long)blockIdx.z * panels + n0 / kDecodeCols;
+  if (threadIdx.x == 0) *sm.flag = atomicAdd(counter, 1) == a.splits - 1;
+  hopper::named_sync<1, 128 * T::WG>();
+  if (!*sm.flag) return;
+  // the last split to arrive: every split's partials, in split order
+  __threadfence();
+  const float* ws = a.ws + (long long)blockIdx.z * a.splits * T::R * slab;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = col0 + gemm_ml::acc_row(i), m = gemm_ml::acc_col(i);
+    if (m < M && col < N) {
+      float v[T::R];
+#pragma unroll
+      for (int q = 0; q < T::R; ++q) v[q] = 0.0f;
+      for (int sp = 0; sp < a.splits; ++sp)
+#pragma unroll
+        for (int q = 0; q < T::R; ++q)
+          v[q] += __ldcg(ws + ((long long)sp * T::R + q) * slab + (long long)m * N + col);
+      emit2<E, PLAIN>(v, v, m, col, false, a, c);
+    }
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// wgmma_split's pre-pass: an fp32 operand (B0 x B1 problems of rows x cols,
+// leading dimension ld, problem strides s0 and s1) as two bf16 pieces, hi =
+// bf16(x) and lo = bf16(x - hi), each contiguous (B0, B1, rows, cols).
+__global__ void __launch_bounds__(256)
+fg_split_bf16(const float* __restrict__ x, long long ld, long long s0, long long s1, int B1,
+              int rows, int cols, fg_bf16* __restrict__ hi, fg_bf16* __restrict__ lo) {
+  const int b0 = blockIdx.z / B1, b1 = blockIdx.z % B1;
+  const float* src = x + b0 * s0 + b1 * s1;
+  const long long out0 = (long long)blockIdx.z * rows * cols;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y)
+    for (int col = blockIdx.x * 256 + threadIdx.x; col < cols; col += gridDim.x * 256) {
+      const float v = src[(long long)r * ld + col];
+      const fg_bf16 h = __float2bfloat16_rn(v);
+      const long long at = out0 + (long long)r * cols + col;
+      hi[at] = h;
+      lo[at] = __float2bfloat16_rn(v - __bfloat162float(h));
+    }
+}
+
+// The stored (rows, cols) matrix of lhs l or of root r's rhs, as the
+// wrapper binds it: base, leading dimension, problem strides (B0, B1).
+struct Stored {
+  const void* p;
+  int rows, cols;
+  long long ld, s0, s1;
+};
+inline Stored stored_lhs(const FusedArgs& a, int l, bool trans) {
+  return {a.lhs[l], trans ? a.K : a.M, trans ? a.M : a.K, a.lda[l], a.s_lhs[l][0], a.s_lhs[l][1]};
+}
+inline Stored stored_rhs(const FusedArgs& a, int r, bool trans) {
+  return {a.rhs[r], trans ? a.width[r] : a.K, trans ? a.K : a.width[r], a.ldb[r], a.s_rhs[r][0],
+          a.s_rhs[r][1]};
+}
+
+// Piece p of an operand split into `pieces` (contiguous over the problems
+// it has), or the operand itself where `pieces` is null.
+inline Stored piece(const FusedArgs& a, const Stored& o, void* pieces, int p) {
+  if (pieces == nullptr) return o;
+  const int B1 = a.B1, B0 = a.batch / a.B1;
+  const int nb1 = o.s1 != 0 ? B1 : 1, nb0 = o.s0 != 0 ? B0 : 1;
+  const long long per = (long long)o.rows * o.cols;
+  const fg_bf16* base = static_cast<const fg_bf16*>(pieces) + (long long)p * nb0 * nb1 * per;
+  return {base, o.rows, o.cols, o.cols, nb0 > 1 ? nb1 * per : 0, nb1 > 1 ? per : 0};
+}
+
+// The tensor map of a stored bf16 matrix read as an operand Op (ROWS rows
+// of wgmma's M or N extent by BK, K-major or MN-major): an axis of problem
+// stride 0 has extent 1.
+template <class Op>
+inline cudaError_t operand_map(CUtensorMap* map, const Stored& o, const FusedArgs& a) {
+  const int B1 = a.B1, B0 = a.batch / a.B1;
+  const int panel = Op::kMN ? Op::SW : kBK, box_rows = Op::kMN ? kBK : Op::kRows;
+  return hopper::tile_map(map, o.p, o.cols, o.rows, o.s1 != 0 ? B1 : 1, o.s0 != 0 ? B0 : 1, o.ld,
+                          o.s1, o.s0, panel, box_rows);
+}
+template <int ROWS>
+inline cudaError_t slot_map(CUtensorMap* map, const Stored& o, const FusedArgs& a, bool mn) {
+  return mn ? operand_map<gemm_ml::Operand<ROWS, true>>(map, o, a)
+            : operand_map<gemm_ml::Operand<ROWS, false>>(map, o, a);
+}
+
+// The pre-pass of each fp32 operand of wgmma_split, into its pieces.
+template <class E>
+cudaError_t split_operands(const FusedArgs& a, cudaStream_t s) {
+  auto run = [&](const Stored& o, void* pieces) -> cudaError_t {
+    if (pieces == nullptr) return cudaErrorInvalidValue;
+    const int B1 = a.B1, B0 = a.batch / a.B1;
+    const int nb1 = o.s1 != 0 ? B1 : 1, nb0 = o.s0 != 0 ? B0 : 1;
+    fg_bf16* hi = static_cast<fg_bf16*>(pieces);
+    const dim3 grid((o.cols + 255) / 256, o.rows < 65535 ? o.rows : 65535, nb0 * nb1);
+    fg_split_bf16<<<grid, 256, 0, s>>>(static_cast<const float*>(o.p), o.ld, o.s0, o.s1, nb1,
+                                       o.rows, o.cols, hi,
+                                       hi + (long long)nb0 * nb1 * o.rows * o.cols);
+    return cudaGetLastError();
+  };
+  for (int l = 0; l < E::NLHS; ++l)
+    if (!a.lhs_bf16[l]) {
+      const cudaError_t e = run(stored_lhs(a, l, E::trans_lhs(l)), a.lhs_split[l]);
+      if (e != cudaSuccess) return e;
+    }
+  for (int r = 0; r < E::R; ++r)
+    if (!a.rhs_bf16[r]) {
+      const cudaError_t e = run(stored_rhs(a, r, E::trans_rhs(r)), a.rhs_split[r]);
+      if (e != cudaSuccess) return e;
+    }
+  return cudaSuccess;
+}
+
+template <class Kern>
+cudaError_t allow_smem(Kern kern, int bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The maps of an M > 16 tile or a panel: A slot l PA + p, B slot r PB + p.
+template <class E, class T>
+cudaError_t tile_maps(FusedMaps& maps, const FusedArgs& a) {
+  cudaError_t e = cudaSuccess;
+  for (int l = 0; l < T::NL && e == cudaSuccess; ++l) {
+    const Stored o = stored_lhs(a, l, E::trans_lhs(l));
+    for (int p = 0; p < T::PA && e == cudaSuccess; ++p)
+      e = slot_map<T::BM>(&maps.a[l * T::PA + p],
+                             piece(a, o, T::PA > 1 ? a.lhs_split[l] : nullptr, p), a,
+                             E::trans_lhs(l));
+  }
+  for (int r = 0; r < T::R && e == cudaSuccess; ++r) {
+    const Stored o = stored_rhs(a, r, E::trans_rhs(r));
+    for (int p = 0; p < T::PB && e == cudaSuccess; ++p)
+      e = slot_map<T::BN>(&maps.b[r * T::PB + p],
+                             piece(a, o, T::PB > 1 ? a.rhs_split[r] : nullptr, p), a,
+                             !E::trans_rhs(r));
+  }
+  return e;
+}
+
+template <class E, class T>
+cudaError_t launch_wgmma(const FusedArgs& a, cudaStream_t s) {
+  if (a.order != nullptr && (a.cta_m != T::BM || a.cta_n != T::BN)) return cudaErrorInvalidValue;
+  FusedMaps maps;
+  const cudaError_t e = tile_maps<E, T>(maps, a);
+  if (e != cudaSuccess) return e;
+  const auto kern = &fused_gemm_bf16_wgmma<E, T>;
+  static const cudaError_t attr = allow_smem(kern, T::RG::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kern<<<tile_grid(a, T::BM, T::BN), T::RG::THREADS, T::RG::SMEM, s>>>(a, maps);
+  return cudaGetLastError();
+}
+
+template <class E, class T, typename TOut>
+cudaError_t launch_panel_wgmma(const FusedArgs& a, cudaStream_t s) {
+  if (a.order != nullptr && (a.cta_m != T::BM || a.cta_n != a.N)) return cudaErrorInvalidValue;
+  FusedMaps maps;
+  const cudaError_t e = tile_maps<E, T>(maps, a);
+  if (e != cudaSuccess) return e;
+  const auto kern = &fused_panel_bf16_wgmma<E, T, TOut>;
+  static const cudaError_t attr = allow_smem(kern, T::RG::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kern<<<tile_grid(a, T::BM, a.N), T::RG::THREADS, T::RG::SMEM, s>>>(a, maps);
+  return cudaGetLastError();
+}
+
+template <class E>
+cudaError_t launch_decode(const FusedArgs& a, cudaStream_t s) {
+  using T = DTile<E>;
+  if (a.M > kDecodeRows || a.splits < 1 || a.split_steps < 1 ||
+      (a.splits > 1 && (a.ws == nullptr || a.counters == nullptr)) ||
+      (a.order != nullptr && (a.cta_m != kDecodeRows || a.cta_n != kDecodeCols)))
+    return cudaErrorInvalidValue;
+  FusedMaps maps;
+  cudaError_t e = cudaSuccess;
+  for (int r = 0; r < T::R && e == cudaSuccess; ++r)
+    e = slot_map<128>(&maps.a[r], stored_rhs(a, r, E::trans_rhs(r)), a, !E::trans_rhs(r));
+  for (int l = 0; l < T::NL && e == cudaSuccess; ++l)
+    e = slot_map<kDecodeRows>(&maps.b[l], stored_lhs(a, l, E::trans_lhs(l)), a,
+                                 E::trans_lhs(l));
+  if (e != cudaSuccess) return e;
+  const auto kern = &fused_gemm_bf16_wgmma_decode<E, T>;
+  static const cudaError_t attr = allow_smem(kern, T::RG::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int panels = a.order != nullptr ? a.n_order : (a.N + kDecodeCols - 1) / kDecodeCols;
+  kern<<<dim3(panels, a.splits, a.batch), T::RG::THREADS, T::RG::SMEM, s>>>(a, maps);
+  return cudaGetLastError();
+}
+
+// wgmma_split: every lhs fp32 against bf16 rhs (PA 2), or the reverse (PB 2).
+template <class E>
+cudaError_t launch_split(const FusedArgs& a, cudaStream_t s) {
+  bool lhs_f32 = true, lhs_bf16 = true, rhs_f32 = true, rhs_bf16 = true;
+  for (int l = 0; l < E::NLHS; ++l) {
+    lhs_f32 = lhs_f32 && !a.lhs_bf16[l];
+    lhs_bf16 = lhs_bf16 && a.lhs_bf16[l];
+  }
+  for (int r = 0; r < E::R; ++r) {
+    rhs_f32 = rhs_f32 && !a.rhs_bf16[r];
+    rhs_bf16 = rhs_bf16 && a.rhs_bf16[r];
+  }
+  if (!((lhs_f32 && rhs_bf16) || (lhs_bf16 && rhs_f32))) return cudaErrorInvalidValue;
+  const cudaError_t e = split_operands<E>(a, s);
+  if (e != cudaSuccess) return e;
+  using TA = WTile<E, 2, 2, 1>;
+  using TB = WTile<E, 2, 1, 2>;
+  if (lhs_f32) {
+    if constexpr (TA::FITS) return launch_wgmma<E, TA>(a, s);
+  } else {
+    if constexpr (TB::FITS) return launch_wgmma<E, TB>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // --- kernels ------------------------------------------------------------------
 template <class E, class T, typename TOut, bool ORDERED>
 __global__ void __launch_bounds__(T::NT)
@@ -697,7 +1467,7 @@ fused_panel_bf16_wmma(FusedArgs a) {
   const int m0 = tile_origin(a, T::BM, 0).x;
   for (int n0 = 0; n0 < a.N; n0 += T::BN) bf16_tile<E, T, PANEL, TOut>(a, c, m0, n0, smem);
   __syncthreads();   // the staged panel is complete (and visible to the block)
-  close_rows<E, TOut>(a, c, m0, T::BM, strip);
+  close_rows<E, TOut>(a, c, m0, T::BM, strip, T::NW);
 }
 
 template <class E, typename TOut>
@@ -711,7 +1481,7 @@ fused_panel_f32_simt(FusedArgs a) {
     simt_tile<E, PANEL, TOut>(a, c, m0, n0, sm);
     __syncthreads();
   }
-  close_rows<E, TOut>(a, c, m0, SimtTiles::BM, strip);
+  close_rows<E, TOut>(a, c, m0, SimtTiles::BM, strip, SimtTiles::NT / 32);
 }
 
 template <class E, class T, typename TOut>
@@ -723,7 +1493,20 @@ void launch_bf16(const FusedArgs& a, cudaStream_t s) {
 }
 
 template <class E, typename TOut>
-void dispatch(const FusedArgs& a, cudaStream_t s) {
+cudaError_t dispatch(const FusedArgs& a, cudaStream_t s) {
+  if (a.variant == V_WGMMA || a.variant == V_DECODE || a.variant == V_SPLIT) {
+    if (a.K < 1) return cudaErrorInvalidValue;
+    if constexpr (E::PANEL) {
+      if (a.variant != V_WGMMA || !a.all_bf16) return cudaErrorInvalidValue;
+      return launch_panel_wgmma<E, WTile<E, 1, 1, 1>, TOut>(a, s);
+    } else {
+      if (a.variant == V_SPLIT) return a.all_bf16 ? cudaErrorInvalidValue : launch_split<E>(a, s);
+      if (!a.all_bf16) return cudaErrorInvalidValue;
+      if (a.variant == V_DECODE) return launch_decode<E>(a, s);
+      return launch_wgmma<E, WTile<E, 2, 1, 1>>(a, s);
+    }
+  }
+  if (a.variant != V_CLASSIC) return cudaErrorInvalidValue;
   if constexpr (E::PANEL) {
     // one block a row band: the grid's N extent is one tile of all of N
     if (a.all_bf16) {
@@ -741,27 +1524,30 @@ void dispatch(const FusedArgs& a, cudaStream_t s) {
   } else {
     launch_bf16<E, Bf16Tiles<128, 64, 4, 2>, TOut>(a, s);
   }
+  return cudaGetLastError();
 }
 
 // The body of the C entry point every generated source of a graph without a
 // chained root defines:
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // The output (batch, NOUT, M, N) contiguous, bf16 if out_bf16 else fp32;
-// order (if not null): the tile origins of the CTA tile the dispatch below
-// picks, as kernels/fused_gemm.py cta_tile gives it;
-// R must be the graph's root count; all_bf16 picks the tensor-core
-// mainloop; vec: every lhs and rhs row of every problem starts 16-byte
-// aligned.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an R that is not the graph's.
+// R must be the graph's root count.  variant: the wrapper's plan (enum
+// Variant): wgmma, wgmma_decode (M <= 16) and wgmma_split run on the
+// tensor-core mainloop (bf16 operands TMA reads: 16-byte aligned bases and
+// strides), V_CLASSIC the WMMA kernel (all_bf16) or the SIMT one; order (if
+// not null): the origins of the variant's CTA tiles (cta_m x cta_n, as
+// kernels/fused_gemm.py cta_tile gives them); vec: every lhs and rhs row of
+// every problem starts 16-byte aligned (WMMA's vector loads).  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
+// launching for an R that is not the graph's or a call the variant does not
+// take.
 template <class E>
 int entry(const FusedArgs* args, void* stream) {
   if (args->R != E::R) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->out_bf16)
-    dispatch<E, fg_bf16>(*args, s);
-  else
-    dispatch<E, float>(*args, s);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      args->out_bf16 ? dispatch<E, fg_bf16>(*args, s) : dispatch<E, float>(*args, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace fg

@@ -75,21 +75,21 @@ struct Operand {
   }
 
   // The TMA loads of one stage: rows [row, row + ROWS) and k [k, k + BK)
-  // at outer coordinate z of `map`, whose innermost axis is k (K-major) or
-  // the rows (MN-major); an MN-major operand's upper half of panels comes
-  // from outer coordinate z_hi instead (rows from `row` again), so a tile
-  // may join two matrices.  They complete on `bar`.
+  // at outer coordinates (z, w) of `map`, whose innermost axis is k
+  // (K-major) or the rows (MN-major); an MN-major operand's upper half of
+  // panels comes from outer coordinate z_hi instead (rows from `row`
+  // again), so a tile may join two matrices.  They complete on `bar`.
   static __device__ __forceinline__ void load(uint32_t tile, const CUtensorMap* map, uint32_t bar,
-                                              int row, int k, int z, int z_hi) {
+                                              int row, int k, int z, int z_hi, int w = 0) {
     if constexpr (MN) {
 #pragma unroll
       for (int p = 0; p < PANELS; ++p) {
         const bool hi = z_hi != z && p >= PANELS / 2;
         hopper::tma_load_4d(tile + p * PANEL_BYTES, map, bar,
-                            row + (hi ? p - PANELS / 2 : p) * SW, k, hi ? z_hi : z, 0);
+                            row + (hi ? p - PANELS / 2 : p) * SW, k, hi ? z_hi : z, w);
       }
     } else {
-      hopper::tma_load_4d(tile, map, bar, k, row, z, 0);
+      hopper::tma_load_4d(tile, map, bar, k, row, z, w);
     }
   }
 

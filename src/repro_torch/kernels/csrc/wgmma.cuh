@@ -36,10 +36,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // Descriptor of a swizzled tile at shared address `addr` (16-byte units in
 // each field; the swizzle code in bits 62-63: 1 for 128 bytes, 2 for 64, 3
-// for 32).
+// for 32, 0 for none: span 16, the tile as 8-row x 16-byte core matrices,
+// LBO between core matrices along K and SBO along M or N).
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                          int span_bytes) {
-  const uint64_t code = span_bytes == 128 ? 1 : span_bytes == 64 ? 2 : 3;
+  const uint64_t code = span_bytes == 128 ? 1 : span_bytes == 64 ? 2 : span_bytes == 32 ? 3 : 0;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (code << 62);
@@ -154,9 +155,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulator D (N / 2
-// registers a thread).  ss (N 64 and 128, K2's S tiles; N 16 and 256, the
-// GEMM mainloop's decode and prefill tiles): A and B by descriptors, TA / TB
-// their transpose bits (0: K-major).  rs (N 16 to
+// registers a thread).  ss (N 64 and 128, K2's S tiles and K10's blocks;
+// N 16 and 256, the GEMM mainloop's decode and prefill tiles): A and B by
+// descriptors, TA / TB their transpose bits (0: K-major).  rs (N 16 to
 // 256, K2's head dims): A from registers (four words a thread, the
 // accumulator's layout: rows 16 w + lane / 4 and + 8 of warp w, columns
 // 2 (lane % 4) and + 8), B by descriptor.  `accumulate` 0 overwrites D.
@@ -398,6 +399,26 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int S, int
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor map of `rank` (3 or 4) dimensions, innermost first: extents
+// `dims`, the byte strides of dimensions 1.. `strides` (multiples of 16),
+// boxes of `box` elements, written unswizzled (`span` 16: 16-byte rows of
+// 8-row core matrices) or swizzled over `span` bytes; reads past an extent
+// give zeros.
+inline cudaError_t raw_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box, int span) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = span == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

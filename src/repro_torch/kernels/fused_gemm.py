@@ -37,9 +37,17 @@ the forward's row log-sum-exp) and the forward's dead-tile rule
 (``tile_dead``); ``ChainedBackward`` launches it in place of the six
 derived graphs of ``fusion.autodiff.ChainedBackwardPlan``.
 
-Both take operands stored transposed (``trans=True``, read in place), lhs
-and rhs of either dtype (all-bf16 runs the tensor cores; any fp32 operand
-an fp32 SIMT mainloop, the reference's promotion to fp32), leading batch
+A graph without a chained root runs one of five variants, which
+``gemm_plan`` names from the operands' dtypes, M and layout (never from a
+build or launch that failed; one counter each, ``VARIANT_COUNTERS``):
+``wgmma`` (bf16, M > 16, every operand TMA can read) and ``wgmma_decode``
+(bf16, M <= 16: K1's split-K weight stream, splits from ``(K, N)`` alone)
+on the Hopper GEMM mainloop ``csrc/gemm_mainloop.cuh``; ``wgmma_split``
+(fp32 lhs against bf16 rhs or the reverse: the derived backward graphs'
+fp32 dz, split by a pre-pass into bf16 hi + lo pieces that run on the same
+mainloop at the fp32 tolerance); ``wmma`` (bf16 operands TMA cannot read);
+``simt`` (fp32 operands).  Every variant takes operands stored transposed
+(``trans=True``, read in place), leading batch
 axes (one problem per ``grid.z`` index) and the coordinate-keyed ops
 ``dropout_rng``/``dropout_rng_grad`` (threefry2x32-20 at the element's
 coordinates in its 2-D problem, the bits of ``fusion/rng.py tile_bits``)
@@ -93,20 +101,41 @@ from repro_torch.kernels.brgemm import _device_table, tile_order
 
 __all__ = ["FusedKernel", "ChainedBackward", "generate_source", "generate_backward_source",
            "source_name", "check_supported", "cta_tile", "order_table", "chain_plan",
-           "chain_key_range", "chain_tile_mixed", "ChainPlan", "LAUNCHES", "GRAPH_LAUNCHES",
-           "HW_PRNG_LAUNCHES", "CHAIN_WGMMA_LAUNCHES", "CHAIN_BWD_WGMMA_LAUNCHES", "MAX_ROOTS",
-           "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN", "BACKWARD_SUFFIX"]
+           "chain_key_range", "chain_tile_mixed", "ChainPlan", "GemmPlan", "gemm_variant",
+           "variant_of", "gemm_plan", "wgmma_tile", "split_bf16", "VARIANTS",
+           "VARIANT_COUNTERS", "LAUNCHES", "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES",
+           "CHAIN_WGMMA_LAUNCHES", "CHAIN_BWD_WGMMA_LAUNCHES", "WGMMA_LAUNCHES",
+           "WGMMA_DECODE_LAUNCHES", "WGMMA_SPLIT_LAUNCHES", "WMMA_LAUNCHES", "SIMT_LAUNCHES",
+           "MAX_ROOTS", "MAX_EPILOGUE_OPERANDS", "MAX_CHAIN", "BACKWARD_SUFFIX"]
 
 # Launches of a generated kernel since import (or since a caller reset them),
 # in all and by graph name (a chained backward under its forward graph's
 # name + BACKWARD_SUFFIX); those that drew K13's bits (hw_prng=True on a
-# graph with a dropout_rng node); and the chained forwards and backwards
-# that ran on the tensor cores (wgmma).
+# graph with a dropout_rng node); the chained forwards and backwards that
+# ran on the tensor cores (wgmma); and the launches of graphs without a
+# chained root by variant (``gemm_plan``).
 LAUNCHES = 0
 GRAPH_LAUNCHES: dict[str, int] = {}
 HW_PRNG_LAUNCHES = 0
 CHAIN_WGMMA_LAUNCHES = 0
 CHAIN_BWD_WGMMA_LAUNCHES = 0
+WGMMA_LAUNCHES = 0
+WGMMA_DECODE_LAUNCHES = 0
+WGMMA_SPLIT_LAUNCHES = 0
+WMMA_LAUNCHES = 0
+SIMT_LAUNCHES = 0
+
+# The variants of a graph without a chained root, by the code FusedArgs
+# takes (wmma and simt share 0: all_bf16 tells them apart), and the counter
+# each adds to.
+VARIANTS = {"wgmma": 1, "wgmma_decode": 2, "wgmma_split": 3, "wmma": 0, "simt": 0}
+VARIANT_COUNTERS = {"wgmma": "WGMMA_LAUNCHES", "wgmma_decode": "WGMMA_DECODE_LAUNCHES",
+                    "wgmma_split": "WGMMA_SPLIT_LAUNCHES", "wmma": "WMMA_LAUNCHES",
+                    "simt": "SIMT_LAUNCHES"}
+DECODE_ROWS = 16            # wgmma_decode: M <= 16 (csrc/fused_gemm.cuh kDecodeRows)
+DECODE_COLUMNS = 128        # wgmma_decode: columns of C a CTA (kDecodeCols)
+_K_STEP = 64                # the mainloop's k-step (csrc/gemm_mainloop.cuh BK)
+_SMEM_MAX = 232448
 
 MAX_ROOTS = 3
 MAX_EPILOGUE_OPERANDS = 8
@@ -292,6 +321,13 @@ class _Emitter:
 
 
 _ARGS = "int gm, int gn, const FusedArgs& a, const FgCtx& c"
+# Epi in an anonymous namespace: every template instantiated on it (and
+# each function-local static there, such as a kernel's shared-memory
+# attribute set once) belongs to its own library.  Under one external name
+# the generated libraries would share those statics (GNU unique symbols
+# ignore RTLD_LOCAL), and the second graph of a tile would skip its
+# kernel's attribute and fail at launch.
+_ANON = "namespace {"
 
 
 def _scratch(j: int) -> str:
@@ -317,7 +353,7 @@ def _panel_body(graph: TppGraph) -> list[str]:
     pre = _Emitter(graph)
     pre.roots([f"acc[{i}]" for i in range(len(graph.base_roots))])
     pre.nodes(graph.nodes[:idx])
-    stage = [f"    {_scratch(j)} = {pre.env[nm]};  // staged {nm}" for j, nm in enumerate(staged)]
+    stage = [f"    staged[{j}] = {pre.env[nm]};  // {nm}" for j, nm in enumerate(staged)]
     near = _Emitter(graph)
     near.env.update({nm: _scratch(j) for j, nm in enumerate(staged)})
     vals = [near.value(r) for r in red.inputs[:op.value_arity]]
@@ -334,8 +370,9 @@ def _panel_body(graph: TppGraph) -> list[str]:
         f"  static constexpr int RED = fg::{kind};",
         f"  static constexpr float EPS = {_f32_literal(eps)};",
         f"  static constexpr int NSTAGED = {len(staged)};",
-        "  // pre-reduce nodes, per N tile: stage the reducer's computed inputs",
-        f"  __device__ __forceinline__ static void pre(const float* acc, {_ARGS}) {{",
+        "  // pre-reduce nodes, per N tile: the reducer's computed inputs, which the",
+        "  // template stages (fg::stage) in the scratch panel",
+        f"  __device__ __forceinline__ static void pre(const float* acc, {_ARGS}, float* staged) {{",
         *pre.lines, *stage, "  }",
         "  // the reducer's value inputs at (gm, gn), from the staged panel or an operand",
         f"  __device__ __forceinline__ static float red_in(int i, {_ARGS}) {{",
@@ -504,6 +541,7 @@ def generate_source(graph: TppGraph) -> str:
         "// template's header.",
         f'#include "{"fused_chain.cuh" if chain else "fused_gemm.cuh"}"',
         "",
+        _ANON,
         "struct Epi {",
         f"  static constexpr int R = {len(roots)};",
         f"  static constexpr int NLHS = {len(lhs)};",
@@ -516,6 +554,7 @@ def generate_source(graph: TppGraph) -> str:
         f"  __host__ __device__ static constexpr bool trans_rhs(int r) {{ return {trans_r}; }}",
         *body,
         "};",
+        "}  // namespace",
         "",
         'extern "C" int fused_gemm(const FusedArgs* args, void* stream) {',
         f"  return fg::{'chain_entry' if chain else 'entry'}<Epi>(args, stream);",
@@ -568,6 +607,7 @@ def generate_backward_source(plan, head_dim: int) -> str:
         '#include "fused_gemm.cuh"',
         '#include "attention_bwd.cuh"',
         "",
+        _ANON,
         "struct Epi {",
         "  // the pre-reduce nodes on a score s at (gm, gn): the softmax_online input",
         f"  __device__ __forceinline__ static float pre(float s, int gm, int gn, {params}) {{",
@@ -579,6 +619,7 @@ def generate_backward_source(plan, head_dim: int) -> str:
         f"  __host__ __device__ static bool tile_dead(int m0, int bm, int n0, int bn, {params}) {{",
         f"    return {dead};", "  }",
         "};",
+        "}  // namespace",
         "",
         'extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* o,',
         "                             const void* lse, const void* dout, void* stats, void* dq,",
@@ -637,7 +678,12 @@ class _Args(ctypes.Structure):
                 ("all_bf16", ctypes.c_int), ("out_bf16", ctypes.c_int), ("vec", ctypes.c_int),
                 ("order", ctypes.c_void_p), ("n_order", ctypes.c_int),
                 ("prng_tm", ctypes.c_int), ("prng_tn", ctypes.c_int), ("hw", ctypes.c_int),
-                ("lse", ctypes.c_void_p), ("chain_plan", ctypes.c_int * 5)]
+                ("lse", ctypes.c_void_p), ("chain_plan", ctypes.c_int * 5),
+                ("variant", ctypes.c_int), ("cta_m", ctypes.c_int), ("cta_n", ctypes.c_int),
+                ("ws", ctypes.c_void_p), ("counters", ctypes.c_void_p),
+                ("splits", ctypes.c_int), ("split_steps", ctypes.c_int),
+                ("lhs_split", ctypes.c_void_p * MAX_ROOTS),
+                ("rhs_split", ctypes.c_void_p * MAX_ROOTS)]
 
 
 def _chain_wgmma(graph: TppGraph, all_bf16: bool, head_dim: int) -> bool:
@@ -652,26 +698,169 @@ def _chain_wgmma(graph: TppGraph, all_bf16: bool, head_dim: int) -> bool:
                 and head_dim in HEAD_DIMS)
 
 
-def cta_tile(graph: TppGraph, m: int, n: int, all_bf16: bool, head_dim: int = 0) -> tuple[int, int]:
+def cta_tile(graph: TppGraph, m: int, n: int, variant: str, head_dim: int = 0) -> tuple[int, int]:
     """The (rows, columns) of the output one K5 block computes, as the
-    templates' dispatch picks them: a chained root on the wgmma mainloop
-    (``_chain_wgmma``; ``head_dim`` = K = N2, or 0) 64 rows a warpgroup of
-    ``flash_attention.WGMMA_TILES`` (128 at D <= 64, 64 at D 128 and 256),
-    on the SIMT kernel 64 rows; a row panel 64 (bf16) or 128 (SIMT) whole
-    rows; else SIMT 128x64, bf16 16x64 for M <= 16, 128x128 for one root
-    and 128x64 for two or three."""
+    templates' dispatch picks them for ``variant``: a ``gemm_plan`` variant,
+    or for a chained root a ``chain_plan`` one (wgmma, simt).  A chained
+    root on the wgmma mainloop (``_chain_wgmma``; ``head_dim`` = K = N2, or
+    0) takes 64 rows a warpgroup of ``flash_attention.WGMMA_TILES`` (128 at
+    D <= 64, 64 at D 128 and 256), on the SIMT kernel 64 rows; a row panel
+    64 whole rows (wgmma, wmma) or 128 (simt); else wgmma and wgmma_split
+    128x128 for one root and 128x64 for two or three, wgmma_decode 16x128
+    (its K splits share one tile), wmma 16x64 for M <= 16 and else as
+    wgmma, simt 128x64."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown K5 variant {variant!r}")
     if graph.chained_root() is not None:
-        if _chain_wgmma(graph, all_bf16, head_dim):
+        if variant != "simt" and _chain_wgmma(graph, True, head_dim):
             from repro_torch.kernels.flash_attention import WGMMA_TILES
             return 64 * WGMMA_TILES[head_dim][0], n
         return 64, n
-    if graph.reducing_node() is not None:
-        return (64 if all_bf16 else 128), n
-    if not all_bf16:
-        return 128, 64
-    if m <= 16:
-        return 16, 64
-    return (128, 128) if len(graph.base_roots) == 1 else (128, 64)
+    panel = graph.reducing_node() is not None
+    roots = len(graph.base_roots)
+    if panel:
+        return (128 if variant == "simt" else 64), n
+    if variant in ("wgmma", "wgmma_split"):
+        return 128, (128 if roots == 1 else 64)
+    if variant == "wgmma_decode":
+        return DECODE_ROWS, DECODE_COLUMNS
+    if variant == "wmma":
+        return (16, 64) if m <= 16 else (128, 128) if roots == 1 else (128, 64)
+    return 128, 64
+
+
+def wgmma_tile(roots: int, nlhs: int, pieces=(1, 1), panel: bool = False):
+    """→ (rows, columns, stages, dynamic shared memory bytes, CTAs an SM) of
+    ``csrc/fused_gemm.cuh``'s WTile for ``roots`` roots over ``nlhs``
+    distinct lhs operands with ``pieces`` (PA, PB) bf16 pieces of each lhs
+    and rhs (2 on wgmma_split's fp32 side); a row panel has one consumer
+    warpgroup (64 rows).  A stage holds every piece's 64-deep tile; two
+    CTAs an SM where a thread's accumulators (roots x columns / 2) are at
+    most 64, there is one piece a side (the split keeps a second set: each
+    64-deep step summed apart, then added in fp32) and the ring fits
+    twice, else one with up to 4 stages."""
+    wg = 1 if panel else 2
+    bm, bn = 64 * wg, 128 if roots == 1 else 64
+    small = roots * bn <= 128
+    stage = (nlhs * pieces[0] * bm + roots * pieces[1] * bn) * _K_STEP * 2
+    stages = min(4, max(2, (112 if small else 224) * 1024 // stage))
+    smem = 1024 + stages * stage + 16 * stages + 16
+    return bm, bn, stages, smem, 2 if small and pieces == (1, 1) and 2 * smem <= 227 * 1024 else 1
+
+
+def gemm_variant(m: int, lhs_dtypes, rhs_dtypes, aligned: bool = True, panel: bool = False) -> str:
+    """Which variant of K5 runs a graph without a chained root, from its
+    contraction operands' dtypes, M and layout alone: every operand bf16 →
+    ``wmma`` when TMA cannot read one where it lies (``aligned`` false: a
+    base, row stride or batch stride not a multiple of 16 bytes, or K 0),
+    else ``wgmma_decode`` for m <= ``DECODE_ROWS`` (not a row panel) and
+    ``wgmma`` above; every operand fp32 → ``simt``; every lhs fp32 and every
+    rhs bf16, or the reverse, outside a row panel with the bf16 side
+    TMA-readable and the pieces' ring in shared memory (``wgmma_tile``: not
+    three fp32 lhs for three roots) → ``wgmma_split``; any other mix →
+    ``simt``.  ``lhs_dtypes`` lists the distinct lhs operands',
+    ``rhs_dtypes`` each root's.  K, N and the transpositions choose
+    nothing."""
+    lhs, rhs = set(lhs_dtypes), set(rhs_dtypes)
+    if torch.float32 not in lhs | rhs:
+        if not aligned:
+            return "wmma"
+        return "wgmma_decode" if m <= DECODE_ROWS and not panel else "wgmma"
+    if not panel and aligned and len(lhs) == 1 and len(rhs) == 1 and lhs != rhs:
+        pieces = (2, 1) if lhs == {torch.float32} else (1, 2)
+        if wgmma_tile(len(rhs_dtypes), len(lhs_dtypes), pieces)[3] <= _SMEM_MAX:
+            return "wgmma_split"
+    return "simt"
+
+
+def _has_rows(t: torch.Tensor) -> bool:
+    return t.stride(-1) == 1 and (t.shape[-2] <= 1 or t.stride(-2) >= max(t.shape[-1], 1))
+
+
+def _tma_readable(t: torch.Tensor) -> bool:
+    """Whether TMA reads the operand ``t`` as the wrapper binds it (``_rows``
+    copies one whose rows are not unit-stride into a contiguous tensor): a
+    16-byte aligned base, and the stride of every axis but the last that is
+    longer than 1 and not shared (stride 0) a multiple of 16 bytes."""
+    if _has_rows(t):
+        if t.data_ptr() % 16:
+            return False
+        strides = t.stride()
+    else:
+        strides, acc = [], 1
+        for size in reversed(t.shape):
+            strides.insert(0, acc)
+            acc *= max(size, 1)
+    size = t.element_size()
+    return all(n <= 1 or st == 0 or st * size % 16 == 0
+               for n, st in zip(t.shape[:-1], strides[:-1]))
+
+
+def _contraction(graph: TppGraph, operands):
+    """→ (lhs tensors, rhs tensors, M, K, N) of a graph's base roots."""
+    lhs = [operands[nm] for nm in _lhs_names(graph)]
+    rhs = [operands[r.rhs] for r in graph.base_roots]
+    t = lhs[0]
+    m, k = (t.shape[-1], t.shape[-2]) if graph.operand(_lhs_names(graph)[0]).trans else t.shape[-2:]
+    n = max((t.shape[-2] if graph.operand(r.rhs).trans else t.shape[-1])
+            for r, t in zip(graph.base_roots, rhs))
+    return lhs, rhs, int(m), int(k), int(n)
+
+
+def variant_of(graph: TppGraph, operands) -> str:
+    """The variant ``FusedKernel`` launches for a graph without a chained
+    root on ``operands`` (on any device): ``gemm_variant`` of the contraction
+    operands' dtypes, M and whether TMA reads the bf16 ones where they lie."""
+    if graph.chained_root() is not None:
+        raise ValueError(f"graph {graph.name!r} has a chained root: see chain_plan")
+    lhs, rhs, m, k, _ = _contraction(graph, operands)
+    aligned = k > 0 and all(_tma_readable(t) for t in lhs + rhs if t.dtype == torch.bfloat16)
+    return gemm_variant(m, [t.dtype for t in lhs], [t.dtype for t in rhs], aligned,
+                        graph.reducing_node() is not None)
+
+
+class GemmPlan(NamedTuple):
+    """How a graph without a chained root runs one call: ``variant`` (one
+    of ``VARIANTS``), ``tile`` the (rows, columns) of the output a CTA
+    computes (``cta_tile``), ``pieces`` (PA, PB) the bf16 pieces of each lhs
+    and rhs (wgmma_split: 2 on the fp32 side), and wgmma_decode's K split:
+    ``splits`` parts of ``split_steps`` 64-deep steps (1, 1 otherwise)."""
+    variant: str
+    tile: tuple
+    pieces: tuple
+    splits: int
+    split_steps: int
+
+
+def gemm_plan(graph: TppGraph, operands) -> GemmPlan:
+    """The plan of a graph without a chained root on ``operands``, from
+    their dtypes, shapes, strides and base pointers alone (nothing is
+    launched): ``variant_of``; its CTA tile; wgmma_split's pieces; and
+    wgmma_decode's split of K, ``brgemm.decode_splits(K, N)`` (never M, so a
+    decoded row has the same bits at every M <= 16)."""
+    from repro_torch.kernels.brgemm import decode_splits
+
+    variant = variant_of(graph, operands)
+    lhs, _, m, k, n = _contraction(graph, operands)
+    pieces = (1, 1)
+    if variant == "wgmma_split":
+        pieces = (2, 1) if lhs[0].dtype == torch.float32 else (1, 2)
+    splits, steps = decode_splits(k, n) if variant == "wgmma_decode" else (1, 1)
+    return GemmPlan(variant, cta_tile(graph, m, n, variant), pieces, splits, steps)
+
+
+def split_bf16(x: torch.Tensor, pieces: int = 2) -> list[torch.Tensor]:
+    """The bf16 pieces of an fp32 tensor as wgmma_split's pre-pass writes
+    them (``csrc/fused_gemm.cuh`` fg_split_bf16, ``pieces`` 2): hi =
+    bf16(x), lo = bf16(x - hi), and with ``pieces`` 3 lo2 = bf16(x - hi -
+    lo); their fp32 sum is x to about 2^-17 (2^-25) of |x|.  The plain
+    model of the split that the CPU tests hold against an fp64 product."""
+    out, rest = [], x.float()
+    for _ in range(pieces):
+        p = rest.to(torch.bfloat16)
+        out.append(p)
+        rest = rest - p.float()
+    return out
 
 
 class ChainPlan(NamedTuple):
@@ -734,8 +923,9 @@ def chain_plan(graph: TppGraph, operands) -> ChainPlan:
     b0 = batch[0] if len(batch) == 2 else 1
     all_bf16 = all(t.dtype == torch.bfloat16 for t in ops.values())
     head_dim = int(n2) if k == n2 else 0
-    rows = cta_tile(graph, m, n, all_bf16, head_dim)[0]
-    if not _chain_wgmma(graph, all_bf16, head_dim):
+    wgmma = _chain_wgmma(graph, all_bf16, head_dim)
+    rows = cta_tile(graph, m, n, "wgmma" if wgmma else "simt", head_dim)[0]
+    if not wgmma:
         return ChainPlan("simt", rows, 64, 1, 0, (-(-m // rows), 1, b0 * b1))
     for role, t in ops.items():
         if _rows(t) is t:       # a copy (K-major rows, 16-byte aligned) is always readable
@@ -761,9 +951,7 @@ def order_table(gp, m: int, n: int, cta: tuple[int, int]) -> torch.Tensor:
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """An operand whose rows have unit stride (a contiguous copy of
     anything else); its leading batch axes may have any strides."""
-    if t.stride(-1) == 1 and (t.shape[-2] <= 1 or t.stride(-2) >= max(t.shape[-1], 1)):
-        return t
-    return t.contiguous()
+    return t if _has_rows(t) else t.contiguous()
 
 
 def _batch_strides(t: torch.Tensor, nb: int) -> tuple[int, int]:
@@ -802,18 +990,22 @@ class FusedKernel:
         self._lib = None
         # a chained graph's plans by what decides them: each of q, k and v's
         # shape, strides, dtype and base pointer modulo 16 bytes
+        # a graph without one: gemm_plan's, by the same of every lhs and rhs
         self._plans: dict = {}
         self._planned = ((self.roots[0].lhs, self.roots[0].rhs, self.chain.rhs)
-                         if self.chain is not None else ())
+                         if self.chain is not None else
+                         self.lhs + tuple(r.rhs for r in self.roots))
 
-    def planned(self, operands) -> ChainPlan:
-        """``chain_plan`` on ``operands``, kept for the next call whose q, k
-        and v agree in what decides it."""
+    def planned(self, operands):
+        """``chain_plan`` (a chained graph) or ``gemm_plan`` on ``operands``,
+        kept for the next call whose contraction operands agree in what
+        decides it."""
         ts = [operands[nm] for nm in self._planned]
         key = tuple((t.shape, t.stride(), t.dtype, t.data_ptr() % 16) for t in ts)
         found = self._plans.get(key)
         if found is None:
-            found = self._plans[key] = chain_plan(self.graph, operands)
+            make = chain_plan if self.chain is not None else gemm_plan
+            found = self._plans[key] = make(self.graph, operands)
         return found
 
     def library(self):
@@ -908,13 +1100,17 @@ class FusedKernel:
                 raise ValueError(f"graph {g.name!r}: K5 needs CUDA tensors, got {v.device}")
         return m, k, n, widths, n2, batch, odt
 
-    def __call__(self, operands, *, out_dtype=None, plan=None, hw_prng=False, with_lse=False):
+    def __call__(self, operands, *, out_dtype=None, plan=None, hw_prng=False, with_lse=False,
+                 variant=None):
         """Launch on ``operands``; ``plan`` (a ``fusion.lowering.GraphPlan``
         at these shapes) orders the CTA tiles by its visit order and sets
         K13's tile, which ``hw_prng`` draws ``dropout_rng`` from.  With
         ``with_lse`` (a chained graph) → (out, lse): lse (*batch, M) fp32,
         each row's log-sum-exp of its live softmax inputs (-inf for a row
-        with none), the chained backward's row statistics."""
+        with none), the chained backward's row statistics.  ``variant``
+        (a graph without a chained root) is ``gemm_plan``'s unless given, to
+        time one variant beside another on the same operands: ``wmma``
+        beside a bf16 wgmma variant, ``simt`` beside ``wgmma_split``."""
         global LAUNCHES, HW_PRNG_LAUNCHES, CHAIN_WGMMA_LAUNCHES
         g = self.graph
         if hw_prng and plan is None:
@@ -922,7 +1118,14 @@ class FusedKernel:
         if with_lse and self.chain is None:
             raise ValueError(f"graph {g.name!r}: only a chained root writes row statistics")
         m, k, n, widths, n2, batch, odt = self._check(operands, out_dtype)
-        cplan = self.planned(operands) if self.chain is not None else None
+        planned = self.planned(operands)
+        cplan, gplan = (planned, None) if self.chain is not None else (None, planned)
+        if variant is not None and gplan is not None and variant != gplan.variant:
+            allowed = {"wgmma": "wmma", "wgmma_decode": "wmma", "wgmma_split": "simt"}
+            if allowed.get(gplan.variant) != variant:
+                raise ValueError(f"graph {g.name!r}: K5 variant {variant!r} does not take these "
+                                 f"operands (planned {gplan.variant!r})")
+            gplan = GemmPlan(variant, cta_tile(g, m, n, variant), (1, 1), 1, 1)
         nout = len(g.outputs)
         nb = len(batch)
         nprob = 1
@@ -1007,14 +1210,17 @@ class FusedKernel:
         args.hw = int(bool(hw_prng) and self.draws)
         if with_lse:
             args.lse = lse.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if cplan is not None:
             args.chain_plan[:] = cplan.ints()
+        else:
+            self._bind_plan(args, gplan, operands, keep, nprob, m, n, dev, stream)
         if plan is not None:
-            cta = (cplan.rows, n) if cplan is not None else cta_tile(g, m, n, bool(args.all_bf16))
+            cta = (cplan.rows, n) if cplan is not None else gplan.tile
             order = _device_table((plan, m, n, cta), lambda: order_table(plan, m, n, cta), dev)
             args.order, args.n_order = order.data_ptr(), order.shape[0]
         lib = self.library()
-        err = lib.fused_gemm(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.fused_gemm(ctypes.byref(args), stream)
         _build.check(err, f"fused_gemm {g.name}")
         LAUNCHES += 1
         GRAPH_LAUNCHES[g.name] = GRAPH_LAUNCHES.get(g.name, 0) + 1
@@ -1022,7 +1228,46 @@ class FusedKernel:
             HW_PRNG_LAUNCHES += 1
         if cplan is not None and cplan.variant == "wgmma":
             CHAIN_WGMMA_LAUNCHES += 1
+        if gplan is not None:
+            globals()[VARIANT_COUNTERS[gplan.variant]] += 1
         return (out, lse) if with_lse else out
+
+    def _bind_plan(self, args, gplan: GemmPlan, operands, keep, nprob, m, n, dev, stream):
+        """Set a graph's ``gemm_plan`` in ``args``: the variant and its tile;
+        for wgmma_decode the K split, the fp32 partials and the panels'
+        counters (``brgemm``'s per-stream ones, which each launch leaves at
+        zero); for wgmma_split a (2, B0 or 1, B1 or 1, rows, cols) bf16
+        buffer for the pieces of each fp32 operand."""
+        from repro_torch.kernels.brgemm import _decode_counters
+
+        args.variant = VARIANTS[gplan.variant]
+        args.cta_m, args.cta_n = gplan.tile
+        if gplan.variant == "wgmma_decode":
+            args.splits, args.split_steps = gplan.splits, gplan.split_steps
+            if gplan.splits > 1:
+                ws = torch.empty((nprob, gplan.splits, len(self.roots), m, n),
+                                 dtype=torch.float32, device=dev)
+                keep.append(ws)
+                args.ws = ws.data_ptr()
+                panels = -(-n // DECODE_COLUMNS)
+                args.counters = _decode_counters(dev, stream, nprob * panels).data_ptr()
+        elif gplan.variant == "wgmma_split":
+            b1 = args.B1
+            b0 = nprob // b1
+
+            def pieces(name, strides):
+                rows, cols = operands[name].shape[-2:]   # as stored
+                t = torch.empty((2, b0 if strides[0] else 1, b1 if strides[1] else 1, rows, cols),
+                                dtype=torch.bfloat16, device=dev)
+                keep.append(t)
+                return t.data_ptr()
+
+            for i, nm in enumerate(self.lhs):
+                if not args.lhs_bf16[i]:
+                    args.lhs_split[i] = pieces(nm, args.s_lhs[i])
+            for i, r in enumerate(self.roots):
+                if not args.rhs_bf16[i]:
+                    args.rhs_split[i] = pieces(r.rhs, args.s_rhs[i])
 
 
 class ChainedBackward:

@@ -207,7 +207,10 @@ def block_spmm(blocks, row_id, col_id, b, *, nrows_b, bn=128, out_dtype=None):
     ``row_id``/``col_id`` (nnzb,) int32, sorted row-major), b (K, N),
     possibly a transposed view; → (nrows_b·bm, N) in ``out_dtype`` (default
     ``b.dtype``) (K10).  ``bn`` is the reference's N tile; the CUDA kernel
-    tiles N by 128 and masks a ragged last tile, so it takes any N.
+    tiles N by 128 and masks a ragged last tile, so it takes any N.  On the
+    card bf16 blocks of 64 rows run on wgmma (``block_spmm.spmm_plan``):
+    store a matrix pruned in 8x8 or 16x16 blocks once as
+    ``densify_to_bcsr(a, 64, bk)``.
     Inference only: an input that requires a gradient raises."""
     _no_grad("block_spmm", blocks, b)
     if _on_cpu(blocks, row_id, col_id, b):

@@ -151,12 +151,12 @@ def test_a_copied_operand_is_not_held_to_the_rule():
 def test_cta_tile_gives_the_mainloops_rows(d):
     g = _attention()
     wg = fa.WGMMA_TILES[d][0]
-    assert fused_gemm.cta_tile(g, 1024, 1024, True, d) == (64 * wg, 1024)
-    assert fused_gemm.cta_tile(g, 1024, 1024, True, d) == \
+    assert fused_gemm.cta_tile(g, 1024, 1024, "wgmma", d) == (64 * wg, 1024)
+    assert fused_gemm.cta_tile(g, 1024, 1024, "wgmma", d) == \
         (fused_gemm.chain_plan(g, _ops(1, 1, 1024, 1024, d)).rows, 1024)
-    assert fused_gemm.cta_tile(g, 1024, 1024, False, d) == (64, 1024)
-    assert fused_gemm.cta_tile(g, 1024, 1024, True, 80) == (64, 1024)
-    assert fused_gemm.cta_tile(_graph_with(k_trans=False), 1024, 1024, True, d) == (64, 1024)
+    assert fused_gemm.cta_tile(g, 1024, 1024, "simt", d) == (64, 1024)
+    assert fused_gemm.cta_tile(g, 1024, 1024, "wgmma", 80) == (64, 1024)
+    assert fused_gemm.cta_tile(_graph_with(k_trans=False), 1024, 1024, "wgmma", d) == (64, 1024)
     assert {64 * fa.WGMMA_TILES[x][0] for x in (16, 32, 64)} == {128}
     assert {64 * fa.WGMMA_TILES[x][0] for x in (128, 256)} == {64}
 

@@ -197,8 +197,8 @@ def test_order_table_covers_every_cta_tile_once(spec, steps, tiles):
     m, n = 1024, 1024
     gp = tlowering.plan_graph(g, m, 256, n, torch.bfloat16, spec_string=spec, tiles=tiles,
                               block_steps=steps)
-    for bf16 in (True, False):
-        cta = fused_gemm.cta_tile(g, m, n, bf16)
+    for variant in ("wgmma", "simt"):
+        cta = fused_gemm.cta_tile(g, m, n, variant)
         order = fused_gemm.order_table(gp, m, n, cta).tolist()
         want = {(i, j) for i in range(0, m, cta[0]) for j in range(0, n, cta[1])}
         assert len(order) == len(want) and {tuple(o) for o in order} == want
@@ -213,11 +213,11 @@ def test_order_table_of_a_row_panel_lists_row_blocks_in_m_order():
     m, n = 256, 128
     gp = tlowering.plan_graph(g, m, 64, n, torch.bfloat16, spec_string="bbca",
                               tiles=(32, 32, 64), block_steps={"b": (4,)})
-    cta = fused_gemm.cta_tile(g, m, n, True)
+    cta = fused_gemm.cta_tile(g, m, n, "wgmma")
     assert cta == (64, n)
     assert fused_gemm.order_table(gp, m, n, cta).tolist() == [[r, 0] for r in range(0, m, 64)]
     chain = tf.simplify_graph(tf.fused_attention_graph(causal=True, scale=0.25))
-    assert fused_gemm.cta_tile(chain, m, n, False) == (64, n)
+    assert fused_gemm.cta_tile(chain, m, n, "simt") == (64, n)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ Phases, each of which must pass:
      each instantiation of the GEMM mainloop (``csrc/gemm_mainloop.cuh``:
      K1's wgmma and wgmma_decode kernels, K11's wgmma kernel; K5's wgmma,
      wgmma_split, wgmma_decode and row-panel kernels grouped by tile over
-     every generated source; K10's wgmma kernel), and any C7518 warning;
+     every generated source; K10's and K9's wgmma kernels), K3's split
+     kernel by dtype and head dim, and any C7518 warning;
   3. hold each kernel (K1 GEMM on its wgmma variants, the WMMA variant
      it replaced timed beside it at the prefill and decode rows, device
      times without the host's launch cost, all four transpositions, ragged
@@ -28,7 +29,11 @@ Phases, each of which must pass:
      decode call; K1 on transposed operands, K2 flash
      attention, K6 its backward at D 16 to 256, GQA, windows, Sq < Skv,
      ragged, bidirectional and fully masked rows, two calls bitwise equal;
-     K3 flash decode and K4 paged decode, also at gpt-j-6b's D 256; K5 fused
+     K3 flash decode split over fixed key chunks (its device time, and the
+     replaced kernel's recorded time printed beside; rows at B 1 bitwise equal to B 4, S not
+     a multiple of the chunk, window edges inside a chunk, a slot of length
+     0, a misaligned cache refused) and K4 paged decode, also at gpt-j-6b's
+     D 256; K5 fused
      TppGraphs (each GEMM-rooted row beside the WMMA or SIMT variant it
      replaced on the same inputs; decoded rows bitwise equal at M 1, 3, 8
      and 16; the fp32-operand backward graphs on wgmma_split at the fp32
@@ -49,7 +54,10 @@ Phases, each of which must pass:
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
      products, each bf16 row on the wgmma kernel (its 64-row work list)
      beside the WMMA one (the pruned blocks' list); K9 at qwen3-moe's
-     expert widths; K7 Listing 6 at
+     expert widths on wgmma (the replaced kernel's recorded time printed
+     beside it), and checks
+     (rows 8 and 100 a tile, ragged d and f, fp32 out, ids clamped) each on
+     the variant its plan names; K7 Listing 6 at
      bert-large's output layers and N 5120, beside K5's keep-mask graph;
      K2 and K6 without a causal mask at bert-large's shape; K11 Listing 1 at
      benchmarks/bench_gemm.py's seven shapes under five spec strings on its
@@ -73,7 +81,9 @@ Phases, each of which must pass:
      and K3 must have launched, K2 once a layer and all on its bf16 wgmma
      kernel (``ATTENTION_WGMMA_LAUNCHES``, as in phases 6, 9 and 10b), every
      K1 launch on ``wgmma`` or ``wgmma_decode`` and none on ``wmma`` (as in
-     phases 6, 7, 7b, 7f and 9 to 10c), the logits must be finite;
+     phases 6, 7, 7b, 7f and 9 to 10c), the logits must be finite; one more
+     run profiled, in which every K3 launch is the split kernel, one a call
+     (as in phase 7);
   6. serve the same model through the continuous-batching engine (8 slots,
      16-token pages, 16 ragged requests, greedy and sampled): paged logits
      must equal dense ones, every request must finish with ``validate()``
@@ -110,7 +120,7 @@ Phases, each of which must pass:
      each against the dense pruned product, timed beside the dense
      ``torch.matmul``, K1 and the work list at 0 %; then Listing 6 through
      ``kernels.fused_output`` and qwen3-moe's experts through
-     ``ops.grouped_matmul``, counted the same way;
+     ``ops.grouped_matmul`` (one K9 launch, on wgmma), counted the same way;
   7d. PARLOOPER, with every counter set to 0 just before and read just
      after each run: Listing 1 (2048^3) through ``ops.brgemm_blocked``, one
      K11 launch; ResNet-50's 1x1 layers (N 32) through ``ops.conv2d``, one
@@ -213,7 +223,7 @@ SOURCE = {
     "gemm_transposed": "src/repro_torch/kernels/csrc/gemm.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-    "flash_decode": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
     "paged_decode": "src/repro_torch/kernels/csrc/paged_decode.cu",
     # the templates; one source per graph is generated from them by
     # src/repro_torch/kernels/fused_gemm.py
@@ -894,6 +904,28 @@ def k5_k10_build_report(logs, sources, fused_gemm):
     return {"k5": groups, "k10": k10, "c7518": warnings}
 
 
+def k3_k9_build_report(logs):
+    """Print the ``-Xptxas -v`` figures of K3's split kernel by dtype and
+    head dim (csrc/flash_decode.cu) and of K9's wgmma kernel
+    (csrc/block_spmm.cu), and any ptxas C7518 warning (serialized wgmma) in
+    K9's source; → those figures."""
+    report = {}
+    for mangled, figures in ptxas_by_kernel(logs["flash_decode"]).items():
+        found = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        if found:
+            dt = "fp32" if found.group(1) == "f" else "bf16"
+            report[f"K3 flash_decode_split_kernel<{dt}, {found.group(2)}>"] = figures
+    for mangled, figures in ptxas_by_kernel(logs["block_spmm"]).items():
+        if "grouped_matmul_bf16_wgmma" in mangled:
+            report["K9 grouped_matmul_bf16_wgmma"] = figures
+    warnings = [ln.strip() for ln in logs["block_spmm"].splitlines() if "C7518" in ln]
+    for name, figures in sorted(report.items()):
+        print(f"  {name}: {figures}", flush=True)
+    print(f"  csrc/block_spmm.cu ptxas C7518 (serialized wgmma) warnings: {len(warnings)}",
+          flush=True)
+    return {"kernels": report, "c7518": warnings}
+
+
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
     windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
@@ -1034,40 +1066,106 @@ def attention_bwd_cases(torch, bench, ref, fa):
               f"K6 {label}: two identical calls differ")
 
 
+# The lone-call times of the kernels K3's split and K9's wgmma variant
+# replaced (K3: one block a (batch, kv head), one 32-key tile of scalar loads
+# at a time; K9: K1's unpipelined WMMA tile), chip_smoke.py phase 3 on an
+# NVIDIA H100 80GB HBM3 at 700 W, as PERF.md's rows keep them: printed beside
+# this run's times, never part of its results
+WAS_MS = {"main B4 H40 S528 D128 len520": 0.2036, "gptj B4 H16 S528 D256 len520": 0.1968,
+          "qwen3-moe": 0.6432}
+
+
 def decode_cases(torch, bench, ref, fa):
     """K3 at the decode shape (B 4, H 40, D 128, cache 528, length 520,
-    bf16), GQA, windowed, ragged lengths, and gpt-j-6b's D 256."""
+    bf16), GQA, windowed, ragged lengths and gpt-j-6b's D 256, each timed
+    row with its device time (``device_ms``), the replaced kernel's
+    recorded time (``WAS_MS``) printed beside it; library: SDPA over the
+    live keys (the window's slice of them); then the split's own checks: every row
+    decoded at B 1 bitwise equal to the same row at B 4 (main and ragged
+    lengths), caches whose S is not a multiple of the chunk, a window edge
+    inside a chunk, a slot of length 0 (zeros; the plain version's softmax
+    has no key there), and a misaligned cache refused."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    chunk = fa.DECODE_CHUNK
     cases = [  # label, B, H, Hk, S, D, lengths, window, dtype, weight, timed
-        ("main B4 H40 S528 D128 len520", 4, 40, 40, 528, 128, [520] * 4, None, torch.bfloat16, 1, True),
-        ("gqa B4 H40 Hk8 S528 D128 len520", 4, 40, 8, 528, 128, [520] * 4, None, torch.bfloat16, 0, True),
-        ("window128 B4 H40 S528 D128 len520", 4, 40, 40, 528, 128, [520] * 4, 128, torch.bfloat16, 0, True),
-        ("check ragged lens H40 Hk8 D128", 4, 40, 8, 528, 128, [1, 300, 528, 77], None, torch.bfloat16, 0, False),
-        ("check ragged lens H4 Hk2 D16 window16 fp32", 3, 4, 2, 64, 16, [20, 64, 37], 16, torch.float32, 0, False),
-        ("check H16 Hk1 D128 fp32", 2, 16, 1, 100, 128, [100, 61], None, torch.float32, 0, False),
-        ("gptj B4 H16 S528 D256 len520", 4, 16, 16, 528, 256, [520] * 4, None, torch.bfloat16, 0, True),
-        ("check ragged lens H16 D256 window64", 3, 16, 16, 300, 256, [1, 300, 129], 64, torch.bfloat16, 0, False),
+        ("main B4 H40 S528 D128 len520", 4, 40, 40, 528, 128, [520] * 4, None, bf16, 1, True),
+        ("gqa B4 H40 Hk8 S528 D128 len520", 4, 40, 8, 528, 128, [520] * 4, None, bf16, 0, True),
+        ("window128 B4 H40 S528 D128 len520", 4, 40, 40, 528, 128, [520] * 4, 128, bf16, 0, True),
+        ("check ragged lens H40 Hk8 D128", 4, 40, 8, 528, 128, [1, 300, 528, 77], None, bf16, 0, False),
+        ("check ragged lens H4 Hk2 D16 window16 fp32", 3, 4, 2, 64, 16, [20, 64, 37], 16, f32, 0, False),
+        ("check H16 Hk1 D128 fp32", 2, 16, 1, 100, 128, [100, 61], None, f32, 0, False),
+        ("gptj B4 H16 S528 D256 len520", 4, 16, 16, 528, 256, [520] * 4, None, bf16, 0, True),
+        ("check ragged lens H16 D256 window64", 3, 16, 16, 300, 256, [1, 300, 129], 64, bf16, 0, False),
+        # S not a multiple of the chunk; lengths clamped to S
+        (f"check S{3 * chunk + 44} H8 Hk2 D128 len above S", 3, 8, 2, 3 * chunk + 44, 128,
+         [3 * chunk + 44, 3 * chunk + 100, chunk + 1], None, bf16, 0, False),
+        ("check S37 H8 Hk8 D64 fp32 one chunk", 2, 8, 8, 37, 64, [37, 5], None, f32, 0, False),
+        # window edges inside a chunk, one row's window reaching back past key 0
+        ("check window100 H40 Hk8 D128 edges inside chunks", 4, 40, 8, 528, 128,
+         [520, 300, 101, 99], 100, bf16, 0, False),
     ]
+    bitwise = []
     for label, b, h, hk, s, d, lens, window, dt, weight, timed in cases:
         q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)[:, :, 0]
         kc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(dt)
         vc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(dt)
         length = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        valid = sum(min(n, window) if window else n for n in lens)
+        live = [min(n, s) for n in lens]
+        valid = sum(min(n, window) if window else n for n in live)
         library = None
-        if timed and window is None:
-            n = lens[0]
+        if timed:      # every length equal: SDPA over the live keys computes the same
+            hi = lens[0]
+            lo = max(hi - window, 0) if window else 0
             library = lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kc[:, :, :n], vc[:, :, :n], enable_gqa=hk != h)
-        name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        bench.run("flash_decode", label,
-                  lambda: fa.flash_decode(q, kc, vc, length=length, window=window),
-                  lambda: ref.decode_attention_ref(q, kc, vc, length=length, window=window),
-                  library,
-                  flops=4 * h * d * valid,
-                  nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid),
-                  dtype=name, tol_kind="attn", weight=weight, timed=timed)
+                q[:, :, None], kc[:, :, lo:hi], vc[:, :, lo:hi], enable_gqa=hk != h)
+        name = "bfloat16" if dt == bf16 else "float32"
+        fn = lambda: fa.flash_decode(q, kc, vc, length=length, window=window)  # noqa: E731
+        out = bench.run("flash_decode", label, fn,
+                        lambda: ref.decode_attention_ref(q, kc, vc, length=length, window=window),
+                        library,
+                        flops=4 * h * d * valid,
+                        nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid),
+                        dtype=name, tol_kind="attn", weight=weight, timed=timed)
+        if timed:
+            row = bench.cases["flash_decode"][-1]
+            row["device_ms"] = device_ms(torch, fn)
+            print(f"    device {row['device_ms']:.4f} ms"
+                  + (f"; was {WAS_MS[label]:.4f} ms (the replaced kernel, a lone call, PERF.md)"
+                     if label in WAS_MS else ""), flush=True)
+        if label.startswith(("main", "check ragged lens H40")):
+            bitwise.append((label, q, kc, vc, length, window, out))
+    # a row's bits do not depend on the batch it is decoded in
+    for label, q, kc, vc, length, window, out in bitwise:
+        for i in range(q.shape[0]):
+            one = fa.flash_decode(q[i:i + 1], kc[i:i + 1], vc[i:i + 1], length=length[i:i + 1],
+                                  window=window)
+            check(torch.equal(one, out[i:i + 1]),
+                  f"K3 {label}: row {i} decoded at B 1 differs from the same row at B 4")
+    print(f"  flash_decode rows at B 1 bitwise equal to B 4: {len(bitwise)} cases", flush=True)
+    # a slot of length 0 gives zeros; the others hold against the plain version
+    b, h, hk, s, d = 4, 40, 8, 528, 128
+    q = torch.randn(b, h, d, generator=gen, device="cuda").to(bf16)
+    kc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(bf16)
+    vc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(bf16)
+    length = torch.tensor([0, 520, 1, chunk], dtype=torch.int32, device="cuda")
+    out = fa.flash_decode(q, kc, vc, length=length)
+    err, ok = compare(torch, out[1:], ref.decode_attention_ref(q[1:], kc[1:], vc[1:],
+                                                               length=length[1:]),
+                      *TOL["bfloat16"]["attn"])
+    check(float(out[0].float().abs().max()) == 0.0 and ok,
+          f"K3 with a slot of length 0: that row {float(out[0].float().abs().max())} (want 0),"
+          f" the others {err:.3e} from the plain version")
+    print(f"  flash_decode check slot of length 0: zeros; others max_abs_err {err:.3e}", flush=True)
+    # a cache the 16-byte loads cannot read is refused, not copied
+    buf = torch.zeros(2 * 64 * 128 + 4, dtype=bf16, device="cuda")[4:].view(1, 2, 64, 128)
+    try:
+        fa.flash_decode(q[:1, :4], buf, buf, length=length[:1])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K3 took a cache whose base is not 16-byte aligned")
 
 
 def _page_table(torch, lens, ps, maxp, num_pages, seed):
@@ -1368,8 +1466,14 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
     """K9 against its plain version at qwen3-moe's expert widths
     (``src/repro/configs/qwen3_moe_235b.py``: d 4096, moe_d_ff 1536, 128
     experts): 4096 rows in 64-row tiles with sorted group ids drawn from the
-    seed, bf16; library: ``torch._grouped_mm`` where the card's torch has
-    it; plus fp32, ragged and small-tile checks."""
+    seed, bf16, on the variant ``grouped_plan`` names (wgmma), with its
+    device time and the replaced kernel's recorded time (``WAS_MS``) printed
+    beside it; library:
+    ``torch._grouped_mm`` where the card's torch has it; plus checks, each
+    on the variant its plan names: rows 8 and 100 a tile, f not a multiple
+    of the wgmma tile, a ragged d, fp32 output and bf16 output of fp32
+    operands, out-of-range ids clamped, f not a multiple of 8 (wmma) and
+    fp32 (simt).  The plain version takes the clamped ids."""
     import numpy as np
     rng = np.random.default_rng(13)
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1380,6 +1484,21 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
         w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(dt)
         gid = torch.from_numpy(np.sort(rng.integers(0, e, t // bm)).astype(np.int32)).cuda()
         return x, w, gid
+
+    def run(label, x, gid, w, out=None, library=None, flops=0, nbytes=0, weight=0, timed=False):
+        e, tiles = w.shape[0], gid.shape[0]
+        plan = spmm.grouped_plan(tiles, x.shape[0] // tiles, x.shape[1], w.shape[2], e, x.dtype)
+        before = {v: getattr(spmm, c) for v, c in spmm.GROUPED_COUNTERS.items()}
+        spmm.grouped_matmul(x, gid, w, out_dtype=out)
+        ran = [v for v, c in spmm.GROUPED_COUNTERS.items() if getattr(spmm, c) > before[v]]
+        check(ran == [plan.variant], f"K9 {label}: ran on {ran}, its plan names {plan.variant}")
+        fn = lambda: spmm.grouped_matmul(x, gid, w, out_dtype=out)  # noqa: E731
+        name = "bfloat16" if x.dtype == bf16 else "float32"
+        bench.run("grouped_matmul", f"{label} [{plan.variant}]", fn,
+                  lambda: ref.grouped_matmul_ref(x, gid.clamp(0, e - 1), w, out_dtype=out),
+                  library, flops=flops, nbytes=nbytes, dtype=name, tol_kind="gemm",
+                  weight=weight, timed=timed)
+        return bench.cases["grouped_matmul"][-1], fn
 
     t, d, f, e, bm = 4096, 4096, 1536, 128, 64
     x, w, gid = operands(t, d, f, e, bm, bf16)
@@ -1400,25 +1519,29 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
                 why = f"torch._grouped_mm disagrees with the plain version by {err:.3e}"
         except (RuntimeError, TypeError, ValueError) as exc:   # the yardstick only
             why = f"torch._grouped_mm refused these operands: {str(exc).splitlines()[0][:160]}"
-    bench.run("grouped_matmul", f"qwen3-moe T{t} tiles of {bm} d{d} f{f} E{e} ({used} used)",
-              lambda: spmm.grouped_matmul(x, gid, w), lambda: ref.grouped_matmul_ref(x, gid, w),
-              library, flops=2 * t * d * f,
-              nbytes=2 * (t * d + used * d * f + t * f) + 4 * (t // bm), dtype="bfloat16",
-              tol_kind="gemm", weight=1)
+    row, fn = run(f"qwen3-moe T{t} tiles of {bm} d{d} f{f} E{e} ({used} used)", x, gid, w,
+                  library=library, flops=2 * t * d * f,
+                  nbytes=2 * (t * d + used * d * f + t * f) + 4 * (t // bm), weight=1, timed=True)
+    row["device_ms"] = device_ms(torch, fn)
+    print(f"    device {row['device_ms']:.4f} ms; was {WAS_MS['qwen3-moe']:.4f} ms (the wmma"
+          f" variant it replaced, a lone call, PERF.md)", flush=True)
     bench.extra["grouped_matmul_library"] = why or "torch._grouped_mm"
     if why:
         print(f"  grouped_matmul library: none, {why}", flush=True)
     del x, w, gid
     for t, d, f, e, bm, dt, out in ((192, 96, 200, 5, 48, f32, None), (64, 32, 64, 4, 8, bf16, None),
                                     (300, 64, 136, 3, 100, bf16, None), (256, 72, 128, 6, 64, f32, bf16),
-                                    (128, 64, 96, 4, 64, bf16, f32)):
+                                    (128, 64, 96, 4, 64, bf16, f32), (800, 256, 384, 6, 100, bf16, None),
+                                    (48, 128, 256, 3, 8, bf16, f32), (384, 136, 200, 5, 64, bf16, None),
+                                    (192, 64, 100, 3, 64, bf16, None)):
         x, w, gid = operands(t, d, f, e, bm, dt)
         name = "bfloat16" if dt == bf16 else "float32"
-        bench.run("grouped_matmul", f"check T{t} tiles of {bm} d{d} f{f} E{e} {name}"
-                  + (f" -> {str(out)[6:]}" if out else ""),
-                  lambda: spmm.grouped_matmul(x, gid, w, out_dtype=out),
-                  lambda: ref.grouped_matmul_ref(x, gid, w, out_dtype=out), None,
-                  flops=2 * t * d * f, nbytes=0, dtype=name, tol_kind="gemm", timed=False)
+        run(f"check T{t} tiles of {bm} d{d} f{f} E{e} {name}" + (f" -> {str(out)[6:]}" if out else ""),
+            x, gid, w, out)
+    # ids out of range are clamped into [0, E)
+    x, w, _ = operands(256, 128, 256, 4, 64, bf16)
+    gid = torch.tensor([-3, 0, 4, 100], dtype=torch.int32, device="cuda")
+    run("check T256 tiles of 64 d128 f256 E4 ids -3, 0, 4, 100 clamped", x, gid, w)
 
 
 def fused_output_cases(torch, bench, fo, fusion):
@@ -2984,8 +3107,9 @@ def full_width(torch, counters, peaks, cfg, params):
     check(launches["flash_attention_wgmma"] == launches["flash_attention"] == cfg.num_layers,
           f"K2 launched {launches['flash_attention']} times, {launches['flash_attention_wgmma']}"
           f" of them on the bf16 wgmma kernel, in one prefill of {cfg.num_layers} layers")
-    result["profile"] = device_breakdown(
-        torch, lambda: generate_loop(cfg, params, prompts, new, scfg=scfg), total_ms)
+    result["profile"] = k3_on_split(
+        torch, counters, lambda: generate_loop(cfg, params, prompts, new, scfg=scfg), total_ms,
+        "phase 5 generate_loop")
     return result
 
 
@@ -3373,8 +3497,9 @@ def fused_full_width(torch, counters, peaks, cfg, params, unfused):
           f" per prefill {per_prefill}; per decode step {per_step}", flush=True)
     print(f"  fused vs unfused last-token prefill logits: max abs diff {logit_diff:.4f};"
           f" greedy tokens agreeing {agree} of {batch * new} (information, not a gate)", flush=True)
-    result["profile"] = device_breakdown(
-        torch, lambda: generate_loop(fcfg, params, prompts, new, scfg=scfg), total_ms)
+    result["profile"] = k3_on_split(
+        torch, counters, lambda: generate_loop(fcfg, params, prompts, new, scfg=scfg), total_ms,
+        "phase 7 fused generate_loop")
     return result
 
 
@@ -3745,11 +3870,14 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     yg = ops.grouped_matmul(xg, gid, wg)
     torch.cuda.synchronize()
     result["grouped_launches"] = counters.read()
-    check(result["grouped_launches"]["grouped_matmul"] == 1 and bool(torch.isfinite(yg).all()),
-          f"grouped experts: launches {result['grouped_launches']}")
+    check(result["grouped_launches"]["grouped_matmul"] == 1
+          and result["grouped_launches"]["grouped_matmul_wgmma"] == 1
+          and bool(torch.isfinite(yg).all()),
+          f"grouped experts: launches {result['grouped_launches']}, want one K9 launch on wgmma")
     print(f"  Listing 6 (M {m}, K {k}, N {n}) launches {result['listing6_launches']['fused_output']}"
           f" K7; qwen3-moe experts (T {t}, d {d}, f {f}, E {e}) launches"
-          f" {result['grouped_launches']['grouped_matmul']} K9", flush=True)
+          f" {result['grouped_launches']['grouped_matmul']} K9"
+          f" ({result['grouped_launches']['grouped_matmul_wgmma']} on wgmma)", flush=True)
     del xg, wg, gid, yg
     torch.cuda.empty_cache()
     return result
@@ -3923,7 +4051,8 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "gemm_transposed_bf16_wmma": "gemm_transposed",
              "gemm_transposed_f32_simt": "gemm_transposed",
              "flash_attention_kernel": "flash_attention",
-             "attention_fwd_wgmma_kernel": "fused_chain", "flash_decode_kernel": "flash_decode",
+             "attention_fwd_wgmma_kernel": "fused_chain",
+             "flash_decode_split_kernel": "flash_decode",
              "paged_decode_kernel": "paged_decode",
              "fused_gemm_bf16_wgmma": "fused_gemm", "fused_gemm_bf16_wgmma_decode": "fused_gemm",
              "fg_split_bf16": "fused_gemm",
@@ -3933,6 +4062,7 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
              "block_spmm_bf16_wgmma": "block_spmm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
+             "grouped_matmul_bf16_wgmma": "grouped_matmul",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
              "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
              "brgemm_blocked_bf16_wgmma": "brgemm_blocked",
@@ -3971,7 +4101,7 @@ def device_breakdown(torch, run, wall_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    by_kernel, ranges = {}, {}
+    by_kernel, ranges, names = {}, {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
@@ -3981,12 +4111,16 @@ def device_breakdown(torch, run, wall_ms):
         name = kernel_of(ev.key)
         ms, count = by_kernel.get(name, (0.0, 0))
         by_kernel[name] = (ms + ev.self_device_time_total / 1e3, count + ev.count)
+        # the device kernel by the word kernel_of read it by
+        word = next((w for w in re.findall(r"\w+", ev.key) if w in KERNEL_OF), ev.key[:60])
+        names.setdefault(name, {})
+        names[name][word] = names[name].get(word, 0) + ev.count
     busy_ms = sum(ms for ms, _ in by_kernel.values())
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
            "by_kernel": {k: {"ms": ms, "launches": n} for k, (ms, n) in
                          sorted(by_kernel.items(), key=lambda kv: -kv[1][0])},
-           "ranges_ms": ranges}
+           "ranges_ms": ranges, "device_names": names}
     print(f"  profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
           + "".join(f"; {k} {v['ms']:.1f} ms / {v['launches']}" for k, v in out["by_kernel"].items())
           + "".join(f"; range {k} spans {v:.1f} ms on the device" for k, v in ranges.items()),
@@ -4047,6 +4181,8 @@ class Counters:
         for counter in self.spmm.SPMM_COUNTERS.values():
             setattr(self.spmm, counter, 0)
         self.spmm.GROUPED_LAUNCHES = 0
+        for counter in self.spmm.GROUPED_COUNTERS.values():
+            setattr(self.spmm, counter, 0)
         self.fo.LAUNCHES = 0
 
     def read(self):
@@ -4081,6 +4217,9 @@ class Counters:
                 **{f"block_spmm_{v}": getattr(self.spmm, c)
                    for v, c in self.spmm.SPMM_COUNTERS.items()},
                 "grouped_matmul": self.spmm.GROUPED_LAUNCHES,
+                # K9's launches by variant (not kernel rows of their own)
+                **{f"grouped_matmul_{v}": getattr(self.spmm, c)
+                   for v, c in self.spmm.GROUPED_COUNTERS.items()},
                 "fused_output": self.fo.LAUNCHES,
                 "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
                 "brgemm_blocked_wgmma": self.brgemm.BLOCKED_WGMMA_LAUNCHES,
@@ -4095,6 +4234,7 @@ SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_si
                         "fused_chain_wgmma", "fused_attention_bwd_wgmma",
                         "fused_wgmma", "fused_wgmma_decode", "fused_wgmma_split", "fused_wmma",
                         "fused_simt", "block_spmm_wgmma", "block_spmm_wmma", "block_spmm_simt",
+                        "grouped_matmul_wgmma", "grouped_matmul_wmma", "grouped_matmul_simt",
                         "brgemm_blocked_wgmma"})
 
 
@@ -4125,6 +4265,22 @@ def k5_on_wgmma(launches, what):
     print(f"  {what}: K5 graphs without a chained root by variant {on}, {off}", flush=True)
     check(sum(on.values()) > 0 and not any(off.values()),
           f"{what}: K5's GEMM-rooted launches by variant {on}, {off}")
+
+
+def k3_on_split(torch, counters, run, wall_ms, what):
+    """Profile ``run()`` (``device_breakdown``) with every counter set to 0
+    just before: every K3 launch of the run on the split kernel
+    (``flash_decode_split_kernel``), one device kernel a call (the profiled
+    launches equal the wrapper's count).  → the profile."""
+    counters.reset()
+    prof = device_breakdown(torch, run, wall_ms)
+    calls = counters.read()["flash_decode"]
+    names = prof["device_names"].get("flash_decode", {})
+    print(f"  {what}: K3 called {calls} times; its device kernels {names}", flush=True)
+    check(calls > 0 and names == {"flash_decode_split_kernel": calls},
+          f"{what}: K3 called {calls} times, its device kernels {names}: want every launch on"
+          f" flash_decode_split_kernel, one a call")
+    return prof
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -4446,6 +4602,7 @@ def main() -> int:
     bwd_build = bwd_build_report(_build, fa, logs, chained)
     gemm_build = gemm_build_report(_build, logs)
     k5_k10_build = k5_k10_build_report(logs, fused_sources(fusion, fused_gemm), fused_gemm)
+    k3_k9_build = k3_k9_build_report(logs)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -4584,7 +4741,8 @@ def main() -> int:
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,
                       "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
-                      "gemm_build": gemm_build, "k5_k10_build": k5_k10_build}))
+                      "gemm_build": gemm_build, "k5_k10_build": k5_k10_build,
+                      "k3_k9_build": k3_k9_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

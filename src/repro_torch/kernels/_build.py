@@ -65,11 +65,13 @@ SIGNATURES = {
         # window, scale, stream
         "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I)
         + (_L,) * 12 + (_I, _I, _F, _P),
-        # q, k, v, length, o, bf16, B, H, Hk, S, D,
+    },
+    "flash_decode": {
+        # q, k, v, length, o, workspace, counters, bf16, B, H, Hk, S, D,
         # q (batch, head), k/v (batch, head, seq), o (batch, head), window,
         # scale, stream
-        "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)
-        + (_L,) * 10 + (_I, _F, _P),
+        "flash_decode": (_P,) * 7 + (_I,) * 6 + (_L,) * 10 + (_I, _F, _P),
+        "flash_decode_chunk": (),
     },
     "flash_attention_bwd": {"attention_bwd": ATTENTION_BWD},
     "paged_decode": {
@@ -88,9 +90,10 @@ SIGNATURES = {
         # N, K, ldb, trans_b, vec, variant, nnzb, rows_per, workspace,
         # stream
         "block_spmm": (_P,) * 5 + (_I,) * 13 + (_P,) * 2,
-        # x, group_id, w, out, in_bf16, out_bf16, tiles, rows, E, d, f, vec,
-        # stream
+        # x, group_id, w, out, in_bf16, out_bf16, tiles, rows, E, d, f,
+        # variant, stream
         "grouped_matmul": (_P,) * 4 + (_I,) * 8 + (_P,),
+        "grouped_tile": (_P,),
     },
     "fused_output": {
         # x, w, bias, residual, keep, gamma, beta, out, scratch, in_bf16,

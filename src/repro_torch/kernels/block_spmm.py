@@ -10,8 +10,12 @@ columns of C and a run of block rows a CTA; a matrix pruned in 8x8 or
 16x16 blocks is stored once as ``densify_to_bcsr(a, 64, bk)``, each block
 the union of 8 or 4 pruned block rows at one column; two 8-deep items or
 one 16-deep item a k16 step, ``paired_steps``), WMMA for bf16 blocks of 8
-or 16 rows and for operands TMA cannot read, SIMT for fp32; K1's mainloop
-on each row tile's expert for K9.  The plain versions are
+or 16 rows and for operands TMA cannot read, SIMT for fp32; for K9 in
+bf16 the GEMM mainloop ``csrc/gemm_mainloop.cuh`` under a Policy that reads
+each row tile's expert through tensor maps over x (d, rows, tiles) and w
+(f, d, E) (``grouped_plan``: one 64-row chunk of a row tile by 128 columns a
+CTA), K1's WMMA tile for bf16 operands TMA cannot read, SIMT for fp32.  The
+plain versions are
 ``kernels.ref.block_spmm_ref`` and ``kernels.ref.grouped_matmul_ref``;
 ``kernels.ops.block_spmm`` and ``kernels.ops.grouped_matmul`` pick between
 kernel and plain version by the device of the tensors.
@@ -21,6 +25,8 @@ host, as the reference's helper of the same name does.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -30,16 +36,21 @@ from repro_torch import resolve_device
 from repro_torch.kernels import _build
 
 __all__ = ["densify_to_bcsr", "block_spmm", "grouped_matmul", "spmm_plan", "paired_steps",
-           "SpmmPlan", "WGMMA_ROWS", "SPMM_LAUNCHES", "SPMM_WGMMA_LAUNCHES", "SPMM_WMMA_LAUNCHES",
-           "SPMM_SIMT_LAUNCHES", "SPMM_COUNTERS", "GROUPED_LAUNCHES", "BLOCK_SHAPES"]
+           "grouped_plan", "SpmmPlan", "GroupedPlan", "WGMMA_ROWS", "SPMM_LAUNCHES",
+           "SPMM_WGMMA_LAUNCHES", "SPMM_WMMA_LAUNCHES", "SPMM_SIMT_LAUNCHES", "SPMM_COUNTERS",
+           "GROUPED_LAUNCHES", "GROUPED_WGMMA_LAUNCHES", "GROUPED_WMMA_LAUNCHES",
+           "GROUPED_SIMT_LAUNCHES", "GROUPED_COUNTERS", "GROUPED_TILE", "BLOCK_SHAPES"]
 
 # Launches of each CUDA kernel since import (or since a caller reset them),
-# and K10's by variant.
+# and K10's and K9's by variant.
 SPMM_LAUNCHES = 0
 SPMM_WGMMA_LAUNCHES = 0
 SPMM_WMMA_LAUNCHES = 0
 SPMM_SIMT_LAUNCHES = 0
 GROUPED_LAUNCHES = 0
+GROUPED_WGMMA_LAUNCHES = 0
+GROUPED_WMMA_LAUNCHES = 0
+GROUPED_SIMT_LAUNCHES = 0
 
 WGMMA_ROWS = 64              # wgmma: rows of a block (csrc/block_spmm.cu spmm_wg::BM)
 BLOCK_SHAPES = ((8, 8), (16, 16), (WGMMA_ROWS, 8), (WGMMA_ROWS, 16))   # K10's (bm, bk)
@@ -49,6 +60,14 @@ SPMM_COUNTERS = {"wgmma": "SPMM_WGMMA_LAUNCHES", "wmma": "SPMM_WMMA_LAUNCHES",
                  "simt": "SPMM_SIMT_LAUNCHES"}
 _TILE_N = 128                # wgmma: columns of C a CTA (spmm_wg::BN)
 _TARGET_CTAS = 4 * 132       # wgmma: about four CTAs on each of the H100's SMs
+GROUPED_VARIANTS = {"wgmma": 1, "wmma": 0, "simt": 0}
+GROUPED_COUNTERS = {"wgmma": "GROUPED_WGMMA_LAUNCHES", "wmma": "GROUPED_WMMA_LAUNCHES",
+                    "simt": "GROUPED_SIMT_LAUNCHES"}
+# K9's wgmma tile: columns of out a CTA and TMA ring stages (csrc/block_spmm.cu
+# grouped_wg::Cfg, which grouped_matmul checks against the library once); a
+# CTA computes 64 rows of a row tile (one consumer warpgroup).
+GROUPED_TILE = (128, 4)
+_GROUPED_ROWS = 64
 
 
 class SpmmPlan(NamedTuple):
@@ -78,6 +97,39 @@ def spmm_plan(nrows: int, n: int, dtype, aligned: bool = True, nnzb: int = 1,
     runs = max(1, min(nrows, _TARGET_CTAS // cols))
     per = -(-nrows // runs)
     return SpmmPlan("wgmma", per, (-(-nrows // per), cols))
+
+
+class GroupedPlan(NamedTuple):
+    """How K9 runs one call: ``variant`` (wgmma, wmma or simt), its
+    ``grid``, and for wgmma the (bn, stages) ``tile`` and the extents of
+    the tensor maps the kernel reads x and w through, innermost first:
+    ``x_map`` (d, rows, tiles), so a tile's rows past its end read as
+    zeros, and ``w_map`` (f, d, E), each expert's slab where it lies."""
+    variant: str
+    grid: tuple
+    tile: tuple = ()
+    x_map: tuple = ()
+    w_map: tuple = ()
+
+
+def grouped_plan(tiles: int, rows: int, d: int, f: int, e: int, dtype,
+                 aligned: bool = True) -> GroupedPlan:
+    """K9's plan for x (tiles·rows, d) and w (e, d, f) of ``dtype``: fp32 →
+    ``simt`` (64 x 64 blocks); bf16 → ``wgmma`` where TMA reads both in
+    place (``aligned``: 16-byte aligned bases; d and f multiples of 8, so
+    every row stride is a multiple of 16 bytes), a grid of (column tiles of
+    ``GROUPED_TILE[0]``, 64-row chunks of a row tile, row tiles): the
+    column tiles of one row tile run together and share its x chunk, sorted
+    adjacent row tiles share their expert's slab through L2; else ``wmma``
+    (64 x 128 blocks).  Never names a variant because a launch failed."""
+    chunks = -(-rows // _GROUPED_ROWS)
+    if dtype != torch.bfloat16:
+        return GroupedPlan("simt", (-(-f // 64), tiles, chunks))
+    if not aligned or d % 8 or f % 8:
+        return GroupedPlan("wmma", (-(-f // 128), tiles, chunks))
+    bn = GROUPED_TILE[0]
+    return GroupedPlan("wgmma", (-(-f // bn), chunks, tiles), GROUPED_TILE, (d, rows, tiles),
+                       (f, d, e))
 
 
 def paired_steps(row_ptr, bk: int) -> list[list[tuple[int, int]]]:
@@ -202,12 +254,26 @@ def block_spmm(blocks, row_id, col_id, b, *, nrows_b, out_dtype=None):
     return c
 
 
+@functools.lru_cache(maxsize=1)
+def _grouped_library():
+    """K9's library, once its wgmma tile is checked to be
+    :data:`GROUPED_TILE` (the plan's)."""
+    lib = _build.load("block_spmm")
+    tile = (ctypes.c_int * 2)()
+    lib.grouped_tile(tile)
+    if tuple(tile) != GROUPED_TILE:
+        raise RuntimeError(f"csrc/block_spmm.cu's K9 tile is {tuple(tile)}, grouped_plan's"
+                           f" {GROUPED_TILE}")
+    return lib
+
+
 def grouped_matmul(x, group_id, w, *, out_dtype=None):
     """Per-row-tile expert product on the GPU: x (T, d) in ``len(group_id)``
     row tiles of T / len(group_id) rows, ``group_id`` (tiles,) int32 the
     expert of each tile (clamped into [0, E)), w (E, d, f) of x's dtype
     (fp32 or bf16), both contiguous; → (T, f) in ``out_dtype`` (default
-    ``x.dtype``).  Raises on anything the kernel does not take."""
+    ``x.dtype``), on the variant ``grouped_plan`` names.  Raises on
+    anything the kernel does not take."""
     global GROUPED_LAUNCHES
     _check_cuda("grouped_matmul", x, group_id, w)
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
@@ -224,14 +290,16 @@ def grouped_matmul(x, group_id, w, *, out_dtype=None):
     codes = _dtype_code("grouped_matmul", x.dtype, out_dtype)
     t, d = x.shape
     e, _, f = w.shape
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = grouped_plan(tiles, t // tiles, d, f, e, x.dtype, aligned)
     out = torch.empty(t, f, dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = d % 8 == 0 and f % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    lib = _build.load("block_spmm")
-    err = lib.grouped_matmul(x.data_ptr(), group_id.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             *codes, tiles, t // tiles, e, d, f, int(vec),
-                             torch.cuda.current_stream(x.device).cuda_stream)
+    err = _grouped_library().grouped_matmul(
+        x.data_ptr(), group_id.data_ptr(), w.data_ptr(), out.data_ptr(), *codes, tiles,
+        t // tiles, e, d, f, GROUPED_VARIANTS[plan.variant],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "grouped_matmul")
     GROUPED_LAUNCHES += 1
+    globals()[GROUPED_COUNTERS[plan.variant]] += 1
     return out

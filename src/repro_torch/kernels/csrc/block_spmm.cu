@@ -58,16 +58,36 @@
 //   simt (fp32): the same blocks in SIMT FMA, one thread per column, never
 //     TF32.
 
-// K9 replaces repro/kernels/block_spmm.py::grouped_matmul_pallas: x (T, d) in
-// row tiles of T / tiles rows, group_id (tiles,) the expert of each tile,
-// w (E, d, f) → out (T, f), fp32 accumulator.  At qwen3-moe's widths (d
-// 4096, f 1536) an expert's slab is 12.6 MB of bf16 and a 64-row tile does
-// 64 flop per byte of it, under the ridge: HBM bytes bound it (x, the
-// distinct experts' slabs and out once).  The TPU kernel keeps the tile's
-// whole d in VMEM; here a block computes a 64 x 128 (bf16) or 64 x 64
-// (fp32) tile of one row tile with K1's own mainloop (csrc/gemm_tile.cuh),
-// stepping d through shared memory, after reading its tile's group id
-// itself.  Row tiles that share an expert read its slab from L2.
+// K9 replaces repro/kernels/block_spmm.py:137 grouped_matmul_pallas
+// (pallas_call at :174): x (T, d) in row tiles of T / tiles rows, group_id
+// (tiles,) the expert of each tile (clamped into [0, E) here), w (E, d, f)
+// → out (T, f), fp32 accumulator.
+//
+// What bounds K9 on an H100: at qwen3-moe's widths (d 4096, f 1536, 64-row
+// tiles) an expert's slab is 12.6 MB of bf16 and a 64-row tile does 64 flop
+// per byte of it, under the card's ~295 flop/byte ridge: HBM bytes bound it
+// (x, the distinct experts' slabs and out once: 679 MB of weights for 54 of
+// 128 experts, 0.2166 ms), and only a weight stream with tens of KB in
+// flight on every SM comes near the rate.
+//
+// What the design does about it: three variants (kernels/block_spmm.py
+// grouped_plan, from the dtype and whether TMA reads x and w):
+//   wgmma (bf16, d and f multiples of 8, 16-byte aligned bases): the GEMM
+//     mainloop of csrc/gemm_mainloop.cuh under a Policy for the expert's
+//     rows, with one consumer warpgroup of 64 rows by 128 columns and a
+//     4-deep TMA ring.  x is read K-major through a tensor map over
+//     (d, rows, tiles), the expert's slab MN-major where it lies through one
+//     over (f, d, E): for k-step it of the CTA at (row tile t, 64-row chunk
+//     c, column tile n0) A's box is at (it·64, c·64, t) and B's at (n0, it·64,
+//     g), g read from group_id[t] by the producer warp and clamped.  Rows
+//     past a tile's end, a ragged d and a ragged f arrive as zeros from the
+//     maps' bounds; the epilogue masks the store.  The grid runs the column
+//     tiles of one row tile together, so x's chunk is read once, and adjacent
+//     row tiles (sorted ids: the same expert) run together and share the
+//     slab through L2.
+//   wmma (other bf16 operands): K1's WMMA tile (csrc/gemm_tile.cuh), 64 x
+//     128 a block, stepping d through shared memory, unpipelined.
+//   simt (fp32): K1's SIMT tile, 64 x 64, never TF32.
 #include "gemm_mainloop.cuh"
 #include "gemm_tile.cuh"
 
@@ -449,18 +469,111 @@ inline cudaError_t launch_shape(int bk, bool tb, const bf16* blocks, const int* 
 }
 }  // namespace spmm_wg
 
-// K9.  blockIdx: x the column tile, y the row tile, z the 64-row chunk of
-// it; the tile's rows past its end are masked by the mainloop (M = rows).
+// K9 on csrc/gemm_mainloop.cuh: one consumer warpgroup (64 rows of a row
+// tile) by 128 columns of out, a 4-stage ring: within 0.2 % of 256 x 3
+// stages and 2 % faster than 128 x 3 on an H100 (PERF.md).
+// kernels/block_spmm.py's GROUPED_TILE mirrors it and its wrapper checks it
+// against grouped_tile() once.
+namespace grouped_wg {
+using Cfg = gemm_ml::Config<1, 128, 4, false, true>;
+
+// K9's addressing: A is 64 rows of row tile t of x from row c0, B the
+// expert g's slab from column n0; k-step it at d = 64 it.
+struct Coords {
+  int c0, n0, t, g;
+  __device__ __forceinline__ void coords(int it, int& ar, int& ak, int& az, int& br, int& bk,
+                                         int& bz, int& bz_hi) const {
+    ar = c0, az = t, br = n0, bz = bz_hi = g, ak = bk = it * gemm_ml::BK;
+  }
+};
+
+// out[at], and out[at + 1] when `two` (one vector store when `pair`: f even,
+// so the pair is aligned).
+__device__ __forceinline__ void store2(void* out, int out_bf16, size_t at, float x0, float x1,
+                                       bool two, bool pair) {
+  if (out_bf16) {
+    bf16* o = static_cast<bf16*>(out) + at;
+    if (two && pair) {
+      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x0, x1);
+    } else {
+      o[0] = __float2bfloat16(x0);
+      if (two) o[1] = __float2bfloat16(x1);
+    }
+  } else {
+    float* o = static_cast<float*>(out) + at;
+    if (two && pair) {
+      *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+    } else {
+      o[0] = x0;
+      if (two) o[1] = x1;
+    }
+  }
+}
+
+// blockIdx: x the column tile, y the 64-row chunk of the row tile, z the
+// row tile, so the column tiles of a row tile run together.
+__global__ void __launch_bounds__(Cfg::THREADS)
+grouped_matmul_bf16_wgmma(const __grid_constant__ CUtensorMap tx,
+                          const __grid_constant__ CUtensorMap tw, const int* __restrict__ group_id,
+                          void* __restrict__ out, int out_bf16, int rows, int E, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const gemm_ml::Smem<Cfg> sm(smem_raw);
+  const int n0 = blockIdx.x * Cfg::BN, c0 = blockIdx.y * 64, t = blockIdx.z;
+  const int n = (d + gemm_ml::BK - 1) / gemm_ml::BK;
+  gemm_ml::init<Cfg>(sm);
+  const int wg = gemm_ml::warpgroup();
+  if (wg == Cfg::WG) {
+    const int g = min(max(group_id[t], 0), E - 1);
+    gemm_ml::produce<Cfg>(sm, &tx, &tw, Coords{c0, n0, t, g}, n);
+    return;
+  }
+  float acc[Cfg::BN / 2];
+  gemm_ml::consume<Cfg>(acc, sm, n, wg);
+  // acc[i]: row c0 + acc_row(i) of row tile t, column n0 + acc_col(i)
+  const size_t row0 = (size_t)t * rows;
+  const bool pair = f % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < Cfg::BN / 2; i += 2) {
+    const int r = c0 + gemm_ml::acc_row(i), c = n0 + gemm_ml::acc_col(i);
+    if (r < rows && c < f)
+      store2(out, out_bf16, (row0 + r) * f + c, acc[i], acc[i + 1], c + 1 < f, pair);
+  }
+}
+
+cudaError_t launch(const bf16* x, const int* group_id, const bf16* w, void* out, int out_bf16,
+                   int tiles, int rows, int E, int d, int f, cudaStream_t s) {
+  CUtensorMap tx, tw;
+  // x as (d, rows, tiles): a tile's rows past its end read as zeros
+  cudaError_t e = hopper::tile_map(&tx, x, d, rows, tiles, 1, d, (long long)rows * d, 0,
+                                   gemm_ml::BK, 64);
+  // the experts as (f, d, E), in MN-major panels of 64 columns
+  if (e == cudaSuccess)
+    e = hopper::tile_map(&tw, w, f, d, E, 1, f, (long long)d * f, 0, Cfg::B::SW, gemm_ml::BK);
+  if (e != cudaSuccess) return e;
+  const auto kern = &grouped_matmul_bf16_wgmma;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((f + Cfg::BN - 1) / Cfg::BN, (rows + 63) / 64, tiles);
+  kern<<<grid, Cfg::THREADS, Cfg::SMEM, s>>>(tx, tw, group_id, out, out_bf16, rows, E, d, f);
+  return cudaGetLastError();
+}
+}  // namespace grouped_wg
+
+// K9 on wmma, for bf16 operands TMA cannot read (a base not 16-byte
+// aligned, d or f not a multiple of 8), so with scalar loads.  blockIdx: x
+// the column tile, y the row tile, z the 64-row chunk of it; the tile's rows
+// past its end are masked by the mainloop (M = rows).
 template <typename TOut>
 __global__ void __launch_bounds__(256)
 grouped_matmul_bf16_wmma(const bf16* __restrict__ x, const int* __restrict__ group_id,
                          const bf16* __restrict__ w, TOut* __restrict__ out, int rows, int E,
-                         int d, int f, bool vec) {
+                         int d, int f) {
   const int g = min(max(group_id[blockIdx.y], 0), E - 1);
   const size_t row0 = (size_t)blockIdx.y * rows;
   bf16_wmma_tile<64, 128, 2, 4, false, false>(x + row0 * d, w + (size_t)g * d * f,
                                               static_cast<const bf16*>(nullptr), out + row0 * f,
-                                              rows, f, d, d, f, ACT_NONE, vec, blockIdx.z * 64,
+                                              rows, f, d, d, f, ACT_NONE, false, blockIdx.z * 64,
                                               blockIdx.x * 128);
 }
 
@@ -536,13 +649,23 @@ extern "C" int block_spmm(const void* blocks, const void* row_ptr, const void* c
 
 // K9.  x (tiles·rows, d) and w (E, d, f) contiguous, bf16 if in_bf16 else
 // fp32; group_id (tiles) int32 on the device, clamped into [0, E); out
-// (tiles·rows, f) contiguous, bf16 if out_bf16 else fp32.  vec: x's and w's
-// rows start 16-byte aligned.  Returns cudaGetLastError() after the launch.
+// (tiles·rows, f) contiguous, bf16 if out_bf16 else fp32.  variant 1: wgmma
+// (bf16, d and f multiples of 8, x's and w's bases 16-byte aligned); 0:
+// wmma (other bf16) or simt (fp32).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int grouped_matmul(const void* x, const void* group_id, const void* w, void* out,
                               int in_bf16, int out_bf16, int tiles, int rows, int E, int d,
-                              int f, int vec, void* stream) {
+                              int f, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gid = static_cast<const int*>(group_id);
+  if (variant == 1) {
+    if (!in_bf16 || d % 8 || f % 8)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    return static_cast<int>(grouped_wg::launch(static_cast<const bf16*>(x), gid,
+                                               static_cast<const bf16*>(w), out, out_bf16, tiles,
+                                               rows, E, d, f, s));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (rows + 63) / 64;
   if (in_bf16) {
     dim3 grid((f + 127) / 128, tiles, chunks);
@@ -550,10 +673,10 @@ extern "C" int grouped_matmul(const void* x, const void* group_id, const void* w
     const bf16* W = static_cast<const bf16*>(w);
     if (out_bf16)
       grouped_matmul_bf16_wmma<<<grid, 256, 0, s>>>(X, gid, W, static_cast<bf16*>(out), rows, E,
-                                                    d, f, vec != 0);
+                                                    d, f);
     else
       grouped_matmul_bf16_wmma<<<grid, 256, 0, s>>>(X, gid, W, static_cast<float*>(out), rows, E,
-                                                    d, f, vec != 0);
+                                                    d, f);
   } else {
     dim3 grid((f + 63) / 64, tiles, chunks);
     const float* X = static_cast<const float*>(x);
@@ -566,4 +689,12 @@ extern "C" int grouped_matmul(const void* x, const void* group_id, const void* w
                                                    d, f);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K9's wgmma tile (columns of out a CTA, ring stages), for the wrapper's
+// check of its plan.
+extern "C" int grouped_tile(int* out) {
+  out[0] = grouped_wg::Cfg::BN;
+  out[1] = grouped_wg::Cfg::STAGES;
+  return 0;
 }

@@ -25,11 +25,12 @@
 // all G heads; a key row is D contiguous elements (256 bytes for bf16 at
 // D 128) and is read with 16-byte loads, so the table indirection costs one
 // int32 read per key and no gather copy.  Scores and p @ V run in fp32 on
-// the SIMT cores, like K3 (csrc/flash_attention.cu); the split over the KV
-// length with a combine pass (flash-decoding) and asynchronous copies are
-// left for the PR that makes it fast.  Head dims 16 to 256: at gpt-j-6b's
-// D 256 (G = 1) a thread holds 2 of the 256 (head, dim) pairs and the block's
-// shared memory is ~67 KB, over the 48 KB default, which `launch` raises.
+// the SIMT cores, like K3's; K3's fixed-chunk split over the KV length, its
+// combine in chunk order and its asynchronous copies (csrc/flash_decode.cu)
+// are still to come here (ROADMAP.md, Queue 2).  Head dims 16 to 256: at
+// gpt-j-6b's D 256 (G = 1) a thread holds 2 of the 256 (head, dim) pairs and
+// the block's shared memory is ~67 KB, over the 48 KB default, which
+// `launch` raises.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -9,7 +9,9 @@ then ``flash_decode_pallas``).  K6 replaces the attention backward that
 ``repro/fusion/autodiff.py::ChainedBackwardPlan`` derives (run by
 ``_run_backward_chained``, attached by ``compile_with_vjp``).  The CUDA
 sources are ``csrc/flash_attention.cu`` (K2 on the forward mainloop of
-``csrc/attention_fwd.cuh``, K3),
+``csrc/attention_fwd.cuh``), ``csrc/flash_decode.cu`` (K3, split over the
+key axis in fixed chunks of :data:`DECODE_CHUNK` keys and combined in chunk
+order by the last block of each (batch, kv head): :func:`decode_plan`),
 ``csrc/flash_attention_bwd.cu`` (K6, on the backward mainloop of
 ``csrc/attention_bwd.cuh``) and ``csrc/paged_decode.cu`` (K4), whose headers
 say what bounds each kernel on an H100 and what its design does about it.
@@ -29,16 +31,19 @@ tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.brgemm import _decode_counters
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_backward", "flash_decode",
-           "paged_decode", "forward_plan", "backward_plan", "key_tile_range",
+           "paged_decode", "forward_plan", "backward_plan", "decode_plan", "key_tile_range",
            "query_tile_range", "tma_readable", "wgmma_smem", "ForwardPlan", "BackwardPlan",
+           "DecodePlan", "DECODE_CHUNK",
            "ATTENTION_LAUNCHES", "ATTENTION_WGMMA_LAUNCHES", "BACKWARD_LAUNCHES",
            "ATTENTION_BWD_WGMMA_LAUNCHES", "DECODE_LAUNCHES", "PAGED_DECODE_LAUNCHES",
            "HEAD_DIMS", "PAGED_HEAD_DIMS", "WGMMA_TILES", "BWD_TILES", "SMEM_LIMIT"]
@@ -59,6 +64,10 @@ PAGED_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _DECODE_MAX_GROUP = 16      # query heads per kv head in one decode block
 _DECODE_MAX_PAIRS = 2048    # group size x head dim one decode block holds
+# K3's keys a block (csrc/flash_decode.cu kChunk, which flash_decode checks
+# against the library once): a constant, never a function of B, of the SM
+# count or of the lengths, so a decoded row has the same bits in any batch
+DECODE_CHUNK = 64
 
 # K2's bf16 kernel (and K5's chained forward on the same mainloop) by head
 # dim: (consumer warpgroups of 64 query rows, keys a K/V tile, stages of the
@@ -372,35 +381,104 @@ def attention_backward(load, what, q, k, v, o, lse, do, *, causal=True, window=N
     return (dq, dk, dv), plan.variant
 
 
-def flash_decode(q, k_cache, v_cache, *, length, window=None):
-    """q (B, H, D); caches (B, Hk, S, D); ``length`` (B,) valid prefix
-    lengths, read on the device; → (B, H, D) in q's dtype."""
-    global DECODE_LAUNCHES
-    _check(q[:, :, None], k_cache, v_cache)
-    q, k_cache, v_cache = _rows(q), _rows(k_cache), _rows(v_cache)
-    b, h, d = q.shape
-    hk, s = k_cache.shape[1], k_cache.shape[2]
+class DecodePlan(NamedTuple):
+    """How K3 runs one call: ``kernel`` (its device name), ``chunk`` keys a
+    block, ``chunks`` blocks a (batch, kv head) over the cache's S keys,
+    ``workspace_bytes`` of fp32 partials (m, l, acc) the last block of a
+    (batch, kv head) combines (0 for one chunk, written directly),
+    ``smem_bytes`` of dynamic shared memory and ``grid`` (chunks, Hk, B)."""
+    kernel: str
+    chunk: int
+    chunks: int
+    workspace_bytes: int
+    smem_bytes: int
+    grid: tuple
+
+
+def decode_plan(q, k_cache, v_cache):
+    """K3's plan for q (B, H, D) and caches (B, Hk, S, D), from their dtype,
+    shapes, strides and base pointers alone (nothing is launched).  The
+    chunk is :data:`DECODE_CHUNK` whatever B, the card or the lengths.
+    Raises ``ValueError`` for a head dim or GQA group one block does not
+    take, and for a cache the 16-byte loads cannot read: a last stride other
+    than 1, or a base pointer or batch, head or seq stride (of an axis
+    longer than 1) that is not a multiple of 16 bytes.  No silent copy."""
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash decode reads {name} in 16-byte loads: its base pointer"
+                             f" {t.data_ptr()} is not a multiple of 16 bytes")
+    return _decode_plan(tuple(q.shape), tuple(k_cache.shape), k_cache.stride(), v_cache.stride(),
+                        k_cache.element_size(), DECODE_CHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan(q_shape, k_shape, k_stride, v_stride, size, chunk):
+    """The part of :func:`decode_plan` that shapes and strides fix (a
+    decode step asks for the same 40 times)."""
+    b, h, d = q_shape
+    hk, s = k_shape[1], k_shape[2]
     g = h // hk
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode head dim {d}: need one of {HEAD_DIMS}")
     if g > _DECODE_MAX_GROUP or g * d > _DECODE_MAX_PAIRS:
         raise ValueError(f"decode group of {g} heads x {d} dims exceeds one block")
+    for name, st in (("k_cache", k_stride), ("v_cache", v_stride)):
+        if st[-1] != 1 or any(n > 1 and (x <= 0 or x * size % 16)
+                              for n, x in zip(k_shape[:3], st[:3])):
+            raise ValueError(f"flash decode reads {name} in 16-byte loads: its last stride must"
+                             f" be 1 and its batch, head and seq strides multiples of 16 bytes"
+                             f" (strides {st}, {size}-byte elements)")
+    chunks = max(1, -(-s // chunk))
+    smem = size * (g * d + 2 * chunk * d) + 4 * (2 * g * chunk + 2 * g)
+    workspace = 4 * b * h * chunks * (d + 2) if chunks > 1 else 0
+    return DecodePlan("flash_decode_split_kernel", chunk, chunks, workspace, smem,
+                      (chunks, hk, b))
+
+
+def flash_decode(q, k_cache, v_cache, *, length, window=None):
+    """q (B, H, D); caches (B, Hk, S, D), 16-byte aligned as
+    :func:`decode_plan` checks; ``length`` (B,) valid prefix lengths, read
+    on the device (clamped to S); → (B, H, D) in q's dtype.  One launch."""
+    global DECODE_LAUNCHES
+    _check(q[:, :, None], k_cache, v_cache)
+    q = _rows(q)
+    b, h, d = q.shape
+    hk, s = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != b or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode shapes q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
     if length.shape != (b,) or length.device != q.device:
         raise ValueError(f"length must be ({b},) on {q.device}")
+    plan = decode_plan(q, k_cache, v_cache)
     length = length.to(torch.int32).contiguous()
     o = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    lib = _build.load("flash_attention")
-    err = lib.flash_decode(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-        o.data_ptr(), int(q.dtype == torch.bfloat16), b, h, hk, s, d,
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)  # current_stream's, cheaper
+    ws = counters = None
+    if plan.chunks > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, stream, b * hk)
+    err = _decode_library().flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(), o.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        int(q.dtype == torch.bfloat16), b, h, hk, s, d,
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
-        *o.stride()[:2], _window(window), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *o.stride()[:2], _window(window), 1.0 / math.sqrt(d), stream)
     _build.check(err, "flash_decode")
     DECODE_LAUNCHES += 1
     return o
+
+
+@functools.lru_cache(maxsize=1)
+def _decode_library():
+    """K3's library, once its chunk is checked to be :data:`DECODE_CHUNK`
+    (the plan sizes the workspace by it)."""
+    lib = _build.load("flash_decode")
+    if lib.flash_decode_chunk() != DECODE_CHUNK:
+        raise RuntimeError(f"csrc/flash_decode.cu cuts the keys in chunks of"
+                           f" {lib.flash_decode_chunk()}, decode_plan in {DECODE_CHUNK}")
+    return lib
 
 
 def paged_decode(q, k_pool, v_pool, page_table, *, page_size, length,

@@ -926,6 +926,29 @@ def k3_k9_build_report(logs):
     return {"kernels": report, "c7518": warnings}
 
 
+def k4_k8_build_report(logs):
+    """Print the ``-Xptxas -v`` figures of K4's split kernel by dtype and
+    head dim (csrc/paged_decode.cu) and of K8's two kernels
+    (csrc/mamba_scan.cu: prefill by dtype, state size and lanes, decode by
+    dtype and state size); → those figures."""
+    report = {}
+    dts = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    for mangled, figures in ptxas_by_kernel(logs["paged_decode"]).items():
+        found = re.search(r"paged_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        if found:
+            report[f"K4 paged_decode_split_kernel<{dts[found.group(1)]}, {found.group(2)}>"] = figures
+    for mangled, figures in ptxas_by_kernel(logs["mamba_scan"]).items():
+        found = re.search(r"mamba_scan_(prefill|decode)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                          r"(?:Li(\d+)E)?", mangled)
+        if found:
+            kind, dt, n, lanes = found.groups()
+            report[f"K8 mamba_scan_{kind}_kernel<{dts[dt]}, N {n}"
+                   + (f", {lanes} lanes>" if lanes else ">")] = figures
+    for name, figures in sorted(report.items()):
+        print(f"  {name}: {figures}", flush=True)
+    return report
+
+
 def attention_cases(torch, bench, ref, fa):
     """K2 at the prefill shape (B 4, H 40, S 512, D 128, causal, bf16), GQA,
     windowed, minicpm-2b's training forward (B 4, H 36, S 1024, D 64),
@@ -1072,7 +1095,26 @@ def attention_bwd_cases(torch, bench, ref, fa):
 # NVIDIA H100 80GB HBM3 at 700 W, as PERF.md's rows keep them: printed beside
 # this run's times, never part of its results
 WAS_MS = {"main B4 H40 S528 D128 len520": 0.2036, "gptj B4 H16 S528 D256 len520": 0.1968,
-          "qwen3-moe": 0.6432}
+          "qwen3-moe": 0.6432,
+          # K4 and K8 before their redesign (a lone call each, PERF.md)
+          "main B8 H40 D128 ps16 len37..1000": 0.2169,
+          "gptj B8 H16 D256 ps16 len37..1000": 0.3254,
+          "prefill B4 L512 D8192 N16 strided B/C": 0.3825,
+          "engine decode B8 L1 D8192 N16 h0": 0.0783,
+          "decode B4 L1 D8192 N16 h0": 0.0646,
+          "batch-1 prefill L512 D8192 N16": 0.1810}
+
+
+def device_row(torch, bench, kernel, fn):
+    """Time ``fn`` on the device alone (``device_ms``) into the last case of
+    ``kernel`` and print it beside the replaced kernel's recorded time."""
+    row = bench.cases[kernel][-1]
+    row["device_ms"] = device_ms(torch, fn)
+    label = row["case"]
+    print(f"    device {row['device_ms']:.4f} ms"
+          + (f"; was {WAS_MS[label]:.4f} ms (the replaced kernel, a lone call, PERF.md)"
+             if label in WAS_MS else ""), flush=True)
+    return row
 
 
 def decode_cases(torch, bench, ref, fa):
@@ -1129,11 +1171,7 @@ def decode_cases(torch, bench, ref, fa):
                         nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid),
                         dtype=name, tol_kind="attn", weight=weight, timed=timed)
         if timed:
-            row = bench.cases["flash_decode"][-1]
-            row["device_ms"] = device_ms(torch, fn)
-            print(f"    device {row['device_ms']:.4f} ms"
-                  + (f"; was {WAS_MS[label]:.4f} ms (the replaced kernel, a lone call, PERF.md)"
-                     if label in WAS_MS else ""), flush=True)
+            device_row(torch, bench, "flash_decode", fn)
         if label.startswith(("main", "check ragged lens H40")):
             bitwise.append((label, q, kc, vc, length, window, out))
     # a row's bits do not depend on the batch it is decoded in
@@ -1185,22 +1223,37 @@ def _page_table(torch, lens, ps, maxp, num_pages, seed):
 def paged_decode_cases(torch, bench, ref, fa):
     """K4 at the engine's shape (llama2-13b, B 8, H = Hk = 40, D 128, page
     16, a 513-row pool, lengths 37..1000, bf16), GQA, windowed, gpt-j-6b's
-    (H = Hk = 16, D 256), and small fp32 and bf16 checks."""
+    (H = Hk = 16, D 256), small fp32 and bf16 checks and page sizes 4 and 8
+    over several chunks, each timed row with its device time
+    (``device_ms``) beside the replaced kernel's recorded time; library:
+    the pages gathered by ``index_select`` and SDPA masked to the live keys
+    (the window's, where there is one); then the
+    split's own checks: rows at B 1 bitwise equal to the same rows at B 8,
+    a slot of length 0 (zeros), table columns past ceil(length / ps) full
+    of page ids out of any pool (never read), and the engine's int64
+    lengths (``pos + 1``) and an int64 table read as they lie."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
     engine_lens = [37, 1000, 513, 260, 777, 129, 400, 64]
     cases = [  # label, B, H, Hk, D, page, max pages, pool pages, lengths, window, dtype, weight, timed
-        ("main B8 H40 D128 ps16 len37..1000", 8, 40, 40, 128, 16, 64, 512, engine_lens, None, torch.bfloat16, 1, True),
-        ("gqa B8 H32 Hk8 D128 ps16", 8, 32, 8, 128, 16, 64, 512, engine_lens, None, torch.bfloat16, 0, True),
-        ("window128 B8 H40 D128 ps16", 8, 40, 40, 128, 16, 64, 512, engine_lens, 128, torch.bfloat16, 0, True),
-        ("check H4 Hk2 D16 ps4 window5 fp32", 3, 4, 2, 16, 4, 8, 20, [13, 32, 3], 5, torch.float32, 0, False),
-        ("check H16 Hk1 D128 ps16 fp32", 2, 16, 1, 128, 16, 8, 20, [100, 61], None, torch.float32, 0, False),
-        ("check H8 Hk2 D64 ps8 len1", 2, 8, 2, 64, 8, 8, 20, [50, 1], None, torch.bfloat16, 0, False),
+        ("main B8 H40 D128 ps16 len37..1000", 8, 40, 40, 128, 16, 64, 512, engine_lens, None, bf16, 1, True),
+        ("gqa B8 H32 Hk8 D128 ps16", 8, 32, 8, 128, 16, 64, 512, engine_lens, None, bf16, 0, True),
+        ("window128 B8 H40 D128 ps16", 8, 40, 40, 128, 16, 64, 512, engine_lens, 128, bf16, 0, True),
+        ("check H4 Hk2 D16 ps4 window5 fp32", 3, 4, 2, 16, 4, 8, 20, [13, 32, 3], 5, f32, 0, False),
+        ("check H16 Hk1 D128 ps16 fp32", 2, 16, 1, 128, 16, 8, 20, [100, 61], None, f32, 0, False),
+        ("check H8 Hk2 D64 ps8 len1", 2, 8, 2, 64, 8, 8, 20, [50, 1], None, bf16, 0, False),
         # gpt-j-6b's engine shape: H = Hk = 16, D 256
-        ("gptj B8 H16 D256 ps16 len37..1000", 8, 16, 16, 256, 16, 64, 512, engine_lens, None, torch.bfloat16, 0, True),
-        ("check H4 Hk2 D256 ps4 window5 fp32", 3, 4, 2, 256, 4, 8, 20, [13, 32, 3], 5, torch.float32, 0, False),
-        ("check H16 D256 ps16 window100", 3, 16, 16, 256, 16, 8, 20, [100, 61, 1], 100, torch.bfloat16, 0, False),
+        ("gptj B8 H16 D256 ps16 len37..1000", 8, 16, 16, 256, 16, 64, 512, engine_lens, None, bf16, 0, True),
+        ("check H4 Hk2 D256 ps4 window5 fp32", 3, 4, 2, 256, 4, 8, 20, [13, 32, 3], 5, f32, 0, False),
+        ("check H16 D256 ps16 window100", 3, 16, 16, 256, 16, 8, 20, [100, 61, 1], 100, bf16, 0, False),
+        # small pages over several chunks, window edges inside chunks
+        ("check ps4 H40 Hk8 D128 len1..300 window100", 4, 40, 8, 128, 4, 80, 300,
+         [300, 1, 129, 64], 100, bf16, 0, False),
+        ("check ps8 H8 Hk8 D64 fp32 len3..200", 3, 8, 8, 64, 8, 32, 80, [200, 65, 3], None, f32, 0,
+         False),
     ]
+    bitwise = []
     for label, b, h, hk, d, ps, maxp, npages, lens, window, dt, weight, timed in cases:
         q = torch.randn(b, h, d, generator=gen, device="cuda").to(dt)
         kp = torch.randn(npages + 1, ps, hk, d, generator=gen, device="cuda").to(dt)
@@ -1209,8 +1262,12 @@ def paged_decode_cases(torch, bench, ref, fa):
         length = torch.tensor(lens, dtype=torch.int32, device="cuda")
         valid = sum(min(n, window) if window else n for n in lens)
         library = None
-        if timed and window is None:
-            keep = (torch.arange(maxp * ps, device="cuda")[None, :] < length[:, None])[:, None, None, :]
+        if timed:     # the pages gathered, SDPA masked to the live keys (the window's)
+            pos = torch.arange(maxp * ps, device="cuda")[None, :]
+            keep = pos < length[:, None]
+            if window is not None:
+                keep = keep & (pos >= length[:, None] - window)
+            keep = keep[:, None, None, :]
             flat = table.flatten()
 
             def library():
@@ -1218,31 +1275,90 @@ def paged_decode_cases(torch, bench, ref, fa):
                 vd = vp.index_select(0, flat).view(b, maxp * ps, hk, d).transpose(1, 2)
                 return F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=keep,
                                                       enable_gqa=hk != h)
-        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        name = "bfloat16" if dt == bf16 else "float32"
         pages_read = sum(-(-n // ps) for n in lens)
-        bench.run("paged_decode", label,
-                  lambda: fa.paged_decode(q, kp, vp, table, page_size=ps, length=length,
-                                          window=window),
-                  lambda: ref.paged_decode_attention_ref(q, kp, vp, table, page_size=ps,
-                                                         length=length, window=window),
-                  library,
-                  flops=4 * h * d * valid,
-                  nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid)
-                  + 4 * (pages_read + b),
-                  dtype=name, tol_kind="attn", weight=weight, timed=timed)
+
+        def fn():
+            return fa.paged_decode(q, kp, vp, table, page_size=ps, length=length, window=window)
+
+        out = bench.run("paged_decode", label, fn,
+                        lambda: ref.paged_decode_attention_ref(q, kp, vp, table, page_size=ps,
+                                                               length=length, window=window),
+                        library,
+                        flops=4 * h * d * valid,
+                        nbytes=q.element_size() * (2 * b * h * d + 2 * hk * d * valid)
+                        + 4 * (pages_read + b),
+                        dtype=name, tol_kind="attn", weight=weight, timed=timed)
+        if timed:
+            device_row(torch, bench, "paged_decode", fn)
+        if label.startswith(("main", "check ps4")):
+            bitwise.append((label, q, kp, vp, table, length, ps, window, out))
+    print(f"  paged_decode plan at the main row: {fa.paged_decode_plan(*bitwise[0][1:5], page_size=16)}",
+          flush=True)
+    # a slot's bits do not depend on the batch it is decoded in
+    for label, q, kp, vp, table, length, ps, window, out in bitwise:
+        for i in range(q.shape[0]):
+            one = fa.paged_decode(q[i:i + 1], kp, vp, table[i:i + 1], page_size=ps,
+                                  length=length[i:i + 1], window=window)
+            check(torch.equal(one, out[i:i + 1]),
+                  f"K4 {label}: slot {i} decoded at B 1 differs from the same slot at B {q.shape[0]}")
+    print(f"  paged_decode rows at B 1 bitwise equal to B 8 and B 4: {len(bitwise)} cases", flush=True)
+    # a slot of length 0 gives zeros; columns past a slot's pages hold ids out
+    # of any pool and are never read; int64 lengths and table read in place
+    label, q, kp, vp, table, length, ps, window, out = bitwise[0]
+    lens = [0, 1000, 1, 64, 17, 513, 16, 999]
+    length = torch.tensor(lens, dtype=torch.int64, device="cuda")
+    wild = table.clone()
+    for i, n in enumerate(lens):
+        wild[i, -(-n // ps):] = 1 << 30
+    got = fa.paged_decode(q, kp, vp, wild, page_size=ps, length=length)
+    got64 = fa.paged_decode(q, kp, vp, wild.long(), page_size=ps, length=length)
+    want = ref.paged_decode_attention_ref(q[1:], kp, vp, table[1:], page_size=ps,
+                                          length=length[1:])
+    err, ok = compare(torch, got[1:], want, *TOL["bfloat16"]["attn"])
+    zero = float(got[0].float().abs().max())
+    check(zero == 0.0 and ok and torch.equal(got, got64),
+          f"K4 with a slot of length 0 ({zero}, want 0), out-of-pool ids past each slot's pages"
+          f" and int64 lengths: {err:.3e} from the plain version; int64 table equal:"
+          f" {torch.equal(got, got64)}")
+    print(f"  paged_decode check slot of length 0: zeros; out-of-pool ids past the pages never"
+          f" read, int64 lengths and table: max_abs_err {err:.3e}", flush=True)
+    # pools the 16-byte loads cannot read are refused, not copied
+    buf = torch.zeros(kp.numel() + 4, dtype=bf16, device="cuda")[4:].view(kp.shape)
+    try:
+        fa.paged_decode(q, buf, buf, table, page_size=ps, length=length)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K4 took pools whose base is not 16-byte aligned")
+
+
+def sm_clock_ghz():
+    """The card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)
+    in GHz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(smi.stdout.split()[0]) / 1e3
 
 
 def mamba_scan_cases(torch, bench, ref, scan):
     """K8 at falcon-mamba-7b's shapes (D 8192, N 16): the prefill (B 4,
     L 512, bf16, B and C strided column slices of the x projection as on
     the path, no state) and the engine's decode step (B 8, L 1, from a
-    state), plus generate_loop's decode (B 4), a ragged fp32 L 100 from a
-    state, contiguous B and C, N 8, and a channel count that is not a
-    multiple of the block's 32; two checks write the state in place over
-    h0, as the layer does into its cache.  Operations count 6 N + 3 per channel-step
-    (an exponential as one) at the fp32 peak; bytes count x, dt, B, C, A,
-    D and the state read once, y and the new state written once."""
+    state), plus generate_loop's decode (B 4), the batch-1 prefill, a
+    ragged fp32 L 100 from a state, contiguous B and C, N 8, and a channel
+    count that is not a multiple of a block's; two checks write the state
+    in place over h0, as the layer does into its cache.  Each case runs on
+    the kernel its ``scan_plan`` names (printed with its lanes and waves),
+    each timed row with its device time.  Operations count 6 N + 3 per
+    channel-step (an exponential as one) at the fp32 peak; bytes count x,
+    dt, B, C, A, D and the state read once, y and the new state written
+    once; beside them the special-function floor, B·L·D·N exponentials at
+    132 SMs x 16 a clock of the card's maximum SM clock.  Then each row of
+    the B 4 prefill and of the B 8 decode is held bitwise equal to the same
+    row decoded at B 1."""
     gen = torch.Generator(device="cuda").manual_seed(9)
+    ghz = sm_clock_ghz()
     # label, B, L, D, N, dtype, with h0, strided B/C, weight, timed, state in place
     cases = [
         ("prefill B4 L512 D8192 N16 strided B/C", 4, 512, 8192, 16, torch.bfloat16, False, True, 1, True, False),
@@ -1263,6 +1379,7 @@ def mamba_scan_cases(torch, bench, ref, scan):
         check(h_fin.data_ptr() == h.data_ptr(), "mamba_scan h_out: state not written in place")
         return y, h
 
+    rows = {}
     for label, b, l, d, n, dt, with_h0, strided, weight, timed, inplace in cases:
         x = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
         # softplus of the path's dt_raw (bias -2): about 0.01 to 1
@@ -1281,12 +1398,41 @@ def mamba_scan_cases(torch, bench, ref, scan):
         nbytes = (esize * (3 * b * l * d + 2 * b * l * n) + 4 * (d * n + d)
                   + 4 * b * d * n * (2 if with_h0 else 1))
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        bench.run("mamba_scan", label,
-                  (lambda: in_place(x, dtv, a, bi, ci, dsk, h0)) if inplace else
-                  (lambda: scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0)),
-                  lambda: ref.mamba_scan_ref(x, dtv, a, bi, ci, dsk, h0=h0),
-                  None, flops=b * l * d * (6 * n + 3), nbytes=nbytes, dtype=name,
-                  tol_kind="scan", weight=weight, timed=timed, peak="fp32")
+        plan = scan.scan_plan(b, l, d, n, dt)
+        fn = ((lambda: in_place(x, dtv, a, bi, ci, dsk, h0)) if inplace else
+              (lambda: scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0)))
+        before = (scan.SCAN_PREFILL_LAUNCHES, scan.SCAN_DECODE_LAUNCHES)
+        got = bench.run("mamba_scan", label, fn,
+                        lambda: ref.mamba_scan_ref(x, dtv, a, bi, ci, dsk, h0=h0),
+                        None, flops=b * l * d * (6 * n + 3), nbytes=nbytes, dtype=name,
+                        tol_kind="scan", weight=weight, timed=timed, peak="fp32")
+        ran = (scan.SCAN_PREFILL_LAUNCHES - before[0], scan.SCAN_DECODE_LAUNCHES - before[1])
+        check((ran[0] > 0) == (plan.variant == "prefill") and (ran[1] > 0) == (plan.variant == "decode"),
+              f"K8 {label}: plan {plan.variant}, launches (prefill, decode) {ran}")
+        row = bench.cases["mamba_scan"][-1]
+        row["plan"] = plan._asdict()
+        row["sfu_floor_ms"] = b * l * d * n / (132 * 16 * ghz * 1e9) * 1e3
+        print(f"    plan {plan.variant}, {plan.lanes} lanes a channel, grid {plan.grid}, smem"
+              f" {plan.smem_bytes} bytes, {plan.blocks_per_sm} blocks an SM, {plan.waves}"
+              f" wave(s); special-function floor {row['sfu_floor_ms']:.4f} ms at {ghz:.3f} GHz",
+              flush=True)
+        if timed:
+            device_row(torch, bench, "mamba_scan", fn)
+        if label.startswith(("prefill B4", "engine decode")):
+            rows[label] = (x, dtv, a, bi, ci, dsk, h0, got)
+    # a row's bits do not depend on the batch (B 1's prefill plan spreads a
+    # channel over more lanes; the sum's tree does not change)
+    for label, (x, dtv, a, bi, ci, dsk, h0, (y, h)) in rows.items():
+        b, l, d = x.shape
+        for i in range(b):
+            y1, h1 = scan.mamba_scan(x[i:i + 1], dtv[i:i + 1], a, bi[i:i + 1], ci[i:i + 1], dsk,
+                                     h0=None if h0 is None else h0[i:i + 1])
+            check(torch.equal(y1, y[i:i + 1]) and torch.equal(h1, h[i:i + 1]),
+                  f"K8 {label}: row {i} at B 1 ({scan.scan_plan(1, l, d, 16, x.dtype).lanes}"
+                  f" lanes) differs from the same row at B {b}"
+                  f" ({scan.scan_plan(b, l, d, 16, x.dtype).lanes} lanes)")
+    print(f"  mamba_scan rows at B 1 bitwise equal to B 4 (prefill) and B 8 (decode), y and"
+          f" state: {len(rows)} cases", flush=True)
 
 
 def block_prune(w, sparsity, bs=8):
@@ -3208,6 +3354,10 @@ def gptj_engine(torch, counters):
           f" launched {launches['paged_decode']} times; on 3 slots {wall3_ms:.1f} ms, tokens"
           f" equal: {diff is None}" + (f"; first difference {diff}" if diff else ""), flush=True)
     check(diff is None, f"gpt-j-6b tokens depend on the number of slots: {diff}")
+    short = [dict(r, max_new=4) for r in reqs[:2]]
+    result["k4_profile"] = k4_on_split(
+        torch, counters, lambda: drain(torch, cfg, params, short, num_slots=ENGINE["num_slots"],
+                                       validate=False), "phase 7f gpt-j-6b engine, 2 requests")
     del params
     torch.cuda.empty_cache()
     return result
@@ -3409,9 +3559,10 @@ def engine_full_width(torch, counters, peaks, cfg, params):
 
     wave = reqs[:ENGINE["num_slots"]]
     _, wave_ms = drain(torch, cfg, params, wave, num_slots=ENGINE["num_slots"], validate=False)
-    result["profile"] = device_breakdown(
-        torch, lambda: drain(torch, cfg, params, wave, num_slots=ENGINE["num_slots"],
-                             validate=False), wave_ms)
+    result["profile"] = on_kernel(
+        torch, counters, lambda: drain(torch, cfg, params, wave, num_slots=ENGINE["num_slots"],
+                                       validate=False), wave_ms,
+        "phase 6 engine", "paged_decode", "paged_decode_split_kernel")
     result["profile"]["requests"] = len(wave)
     return result
 
@@ -3546,6 +3697,10 @@ def fused_engine(torch, counters, cfg, params):
           f" {steps} decode steps, launches {launches}; on 3 slots {wall3_ms:.1f} ms, tokens"
           f" equal: {diff is None}" + (f"; first difference {diff}" if diff else ""), flush=True)
     check(diff is None, f"fused tokens depend on the number of slots: {diff}")
+    short = [dict(r, max_new=4) for r in reqs[:2]]
+    result["k4_profile"] = k4_on_split(
+        torch, counters, lambda: drain(torch, fcfg, params, short, num_slots=ENGINE["num_slots"],
+                                       validate=False), "phase 7 fused engine, 2 requests")
     return result
 
 
@@ -3580,13 +3735,17 @@ def mamba_bounds(cfg, params, batch, prompt_len, peaks):
 
 def mamba_full_width(torch, counters, peaks):
     """falcon-mamba-7b at full width and depth (bf16, random weights from a
-    seed): launches per prefill and decode step (K8 once a layer, K1 four
-    times a layer plus the logits, nothing else), a bucket-padded prefill
-    against the unpadded one, ``generate_loop`` (B 4, prompt 512, 16 new
-    tokens) timed beside its bounds with one profiled decode step, and the
+    seed): launches per prefill and decode step (K8 once a layer, on the
+    ``prefill`` kernel for a prompt and the ``decode`` kernel for a step, K1
+    four times a layer plus the logits, nothing else; one profiled prefill
+    and one profiled decode step show every K8 launch on its variant's
+    device kernel), a bucket-padded prefill against the unpadded one,
+    ``generate_loop`` (B 4, prompt 512, 16 new tokens) timed beside its
+    bounds, and the
     engine (8 slots, phase 6's 16 ragged requests, greedy and sampled) with
     a 3-slot drain that must give the same tokens."""
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import mamba_scan as scan
     from repro_torch.models import lm
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.decode import ServeConfig, generate_loop
@@ -3600,12 +3759,17 @@ def mamba_full_width(torch, counters, peaks):
           f" state {cfg.ssm_state}, {cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB"
           f" of weights in {time.perf_counter() - start:.2f} s", flush=True)
 
-    def launched(n, what, calls):
+    def launched(n, what, prefills, steps):
+        calls = prefills + steps
         want = {"gemm": (4 * L + 1) * calls, "mamba_scan": L * calls}
         for name, count in n.items():
             check(name in SUB_COUNTS or count == want.get(name, 0),
                   f"{name} launched {count} times in {what}, want {want.get(name, 0)}")
         k1_on_wgmma(n, what)
+        # K8 on its plan's variant: prefill for L > 1, decode for a step
+        check(n["mamba_scan_prefill"] == L * prefills and n["mamba_scan_decode"] == L * steps,
+              f"K8 in {what}: {n['mamba_scan_prefill']} prefill and {n['mamba_scan_decode']}"
+              f" decode launches, want {L * prefills} and {L * steps}")
 
     batch, prompt_len, new = 4, 512, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3617,11 +3781,21 @@ def mamba_full_width(torch, counters, peaks):
     counters.reset()
     step_logits, _ = lm.decode_step(cfg, params, caches, logits.argmax(-1), prompt_len)
     per_step = counters.read()
-    launched(per_prefill, "one prefill", 1)
-    launched(per_step, "one decode step", 1)
+    launched(per_prefill, "one prefill", 1, 0)
+    launched(per_step, "one decode step", 0, 1)
     check(logits.shape == (batch, cfg.padded_vocab), f"prefill logits {tuple(logits.shape)}")
     check(bool(lm.finite_logits(logits).all()) and bool(lm.finite_logits(step_logits).all()),
           "falcon-mamba logits are not finite")
+
+    def prefill_run():
+        return lm.prefill(cfg, params, caches, {"tokens": prompts})
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_run()
+    torch.cuda.synchronize()
+    prefill_profile = on_kernel(torch, counters, prefill_run, (time.perf_counter() - t0) * 1e3,
+                                "phase 7b prefill", "mamba_scan", scan.KERNEL_NAMES["prefill"])
     del caches, logits, step_logits
 
     # a prompt of 300 tokens, alone and right-padded to the engine's bucket of 512
@@ -3664,7 +3838,7 @@ def mamba_full_width(torch, counters, peaks):
     launches = counters.read()
     k1_on_wgmma(launches, "phase 7b generate_loop")
     peak = torch.cuda.max_memory_allocated()
-    launched(launches, "generate_loop (1 prefill, 15 decode steps)", new)
+    launched(launches, f"generate_loop (1 prefill, {new - 1} decode steps)", 1, new - 1)
     check(out.shape == (batch, prompt_len + new), f"generate_loop output {tuple(out.shape)}")
     check(torch.equal(out[:, :prompt_len], prompts), "generate_loop changed the prompt")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "token outside the vocabulary")
@@ -3693,7 +3867,9 @@ def mamba_full_width(torch, counters, peaks):
     step()
     torch.cuda.synchronize()
     result["decode_step_ms"] = (time.perf_counter() - t0) * 1e3
-    result["profile"] = device_breakdown(torch, step, result["decode_step_ms"])
+    result["profile"] = on_kernel(torch, counters, step, result["decode_step_ms"],
+                                  "phase 7b decode step", "mamba_scan", scan.KERNEL_NAMES["decode"])
+    result["prefill_profile"] = prefill_profile
     del caches
 
     reqs = engine_requests(cfg)
@@ -3708,7 +3884,7 @@ def mamba_full_width(torch, counters, peaks):
     prefill_spans = [sp.duration * 1e3 for sp in spans if sp.name == "engine.prefill"]
     steps = eng.decode_steps
     launched(elaunches, f"the engine drain ({len(prefill_spans)} prefills, {steps} decode steps)",
-             len(prefill_spans) + steps)
+             len(prefill_spans), steps)
     tokens = {uid: eng.collect(uid) for uid in range(len(reqs))}
     for uid, r in enumerate(reqs):
         check(eng.status(uid).value == "finished", f"request {uid} ended {eng.status(uid).value}")
@@ -4053,13 +4229,14 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "flash_attention_kernel": "flash_attention",
              "attention_fwd_wgmma_kernel": "fused_chain",
              "flash_decode_split_kernel": "flash_decode",
-             "paged_decode_kernel": "paged_decode",
+             "paged_decode_split_kernel": "paged_decode",
              "fused_gemm_bf16_wgmma": "fused_gemm", "fused_gemm_bf16_wgmma_decode": "fused_gemm",
              "fg_split_bf16": "fused_gemm",
              "fused_gemm_bf16_wmma": "fused_gemm", "fused_gemm_f32_simt": "fused_gemm",
              "fused_panel_bf16_wgmma": "fused_panel",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
-             "fused_chain_f32_simt": "fused_chain", "mamba_scan_kernel": "mamba_scan",
+             "fused_chain_f32_simt": "fused_chain", "mamba_scan_prefill_kernel": "mamba_scan",
+             "mamba_scan_decode_kernel": "mamba_scan",
              "block_spmm_bf16_wgmma": "block_spmm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wgmma": "grouped_matmul",
@@ -4177,6 +4354,8 @@ class Counters:
         for counter in self.fused_gemm.VARIANT_COUNTERS.values():
             setattr(self.fused_gemm, counter, 0)
         self.scan.SCAN_LAUNCHES = 0
+        self.scan.SCAN_PREFILL_LAUNCHES = 0
+        self.scan.SCAN_DECODE_LAUNCHES = 0
         self.spmm.SPMM_LAUNCHES = 0
         for counter in self.spmm.SPMM_COUNTERS.values():
             setattr(self.spmm, counter, 0)
@@ -4212,6 +4391,9 @@ class Counters:
                 **{f"fused_{v}": getattr(self.fused_gemm, c)
                    for v, c in self.fused_gemm.VARIANT_COUNTERS.items()},
                 "mamba_scan": self.scan.SCAN_LAUNCHES,
+                # K8's launches by variant (not kernel rows of their own)
+                "mamba_scan_prefill": self.scan.SCAN_PREFILL_LAUNCHES,
+                "mamba_scan_decode": self.scan.SCAN_DECODE_LAUNCHES,
                 "block_spmm": self.spmm.SPMM_LAUNCHES,
                 # K10's launches by variant (not kernel rows of their own)
                 **{f"block_spmm_{v}": getattr(self.spmm, c)
@@ -4235,7 +4417,7 @@ SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_si
                         "fused_wgmma", "fused_wgmma_decode", "fused_wgmma_split", "fused_wmma",
                         "fused_simt", "block_spmm_wgmma", "block_spmm_wmma", "block_spmm_simt",
                         "grouped_matmul_wgmma", "grouped_matmul_wmma", "grouped_matmul_simt",
-                        "brgemm_blocked_wgmma"})
+                        "brgemm_blocked_wgmma", "mamba_scan_prefill", "mamba_scan_decode"})
 
 
 def kernel_total(launches):
@@ -4267,20 +4449,38 @@ def k5_on_wgmma(launches, what):
           f"{what}: K5's GEMM-rooted launches by variant {on}, {off}")
 
 
-def k3_on_split(torch, counters, run, wall_ms, what):
+def on_kernel(torch, counters, run, wall_ms, what, kernel, device_kernel):
     """Profile ``run()`` (``device_breakdown``) with every counter set to 0
-    just before: every K3 launch of the run on the split kernel
-    (``flash_decode_split_kernel``), one device kernel a call (the profiled
-    launches equal the wrapper's count).  → the profile."""
+    just before: every launch of the port's ``kernel`` in the run on
+    ``device_kernel``, one device kernel a call (the profiled launches equal
+    the wrapper's count).  → the profile."""
     counters.reset()
     prof = device_breakdown(torch, run, wall_ms)
-    calls = counters.read()["flash_decode"]
-    names = prof["device_names"].get("flash_decode", {})
-    print(f"  {what}: K3 called {calls} times; its device kernels {names}", flush=True)
-    check(calls > 0 and names == {"flash_decode_split_kernel": calls},
-          f"{what}: K3 called {calls} times, its device kernels {names}: want every launch on"
-          f" flash_decode_split_kernel, one a call")
+    calls = counters.read()[kernel]
+    names = prof["device_names"].get(kernel, {})
+    print(f"  {what}: {kernel} called {calls} times; its device kernels {names}", flush=True)
+    check(calls > 0 and names == {device_kernel: calls},
+          f"{what}: {kernel} called {calls} times, its device kernels {names}: want every launch"
+          f" on {device_kernel}, one a call")
     return prof
+
+
+def k3_on_split(torch, counters, run, wall_ms, what):
+    """Every K3 launch of ``run()`` on the split kernel
+    (``flash_decode_split_kernel``), one a call (``on_kernel``)."""
+    return on_kernel(torch, counters, run, wall_ms, what, "flash_decode", "flash_decode_split_kernel")
+
+
+def k4_on_split(torch, counters, run, what):
+    """Every K4 launch of ``run()``, a short drain, on the split kernel
+    (``paged_decode_split_kernel``), one a call (``on_kernel``, after an
+    unprofiled run for the wall time).  → the profile."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    return on_kernel(torch, counters, run, wall_ms, what, "paged_decode", "paged_decode_split_kernel")
 
 
 TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA vs CPU
@@ -4603,6 +4803,7 @@ def main() -> int:
     gemm_build = gemm_build_report(_build, logs)
     k5_k10_build = k5_k10_build_report(logs, fused_sources(fusion, fused_gemm), fused_gemm)
     k3_k9_build = k3_k9_build_report(logs)
+    k4_k8_build = k4_k8_build_report(logs)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -4742,7 +4943,7 @@ def main() -> int:
                       "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
                       "gemm_build": gemm_build, "k5_k10_build": k5_k10_build,
-                      "k3_k9_build": k3_k9_build}))
+                      "k3_k9_build": k3_k9_build, "k4_k8_build": k4_k8_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -75,15 +75,19 @@ SIGNATURES = {
     },
     "flash_attention_bwd": {"attention_bwd": ATTENTION_BWD},
     "paged_decode": {
-        # q, k_pool, v_pool, table, length, o, bf16, B, H, Hk, D, page_size,
-        # max_pages, pool rows, q (batch, head), o (batch, head), window,
-        # scale, stream
-        "paged_decode": (_P,) * 6 + (_I,) * 8 + (_L,) * 4 + (_I, _F, _P),
+        # q, k_pool, v_pool, table, length, o, workspace, counters, bf16,
+        # table64, length64, B, H, Hk, D, page_size, max_pages, pool rows,
+        # table row stride, q (batch, head), o (batch, head), window, scale,
+        # stream
+        "paged_decode": (_P,) * 8 + (_I,) * 10 + (_L,) * 5 + (_I, _F, _P),
+        "paged_decode_chunk": (),
     },
     "mamba_scan": {
-        # x, dt, a, b, c, d_skip, h0, y, h_out, bf16, B, L, D, N,
-        # x/dt/b/c strides (batch, step), stream
-        "mamba_scan": (_P,) * 9 + (_I,) * 5 + (_L,) * 8 + (_P,),
+        # x, dt, a, b, c, d_skip, h0, y, h_out, bf16, B, L, D, N, lanes,
+        # x/dt strides (batch, step), b/c strides (batch, step, n), stream
+        "mamba_scan": (_P,) * 9 + (_I,) * 6 + (_L,) * 10 + (_P,),
+        "mamba_scan_steps": (),
+        "mamba_scan_min_blocks": (_I,),
     },
     "block_spmm": {
         # blocks, row_ptr, col_id, b, c, in_bf16, out_bf16, nrows, bm, bk,

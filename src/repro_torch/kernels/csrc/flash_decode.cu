@@ -24,28 +24,11 @@
 // kChunk keys, grid (chunks, Hk, B): 1440 blocks at the main row.  The
 // chunk is a constant of this source, never a function of B, of the SM
 // count or of the lengths, so a row has the same bits whatever batch it is
-// decoded in.  A block copies its chunk's live K rows, then its live V rows,
-// into shared memory with 16-byte cp.async loads, all in flight at once in
-// two commit groups (the scores start when K has landed, V still in
-// flight); a block whose chunk holds no live key issues no load.  The
-// scores spread keys and D over all four warps (up to 8 lanes a key row,
-// each lane 16-byte vectors 8 apart, so a quarter warp reads 128
-// contiguous bytes and G = 1 keeps every lane busy); then one warp a head
-// takes the chunk's softmax, and the block's (head, dim) pairs p @ V, all
-// in fp32 on the SIMT cores: at G <= 16 that is at most 8 flop per byte,
-// so the tensor cores would buy nothing.  Each block writes its fp32
-// partial (m, l, acc) to the wrapper's workspace; the last block of a
-// (batch, kv head) to arrive (an int counter in device memory, reset by
-// that block) combines the chunks in chunk order:
-//   m* = max m_c,  l = sum l_c e^(m_c - m*),  o = sum acc_c e^(m_c - m*) / max(l, 1e-30).
-// No float atomics: the same inputs give the same bits, from run to run and
-// at any B.  One launch a call.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+// decoded in.  Each block runs csrc/decode_split.cuh's split stream on its
+// chunk (K and V by cp.async, scores, softmax, p @ V in fp32, partials
+// combined in chunk order by the last block of a (batch, kv head)); a key
+// row here is row c0 + r of the (batch, kv head)'s cache.
+#include "decode_split.cuh"
 
 namespace {
 
@@ -54,322 +37,52 @@ namespace {
 // kernels/flash_attention.py's DECODE_CHUNK mirrors it and its wrapper
 // checks it against flash_decode_chunk() once.
 constexpr int kChunk = 64;
-constexpr int kThreads = 128;
-constexpr int kMaxG = 16;        // query heads a kv head
-constexpr int kMaxPairs = 16;    // (head, dim) pairs a thread: G * D <= 2048
-constexpr int kSmemLimit = 232448;
-constexpr float kNegInf = -1e30f;
-static_assert(kChunk % 32 == 0, "the softmax takes the chunk in whole warps");
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// The 16 / sizeof(T) elements of one 16-byte vector, widened to fp32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec<bf16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void widen(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// One 16-byte copy from device memory into shared memory, past L1.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's commit groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// How a block's threads cover a key row of D elements: NV 16-byte vectors,
-// L lanes a row (VPT vectors a lane, L apart), KP rows a pass.
-template <typename T, int D>
-struct Rows {
-  static constexpr int EPV = Vec<T>::N;
-  static constexpr int NV = D / EPV;
-  static constexpr int L = NV < 8 ? NV : 8;
-  static constexpr int VPT = NV / L;
-  static constexpr int KP = kThreads / L;
-};
-
-// q, the chunk's K and V rows (T), the chunk's scores and then its
-// probabilities (G x kChunk fp32; in the combine each chunk's weight), the
-// combine's l_c times that weight (G x kChunk fp32), and each head's m and l.
-template <typename T, int D>
-constexpr size_t smem_bytes(int G) {
-  return sizeof(T) * (size_t)(G * D + 2 * kChunk * D) +
-         sizeof(float) * (size_t)(2 * G * kChunk + 2 * G);
-}
 
 struct Args {
-  const void* q;
+  split::Common c;
   const void* k;
   const void* v;
   const int* length;
-  void* o;
-  float* ws;       // chunks > 1: the chunks' acc (B, Hk, chunks, G, D), then their (m, l)
-  int* counters;   // chunks > 1: one zero int a (batch, kv head)
-  int G, S, chunks, window;
-  float scale;
-  long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh;
+  int S;
+  long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
 };
 
-// Grid (chunks, Hk, B), kThreads threads.
+// Key position c0 + r of a (batch, kv head)'s dense cache.
+template <typename T>
+struct DenseKV {
+  static constexpr bool kPrepares = false;
+  const char* k;   // the chunk's first key row
+  const char* v;
+  long long k_ss, v_ss;   // bytes a key
+  __device__ __forceinline__ void prepare(int, int, int) const {}
+  __device__ __forceinline__ const char* k_row(int r) const { return k + r * k_ss; }
+  __device__ __forceinline__ const char* v_row(int r) const { return v + r * v_ss; }
+};
+
+// Grid (chunks, Hk, B), split::kThreads threads.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(split::kThreads)
 flash_decode_split_kernel(const Args a) {
-  using R = Rows<T, D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int G = a.G;
-  T* Qs = reinterpret_cast<T*>(smem);        // G x D
-  T* Ks = Qs + G * D;                        // kChunk x D
-  T* Vs = Ks + kChunk * D;                   // kChunk x D
-  float* Ps = reinterpret_cast<float*>(Vs + kChunk * D);   // G x kChunk
-  float* Lw = Ps + G * kChunk;               // G x kChunk
-  float* Ms = Lw + G * kChunk;               // G
-  float* Ls = Ms + G;                        // G
-  __shared__ int last;
-
-  const int chunk = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int len = min(max(a.length[b], 0), a.S);
-  const int lo = a.window > 0 ? max(len - a.window, 0) : 0;
-  const int c0 = chunk * kChunk;
-  // the chunk's live keys, [beg, end) from c0
-  const int beg = max(lo - c0, 0), end = min(len - c0, kChunk);
-
-  float acc[kMaxPairs];
-#pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) acc[i] = 0.0f;
-
-  if (beg < end) {
-    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)hk * G * a.q_sh;
-    for (int i = tid; i < G * D; i += kThreads) Qs[i] = qp[(i / D) * a.q_sh + i % D];
-    const char* kp = static_cast<const char*>(a.k) +
-                     sizeof(T) * (b * a.k_sb + hk * a.k_sh + (long long)c0 * a.k_ss);
-    const char* vp = static_cast<const char*>(a.v) +
-                     sizeof(T) * (b * a.v_sb + hk * a.v_sh + (long long)c0 * a.v_ss);
-    const int n = (end - beg) * R::NV;
-    const uint32_t ks = smem_u32(Ks), vs = smem_u32(Vs);
-    for (int i = tid; i < n; i += kThreads) {
-      const int r = beg + i / R::NV, c = i % R::NV;
-      cp_async16(ks + (r * R::NV + c) * 16, kp + sizeof(T) * r * a.k_ss + 16 * c);
-    }
-    cp_async_commit();
-    for (int i = tid; i < n; i += kThreads) {
-      const int r = beg + i / R::NV, c = i % R::NV;
-      cp_async16(vs + (r * R::NV + c) * 16, vp + sizeof(T) * r * a.v_ss + 16 * c);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();   // this thread's K copies have landed
-    __syncthreads();      // and everyone's, and q
-
-    // Scores: lane j of a row's L reads vectors j, j + L, ... of the key row
-    // and of each head's q row; the L partial dots are summed by shuffles.
-    const int j = tid % R::L;
-    const uint4* K4 = reinterpret_cast<const uint4*>(Ks);
-    const uint4* Q4 = reinterpret_cast<const uint4*>(Qs);
-    for (int p0 = 0; p0 < kChunk; p0 += R::KP) {
-      const int c = p0 + tid / R::L;
-      const bool live = c >= beg && c < end;
-      float kf[R::VPT * R::EPV];
-#pragma unroll
-      for (int i = 0; i < R::VPT; ++i) {
-        const uint4 u = live ? K4[c * R::NV + j + R::L * i] : make_uint4(0u, 0u, 0u, 0u);
-        Vec<T>::widen(u, kf + i * R::EPV);
-      }
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < R::VPT; ++i) {
-          float qf[R::EPV];
-          Vec<T>::widen(Q4[g * R::NV + j + R::L * i], qf);
-#pragma unroll
-          for (int e = 0; e < R::EPV; ++e) dot = fmaf(qf[e], kf[i * R::EPV + e], dot);
-        }
-#pragma unroll
-        for (int o = R::L / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        if (j == 0 && c < kChunk) Ps[g * kChunk + c] = live ? dot * a.scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // The chunk's softmax, a warp a head: m, p = e^(s - m) on live keys, l.
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* s = Ps + g * kChunk;
-      float mx = kNegInf;
-      for (int c = lane; c < kChunk; c += 32) mx = fmaxf(mx, s[c]);
-      mx = warp_max(mx);
-      float sum = 0.0f;
-      for (int c = lane; c < kChunk; c += 32) {
-        const float p = c >= beg && c < end ? expf(s[c] - mx) : 0.0f;
-        s[c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        Ms[g] = mx;
-        Ls[g] = sum;
-      }
-    }
-    cp_async_wait<0>();   // this thread's V copies have landed
-    __syncthreads();
-
-    // p @ V: thread t owns the (head, dim) pairs t, t + 128, ... of G x D.
-#pragma unroll
-    for (int i = 0; i < kMaxPairs; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < G * D) {
-        const int g = idx / D, d = idx % D;
-        const float* p = Ps + g * kChunk;
-        float x = 0.0f;
-#pragma unroll 8
-        for (int c = beg; c < end; ++c) x = fmaf(p[c], to_float(Vs[c * D + d]), x);
-        acc[i] = x;
-      }
-    }
-  } else if (tid < G) {   // no live key: the empty partial
-    Ms[tid] = kNegInf;
-    Ls[tid] = 0.0f;
-  }
-  __syncthreads();
-
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + (long long)hk * G * a.o_sh;
-  if (a.chunks == 1) {
-#pragma unroll
-    for (int i = 0; i < kMaxPairs; ++i) {
-      const int idx = tid + i * kThreads;
-      if (idx < G * D)
-        op[(idx / D) * a.o_sh + idx % D] = from_float<T>(acc[i] / fmaxf(Ls[idx / D], 1e-30f));
-    }
-    return;
-  }
-
-  const int bh = b * gridDim.y + hk;
-  const size_t pairs = (size_t)G * D;
-  float* part = a.ws + (size_t)bh * a.chunks * pairs;   // this (batch, kv head)'s acc partials
-  float* ml = a.ws + (size_t)gridDim.z * gridDim.y * a.chunks * pairs +
-              (size_t)bh * a.chunks * G * 2;            // and its (m, l) pairs
-#pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < G * D) __stcg(part + chunk * pairs + idx, acc[i]);
-  }
-  if (tid < G) {
-    __stcg(ml + (chunk * G + tid) * 2, Ms[tid]);
-    __stcg(ml + (chunk * G + tid) * 2 + 1, Ls[tid]);
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(a.counters + bh, 1) == a.chunks - 1;
-  __syncthreads();
-  if (!last) return;
-  // The last chunk to arrive combines them all, with its loads in flight
-  // together: m* of each head (a warp a head, lanes over the chunks); then,
-  // kChunk chunks at a time, each (head, chunk)'s weight w_c = e^(m_c - m*)
-  // (0 for an empty chunk, whose acc was never written) and l_c w_c into
-  // shared memory, l summed in chunk order a thread a head, and each
-  // (head, dim) pair's acc_c w_c summed in chunk order into X (the K tile's
-  // shared memory, free now), 8 loads in flight.
-  __threadfence();
-  float* X = reinterpret_cast<float*>(Ks);   // G x D <= kChunk x D x sizeof(T) / 4
-  for (int g = warp; g < G; g += kThreads / 32) {
-    float mx = kNegInf;
-    for (int c = lane; c < a.chunks; c += 32) mx = fmaxf(mx, __ldcg(ml + (c * G + g) * 2));
-    mx = warp_max(mx);
-    if (lane == 0) Ms[g] = mx;
-  }
-  for (int c0 = 0; c0 < a.chunks; c0 += kChunk) {
-    const int nc = min(kChunk, a.chunks - c0);
-    __syncthreads();   // m* is known; the last slab's weights and l are read
-    for (int i = tid; i < G * nc; i += kThreads) {
-      const int g = i / nc, j = i % nc, c = c0 + j;
-      const float lc = __ldcg(ml + (c * G + g) * 2 + 1);
-      const float w = lc > 0.0f ? expf(__ldcg(ml + (c * G + g) * 2) - Ms[g]) : 0.0f;
-      Ps[g * kChunk + j] = w;
-      Lw[g * kChunk + j] = lc * w;
-    }
-    __syncthreads();
-    if (tid < G) {
-      float l = c0 == 0 ? 0.0f : Ls[tid];
-      for (int j = 0; j < nc; ++j) l += Lw[tid * kChunk + j];
-      Ls[tid] = l;
-    }
-#pragma unroll 2
-    for (int idx = tid; idx < G * D; idx += kThreads) {   // a thread keeps its pairs
-      const float* w = Ps + (idx / D) * kChunk;
-      const float* src = part + c0 * pairs + idx;
-      float x = c0 == 0 ? 0.0f : X[idx];
-      for (int j0 = 0; j0 < nc; j0 += 8) {
-        float v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          v[u] = j0 + u < nc && w[j0 + u] > 0.0f ? __ldcg(src + (j0 + u) * pairs) : 0.0f;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (j0 + u < nc) x = fmaf(v[u], w[j0 + u], x);
-      }
-      X[idx] = x;
-    }
-  }
-  __syncthreads();   // every head's l
-  for (int idx = tid; idx < G * D; idx += kThreads)
-    op[(idx / D) * a.o_sh + idx % D] = from_float<T>(X[idx] / fmaxf(Ls[idx / D], 1e-30f));
-  if (tid == 0) a.counters[bh] = 0;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const long long c0 = (long long)blockIdx.x * kChunk;
+  const DenseKV<T> kv{
+      static_cast<const char*>(a.k) + sizeof(T) * (b * a.k_sb + hk * a.k_sh + c0 * a.k_ss),
+      static_cast<const char*>(a.v) + sizeof(T) * (b * a.v_sb + hk * a.v_sh + c0 * a.v_ss),
+      (long long)sizeof(T) * a.k_ss, (long long)sizeof(T) * a.v_ss};
+  split::split_decode<T, D, kChunk>(a.c, kv, min(max(a.length[b], 0), a.S));
 }
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, int B, int Hk, cudaStream_t s) {
-  constexpr int max_g = kMaxG * D <= kMaxG * kThreads ? kMaxG : kMaxG * kThreads / D;
-  constexpr size_t most = smem_bytes<T, D>(max_g);
-  const size_t smem = smem_bytes<T, D>(a.G);
-  if (smem > kSmemLimit) return cudaErrorInvalidConfiguration;
+  constexpr size_t most = split::most_smem<T, D, kChunk>();
+  const size_t smem = split::smem_bytes<T, D, kChunk>(a.c.G);
+  if (smem > split::kSmemLimit) return cudaErrorInvalidConfiguration;
   const auto kern = flash_decode_split_kernel<T, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(most < kSmemLimit ? most : kSmemLimit));
+      static_cast<int>(most < split::kSmemLimit ? most : split::kSmemLimit));
   if (attr != cudaSuccess) return attr;
-  kern<<<dim3(a.chunks, Hk, B), kThreads, smem, s>>>(a);
+  kern<<<dim3(a.c.chunks, Hk, B), split::kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -402,12 +115,11 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v, const v
                             float scale, void* stream) {
   const int G = Hk > 0 ? H / Hk : 0;
   const int chunks = S > 0 ? (S + kChunk - 1) / kChunk : 1;
-  if (G < 1 || G > kMaxG || G * D > kMaxPairs * kThreads ||
-      (chunks > 1 && (ws == nullptr || counters == nullptr)))
+  if (!split::fits(G, D) || (chunks > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Args a{q, k, v, static_cast<const int*>(length), o, static_cast<float*>(ws),
-               static_cast<int*>(counters), G, S, chunks, window, scale,
-               q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh};
+  const Args a{{q, o, static_cast<float*>(ws), static_cast<int*>(counters), G, chunks, window,
+                scale, q_sb, q_sh, o_sb, o_sh},
+               k, v, static_cast<const int*>(length), S, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bf16_ ? dispatch<bf16>(D, a, B, Hk, s) : dispatch<float>(D, a, B, Hk, s);
   return static_cast<int>(e);

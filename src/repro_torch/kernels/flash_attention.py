@@ -13,8 +13,10 @@ sources are ``csrc/flash_attention.cu`` (K2 on the forward mainloop of
 key axis in fixed chunks of :data:`DECODE_CHUNK` keys and combined in chunk
 order by the last block of each (batch, kv head): :func:`decode_plan`),
 ``csrc/flash_attention_bwd.cu`` (K6, on the backward mainloop of
-``csrc/attention_bwd.cuh``) and ``csrc/paged_decode.cu`` (K4), whose headers
-say what bounds each kernel on an H100 and what its design does about it.
+``csrc/attention_bwd.cuh``) and ``csrc/paged_decode.cu`` (K4, K3's split
+stream of ``csrc/decode_split.cuh`` over the page table:
+:func:`paged_decode_plan`), whose headers say what bounds each kernel on an
+H100 and what its design does about it.
 K2 and K6 each have two routes, chosen by dtype in :func:`forward_plan` and
 :func:`backward_plan`: bf16 on the tensor cores (wgmma, TMA-fed rings;
 ``ATTENTION_WGMMA_LAUNCHES`` and ``ATTENTION_BWD_WGMMA_LAUNCHES`` count
@@ -42,8 +44,8 @@ from repro_torch.kernels.brgemm import _decode_counters
 
 __all__ = ["flash_attention", "flash_attention_bwd", "attention_backward", "flash_decode",
            "paged_decode", "forward_plan", "backward_plan", "decode_plan", "key_tile_range",
-           "query_tile_range", "tma_readable", "wgmma_smem", "ForwardPlan", "BackwardPlan",
-           "DecodePlan", "DECODE_CHUNK",
+           "query_tile_range", "tma_readable", "wgmma_smem", "paged_decode_plan", "ForwardPlan",
+           "BackwardPlan", "DecodePlan", "PagedDecodePlan", "DECODE_CHUNK",
            "ATTENTION_LAUNCHES", "ATTENTION_WGMMA_LAUNCHES", "BACKWARD_LAUNCHES",
            "ATTENTION_BWD_WGMMA_LAUNCHES", "DECODE_LAUNCHES", "PAGED_DECODE_LAUNCHES",
            "HEAD_DIMS", "PAGED_HEAD_DIMS", "WGMMA_TILES", "BWD_TILES", "SMEM_LIMIT"]
@@ -64,9 +66,11 @@ PAGED_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 _DECODE_MAX_GROUP = 16      # query heads per kv head in one decode block
 _DECODE_MAX_PAIRS = 2048    # group size x head dim one decode block holds
-# K3's keys a block (csrc/flash_decode.cu kChunk, which flash_decode checks
-# against the library once): a constant, never a function of B, of the SM
-# count or of the lengths, so a decoded row has the same bits in any batch
+# K3's keys and K4's key positions a block (kChunk of csrc/flash_decode.cu
+# and csrc/paged_decode.cu, which flash_decode and paged_decode check
+# against each library once): a constant, never a function of B, of the
+# page size, of the SM count or of the lengths, so a decoded row has the
+# same bits in any batch
 DECODE_CHUNK = 64
 
 # K2's bf16 kernel (and K5's chained forward on the same mainloop) by head
@@ -458,7 +462,7 @@ def flash_decode(q, k_cache, v_cache, *, length, window=None):
     if plan.chunks > 1:
         ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
         counters = _decode_counters(q.device, stream, b * hk)
-    err = _decode_library().flash_decode(
+    err = _split_library("flash_decode").flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(), o.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
@@ -470,57 +474,109 @@ def flash_decode(q, k_cache, v_cache, *, length, window=None):
     return o
 
 
-@functools.lru_cache(maxsize=1)
-def _decode_library():
-    """K3's library, once its chunk is checked to be :data:`DECODE_CHUNK`
-    (the plan sizes the workspace by it)."""
-    lib = _build.load("flash_decode")
-    if lib.flash_decode_chunk() != DECODE_CHUNK:
-        raise RuntimeError(f"csrc/flash_decode.cu cuts the keys in chunks of"
-                           f" {lib.flash_decode_chunk()}, decode_plan in {DECODE_CHUNK}")
+@functools.lru_cache(maxsize=2)
+def _split_library(name):
+    """K3's (``flash_decode``) or K4's (``paged_decode``) library, once the
+    chunk its source cuts the keys in is checked to be :data:`DECODE_CHUNK`
+    (the plans size the workspace by it)."""
+    lib = _build.load(name)
+    chunk = getattr(lib, f"{name}_chunk")()
+    if chunk != DECODE_CHUNK:
+        raise RuntimeError(f"csrc/{name}.cu cuts the keys in chunks of {chunk}, its plan in"
+                           f" {DECODE_CHUNK}")
     return lib
 
 
-def paged_decode(q, k_pool, v_pool, page_table, *, page_size, length,
-                 window=None):
-    """q (B, H, D); contiguous token-major pools (P + 1, page_size, Hk, D);
-    ``page_table`` (B, maxp) and ``length`` (B,) integer tensors on the
-    device, read there; → (B, H, D) in q's dtype.  Page ids outside
-    [0, P] are clamped, as the reference's gather clamps them."""
-    global PAGED_DECODE_LAUNCHES
-    _check(q[:, :, None], k_pool.transpose(1, 2), v_pool.transpose(1, 2))
-    b, h, d = q.shape
-    rows, ps, hk = k_pool.shape[:3]
+class PagedDecodePlan(NamedTuple):
+    """How K4 runs one call: ``kernel`` (its device name), ``chunk`` key
+    positions a block, ``chunks`` blocks a (slot, kv head) over the table's
+    maxp * page_size positions, ``workspace_bytes`` of fp32 partials (m, l,
+    acc) the last block of a (slot, kv head) combines (0 for one chunk,
+    written directly), ``smem_bytes`` of dynamic shared memory and ``grid``
+    (chunks, Hk, B)."""
+    kernel: str
+    chunk: int
+    chunks: int
+    workspace_bytes: int
+    smem_bytes: int
+    grid: tuple
+
+
+def paged_decode_plan(q, k_pool, v_pool, page_table, *, page_size):
+    """K4's plan for q (B, H, D), pools (P + 1, page_size, Hk, D) and
+    ``page_table`` (B, maxp), from their dtype, shapes and the pools' layout
+    alone (nothing is launched).  The chunk is :data:`DECODE_CHUNK`
+    whatever B, the page size, the card or the lengths.  Raises
+    ``ValueError`` for a head dim or GQA group one block does not take, and
+    for pools the 16-byte loads cannot read in place: not contiguous, or a
+    base pointer that is not a multiple of 16 bytes.  No silent copy."""
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if not pool.is_contiguous() or pool.data_ptr() % 16:
+            raise ValueError(f"paged decode reads {name} in 16-byte loads: it must be contiguous"
+                             f" with a 16-byte aligned base (strides {pool.stride()}, base"
+                             f" {pool.data_ptr()})")
+    if v_pool.shape != k_pool.shape or k_pool.dim() != 4 or k_pool.shape[1] != page_size:
+        raise ValueError(f"pools {tuple(k_pool.shape)}, {tuple(v_pool.shape)} with page_size"
+                         f" {page_size}")
+    return _paged_plan(tuple(q.shape), tuple(k_pool.shape), page_table.shape[-1],
+                       k_pool.element_size(), DECODE_CHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def _paged_plan(q_shape, pool_shape, maxp, size, chunk):
+    """The part of :func:`paged_decode_plan` that shapes fix (a decode step
+    asks for the same once a layer)."""
+    b, h, d = q_shape
+    ps, hk = pool_shape[1], pool_shape[2]
     g = h // hk
     if d not in PAGED_HEAD_DIMS:
         raise ValueError(f"paged decode head dim {d}: need one of {PAGED_HEAD_DIMS}")
     if g > _DECODE_MAX_GROUP or g * d > _DECODE_MAX_PAIRS:
         raise ValueError(f"decode group of {g} heads x {d} dims exceeds one block")
-    if v_pool.shape != k_pool.shape or ps != page_size:
-        raise ValueError(f"pools {tuple(k_pool.shape)}, {tuple(v_pool.shape)} with page_size {page_size}")
-    # the kernel reads whole 16-byte vectors of each pool row
-    for pool in (k_pool, v_pool):
-        if not pool.is_contiguous() or pool.data_ptr() % 16:
-            raise ValueError("paged decode needs contiguous, 16-byte aligned pools")
+    chunks = max(1, -(-(maxp * ps) // chunk))
+    smem = size * (g * d + 2 * chunk * d) + 4 * (2 * g * chunk + 2 * g)
+    workspace = 4 * b * h * chunks * (d + 2) if chunks > 1 else 0
+    return PagedDecodePlan("paged_decode_split_kernel", chunk, chunks, workspace, smem,
+                           (chunks, hk, b))
+
+
+def paged_decode(q, k_pool, v_pool, page_table, *, page_size, length,
+                 window=None):
+    """q (B, H, D); contiguous token-major pools (P + 1, page_size, Hk, D),
+    16-byte aligned as :func:`paged_decode_plan` checks; ``page_table``
+    (B, maxp) and ``length`` (B,) int32 or int64 tensors on the device, read
+    there as they lie; → (B, H, D) in q's dtype.  Page ids outside [0, P]
+    are clamped, as the reference's gather clamps them.  One launch."""
+    global PAGED_DECODE_LAUNCHES
+    _check(q[:, :, None], k_pool.transpose(1, 2), v_pool.transpose(1, 2))
+    b, h, d = q.shape
+    rows, ps, hk = k_pool.shape[:3]
     if page_table.dim() != 2 or page_table.shape[0] != b or length.shape != (b,):
         raise ValueError(f"page_table {tuple(page_table.shape)} and length "
                          f"{tuple(length.shape)} for batch {b}")
     for t in (page_table, length):
         if t.device != q.device or t.dtype not in (torch.int32, torch.int64):
-            raise ValueError(f"page_table and length must be integer tensors on {q.device}")
-    table = page_table.to(torch.int32).contiguous()
-    length = length.to(torch.int32).contiguous()
+            raise ValueError(f"page_table and length must be int32 or int64 tensors on {q.device}")
+    if page_table.stride(1) != 1 and page_table.shape[1] > 1:
+        raise ValueError(f"page_table must have a unit column stride, not {page_table.stride()}")
+    plan = paged_decode_plan(q, k_pool, v_pool, page_table, page_size=page_size)
     q = _rows(q)
     o = torch.empty(b, h, d, dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    lib = _build.load("paged_decode")
-    err = lib.paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        length.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16),
-        b, h, hk, d, ps, table.shape[1], rows, *q.stride()[:2], *o.stride()[:2],
-        _window(window), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)  # current_stream's, cheaper
+    ws = counters = None
+    if plan.chunks > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, stream, b * hk)
+    err = _split_library("paged_decode").paged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        length.data_ptr(), o.data_ptr(), ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        int(q.dtype == torch.bfloat16), int(page_table.dtype == torch.int64),
+        int(length.dtype == torch.int64), b, h, hk, d, ps, page_table.shape[1], rows,
+        page_table.stride(0), *q.stride()[:2], *o.stride()[:2], _window(window),
+        1.0 / math.sqrt(d), stream)
     _build.check(err, "paged_decode")
     PAGED_DECODE_LAUNCHES += 1
     return o

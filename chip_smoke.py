@@ -277,15 +277,17 @@ ROW = {
                       " -> f 1536, 128 experts, sorted group ids, bf16; library: torch._grouped_mm"
                       " where the card's torch has it",
     "fused_output": "bert-large's two Listing 6 output layers at 4096 tokens (Bert-Output K 4096,"
-                    " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask); no one"
-                    " PyTorch call fuses the product with dropout, residual and layernorm",
+                    " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask) on the"
+                    " wgmma variant (8-CTA clusters); no one PyTorch call fuses the product with"
+                    " dropout, residual and layernorm",
     "brgemm_blocked": "Listing 1 at benchmarks/bench_gemm.py's seven shapes (1024^3 .. 4096x4096x11008),"
                       " bf16 64x64x64 blocks, k_step 4, spec 'bca'; library: torch.matmul on the flat"
                       " matrices",
     "conv2d_1x1": "ResNet-50's seven 1x1 layers at N 32, bf16, through ops.conv2d (blocking, reshape,"
                   " K1 under 'bca'); library: torch.nn.functional.conv2d in bf16 on channels-last"
                   " tensors",
-    "hw_tile_bits": "K5 with hw_prng=True under pick_tiles' plan: minicpm-2b's fused_attn_out_do_res"
+    "hw_tile_bits": "K5 with hw_prng=True under pick_tiles' plan (one Philox call for four elements on"
+                    " the wgmma tile, drawn while the ring fills): minicpm-2b's fused_attn_out_do_res"
                     " (M 4096, K 2304 -> N 2304, rate 0.15) and bert-large's fused_output_graph(0.1)"
                     " at phase 10b's batch (M 8192, K 4096 -> N 1024), bf16; the bound is the graph's"
                     " (Philox's integer operations not counted: the table has no int32 rate);"
@@ -302,8 +304,16 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+_PHASES_START = []   # the first phase's start on the host clock
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    """Print a phase's heading and the seconds since the first phase began
+    (where the script's time goes)."""
+    now = time.perf_counter()
+    if not _PHASES_START:
+        _PHASES_START.append(now)
+    print(f"\n== {name} (at {now - _PHASES_START[0]:.1f} s)", flush=True)
 
 
 def time_ms(torch, fn, warmup=3, reps=10):
@@ -904,6 +914,42 @@ def k5_k10_build_report(logs, sources, fused_gemm):
     return {"k5": groups, "k10": k10, "c7518": warnings}
 
 
+def k7_k13_build_report(logs, fo, k13):
+    """Print the ``-Xptxas -v`` figures of K7's wgmma kernels by shape
+    (csrc/fused_output.cu: consumer warpgroups, ring stages, CTAs an SM,
+    several tiles a CTA, output dtype) with each shape's dynamic shared
+    memory at one tile (and at two where it takes several), and of the
+    tensor-core kernels of K13's shared-draw sources (``k13``: name →
+    source); and any ptxas C7518 warning (serialized wgmma) in either.  →
+    those figures."""
+    report, warnings = {}, []
+    dts = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+    warnings += [f"fused_output: {ln.strip()}" for ln in logs["fused_output"].splitlines()
+                 if "C7518" in ln]
+    for mangled, figures in ptxas_by_kernel(logs["fused_output"]).items():
+        found = re.search(r"fused_output_wgmmaILi(\d)ELi(\d)ELi(\d)ELb([01])E(f|13__nv_bfloat16)",
+                          mangled)
+        if found:
+            wg, stages, ctas, multi, dt = found.groups()
+            smem = fo._wgmma_smem(int(wg), int(stages), 1)
+            if multi == "1":
+                smem = f"{smem} (1 tile), {fo._wgmma_smem(int(wg), int(stages), 2)} (2 tiles)"
+            report[f"K7 fused_output_wgmma<WG {wg}, {stages} stages, {ctas} CTA(s) an SM,"
+                   f" {'several tiles' if multi == '1' else 'one tile'}, {dts[dt]} out>"] = (
+                f"{figures}; dynamic smem {smem} bytes")
+    for name in k13:
+        warnings += [f"{name}: {ln.strip()}" for ln in logs[name].splitlines() if "C7518" in ln]
+        for mangled, figures in ptxas_by_kernel(logs[name]).items():
+            kind = re.search(r"(fused_gemm_bf16_wgmma|fused_panel_bf16_wgmma)I", mangled)
+            if kind and "decode" not in mangled:
+                report[f"K13 shared draw {name} {kind.group(1)}"] = figures
+    for key, figures in sorted(report.items()):
+        print(f"  {key}: {figures}", flush=True)
+    print(f"  K7/K13 ptxas C7518 (serialized wgmma) warnings: {len(warnings)}"
+          + "".join(f"\n    {w}" for w in warnings[:10]), flush=True)
+    return {"kernels": report, "c7518": warnings}
+
+
 def k3_k9_build_report(logs):
     """Print the ``-Xptxas -v`` figures of K3's split kernel by dtype and
     head dim (csrc/flash_decode.cu) and of K9's wgmma kernel
@@ -1102,7 +1148,10 @@ WAS_MS = {"main B4 H40 S528 D128 len520": 0.2036, "gptj B4 H16 S528 D256 len520"
           "prefill B4 L512 D8192 N16 strided B/C": 0.3825,
           "engine decode B8 L1 D8192 N16 h0": 0.0783,
           "decode B4 L1 D8192 N16 h0": 0.0646,
-          "batch-1 prefill L512 D8192 N16": 0.1810}
+          "batch-1 prefill L512 D8192 N16": 0.1810,
+          # K7 before its redesign (the wmma kernel, a lone call each, PERF.md)
+          "Bert-Output M4096 K4096 N1024": 1.8602, "Bert-SelfOutput M4096 K1024 N1024": 0.4152,
+          "M4096 K1024 N5120": 2.7579, "fp32 M4096 K1024 N1024": 1.2522}
 
 
 def device_row(torch, bench, kernel, fn):
@@ -1693,13 +1742,20 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
 def fused_output_cases(torch, bench, fo, fusion):
     """K7 (Listing 6) against its plain version at bert-large's two output
     layers (M 4096 tokens, N 1024: Bert-Output K 4096 and Bert-SelfOutput K
-    1024; bf16, dropout 0.1 by a seeded keep mask: K7's row), N 5120 (the
-    panel in device memory) and fp32, each beside K5's ``fused_output_apply``
-    keep-mask graph on the same inputs; plus ragged, no-dropout and fp32-out
-    checks on both panel placements."""
+    1024; bf16, dropout 0.1 by a seeded keep mask: K7's row), N 5120 and
+    fp32, each on its plan's variant (the bf16 rows on ``wgmma``, by the
+    counters) with its [device] time, beside the ``wmma`` variant it
+    replaced, K5's ``fused_output_apply`` keep-mask graph and
+    ``torch.addmm`` on the product alone (a floor for the product, not the
+    library column: no one PyTorch call fuses Listing 6), with the active
+    clusters the plan's launch gets; rows at M 1 and a slice from the
+    middle bitwise equal to the same rows at M 4096, and two runs equal;
+    plus ragged, no-dropout, device-panel and fp32-out checks on the
+    variants their plans name, and bias, gamma and beta 4 bytes off 8
+    (on ``wmma``)."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     bf16, f32 = torch.bfloat16, torch.float32
-    k5_ms = {}
+    k5_ms, beside = {}, {}
     for label, m, k, n, dt, rate, out, weight, timed in (
             ("Bert-Output M4096 K4096 N1024", 4096, 4096, 1024, bf16, 0.1, None, 1, True),
             ("Bert-SelfOutput M4096 K1024 N1024", 4096, 1024, 1024, bf16, 0.1, None, 1, True),
@@ -1708,8 +1764,12 @@ def fused_output_cases(torch, bench, fo, fusion):
             ("check fp32 M77 K50 N130", 77, 50, 130, f32, 0.3, None, 0, False),
             ("check fp32 M70 K64 N2000 (device panel)", 70, 64, 2000, f32, 0.2, None, 0, False),
             ("check bf16 M33 K72 N1700 (device panel)", 33, 72, 1700, bf16, 0.5, None, 0, False),
+            ("check bf16 M50 K64 N130 ragged N", 50, 64, 130, bf16, 0.3, None, 0, False),
             ("check bf16 M40 K96 N256 no dropout", 40, 96, 256, bf16, 0.0, None, 0, False),
-            ("check bf16 M64 K128 N384 fp32 out", 64, 128, 384, bf16, 0.1, f32, 0, False)):
+            ("check bf16 M64 K128 N384 fp32 out", 64, 128, 384, bf16, 0.1, f32, 0, False),
+            ("check bf16 M77 K64 N256 ragged M", 77, 64, 256, bf16, 0.2, None, 0, False),
+            ("check bf16 M130 K200 N2048 two tiles a CTA", 130, 200, 2048, bf16, 0.1, None, 0, False),
+            ("check bf16 M100 K64 N3072 three tiles a CTA", 100, 64, 3072, bf16, 0.1, f32, 0, False)):
         x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
         w = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(dt)
         res = torch.randn(m, n, generator=gen, device="cuda").to(dt)
@@ -1717,22 +1777,88 @@ def fused_output_cases(torch, bench, fo, fusion):
         keep = torch.rand(m, n, generator=gen, device="cuda") > rate
         args = (x, w, bias, res, gamma, beta)
         name = "bfloat16" if (out or dt) == bf16 else "float32"
-        got = bench.run("fused_output", label,
-                        lambda: fo.fused_output(*args, keep_mask=keep, dropout_rate=rate, out_dtype=out),
+        plan = fo.fused_output_plan(m, n, k, dt, out)
+        fo.LAUNCHES = 0
+        for counter in fo.VARIANT_COUNTERS.values():
+            setattr(fo, counter, 0)
+        run = lambda: fo.fused_output(*args, keep_mask=keep, dropout_rate=rate, out_dtype=out)
+        got = bench.run("fused_output", label, run,
                         lambda: fo.fused_output_ref(*args, keep_mask=keep, dropout_rate=rate,
                                                     out_dtype=out),
                         None, flops=2 * m * n * k,
                         nbytes=_nbytes(x, w, res, keep) + m * n * (out or dt).itemsize + 12 * n,
                         dtype=name, tol_kind="gemm", weight=weight, timed=timed)
-        if timed:     # the same layer as K5's keep-mask graph (fusion.library.fused_output_apply)
-            with torch.no_grad():
-                k5 = lambda: fusion.library.fused_output_apply(*args, keep_mask=keep, dropout_rate=rate)
-                err, ok = compare(torch, k5(), got, *TOL[name]["gemm"])
-                check(ok, f"K5's fused_output_apply and K7 disagree at {label}: {err:.3e}")
-                k5_ms[label] = time_ms(torch, k5)
-            print(f"    K5 fused_output_apply (keep mask) at {label}: {k5_ms[label]:.4f} ms"
-                  f" (K7 {bench.cases['fused_output'][-1]['ms']:.4f}); |K5 - K7| {err:.3e}", flush=True)
+        check(torch.equal(got, run()), f"K7 {label}: two runs gave different bits")
+        on = getattr(fo, fo.VARIANT_COUNTERS[plan.variant])
+        check(on >= 1 and on == fo.LAUNCHES and (plan.variant == "wgmma" or dt == f32 or not weight),
+              f"K7 {label}: {fo.LAUNCHES} launches, {on} on its plan's variant {plan.variant}")
+        if m > 1:     # rows alone, and a slice from the middle, bitwise equal to the full call's
+            mid = m // 2
+            for lo, hi in ((0, 1), (mid, mid + 5)):
+                part = fo.fused_output(x[lo:hi].contiguous(), w, bias, res[lo:hi].contiguous(),
+                                       gamma, beta, keep_mask=keep[lo:hi].contiguous(),
+                                       dropout_rate=rate, out_dtype=out)
+                check(torch.equal(part, got[lo:hi]),
+                      f"K7 {label}: rows {lo}..{hi - 1} alone differ from the same rows at M {m}")
+        print(f"    plan {plan.variant}" + (f": cluster {plan.cluster} x {plan.cols} columns,"
+                                            f" {plan.rows} rows, {plan.stages} stages,"
+                                            f" {plan.ctas} CTA(s) an SM, {plan.smem} B"
+                                            if plan.variant == "wgmma" else
+                                            f", panel {'in device memory' if plan.scratch else 'in shared memory'}")
+              + (f"; rows at M 1 and {m // 2}.. bitwise equal to M {m}" if m > 1 else ""), flush=True)
+        if not timed:
+            continue
+        row = device_row(torch, bench, "fused_output", run)
+        with torch.no_grad():     # the same layer as K5's keep-mask graph (fusion.library.fused_output_apply)
+            k5 = lambda: fusion.library.fused_output_apply(*args, keep_mask=keep, dropout_rate=rate)
+            err, ok = compare(torch, k5(), got, *TOL[name]["gemm"])
+            check(ok, f"K5's fused_output_apply and K7 disagree at {label}: {err:.3e}")
+            k5_ms[label] = time_ms(torch, k5)
+        info = {"plan": plan._asdict(), "k5_ms": k5_ms[label], "k5_device_ms": device_ms(torch, k5)}
+        if plan.variant == "wgmma":
+            # the wmma kernel it replaced, on the same inputs, through the C entry (uncounted)
+            was = fo.OutputPlan("wmma", scratch=n > fo.PANEL_SMEM_MAX_N)
+            wm = lambda: fo._launch(was, x, w, bias, res, gamma, beta, keep, rate, 1e-5, out or dt)
+            err_w, ok_w = compare(torch, wm(), got, *TOL[name]["gemm"])
+            check(ok_w, f"K7's wmma variant and its wgmma one disagree at {label}: {err_w:.3e}")
+            mm = lambda: torch.addmm(bias.to(dt), x, w)
+            info.update(wmma_ms=time_ms(torch, wm), wmma_device_ms=device_ms(torch, wm),
+                        addmm_ms=time_ms(torch, mm), addmm_device_ms=device_ms(torch, mm),
+                        active_clusters=fo.max_active_clusters(plan, m, (out or dt) == bf16),
+                        ctas=plan.cluster * -(-m // plan.rows))
+            print(f"    [device] {row['device_ms']:.4f} ms against the bound {row['bound_ms']:.4f}"
+                  f" ({row['bound_ms'] / row['device_ms']:.1%}); wmma variant {info['wmma_ms']:.4f}"
+                  f" [{info['wmma_device_ms']:.4f}] ms; torch.addmm on the product"
+                  f" {info['addmm_ms']:.4f} [{info['addmm_device_ms']:.4f}] ms; K5's keep-mask graph"
+                  f" {k5_ms[label]:.4f} [{info['k5_device_ms']:.4f}] ms; plain {row['plain_ms']:.4f} ms;"
+                  f" {info['ctas']} CTAs, {info['active_clusters']} clusters of {plan.cluster} active"
+                  f" at once", flush=True)
+        else:
+            print(f"    [device] {row['device_ms']:.4f} ms; K5's keep-mask graph {k5_ms[label]:.4f}"
+                  f" [{info['k5_device_ms']:.4f}] ms (K7 {row['ms']:.4f}); |K5 - K7| {err:.3e}",
+                  flush=True)
+        beside[label] = info
+    # bias, gamma and beta at an odd offset of a flat fp32 buffer (4 bytes off
+    # 8): wgmma reads them two floats at a time, so the plan takes wmma
+    m, k, n = 64, 128, 384
+    x = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).to(bf16)
+    res = torch.randn(m, n, generator=gen, device="cuda").to(bf16)
+    flat = torch.randn(3 * n + 1, generator=gen, device="cuda")
+    bias, gamma, beta = flat[1:n + 1], flat[n + 1:2 * n + 1], flat[2 * n + 1:]
+    keep = torch.rand(m, n, generator=gen, device="cuda") > 0.1
+    check(all(t.data_ptr() % 8 == 4 for t in (bias, gamma, beta)), "K7: the offset vectors are aligned")
+    fo.LAUNCHES = fo.WMMA_LAUNCHES = 0
+    got = fo.fused_output(x, w, bias, res, gamma, beta, keep_mask=keep, dropout_rate=0.1)
+    want = fo.fused_output_ref(x, w, bias, res, gamma, beta, keep_mask=keep, dropout_rate=0.1)
+    err, ok = compare(torch, got, want, *TOL["bfloat16"]["gemm"])
+    check(ok and fo.WMMA_LAUNCHES == fo.LAUNCHES == 1,
+          f"K7 with bias, gamma and beta 4 bytes off 8: |err| {err:.3e}, {fo.WMMA_LAUNCHES} of"
+          f" {fo.LAUNCHES} launches on wmma")
+    print(f"  check bf16 M{m} K{k} N{n}, bias, gamma and beta 4 bytes off 8: on wmma, max |err|"
+          f" {err:.3e}", flush=True)
     bench.extra["fused_output_k5_ms"] = k5_ms
+    bench.extra["fused_output_beside"] = beside
 
 
 # benchmarks/bench_gemm.py's shapes (M, K, N): paper Fig. 2 (square,
@@ -2430,6 +2556,20 @@ def fused_sources(fusion, fused_gemm, graphs=None):
     return out
 
 
+def k13_sources(fusion, fused_gemm):
+    """name → the shared-draw source (``generate_source(...,
+    shared_draw=True)``: the wgmma tile draws K13's Philox once for four
+    columns) of each graph phase 3's K13 cases and phase 7e launch under
+    ``hw_prng`` on a plan whose PRNG tile width is a multiple of 4."""
+    out = {}
+    for g in (fusion.fused_attn_out_graph(True, dropout_rate=0.15), fusion.fused_output_graph(0.1),
+              *k13_graphs(fusion)):
+        sg = fusion.simplify_graph(g)
+        src = fused_gemm.generate_source(sg, shared_draw=True)
+        out[fused_gemm.source_name(sg, src)] = src
+    return out
+
+
 def fused_gemm_cases(torch, bench, fusion, fused_gemm):
     """K5 (each graph's generated kernel) against its plain version, the
     composed reference path, on the card: llama2-13b's fused_gated_mlp_silu
@@ -2956,6 +3096,14 @@ def _rate0(fusion, graph):
     return dataclasses.replace(graph, name=f"{graph.name}_rate0", nodes=nodes)
 
 
+# K13's integer floor: instructions of one Philox4x32-10 call (ten rounds of
+# two mul.lo, two mul.hi, two three-input xors and two key adds, plus the
+# counter and the keep compares), over the H100's 64 32-bit integer
+# multiply lanes an SM (half the fp32 rate) on 132 SMs
+PHILOX_INSTRUCTIONS = 90
+INT_LANES = 64 * 132
+
+
 def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
     """K13: K5 under ``hw_prng=True`` against its plain version on the card
     (``fusion.plain_version``, the composed reference drawing
@@ -2963,16 +3111,21 @@ def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
     tile choice: minicpm-2b's fused_attn_out_do_res (M 4096, K 2304 -> N
     2304, rate 0.15), bert-large's fused_output_graph(0.1) at phase 10b's
     batch (M 8192, K 4096 -> N 1024; its keep pattern through its pre-norm
-    half, ``k13_graphs``), and small ragged, fp32 and post-reduce checks.
-    Each: the keep pattern bit for bit, the keep share within 5 sigma of
-    1 - rate, agreement with the counter pattern within 5 sigma of p^2 +
-    (1 - p)^2, the same bits in two runs, one K13 launch a call; timed
-    beside the counter path, the graph at rate 0 and F.dropout on the
-    output."""
+    half, ``k13_graphs``), and small ragged, fp32, post-reduce and
+    PRNG-tile-width-6 (one Philox call an element on the wgmma tile)
+    checks.  Each: the keep pattern bit for bit, the keep share within 5
+    sigma of 1 - rate, agreement with the counter pattern within 5 sigma of
+    p^2 + (1 - p)^2, the same bits in two runs, one K13 launch a call;
+    timed (lone and [device]) beside the counter path, the graph at rate 0
+    and F.dropout on the output, with the draw's integer floor (Philox
+    calls this run needs, one per four elements where the tile width is a
+    multiple of 4, at ``PHILOX_INSTRUCTIONS`` over ``INT_LANES`` at
+    ``nvidia-smi``'s max SM clock)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(41)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
+    clock_hz = sm_clock_ghz() * 1e9
 
     def randn(*shape, dtype=bf16, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
@@ -3019,18 +3172,31 @@ def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
                   timed=timed)
         row = {"prng_tile": list(tile), "keep_share": share, "agreement_with_counter": agree,
                "live_elements_checked": int(live.sum())}
+        shared = fused_gemm.shares_draw(fusion.simplify_graph(graph), True, gp.prng_tile)
+        row["shared_draw"] = shared
         if timed:
             counter = fusion.compile(graph, path="cuda")
             zero_rate = fusion.compile(rate0, path="cuda")
+            calls = m * n_cols // (4 if shared else 1)
             row.update(hw_ms=bench.cases["hw_tile_bits"][-1]["ms"],
                        counter_ms=time_ms(torch, lambda: counter(**ops)),
                        rate0_ms=time_ms(torch, lambda: zero_rate(**ops)),
+                       hw_device_ms=device_ms(torch, lambda: hw(**ops)),
+                       counter_device_ms=device_ms(torch, lambda: counter(**ops)),
+                       rate0_device_ms=device_ms(torch, lambda: zero_rate(**ops)),
+                       draw_floor_ms=calls * PHILOX_INSTRUCTIONS / (INT_LANES * clock_hz) * 1e3,
                        dropout_library_ms=bench.cases["hw_tile_bits"][-1]["library_ms"],
                        bound_ms=bench.cases["hw_tile_bits"][-1]["bound_ms"])
-            print(f"    {label} tiles {tiles or 'pick_tiles'} (K13 tile {tuple(tile)}): hw"
-                  f" {row['hw_ms']:.4f} ms, counter {row['counter_ms']:.4f} ms, rate 0"
-                  f" {row['rate0_ms']:.4f} ms, F.dropout {row['dropout_library_ms']:.4f} ms, bound"
-                  f" {row['bound_ms']:.4f} ms; keep share {share:.5f}, agreement {agree:.5f}", flush=True)
+            bench.cases["hw_tile_bits"][-1]["device_ms"] = row["hw_device_ms"]
+            print(f"    {label} tiles {tiles or 'pick_tiles'} (K13 tile {tuple(tile)},"
+                  f" {'one call a 4 elements' if shared else 'one call an element'}): hw"
+                  f" {row['hw_ms']:.4f} [{row['hw_device_ms']:.4f}] ms, counter"
+                  f" {row['counter_ms']:.4f} [{row['counter_device_ms']:.4f}] ms, rate 0"
+                  f" {row['rate0_ms']:.4f} [{row['rate0_device_ms']:.4f}] ms; hw - rate 0"
+                  f" [{row['hw_device_ms'] - row['rate0_device_ms']:.4f}] ms against the draw's"
+                  f" integer floor {row['draw_floor_ms']:.4f} ms; F.dropout"
+                  f" {row['dropout_library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; keep"
+                  f" share {share:.5f}, agreement {agree:.5f}", flush=True)
         rows[f"{label} tiles {tiles or 'pick_tiles'}"] = row
 
     # minicpm-2b's attention output projection with dropout 0.15
@@ -3064,6 +3230,8 @@ def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
             ("check fp32 ragged", g, (77, 50, 130), f32, None, False),
             ("check fp32", g, (96, 64, 192), f32, (32, 32, 64), False),
             ("check bf16 M16", g, (16, 64, 256), bf16, (16, 32, 64), False),
+            ("check bf16 wgmma tile width 6", g, (128, 64, 384), bf16, (64, 64, 6), False),
+            ("check bf16 wgmma ragged", g, (200, 64, 264), bf16, None, False),
             ("check post-reduce", k13_graphs(fusion)[1], (128, 64, 384), f32, (32, 32, 128), True)):
         ops = {"o" if "o" in graph.operand_names else "x": randn(m, k, dtype=dt),
                "wo" if "wo" in graph.operand_names else "w": randn(k, n, dtype=dt), "seed": seed}
@@ -4033,8 +4201,11 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
     yo = fo.fused_output(xo, wo, bias, res, gamma, beta, keep_mask=keep, dropout_rate=0.1)
     torch.cuda.synchronize()
     result["listing6_launches"] = counters.read()
-    check(result["listing6_launches"]["fused_output"] == 1 and bool(torch.isfinite(yo).all()),
-          f"Listing 6: launches {result['listing6_launches']}, finite {bool(torch.isfinite(yo).all())}")
+    check(result["listing6_launches"]["fused_output"] == 1
+          and result["listing6_launches"]["fused_output_wgmma"] == 1
+          and bool(torch.isfinite(yo).all()),
+          f"Listing 6: launches {result['listing6_launches']}, want one K7 launch on wgmma;"
+          f" finite {bool(torch.isfinite(yo).all())}")
     del xo, wo, res, keep, yo
 
     # qwen3-moe's expert up projection through ops.grouped_matmul
@@ -4051,7 +4222,7 @@ def sparse_ffn(torch, counters, peaks, spmm, fo):
           and bool(torch.isfinite(yg).all()),
           f"grouped experts: launches {result['grouped_launches']}, want one K9 launch on wgmma")
     print(f"  Listing 6 (M {m}, K {k}, N {n}) launches {result['listing6_launches']['fused_output']}"
-          f" K7; qwen3-moe experts (T {t}, d {d}, f {f}, E {e}) launches"
+          f" K7 ({result['listing6_launches']['fused_output_wgmma']} on wgmma); qwen3-moe experts (T {t}, d {d}, f {f}, E {e}) launches"
           f" {result['grouped_launches']['grouped_matmul']} K9"
           f" ({result['grouped_launches']['grouped_matmul_wgmma']} on wgmma)", flush=True)
     del xg, wg, gid, yg
@@ -4242,6 +4413,7 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "grouped_matmul_bf16_wgmma": "grouped_matmul",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
              "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
+             "fused_output_wgmma": "fused_output",
              "brgemm_blocked_bf16_wgmma": "brgemm_blocked",
              "brgemm_blocked_bf16_wmma": "brgemm_blocked",
              "brgemm_blocked_simt": "brgemm_blocked"}
@@ -4363,6 +4535,8 @@ class Counters:
         for counter in self.spmm.GROUPED_COUNTERS.values():
             setattr(self.spmm, counter, 0)
         self.fo.LAUNCHES = 0
+        for counter in self.fo.VARIANT_COUNTERS.values():
+            setattr(self.fo, counter, 0)
 
     def read(self):
         return {"gemm": self.brgemm.LAUNCHES - self.brgemm.TRANSPOSED_LAUNCHES,
@@ -4403,6 +4577,9 @@ class Counters:
                 **{f"grouped_matmul_{v}": getattr(self.spmm, c)
                    for v, c in self.spmm.GROUPED_COUNTERS.items()},
                 "fused_output": self.fo.LAUNCHES,
+                # K7's launches by variant (not kernel rows of their own)
+                **{f"fused_output_{v}": getattr(self.fo, c)
+                   for v, c in self.fo.VARIANT_COUNTERS.items()},
                 "brgemm_blocked": self.brgemm.BLOCKED_LAUNCHES,
                 "brgemm_blocked_wgmma": self.brgemm.BLOCKED_WGMMA_LAUNCHES,
                 "conv2d_1x1": self.conv.LAUNCHES,
@@ -4417,7 +4594,8 @@ SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_si
                         "fused_wgmma", "fused_wgmma_decode", "fused_wgmma_split", "fused_wmma",
                         "fused_simt", "block_spmm_wgmma", "block_spmm_wmma", "block_spmm_simt",
                         "grouped_matmul_wgmma", "grouped_matmul_wmma", "grouped_matmul_simt",
-                        "brgemm_blocked_wgmma", "mamba_scan_prefill", "mamba_scan_decode"})
+                        "brgemm_blocked_wgmma", "mamba_scan_prefill", "mamba_scan_decode",
+                        "fused_output_wgmma", "fused_output_wmma", "fused_output_simt"})
 
 
 def kernel_total(launches):
@@ -4790,7 +4968,8 @@ def main() -> int:
     phase("2. build")
     start = time.perf_counter()
     chained = chained_backward_sources(fusion, fused_gemm)
-    logs = _build.build_all(generated={**fused_sources(fusion, fused_gemm), **chained})
+    k13 = k13_sources(fusion, fused_gemm)
+    logs = _build.build_all(generated={**fused_sources(fusion, fused_gemm), **chained, **k13})
     build_s = time.perf_counter() - start
     print(f"  built {', '.join(logs)} in {build_s:.1f} s")
     for name, log in logs.items():
@@ -4804,6 +4983,7 @@ def main() -> int:
     k5_k10_build = k5_k10_build_report(logs, fused_sources(fusion, fused_gemm), fused_gemm)
     k3_k9_build = k3_k9_build_report(logs)
     k4_k8_build = k4_k8_build_report(logs)
+    k7_k13_build = k7_k13_build_report(logs, fo, k13)
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
@@ -4943,7 +5123,8 @@ def main() -> int:
                       "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
                       "gemm_build": gemm_build, "k5_k10_build": k5_k10_build,
-                      "k3_k9_build": k3_k9_build, "k4_k8_build": k4_k8_build}))
+                      "k3_k9_build": k3_k9_build, "k4_k8_build": k4_k8_build,
+                      "k7_k13_build": k7_k13_build}))
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -101,9 +101,15 @@ SIGNATURES = {
     },
     "fused_output": {
         # x, w, bias, residual, keep, gamma, beta, out, scratch, in_bf16,
-        # out_bf16, M, N, K, scale, eps, vec, stream
-        "fused_output": (_P,) * 9 + (_I,) * 5 + (_F, _F, _I, _P),
+        # out_bf16, M, N, K, scale, eps, vec, variant, cluster, tiles a CTA,
+        # warpgroups, stages, CTAs an SM, smem, stream
+        "fused_output": (_P,) * 9 + (_I,) * 5 + (_F, _F) + (_I,) * 8 + (_P,),
         "fused_output_smem_max_n": (),
+        # warpgroups, stages, CTAs an SM, tiles a CTA
+        "fused_output_wgmma_smem": (_I,) * 4,
+        # warpgroups, stages, CTAs an SM, tiles a CTA, cluster, row bands,
+        # out_bf16, out
+        "fused_output_max_clusters": (_I,) * 7 + (_P,),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -38,7 +38,12 @@
 // element's global coordinates, so the bits equal repro_torch/fusion/rng.py
 // tile_bits and a backward graph regenerates the forward's keep pattern.
 // With the hw flag set (fusion.compile(..., hw_prng=True)) dropout_rng draws
-// K13's bits instead, Philox4x32-10 per plan tile (csrc/philox.cuh).
+// K13's bits instead, Philox4x32-10 per plan tile (csrc/philox.cuh).  The
+// draws of a plain or pre-reduce body are taken by the template, not the
+// body: E::apply and E::pre read a keep word (bit j: draw j kept) that
+// keep_bits draws an element at a time, or that the wgmma tile draws ahead
+// into a register fragment (KeepFrag, consume_and_draw: K13 one call for
+// four columns in a DRAW4 source, other draws in the mainloop's shadow).
 //
 // A schedule (fusion.compile(..., spec_string=, tiles=, block_steps=))
 // reaches the kernel as a table of tile origins in the plan's visit order
@@ -316,16 +321,33 @@ __device__ __forceinline__ void stage(const float* v0, const float* v1, int gm, 
   }
 }
 
+// The keep word of element (gm, gn): bit j set where draw j of E's plain or
+// pre-reduce body keeps it, one generator call an element (the counter
+// path's threefry, or with hw K13's Philox on the plan's PRNG tile).
+template <class E>
+__device__ __forceinline__ uint32_t keep_bits(int gm, int gn, const FusedArgs& a) {
+  uint32_t keep = 0;
+#pragma unroll
+  for (int j = 0; j < E::NDRAW; ++j) {
+    uint32_t seed, salt, thresh;
+    E::draw_key(j, a, seed, salt, thresh);
+    const uint32_t bits = a.hw ? fg_hw_tile_bits(seed, salt, gm, gn, a.prng_tm, a.prng_tn)
+                               : fg_threefry(seed, salt, (uint32_t)gm, (uint32_t)gn);
+    keep |= (bits < thresh ? 1u : 0u) << j;
+  }
+  return keep;
+}
+
 template <class E, int MODE, typename TOut>
 __device__ __forceinline__ void emit(const float* acc, int gm, int gn, const FusedArgs& a,
                                      const FgCtx& c) {
   if constexpr (MODE == PANEL) {
     float v[E::NSTAGED];
-    E::pre(acc, gm, gn, a, c, v);
+    E::pre(acc, keep_bits<E>(gm, gn, a), gm, gn, a, c, v);
     stage<E::NSTAGED>(v, v, gm, gn, false, a, c);
   } else {
     float out[E::NOUT];
-    E::apply(acc, gm, gn, a, c, out);
+    E::apply(acc, keep_bits<E>(gm, gn, a), gm, gn, a, c, out);
     TOut* o = static_cast<TOut*>(a.out) + c.off(a.s_out);
 #pragma unroll
     for (int q = 0; q < E::NOUT; ++q)
@@ -959,10 +981,10 @@ __device__ __forceinline__ void stage_products(float (&d)[T::R][T::BN / 2],
 // accumulator, then added to acc in fp32 on the CUDA cores: the tensor
 // cores' own accumulation truncates its partial sums, which over K 4096
 // moved a unit-scale product by 2.4e-3, past the fp32 tolerance.
-template <class E, class T>
+template <class E, class T, class Step>
 __device__ __forceinline__ void consume_tile(float (&acc)[T::R][T::BN / 2],
                                              const RingSmem<typename T::RG>& sm, unsigned live,
-                                             int it0, int n, int wg) {
+                                             int it0, int n, int wg, const Step& step) {
 #pragma unroll
   for (int q = 0; q < T::R; ++q)
 #pragma unroll
@@ -977,6 +999,7 @@ __device__ __forceinline__ void consume_tile(float (&acc)[T::R][T::BN / 2],
       hopper::wgmma_fence();
       stage_products<E, T, true>(part, sm, it % T::STAGES, live, wg);
       hopper::wgmma_commit();
+      step(i);
       hopper::wgmma_wait<0>();
 #pragma unroll
       for (int q = 0; q < T::R; ++q) hopper::fence_regs(part[q]);
@@ -996,6 +1019,7 @@ __device__ __forceinline__ void consume_tile(float (&acc)[T::R][T::BN / 2],
       hopper::wgmma_fence();
       stage_products<E, T, false>(acc, sm, it % T::STAGES, live, wg);
       hopper::wgmma_commit();
+      step(i);                  // integer work while the tensor cores run
       hopper::wgmma_wait<1>();  // the group of step it - 1 is done: free its stage
 #pragma unroll
       for (int q = 0; q < T::R; ++q) hopper::fence_regs(acc[q]);
@@ -1008,21 +1032,141 @@ __device__ __forceinline__ void consume_tile(float (&acc)[T::R][T::BN / 2],
   }
 }
 
+// A consumer thread's keep bits of the BN / 2 accumulators of its tile
+// (acc[i]: bit i % 32 of word i / 32), for each draw of E, drawn in the
+// mainloop (consume_and_draw), before the epilogue's first divergent branch.
+template <class E, class T>
+struct KeepFrag {
+  static constexpr int ND = E::NDRAW > 0 ? E::NDRAW : 1, W = T::BN / 64;
+  uint32_t w[ND][W];
+  // the keep word (bit j: draw j) of acc[i]
+  __device__ __forceinline__ uint32_t at(int i) const {
+    uint32_t k = 0;
+#pragma unroll
+    for (int j = 0; j < E::NDRAW; ++j) k |= ((w[j][i / 32] >> (i % 32)) & 1u) << j;
+    return k;
+  }
+};
+
+// Draw the keep bits of column group g (acc[4 g .. 4 g + 3]: columns
+// 8 g + 2 (lane % 4) + {0, 1} of rows r and r + 8) of a consumer thread's 64
+// rows from row0 of the tile at column n0, one generator call an element
+// (keep_bits): the counter path, or K13 on a plan tile whose width is not a
+// multiple of 4.
+template <class E, class T>
+__device__ __forceinline__ void draw_group(KeepFrag<E, T>& f, const FusedArgs& a, int row0,
+                                           int n0, int g) {
+  const int i0 = 4 * g;
+  uint32_t bits[KeepFrag<E, T>::ND];   // bit e: acc[i0 + e] kept, for each draw
+#pragma unroll
+  for (int j = 0; j < KeepFrag<E, T>::ND; ++j) bits[j] = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t k =
+        keep_bits<E>(row0 + gemm_ml::acc_row(i0 + e), n0 + gemm_ml::acc_col(i0 + e), a);
+#pragma unroll
+    for (int j = 0; j < E::NDRAW; ++j) bits[j] |= ((k >> j) & 1u) << e;
+  }
+  // into word i0 / 32 (a compare a word, so a runtime g keeps f in registers)
+#pragma unroll
+  for (int j = 0; j < E::NDRAW; ++j)
+#pragma unroll
+    for (int q = 0; q < KeepFrag<E, T>::W; ++q)
+      if (q == i0 / 32) f.w[j][q] |= bits[j] << (i0 % 32);
+}
+
+// The keep bits of a consumer thread's tile, drawn before its epilogue's
+// first divergent branch.  K13's shared draw goes first, while the ring
+// fills (draw_ahead, DRAW4: 16 Philox calls a thread for a 128-column
+// tile; every lane of the warp calls it together).  The four columns
+// 4q..4q+3 of a row are the four words of one Philox call (counter (row0,
+// col0, local / 4, 0), local a multiple of 4 at the first, as the plan's
+// PRNG tile width is), and in wgmma's layout lanes t and t ^ 1 hold them
+// for rows r and r + 8: the even lane draws row r's block, the odd lane row
+// r + 8's, and one shuffle each way hands over the other's two words, a
+// quarter of the calls.  One call an element (the counter path's threefry, or K13 on
+// a tile width that is not a multiple of 4: 64 calls) is spread over the
+// mainloop's shadow: group g after the products of k-step g are issued
+// (consume_tile's step), and the groups a short K leaves after it.  On an
+// H100 each placement measured faster than the other for its draw
+// (PERF.md).
+template <class E, class T>
+__device__ __forceinline__ void draw_ahead(KeepFrag<E, T>& f, const FusedArgs& a, int row0,
+                                           int n0) {
+  // draw_group's shared draw for every group, the row's terms taken once
+  const bool even = (threadIdx.x & 1) == 0;
+  const int gm = row0 + gemm_ml::acc_row(even ? 0 : 2);   // the row this lane draws
+  const int tm = a.prng_tm, tn = a.prng_tn, r0 = gm - gm % tm;
+  const uint32_t row_local = static_cast<uint32_t>(gm - r0) * static_cast<uint32_t>(tn);
+#pragma unroll
+  for (int i0 = 0; i0 < T::BN / 2; i0 += 4) {
+    const int cb = n0 + gemm_ml::acc_col(i0) - (even ? 0 : 2);   // the first of the four
+    const int c0 = cb - cb % tn;
+    const uint4 ctr = make_uint4(static_cast<uint32_t>(r0), static_cast<uint32_t>(c0),
+                                 (row_local + static_cast<uint32_t>(cb - c0)) >> 2, 0u);
+#pragma unroll
+    for (int j = 0; j < E::NDRAW; ++j) {
+      uint32_t seed, salt, th;
+      E::draw_key(j, a, seed, salt, th);
+      const uint4 w = fg_philox4x32_10(ctr, seed, salt);
+      const uint32_t got0 = __shfl_xor_sync(0xffffffffu, even ? w.z : w.x, 1);
+      const uint32_t got1 = __shfl_xor_sync(0xffffffffu, even ? w.w : w.y, 1);
+      const uint32_t b0 = even ? w.x : got0, b1 = even ? w.y : got1;
+      const uint32_t b2 = even ? got0 : w.z, b3 = even ? got1 : w.w;
+      f.w[j][i0 / 32] |= ((b0 < th ? 1u : 0u) | (b1 < th ? 2u : 0u) | (b2 < th ? 4u : 0u) |
+                          (b3 < th ? 8u : 0u))
+                         << (i0 % 32);
+    }
+  }
+}
+
+// consume_tile's step where nothing is drawn in the mainloop
+struct NoStep {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// A consumer warpgroup's k-steps it0 .. it0 + n - 1 of the tile at
+// (row0, n0) with its keep bits (KeepFrag) drawn: ahead (DRAW4), in the
+// mainloop (other draws) or not at all.
+template <class E, class T>
+__device__ __forceinline__ void consume_and_draw(float (&acc)[T::R][T::BN / 2], KeepFrag<E, T>& kf,
+                                                 const RingSmem<typename T::RG>& sm,
+                                                 unsigned live, int it0, int n, int wg,
+                                                 const FusedArgs& a, int row0, int n0) {
+  constexpr int GROUPS = T::BN / 8;
+#pragma unroll
+  for (int j = 0; j < KeepFrag<E, T>::ND; ++j)
+#pragma unroll
+    for (int q = 0; q < KeepFrag<E, T>::W; ++q) kf.w[j][q] = 0u;
+  if constexpr (E::NDRAW == 0) {
+    consume_tile<E, T>(acc, sm, live, it0, n, wg, NoStep{});
+  } else if constexpr (E::DRAW4) {   // a DRAW4 source launches only under hw
+    draw_ahead<E, T>(kf, a, row0, n0);
+    consume_tile<E, T>(acc, sm, live, it0, n, wg, NoStep{});
+  } else {
+    consume_tile<E, T>(acc, sm, live, it0, n, wg, [&](int g) {
+      if (g < GROUPS) draw_group<E, T>(kf, a, row0, n0, g);
+    });
+    for (int g = n; g < GROUPS; ++g) draw_group<E, T>(kf, a, row0, n0, g);
+  }
+}
+
 // The plain epilogue of two adjacent columns (gn, and gn + 1 when `two`) of
-// row gm: every output stored, as one pair where N is even; or a row
-// panel's pre-reduce pass.
+// row gm, with their keep words k0 and k1: every output stored, as one pair
+// where N is even; or a row panel's pre-reduce pass.
 template <class E, int MODE>
-__device__ __forceinline__ void emit2(const float* v0, const float* v1, int gm, int gn, bool two,
-                                      const FusedArgs& a, const FgCtx& c) {
+__device__ __forceinline__ void emit2(const float* v0, const float* v1, uint32_t k0, uint32_t k1,
+                                      int gm, int gn, bool two, const FusedArgs& a,
+                                      const FgCtx& c) {
   if constexpr (MODE == PANEL) {
     float s0[E::NSTAGED], s1[E::NSTAGED];
-    E::pre(v0, gm, gn, a, c, s0);
-    if (two) E::pre(v1, gm, gn + 1, a, c, s1);
+    E::pre(v0, k0, gm, gn, a, c, s0);
+    if (two) E::pre(v1, k1, gm, gn + 1, a, c, s1);
     stage<E::NSTAGED>(s0, s1, gm, gn, two, a, c);
   } else {
     float o0[E::NOUT], o1[E::NOUT];
-    E::apply(v0, gm, gn, a, c, o0);
-    if (two) E::apply(v1, gm, gn + 1, a, c, o1);
+    E::apply(v0, k0, gm, gn, a, c, o0);
+    if (two) E::apply(v1, k1, gm, gn + 1, a, c, o1);
     const long long base = c.off(a.s_out) + (long long)gm * a.N + gn;
     const bool pair = two && a.N % 2 == 0;
 #pragma unroll
@@ -1049,11 +1193,12 @@ __device__ __forceinline__ void emit2(const float* v0, const float* v1, int gm, 
   }
 }
 
-// A consumer warpgroup's epilogue of its 64 rows of the tile at (m0, n0).
+// A consumer warpgroup's epilogue of its 64 rows of the tile at (m0, n0),
+// with the keep bits consume_and_draw drew for them.
 template <class E, class T, int MODE>
 __device__ __forceinline__ void epilogue_tile(const float (&acc)[T::R][T::BN / 2],
-                                              const FusedArgs& a, const FgCtx& c, int m0, int n0,
-                                              int wg) {
+                                              const KeepFrag<E, T>& kf, const FusedArgs& a,
+                                              const FgCtx& c, int m0, int n0, int wg) {
   const int row0 = m0 + 64 * wg;
 #pragma unroll
   for (int i = 0; i < T::BN / 2; i += 2) {
@@ -1065,7 +1210,7 @@ __device__ __forceinline__ void epilogue_tile(const float (&acc)[T::R][T::BN / 2
         v0[q] = acc[q][i];
         v1[q] = acc[q][i + 1];
       }
-      emit2<E, MODE>(v0, v1, gm, gn, gn + 1 < a.N, a, c);
+      emit2<E, MODE>(v0, v1, kf.at(i), kf.at(i + 1), gm, gn, gn + 1 < a.N, a, c);
     }
   }
 }
@@ -1100,9 +1245,10 @@ fused_gemm_bf16_wgmma(const __grid_constant__ FusedArgs a, const __grid_constant
     if (threadIdx.x == 128 * T::WG) produce_tile<E, T>(sm, maps, a, c, org.x, org.y, live, 0, n);
     return;
   }
+  KeepFrag<E, T> kf;
   float acc[T::R][T::BN / 2];
-  consume_tile<E, T>(acc, sm, live, 0, n, wg);
-  epilogue_tile<E, T, PLAIN>(acc, a, c, org.x, org.y, wg);
+  consume_and_draw<E, T>(acc, kf, sm, live, 0, n, wg, a, org.x + 64 * wg, org.y);
+  epilogue_tile<E, T, PLAIN>(acc, kf, a, c, org.x, org.y, wg);
 }
 
 // A row panel: one band of BM rows walks its N tiles (the producer ahead
@@ -1126,9 +1272,11 @@ fused_panel_bf16_wgmma(const __grid_constant__ FusedArgs a, const __grid_constan
     return;
   }
   float acc[T::R][T::BN / 2];
+  KeepFrag<E, T> kf;
   for (int t = 0; t < tiles; ++t) {
-    consume_tile<E, T>(acc, sm, live_roots<T::R>(a, t * T::BN), t * n, n, wg);
-    epilogue_tile<E, T, PANEL>(acc, a, c, m0, t * T::BN, wg);
+    consume_and_draw<E, T>(acc, kf, sm, live_roots<T::R>(a, t * T::BN), t * n, n, wg, a,
+                           m0 + 64 * wg, t * T::BN);
+    epilogue_tile<E, T, PANEL>(acc, kf, a, c, m0, t * T::BN, wg);
   }
   hopper::named_sync<1, 128 * T::WG>();   // the staged panel is complete (and visible)
   close_rows<E, TOut>(a, c, m0, T::BM, strip, 4 * T::WG);
@@ -1212,7 +1360,7 @@ fused_gemm_bf16_wgmma_decode(const __grid_constant__ FusedArgs a,
         float v[T::R];
 #pragma unroll
         for (int q = 0; q < T::R; ++q) v[q] = acc[q][i];
-        emit2<E, PLAIN>(v, v, m, col, false, a, c);
+        emit2<E, PLAIN>(v, v, keep_bits<E>(m, col, a), 0u, m, col, false, a, c);
       }
     }
     return;
@@ -1247,7 +1395,7 @@ fused_gemm_bf16_wgmma_decode(const __grid_constant__ FusedArgs a,
 #pragma unroll
         for (int q = 0; q < T::R; ++q)
           v[q] += __ldcg(ws + ((long long)sp * T::R + q) * slab + (long long)m * N + col);
-      emit2<E, PLAIN>(v, v, m, col, false, a, c);
+      emit2<E, PLAIN>(v, v, keep_bits<E>(m, col, a), 0u, m, col, false, a, c);
     }
   }
   if (threadIdx.x == 0) *counter = 0;
@@ -1531,7 +1679,8 @@ cudaError_t dispatch(const FusedArgs& a, cudaStream_t s) {
 // chained root defines:
 //   extern "C" int fused_gemm(const FusedArgs* args, void* stream)
 // The output (batch, NOUT, M, N) contiguous, bf16 if out_bf16 else fp32;
-// R must be the graph's root count.  variant: the wrapper's plan (enum
+// R must be the graph's root count, and hw set for a DRAW4 source (the
+// plan's choice: kernels/fused_gemm.py shares_draw).  variant: the wrapper's plan (enum
 // Variant): wgmma, wgmma_decode (M <= 16) and wgmma_split run on the
 // tensor-core mainloop (bf16 operands TMA reads: 16-byte aligned bases and
 // strides), V_CLASSIC the WMMA kernel (all_bf16) or the SIMT one; order (if
@@ -1539,11 +1688,12 @@ cudaError_t dispatch(const FusedArgs& a, cudaStream_t s) {
 // kernels/fused_gemm.py cta_tile gives them); vec: every lhs and rhs row of
 // every problem starts 16-byte aligned (WMMA's vector loads).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue without
-// launching for an R that is not the graph's or a call the variant does not
-// take.
+// launching for an R that is not the graph's, a DRAW4 source without hw, or
+// a call the variant does not take.
 template <class E>
 int entry(const FusedArgs* args, void* stream) {
-  if (args->R != E::R) return static_cast<int>(cudaErrorInvalidValue);
+  // R must be the graph's; a DRAW4 source draws K13's bits only
+  if (args->R != E::R || (E::DRAW4 && !args->hw)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       args->out_bf16 ? dispatch<E, fg_bf16>(*args, s) : dispatch<E, float>(*args, s);

@@ -198,13 +198,17 @@ __device__ __forceinline__ void produce(const Smem<C>& sm, const CUtensorMap* ta
 // A consumer warpgroup `wg`: acc (its 64 rows by BN, wgmma's layout: thread
 // lane of warp w holds row 16 w + lane / 4 + 8 ((i / 2) % 2) and column
 // 8 (i / 4) + 2 (lane % 4) + i % 2 in acc[i]) = the sum over the `n`
-// k-steps of the ring, one wgmma group in flight behind the next.
+// k-steps of the ring, one wgmma group in flight behind the next.  A CTA
+// that walks several tiles through one ring (K7's row band) passes the
+// ring step of the tile's first k-step as `it0` and `release_last`, so the
+// stage of the tile's last k-step is freed for the next tile's loads.
 template <class C>
 __device__ __forceinline__ void consume(float (&acc)[C::BN / 2], const Smem<C>& sm, int n,
-                                        int wg) {
+                                        int wg, int it0 = 0, bool release_last = false) {
 #pragma unroll
   for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.0f;
-  for (int it = 0; it < n; ++it) {
+  for (int step = 0; step < n; ++step) {
+    const int it = it0 + step;
     const int s = it % C::STAGES;
     wait(sm.full + 8 * s, (it / C::STAGES) & 1);
     const uint32_t a_s = sm.a(s), b_s = sm.b(s);
@@ -217,10 +221,12 @@ __device__ __forceinline__ void consume(float (&acc)[C::BN / 2], const Smem<C>& 
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();  // the group of step it - 1 is done: free its stage
     hopper::fence_regs(acc);
-    if (it > 0) arrive_if(sm.empty + 8 * ((it - 1) % C::STAGES), threadIdx.x % 128 == 0);
+    if (step > 0) arrive_if(sm.empty + 8 * ((it - 1) % C::STAGES), threadIdx.x % 128 == 0);
   }
   hopper::wgmma_wait<0>();
   hopper::fence_regs(acc);
+  if (release_last && n > 0)
+    arrive_if(sm.empty + 8 * ((it0 + n - 1) % C::STAGES), threadIdx.x % 128 == 0);
 }
 
 // The (row, column) of wgmma's output that acc[i] of this thread holds,

@@ -15,16 +15,20 @@
 //
 // What bounds it on an H100: integer operations.  One Philox4x32-10 call is
 // ten rounds of two mul.lo, two mul.hi and three xors, plus the key bumps:
-// about 100 integer instructions for four words, where threefry2x32-20 on
-// the counter path takes about 75 for its one used word.  In K5 the draw
-// sits in the epilogue of a GEMM whose tensor-core mainloop dominates.
+// about 90 integer instructions for four words, where threefry2x32-20 on
+// the counter path takes about 75 for its one used word.  Drawn in K5's
+// epilogue after the mainloop, one call an element, the bits cost more than
+// the GEMM (PERF.md's split: 0.16 of 0.18 ms over rate 0 at
+// minicpm-2b's attention output projection).
 //
-// What the design does about it: simple and right first.  Each element runs
-// one Philox call and keeps one of its four words; the other three belong
-// to its neighbours, whose lanes compute them again.  A lane that drew four
-// neighbouring elements of one tile row could share one call (a quarter of
-// the work); K5's epilogue gives a lane strided elements, so that is left
-// for the PR that makes K5 fast.
+// What the design does about it: where the plan's PRNG tile width is a
+// multiple of 4, columns 4q..4q+3 of a row are the four words of one call,
+// and K5's wgmma tile shares it: lanes t and t ^ 1 hold those columns for
+// rows r and r + 8, each draws one row's call and hands the other two
+// words, a quarter of the calls, all drawn before the mainloop while the
+// ring fills (csrc/fused_gemm.cuh draw_ahead, in the source the plan picks:
+// kernels/fused_gemm.py shares_draw).  Elsewhere each element runs one call
+// (fg_hw_tile_bits), spread over the mainloop's k-steps on the wgmma tile.
 #pragma once
 #include <stdint.h>
 

@@ -60,10 +60,14 @@ A schedule reaches a launch as data, never as source: given a plan
 (``fusion.lowering.plan_graph``), the wrapper passes ``order_table``'s
 CTA tiles in the plan's visit order (row blocks for a row panel or a
 chained root) and runs a 1-D grid over them, and under ``hw_prng`` sets the
-``hw`` flag and the plan's PRNG tile, so the generated ``dropout_rng``
-expression draws K13's Philox4x32-10 bits (``csrc/philox.cuh``) instead of
-threefry.  Without a plan the fixed 2-D grid runs, as before schedules
-existed.
+``hw`` flag and the plan's PRNG tile, so ``dropout_rng`` draws K13's
+Philox4x32-10 bits (``csrc/philox.cuh``) instead of threefry; where that
+tile's width is a multiple of 4 (``shares_draw``) the launch takes the
+graph's second source (``generate_source(..., shared_draw=True)``), whose
+wgmma tile draws one call for four columns.  A plain or pre-reduce body
+reads its draws from a keep word the template draws; post-reduce and
+chained bodies draw per element.  Without a plan the fixed 2-D grid runs,
+as before schedules existed.
 
 What the generator does not take raises ``FusionLegalityError`` with a
 stable code; the composed reference path (``fusion.lowering``) takes all of
@@ -100,7 +104,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.brgemm import _device_table, tile_order
 
 __all__ = ["FusedKernel", "ChainedBackward", "generate_source", "generate_backward_source",
-           "source_name", "check_supported", "cta_tile", "order_table", "chain_plan",
+           "source_name", "shares_draw", "check_supported", "cta_tile", "order_table", "chain_plan",
            "chain_key_range", "chain_tile_mixed", "ChainPlan", "GemmPlan", "gemm_variant",
            "variant_of", "gemm_plan", "wgmma_tile", "split_bf16", "VARIANTS",
            "VARIANT_COUNTERS", "LAUNCHES", "GRAPH_LAUNCHES", "HW_PRNG_LAUNCHES",
@@ -268,11 +272,17 @@ def _bool(x) -> str:
 
 class _Emitter:
     """Straight-line fp32 C++ for a list of nodes: one ``const float`` a
-    value, operands read where a node takes them."""
+    value, operands read where a node takes them.  With ``drawn`` (the
+    plain and pre-reduce bodies) a ``dropout_rng`` node tests bit j of the
+    element's ``keep`` word, drawn before the body runs (``draws`` lists
+    each draw's seed expression, salt and keep threshold); otherwise it
+    draws its own bits (the post-reduce and chained bodies)."""
 
-    def __init__(self, graph: TppGraph, full_row: bool = False):
+    def __init__(self, graph: TppGraph, full_row: bool = False, drawn: bool = False):
         self.graph = graph
         self.full_row = full_row
+        self.drawn = drawn
+        self.draws: list[tuple[str, int, int]] = []
         self.ep_index = {o.name: i for i, o in enumerate(graph.epilogue_operands)}
         self.env: dict[str, str] = {}
         self.lines: list[str] = []
@@ -301,8 +311,18 @@ class _Emitter:
         if len(self.graph.roots) == 1:
             self.env["acc"] = self.env[roots[0].name]
 
+    def _drawn_expr(self, nd, args) -> str:
+        """A dropout_rng node on its pre-drawn keep bit."""
+        at = nd.attr_dict()
+        rate = float(at.get("rate", 0.0))
+        if rate <= 0.0:
+            return args[0]
+        j = len(self.draws)
+        self.draws.append((args[1], int(at.get("salt", 0)) & 0xFFFFFFFF, rng.keep_threshold(rate)))
+        return f"((keep >> {j}) & 1u ? {args[0]} * {_f32_literal(1.0 / (1.0 - rate))} : 0.0f)"
+
     def nodes(self, nodes):
-        if any(nd.op in HW_PRNG_OPS for nd in nodes):
+        if not self.drawn and any(nd.op in HW_PRNG_OPS for nd in nodes):
             # the width of K13's tile: the plan's, or full rows after the
             # reducing node
             self.lines.append(f"    const int prng_tn = {'a.N' if self.full_row else 'a.prng_tn'};")
@@ -310,8 +330,10 @@ class _Emitter:
             args = [self.value(r) for r in nd.inputs]
             var = f"v_{_ident(nd.name)}"
             attrs = ", ".join(f"{a}={v}" for a, v in nd.attrs)
+            expr = (self._drawn_expr(nd, args) if self.drawn and nd.op in HW_PRNG_OPS
+                    else _EXPR[nd.op](args, nd.attr_dict()))
             self.lines.append(
-                f"    const float {var} = {_EXPR[nd.op](args, nd.attr_dict())};"
+                f"    const float {var} = {expr};"
                 f"  // {nd.name} = {nd.op}({', '.join(nd.inputs)}" + (f"; {attrs}" if attrs else "") + ")")
             self.env[nd.name] = var
 
@@ -321,6 +343,7 @@ class _Emitter:
 
 
 _ARGS = "int gm, int gn, const FusedArgs& a, const FgCtx& c"
+_KEEP_ARGS = "uint32_t keep, " + _ARGS
 # Epi in an anonymous namespace: every template instantiated on it (and
 # each function-local static there, such as a kernel's shared-memory
 # attribute set once) belongs to its own library.  Under one external name
@@ -334,23 +357,46 @@ def _scratch(j: int) -> str:
     return f"a.scratch[c.off(a.s_scratch) + ((long long){j} * a.M + gm) * a.N + gn]"
 
 
-def _plain_body(graph: TppGraph) -> list[str]:
-    em = _Emitter(graph)
+def _draw_members(draws, shared: bool) -> list[str]:
+    """The Epi members that key the plain or pre-reduce body's draws: their
+    count, whether the wgmma tile shares one K13 call among four columns,
+    and each draw's seed, salt and keep threshold."""
+    seeds = _select([d[0] for d in draws], "0u", "j")
+    salts = _select([f"{d[1]}u" for d in draws], "0u", "j")
+    thresh = _select([f"{d[2]}u" for d in draws], "0u", "j")
+    return [
+        "  // the dropout_rng draws of the body below, bit j of its keep word",
+        f"  static constexpr int NDRAW = {len(draws)};",
+        "  // K13 under the wgmma tile: one Philox call for four columns of a row",
+        "  // (the plan's PRNG tile width a multiple of 4), shared by a lane pair",
+        f"  static constexpr bool DRAW4 = {_bool(shared)};",
+        "  __device__ __forceinline__ static void draw_key(int j, const FusedArgs& a, uint32_t& seed,",
+        "                                                  uint32_t& salt, uint32_t& thresh) {",
+        f"    seed = {seeds};",
+        f"    salt = {salts};",
+        f"    thresh = {thresh};",
+        "  }",
+    ]
+
+
+def _plain_body(graph: TppGraph, shared_draw: bool = False) -> list[str]:
+    em = _Emitter(graph, drawn=True)
     em.roots([f"acc[{i}]" for i in range(len(graph.base_roots))])
     em.nodes(graph.nodes)
     em.outputs()
-    return [f"  __device__ __forceinline__ static void apply(const float* acc, {_ARGS}, float* out) {{",
-            *em.lines, "  }"]
+    return [*_draw_members(em.draws, shared_draw),
+            f"  __device__ __forceinline__ static void apply(const float* acc, {_KEEP_ARGS}, "
+            "float* out) {", *em.lines, "  }"]
 
 
-def _panel_body(graph: TppGraph) -> list[str]:
+def _panel_body(graph: TppGraph, shared_draw: bool = False) -> list[str]:
     red = graph.reducing_node()
     idx = graph.nodes.index(red)
     op = EPILOGUE_OPS[red.op]
     staged = graph.staged_values()
     kind, eps = _RED[red.op]
     eps = float(red.attr_dict().get("eps", eps))
-    pre = _Emitter(graph)
+    pre = _Emitter(graph, drawn=True)
     pre.roots([f"acc[{i}]" for i in range(len(graph.base_roots))])
     pre.nodes(graph.nodes[:idx])
     stage = [f"    staged[{j}] = {pre.env[nm]};  // {nm}" for j, nm in enumerate(staged)]
@@ -370,9 +416,11 @@ def _panel_body(graph: TppGraph) -> list[str]:
         f"  static constexpr int RED = fg::{kind};",
         f"  static constexpr float EPS = {_f32_literal(eps)};",
         f"  static constexpr int NSTAGED = {len(staged)};",
+        *_draw_members(pre.draws, shared_draw),
         "  // pre-reduce nodes, per N tile: the reducer's computed inputs, which the",
         "  // template stages (fg::stage) in the scratch panel",
-        f"  __device__ __forceinline__ static void pre(const float* acc, {_ARGS}, float* staged) {{",
+        f"  __device__ __forceinline__ static void pre(const float* acc, {_KEEP_ARGS}, "
+        "float* staged) {",
         *pre.lines, *stage, "  }",
         "  // the reducer's value inputs at (gm, gn), from the staged panel or an operand",
         f"  __device__ __forceinline__ static float red_in(int i, {_ARGS}) {{",
@@ -514,10 +562,22 @@ def _chain_body(graph: TppGraph) -> list[str]:
     ]
 
 
-def generate_source(graph: TppGraph) -> str:
+def shares_draw(graph: TppGraph, hw_prng: bool, prng_tile) -> bool:
+    """Whether a launch takes the source whose wgmma tile draws K13's bits
+    once for four columns (``generate_source(..., shared_draw=True)``):
+    under ``hw_prng``, for a graph without a chained root that draws, on a
+    plan whose PRNG tile width is a multiple of 4 (so the four columns of
+    a lane pair are the four words of one Philox call)."""
+    return bool(hw_prng and graph.chained_root() is None and prng_tile is not None
+                and prng_tile[1] % 4 == 0 and any(nd.op in HW_PRNG_OPS for nd in graph.nodes))
+
+
+def generate_source(graph: TppGraph, shared_draw: bool = False) -> str:
     """The CUDA source of K5 for ``graph`` (already simplified): the same
     text for the same graph, every run.  The text names no graph, so graphs
-    of one structure share it (and its library)."""
+    of one structure share it (and its library).  ``shared_draw`` (see
+    ``shares_draw``) writes the source whose wgmma tile shares each K13
+    call among four columns; the plan chooses it, the kernel never does."""
     check_supported(graph)
     roots = graph.base_roots
     lhs = _lhs_names(graph)
@@ -530,7 +590,8 @@ def generate_source(graph: TppGraph) -> str:
     described = "\n".join(f"//   {line}" for line in graph.describe().splitlines()[1:])
     kind = ("a chained root (csrc/fused_chain.cuh)" if chain else
             "a row panel (csrc/fused_gemm.cuh)" if panel else "a pointwise epilogue (csrc/fused_gemm.cuh)")
-    body = _chain_body(graph) if chain else _panel_body(graph) if panel else _plain_body(graph)
+    body = (_chain_body(graph) if chain else _panel_body(graph, shared_draw) if panel
+            else _plain_body(graph, shared_draw))
     return "\n".join([
         "// K5, generated by repro_torch/kernels/fused_gemm.py for the TppGraph",
         described,
@@ -987,7 +1048,7 @@ class FusedKernel:
         self.output_only = {r.name for r in self.roots if r.name not in consumed}
         # draws counter or K13 bits: a dropout_rng node that simplification kept
         self.draws = any(nd.op in HW_PRNG_OPS for nd in graph.nodes)
-        self._lib = None
+        self._libs: dict[bool, ctypes.CDLL] = {}
         # a chained graph's plans by what decides them: each of q, k and v's
         # shape, strides, dtype and base pointer modulo 16 bytes
         # a graph without one: gemm_plan's, by the same of every lhs and rhs
@@ -1008,12 +1069,15 @@ class FusedKernel:
             found = self._plans[key] = make(self.graph, operands)
         return found
 
-    def library(self):
-        """The built and loaded library, held after the first call so a
-        launch reads no file and hashes no source."""
-        if self._lib is None:
-            self._lib = _build.load_generated(self.name, self.source)
-        return self._lib
+    def library(self, shared_draw: bool = False):
+        """The built and loaded library (of the source that shares K13's
+        draws, ``shares_draw``, with ``shared_draw``), held after the first
+        call so a launch reads no file and hashes no source."""
+        lib = self._libs.get(shared_draw)
+        if lib is None:
+            src = generate_source(self.graph, shared_draw=True) if shared_draw else self.source
+            lib = self._libs[shared_draw] = _build.load_generated(source_name(self.graph, src), src)
+        return lib
 
     def _stored(self, name, operands):
         """The (M, K)-style shape an operand is read as: its last two axes,
@@ -1219,7 +1283,7 @@ class FusedKernel:
             cta = (cplan.rows, n) if cplan is not None else gplan.tile
             order = _device_table((plan, m, n, cta), lambda: order_table(plan, m, n, cta), dev)
             args.order, args.n_order = order.data_ptr(), order.shape[0]
-        lib = self.library()
+        lib = self.library(shares_draw(g, bool(args.hw), plan.prng_tile if plan is not None else None))
         err = lib.fused_gemm(ctypes.byref(args), stream)
         _build.check(err, f"fused_gemm {g.name}")
         LAUNCHES += 1

@@ -498,7 +498,8 @@ ACCEPTED = {
     "panel layernorm_grad": (lambda f: _bwd(f, f.fused_output_graph(0.1), "dz"),
                              ["fg::RED_LN_GRAD;", "fg_dropout_rng("]),
     "trans": (_trans_graph, ["trans_rhs(int r) { return true; }"]),
-    "dropout_rng": (lambda f: f.fused_attn_out_graph(True, dropout_rate=0.1), ["fg_dropout_rng("]),
+    "dropout_rng": (lambda f: f.fused_attn_out_graph(True, dropout_rate=0.1),
+                    ["NDRAW = 1;", "(keep >> 0) & 1u ?"]),
 }
 
 

@@ -348,11 +348,12 @@ SOURCES = {
     "softmax_grad panel": (lambda: _plan_graph(tf, "attention_causal", "dz"), "fused_gemm.cuh",
                            ["fg::RED_SOFTMAX_GRAD;", "(fg_attn_keep(gm, gn, true, 0, 0) ? y : 0.0f)"]),
     "layernorm panel": (lambda: tf.fused_output_graph(0.1), "fused_gemm.cuh",
-                        ["fg::RED_LAYERNORM;", "fg_dropout_rng("]),
+                        ["fg::RED_LAYERNORM;", "(keep >> 0) & 1u ?"]),
     "trans": (lambda: _plan_graph(tf, "fused_gated_mlp_silu", "dlhs"), "fused_gemm.cuh",
               ["trans_rhs(int r) { return r == 0 ? true : true; }"]),
     "dropout_rng": (lambda: _library(tf)["fused_attn_out_do_res"], "fused_gemm.cuh",
-                    [f"{tf.library.ATTN_OUT_DROPOUT_SALT}u, {trng.keep_threshold(0.3)}u"]),
+                    [f"salt = {tf.library.ATTN_OUT_DROPOUT_SALT}u;",
+                     f"thresh = {trng.keep_threshold(0.3)}u;"]),
 }
 
 

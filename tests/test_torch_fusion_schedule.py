@@ -109,6 +109,83 @@ def test_hw_tile_bits_is_a_stream_over_the_tile():
     assert trng.HW_SCHEME == "philox4x32-10"
 
 
+@pytest.mark.parametrize("tile", [(512, 256), (512, 512), (64, 128), (16, 4), (3, 12)])
+def test_four_columns_of_a_row_are_one_philox_call(tile):
+    """The invariant K5's shared draw rests on: where the PRNG tile's width
+    is a multiple of 4, columns 4j..4j+3 of a row are the four words, in
+    order, of one ``philox4x32`` call (counter (row0, col0, local / 4, 0))."""
+    seed, salt = 99, trng.derive_salt("shared-draw")
+    tm, tn = tile
+    shape = (2 * tm, 2 * tn)
+    bits = trng.hw_bits(seed, salt, shape, tile)
+    for r in sorted({0, 1, tm - 1, tm, shape[0] - 1}):
+        for j in sorted({0, 1, tn // 4 - 1, tn // 4, shape[1] // 4 - 1}):
+            c = 4 * j
+            row0, col0 = r - r % tm, c - c % tn
+            local = (r - row0) * tn + (c - col0)
+            assert local % 4 == 0
+            words = trng.philox4x32((row0, col0, local // 4, 0), (seed, salt))
+            assert [int(bits[r, c + i]) for i in range(4)] == [int(w) for w in words]
+
+
+@pytest.mark.parametrize("tile", [(8, 6), (4, 10), (16, 2)])
+def test_four_columns_split_across_calls_when_the_width_is_not_a_multiple_of_4(tile):
+    """Why the generator keeps one call an element there: some aligned
+    group of four columns takes words of two Philox calls."""
+    seed, salt = 99, trng.derive_salt("shared-draw")
+    tm, tn = tile
+    bits = trng.hw_bits(seed, salt, (tm, 4 * tn), tile)
+    split = False
+    for r in range(tm):
+        for c in range(0, 4 * tn, 4):
+            locals_ = [(r % tm) * tn + (c + i) % tn for i in range(4)]
+            split = split or len({(c + i - (c + i) % tn, q // 4) for i, q in enumerate(locals_)}) > 1
+    assert split
+    assert not fused_gemm.shares_draw(tf.simplify_graph(_rng_graph(tf)), True, tile)
+
+
+def _lane_pair_draw(seed, salt, tile, row0, n0, bn):
+    """A torch model of csrc/fused_gemm.cuh draw_tile's shared draw for one
+    warp of a wgmma tile: lane t holds rows 16 w + t / 4 (acc[4g], [4g + 1])
+    and + 8 (acc[4g + 2], [4g + 3]) at columns 8 g + 2 (t % 4) + {0, 1};
+    the even lane of a pair draws row r's block of four columns, the odd
+    lane row r + 8's, and each hands the other two words.  → the bits each
+    (row, column) of the warp's 16 rows received."""
+    tm, tn = tile
+    got = {}
+    for g in range(bn // 8):
+        drawn = {}
+        for lane in range(32):
+            even = lane % 2 == 0
+            gm = row0 + lane // 4 + (0 if even else 8)
+            cb = n0 + 8 * g + 2 * (lane % 4) - (0 if even else 2)
+            r0, c0 = gm - gm % tm, cb - cb % tn
+            drawn[lane] = [int(w) for w in trng.philox4x32(
+                (r0, c0, ((gm - r0) * tn + cb - c0) >> 2, 0), (seed, salt))]
+        # what each lane hands its partner (__shfl_xor_sync(..., 1))
+        send = {lane: (w[2], w[3]) if lane % 2 == 0 else (w[0], w[1]) for lane, w in drawn.items()}
+        for lane in range(32):
+            even = lane % 2 == 0
+            w, (got0, got1) = drawn[lane], send[lane ^ 1]
+            lo = (w[0], w[1]) if even else (got0, got1)
+            hi = (got0, got1) if even else (w[2], w[3])
+            c = n0 + 8 * g + 2 * (lane % 4)
+            r = row0 + lane // 4
+            got[(r, c)], got[(r, c + 1)] = lo
+            got[(r + 8, c)], got[(r + 8, c + 1)] = hi
+    return got
+
+
+@pytest.mark.parametrize("tile,row0,n0,bn", [((512, 256), 64, 128, 128), ((512, 512), 0, 384, 128),
+                                             ((16, 4), 32, 64, 64), ((8, 12), 16, 0, 64)])
+def test_the_lane_pair_exchange_gives_every_element_its_own_bits(tile, row0, n0, bn):
+    seed, salt = 4242, trng.derive_salt("attn_out")
+    got = _lane_pair_draw(seed, salt, tile, row0, n0, bn)
+    want = trng.hw_bits(seed, salt, (row0 + 16, n0 + bn), tile)
+    assert len(got) == 16 * bn
+    assert all(v == int(want[r, c]) for (r, c), v in got.items())
+
+
 # ---------------------------------------------------------------------------
 # The nest, held against the reference's
 # ---------------------------------------------------------------------------
@@ -409,8 +486,11 @@ def test_compile_with_vjp_refuses_hw_prng_on_a_prng_graph():
 
 
 def test_generated_source_draws_k13_under_the_flag():
+    # a plain or pre-reduce draw: its key in the source, its bits drawn by
+    # the template (keep_bits, draw_tile) from the flag and the plan's tile
     src = fused_gemm.generate_source(tf.simplify_graph(_rng_graph(tf)))
-    assert "a.hw, a.prng_tm, prng_tn)" in src and "const int prng_tn = a.prng_tn;" in src
+    assert "static constexpr int NDRAW = 1;" in src and "DRAW4 = false;" in src
+    assert "(keep >> 0) & 1u ?" in src and "prng_tn" not in src
     post = tf.TppGraph.chain("sd", [("softmax", (), {}), ("dropout_rng", ("seed",),
                                                           {"rate": 0.5, "salt": 3})],
                              [("x", "lhs"), ("w", "rhs"), ("seed", "scalar")])
@@ -418,6 +498,25 @@ def test_generated_source_draws_k13_under_the_flag():
     # a graph without a draw: no change of source for the flag
     assert "prng_tn" not in fused_gemm.generate_source(tf.simplify_graph(
         tf.fused_gated_mlp_graph("silu")))
+
+
+@pytest.mark.parametrize("tile,shared", [((64, 128), True), ((32, 4), True), ((64, 6), False),
+                                         ((16, 130), False), (None, False)])
+def test_generated_source_shares_the_draw_only_when_the_width_is_a_multiple_of_4(tile, shared):
+    """The plan, not the kernel, picks the source whose wgmma tile shares
+    each Philox call among four columns: under hw_prng, a graph that draws,
+    a PRNG tile width that is a multiple of 4."""
+    g = tf.simplify_graph(_rng_graph(tf))
+    assert fused_gemm.shares_draw(g, True, tile) == shared
+    assert not fused_gemm.shares_draw(g, False, tile)
+    assert not fused_gemm.shares_draw(tf.simplify_graph(tf.fused_gated_mlp_graph("silu")), True,
+                                      tile)
+    src = fused_gemm.generate_source(g, shared_draw=fused_gemm.shares_draw(g, True, tile))
+    assert ("DRAW4 = true;" in src) == shared and ("DRAW4 = false;" in src) != shared
+    # the two sources differ only in that constant, so each builds its own library
+    plain = fused_gemm.generate_source(g)
+    assert (src == plain) != shared
+    assert src.replace("DRAW4 = true;", "DRAW4 = false;") == plain
 
 
 # ---------------------------------------------------------------------------

@@ -64,8 +64,12 @@ Phases, each of which must pass:
      wgmma variant, each bitwise equal to "bca"'s, K1 on the flat product
      and (at 2048^3) the WMMA variant beside it; K1 under
      those spec strings at llama2-13b's 5120x5120 projection, bitwise equal
-     to its fixed grid; K12 at ResNet-50's 1x1 layers) against its
-     plain PyTorch version on the card, at the main paths' shapes plus GQA,
+     to its fixed grid; K12 at ResNet-50's 1x1 layers; K1, K2, K3 and K4
+     at gemma3-12b's shapes: the tied logits at N 262144, K2 with a
+     1024-key window at D 256 and S 2048 and 32768, K3 windowed at
+     lengths 2048 and 32768 and over the ring of 1024, K4 windowed at the
+     engine's lengths) against its plain PyTorch version on the card, at
+     the main paths' shapes plus GQA,
      windowed and ragged ones; print error and tolerance, the median time
      over CUDA events, the plain version's time, one PyTorch library call's
      time as a yardstick (the port never calls it) and the bound;
@@ -74,7 +78,8 @@ Phases, each of which must pass:
      (kernels) and on the
      CPU (plain versions), without and with ``use_fusion``: the logits must
      agree, and the greedy tokens and the engine's greedy and sampled tokens
-     must be equal;
+     must be equal; and reduced gemma3-12b unfused, with prompts longer
+     than its 32-key window and decoding past the end of a ring;
   5. serve full-width llama2-13b (bf16, all 40 layers, random weights from a
      seed, batch 4, prompt 512, 16 new tokens) through ``generate_loop`` with
      every launch counter set to 0 just before and read just after: K1, K2
@@ -97,10 +102,23 @@ Phases, each of which must pass:
      beside the unfused path's and the bounds, and how far the fused logits
      and tokens are from the unfused ones; then drain 8 requests through the
      engine on 8 slots and on 3: equal tokens, ``validate()`` clean;
- 7f. (after 7e) serve full-width gpt-j-6b (bf16, all 28 layers, head dim
-     256) through the engine: 8 ragged requests on 8 slots with
+ 7f. (after 7e) serve full-width gpt-j-6b (bf16, 4 of its 28 layers, head
+     dim 256) through the engine: 8 ragged requests on 8 slots with
      ``validate()`` after every step, K4 at D 256 once a layer a decode
      step, and a 3-slot drain with equal tokens;
+ 7g. serve gemma3-12b at full width and depth (bf16, 48 layers, d 3840, 5
+     local layers of a 1024-key window to 1 global, random weights from a
+     seed): size the engine with ``serve.probe`` by bytes against the
+     card's memory, run one decode step at that size (it fits) and at twice
+     its slots (out of memory: ``False``); then ``generate_loop`` (B 2,
+     prompt 2048, 32 new tokens), one 32768-token prompt (16 new tokens,
+     timed beside its bounds, peak memory), the ring-buffer cache
+     (``init_cache(ring_local=True)`` at max_seq 32768, B 2, a 1000-token
+     prompt and 64 steps, teacher-forced against the full-length cache
+     within the bf16 tolerance) and the engine (8 requests of 1100..2000
+     tokens on 8 slots), each with every counter set to 0 just before and
+     read just after: K2 48 times a prefill, K3 or K4 48 times a step, K1
+     7 x 48 + 1 times a prefill or step, nothing else;
  7b. free llama2-13b and serve full-width falcon-mamba-7b (bf16, all 64
      layers, random weights from a seed): K8 must launch once per layer per
      prefill and per decode step and K1 four times per layer plus the
@@ -131,8 +149,9 @@ Phases, each of which must pass:
      must agree), and check that 2 steps + checkpoint + restore + 2 steps
      give the parameters of 4 steps straight, bit for bit; then 3 steps of
      each with ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
-  9. train minicpm-2b at full width and depth (fp32 masters, bf16 compute,
-     B 4 x S 1024, remat) for 6 trainer steps with every launch counter set
+  9. train minicpm-2b at full width, 16 of its 40 layers (fp32 masters,
+     bf16 compute, B 4 x S 1024, remat) for 6 trainer steps with every
+     launch counter set
      to 0 just before and read just after: losses and grad norms finite, K1
      (plain and transposed), K2 and K6 launched as often as the layer count
      implies, every K6 launch on its tensor-core kernels
@@ -1380,6 +1399,155 @@ def paged_decode_cases(torch, bench, ref, fa):
     except ValueError:
         refused = True
     check(refused, "K4 took pools whose base is not 16-byte aligned")
+
+
+def sdpa_backend(torch, fn):
+    """The backend ``scaled_dot_product_attention`` picks for ``fn()``: the
+    ``aten::_scaled_dot_product_*`` op one profiled call dispatches to
+    (flash, efficient, cudnn, or the math fallback's ``..._attention_math``)
+    and its device kernel with the most time; → "op (kernel)"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = sorted({e.key for e in events if e.key.startswith("aten::_scaled_dot_product_")})
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    top = max(kernels, key=lambda e: e.self_device_time_total).key if kernels else "none"
+    return f"{', '.join(ops) or 'no aten::_scaled_dot_product_* op'} ({top[:90]})"
+
+
+# gemma3-12b's attention shapes (H 16, Hk 8, D 256; 5 of 6 layers local with
+# a 1024-key window) and its tied logits (N 262144)
+G3 = dict(h=16, hk=8, d=256, window=1024, d_model=3840, vocab=262144)
+
+
+def gemma3_kernel_cases(torch, bench, ref, fa, brgemm):
+    """K1, K2, K3 and K4 at gemma3-12b's shapes, where no earlier path took
+    them: K2 on a local layer's prefill (window 1024, GQA 16/8, D 256) at B
+    2 x S 2048 and B 1 x S 32768 (plain version in query blocks,
+    ``ref.attention_chunked``; library: SDPA with the banded boolean mask
+    on k and v repeated to 16 heads, its backend named); K3 windowed at
+    lengths 2048 and 32768 over generate_loop's caches and over the ring
+    of 1024 without a window (library: SDPA over the live keys); K4
+    windowed at page 16 over the engine's lengths 1100..2000 (library:
+    index_select of the pages and SDPA masked to the window); K1's logits
+    at M 2 x K 3840 x N 262144 against the tied embedding's transposed
+    view, fp32 out (library: torch.matmul, bf16 out).  Each case is a check
+    (weight 0) with its times and bound; K3's and K4's with device times."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    FUSED_SDPA = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                  SDPBackend.CUDNN_ATTENTION]
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    bf16 = torch.bfloat16
+    h, hk, d, w = G3["h"], G3["hk"], G3["d"], G3["window"]
+    backends = {}
+    for b, s in ((2, 2048), (1, 32768)):
+        label = f"gemma3 local B{b} H{h} Hk{hk} S{s} D{d} window{w}"
+        q, k, v = _attention_operands(torch, gen, b, h, hk, s, s, d, bf16, "proj")
+        keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril().triu(-(w - 1))
+        kr = k.repeat_interleave(h // hk, dim=1)
+        vr = v.repeat_interleave(h // hk, dim=1)
+
+        def library():
+            # the fused backends only: the math one would hold S x S scores
+            with sdpa_kernel(FUSED_SDPA):
+                return F.scaled_dot_product_attention(q, kr, vr, attn_mask=keep)
+
+        try:
+            backends[label] = sdpa_backend(torch, library)
+        except RuntimeError as e:       # no fused backend takes this mask
+            backends[label] = f"none: {str(e).splitlines()[0]}"
+            library = None
+        plain = ref.attention_ref if s <= 4096 else ref.attention_chunked
+        pairs = sum(min(i + 1, w) for i in range(s))
+        bench.run("flash_attention", label,
+                  lambda: fa.flash_attention(q, k, v, causal=True, window=w),
+                  lambda: plain(q, k, v, causal=True, window=w), library,
+                  flops=4 * b * h * d * pairs,
+                  nbytes=2 * (2 * b * h * s * d + 2 * b * hk * s * d),
+                  dtype="bfloat16", tol_kind="attn")
+        bench.cases["flash_attention"][-1]["library_backend"] = backends[label]
+        print(f"    library: SDPA with the banded boolean mask: {backends[label]}", flush=True)
+        del q, k, v, kr, vr, keep
+    for label, b, s, length, window in (
+            (f"gemma3 local B2 H{h} Hk{hk} S2080 D{d} len2048 window{w}", 2, 2080, 2048, w),
+            (f"gemma3 local B1 H{h} Hk{hk} S32784 D{d} len32768 window{w}", 1, 32784, 32768, w),
+            (f"gemma3 ring B2 H{h} Hk{hk} S{w} D{d} len{w}", 2, w, w, None)):
+        q = torch.randn(b, h, d, generator=gen, device="cuda").to(bf16)
+        kc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(bf16)
+        vc = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(bf16)
+        lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+        valid = b * (min(length, window) if window else length)
+        lo = length - window if window else 0
+        fn = lambda: fa.flash_decode(q, kc, vc, length=lens, window=window)  # noqa: E731
+        bench.run("flash_decode", label, fn,
+                  lambda: ref.decode_attention_ref(q, kc, vc, length=lens, window=window),
+                  lambda: F.scaled_dot_product_attention(q[:, :, None], kc[:, :, lo:length],
+                                                         vc[:, :, lo:length], enable_gqa=True),
+                  flops=4 * h * d * valid, nbytes=2 * (2 * b * h * d + 2 * hk * d * valid),
+                  dtype="bfloat16", tol_kind="attn")
+        device_row(torch, bench, "flash_decode", fn)
+        plan = fa.decode_plan(q, kc, vc)
+        live = -(-length // fa.DECODE_CHUNK) - (lo // fa.DECODE_CHUNK)
+        print(f"    K3 plan: grid {plan.grid} ({plan.chunks} chunks of {plan.chunk} keys launched"
+              f" per (batch, kv head), {live} of them holding a live key)", flush=True)
+        bench.cases["flash_decode"][-1].update(chunks_launched=plan.chunks, chunks_live=live)
+        del q, kc, vc
+    # the engine's paged decode on local layers: 8 slots of 1100..2000 tokens
+    import numpy as np
+    lens = [int(x) for x in np.random.default_rng(28).integers(1100, 2001, 8)]
+    b, ps, maxp = 8, 16, 129
+    npages = b * maxp
+    q = torch.randn(b, h, d, generator=gen, device="cuda").to(bf16)
+    kp = torch.randn(npages + 1, ps, hk, d, generator=gen, device="cuda").to(bf16)
+    vp = torch.randn(npages + 1, ps, hk, d, generator=gen, device="cuda").to(bf16)
+    table = _page_table(torch, lens, ps, maxp, npages, seed=28)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pos = torch.arange(maxp * ps, device="cuda")[None, :]
+    keep = ((pos < length[:, None]) & (pos >= length[:, None] - w))[:, None, None, :]
+    flat = table.flatten()
+
+    def library():
+        kd = kp.index_select(0, flat).view(b, maxp * ps, hk, d).transpose(1, 2)
+        vd = vp.index_select(0, flat).view(b, maxp * ps, hk, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kd, vd, attn_mask=keep,
+                                              enable_gqa=True)
+
+    def fn():
+        return fa.paged_decode(q, kp, vp, table, page_size=ps, length=length, window=w)
+
+    valid = sum(min(n, w) for n in lens)
+    pages_read = sum((n - 1) // ps - max(n - w, 0) // ps + 1 for n in lens)
+    bench.run("paged_decode", f"gemma3 local B8 H{h} Hk{hk} D{d} ps16 len1100..2000 window{w}", fn,
+              lambda: ref.paged_decode_attention_ref(q, kp, vp, table, page_size=ps,
+                                                     length=length, window=w),
+              library, flops=4 * h * d * valid,
+              nbytes=2 * (2 * b * h * d + 2 * hk * d * valid) + 4 * (pages_read + b),
+              dtype="bfloat16", tol_kind="attn")
+    device_row(torch, bench, "paged_decode", fn)
+    del q, kp, vp
+    # the tied logits of a decode step: (2, 3840) @ embed (262144, 3840)^T, fp32 out
+    m, k, n = 2, G3["d_model"], G3["vocab"]
+    a = torch.randn(m, k, generator=gen, device="cuda").to(bf16)
+    embed = (torch.randn(n, k, generator=gen, device="cuda") * 0.02).to(bf16)
+    wt = embed.T
+    check(brgemm.variant_of(a, wt) == "wgmma_decode", "K1 gemma3 logits: not on wgmma_decode")
+    fn = lambda: brgemm.matmul(a, wt, out_dtype=torch.float32)  # noqa: E731
+    bench.run("gemm", f"gemma3 logits {m}x{k}x{n} tied fp32 out", fn,
+              lambda: ref.matmul_ref(a, wt, out_dtype=torch.float32),
+              lambda: torch.matmul(a, wt),
+              flops=2 * m * n * k, nbytes=2 * (m * k + k * n) + 4 * m * n,
+              dtype="bfloat16", tol_kind="gemm")
+    bench.cases["gemm"][-1]["device_ms"] = device_ms(torch, fn)
+    print(f"    device {bench.cases['gemm'][-1]['device_ms']:.4f} ms", flush=True)
+    bench.extra["gemma3_sdpa_backends"] = backends
+    del a, embed, wt
+    torch.cuda.empty_cache()
 
 
 def sm_clock_ghz():
@@ -3325,31 +3493,126 @@ def reduced_engine(cfg, params):
     return tokens, {uid: eng.status(uid).value for uid in tokens}, eng.stats
 
 
+def gemma3_reduced(torch, counters):
+    """Reduced fp32 gemma3-12b (5 local layers of a 32-key window, 1
+    global), CUDA kernels against CPU plain versions: a 40-token prompt on
+    full-length caches (windowed local layers) and 8 decode steps; a
+    24-token prompt on the ring (``init_cache(ring_local=True)``: 32
+    positions a local layer) and 16 steps past its end, teacher-forced on
+    both devices and against the card's full-length cache; generate_loop
+    on the 40-token prompt (equal greedy tokens); and 6 requests of 33..50
+    tokens through a 3-slot engine (equal tokens and statuses).  K1, K2,
+    K3 and K4 must launch on the card."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, EngineConfig
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    rtol, atol = MODEL_TOL
+    cfg = get_config("gemma3_12b").reduced()
+    w = cfg.sliding_window
+    counters.reset()
+    cpu = lm.init_params(cfg, seed=0, device="cpu")
+    params = {"cpu": cpu, "cuda": _to_cuda(cpu)}
+    gen = torch.Generator().manual_seed(28)
+    long_prompt = torch.randint(0, cfg.vocab_size, (2, w + 8), generator=gen)
+    short = long_prompt[:, :24]
+    forced = torch.randint(0, cfg.vocab_size, (16, 2), generator=gen)
+    worst = 0.0
+    runs = {}
+    for name, prompt, ring, steps in (("full", long_prompt, False, 8), ("ring", short, True, 16),
+                                      ("full_forced", short, False, 16)):
+        devs = ("cpu", "cuda") if name != "full_forced" else ("cuda",)
+        out = {}
+        for dev in devs:
+            caches = lm.init_cache(cfg, 2, 64, ring, device=dev)
+            if ring:
+                check(caches[0]["k"].shape[2] == w and caches[5]["k"].shape[2] == 64,
+                      f"gemma3 reduced ring: local {caches[0]['k'].shape[2]}, global"
+                      f" {caches[5]['k'].shape[2]} positions")
+            lg, caches = lm.prefill(cfg, params[dev], caches, {"tokens": prompt.to(dev)})
+            seq = [lg.cpu()]
+            p = prompt.shape[1]
+            for t in range(steps):
+                lg, caches = lm.decode_step(cfg, params[dev], caches, forced[t].to(dev), p + t)
+                seq.append(lg.cpu())
+            out[dev] = torch.stack(seq)
+        if "cpu" in out:
+            err = float((out["cuda"] - out["cpu"]).abs().max())
+            worst = max(worst, err)
+            check(torch.allclose(out["cuda"], out["cpu"], rtol=rtol, atol=atol),
+                  f"gemma3 reduced {name}: GPU and CPU logits differ by {err:.3e}")
+        runs[name] = out["cuda"]
+    ring_err = float((runs["ring"] - runs["full_forced"]).abs().max())
+    check(torch.allclose(runs["ring"], runs["full_forced"], rtol=rtol, atol=atol),
+          f"gemma3 reduced: the ring's logits past its end differ from the full-length cache's"
+          f" by {ring_err:.3e}")
+    scfg = ServeConfig(max_seq=64)
+    toks = {dev: generate_loop(cfg, params[dev], long_prompt, 8, scfg=scfg).cpu() for dev in params}
+    same = torch.equal(toks["cuda"], toks["cpu"])
+    rng = np.random.default_rng(28)
+    reqs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(w + 1, w + 19))).tolist(),
+             int(rng.integers(4, 10)), 0.8 if i % 2 else 0.0) for i in range(6)]
+    served = {}
+    for dev in params:
+        eng = Engine(cfg, params[dev], EngineConfig(num_slots=3, page_size=4, max_seq=64,
+                                                    segment_len=4, seed=7))
+        for prompt, new, temp in reqs:
+            eng.submit(prompt, new, temperature=temp)
+        while not eng.idle:
+            eng.step()
+            eng.validate()
+        served[dev] = ({uid: eng.collect(uid) for uid in range(len(reqs))},
+                       {uid: eng.status(uid).value for uid in range(len(reqs))})
+    engine_same = served["cuda"] == served["cpu"]
+    launches = counters.read()
+    print(f"  gemma3_12b-reduced fp32: max logit diff {worst:.3e} (rtol {rtol}, atol {atol}) on"
+          f" full-length caches (prompt {w + 8} > window {w}) and on the ring (16 steps past its"
+          f" {w} positions); ring against full-length cache on the card {ring_err:.3e}; greedy"
+          f" tokens equal: {same}; engine tokens and statuses equal: {engine_same}"
+          f" ({len(reqs)} requests of {w + 1}..{w + 18} tokens); launches K1"
+          f" {launches['gemm'] + launches['gemm_transposed']}, K2 {launches['flash_attention']},"
+          f" K3 {launches['flash_decode']}, K4 {launches['paged_decode']}", flush=True)
+    check(same, "gemma3 reduced: greedy tokens differ between GPU and CPU")
+    check(engine_same, "gemma3 reduced: engine tokens or statuses differ between GPU and CPU")
+    for name in ("gemm", "flash_attention", "flash_decode", "paged_decode"):
+        check(launches[name] > 0, f"gemma3 reduced: kernel {name} was not launched")
+
+
 def serving_bounds(cfg, params, batch, prompt_len, new, peaks):
     """Least card time for the main path's prefill and for one decode step,
     each the larger of its bytes over the HBM rate and its operations over
     the bf16 peak.  Bytes: every weight the step reads once (the embedding
     only in the rows it gathers) and the K/V cache written or read once.
-    Operations: the projections, the causal attention and the last
-    token's logits."""
+    Operations: the projections, the causal attention (a sliding-window
+    layer's within its window) and the last token's logits."""
+    from repro_torch.models import lm
+
     layer_w = [t for layer in params["layers"] for sub in layer.values() for t in sub.values()]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     w_bytes = sum(t.numel() * t.element_size() for t in layer_w + [head]) \
         + sum(t.numel() * t.element_size() for t in params["final_norm"].values())
     proj = sum(t.numel() for t in layer_w if t.dim() == 2)
-    L, h, hk, d = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    kv_token = 2 * L * batch * hk * d * params["embed"].element_size()
+    h, hk, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    windows = [cfg.sliding_window if kind == "local" else None for kind in lm.layer_kinds(cfg)]
+    kv_token = 2 * len(windows) * batch * hk * d * params["embed"].element_size()
     logits = 2 * batch * cfg.d_model * cfg.padded_vocab
 
     def bound(flops, nbytes):
         return max(flops / peaks["bf16"], nbytes / peaks["hbm"]) * 1e3
 
-    pairs = prompt_len * (prompt_len + 1) // 2
-    prefill = bound(2 * batch * prompt_len * proj + 4 * L * batch * h * d * pairs + logits,
+    def pairs(n, w):                          # causal (query, key) pairs of n tokens
+        w = n if w is None else min(w, n)
+        return w * (w + 1) // 2 + (n - w) * w
+
+    prefill_pairs = sum(pairs(prompt_len, w) for w in windows)
+    prefill = bound(2 * batch * prompt_len * proj + 4 * batch * h * d * prefill_pairs + logits,
                     w_bytes + kv_token * prompt_len)
     length = prompt_len + new / 2            # the mean cache length over the decode steps
-    decode = bound(2 * batch * proj + 4 * L * batch * h * d * length + logits,
-                   w_bytes + kv_token * length)
+    keys = sum(length if w is None else min(length, w) for w in windows)
+    decode = bound(2 * batch * proj + 4 * batch * h * d * keys + logits,
+                   w_bytes + kv_token / len(windows) * keys)
     return {"prefill_bound_ms": prefill, "decode_bound_ms_per_token": decode}
 
 
@@ -3445,15 +3708,18 @@ def engine_requests(cfg, n=16):
     return reqs
 
 
-def drain(torch, cfg, params, reqs, *, num_slots, validate=True, tracer=None, logits=None):
+def drain(torch, cfg, params, reqs, *, num_slots, validate=True, tracer=None, logits=None,
+          ecfg=None):
     """Submit ``reqs`` to a fresh engine and run it dry; → (engine, wall ms
     of the drain).  Builds the pools before the clock starts.  A list
     passed as ``logits`` receives a device copy of every (uids, positions,
-    logits) the engine samples from."""
+    logits) the engine samples from.  ``ecfg`` overrides ``ENGINE``'s
+    other fields."""
     from repro_torch.serve import Engine, EngineConfig
     from repro_torch.serve import engine as engine_mod
 
-    eng = Engine(cfg, params, EngineConfig(**dict(ENGINE, num_slots=num_slots)), tracer=tracer)
+    eng = Engine(cfg, params, EngineConfig(**dict(ENGINE, num_slots=num_slots, **(ecfg or {}))),
+                 tracer=tracer)
     for r in reqs:
         eng.submit(r["prompt"], r["max_new"], temperature=r.get("temperature", 0.0),
                    top_k=r.get("top_k", 0), top_p=r.get("top_p", 1.0))
@@ -3477,16 +3743,19 @@ def drain(torch, cfg, params, reqs, *, num_slots, validate=True, tracer=None, lo
 
 
 def gptj_engine(torch, counters):
-    """gpt-j-6b at full width and depth (bf16, 28 layers of d 4096, 16 heads
-    of 256, random weights from a seed; ~12 GB) through the serving engine:
+    """gpt-j-6b at full width, cut to 4 of its 28 layers (bf16, d 4096, 16
+    heads of 256, random weights from a seed; 2.3 GB): gemma3's engine
+    (phase 7g) runs K4 at head dim 256 at full depth.  Through the serving
+    engine:
     8 of phase 6's ragged requests, greedy and sampled, on 8 slots with
     ``validate()`` after every step and every launch counter set to 0 just
     before and read just after (K4, at head dim 256, once a layer a decode
     step), then on 3 slots: the tokens must be equal."""
+    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
 
-    cfg = get_config("gptj_6b")
+    cfg = dataclasses.replace(get_config("gptj_6b"), num_layers=4)
     start = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3527,6 +3796,240 @@ def gptj_engine(torch, counters):
         torch, counters, lambda: drain(torch, cfg, params, short, num_slots=ENGINE["num_slots"],
                                        validate=False), "phase 7f gpt-j-6b engine, 2 requests")
     del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def gemma3_full_width(torch, counters, peaks, card_line):
+    """gemma3-12b at full width and depth (bf16, 48 layers of d 3840, 5 local
+    layers of a 1024-key window to 1 global, 16 heads of 256 on 8 kv heads,
+    262144 tied vocabulary rows; random weights from a seed; 23.5 GB):
+    (d's probe first: ``trial(execute=True)`` builds its own weights, so it
+    runs before ours are made) the engine's size by bytes against the
+    card's memory (``max_feasible_slots``, page 16, max_seq 2064), one
+    executed trial at that spec (it fits) and one at twice its slots (it
+    must return False through the out-of-memory path); (a)
+    ``generate_loop`` at B 2, prompt 2048, 32 new tokens; (b) one 32768-token
+    prompt and 16 new tokens through ``prefill``/``decode_step`` on a
+    full-length cache, timed beside its bounds, with peak memory and one
+    more decode step profiled; (c) the
+    ring: ``init_cache(ring_local=True)`` at max_seq 32768, B 2, a 1000-token
+    prompt and 64 steps (every local layer wraps), teacher-forced with the
+    tokens of the same run on a full-length cache (logits within the bf16
+    tolerance, argmax agreement, both caches' bytes); (d) 8 requests of
+    1100..2000 tokens, 16 new each, drained on 8 slots with ``validate()``
+    after every step.  Each path runs with every counter set to 0 just
+    before and read just after: K2 48 times a prefill, K3 (dense) or K4
+    (paged) 48 times a decode step, K1 7 x 48 + 1 times a prefill or step,
+    every K1 launch on a wgmma variant."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import probe
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    cfg = get_config("gemma3_12b")
+    L = cfg.num_layers
+    k1_step = 7 * L + 1
+    result = {}
+
+    def expect(launches, what, *, prefills, steps, paged=False):
+        k1_on_wgmma(launches, what)
+        k1 = launches["gemm"] + launches["gemm_transposed"]
+        want = {"K1": k1_step * (prefills + steps), "K2": L * prefills,
+                "K3": 0 if paged else L * steps, "K4": L * steps if paged else 0}
+        got = {"K1": k1, "K2": launches["flash_attention"], "K3": launches["flash_decode"],
+               "K4": launches["paged_decode"]}
+        print(f"  {what}: launches {got} (want {want}), K2 on wgmma"
+              f" {launches['flash_attention_wgmma']}", flush=True)
+        check(got == want and launches["flash_attention_wgmma"] == got["K2"],
+              f"{what}: launches {got}, want {want}; K2 on wgmma {launches['flash_attention_wgmma']}")
+        check(kernel_total(launches) == sum(got.values()),
+              f"{what}: kernels other than K1-K4 launched: {launches}")
+
+    # (d), first half: the probe, before this phase's own weights exist
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    start = time.perf_counter()
+    spec = probe.max_feasible_slots(cfg, page_size=16, max_seq=2064, budget_bytes=total, hi=64)
+    search_s = time.perf_counter() - start
+    need = probe._abstract_bytes(cfg, spec)
+    start = time.perf_counter()
+    fits = probe.trial(cfg, spec, execute=True)
+    fit_s = time.perf_counter() - start
+    over = dataclasses.replace(spec, num_slots=2 * spec.num_slots, num_pages=2 * spec.num_pages)
+    start = time.perf_counter()
+    over_fits = probe.trial(cfg, over, execute=True)
+    over_s = time.perf_counter() - start
+    result["probe"] = {"budget_bytes": total, "spec": dataclasses.asdict(spec),
+                       "bytes": need, "search_s": search_s, "executed_fits": fits,
+                       "executed_s": fit_s, "twice_slots_fits": over_fits, "twice_slots_s": over_s,
+                       "after_oom_allocated_bytes": torch.cuda.memory_allocated()}
+    print(f"  probe: {spec.num_slots} slots, {spec.num_pages} pages of {spec.page_size} at max_seq"
+          f" {spec.max_seq} fit {total / 1e9:.2f} GB by bytes ({need / 1e9:.2f} GB x 1.25;"
+          f" {search_s:.2f} s); executed trial at that spec: {fits} ({fit_s:.2f} s); at"
+          f" {over.num_slots} slots: {over_fits} ({over_s:.2f} s, out of memory);"
+          f" {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after", flush=True)
+    check(fits, f"gemma3 probe: the executed trial at {spec} did not fit")
+    check(not over_fits, f"gemma3 probe: the executed trial at {over} fit; want out of memory")
+
+    start = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = probe.tree_bytes(params)
+    print(f"  init {cfg.name}: {L} layers, d_model {cfg.d_model}, head dim {cfg.head_dim},"
+          f" {w_bytes / 1e9:.2f} GB of weights in {time.perf_counter() - start:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    # (a) generate_loop
+    batch, plen, new = 2, 2048, 32
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, device="cuda")
+    scfg = ServeConfig(max_seq=plen + new)
+
+    def serve(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_loop(cfg, params, prompts, n, scfg=scfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, prefill_ms = serve(1)
+    counters.reset()
+    out, total_ms = serve(new)
+    launches = counters.read()
+    expect(launches, "phase 7g (a) gemma3 generate_loop", prefills=1, steps=new - 1)
+    check(out.shape == (batch, plen + new) and torch.equal(out[:, :plen], prompts)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"gemma3 generate_loop output {tuple(out.shape)}")
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    gl = {"batch": batch, "prompt": plen, "new": new, "prefill_ms": prefill_ms,
+          "decode_ms_per_token": decode_ms, "total_ms": total_ms,
+          "tokens_per_s": batch * new / (total_ms / 1e3), "launches": launches}
+    gl.update(serving_bounds(cfg, params, batch, plen, new, peaks))
+    result["generate_loop"] = gl
+    print(f"  (a) generate_loop B{batch} P{plen} +{new}: prefill {prefill_ms:.1f} ms (bound"
+          f" {gl['prefill_bound_ms']:.2f}), decode {decode_ms:.2f} ms/token (bound"
+          f" {gl['decode_bound_ms_per_token']:.2f}), {gl['tokens_per_s']:.1f} tokens/s; {card_line}",
+          flush=True)
+    del out
+
+    # (b) one long prompt
+    batch, plen, new = 1, 32768, 16
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    caches = lm.init_cache(cfg, batch, plen + new, device="cuda")
+    cache_bytes = probe.tree_bytes(caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(cfg, params, caches, {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    finite = bool(lm.finite_logits(logits).all())
+    for t in range(new - 1):
+        logits, caches = lm.decode_step(cfg, params, caches, logits.argmax(-1), plen + t)
+        finite = finite and bool(lm.finite_logits(logits).all())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    expect(launches, "phase 7g (b) gemma3 long prompt", prefills=1, steps=new - 1)
+    check(finite and logits.shape == (batch, cfg.padded_vocab),
+          f"gemma3 long prompt: logits {tuple(logits.shape)}, finite {finite}")
+    lp = {"batch": batch, "prompt": plen, "new": new, "prefill_ms": (t1 - t0) * 1e3,
+          "decode_ms_per_token": (t2 - t1) * 1e3 / (new - 1), "max_memory_allocated_bytes": peak,
+          "memory_floor_bytes": w_bytes + cache_bytes, "cache_bytes": cache_bytes,
+          "launches": launches}
+    lp.update(serving_bounds(cfg, params, batch, plen, new, peaks))
+    # one more step, profiled: where a long-context decode step's time goes
+    last = logits.argmax(-1)
+    lp["decode_profile"] = device_breakdown(
+        torch, lambda: lm.decode_step(cfg, params, caches, last, plen + new - 1),
+        lp["decode_ms_per_token"])
+    result["long_prompt"] = lp
+    print(f"  (b) one prompt of {plen} tokens, +{new}: prefill {lp['prefill_ms']:.1f} ms (bound"
+          f" {lp['prefill_bound_ms']:.2f}), decode {lp['decode_ms_per_token']:.2f} ms/token (bound"
+          f" {lp['decode_bound_ms_per_token']:.2f}), peak {peak / 1e9:.2f} GB (weights and cache"
+          f" {lp['memory_floor_bytes'] / 1e9:.2f} GB); {card_line}", flush=True)
+    del caches, logits, last, prompt
+    torch.cuda.empty_cache()
+
+    # (c) the ring, teacher-forced with the full-length cache's tokens
+    batch, plen, steps, max_seq = 2, 1000, 64, 32768
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, device="cuda")
+    full = lm.init_cache(cfg, batch, max_seq, device="cuda")
+    full_bytes = probe.tree_bytes(full)
+    lg, full = lm.prefill(cfg, params, full, {"tokens": prompts})
+    want, fed = [lg], []
+    for t in range(steps):
+        fed.append(lg.argmax(-1))
+        lg, full = lm.decode_step(cfg, params, full, fed[-1], plen + t)
+        want.append(lg)
+    del full
+    torch.cuda.empty_cache()
+    ring = lm.init_cache(cfg, batch, max_seq, True, device="cuda")
+    ring_bytes = probe.tree_bytes(ring)
+    check(ring[0]["k"].shape[2] == cfg.sliding_window and ring[5]["k"].shape[2] == max_seq,
+          f"gemma3 ring: local {ring[0]['k'].shape[2]}, global {ring[5]['k'].shape[2]} positions")
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, ring = lm.prefill(cfg, params, ring, {"tokens": prompts})
+    got = [lg]
+    for t in range(steps):
+        lg, ring = lm.decode_step(cfg, params, ring, fed[t], plen + t)
+        got.append(lg)
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    launches = counters.read()
+    expect(launches, "phase 7g (c) gemma3 ring", prefills=1, steps=steps)
+    got, want = torch.stack(got), torch.stack(want)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    step_err = [float(x) for x in diff.amax(dim=(1, 2))]
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    rtol, atol = BF16_LOGITS
+    rg = {"batch": batch, "prompt": plen, "steps": steps, "max_seq": max_seq,
+          "max_abs_logit_diff": err, "mean_abs_logit_diff": float(diff.mean()),
+          "max_abs_logit_diff_by_step": step_err, "argmax_agreement": agree,
+          "ring_cache_bytes": ring_bytes,
+          "full_cache_bytes": full_bytes, "ms": ring_ms, "launches": launches}
+    result["ring"] = rg
+    print(f"  (c) ring at max_seq {max_seq}, B{batch}, prompt {plen}, {steps} steps to position"
+          f" {plen + steps - 1} (every local layer wraps its {cfg.sliding_window}): max"
+          f" |dlogits| {err:.3e} against the full-length cache (rtol {rtol}, atol {atol}; at the"
+          f" prefill {step_err[0]:.3e}, mean {float(diff.mean()):.3e}), argmax"
+          f" agreement {100 * agree:.2f} %; caches {ring_bytes / 1e9:.2f} GB (ring) and"
+          f" {full_bytes / 1e9:.2f} GB (full); {ring_ms:.1f} ms", flush=True)
+    check(bool(torch.isfinite(got).all()), "gemma3 ring: logits not finite")
+    check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+          f"gemma3 ring: logits {err:.3e} from the full-length cache's")
+    del ring, got, want, diff, fed, prompts
+    torch.cuda.empty_cache()
+
+    # (d) the engine, 8 requests on 8 slots
+    rng = np.random.default_rng(28)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(1100, 2001))).tolist(),
+                 max_new=16, **(SAMPLED if i % 2 else {})) for i in range(8)]
+    ecfg = dict(max_seq=spec.max_seq, page_size=spec.page_size)
+    counters.reset()
+    eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=8, ecfg=ecfg)
+    launches = counters.read()
+    steps = eng.decode_steps
+    for uid, r in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"gemma3 request {uid} ended {eng.status(uid).value}")
+        check(len(eng.collect(uid)) == len(r["prompt"]) + r["max_new"],
+              f"gemma3 request {uid}: {len(eng.collect(uid))} tokens")
+    expect(launches, "phase 7g (d) gemma3 engine", prefills=len(reqs), steps=steps, paged=True)
+    result["engine"] = {"requests": len(reqs), "decode_steps": steps,
+                        "generated_tokens": eng.tokens_generated, "drain_ms": wall_ms,
+                        "tokens_per_s": eng.tokens_generated / (wall_ms / 1e3),
+                        "launches": launches}
+    print(f"  (d) engine: {len(reqs)} requests of 1100..2000 tokens, 16 new each, on 8 slots:"
+          f" {wall_ms:.1f} ms, {steps} decode steps, validate() clean; {card_line}", flush=True)
+    del eng, params
     torch.cuda.empty_cache()
     return result
 
@@ -4993,6 +5496,7 @@ def main() -> int:
     attention_bwd_cases(torch, bench, ref, fa)
     decode_cases(torch, bench, ref, fa)
     paged_decode_cases(torch, bench, ref, fa)
+    gemma3_kernel_cases(torch, bench, ref, fa, brgemm)
     mamba_scan_cases(torch, bench, ref, scan)
     fused_gemm_cases(torch, bench, fusion, fused_gemm)
     fused_training_cases(torch, bench, fusion, rng)
@@ -5018,6 +5522,7 @@ def main() -> int:
     counters = Counters(brgemm, fa, fused_gemm, scan, spmm, fo, conv)
     reduced_models(torch, counters)
     reduced_models(torch, counters, fused=True)
+    gemma3_reduced(torch, counters)
 
     phase("5. llama2-13b, full width, through generate_loop")
     cfg, params = init_model(torch)
@@ -5044,17 +5549,24 @@ def main() -> int:
     phase("7e. K5 scheduled from spec strings, and K13, through the library helpers")
     scheduled = scheduled_path(torch, counters, fusion, rng)
 
-    phase("7f. gpt-j-6b, full width and depth: the engine at head dim 256")
+    phase("7f. gpt-j-6b, full width (4 of 28 layers): the engine at head dim 256")
     gptj = gptj_engine(torch, counters)
+
+    phase("7g. gemma3-12b, full width and depth: the probe, generate_loop, a 32768-token prompt,"
+          " the ring-buffer cache and the engine")
+    gemma3 = gemma3_full_width(torch, counters, peaks, card_line)
 
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
-    phase("9. minicpm-2b, full width and depth, training")
-    training = train_full_width(torch, counters, peaks)
+    phase("9. minicpm-2b, full width (16 of 40 layers), training")
+    # 16 layers: the room phase 7g takes in the script's time limit
+    minicpm_kw = dict(layers=16)
+    training = train_full_width(torch, counters, peaks, **minicpm_kw)
 
-    phase("10. minicpm-2b, full width and depth, training with use_fusion=True")
-    fused_training = train_full_width(torch, counters, peaks, fused=True, unfused=training)
+    phase("10. minicpm-2b, full width (16 of 40 layers), training with use_fusion=True")
+    fused_training = train_full_width(torch, counters, peaks, fused=True, unfused=training,
+                                      **minicpm_kw)
 
     phase("10b. bert-large, full width and depth, training, unfused and use_fusion=True")
     bert_kw = dict(arch="bert_large", batch=16, seq=512)
@@ -5099,7 +5611,11 @@ def main() -> int:
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
                    "scheduled": scheduled["launches"][name],
-                   "gptj_engine": gptj["launches"][name]}
+                   "gptj_engine": gptj["launches"][name],
+                   "gemma3_generate_loop": gemma3["generate_loop"]["launches"][name],
+                   "gemma3_long_prompt": gemma3["long_prompt"]["launches"][name],
+                   "gemma3_ring": gemma3["ring"]["launches"][name],
+                   "gemma3_engine": gemma3["engine"]["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -5116,7 +5632,7 @@ def main() -> int:
                if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
                       "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
-                      "scheduled": scheduled, "gptj_engine": gptj,
+                      "scheduled": scheduled, "gptj_engine": gptj, "gemma3": gemma3,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,

@@ -148,7 +148,12 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, *, causal=True, window=None, scale=None):
     """Prefill and training attention, q (B,H,Sq,D), k/v (B,Hk,Skv,D) (K2;
-    its gradient K6)."""
+    its gradient K6).  On the CPU, once the scores would be large (Sq·Skv >
+    512·1024 and Sq > 512, the reference's test), the plain version runs in
+    query blocks (``ref.attention_chunked``); a CUDA tensor goes to K2
+    whatever its size."""
+    if _on_cpu(q, k, v) and q.shape[2] * k.shape[2] > 512 * 1024 and q.shape[2] > 512:
+        return ref.attention_chunked(q, k, v, causal=causal, window=window, scale=scale)
     if _wants_grad(q, k, v):
         return _Attention.apply(q, k, v, causal, window, scale)
     if _on_cpu(q, k, v):

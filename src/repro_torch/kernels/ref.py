@@ -18,11 +18,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import tpp
 
 __all__ = ["matmul_ref", "matmul_bwd_ref", "brgemm_blocked_ref", "conv2d_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
-           "grouped_matmul_ref", "attention_ref", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
+           "grouped_matmul_ref", "attention_ref", "attention_chunked", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
            "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref"]
 
 
@@ -163,6 +164,49 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None,
     vq = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
     o = torch.einsum("bhqk,bhkd->bhqd", p, vq)
     return o.to(out_dtype or q.dtype)
+
+
+def attention_chunked(q, k, v, *, causal=True, window=None, scale=None,
+                      block_q: int = 256, out_dtype=None):
+    """:func:`attention_ref` in query blocks, so that one (B, Hk, g, bq,
+    Skv) block of scores is live at a time: the port's copy of
+    ``repro/kernels/ref.py::attention_xla_chunked``.  ``bq`` is ``block_q``
+    (128 once Skv >= 32768), halved until it divides Sq.  GQA groups each
+    kv head's g query heads instead of repeating k and v; v's head dim may
+    differ from q's.  Where a gradient is wanted each block runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its scores.
+    Computes in fp32 from the stored inputs, as every plain version here
+    (the reference rounds P to v's dtype: the same at fp32)."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    vd, g = v.shape[-1], h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    bq = min(block_q, 128 if skv >= 32768 else block_q)
+    while sq % bq:
+        bq //= 2
+    off = skv - sq
+    qg = q.reshape(b, hk, g, sq, d)
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(skv, device=q.device)[None, :]
+
+    def block(qb, kf, vf, i0):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb.float(), kf) * scale
+        rows = (i0 + off) + torch.arange(qb.shape[3], device=q.device)[:, None]
+        mask = torch.ones(qb.shape[3], skv, dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (cols <= rows)
+        if window is not None:
+            mask = mask & (cols > rows - window)
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.einsum("bhgqk,bhkd->bhgqd", p, vf).to(out_dtype or q.dtype)
+
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    blocks = []
+    for i0 in range(0, sq, bq):
+        qb = qg[:, :, :, i0:i0 + bq]
+        blocks.append(checkpoint(block, qb, kf, vf, i0, use_reentrant=False)
+                      if grad else block(qb, kf, vf, i0))
+    return torch.cat(blocks, dim=3).reshape(b, h, sq, vd)
 
 
 def attention_fwd_ref(q, k, v, *, causal=True, window=None, scale=None):

@@ -11,15 +11,16 @@ reference's ``_cast``).  Norm scales and biases stay fp32.
 
 Ported so far: the dense decoder's attention (no cache, with the training
 path's output-projection dropout; the dense cache at a scalar position or at
-per-slot positions; the paged pools of the serving engine) and MLP (gated
-and plain).  With ``cfg.use_fusion`` the output projection (with the
+per-slot positions, and its ring-buffer form for sliding-window layers; the
+paged pools of the serving engine) and MLP (gated and plain).  With
+``cfg.use_fusion`` the output projection (with the
 block's residual and the training path's dropout), the MLP's up projection
 and the no-cache attention (the chained root) are fused TppGraphs
 (``repro_torch.fusion``: K5 on the card) with derived backward graphs, as
 in ``repro``.  The Mamba-1 block (``mamba_apply``: the selective scan, K8
 on the card) serves with the dense and the paged caches; it has no
-backward yet.  The ring-buffer local cache, MLA, MoE and cross-attention
-branches are still to be ported (ROADMAP.md, Queue 1).
+backward yet.  The MLA, MoE and cross-attention branches are still to be
+ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -53,9 +54,20 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+class ShapesOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, where
+    none exists: ``lm.init_params(..., device="meta")`` then builds every
+    parameter's shape and dtype and allocates nothing (``serve.probe``
+    counts their bytes)."""
+    device = torch.device("meta")
+
+
 def _init(gen, shape, scale=None, *, dtype):
     """N(0, 1) * scale (default 1/sqrt(fan_in)), drawn in fp32 on the
-    generator's device, stored in ``dtype``."""
+    generator's device, stored in ``dtype``; on the ``meta`` device only
+    the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return w.mul_(scale).to(dtype)
@@ -136,7 +148,12 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     scalar write position (S == 1 decodes against the cache up to
     ``cache_pos + 1``, S > 1 attends over ``[0, cache_pos + S)``), or a
     (B,) tensor of per-slot positions for a one-token decode (continuous
-    batching: each slot attends up to its own ``pos + 1``).
+    batching: each slot attends up to its own ``pos + 1``).  A ``"local"``
+    layer's cache no longer than ``cfg.sliding_window`` is a ring
+    (``lm.init_cache(..., ring_local=True)``): position ``p`` is written at
+    ``p % S_max`` and attended over the ``min(p + 1, S_max)`` entries
+    without a window mask; a chunk of S > 1 tokens must end inside the
+    ring, else ``ValueError``.
 
     Paged mode (``page_table`` (B, maxp) and ``page_size``): the cache holds
     token-major page pools (P + 1, page_size, Hk, hd) shared by all slots.
@@ -213,24 +230,34 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
             o = ops.attention(q, k, v, causal=causal, window=window)
     else:
         smax = cache["k"].shape[2]
-        if kind == "local" and cfg.sliding_window is not None and smax <= cfg.sliding_window:
-            raise _later("the ring-buffer local cache")
+        # A local layer's cache no longer than the window is a ring
+        # (init_cache ring_local), written at pos % smax.  Once full, its
+        # smax entries are the window, so no window mask is needed: keys
+        # carry absolute RoPE and softmax does not depend on their order.
+        ring = kind == "local" and cfg.sliding_window is not None and smax <= cfg.sliding_window
+        if ring:
+            window = None
         if per_slot:
             if s != 1:
                 raise ValueError("per-slot cache positions are decode-only (S == 1)")
             pos = cache_pos
+            wpos = pos % smax if ring else pos
             bidx = torch.arange(b, device=x.device)
-            cache["k"][bidx, :, pos] = k[:, :, 0]
-            cache["v"][bidx, :, pos] = v[:, :, 0]
+            cache["k"][bidx, :, wpos] = k[:, :, 0]
+            cache["v"][bidx, :, wpos] = v[:, :, 0]
+            length = (pos + 1).clamp(max=smax) if ring else pos + 1
             o = ops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
-                                     length=pos + 1, window=window)[:, :, None]
+                                     length=length, window=window)[:, :, None]
         else:
             cache_pos = int(cache_pos)
-            cache["k"][:, :, cache_pos:cache_pos + s] = k
-            cache["v"][:, :, cache_pos:cache_pos + s] = v
+            if ring and s > 1 and cache_pos + s > smax:
+                _refuse_ring_chunk(smax, cache_pos, s)
+            wpos = cache_pos % smax if ring else cache_pos
+            cache["k"][:, :, wpos:wpos + s] = k
+            cache["v"][:, :, wpos:wpos + s] = v
             if s == 1:
-                length = torch.full((b,), cache_pos + 1, dtype=torch.int32,
-                                    device=x.device)
+                length = torch.full((b,), min(cache_pos + 1, smax) if ring else cache_pos + 1,
+                                    dtype=torch.int32, device=x.device)
                 o = ops.decode_attention(q[:, :, 0], cache["k"], cache["v"],
                                          length=length, window=window)[:, :, None]
             else:
@@ -253,6 +280,22 @@ def attention_apply(cfg: ModelConfig, p, x, *, kind: str = "attn",
     if residual is not None:
         out = residual + out
     return out, cache
+
+
+def _refuse_ring_chunk(smax, cache_pos, s):
+    """A chunk of ``s`` > 1 tokens at ``cache_pos`` that does not fit in a
+    ring of ``smax`` positions: a prompt longer than the ring (the
+    reference raises ``TypeError`` there), or a chunk that would cross the
+    ring's end (the reference clamps its write and attends over the wrong
+    keys).  Decode one token at a time past the ring's end instead."""
+    if cache_pos == 0:
+        raise ValueError(
+            f"a prompt of {s} tokens is longer than the ring of {smax} positions of a local"
+            f" layer (init_cache ring_local=True): prefill at most {smax} tokens into it")
+    raise ValueError(
+        f"a chunk of {s} tokens at position {cache_pos} would cross the end of the ring of"
+        f" {smax} positions of a local layer (init_cache ring_local=True): a chunk must end"
+        f" by position {smax}; decode past it one token at a time")
 
 
 # --------------------------------------------------------------------------

@@ -136,9 +136,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
     training updates (the reference's storage).  Norms are fp32 either way.
     A mamba block's ``dt_bias``, ``a_log`` and ``d_skip`` stay fp32 too.
     The draws differ from ``jax.random``'s; tests load the reference's
-    weights through ``models.convert.params_from_numpy`` instead."""
+    weights through ``models.convert.params_from_numpy`` instead.  On the
+    ``meta`` device the tensors have shapes and dtypes and no storage."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (B.ShapesOnly() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = dtype or B.compute_dtype(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     params = {
@@ -288,16 +290,28 @@ def _mamba_state(cfg: ModelConfig, rows: int, dev):
                              dtype=torch.float32, device=dev)}
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
-               device=None):
-    """Per layer, a zeroed ``{"k", "v"}`` pair of (B, Hk, max_seq, hd) for
-    attention, or ``{"conv", "h"}`` mamba state for B rows."""
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
+               ring_local: bool = False, *, device=None):
+    """Per layer, a zeroed ``{"k", "v"}`` pair of (B, Hk, S, hd) for
+    attention, or ``{"conv", "h"}`` mamba state for B rows.  S is
+    ``max_seq``, except that ``ring_local=True`` bounds each sliding-window
+    ("local") layer to a ring of ``min(max_seq, sliding_window)``
+    positions, as ``repro/models/lm.py::init_cache`` does: the memory of
+    5/6 of gemma3's layers then grows with the window, not the sequence.
+    ``blocks.attention_apply`` writes such a cache at ``pos % S``; it
+    refuses a prompt or chunk that would cross the ring's end."""
     dev = resolve_device(device)
-    shape = (batch_size, cfg.num_kv_heads, max_seq, cfg.head_dim)
     dt = B.compute_dtype(cfg)
-    return [_mamba_state(cfg, batch_size, dev) if kind == "mamba" else
-            {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def attn_cache(kind):
+        smax = max_seq
+        if ring_local and kind == "local" and cfg.sliding_window:
+            smax = min(max_seq, cfg.sliding_window)
+        shape = (batch_size, cfg.num_kv_heads, smax, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    return [_mamba_state(cfg, batch_size, dev) if kind == "mamba" else attn_cache(kind)
             for kind in layer_kinds(cfg)]
 
 

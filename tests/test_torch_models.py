@@ -27,7 +27,8 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import decode as tdecode
 
-ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b", "chatglm3_6b", "glm4_9b"]
+ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b", "chatglm3_6b", "glm4_9b",
+         "gemma3_12b"]
 # encoder-only: no decode step in the reference (tests/test_models.py)
 ENCODERS = ["bert_large"]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -59,7 +60,7 @@ def test_configs_are_copies_of_the_reference(arch):
 def test_padded_vocab_and_unported_archs():
     assert torch_config("minicpm_2b").padded_vocab == 122880
     with pytest.raises(KeyError, match="ROADMAP"):
-        torch_config("gemma3_12b")
+        torch_config("qwen3_moe_235b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -94,11 +95,17 @@ def _check_logits(jcfg, jparams, tcfg, tparams):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL,
                                    err_msg=f"decode step {t}")
         assert tlm.finite_logits(tl).all()
-    jdec = jcache["dec"][0][0]
-    for part, key in (("attn", "k"), ("mamba", "conv"), ("mamba", "h")):
-        if part in jdec:
-            for layer, tc in enumerate(tcache):
-                np.testing.assert_allclose(tc[key].numpy(), np.asarray(jdec[part][key][layer]),
+    # the reference keeps one cache entry per position of the layer pattern,
+    # each stacked over the pattern's repeats: layer i is entry i % period,
+    # row i // period
+    period = tcfg.pattern_period
+    jdec = jcache["dec"][0]
+    for layer, tc in enumerate(tcache):
+        entry = jdec[layer % period]
+        for part, key in (("attn", "k"), ("mamba", "conv"), ("mamba", "h")):
+            if part in entry:
+                np.testing.assert_allclose(tc[key].numpy(),
+                                           np.asarray(entry[part][key][layer // period]),
                                            **LOGIT_TOL, err_msg=f"layer {layer} {key}")
 
 

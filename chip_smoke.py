@@ -49,7 +49,11 @@ Phases, each of which must pass:
      projections' derived backward graphs, in-kernel dropout bits and row
      panels, and the chained root and its six derived graphs without a causal mask at
      bert-large's shape; K8 selective scan at falcon-mamba-7b's prefill and
-     engine-decode shapes; K10 Block-SpMM over the Fig. 8 sweep (4096^3,
+     engine-decode shapes, and its backward at falcon-mamba-7b's training
+     layer (B 2 x L 2048, bf16, against its plain version at the bf16
+     gradient tolerance; from h0 with dh0; fp32 checks; rows at B 1
+     bitwise equal to B 2; two calls bitwise equal; the forward writing its
+     boundary states bitwise equal to the serving forward); K10 Block-SpMM over the Fig. 8 sweep (4096^3,
      16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
      products, each bf16 row on the wgmma kernel (its 64-row work list)
@@ -72,7 +76,8 @@ Phases, each of which must pass:
      the main paths' shapes plus GQA,
      windowed and ragged ones; print error and tolerance, the median time
      over CUDA events, the plain version's time, one PyTorch library call's
-     time as a yardstick (the port never calls it) and the bound;
+     time as a yardstick (the port never calls it) and the bound, and each
+     group's seconds;
   4. run ``generate_loop`` and the serving engine for reduced fp32
      llama2-13b, gpt-j-6b, minicpm-2b and falcon-mamba-7b on the card
      (kernels) and on the
@@ -144,11 +149,12 @@ Phases, each of which must pass:
      K11 launch; ResNet-50's 1x1 layers (N 32) through ``ops.conv2d``, one
      K12 call on one K1 launch a layer; its 3x3 layers (N 2) through
      Listing 4 on the executor, no kernel; each against its plain version;
-  8. train reduced fp32 minicpm-2b, gpt-j-6b and bert-large for 3 steps on
-     the card and on the CPU from one initial state (loss and grad norm
-     must agree), and check that 2 steps + checkpoint + restore + 2 steps
-     give the parameters of 4 steps straight, bit for bit; then 3 steps of
-     each with ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
+  8. train reduced fp32 minicpm-2b, gpt-j-6b, bert-large and
+     falcon-mamba-7b (96 tokens) for 3 steps on the card and on the CPU from
+     one initial state (loss and grad norm must agree), and check that 2
+     steps + checkpoint + restore + 2 steps give the parameters of 4 steps
+     straight, bit for bit; then 3 steps of each attention model with
+     ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
   9. train minicpm-2b at full width, 16 of its 40 layers (fp32 masters,
      bf16 compute, B 4 x S 1024, remat) for 6 trainer steps with every
      launch counter set
@@ -181,6 +187,14 @@ Phases, each of which must pass:
      on wgmma, step 1's fused loss within rtol 2e-2 of the unfused one, a
      falling loss on a repeated batch; print step time, tokens/s, the
      model-FLOPs share and peak memory with the card's name and power limit;
+ 10d. train falcon-mamba-7b at full width (d 4096, d_inner 8192, N 16; 16
+     of its 64 layers, B 2 x S 2048) as phase 9 (6 steps): K1 four products
+     a layer forward, recomputed and transposed, K8's forward twice and its
+     backward once a layer and step, exactly; a gradient step sized to drop
+     the loss by 0.01 and 0.03 doing so within 10 %; the loss falling at
+     each of 3 fresh AdamW steps at lr 1e-6 on a repeated batch; step time,
+     tokens/s, the model-FLOPs share and peak memory with the card's name
+     and power limit;
  11. print one JSON line with every kernel's numbers;
  12. print the last line, ``{"ok": true, "device": {...}}``.
 
@@ -209,8 +223,13 @@ PEAKS = {
 # Kernel against plain version on the card.  Both sides read the same inputs
 # and accumulate in fp32, so they differ by summation order and, in bf16, by
 # one rounding of the output (2^-8 relative) and the plain decode's bf16 p.
-TOL = {"float32": {"gemm": (1e-4, 1e-3), "attn": (1e-4, 1e-4), "scan": (1e-4, 1e-4)},
-       "bfloat16": {"gemm": (1e-2, 1e-2), "attn": (1e-2, 1e-2), "scan": (1e-2, 1e-2)}}
+# K8's backward in bf16: the gradient tolerance of tests/test_torch_mamba.py
+# (both sides compute in fp32 from the same bf16 values, sum over D, B and L
+# in other orders and round each gradient of a bf16 operand once).
+TOL = {"float32": {"gemm": (1e-4, 1e-3), "attn": (1e-4, 1e-4), "scan": (1e-4, 1e-4),
+                   "scan_bwd": (1e-4, 1e-4)},
+       "bfloat16": {"gemm": (1e-2, 1e-2), "attn": (1e-2, 1e-2), "scan": (1e-2, 1e-2),
+                    "scan_bwd": (2e-2, 2e-1)}}
 MODEL_TOL = (1e-4, 1e-3)   # logits, reduced fp32 configs: GPU kernels vs CPU plain
 
 # file:line of the TPU kernel each CUDA kernel replaces: matmul_pallas,
@@ -230,6 +249,9 @@ REPLACES = {
     "fused_attention_bwd": "src/repro/fusion/lowering.py:330",
     "fused_proj_bwd": "src/repro/fusion/lowering.py:330",
     "mamba_scan": "src/repro/kernels/mamba_scan.py:27",
+    # no TPU kernel: the Pallas scan has no VJP, and the reference trains
+    # through jax.grad of its chunked XLA scan, which this kernel replaces
+    "mamba_scan_bwd": "src/repro/kernels/ref.py:235",
     "block_spmm": "src/repro/kernels/block_spmm.py:72",
     "grouped_matmul": "src/repro/kernels/block_spmm.py:137",
     "fused_output": "src/repro/kernels/fused_output.py:48",
@@ -253,6 +275,7 @@ SOURCE = {
     "fused_attention_bwd": "src/repro_torch/kernels/csrc/attention_bwd.cuh",
     "fused_proj_bwd": "src/repro_torch/kernels/csrc/fused_gemm.cuh",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "mamba_scan_bwd": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "block_spmm": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "fused_output": "src/repro_torch/kernels/csrc/fused_output.cu",
@@ -289,6 +312,9 @@ ROW = {
     "mamba_scan": "one falcon-mamba-7b layer's scan at prefill (B 4, L 512, D 8192, N 16, bf16)"
                   " plus one engine decode step (B 8, L 1, from the cached state); no PyTorch"
                   " call computes a selective scan",
+    "mamba_scan_bwd": "one falcon-mamba-7b layer's scan backward at training (B 2, L 2048, D 8192,"
+                      " N 16, bf16, B and C strided slices of the projection) from K8's boundary"
+                      " states; no PyTorch call computes a selective scan's backward",
     "block_spmm": "bert-large's two FFN products at 80 % block sparsity (8x8 blocks) on 4096 tokens"
                   " (phase 7c: W_up 4096x1024 @ x^T, W_down 1024x4096 @ h^T, bf16); library:"
                   " torch.matmul on the dense pruned weights",
@@ -993,9 +1019,9 @@ def k3_k9_build_report(logs):
 
 def k4_k8_build_report(logs):
     """Print the ``-Xptxas -v`` figures of K4's split kernel by dtype and
-    head dim (csrc/paged_decode.cu) and of K8's two kernels
-    (csrc/mamba_scan.cu: prefill by dtype, state size and lanes, decode by
-    dtype and state size); → those figures."""
+    head dim (csrc/paged_decode.cu) and of K8's three kernels
+    (csrc/mamba_scan.cu: prefill by dtype, state size and lanes, decode and
+    backward by dtype and state size); → those figures."""
     report = {}
     dts = {"f": "fp32", "13__nv_bfloat16": "bf16"}
     for mangled, figures in ptxas_by_kernel(logs["paged_decode"]).items():
@@ -1003,7 +1029,7 @@ def k4_k8_build_report(logs):
         if found:
             report[f"K4 paged_decode_split_kernel<{dts[found.group(1)]}, {found.group(2)}>"] = figures
     for mangled, figures in ptxas_by_kernel(logs["mamba_scan"]).items():
-        found = re.search(r"mamba_scan_(prefill|decode)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+        found = re.search(r"mamba_scan_(prefill|decode|bwd)_kernelI(f|13__nv_bfloat16)Li(\d+)E"
                           r"(?:Li(\d+)E)?", mangled)
         if found:
             kind, dt, n, lanes = found.groups()
@@ -1650,6 +1676,125 @@ def mamba_scan_cases(torch, bench, ref, scan):
                   f" ({scan.scan_plan(b, l, d, 16, x.dtype).lanes} lanes)")
     print(f"  mamba_scan rows at B 1 bitwise equal to B 4 (prefill) and B 8 (decode), y and"
           f" state: {len(rows)} cases", flush=True)
+
+
+def mamba_scan_bwd_cases(torch, bench, ref, scan):
+    """K8's backward at falcon-mamba-7b's training layer (B 2, L 2048, D
+    8192, N 16, bf16, B and C strided column slices of the x projection as
+    on the path, no h0, dh_final zeros as autograd hands it) after K8's
+    forward with ``states=True``, against ``ref.mamba_scan_bwd_ref`` on the
+    card at the bf16 gradient tolerance; then checks: the same layer from
+    an h0 with a cotangent on h_final (dh0 compared too), fp32 at (1e-4,
+    1e-4) (a ragged L over several chunks from h0, D not a multiple of a
+    block at N 8, one step), rows at B 1 bitwise equal to B 2, two calls
+    bitwise equal, and the forward with boundary states bitwise equal to
+    the serving forward (y and h_final) at phase 7b's B 4 x 512 prefill
+    and at this layer, its last boundary state equal to the final state of
+    the scan over the steps before it.  Operations count 25 N + 8 per
+    channel-step (an exponential as one; the recompute and the reverse
+    step) at the fp32 peak; bytes count x, dt, dy, B, C, the boundary
+    states, A, D and dh_final read once, dx, ddt, dB, dC, dA, dD (and dh0)
+    written once; beside them the special-function floor of the two
+    passes' 2 B·L·D·N exponentials."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ghz = sm_clock_ghz()
+
+    def operands(b, l, d, n, dt, strided, with_h0):
+        x = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
+        dtv = (torch.rand(b, l, d, generator=gen, device="cuda") * 0.9 + 0.01).to(dt)
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(d, n).contiguous()
+        a = a * (0.5 + torch.rand(d, 1, generator=gen, device="cuda"))
+        if strided:   # (B·L, dt_rank + 2N) projection, B and C its column slices
+            proj = torch.randn(b, l, 256 + 2 * n, generator=gen, device="cuda").to(dt)
+            bi, ci = proj[..., 256:256 + n], proj[..., 256 + n:]
+        else:
+            bi = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+            ci = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+        dsk = torch.randn(d, generator=gen, device="cuda")
+        h0 = torch.randn(b, d, n, generator=gen, device="cuda") if with_h0 else None
+        dy = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
+        return x, dtv, a, bi, ci, dsk, h0, dy
+
+    # label, B, L, D, N, dtype, strided B/C, h0, dh_final random, weight, timed
+    cases = [
+        ("falcon-mamba layer B2 L2048 D8192 N16 strided B/C", 2, 2048, 8192, 16, torch.bfloat16, True, False, False, 1, True),
+        ("check B2 L2048 D8192 N16 h0, dh_final", 2, 2048, 8192, 16, torch.bfloat16, True, True, True, 0, False),
+        ("check fp32 L100 D256 N16 h0, dh_final", 2, 100, 256, 16, torch.float32, True, True, True, 0, False),
+        ("check fp32 L77 D200 N8 contiguous B/C", 3, 77, 200, 8, torch.float32, False, True, False, 0, False),
+        ("check fp32 L1 D256 N16 h0", 2, 1, 256, 16, torch.float32, True, True, True, 0, False),
+    ]
+    main = None
+    for label, b, l, d, n, dt, strided, with_h0, with_dh, weight, timed in cases:
+        x, dtv, a, bi, ci, dsk, h0, dy = operands(b, l, d, n, dt, strided, with_h0)
+        dh = (torch.randn(b, d, n, generator=gen, device="cuda") if with_dh
+              else torch.zeros(b, d, n, device="cuda"))
+        y, h, states = scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0, states=True)
+        want_dh0 = h0 is not None
+
+        def fn(x=x, dtv=dtv, a=a, bi=bi, ci=ci, dsk=dsk, states=states, dy=dy, dh=dh,
+               want_dh0=want_dh0):
+            out = scan.mamba_scan_bwd(x, dtv, a, bi, ci, dsk, states, dy, dh_final=dh,
+                                      with_dh0=want_dh0)
+            return tuple(t for t in out if t is not None)
+
+        def plain(x=x, dtv=dtv, a=a, bi=bi, ci=ci, dsk=dsk, h0=h0, states=states, dy=dy,
+                  dh=dh, want_dh0=want_dh0):
+            out = ref.mamba_scan_bwd_ref(x, dtv, a, bi, ci, dsk, h0, states, dy, dh,
+                                         chunk=scan.SCAN_STEPS)
+            return out if want_dh0 else out[:6]
+
+        esize = x.element_size()
+        chunks = states.shape[1]
+        nbytes = (esize * (5 * b * l * d + 4 * b * l * n) + 4 * b * chunks * d * n
+                  + 4 * 2 * (d * n + d) + 4 * b * d * n * (2 if want_dh0 else 1))
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        before = scan.SCAN_BWD_LAUNCHES
+        got = bench.run("mamba_scan_bwd", label, fn, plain, None,
+                        flops=b * l * d * (25 * n + 8), nbytes=nbytes, dtype=name,
+                        tol_kind="scan_bwd", weight=weight, timed=timed, peak="fp32")
+        check(scan.SCAN_BWD_LAUNCHES > before, f"K8 backward {label}: no launch counted")
+        row = bench.cases["mamba_scan_bwd"][-1]
+        plan = scan.scan_bwd_plan(b, l, d, n, dt)
+        row["plan"] = plan._asdict()
+        row["sfu_floor_ms"] = 2 * b * l * d * n / (132 * 16 * ghz * 1e9) * 1e3
+        print(f"    plan grid {plan.grid}, {plan.chunks} chunks, smem {plan.smem_bytes} bytes,"
+              f" workspaces {plan.ws_bytes + plan.partial_bytes} bytes; special-function floor"
+              f" of the two passes {row['sfu_floor_ms']:.4f} ms at {ghz:.3f} GHz", flush=True)
+        if timed:
+            device_row(torch, bench, "mamba_scan_bwd", fn)
+            main = (x, dtv, a, bi, ci, dsk, states, dy, dh, got, fn)
+        if label.startswith("check B2 L2048"):
+            check(len(got) == 7, "K8 backward: no dh0 with h0 given")
+
+    # a row's bits do not depend on the batch; two calls have the same bits
+    x, dtv, a, bi, ci, dsk, states, dy, dh, got, fn = main
+    again = fn()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          "K8 backward: two calls on the same inputs differ")
+    for i in range(x.shape[0]):
+        sl = slice(i, i + 1)
+        one = scan.mamba_scan_bwd(x[sl], dtv[sl], a, bi[sl], ci[sl], dsk, states[sl].contiguous(),
+                                  dy[sl], dh_final=dh[sl].contiguous(), with_dh0=True)
+        for k, what in ((0, "dx"), (1, "ddt"), (3, "dB"), (4, "dC")):
+            check(torch.equal(one[k], got[k][sl]),
+                  f"K8 backward: row {i}'s {what} at B 1 differs from the same row at B 2")
+    print("  mamba_scan_bwd rows at B 1 bitwise equal to B 2 (dx, ddt, dB, dC); two calls"
+          " bitwise equal", flush=True)
+
+    # the forward with boundary states keeps the serving bits
+    for b, l in ((4, 512), (2, 2048)):
+        x, dtv, a, bi, ci, dsk, _, _ = operands(b, l, 8192, 16, torch.bfloat16, True, False)
+        y0, h0_ = scan.mamba_scan(x, dtv, a, bi, ci, dsk)
+        y1, h1, states = scan.mamba_scan(x, dtv, a, bi, ci, dsk, states=True)
+        check(torch.equal(y0, y1) and torch.equal(h0_, h1),
+              f"K8 forward B{b} L{l}: writing the boundary states changed y or h_final")
+        t = (states.shape[1] - 1) * scan.SCAN_STEPS
+        _, h_t = scan.mamba_scan(x[:, :t], dtv[:, :t], a, bi[:, :t], ci[:, :t], dsk)
+        check(torch.equal(states[:, -1], h_t),
+              f"K8 forward B{b} L{l}: the last boundary state is not the state after {t} steps")
+    print("  mamba_scan with boundary states: y and h_final bitwise equal to serving's at B 4 x"
+          " 512 and B 2 x 2048; the last boundary state equal to the state after the steps"
+          " before it", flush=True)
 
 
 def block_prune(w, sparsity, bs=8):
@@ -2392,7 +2537,9 @@ CHAINED_BWD_CASES = [
 ]
 
 
-def chained_bwd_graph(fusion, sq, skv, d, causal, window):
+def chained_graph(fusion, sq, skv, d, causal, window):
+    """The chained attention graph of a phase-3 case: scale D^-0.5, offset
+    Skv - Sq."""
     return fusion.fused_attention_graph(causal=causal, window=window, scale=d ** -0.5,
                                         offset=skv - sq)
 
@@ -2412,7 +2559,7 @@ def chained_backward_sources(fusion, fused_gemm):
         for kind in sorted(set(lm.layer_kinds(cfg))):
             pairs.append((attention_graph(fusion, cfg, kind), cfg.head_dim))
     for _, _, _, sq, skv, d, causal, window, *_ in CHAINED_BWD_CASES:
-        pairs.append((chained_bwd_graph(fusion, sq, skv, d, causal, window), d))
+        pairs.append((chained_graph(fusion, sq, skv, d, causal, window), d))
     pairs.append((fusion.fused_attention_graph(causal=True, scale=0.125), 64))   # the GQA check
     out = {}
     for g, d in pairs:
@@ -2442,7 +2589,7 @@ def chained_bwd_cases(torch, bench, fusion, fused_gemm, ops):
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
         k, v = (torch.randn(b, h, skv, d, generator=gen, device="cuda").to(dt) for _ in range(2))
         dy = torch.randn(b, h, sq, d, generator=gen, device="cuda").to(dt)
-        graph = chained_bwd_graph(fusion, sq, skv, d, causal, window)
+        graph = chained_graph(fusion, sq, skv, d, causal, window)
         plan = fusion.derive_vjp(graph)
         kern = fused_gemm.ChainedBackward(plan)
         y, lse = fusion.compile(graph, path="cuda").with_lse(q=q, k=k, v=v)
@@ -2521,6 +2668,24 @@ CHAINED_FWD_ROWS = [
 ]
 
 
+# K5's chained forward checks in phase 3 (``chained_forward_cases``): label →
+# fused_attention_graph's keywords
+CHAINED_FWD_CHECKS = {
+    "D16 B2 H3 Sq150": dict(causal=True, scale=16 ** -0.5),
+    "D32 B2 H3 Sq150": dict(causal=True, scale=32 ** -0.5),
+    "D128 B2 H3 Sq150": dict(causal=True, scale=128 ** -0.5),
+    "Sq70 Skv200 D64": dict(causal=True, scale=0.125, offset=130),
+    "offset -1 D32, row 0 with no key": dict(causal=True, scale=32 ** -0.5, offset=-1),
+    "k, v shared by every problem": dict(causal=True, scale=0.125),
+    "k, v shared by the heads (stride 0)": dict(causal=False, scale=0.125),
+    "D256 fp32 (SIMT)": dict(causal=True, scale=1 / 16),
+}
+# fused_training_cases' fully masked row (causal, Sq 2 > Skv 1)
+MASKED_ROW_GRAPH = dict(causal=True, scale=0.5, offset=-1)
+# minicpm-2b's attention-output dropout in phase 3's K5 and K13 cases
+ATTN_OUT_RATE = 0.15
+
+
 def chained_forward_cases(torch, bench, fusion, fused_gemm, fa):
     """K5's chained forward (csrc/attention_fwd.cuh on the generated
     epilogue) against its plain version at gpt-j-6b's row (B 2, H 16, S
@@ -2553,8 +2718,7 @@ def chained_forward_cases(torch, bench, fusion, fused_gemm, fa):
     for label, b, h, sq, skv, d, causal, window in CHAINED_FWD_ROWS:
         q = randn(b, sq, h, d).transpose(1, 2)
         k, v = randn(b, h, skv, d), randn(b, h, skv, d)
-        graph = fusion.fused_attention_graph(causal=causal, window=window, scale=d ** -0.5,
-                                             offset=skv - sq)
+        graph = chained_graph(fusion, sq, skv, d, causal, window)
         k5, plain = _graph_run(torch, fusion, graph)
         chain = lambda: k5(q=q, k=k, v=v)
         k2 = lambda: fa.flash_attention(q, k, v, causal=causal, window=window or None)
@@ -2583,7 +2747,8 @@ def chained_forward_cases(torch, bench, fusion, fused_gemm, fa):
         del q, k, v, got
     bench.extra["chained_forward_vs_k2"] = rows
 
-    def check_case(label, graph, ops, *, dtype="bfloat16", wgmma=1, no_key_rows=0):
+    def check_case(label, ops, *, dtype="bfloat16", wgmma=1, no_key_rows=0):
+        graph = fusion.fused_attention_graph(**CHAINED_FWD_CHECKS[label])
         k5, plain = _graph_run(torch, fusion, graph)
         if no_key_rows:
             # the kernel gives 0 there, the plain version (the composed
@@ -2601,26 +2766,22 @@ def chained_forward_cases(torch, bench, fusion, fused_gemm, fa):
         return k5
 
     for d in (16, 32, 128):
-        check_case(f"D{d} B2 H3 Sq150", fusion.fused_attention_graph(causal=True, scale=d ** -0.5),
-                   dict(q=randn(2, 150, 3, d).transpose(1, 2), k=randn(2, 3, 150, d),
-                        v=randn(2, 3, 150, d)))
-    check_case("Sq70 Skv200 D64", fusion.fused_attention_graph(causal=True, scale=0.125, offset=130),
+        check_case(f"D{d} B2 H3 Sq150", dict(q=randn(2, 150, 3, d).transpose(1, 2),
+                                             k=randn(2, 3, 150, d), v=randn(2, 3, 150, d)))
+    check_case("Sq70 Skv200 D64",
                dict(q=randn(1, 4, 70, 64), k=randn(1, 4, 200, 64), v=randn(1, 4, 200, 64)))
     ops = dict(q=randn(1, 2, 100, 32), k=randn(1, 2, 100, 32), v=randn(1, 2, 100, 32))
-    one = check_case("offset -1 D32, row 0 with no key",
-                     fusion.fused_attention_graph(causal=True, scale=32 ** -0.5, offset=-1), ops,
-                     no_key_rows=1)
+    one = check_case("offset -1 D32, row 0 with no key", ops, no_key_rows=1)
     out, lse = one.with_lse(**ops)
     check(bool((out[..., 0, :] == 0).all()) and bool(torch.isneginf(lse[..., 0]).all())
           and bool(torch.isfinite(lse[..., 1:]).all()),
           "chained forward offset -1: the row with no key is not 0 with lse -inf")
-    check_case("k, v shared by every problem", fusion.fused_attention_graph(causal=True, scale=0.125),
+    check_case("k, v shared by every problem",
                dict(q=randn(2, 3, 200, 64), k=randn(200, 64), v=randn(200, 64)))
     check_case("k, v shared by the heads (stride 0)",
-               fusion.fused_attention_graph(causal=False, scale=0.125),
                dict(q=randn(2, 200, 3, 64).transpose(1, 2), k=randn(2, 1, 200, 64).expand(2, 3, 200, 64),
                     v=randn(2, 1, 200, 64).expand(2, 3, 200, 64)))
-    check_case("D256 fp32 (SIMT)", fusion.fused_attention_graph(causal=True, scale=1 / 16),
+    check_case("D256 fp32 (SIMT)",
                dict(q=randn(1, 2, 70, 256, dtype=torch.float32),
                     k=randn(1, 2, 70, 256, dtype=torch.float32),
                     v=randn(1, 2, 70, 256, dtype=torch.float32)), dtype="float32", wgmma=0)
@@ -2713,12 +2874,60 @@ def attention_graph(fusion, cfg, kind):
         scale=1.0 / math.sqrt(cfg.head_dim))
 
 
+def trans_both_graph(fusion):
+    """gelu(x^T w^T + b), both operands read transposed (a phase-3 check)."""
+    Op, Node = fusion.OperandSpec, fusion.Node
+    return fusion.TppGraph("trans_both", (Op("x", "lhs", trans=True), Op("w", "rhs", trans=True),
+                                          Op("b", "rowvec")),
+                           nodes=(Node("n0", "bias_add", ("acc", "b")), Node("n1", "gelu", ("n0",))))
+
+
+def keep_bits_graph(fusion, rate):
+    """The backward's regeneration of fused_attn_out's dropout keep bits
+    (``dropout_rng_grad``) at ``rate``, alone on the product."""
+    return fusion.TppGraph.chain(
+        "dropout_rng_grad_bits",
+        [("dropout_rng_grad", ("seed",), {"rate": rate,
+                                          "salt": fusion.library.ATTN_OUT_DROPOUT_SALT})],
+        [("o", "lhs"), ("wo", "rhs"), ("seed", "scalar")])
+
+
+# fused_training_cases' small chained checks: label, batch axes, Sq, Skv, D,
+# window, dtype
+FUSED_CHAIN_CHECKS = (("ragged fp32", (2, 3), 100, 100, 24, 7, "float32"),
+                      ("Sq 70 Skv 100 fp32", (3,), 70, 100, 16, 0, "float32"),
+                      ("chain 128 bf16", (1, 2), 200, 200, 128, 0, "bfloat16"))
+
+
+def phase3_graphs(fusion):
+    """The graphs only phase 3's checks launch: both operands transposed,
+    the regenerated keep bits, the fully masked row, the small chained
+    checks and the P graph of their backward, the chained backward's
+    ragged, masked and windowed checks, the chained forward's checks
+    (``CHAINED_FWD_CHECKS``), and K13's rate-0 twin of fused_attn_out, so
+    that phase 2 builds their sources with the rest (built one at a time at
+    first use they took most of phase 3's time; PERF.md)."""
+    out = [trans_both_graph(fusion), keep_bits_graph(fusion, ATTN_OUT_RATE),
+           fusion.fused_attention_graph(**MASKED_ROW_GRAPH),
+           _rate0(fusion, fusion.fused_attn_out_graph(True, dropout_rate=ATTN_OUT_RATE))]
+    out += [fusion.fused_attention_graph(**kw) for kw in CHAINED_FWD_CHECKS.values()]
+    for _, _, sq, skv, d, window, _ in FUSED_CHAIN_CHECKS:
+        g = chained_graph(fusion, sq, skv, d, True, window)
+        out.append(g)
+        out += [gr for nm, gr in fusion.backward_graphs(g).items()
+                if fusion.derive_vjp(g).graph_role(nm) == "p"]
+    out += [chained_graph(fusion, sq, skv, d, causal, window)
+            for _, _, _, sq, skv, d, causal, window, *_ in CHAINED_BWD_CASES]
+    return out
+
+
 def fused_sources(fusion, fused_gemm, graphs=None):
     """name → generated CUDA source of every graph in ``graphs`` (default:
-    ``fused_graphs`` and ``training_graphs``); graphs of one structure
-    share a source."""
+    ``fused_graphs``, ``training_graphs`` and ``phase3_graphs``); graphs of
+    one structure share a source."""
     out = {}
-    for g in graphs if graphs is not None else fused_graphs(fusion) + training_graphs(fusion):
+    for g in graphs if graphs is not None else (fused_graphs(fusion) + training_graphs(fusion)
+                                                + phase3_graphs(fusion)):
         src = fused_gemm.generate_source(fusion.simplify_graph(g))
         out[fused_gemm.source_name(fusion.simplify_graph(g), src)] = src
     return out
@@ -2850,10 +3059,7 @@ def fused_gemm_cases(torch, bench, fusion, fused_gemm):
         run(f"check narrow aligned M{m} K64 N96/32/32", fusion.fused_qkv_graph(),
             dict(x=randn(m, 64), wq=randn(64, 96), wk=randn(64, 32), wv=randn(64, 32)),
             timed=False, flops=0, nbytes=0)
-    Op, Node = fusion.OperandSpec, fusion.Node
-    both = fusion.TppGraph("trans_both", (Op("x", "lhs", trans=True), Op("w", "rhs", trans=True),
-                                          Op("b", "rowvec")),
-                           nodes=(Node("n0", "bias_add", ("acc", "b")), Node("n1", "gelu", ("n0",))))
+    both = trans_both_graph(fusion)
     for m, k, n in ((304, 136, 200), (16, 256, 520), (2048, 512, 384)):
         run(f"check both transposed M{m} K{k} N{n}", both,
             dict(x=randn(k, m), w=randn(n, k, scale=k ** -0.5), b=randn(n)), timed=False,
@@ -3045,7 +3251,7 @@ def fused_training_cases(torch, bench, fusion, rng):
 
     # dropout_rng in the kernel: the forward's keep pattern and a backward
     # graph's regeneration, bit for bit, against fusion.rng at M 4096 x N 2304
-    rate, salt, seed = 0.15, fusion.library.ATTN_OUT_DROPOUT_SALT, 1234567
+    rate, salt, seed = ATTN_OUT_RATE, fusion.library.ATTN_OUT_DROPOUT_SALT, 1234567
     do_res = fusion.fused_attn_out_graph(True, dropout_rate=rate)
     o, wo = randn(t, dm), randn(dm, dm, scale=dm ** -0.5)
     zero = torch.zeros(t, dm, dtype=torch.bfloat16, device="cuda")
@@ -3056,9 +3262,7 @@ def fused_training_cases(torch, bench, fusion, rng):
     acc = (o.float() @ wo.float()).abs() > 1e-2
     check(torch.equal((y != 0) & acc, keep & acc),
           "fused_attn_out_do_res: the kernel's keep pattern differs from fusion.rng's")
-    bits = fusion.TppGraph.chain("dropout_rng_grad_bits",
-                                 [("dropout_rng_grad", ("seed",), {"rate": rate, "salt": salt})],
-                                 [("o", "lhs"), ("wo", "rhs"), ("seed", "scalar")])
+    bits = keep_bits_graph(fusion, rate)
     yb = run("fused_gemm", f"M{t} N{dm} dropout_rng_grad", bits, dict(o=o, wo=wo, seed=seed),
              flops=2 * t * dm * dm, nbytes=_nbytes(o, wo, zero), timed=False)
     check(torch.equal((yb != 0) & acc, keep & acc),
@@ -3095,7 +3299,7 @@ def fused_training_cases(torch, bench, fusion, rng):
     # 0, as the reference's chained Pallas kernel does; the plain version
     # follows the reference's composed path (a uniform softmax over the
     # masked keys); ROADMAP.md Queue 3
-    one = fusion.fused_attention_graph(causal=True, scale=0.5, offset=-1)
+    one = fusion.fused_attention_graph(**MASKED_ROW_GRAPH)
     k5, plain = _graph_run(torch, fusion, one)
     qs = torch.arange(8, dtype=f32, device="cuda").reshape(2, 4) / 8
     ks, vs = torch.ones(1, 4, device="cuda"), torch.tensor([[1.0, 2.0, 3.0, 4.0]], device="cuda")
@@ -3112,11 +3316,9 @@ def fused_training_cases(torch, bench, fusion, rng):
         return randn(*bt, sq, dd, dtype=dt), randn(*bt, skv, dd, dtype=dt), \
             randn(*bt, skv, dd, dtype=dt)
 
-    for label, bt, sq, skv, dd, win, dt in (
-            ("ragged fp32", (2, 3), 100, 100, 24, 7, f32), ("Sq 70 Skv 100 fp32", (3,), 70, 100, 16, 0, f32),
-            ("chain 128 bf16", (1, 2), 200, 200, 128, 0, torch.bfloat16)):
-        qs, ks, vs = qkv(bt, sq, skv, dd, dt)
-        cg = fusion.fused_attention_graph(causal=True, window=win, scale=dd ** -0.5, offset=skv - sq)
+    for label, bt, sq, skv, dd, win, dtname in FUSED_CHAIN_CHECKS:
+        qs, ks, vs = qkv(bt, sq, skv, dd, getattr(torch, dtname))
+        cg = chained_graph(fusion, sq, skv, dd, True, win)
         run("fused_chain", f"check {label}", cg, dict(q=qs, k=ks, v=vs), timed=False, flops=0, nbytes=0)
         for role, gr in ((fusion.derive_vjp(cg).graph_role(nm), gr)
                          for nm, gr in fusion.backward_graphs(cg).items()):
@@ -3368,7 +3570,7 @@ def hw_prng_cases(torch, bench, fusion, fused_gemm, rng):
         rows[f"{label} tiles {tiles or 'pick_tiles'}"] = row
 
     # minicpm-2b's attention output projection with dropout 0.15
-    rate, salt, seed = 0.15, fusion.library.ATTN_OUT_DROPOUT_SALT, 777
+    rate, salt, seed = ATTN_OUT_RATE, fusion.library.ATTN_OUT_DROPOUT_SALT, 777
     t, dm = 4096, 2304
     g = fusion.fused_attn_out_graph(True, dropout_rate=rate)
     o, wo, res = randn(t, dm), randn(dm, dm, scale=dm ** -0.5), randn(t, dm)
@@ -4910,7 +5112,7 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "fused_panel_bf16_wgmma": "fused_panel",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_prefill_kernel": "mamba_scan",
-             "mamba_scan_decode_kernel": "mamba_scan",
+             "mamba_scan_decode_kernel": "mamba_scan", "mamba_scan_bwd_kernel": "mamba_scan_bwd",
              "block_spmm_bf16_wgmma": "block_spmm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wgmma": "grouped_matmul",
@@ -4951,11 +5153,18 @@ def device_breakdown(torch, run, wall_ms):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The tracer can miss the first launches of a profile (3 of
+        # falcon-mamba's 257 K1 launches a step, or one of its 64 K8
+        # launches; PERF.md): ~10 ms of torch.cuda._sleep first, left out
+        # of the breakdown, so that the run's launches are all recorded.
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     by_kernel, ranges, names = {}, {}, {}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+        if (ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0
+                or "spin_kernel" in ev.key):
             continue
         if ev.key in RANGES:     # a named range's device span, not a kernel
             ranges[ev.key] = ev.self_device_time_total / 1e3
@@ -5031,6 +5240,7 @@ class Counters:
         self.scan.SCAN_LAUNCHES = 0
         self.scan.SCAN_PREFILL_LAUNCHES = 0
         self.scan.SCAN_DECODE_LAUNCHES = 0
+        self.scan.SCAN_BWD_LAUNCHES = 0
         self.spmm.SPMM_LAUNCHES = 0
         for counter in self.spmm.SPMM_COUNTERS.values():
             setattr(self.spmm, counter, 0)
@@ -5071,6 +5281,7 @@ class Counters:
                 # K8's launches by variant (not kernel rows of their own)
                 "mamba_scan_prefill": self.scan.SCAN_PREFILL_LAUNCHES,
                 "mamba_scan_decode": self.scan.SCAN_DECODE_LAUNCHES,
+                "mamba_scan_bwd": self.scan.SCAN_BWD_LAUNCHES,
                 "block_spmm": self.spmm.SPMM_LAUNCHES,
                 # K10's launches by variant (not kernel rows of their own)
                 **{f"block_spmm_{v}": getattr(self.spmm, c)
@@ -5168,13 +5379,15 @@ TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA v
 
 
 def reduced_training(torch):
-    """Reduced fp32 minicpm-2b, gpt-j-6b and bert-large: three ``make_train_step``
-    steps on CUDA and on the CPU from the same initial state and batches
-    (loss and grad norm within TRAIN_TOL), then 4 trainer steps straight
-    against 2 steps, a checkpoint, a restore and 2 more on the card
-    (parameters bitwise equal); and the same three steps with
-    ``use_fusion=True`` at dropout 0.15 (K5's graphs, forward and derived
-    backward, on the card)."""
+    """Reduced fp32 minicpm-2b, gpt-j-6b, bert-large and falcon-mamba-7b
+    (96 tokens: three of K8's 32-step chunks on the card, the reference's
+    chunked scan on the CPU): three ``make_train_step`` steps on CUDA and on
+    the CPU from the same initial state and batches (loss and grad norm
+    within TRAIN_TOL), then 4 trainer steps straight against 2 steps, a
+    checkpoint, a restore and 2 more on the card (parameters bitwise equal);
+    and the same three steps with ``use_fusion=True`` at dropout 0.15 (K5's
+    graphs, forward and derived backward, on the card) for the three
+    attention models (a mamba block has no fused form)."""
     import dataclasses
     import tempfile
     from repro_torch.configs.base import get_config
@@ -5184,12 +5397,14 @@ def reduced_training(torch):
                                    init_train_state, make_train_step, train)
 
     for arch, fused in (("minicpm_2b", False), ("gptj_6b", False), ("bert_large", False),
-                        ("minicpm_2b", True), ("gptj_6b", True), ("bert_large", True)):
+                        ("falcon_mamba_7b", False), ("minicpm_2b", True), ("gptj_6b", True),
+                        ("bert_large", True)):
         cfg = get_config(arch).reduced()
         if fused:
             cfg = dataclasses.replace(cfg, use_fusion=True, dropout_rate=0.15)
         tcfg = TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=40, loss_chunk=16)
-        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=1)
+        seq = 96 if cfg.ssm_state else 32
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4, seed=1)
         cpu_params, cpu_opt = init_train_state(cfg, tcfg, 0, device="cpu")
         state = {"cpu": (cpu_params, cpu_opt)}
         gpu_params = _to_cuda(cpu_params)
@@ -5232,23 +5447,32 @@ def reduced_training(torch):
 
 
 def training_model_flops(cfg, batch, seq):
-    """(model FLOPs of one step: 6 N tokens plus attention forward and
-    backward, over the causal pairs S(S+1)/2 of a causal layer and all S^2
-    of a bidirectional one, remat excluded; FLOPs the step does with remat:
-    one more forward of every layer and one more of the loss chunks'
-    logits)."""
+    """(model FLOPs of one step: 6 N tokens plus, for each attention layer,
+    its scores and values forward and backward over the causal pairs
+    S(S+1)/2 of a causal layer and all S^2 of a bidirectional one, and for
+    each mamba layer its scan forward and backward (6 N + 3 a channel and
+    token forward, K8's count; the backward twice that), remat excluded;
+    FLOPs the step does with remat: one more forward of every layer and
+    one more of the loss chunks' logits)."""
     from repro_torch.models import lm
 
-    L, d, ff, h, hd = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
-    per_layer = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d \
+    d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
+    attn_layer = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d \
         + (3 if cfg.gated_mlp else 2) * d * ff
     tokens = batch * seq
-    pairs = sum(seq * seq if kind == "bidir" else seq * (seq + 1) // 2
-                for kind in lm.layer_kinds(cfg))
-    attn_fwd = 4 * batch * h * hd * pairs
+    weights, extra_fwd = 0, 0
+    for kind in lm.layer_kinds(cfg):
+        if kind == "mamba":
+            di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
+            weights += d * 2 * di + di * (dr + 2 * n) + dr * di + di * d
+            extra_fwd += tokens * di * (6 * n + 3)
+        else:
+            weights += attn_layer
+            pairs = seq * seq if kind == "bidir" else seq * (seq + 1) // 2
+            extra_fwd += 4 * batch * h * hd * pairs
     logits_fwd = 2 * tokens * d * cfg.padded_vocab
-    model = 6 * (L * per_layer + d * cfg.padded_vocab) * tokens + 3 * attn_fwd
-    remat = model + 2 * L * per_layer * tokens + attn_fwd + logits_fwd
+    model = 6 * (weights + d * cfg.padded_vocab) * tokens + 3 * extra_fwd
+    remat = model + 2 * weights * tokens + extra_fwd + logits_fwd
     return model, remat
 
 
@@ -5280,28 +5504,121 @@ def fused_training_launches(fusion, cfg, steps):
 def unfused_training_launches(cfg, seq, loss_chunk):
     """Launches one unfused training step of ``cfg`` makes under remat: K1
     twice for each projection of a layer (the forward and remat's
-    recompute) and once more for the activated projection's pre-activation
-    in the backward, K1 on a transposed operand for each projection's dX and
-    dW, K2 twice and K6 once a layer; per loss chunk the logits twice
-    (checkpointed), their dX and dW, a tied embedding read transposed."""
+    recompute) and once more for an attention layer's activated projection's
+    pre-activation in the backward, K1 on a transposed operand for each
+    projection's dX and dW; K2 twice and K6 once an attention layer; K8's
+    forward twice and its backward once a mamba layer (whose four products
+    have no activation); per loss chunk the logits twice (checkpointed),
+    their dX and dW, a tied embedding read transposed."""
+    from repro_torch.models import lm
+
+    kinds = lm.layer_kinds(cfg)
+    mamba = sum(kind == "mamba" for kind in kinds)
+    attn = len(kinds) - mamba
     products = 4 + (3 if cfg.gated_mlp else 2)
     chunks = seq // min(loss_chunk, seq)
     head_plain, head_trans = (1, 3) if cfg.tie_embeddings else (2, 2)
-    L = cfg.num_layers
-    return {"gemm": L * (2 * products + 1) + chunks * head_plain,
-            "gemm_transposed": 2 * L * products + chunks * head_trans,
-            "flash_attention": 2 * L, "flash_attention_bwd": L}
+    return {"gemm": attn * (2 * products + 1) + mamba * 2 * 4 + chunks * head_plain,
+            "gemm_transposed": 2 * attn * products + mamba * 2 * 4 + chunks * head_trans,
+            "flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "mamba_scan": 2 * mamba, "mamba_scan_bwd": mamba}
+
+
+def _named_leaves(tree, key=""):
+    """(the leaf's own key, tensor) of a parameter tree, in ``tree_leaves``'
+    order: w_in of every layer has the key w_in, a norm's gain scale."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _named_leaves(v, key)]
+    return [(key, tree)]
+
+
+# Leaves a bf16 forward reads too coarsely for gradient_slope: the causal
+# conv adds conv_b to its bf16 sum in bf16 (blocks._causal_conv, as the
+# reference's), which rounds most of such a step away; with that sum in
+# fp32, or the whole forward in fp32, conv_b meets the prediction
+# (train_divergence.py, PERF.md)
+SLOPE_BF16_UNHELD = ("conv_b",)
+
+
+def gradient_slope(torch, cfg, params, batch, lr=None):
+    """The gradient on the card against the loss change it predicts, group
+    by group: g of ``lm_loss`` (remat) at ``params`` on ``batch``; for each
+    group G of leaves (a leaf's key across the layers: w_in, a_log, embed,
+    ...) and for all of them, the loss after steps -eps g_G and +eps g_G on
+    G alone, eps = f / |g_G|^2, which to first order move the loss by -f
+    and +f, at f = 0.02: twenty times the rounding noise of falcon-mamba-7b's
+    bf16 loss at full width, where an fp32 forward shows no higher-order
+    term.  The central difference (L(+) - L(-)) / 2 must be within 10 % of
+    f (except, in a bf16 forward, for ``SLOPE_BF16_UNHELD``); the even part
+    (L(+) + L(-)) / 2 - L, which it cancels, is reported beside it.  The
+    parameters are restored bit for bit.  With ``lr``, also the first-order
+    drop of a fresh AdamW's first step at that lr, which moves each
+    parameter by about lr against its gradient's sign: lr |g|_1.  → the
+    loss, and per group |g_G|^2, |g_G|_1, the central difference and the
+    even part."""
+    from repro_torch.models import lm
+
+    f = 0.02
+    named = _named_leaves(params)
+    loss, _ = lm.lm_loss(cfg, params, batch, remat=True, loss_chunk=512)
+    grads = torch.autograd.grad(loss, [t for _, t in named])
+    l0 = float(loss.detach())
+    del loss
+    groups = {}
+    for (key, p), g in zip(named, grads):
+        groups.setdefault(key, []).append((p, g))
+    groups = {k: groups[k] for k in sorted(groups)}
+    groups["all"] = [pg for m in groups.values() for pg in m]
+    rows = {}
+    with torch.no_grad():
+        for key, members in groups.items():
+            g2 = sum(float(g.float().pow(2).sum()) for _, g in members)
+            check(g2 > 0, f"gradient slope: the leaves {key} have no gradient")
+            saved = [p.clone() for p, _ in members]
+            moved = []
+            for sign in (-1, 1):
+                for p, g in members:
+                    p.add_(g, alpha=sign * f / g2)
+                moved.append(float(lm.lm_loss(cfg, params, batch, loss_chunk=512)[0]) - l0)
+                for (p, _), s in zip(members, saved):
+                    p.copy_(s)
+            rows[key] = {"grad_norm_sq": g2,
+                         "grad_l1": sum(float(g.float().abs().sum()) for _, g in members),
+                         "central": (moved[1] - moved[0]) / 2, "even": (moved[1] + moved[0]) / 2}
+            del saved
+    del grads
+    torch.cuda.empty_cache()
+    unheld = SLOPE_BF16_UNHELD if cfg.dtype == "bfloat16" else ()
+    print(f"  gradient slope at loss {l0:.5f} ({cfg.dtype}): steps of -+eps g on each group of"
+          f" leaves alone, predicted to move the loss by {f}: central difference (even part) "
+          + ", ".join(f"{k}{' (not held)' if k in unheld else ''} {r['central']:.5f}"
+                      f" ({r['even']:+.5f})" for k, r in rows.items()), flush=True)
+    result = {"loss": l0, "dtype": cfg.dtype, "drop": f, "groups": rows, "not_held": list(unheld)}
+    if lr is not None:
+        result["adamw_first_step"] = {"lr": lr, "first_order_drop": lr * rows["all"]["grad_l1"]}
+        print(f"  a fresh AdamW's first step at lr {lr:g}: first-order drop lr |g|_1"
+              f" {lr * rows['all']['grad_l1']:.4f} (|g|_1 {rows['all']['grad_l1']:.4e})", flush=True)
+    for key, r in rows.items():
+        check(key in unheld or abs(r["central"] - f) <= 0.1 * f,
+              f"steps of -+eps g on {key}, predicted to move the loss by {f}, moved it by"
+              f" {r['central']} (central difference): the gradient disagrees with the loss")
+    return result
 
 
 def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=1024,
-                     fused=False, unfused=None, layers=None, steps=None, downhill=True):
+                     fused=False, unfused=None, layers=None, steps=None, downhill=True,
+                     downhill_lr=1e-5, slope=False):
     """``arch`` at full width and depth (``layers``: the depth cut to that
     many layers): 6 trainer steps (``steps``; fp32 masters, bf16
     compute, B ``batch`` x S ``seq``, loss_chunk 512, remat, AdamW defaults,
-    WSD) whose K1, K2 and K6 launches must be what the layer count implies,
-    then (with ``downhill``) 3 steps at a small constant learning rate on
-    one repeated batch, whose loss must fall at each step, and one profiled
-    step.  With ``fused``, ``use_fusion=True`` from the same initial
+    WSD) whose K1, K2, K6 and K8 (forward and backward) launches must be
+    what the layer count implies,
+    then (with ``slope``) ``gradient_slope`` on a held-out batch, (with
+    ``downhill``) 3 steps at a small constant learning rate
+    (``downhill_lr``, fresh AdamW moments) on that batch, whose loss must
+    fall at each step, and one profiled step.  With ``fused``, ``use_fusion=True`` from the same initial
     parameters and batches (4 trainer steps): K5's launches by graph must
     be what the derived plans imply, every chained forward and backward
     must run on wgmma, and step 1's loss within rtol 2e-2 of ``unfused``
@@ -5368,6 +5685,9 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         check(launches["flash_attention_bwd_wgmma"] == want["flash_attention_bwd"],
               f"K6's wgmma kernels launched {launches['flash_attention_bwd_wgmma']} times in"
               f" {steps} steps, want {want['flash_attention_bwd']}")
+        check(launches["mamba_scan_prefill"] == want["mamba_scan"],
+              f"K8's prefill kernel launched {launches['mamba_scan_prefill']} times in {steps}"
+              f" steps, want {want['mamba_scan']}")
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
     step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
@@ -5408,11 +5728,13 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         del params
         torch.cuda.empty_cache()
         return result
-    fixed = TrainConfig(schedule="wsd", peak_lr=1e-5, warmup_steps=0, total_steps=10**6,
+    one = to_device(SyntheticCorpus(dcfg).batch_at(1000), "cuda")
+    if slope:
+        result["gradient_slope"] = gradient_slope(torch, cfg, params, one, lr=downhill_lr)
+    fixed = TrainConfig(schedule="wsd", peak_lr=downhill_lr, warmup_steps=0, total_steps=10**6,
                         loss_chunk=512, remat=True)
     opt = init_state(params, AdamWConfig())
     step_fn = make_train_step(cfg, fixed)
-    one = to_device(SyntheticCorpus(dcfg).batch_at(1000), "cuda")
     losses = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -5424,7 +5746,8 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         losses.append(float(lm.lm_loss(cfg, params, one, loss_chunk=512)[0]))
     falls = all(b < a for a, b in zip(losses, losses[1:]))
     result["repeated_batch_losses"] = losses
-    print(f"  3 steps at lr 1e-5 on one batch: losses {losses} (falling: {falls})", flush=True)
+    print(f"  3 steps at lr {downhill_lr:g} on one batch: losses {losses} (falling: {falls})",
+          flush=True)
     check(falls, f"the loss did not fall at each step on a repeated batch: {losses}")
     result["profile"] = device_breakdown(torch, lambda: step_fn(params, opt, one, 3), last_ms)
     del params, opt
@@ -5490,27 +5813,29 @@ def main() -> int:
 
     phase("3. kernels against their plain versions")
     bench = Bench(torch, peaks)
-    gemm_cases(torch, bench, ref, brgemm)
-    gemm_training_cases(torch, bench, ref, brgemm)
-    attention_cases(torch, bench, ref, fa)
-    attention_bwd_cases(torch, bench, ref, fa)
-    decode_cases(torch, bench, ref, fa)
-    paged_decode_cases(torch, bench, ref, fa)
-    gemma3_kernel_cases(torch, bench, ref, fa, brgemm)
-    mamba_scan_cases(torch, bench, ref, scan)
-    fused_gemm_cases(torch, bench, fusion, fused_gemm)
-    fused_training_cases(torch, bench, fusion, rng)
-    chained_bwd_cases(torch, bench, fusion, fused_gemm, ops)
-    chained_forward_cases(torch, bench, fusion, fused_gemm, fa)
-    fused_spec_cases(torch, bench, fusion, fused_gemm, rng)
-    hw_prng_cases(torch, bench, fusion, fused_gemm, rng)
-    bert_attention_cases(torch, bench, fusion)
-    block_spmm_cases(torch, bench, ref, spmm, brgemm)
-    grouped_matmul_cases(torch, bench, ref, spmm)
-    fused_output_cases(torch, bench, fo, fusion)
-    brgemm_blocked_cases(torch, bench, ref, brgemm)
-    gemm_spec_cases(torch, bench, ref, brgemm)
-    conv1x1_cases(torch, bench, ref, ops)
+    # each group's seconds (where phase 3's time goes)
+    phase3_s = {}
+    for group, args in ((gemm_cases, (ref, brgemm)), (gemm_training_cases, (ref, brgemm)),
+                        (attention_cases, (ref, fa)), (attention_bwd_cases, (ref, fa)),
+                        (decode_cases, (ref, fa)), (paged_decode_cases, (ref, fa)),
+                        (gemma3_kernel_cases, (ref, fa, brgemm)), (mamba_scan_cases, (ref, scan)),
+                        (mamba_scan_bwd_cases, (ref, scan)),
+                        (fused_gemm_cases, (fusion, fused_gemm)),
+                        (fused_training_cases, (fusion, rng)),
+                        (chained_bwd_cases, (fusion, fused_gemm, ops)),
+                        (chained_forward_cases, (fusion, fused_gemm, fa)),
+                        (fused_spec_cases, (fusion, fused_gemm, rng)),
+                        (hw_prng_cases, (fusion, fused_gemm, rng)),
+                        (bert_attention_cases, (fusion,)),
+                        (block_spmm_cases, (ref, spmm, brgemm)),
+                        (grouped_matmul_cases, (ref, spmm)), (fused_output_cases, (fo, fusion)),
+                        (brgemm_blocked_cases, (ref, brgemm)), (gemm_spec_cases, (ref, brgemm)),
+                        (conv1x1_cases, (ref, ops))):
+        start = time.perf_counter()
+        group(torch, bench, *args)
+        phase3_s[group.__name__] = time.perf_counter() - start
+    print(f"  phase 3 seconds by group: { {k: round(v, 1) for k, v in phase3_s.items()} }",
+          flush=True)
     k6 = bench.summary("flash_attention_bwd")["ms"]
     chained_row = bench.summary("fused_attention_bwd")
     print(f"  the chained backward kernel: {chained_row['ms']:.4f} ms (the six derived graphs it"
@@ -5587,12 +5912,29 @@ def main() -> int:
           f" % unfused); peak {gptj_fused['max_memory_allocated_gib']:.2f} GiB fused"
           f" ({gptj_train['max_memory_allocated_gib']:.2f} unfused)", flush=True)
 
+    phase("10d. falcon-mamba-7b, full width (16 of 64 layers), training")
+    # d 4096, d_inner 8192, N 16 as published; 16 layers: 64 layers' fp32
+    # masters, gradients, AdamW moments and bf16 copies (18 bytes a
+    # parameter, ~120 GB) would not fit in 80 GB
+    # The gradient is checked group by group against the loss it predicts
+    # (gradient_slope).  The downhill takes lr 1e-6: a fresh AdamW's first
+    # step moves each parameter by about lr against its gradient's sign, a
+    # first-order drop of lr |g|_1; this model's |g|_1 is ~9 times
+    # minicpm-2b's, and at 1e-5 that step raised its loss after the
+    # trainer's spike (11.11 to 11.73; train_divergence.py, PERF.md)
+    mamba_train = train_full_width(torch, counters, peaks, arch="falcon_mamba_7b", batch=2,
+                                   seq=2048, layers=16, downhill_lr=1e-6, slope=True)
+    print(f"  falcon-mamba-7b (16 layers) B2 x S2048 on {card_line}: step"
+          f" {mamba_train['step_ms_median']:.1f} ms, {mamba_train['tokens_per_s']:.1f} tokens/s,"
+          f" model-FLOPs share {100 * mamba_train['mfu_bf16_peak']:.2f} %, peak"
+          f" {mamba_train['max_memory_allocated_gib']:.2f} GiB", flush=True)
+
     phase("11. kernels")
     kernels = []
     for name in KERNELS:
         s = bench.summary(name)
-        tol = TOL["bfloat16"]["scan" if name == "mamba_scan" else
-                              "attn" if name.startswith(("flash", "paged")) else "gemm"]
+        tol = TOL["bfloat16"][{"mamba_scan": "scan", "mamba_scan_bwd": "scan_bwd"}.get(
+            name, "attn" if name.startswith(("flash", "paged")) else "gemm")]
         by_path = {"generate_loop": result["launches"][name], "engine": engine["launches"][name],
                    "fused_generate_loop": fused["launches"][name],
                    "fused_engine": fused["engine"]["launches"][name],
@@ -5607,6 +5949,7 @@ def main() -> int:
                    "bert_fused_training": bert_fused["launches"][name],
                    "gptj_training": gptj_train["launches"][name],
                    "gptj_fused_training": gptj_fused["launches"][name],
+                   "mamba_training": mamba_train["launches"][name],
                    "parlooper_listing1": loops["listing1_launches"][name],
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
@@ -5636,7 +5979,8 @@ def main() -> int:
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,
-                      "gptj_fused_training": gptj_fused, "phase3_extra": bench.extra,
+                      "gptj_fused_training": gptj_fused, "mamba_training": mamba_train,
+                      "phase3_seconds": phase3_s, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
                       "gemm_build": gemm_build, "k5_k10_build": k5_k10_build,
                       "k3_k9_build": k3_k9_build, "k4_k8_build": k4_k8_build,

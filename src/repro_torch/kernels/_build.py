@@ -83,11 +83,18 @@ SIGNATURES = {
         "paged_decode_chunk": (),
     },
     "mamba_scan": {
-        # x, dt, a, b, c, d_skip, h0, y, h_out, bf16, B, L, D, N, lanes,
-        # x/dt strides (batch, step), b/c strides (batch, step, n), stream
-        "mamba_scan": (_P,) * 9 + (_I,) * 6 + (_L,) * 10 + (_P,),
+        # x, dt, a, b, c, d_skip, h0, y, h_out, states, bf16, B, L, D, N,
+        # lanes, x/dt strides (batch, step), b/c strides (batch, step, n),
+        # stream
+        "mamba_scan": (_P,) * 10 + (_I,) * 6 + (_L,) * 10 + (_P,),
         "mamba_scan_steps": (),
         "mamba_scan_min_blocks": (_I,),
+        # x, dt, a, b, c, d_skip, states, dy, dh_final, dx, ddt, db, dc, da,
+        # dd, dh0, step states, dB/dC partials, dA/dD partials, counters,
+        # bf16, B, L, D, N, x/dt strides (batch, step), b/c strides (batch,
+        # step, n), dy strides (batch, step), stream
+        "mamba_scan_bwd": (_P,) * 20 + (_I,) * 5 + (_L,) * 12 + (_P,),
+        "mamba_scan_bwd_smem": (_I,),
     },
     "block_spmm": {
         # blocks, row_ptr, col_id, b, c, in_bf16, out_bf16, nrows, bm, bk,

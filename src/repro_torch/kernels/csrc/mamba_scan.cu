@@ -47,6 +47,60 @@
 //   in place (h_out may be h0: the layer updates its cache).
 // Each thread reads its own states of h0 before its first step and writes
 // the same states of h_out after its last, so h_out may be h0 in both.
+// For training the prefill also stores, when given a pointer, each
+// thread's states entering every chunk of kSteps steps in fp32 (B,
+// chunks, D, N): the boundary states the backward starts from.  A null
+// pointer (serving) leaves the kernel's arithmetic, bits and launches as
+// they were.
+//
+// The backward, mamba_scan_bwd_kernel, has no TPU counterpart: the
+// reference differentiates its XLA scan (repro/kernels/ref.py
+// mamba_scan_xla_chunked) and the Pallas scan has no VJP.  Per channel d,
+// state n and step t, with a_t = exp(dt_t A) and g the carried dL/dh
+// (dh_final, or 0), walking t backwards:
+//   g += dy_t C_t;  dC_t = sum_d dy_t h_t;  dx_t = dt_t sum_n g B_t + D dy_t;
+//   ddt_t = sum_n g (x_t B_t + A a_t h_{t-1});  dB_t = sum_d g dt_t x_t;
+//   dA += g dt_t a_t h_{t-1};  dD += dy_t x_t;  then g <- a_t g; dh0 = g.
+// (kernels/ref.py mamba_scan_bwd_ref is the same walk in plain PyTorch.)
+//
+// What bounds the backward on an H100, at falcon-mamba-7b's training layer
+// (B 2, L 2048, D 8192, N 16, bf16): bytes, x, dt and dy read, dx and ddt
+// written, the boundary states read (64 chunks of 1 MB), B, C, dB, dC,
+// A, dA, D, dD, dh_final and dh0: about 0.40 GB, 0.12 ms at 3.35 TB/s;
+// and the exponentials, B·L·D·N = 537 M a pass, 0.128 ms a pass on 132 SMs
+// x 16 special-function results a clock at 1.98 GHz.  This kernel makes
+// two passes (the recompute and the reverse walk), so its floor is 0.257
+// ms.
+//
+// What its design does about it (a simple kernel first; PERF.md):
+// - A block owns 128 channels of one row, one thread a channel with its N
+//   states in registers (the forward's LANES 1), and walks the chunks from
+//   the last to the first.  For each chunk it stages the chunk's B and C
+//   in shared memory as fp32, recomputes the chunk's states from its
+//   boundary state with the forward's own arithmetic (the ex2 decay on
+//   A·log2 e, __fmul_rn / __fmaf_rn as the forward rounds them, so the
+//   states are bitwise the forward's), storing each step's states in a
+//   per-block workspace in device memory (kSteps x N x 128 fp32, 256 KB a
+//   block at N 16: 32 MB for the whole grid at B 2, which L2 mostly
+//   holds), and then walks the chunk backwards reading h_{t-1} from there
+//   (the boundary state for the chunk's first step).  Cost: two
+//   exponentials a state-step instead of one, and the workspace written and
+//   read once (2 B·L·D·N·4 bytes, 4.3 GB at that layer, L2 traffic) where
+//   keeping (B, L, D, N) would take 2.1 GB of device memory a layer.
+// - No floating-point atomics.  dB_t and dC_t sum over D: each warp
+//   reduces its 32 channels' 2N values by a butterfly that leaves one value
+//   a lane (fixed lanes, fixed order), the four warps' sums are added in a
+//   fixed tree after the chunk, and each block writes its partial for the
+//   chunk's steps; the last block of a (row, chunk) to finish (an integer
+//   counter) adds the partials of the row's channel blocks in block order
+//   and writes dB and dC.  dA and dD sum over B and L: each thread sums its
+//   channel's steps in registers, and the last block of a channel block
+//   adds the rows' partials in row order.  A row has the same bits at any
+//   B, and two runs the same bits.
+// - x, dt and dy are read in place through (batch, step) strides with a
+//   unit stride along D, B and C through (batch, step, n) strides (column
+//   slices of the x projection); dx, ddt, dB and dC are written contiguous
+//   in the operands' type.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +163,7 @@ struct Args {
   const float* h0;
   void* y;
   float* hout;
+  float* hb;      // (B, chunks, D, N): the states entering each chunk, or null
   int L, D;
   long long xb, xl, db, dl, bb, bl, bn, cb, cl, cn;   // element strides
 };
@@ -262,6 +317,8 @@ mamba_scan_prefill_kernel(const Args a) {
   for (int i = 0; i < chunks; ++i) {
     const int t0 = i * kSteps, n = min(kSteps, L - t0);
     const bool more = i + 1 < chunks;
+    if (a.hb != nullptr && live)
+      store_states(a.hb + (((long long)b * chunks + i) * a.D + d) * N + j * S, h);
     if (more) {
       stage(i + 1);   // its buffer was last read before the previous barrier
       fetch(i + 1);
@@ -367,6 +424,256 @@ cudaError_t dispatch(int N, const Args& a, int B, int lanes, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward (see the header).
+// ---------------------------------------------------------------------------
+
+struct BwdArgs {
+  const void* x;
+  const void* dt;
+  const float* a;
+  const void* b;
+  const void* c;
+  const float* dskip;
+  const float* hb;     // (B, chunks, D, N): the states entering each chunk
+  const void* dy;
+  const float* dhf;    // (B, D, N) or null
+  void* dx;            // (B, L, D) in T, contiguous
+  void* ddt;           // (B, L, D) in T, contiguous
+  void* db;            // (B, L, N) in T, contiguous
+  void* dc;            // (B, L, N) in T, contiguous
+  float* da;           // (D, N)
+  float* dd;           // (D,)
+  float* dh0;          // (B, D, N) or null
+  float4* ws;          // (B, gx, kSteps, N / 4, 128): each step's states
+  float* pbc;          // (B, chunks, gx, kSteps, 2N): dB, dC partials
+  float* pa;           // (B, D, N + 1): dA and dD partials
+  int* cnt;            // B·chunks + gx counters, zero at the launch
+  int L, D;
+  long long xb, xl, db_, dl, bb, bl, bn, cb, cl, cn, yb, yl;   // element strides
+};
+
+// The butterfly that sums V values over a warp's 32 lanes and leaves one
+// sum a lane: at offset O the lanes with bit O set keep the upper half of
+// their W values and add their partner's upper half, the others the lower
+// half; once one value is left the remaining offsets add it to the
+// partner's (a + b and b + a round alike).  Lane l ends with the sum of
+// value l >> (5 - log2 V), in one fixed order.
+template <int W, int O, int V>
+__device__ __forceinline__ void scatter(float (&v)[V], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (W > 1) {
+      constexpr int H = W / 2;
+      const bool up = (lane & O) != 0;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float send = up ? v[k] : v[k + H];
+        const float keep = up ? v[k + H] : v[k];
+        v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
+      }
+      scatter<H, O / 2, V>(v, lane);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      scatter<1, O / 2, V>(v, lane);
+    }
+  }
+}
+
+template <int N>
+struct BwdSmem {
+  float bc[kSteps][2 * N];                     // the chunk's B then C, fp32
+  float red[kSteps][kThreads / 32][2 * N];     // each warp's dB, dC sums a step
+  int last[4];                                 // [0]: this block finished last (16 bytes)
+};
+
+// Grid (ceil(D / 128), B), 128 threads, one a channel.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_kernel(const BwdArgs a) {
+  constexpr int V = 2 * N, W = kThreads / 32, Q = N / 4;
+  constexpr int SHIFT = V == 32 ? 0 : 1;        // lane l holds value l >> SHIFT
+  static_assert(V == 16 || V == 32, "N is 8 or 16");
+  static_assert(W == 4, "four warps a block: their sums are added (w0 + w1) + (w2 + w3)");
+  __shared__ __align__(16) BwdSmem<N> sm;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, bx = blockIdx.x, gx = gridDim.x, B = gridDim.y;
+  const int d = bx * kThreads + tid;
+  const bool live = d < a.D;
+  const int L = a.L, chunks = (L + kSteps - 1) / kSteps;
+
+  float av[N], a2[N], g[N], dA[N];
+  if (live) {
+    load_states(av, a.a + (long long)d * N);
+  } else {
+#pragma unroll
+    for (int s = 0; s < N; ++s) av[s] = 0.0f;
+  }
+#pragma unroll
+  for (int s = 0; s < N; ++s) {
+    a2[s] = __fmul_rn(av[s], kLog2e);
+    g[s] = 0.0f;
+    dA[s] = 0.0f;
+  }
+  if (live && a.dhf != nullptr) load_states(g, a.dhf + ((long long)b * a.D + d) * N);
+  float dD = 0.0f;
+  const float dsk = live ? a.dskip[d] : 0.0f;
+
+  const T* xr = static_cast<const T*>(a.x) + b * a.xb + d;
+  const T* dr = static_cast<const T*>(a.dt) + b * a.db_ + d;
+  const T* yr = static_cast<const T*>(a.dy) + b * a.yb + d;
+  const T* br = static_cast<const T*>(a.b) + b * a.bb;
+  const T* cr = static_cast<const T*>(a.c) + b * a.cb;
+  T* dxr = static_cast<T*>(a.dx) + (long long)b * L * a.D + d;
+  T* dtr = static_cast<T*>(a.ddt) + (long long)b * L * a.D + d;
+  float4* ws = a.ws + ((long long)b * gx + bx) * kSteps * Q * kThreads + tid;
+
+  for (int i = chunks - 1; i >= 0; --i) {
+    const int t0 = i * kSteps, n = min(kSteps, L - t0);
+    __syncthreads();   // the previous chunk's B, C and warp sums are read
+    for (int e = tid; e < kSteps * V; e += kThreads) {
+      const int t = e / V, k = e % V;
+      sm.bc[t][k] = t >= n ? 0.0f
+                    : k < N ? to_float(br[(t0 + t) * a.bl + k * a.bn])
+                            : to_float(cr[(t0 + t) * a.cl + (k - N) * a.cn]);
+    }
+    __syncthreads();
+
+    // Recompute the chunk's states from its boundary state, the forward's
+    // arithmetic step for step, each step's states into the workspace.
+    const float* hbp = a.hb + (((long long)b * chunks + i) * a.D + d) * N;
+    float h[N];
+    if (live) {
+      load_states(h, hbp);
+    } else {
+#pragma unroll
+      for (int s = 0; s < N; ++s) h[s] = 0.0f;
+    }
+    for (int t = 0; t < n; ++t) {
+      const float xv = live ? to_float(xr[(t0 + t) * a.xl]) : 0.0f;
+      const float dv = live ? to_float(dr[(t0 + t) * a.dl]) : 0.0f;
+      float dec[N];
+      decays(dec, a2, dv);
+      const float dxv = __fmul_rn(dv, xv);
+#pragma unroll
+      for (int s = 0; s < N; ++s) h[s] = __fmaf_rn(h[s], dec[s], __fmul_rn(dxv, sm.bc[t][s]));
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        ws[(t * Q + q) * kThreads] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+    }
+
+    // Walk the chunk backwards: h holds h_t, hp becomes h_{t-1}.
+    for (int t = n - 1; t >= 0; --t) {
+      float hp[N];
+      if (t > 0) {
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const float4 u = ws[((t - 1) * Q + q) * kThreads];
+          hp[4 * q] = u.x;
+          hp[4 * q + 1] = u.y;
+          hp[4 * q + 2] = u.z;
+          hp[4 * q + 3] = u.w;
+        }
+      } else if (live) {
+        load_states(hp, hbp);
+      } else {
+#pragma unroll
+        for (int s = 0; s < N; ++s) hp[s] = 0.0f;
+      }
+      const float xv = live ? to_float(xr[(t0 + t) * a.xl]) : 0.0f;
+      const float dv = live ? to_float(dr[(t0 + t) * a.dl]) : 0.0f;
+      const float dyv = live ? to_float(yr[(t0 + t) * a.yl]) : 0.0f;
+      float dec[N];
+      decays(dec, a2, dv);
+      const float dxv = __fmul_rn(dv, xv);
+      float v[V];            // this channel's dB (first N) and dC terms
+      float gb = 0.0f, gd = 0.0f;
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        const float bv = sm.bc[t][s], cv = sm.bc[t][N + s];
+        g[s] = __fmaf_rn(dyv, cv, g[s]);
+        v[N + s] = __fmul_rn(dyv, h[s]);
+        v[s] = __fmul_rn(g[s], dxv);
+        const float p = __fmul_rn(dec[s], hp[s]);                    // a_t h_{t-1}
+        gb = __fmaf_rn(g[s], bv, gb);
+        gd = __fmaf_rn(g[s], __fmaf_rn(xv, bv, __fmul_rn(av[s], p)), gd);
+        dA[s] = __fmaf_rn(__fmul_rn(g[s], p), dv, dA[s]);
+        g[s] = __fmul_rn(g[s], dec[s]);
+        h[s] = hp[s];
+      }
+      dD = __fmaf_rn(dyv, xv, dD);
+      if (live) {
+        dxr[(long long)(t0 + t) * a.D] = from_float<T>(__fmaf_rn(dv, gb, __fmul_rn(dsk, dyv)));
+        dtr[(long long)(t0 + t) * a.D] = from_float<T>(gd);
+      }
+      scatter<V, 16, V>(v, lane);
+      if ((lane & ((1 << SHIFT) - 1)) == 0) sm.red[t][warp][lane >> SHIFT] = v[0];
+    }
+    __syncthreads();   // every warp's sums of the chunk are in shared memory
+
+    // This block's partial of dB_t and dC_t, then the row's last block to
+    // finish the chunk adds the channel blocks' partials in block order.
+    float* part = a.pbc + ((long long)b * chunks + i) * gx * kSteps * V;
+    for (int e = tid; e < n * V; e += kThreads) {
+      const int t = e / V, k = e % V;
+      part[(long long)bx * kSteps * V + e] =
+          __fadd_rn(__fadd_rn(sm.red[t][0][k], sm.red[t][1][k]),
+                    __fadd_rn(sm.red[t][2][k], sm.red[t][3][k]));
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sm.last[0] = atomicAdd(a.cnt + (long long)b * chunks + i, 1) == gx - 1;
+    __syncthreads();
+    if (sm.last[0]) {
+      __threadfence();
+      for (int e = tid; e < n * V; e += kThreads) {
+        const int t = e / V, k = e % V;
+        float sum = __ldcg(part + e);
+        for (int j = 1; j < gx; ++j) sum = __fadd_rn(sum, __ldcg(part + (long long)j * kSteps * V + e));
+        const long long o = ((long long)b * L + t0 + t) * N;
+        if (k < N) static_cast<T*>(a.db)[o + k] = from_float<T>(sum);
+        else static_cast<T*>(a.dc)[o + k - N] = from_float<T>(sum);
+      }
+    }
+  }
+
+  if (live && a.dh0 != nullptr) store_states(a.dh0 + ((long long)b * a.D + d) * N, g);
+  // dA and dD: this row's partial, then the channel block's last row to
+  // finish adds the rows' partials in row order.
+  if (live) {
+    float* pa = a.pa + ((long long)b * a.D + d) * (N + 1);
+#pragma unroll
+    for (int s = 0; s < N; ++s) pa[s] = dA[s];
+    pa[N] = dD;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sm.last[0] = atomicAdd(a.cnt + (long long)B * chunks + bx, 1) == B - 1;
+  __syncthreads();
+  if (sm.last[0] && live) {
+    __threadfence();
+#pragma unroll
+    for (int s = 0; s <= N; ++s) {
+      float sum = __ldcg(a.pa + (long long)d * (N + 1) + s);
+      for (int r = 1; r < B; ++r)
+        sum = __fadd_rn(sum, __ldcg(a.pa + ((long long)r * a.D + d) * (N + 1) + s));
+      if (s < N) a.da[(long long)d * N + s] = sum;
+      else a.dd[d] = sum;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(int N, const BwdArgs& a, int B, cudaStream_t s) {
+  const dim3 grid((a.D + kThreads - 1) / kThreads, B);
+  switch (N) {
+    case 8: mamba_scan_bwd_kernel<T, 8><<<grid, kThreads, 0, s>>>(a); break;
+    case 16: mamba_scan_bwd_kernel<T, 16><<<grid, kThreads, 0, s>>>(a); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, dt (B, L, D) and b, c (B, L, N) of one type (bf16 when bf16_ != 0,
@@ -375,19 +682,22 @@ cudaError_t dispatch(int N, const Args& a, int B, int lanes, cudaStream_t s) {
 // cp.async copies read), b and c by (batch, step, n) element strides; a
 // (D, N), dskip (D,), h0 (B, D, N) or null, contiguous fp32 with 16-byte
 // aligned bases; y (B, L, D) contiguous in x's type and hout (B, D, N)
-// contiguous fp32 (may be h0).  N is 8 (the reduced configs) or 16.  L = 1
-// runs the decode kernel (lanes must be N / 4), L > 1 the prefill kernel
-// on `lanes` threads a channel (1 or 2).  Returns the launch's
-// cudaGetLastError().
+// contiguous fp32 (may be h0); hb (B, ceil(L / kSteps), D, N) contiguous
+// fp32 with a 16-byte aligned base, or null: the prefill stores there the
+// states entering each chunk (the decode kernel ignores it).  N is 8 (the
+// reduced configs) or 16.  L = 1 runs the decode kernel (lanes must be N /
+// 4), L > 1 the prefill kernel on `lanes` threads a channel (1 or 2).
+// Returns the launch's cudaGetLastError().
 extern "C" int mamba_scan(const void* x, const void* dt, const void* a, const void* b,
                           const void* c, const void* dskip, const void* h0, void* y, void* hout,
-                          int bf16_, int B, int L, int D, int N, int lanes, long long x_sb,
+                          void* hb, int bf16_, int B, int L, int D, int N, int lanes, long long x_sb,
                           long long x_sl, long long dt_sb, long long dt_sl, long long b_sb,
                           long long b_sl, long long b_sn, long long c_sb, long long c_sl,
                           long long c_sn, void* stream) {
   if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args args{x, dt, static_cast<const float*>(a), b, c, static_cast<const float*>(dskip),
-                  static_cast<const float*>(h0), y, static_cast<float*>(hout), L, D,
+                  static_cast<const float*>(h0), y, static_cast<float*>(hout),
+                  static_cast<float*>(hb), L, D,
                   x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, b_sn, c_sb, c_sl, c_sn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bf16_ ? dispatch<bf16>(N, args, B, lanes, s)
@@ -406,4 +716,48 @@ extern "C" int mamba_scan_min_blocks(int lanes) {
     case 2: return MinBlocks<2>::value;
     default: return 0;
   }
+}
+
+// The backward.  x, dt, b, c, a, dskip as mamba_scan's; hb (B, ceil(L /
+// kSteps), D, N) fp32 contiguous, the states the forward stored; dy (B, L,
+// D) in x's type by (batch, step) strides with a unit stride along D;
+// dh_final (B, D, N) fp32 contiguous or null (zeros).  Writes dx, ddt (B,
+// L, D) and db, dc (B, L, N) contiguous in x's type, da (D, N), dd (D,)
+// and, when not null, dh0 (B, D, N) in fp32.  ws (B · ceil(D / 128) ·
+// kSteps · N · 128 floats), pbc (B · chunks · ceil(D / 128) · kSteps · 2N
+// floats) and pa (B · D · (N + 1) floats) are workspaces, cnt (B · chunks +
+// ceil(D / 128) int32s) counters that must be zero.  The base of every
+// fp32 tensor is 16-byte aligned.  Returns the launch's
+// cudaGetLastError().
+extern "C" int mamba_scan_bwd(const void* x, const void* dt, const void* a, const void* b,
+                              const void* c, const void* dskip, const void* hb, const void* dy,
+                              const void* dhf, void* dx, void* ddt, void* db, void* dc, void* da,
+                              void* dd, void* dh0, void* ws, void* pbc, void* pa, void* cnt,
+                              int bf16_, int B, int L, int D, int N, long long x_sb,
+                              long long x_sl, long long dt_sb, long long dt_sl, long long b_sb,
+                              long long b_sl, long long b_sn, long long c_sb, long long c_sl,
+                              long long c_sn, long long dy_sb, long long dy_sl, void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs args{x, dt, static_cast<const float*>(a), b, c, static_cast<const float*>(dskip),
+                     static_cast<const float*>(hb), dy, static_cast<const float*>(dhf), dx, ddt,
+                     db, dc, static_cast<float*>(da), static_cast<float*>(dd),
+                     static_cast<float*>(dh0), static_cast<float4*>(ws), static_cast<float*>(pbc),
+                     static_cast<float*>(pa), static_cast<int*>(cnt), L, D,
+                     x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, b_sn, c_sb, c_sl, c_sn, dy_sb, dy_sl};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = bf16_ ? dispatch_bwd<bf16>(N, args, B, s) : dispatch_bwd<float>(N, args, B, s);
+  return static_cast<int>(e);
+}
+
+// The backward's static shared memory at state size N (bf16 and fp32
+// alike), for the wrapper's check of its plan; -1 for another N.
+extern "C" int mamba_scan_bwd_smem(int N) {
+  cudaFuncAttributes attr;
+  cudaError_t e;
+  switch (N) {
+    case 8: e = cudaFuncGetAttributes(&attr, mamba_scan_bwd_kernel<bf16, 8>); break;
+    case 16: e = cudaFuncGetAttributes(&attr, mamba_scan_bwd_kernel<bf16, 16>); break;
+    default: return -1;
+  }
+  return e == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes) : -1;
 }

@@ -15,6 +15,18 @@ bits at any B.  B and C are read in place as column slices of the x
 projection.  The plain version is ``kernels.ref.mamba_scan_ref``;
 ``kernels.ops.mamba_scan`` picks between the two by the device of the
 tensors.
+
+For training, :func:`mamba_scan` with ``states=True`` also returns the
+state entering each chunk of :data:`SCAN_STEPS` steps, which the prefill
+stores as it walks, and :func:`mamba_scan_bwd` runs the backward kernel
+(no TPU counterpart: the reference differentiates its XLA scan), whose plan
+:func:`scan_bwd_plan` gives: a block of 128 channels of one row walks the
+chunks in reverse, recomputes each chunk's states from its boundary state
+into a workspace with the forward's arithmetic and steps back through
+them; dB and dC (sums over D) and dA and dD (sums over B and L) are
+combined from per-block partials in a fixed order by the last block to
+finish, so a row has the same bits at any B.  Its plain version is
+``kernels.ref.mamba_scan_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -25,14 +37,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["mamba_scan", "scan_plan", "ScanPlan", "SCAN_LAUNCHES", "SCAN_PREFILL_LAUNCHES",
-           "SCAN_DECODE_LAUNCHES", "STATE_SIZES", "SCAN_STEPS", "KERNEL_NAMES"]
+__all__ = ["mamba_scan", "mamba_scan_bwd", "scan_plan", "scan_bwd_plan", "ScanPlan",
+           "ScanBwdPlan", "SCAN_LAUNCHES", "SCAN_PREFILL_LAUNCHES", "SCAN_DECODE_LAUNCHES",
+           "SCAN_BWD_LAUNCHES", "STATE_SIZES", "SCAN_STEPS", "KERNEL_NAMES"]
 
 # Launches of the CUDA kernels since import (or since a caller reset them):
-# all of them, and those of each variant.
+# all of the forward's, those of each of its variants, and the backward's.
 SCAN_LAUNCHES = 0
 SCAN_PREFILL_LAUNCHES = 0
 SCAN_DECODE_LAUNCHES = 0
+SCAN_BWD_LAUNCHES = 0
 
 STATE_SIZES = (8, 16)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -40,7 +54,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # wrapper checks against the library once).
 SCAN_STEPS = 32
 # The device kernel of each variant, as a profiler names it.
-KERNEL_NAMES = {"prefill": "mamba_scan_prefill_kernel", "decode": "mamba_scan_decode_kernel"}
+KERNEL_NAMES = {"prefill": "mamba_scan_prefill_kernel", "decode": "mamba_scan_decode_kernel",
+                "backward": "mamba_scan_bwd_kernel"}
 
 _THREADS = 128
 _SMS = 132                    # an H100 SXM's SMs
@@ -128,14 +143,16 @@ def _operands(plan, x, dt, a, d_skip, h0, h_out):
                              f" {t.data_ptr()} is not a multiple of 16 bytes")
 
 
-def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
+def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None, states=False):
     """x, dt (B, L, D) and b_in, c_in (B, L, N) CUDA tensors of one dtype
     (fp32 or bf16); x and dt with a unit stride along D (16-byte aligned
     rows for L > 1), b_in and c_in any strides; a (D, N), d_skip (D,) and
     h0 (B, D, N) or None, contiguous fp32.  → (y (B, L, D) in x's dtype,
     h_final (B, D, N) fp32), h_final written into ``h_out`` (contiguous
-    fp32, may be ``h0``) when given.  One launch, on the kernel
-    :func:`scan_plan` names.  Raises on anything the kernels do not take."""
+    fp32, may be ``h0``) when given; with ``states`` also (B, ceil(L /
+    SCAN_STEPS), D, N) fp32, the state entering each chunk, which the
+    backward starts from.  One launch, on the kernel :func:`scan_plan`
+    names.  Raises on anything the kernels do not take."""
     global SCAN_LAUNCHES, SCAN_PREFILL_LAUNCHES, SCAN_DECODE_LAUNCHES
     tensors = (x, dt, a, b_in, c_in, d_skip, h0, h_out)
     if any(t is not None and t.device.type != "cuda" for t in tensors):
@@ -162,16 +179,24 @@ def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
     y = torch.empty(bsz, l, dch, dtype=x.dtype, device=x.device)
     h = (torch.empty(bsz, dch, n, dtype=torch.float32, device=x.device)
          if h_out is None else h_out)
-    if h.numel() == 0:
-        return y, h
-    if l == 0:     # no step: the state as it was
-        return y, h.copy_(h0) if h0 is not None else h.zero_()
+    bounds = (torch.empty(bsz, -(-l // SCAN_STEPS), dch, n, dtype=torch.float32,
+                          device=x.device) if states else None)
+    if h.numel() == 0 or l == 0:
+        if l == 0:     # no step: the state as it was
+            h = h.copy_(h0) if h0 is not None else h.zero_()
+        return (y, h, bounds) if states else (y, h)
     plan = scan_plan(bsz, l, dch, n, x.dtype)
     _operands(plan, x, dt, a, d_skip, h0, h_out)
+    if states and plan.variant == "decode":   # one step: the state entering it is h0
+        if h0 is not None:
+            bounds[:, 0].copy_(h0)
+        else:
+            bounds.zero_()
     err = _library().mamba_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
         d_skip.data_ptr(), h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-        h.data_ptr(), int(x.dtype == torch.bfloat16), bsz, l, dch, n, plan.lanes,
+        h.data_ptr(), bounds.data_ptr() if states else None,
+        int(x.dtype == torch.bfloat16), bsz, l, dch, n, plan.lanes,
         *x.stride()[:2], *dt.stride()[:2], *b_in.stride(), *c_in.stride(),
         torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check(err, "mamba_scan")
@@ -180,15 +205,120 @@ def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
         SCAN_DECODE_LAUNCHES += 1
     else:
         SCAN_PREFILL_LAUNCHES += 1
-    return y, h
+    return (y, h, bounds) if states else (y, h)
+
+
+class ScanBwdPlan(NamedTuple):
+    """How K8's backward runs one call: ``grid`` (channel blocks, B) of
+    ``threads`` threads (one a channel), ``smem_bytes`` of static shared
+    memory (the chunk's B and C in fp32 and each warp's dB and dC sums a
+    step), ``chunks`` of :data:`SCAN_STEPS` steps walked in reverse, and
+    the workspaces the wrapper allocates: ``ws_bytes`` for each step's
+    states of a chunk, ``partial_bytes`` for the dB/dC partials of every
+    (row, chunk, channel block) and the dA/dD partials of every row,
+    ``counters`` int32s, zeroed."""
+    variant: str
+    grid: tuple
+    threads: int
+    smem_bytes: int
+    chunks: int
+    ws_bytes: int
+    partial_bytes: int
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_bwd_plan(b, l, d, n, dtype):
+    """K8's backward plan for x, dt (b, l, d) and a state of n in
+    ``dtype``: a pure function of these (nothing is launched).  Raises
+    ``ValueError`` for a dtype or state size the kernel does not take, or
+    no step."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"mamba_scan_bwd dtype {dtype}: need one of {_DTYPES}")
+    if n not in STATE_SIZES:
+        raise ValueError(f"mamba_scan_bwd state size {n}: need one of {STATE_SIZES}")
+    if l < 1:
+        raise ValueError(f"mamba_scan_bwd needs at least one step, not {l}")
+    gx = -(-d // _THREADS)
+    chunks = -(-l // SCAN_STEPS)
+    smem = SCAN_STEPS * 2 * n * 4 + SCAN_STEPS * (_THREADS // 32) * 2 * n * 4 + 16
+    ws = b * gx * SCAN_STEPS * n * _THREADS * 4
+    partial = b * chunks * gx * SCAN_STEPS * 2 * n * 4 + b * d * (n + 1) * 4
+    return ScanBwdPlan("backward", (gx, b), _THREADS, smem, chunks, ws, partial, b * chunks + gx)
+
+
+def mamba_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, *, dh_final=None, with_dh0=True):
+    """The backward of :func:`mamba_scan` on CUDA tensors: its operands
+    (x, dt, b_in, c_in as the forward read them), ``states`` (B, ceil(L /
+    SCAN_STEPS), D, N) fp32 from the forward's ``states=True``, ``dy`` (B,
+    L, D) in x's dtype with a unit stride along D, ``dh_final`` (B, D, N)
+    fp32 or None.  → (dx, ddt (B, L, D) in x's dtype, da (D, N) fp32, db,
+    dc (B, L, N) contiguous in x's dtype, dd (D,) fp32, dh0 (B, D, N) fp32
+    or None without ``with_dh0``).  One launch of the kernel
+    :func:`scan_bwd_plan` plans.  Raises on anything it does not take."""
+    global SCAN_BWD_LAUNCHES
+    tensors = (x, dt, a, b_in, c_in, d_skip, states, dy, dh_final)
+    if any(t is not None and t.device.type != "cuda" for t in tensors):
+        raise ValueError("mamba_scan_bwd needs CUDA tensors")
+    bsz, l, dch = x.shape
+    n = a.shape[1]
+    plan = scan_bwd_plan(bsz, l, dch, n, x.dtype)
+    if dt.shape != x.shape or dy.shape != x.shape or a.shape != (dch, n):
+        raise ValueError(f"mamba_scan_bwd x {tuple(x.shape)}, dt {tuple(dt.shape)},"
+                         f" dy {tuple(dy.shape)}, a {tuple(a.shape)}")
+    if b_in.shape != (bsz, l, n) or c_in.shape != (bsz, l, n) or d_skip.shape != (dch,):
+        raise ValueError(f"mamba_scan_bwd b_in {tuple(b_in.shape)}, c_in {tuple(c_in.shape)},"
+                         f" d_skip {tuple(d_skip.shape)}")
+    if states.shape != (bsz, plan.chunks, dch, n):
+        raise ValueError(f"mamba_scan_bwd states {tuple(states.shape)}:"
+                         f" want {(bsz, plan.chunks, dch, n)}")
+    if dh_final is not None and dh_final.shape != (bsz, dch, n):
+        raise ValueError(f"mamba_scan_bwd dh_final {tuple(dh_final.shape)}")
+    if any(t.dtype != x.dtype for t in (dt, b_in, c_in, dy)):
+        raise ValueError("mamba_scan_bwd x, dt, b_in, c_in and dy must share a dtype")
+    if any(t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+                              or t.data_ptr() % 16)
+           for t in (a, d_skip, states, dh_final)):
+        raise ValueError("mamba_scan_bwd a, d_skip, states and dh_final must be contiguous fp32"
+                         " with 16-byte aligned bases")
+    for name, t in (("x", x), ("dt", dt), ("dy", dy)):
+        if t.stride(-1) != 1 and dch > 1:
+            raise ValueError(f"mamba_scan_bwd reads {name} along D in place: its last stride"
+                             f" must be 1, not {t.stride(-1)}")
+    dev = x.device
+    dx = torch.empty(bsz, l, dch, dtype=x.dtype, device=dev)
+    ddt = torch.empty_like(dx)
+    db = torch.empty(bsz, l, n, dtype=x.dtype, device=dev)
+    dc = torch.empty_like(db)
+    da = torch.empty(dch, n, dtype=torch.float32, device=dev)
+    dd = torch.empty(dch, dtype=torch.float32, device=dev)
+    dh0 = torch.empty(bsz, dch, n, dtype=torch.float32, device=dev) if with_dh0 else None
+    ws = torch.empty(plan.ws_bytes // 4, dtype=torch.float32, device=dev)
+    part = torch.empty(plan.partial_bytes // 4, dtype=torch.float32, device=dev)
+    rows_part = part[part.numel() - bsz * dch * (n + 1):]     # the rows' dA and dD partials
+    counters = torch.zeros(plan.counters, dtype=torch.int32, device=dev)
+    lib = _library()
+    err = lib.mamba_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
+        d_skip.data_ptr(), states.data_ptr(), dy.data_ptr(),
+        dh_final.data_ptr() if dh_final is not None else None, dx.data_ptr(), ddt.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), da.data_ptr(), dd.data_ptr(),
+        dh0.data_ptr() if dh0 is not None else None, ws.data_ptr(), part.data_ptr(),
+        rows_part.data_ptr(), counters.data_ptr(), int(x.dtype == torch.bfloat16), bsz, l,
+        dch, n, *x.stride()[:2], *dt.stride()[:2], *b_in.stride(), *c_in.stride(),
+        *dy.stride()[:2], torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(err, "mamba_scan_bwd")
+    SCAN_BWD_LAUNCHES += 1
+    return dx, ddt, da, db, dc, dd, dh0
 
 
 @functools.lru_cache(maxsize=1)
 def _library():
     """K8's library, once its chunk of steps is checked to be
-    :data:`SCAN_STEPS` (the plan sizes shared memory by it) and its
+    :data:`SCAN_STEPS` (the plan sizes shared memory by it), its
     prefill's register budgets to be :data:`_MIN_BLOCKS` (the plan counts
-    resident blocks and waves by them)."""
+    resident blocks and waves by them) and its backward's shared memory to
+    be :func:`scan_bwd_plan`'s."""
     lib = _build.load("mamba_scan")
     if lib.mamba_scan_steps() != SCAN_STEPS:
         raise RuntimeError(f"csrc/mamba_scan.cu stages {lib.mamba_scan_steps()} steps a chunk,"
@@ -197,4 +327,9 @@ def _library():
     if built != _MIN_BLOCKS:
         raise RuntimeError(f"csrc/mamba_scan.cu keeps {built} prefill blocks an SM by lanes,"
                            f" scan_plan {_MIN_BLOCKS}")
+    smem = {n: lib.mamba_scan_bwd_smem(n) for n in STATE_SIZES}
+    planned = {n: scan_bwd_plan(1, 1, 1, n, torch.bfloat16).smem_bytes for n in STATE_SIZES}
+    if smem != planned:
+        raise RuntimeError(f"csrc/mamba_scan.cu's backward holds {smem} bytes of shared memory"
+                           f" by state size, scan_bwd_plan {planned}")
     return lib

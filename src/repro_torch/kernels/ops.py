@@ -8,15 +8,17 @@ fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
 ``mamba_scan``, ``block_spmm``, ``grouped_matmul``, ``conv2d``), plus
 ``brgemm_blocked`` (paper Listing 1, K11).
 
-``matmul`` and ``attention`` are ``torch.autograd.Function``s when an input
-requires a gradient.  Their forward and backward dispatch by device too, so
-the CPU tests run the same Function, saved tensors and backward wiring as
-the card: ``matmul``'s backward is K1 on transposed operands, ``attention``'s
-is K6 fed by K2's row log-sum-exp.  When no input requires a gradient they
-call the forward alone and save nothing.  ``mamba_scan`` has no backward
-yet, and ``block_spmm``, ``grouped_matmul``, ``conv2d``,
-``brgemm_blocked`` and a ``matmul`` scheduled by a spec string have none in
-the reference: each raises when an input requires a gradient.
+``matmul``, ``attention`` and ``mamba_scan`` are ``torch.autograd.Function``s
+when an input requires a gradient.  Their forward and backward dispatch by
+device too, so the CPU tests run the same Function, saved tensors and
+backward wiring as the card: ``matmul``'s backward is K1 on transposed
+operands, ``attention``'s is K6 fed by K2's row log-sum-exp, and
+``mamba_scan``'s is K8's backward kernel fed by the states K8's forward
+writes at its chunk boundaries.  When no input requires a gradient they
+call the forward alone and save nothing.  ``block_spmm``,
+``grouped_matmul``, ``conv2d``, ``brgemm_blocked`` and a ``matmul``
+scheduled by a spec string have no gradient in the reference: each raises
+when an input requires a gradient.
 """
 from __future__ import annotations
 
@@ -183,17 +185,58 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, *, page_size,
                            length=length, window=window)
 
 
+class _MambaScan(torch.autograd.Function):
+    """The selective scan and its backward.  On the card: K8's forward
+    writing the state entering each chunk of ``SCAN_STEPS`` steps, and K8's
+    backward kernel walking those chunks in reverse.  On the CPU: the
+    reference's rule for the forward (``mamba_scan_chunked`` past 64 steps,
+    else ``mamba_scan_ref`` as one chunk) and ``mamba_scan_bwd_ref``.
+    Saves the operands, h0 and the boundary states; nothing per step."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, d_skip, h0):
+        if _on_cpu(x, dt, a, b_in, c_in, d_skip, h0):
+            if x.shape[1] > 64:
+                y, h, states, chunk = ref.mamba_scan_chunked(x, dt, a, b_in, c_in, d_skip,
+                                                             h0=h0, states=True)
+            else:
+                y, h = ref.mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, h0=h0)
+                start = h.new_zeros(h.shape) if h0 is None else h0.float()
+                states, chunk = start[:, None], max(x.shape[1], 1)
+        else:
+            y, h, states = scan.mamba_scan(x, dt, a, b_in, c_in, d_skip, h0=h0, states=True)
+            chunk = scan.SCAN_STEPS
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, b_in, c_in, d_skip, h0, states)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, b_in, c_in, d_skip, h0, states = ctx.saved_tensors
+        dy = dy.contiguous()
+        if _on_cpu(x, dy, dh):
+            grads = ref.mamba_scan_bwd_ref(x, dt, a, b_in, c_in, d_skip, h0, states, dy, dh,
+                                           chunk=ctx.chunk)
+        else:
+            grads = scan.mamba_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy,
+                                        dh_final=dh, with_dh0=h0 is not None)
+        dx, ddt, da, db, dc, dd, dh0 = grads
+        return dx, ddt, da, db, dc, dd, dh0 if h0 is not None else None
+
+
 def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
     """The selective scan of a Mamba-1 layer, x, dt (B, L, D), a (D, N),
     b_in, c_in (B, L, N), d_skip (D,), h0 (B, D, N) or None; → (y (B, L, D)
     in x's dtype, h_final (B, D, N) fp32) (K8).  ``h_out`` (B, D, N) fp32,
     contiguous, receives h_final when given and may be ``h0``: a cache's
-    state is then updated in place.  Inference only: there is no backward
-    yet, so an input that requires a gradient raises."""
+    state is then updated in place.  When an input requires a gradient the
+    scan is differentiable (K8's backward on the card); ``h_out`` then
+    raises ``ValueError``, since an in-place cache update is for serving."""
     if _wants_grad(x, dt, a, b_in, c_in, d_skip, h0):
-        raise NotImplementedError(
-            "mamba_scan has no backward yet: mamba training is still to be "
-            "ported (ROADMAP.md, Queue 1)")
+        if h_out is not None:
+            raise ValueError("mamba_scan: h_out updates a cache in place, for serving only;"
+                             " it takes no gradient")
+        return _MambaScan.apply(x, dt, a, b_in, c_in, d_skip, h0)
     if _on_cpu(x, dt, a, b_in, c_in, d_skip, h0, h_out):
         y, h = ref.mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, h0=h0)
         return (y, h) if h_out is None else (y, h_out.copy_(h))

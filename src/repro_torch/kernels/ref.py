@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels, forward and backward.
 
 Each forward mirrors its oracle in ``repro/kernels/ref.py``; each backward
-is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``) or what
+is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``;
+``mamba_scan_bwd_ref``, written out as the CUDA kernel walks it) or what
 ``repro/fusion/autodiff.py``'s recompute backward derives
 (``attention_bwd_ref``, on the flash identity of ``flash_bwd_ref``, the
 plain version of the backward mainloop that K6 and K5's chained backward
@@ -24,7 +25,8 @@ from repro_torch.core import tpp
 
 __all__ = ["matmul_ref", "matmul_bwd_ref", "brgemm_blocked_ref", "conv2d_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
            "grouped_matmul_ref", "attention_ref", "attention_chunked", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
-           "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref"]
+           "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref",
+           "mamba_scan_chunked", "mamba_scan_bwd_ref"]
 
 
 def matmul_ref(a, b, *, bias=None, activation=None, out_dtype=None):
@@ -326,3 +328,95 @@ def mamba_scan_ref(x, dt, a, b_in, c_in, d_skip, *, h0=None):
         ys.append((h * cf[:, t, None, :]).sum(-1))
     y = (torch.stack(ys, 1) if ys else xf.new_zeros(bsz, 0, dch)) + xf * d_skip.float()
     return y.to(x.dtype), h
+
+
+def mamba_scan_chunked(x, dt, a, b_in, c_in, d_skip, *, h0=None, chunk=64, states=False):
+    """The selective scan in chunks of ``chunk`` steps (halved while it
+    does not divide L, as the reference's ``mamba_scan_xla_chunked``): an
+    outer loop over the chunks, each chunk's body under
+    ``torch.utils.checkpoint`` when autograd records it, so that only the
+    fp32 (B, D, N) state crosses a chunk boundary and the backward
+    recomputes a chunk's steps.  Arguments and result as
+    :func:`mamba_scan_ref`; with ``states`` also (B, chunks, D, N) fp32,
+    the state entering each chunk (``h0`` or zeros first), and the chunk
+    length used."""
+    bsz, l, dch = x.shape
+    n = a.shape[1]
+    while l % chunk:
+        chunk //= 2
+    af, ds = a.float(), d_skip.float()
+    h = torch.zeros(bsz, dch, n, device=x.device) if h0 is None else h0.float()
+
+    def body(h, xc, dtc, bc, cc):
+        xc, dtc, bc, cc = xc.float(), dtc.float(), bc.float(), cc.float()
+        ys = []
+        for t in range(xc.shape[1]):
+            dtt = dtc[:, t, :, None]
+            h = h * torch.exp(dtt * af) + (dtt * xc[:, t, :, None]) * bc[:, t, None, :]
+            ys.append((h * cc[:, t, None, :]).sum(-1))
+        return h, (torch.stack(ys, 1) + xc * ds).to(x.dtype)
+
+    ys, bounds = [], []
+    record = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, a, b_in, c_in, d_skip, h0))
+    for i in range(l // chunk if l else 0):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        bounds.append(h)
+        args = (h, x[:, sl], dt[:, sl], b_in[:, sl], c_in[:, sl])
+        h, y = checkpoint(body, *args, use_reentrant=False) if record else body(*args)
+        ys.append(y)
+    y = torch.cat(ys, 1) if ys else x.new_zeros(bsz, 0, dch)
+    if not states:
+        return y, h
+    return y, h, torch.stack(bounds, 1) if bounds else h.new_zeros(bsz, 0, dch, n), chunk
+
+
+def mamba_scan_bwd_ref(x, dt, a, b_in, c_in, d_skip, h0, states, dy, dh_final=None, *, chunk):
+    """The selective scan's backward, written as the CUDA kernel
+    (``csrc/mamba_scan.cu`` ``mamba_scan_bwd_kernel``) walks it, in plain
+    fp32 tensor arithmetic (not autograd of the forward).  ``states`` (B,
+    chunks, D, N) holds the state entering each chunk of ``chunk`` steps
+    (the last chunk may be shorter); ``dy`` (B, L, D) is y's cotangent and
+    ``dh_final`` (B, D, N) or None h_final's.  The chunks are walked in
+    reverse: each recomputes its states from its boundary state, then steps
+    back through them carrying g = dL/dh, with a_t = exp(dt_t A):
+
+        g += dy_t C_t;  dC_t = sum_d dy_t h_t;  dx_t = dt_t sum_n g B_t + D dy_t;
+        ddt_t = sum_n g (x_t B_t + A a_t h_{t-1});  dB_t = sum_d g dt_t x_t;
+        dA += g dt_t a_t h_{t-1};  dD += dy_t x_t;  g <- a_t g.
+
+    → (dx, ddt in x's and dt's dtypes, dA (D, N) fp32, dB, dC (B, L, N) in
+    b_in's and c_in's dtypes, dD (D,) fp32, dh0 (B, D, N) fp32: the last
+    g).  ``h0`` is unused (the first boundary state holds it) and kept for
+    the kernel's signature."""
+    del h0
+    bsz, l, dch = x.shape
+    n = a.shape[1]
+    xf, dtf, bf, cf, dyf = x.float(), dt.float(), b_in.float(), c_in.float(), dy.float()
+    af, ds = a.float(), d_skip.float()
+    g = (torch.zeros(bsz, dch, n, device=x.device) if dh_final is None
+         else dh_final.float().clone())
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros(dch, n, device=x.device)
+    for i in reversed(range(states.shape[1])):
+        t0, t1 = i * chunk, min(l, (i + 1) * chunk)
+        hs = [states[:, i].float()]          # hs[k]: the state before step t0 + k
+        for t in range(t0, t1):
+            dtt = dtf[:, t, :, None]
+            hs.append(hs[-1] * torch.exp(dtt * af)
+                      + (dtt * xf[:, t, :, None]) * bf[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            dtt, xt, dyt = dtf[:, t, :, None], xf[:, t, :, None], dyf[:, t, :, None]
+            bt, ct = bf[:, t, None, :], cf[:, t, None, :]
+            dec = torch.exp(dtt * af)
+            h_prev, h_cur = hs[t - t0], hs[t - t0 + 1]
+            g = g + dyt * ct
+            dc[:, t] = (dyt * h_cur).sum(1)
+            dx[:, t] = dtt[..., 0] * (g * bt).sum(-1) + ds * dyt[..., 0]
+            ddt[:, t] = (g * (xt * bt + af * dec * h_prev)).sum(-1)
+            db[:, t] = (g * (dtt * xt)).sum(1)
+            da += (g * dtt * dec * h_prev).sum(0)
+            g = g * dec
+    dd = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), da, db.to(b_in.dtype), dc.to(c_in.dtype), dd, g)

@@ -2,8 +2,9 @@
 on the CPU) against the JAX reference: the Pallas kernel in interpret mode
 at several chunk sizes, its state-continuation contract, the reference's
 chunked XLA scan, and bf16 inputs; plus what the Mamba-1 slice needs around
-it: fp32 mamba parameters after conversion, no gradient through the scan,
-and the CUDA wrapper refusing CPU tensors.
+it: the scan's seven gradients against ``jax.grad`` of the reference's
+scans, ``h_out`` refusing a gradient, fp32 mamba parameters after
+conversion, and the CUDA wrapper refusing CPU tensors.
 
 Tolerances: fp32 atol 1e-4 over 64-128 steps (``tests/test_kernels.py``:
 the same fp32 recurrence, products and exponentials rounded in another
@@ -25,6 +26,7 @@ from repro.models import lm as jlm
 from repro_torch.configs.base import get_config as torch_config
 from repro_torch.kernels import mamba_scan as tscan
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 
@@ -117,14 +119,91 @@ def test_scan_bf16_inputs_match_reference():
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **BF16_TOL)
 
 
-def test_scan_raises_when_a_gradient_is_wanted():
+def _grad_inputs(seed, b, l, d, n, dtype, with_h0):
+    """The scan's operands as numpy (x, dt, b_in, c_in rounded to
+    ``dtype``), h0 or None, and cotangents for y (in ``dtype``) and h."""
+    args = _inputs(seed, b, l, d, n)
+    rng = np.random.default_rng(seed + 100)
+    h0 = rng.normal(size=(b, d, n)).astype(np.float32) if with_h0 else None
+    dy = rng.normal(size=(b, l, d)).astype(np.float32)
+    dh = rng.normal(size=(b, d, n)).astype(np.float32)
+    if dtype == "bfloat16":
+        rnd = lambda v: np.asarray(jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+        args = [rnd(v) if i in (0, 1, 3, 4) else v for i, v in enumerate(args)]
+        dy = rnd(dy)
+    return args, h0, dy, dh
+
+
+@pytest.mark.parametrize("cotangent", ["y", "y_and_h"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l, oracle", [(32, "ref"), (128, "chunked"), (96, "chunked")])
+def test_scan_gradients_match_jax_grad(l, oracle, dtype, with_h0, cotangent):
+    """All seven gradients of ``ops.mamba_scan`` (``_MambaScan`` on the CPU:
+    ``mamba_scan_ref`` as one chunk at L 32, ``mamba_scan_chunked`` at L 128
+    and 96, which the 64-step chunk does not divide, then
+    ``mamba_scan_bwd_ref``) against ``jax.grad`` of the reference's
+    ``mamba_scan_ref`` and ``mamba_scan_xla_chunked``: fp32 at (1e-4,
+    1e-3), bf16 at (2e-2, 2e-1) (both sides compute in fp32 from the same
+    bf16 values and round each gradient of a bf16 input once)."""
+    tol = dict(rtol=1e-4, atol=1e-3) if dtype == "float32" else dict(rtol=2e-2, atol=2e-1)
+    args, h0, dy, dh = _grad_inputs(20 + l, 2, l, 16, 8, dtype, with_h0)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jargs = [jnp.asarray(v, jdt if i in (0, 1, 3, 4) else jnp.float32)
+             for i, v in enumerate(args)]
+    fn = jref.mamba_scan_ref if oracle == "ref" else jref.mamba_scan_xla_chunked
+    jh0 = jnp.zeros((2, 16, 8), jnp.float32) if h0 is None else jnp.asarray(h0)
+    (jy, jh), vjp = jax.vjp(lambda *p: fn(*p[:6], h0=p[6]), *jargs, jh0)
+    jdh = jnp.asarray(dh) if cotangent == "y_and_h" else jnp.zeros_like(jh)
+    want = vjp((jnp.asarray(dy, jdt), jdh))
+
+    targs = [torch.tensor(v, dtype=tdt if i in (0, 1, 3, 4) else torch.float32,
+                          requires_grad=True) for i, v in enumerate(args)]
+    th0 = None if h0 is None else torch.tensor(h0, requires_grad=True)
+    y, h = tops.mamba_scan(*targs, h0=th0)
+    np.testing.assert_allclose(y.detach().float().numpy(), np.asarray(jy, np.float32), **tol)
+    outs, cots = [y], [torch.tensor(dy, dtype=tdt)]
+    if cotangent == "y_and_h":
+        outs, cots = [y, h], cots + [torch.tensor(dh)]
+    leaves = targs + ([th0] if th0 is not None else [])
+    grads = torch.autograd.grad(outs, leaves, cots)
+    names = ["dx", "ddt", "da", "db", "dc", "dd", "dh0"]
+    for name, g, t, w in zip(names, grads, leaves, want):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **tol,
+                                   err_msg=name)
+
+
+def test_chunked_plain_scan_differentiates_through_its_checkpoints():
+    """``ref.mamba_scan_chunked`` under autograd (each chunk's body
+    checkpointed, as the reference's ``jax.checkpoint``): its gradients
+    equal ``jax.grad`` of ``mamba_scan_xla_chunked`` at L 96 from h0, and
+    those of ``ops.mamba_scan``'s backward kernel spec."""
+    args, h0, dy, dh = _grad_inputs(40, 2, 96, 16, 8, "float32", True)
+    jargs = [jnp.asarray(v) for v in args] + [jnp.asarray(h0)]
+    _, vjp = jax.vjp(lambda *p: jref.mamba_scan_xla_chunked(*p[:6], h0=p[6]), *jargs)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    leaves = [torch.tensor(v, requires_grad=True) for v in args + [h0]]
+    y, h = tref.mamba_scan_chunked(*leaves[:6], h0=leaves[6])
+    got = torch.autograd.grad([y, h], leaves, [torch.tensor(dy), torch.tensor(dh)])
+    y2, h2 = tops.mamba_scan(*leaves[:6], h0=leaves[6])
+    spec = torch.autograd.grad([y2, h2], leaves, [torch.tensor(dy), torch.tensor(dh)])
+    for name, g, s, w in zip(["dx", "ddt", "da", "db", "dc", "dd", "dh0"], got, spec, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-3, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), s.numpy(), rtol=1e-4, atol=1e-3, err_msg=name)
+
+
+def test_scan_with_h_out_refuses_a_gradient():
+    """``h_out`` (a cache updated in place) is for serving: with a gradient
+    wanted it raises; without one the call is unchanged."""
     x, dt, a, bi, ci, d = _torch(_inputs(5, 1, 4, 8, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.mamba_scan(x.requires_grad_(), dt, a, bi, ci, d)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.mamba_scan(x.detach(), dt, a.requires_grad_(), bi, ci, d)
+    h = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="serving"):
+        tops.mamba_scan(x.clone().requires_grad_(), dt, a, bi, ci, d, h0=h, h_out=h)
     with torch.no_grad():
-        tops.mamba_scan(x, dt, a, bi, ci, d)
+        y, hf = tops.mamba_scan(x.clone().requires_grad_(), dt, a, bi, ci, d, h0=h, h_out=h)
+    assert hf is h and not y.requires_grad
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -1,6 +1,7 @@
 """The port's training slice on the CPU against the JAX reference: schedules,
 AdamW, the synthetic corpus, dropout bits, the fp32 master parameters,
-``lm_loss`` and its gradients, a 5-step ``make_train_step`` trajectory, and
+``lm_loss`` and its gradients (falcon-mamba-7b's selective scan included),
+5-step ``make_train_step`` trajectories, and
 mirrors of ``tests/test_train_and_ft.py`` (trainer, checkpoints, watchdog).
 
 Inputs come from numpy seeds; the reference's parameters (and its gradients,
@@ -39,7 +40,7 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                init_train_state, make_train_step, train)
 
-ARCHS = ("minicpm_2b", "gptj_6b", "bert_large")
+ARCHS = ("minicpm_2b", "gptj_6b", "bert_large", "falcon_mamba_7b")
 CFG = get_config("minicpm_2b").reduced()
 DCFG = DataConfig(vocab_size=CFG.vocab_size, seq_len=32, global_batch=8, seed=1)
 
@@ -243,7 +244,15 @@ def test_encoder_train_step_trajectory_matches_reference():
     _check_trajectory("bert_large")
 
 
-def _check_trajectory(arch):
+def test_mamba_train_step_trajectory_matches_reference():
+    """The same five steps for falcon-mamba-7b (attention-free) at 128
+    tokens, past the 64 steps where both sides switch to the chunked scan
+    (``ops.mamba_scan``'s ``_MambaScan`` against the reference's
+    ``mamba_scan_xla_chunked`` under ``jax.grad``)."""
+    _check_trajectory("falcon_mamba_7b", seq=128)
+
+
+def _check_trajectory(arch, seq=32):
     cfg_j, jp = _jax_state(arch)
     cfg = get_config(arch).reduced()
     tkw = dict(peak_lr=3e-3, warmup_steps=2, total_steps=40, loss_chunk=16)
@@ -252,7 +261,7 @@ def _check_trajectory(arch):
     params = _port_params(cfg, jp)
     opt = init_state(params)
     step_fn = make_train_step(cfg, TrainConfig(**tkw))
-    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4,
+    corpus = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4,
                                         seed=3))
     for step in range(5):
         b = corpus.batch_at(step)

@@ -51,9 +51,11 @@ Phases, each of which must pass:
      bert-large's shape; K8 selective scan at falcon-mamba-7b's prefill and
      engine-decode shapes, and its backward at falcon-mamba-7b's training
      layer (B 2 x L 2048, bf16, against its plain version at the bf16
-     gradient tolerance; from h0 with dh0; fp32 checks; rows at B 1
-     bitwise equal to B 2; two calls bitwise equal; the forward writing its
-     boundary states bitwise equal to the serving forward); K10 Block-SpMM over the Fig. 8 sweep (4096^3,
+     gradient tolerance, and at B 1; each case's plan printed; from h0
+     with dh0; fp32 checks, a partly dead last block and rows the 16-byte
+     copies cannot take among them; rows at B 1 bitwise equal to B 2; two
+     calls bitwise equal; the forward writing its boundary states bitwise
+     equal to the serving forward); K10 Block-SpMM over the Fig. 8 sweep (4096^3,
      16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
      products, each bf16 row on the wgmma kernel (its 64-row work list)
@@ -1196,7 +1198,9 @@ WAS_MS = {"main B4 H40 S528 D128 len520": 0.2036, "gptj B4 H16 S528 D256 len520"
           "batch-1 prefill L512 D8192 N16": 0.1810,
           # K7 before its redesign (the wmma kernel, a lone call each, PERF.md)
           "Bert-Output M4096 K4096 N1024": 1.8602, "Bert-SelfOutput M4096 K1024 N1024": 0.4152,
-          "M4096 K1024 N5120": 2.7579, "fp32 M4096 K1024 N1024": 1.2522}
+          "M4096 K1024 N5120": 2.7579, "fp32 M4096 K1024 N1024": 1.2522,
+          # K8's backward before its redesign (a lone call, PERF.md)
+          "falcon-mamba layer B2 L2048 D8192 N16 strided B/C": 5.7320}
 
 
 def device_row(torch, bench, kernel, fn):
@@ -1678,54 +1682,91 @@ def mamba_scan_cases(torch, bench, ref, scan):
           f" state: {len(rows)} cases", flush=True)
 
 
+def scan_bwd_operands(torch, gen, b, l, d, n, dt, strided, with_h0):
+    """K8's backward operands drawn from ``gen`` on the card: x, dt about
+    0.01 to 1 and dy (b, l, d) in ``dt``, A (d, n) negative, B and C
+    (b, l, n) as column slices of a (b, l, 256 + 2n) projection when
+    ``strided`` (as falcon-mamba-7b's path gives them) or contiguous, D
+    (d,), and h0 (b, d, n) or None; → (x, dt, A, B, C, D, h0, dy)."""
+    x = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
+    dtv = (torch.rand(b, l, d, generator=gen, device="cuda") * 0.9 + 0.01).to(dt)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(d, n).contiguous()
+    a = a * (0.5 + torch.rand(d, 1, generator=gen, device="cuda"))
+    if strided:   # (B·L, dt_rank + 2N) projection, B and C its column slices
+        proj = torch.randn(b, l, 256 + 2 * n, generator=gen, device="cuda").to(dt)
+        bi, ci = proj[..., 256:256 + n], proj[..., 256 + n:]
+    else:
+        bi = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+        ci = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
+    dsk = torch.randn(d, generator=gen, device="cuda")
+    h0 = torch.randn(b, d, n, generator=gen, device="cuda") if with_h0 else None
+    dy = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
+    return x, dtv, a, bi, ci, dsk, h0, dy
+
+
 def mamba_scan_bwd_cases(torch, bench, ref, scan):
     """K8's backward at falcon-mamba-7b's training layer (B 2, L 2048, D
     8192, N 16, bf16, B and C strided column slices of the x projection as
     on the path, no h0, dh_final zeros as autograd hands it) after K8's
     forward with ``states=True``, against ``ref.mamba_scan_bwd_ref`` on the
-    card at the bf16 gradient tolerance; then checks: the same layer from
-    an h0 with a cotangent on h_final (dh0 compared too), fp32 at (1e-4,
-    1e-4) (a ragged L over several chunks from h0, D not a multiple of a
-    block at N 8, one step), rows at B 1 bitwise equal to B 2, two calls
-    bitwise equal, and the forward with boundary states bitwise equal to
-    the serving forward (y and h_final) at phase 7b's B 4 x 512 prefill
-    and at this layer, its last boundary state equal to the final state of
-    the scan over the steps before it.  Operations count 25 N + 8 per
-    channel-step (an exponential as one; the recompute and the reverse
-    step) at the fp32 peak; bytes count x, dt, dy, B, C, the boundary
-    states, A, D and dh_final read once, dx, ddt, dB, dC, dA, dD (and dh0)
-    written once; beside them the special-function floor of the two
-    passes' 2 B·L·D·N exponentials."""
+    card at the bf16 gradient tolerance, and the same layer at B 1 (timed,
+    a check); then checks: the same layer from an h0 with a cotangent on
+    h_final (dh0 compared too), fp32 at (1e-4, 1e-4) (a ragged L over
+    several chunks from h0, D not a multiple of a block at N 8 and at N 16
+    with the last block a quarter live, one step, and x, dt and dy rows
+    the 16-byte copies cannot take: unaligned bases and D·size not a
+    multiple of 16 bytes, staged and stored an element at a time), rows at
+    B 1 bitwise equal to B 2, two calls bitwise equal, and the forward with
+    boundary states bitwise equal to the serving forward (y and h_final)
+    at phase 7b's B 4 x 512 prefill and at this layer, its last boundary
+    state equal to the final state of the scan over the steps before it.
+    Each case prints its plan (lanes, grid, blocks an SM, waves, shared
+    memory, sub-chunk).  Operations count 25 N + 8 per channel-step (an
+    exponential as one; the recompute and the reverse step) at the fp32
+    peak; bytes count x, dt, dy, B, C, the boundary states, A, D and
+    dh_final read once, dx, ddt, dB, dC, dA, dD (and dh0) written once;
+    beside them the special-function floor of two passes' 2 B·L·D·N
+    exponentials, and of the kernel's own count (a chunk walked forward to
+    its last sub-chunk, then every sub-chunk recomputed)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     ghz = sm_clock_ghz()
 
-    def operands(b, l, d, n, dt, strided, with_h0):
-        x = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
-        dtv = (torch.rand(b, l, d, generator=gen, device="cuda") * 0.9 + 0.01).to(dt)
-        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(d, n).contiguous()
-        a = a * (0.5 + torch.rand(d, 1, generator=gen, device="cuda"))
-        if strided:   # (B·L, dt_rank + 2N) projection, B and C its column slices
-            proj = torch.randn(b, l, 256 + 2 * n, generator=gen, device="cuda").to(dt)
-            bi, ci = proj[..., 256:256 + n], proj[..., 256 + n:]
-        else:
-            bi = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
-            ci = torch.randn(b, l, n, generator=gen, device="cuda").to(dt)
-        dsk = torch.randn(d, generator=gen, device="cuda")
-        h0 = torch.randn(b, d, n, generator=gen, device="cuda") if with_h0 else None
-        dy = torch.randn(b, l, d, generator=gen, device="cuda").to(dt)
-        return x, dtv, a, bi, ci, dsk, h0, dy
+    def exponentials(l):
+        """Exponentials a state of the kernel takes over l steps: each chunk
+        of n steps walked to its last sub-chunk's first step, then each of
+        its ceil(n / sub) sub-chunks recomputed whole."""
+        sub, steps = scan.SCAN_BWD_SUB, scan.SCAN_STEPS
+        return sum((2 * -(-n // sub) - 1) * sub
+                   for n in (min(steps, l - t0) for t0 in range(0, l, steps)))
 
     # label, B, L, D, N, dtype, strided B/C, h0, dh_final random, weight, timed
     cases = [
         ("falcon-mamba layer B2 L2048 D8192 N16 strided B/C", 2, 2048, 8192, 16, torch.bfloat16, True, False, False, 1, True),
+        ("B1 L2048 D8192 N16 strided B/C", 1, 2048, 8192, 16, torch.bfloat16, True, False, False, 0, True),
         ("check B2 L2048 D8192 N16 h0, dh_final", 2, 2048, 8192, 16, torch.bfloat16, True, True, True, 0, False),
         ("check fp32 L100 D256 N16 h0, dh_final", 2, 100, 256, 16, torch.float32, True, True, True, 0, False),
         ("check fp32 L77 D200 N8 contiguous B/C", 3, 77, 200, 8, torch.float32, False, True, False, 0, False),
+        ("check fp32 L70 D232 N16 h0, dh_final", 2, 70, 232, 16, torch.float32, True, True, True, 0, False),
         ("check fp32 L1 D256 N16 h0", 2, 1, 256, 16, torch.float32, True, True, True, 0, False),
     ]
     main = None
+
+    def plan_line(row, b, l, d, n, dt):
+        plan = scan.scan_bwd_plan(b, l, d, n, dt)
+        row["plan"] = plan._asdict()
+        row["sfu_floor_ms"] = 2 * b * l * d * n / (132 * 16 * ghz * 1e9) * 1e3
+        row["kernel_sfu_floor_ms"] = b * exponentials(l) * d * n / (132 * 16 * ghz * 1e9) * 1e3
+        print(f"    plan {n // 4} lanes a channel, grid {plan.grid}, {plan.blocks_per_sm} blocks"
+              f" an SM ({4 * plan.blocks_per_sm} warps), {plan.waves} wave(s), smem"
+              f" {plan.smem_bytes} bytes, {plan.chunks} chunks in sub-chunks of"
+              f" {scan.SCAN_BWD_SUB} steps, workspaces {plan.partial_bytes} bytes; special-function"
+              f" floor of two passes {row['sfu_floor_ms']:.4f} ms, of the kernel's"
+              f" {exponentials(l) / l:.3f} exponentials a state-step"
+              f" {row['kernel_sfu_floor_ms']:.4f} ms at {ghz:.3f} GHz", flush=True)
+
     for label, b, l, d, n, dt, strided, with_h0, with_dh, weight, timed in cases:
-        x, dtv, a, bi, ci, dsk, h0, dy = operands(b, l, d, n, dt, strided, with_h0)
+        x, dtv, a, bi, ci, dsk, h0, dy = scan_bwd_operands(torch, gen, b, l, d, n, dt, strided,
+                                                           with_h0)
         dh = (torch.randn(b, d, n, generator=gen, device="cuda") if with_dh
               else torch.zeros(b, d, n, device="cuda"))
         y, h, states = scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0, states=True)
@@ -1753,18 +1794,38 @@ def mamba_scan_bwd_cases(torch, bench, ref, scan):
                         flops=b * l * d * (25 * n + 8), nbytes=nbytes, dtype=name,
                         tol_kind="scan_bwd", weight=weight, timed=timed, peak="fp32")
         check(scan.SCAN_BWD_LAUNCHES > before, f"K8 backward {label}: no launch counted")
-        row = bench.cases["mamba_scan_bwd"][-1]
-        plan = scan.scan_bwd_plan(b, l, d, n, dt)
-        row["plan"] = plan._asdict()
-        row["sfu_floor_ms"] = 2 * b * l * d * n / (132 * 16 * ghz * 1e9) * 1e3
-        print(f"    plan grid {plan.grid}, {plan.chunks} chunks, smem {plan.smem_bytes} bytes,"
-              f" workspaces {plan.ws_bytes + plan.partial_bytes} bytes; special-function floor"
-              f" of the two passes {row['sfu_floor_ms']:.4f} ms at {ghz:.3f} GHz", flush=True)
+        plan_line(bench.cases["mamba_scan_bwd"][-1], b, l, d, n, dt)
         if timed:
             device_row(torch, bench, "mamba_scan_bwd", fn)
+        if weight:
             main = (x, dtv, a, bi, ci, dsk, states, dy, dh, got, fn)
         if label.startswith("check B2 L2048"):
             check(len(got) == 7, "K8 backward: no dh0 with h0 given")
+
+    # rows the 16-byte copies cannot take: x, dt and dy on bases 4 bytes off
+    # alignment, D 98 (392 bytes a row); the boundary states from the
+    # forward on the same values padded to D 100 (channels are independent)
+    b, l, d, n = 2, 70, 98, 16
+    x, dtv, a, bi, ci, dsk, h0, dy = scan_bwd_operands(torch, gen, b, l, 100, n, torch.float32,
+                                                       True, True)
+    _, _, states = scan.mamba_scan(x, dtv, a, bi, ci, dsk, h0=h0, states=True)
+    states, a, dsk, h0 = (states[:, :, :d].contiguous(), a[:d].contiguous(), dsk[:d].contiguous(),
+                          h0[:, :d].contiguous())
+    odd = [torch.empty(b, l, d + 1, device="cuda")[..., 1:] for _ in range(3)]
+    for t, src in zip(odd, (x, dtv, dy)):
+        t.copy_(src[..., :d])
+    x, dtv, dy = odd
+    dh = torch.randn(b, d, n, generator=gen, device="cuda")
+    label = "check fp32 L70 D98 N16 unaligned rows"
+    got = bench.run("mamba_scan_bwd", label,
+                    lambda: scan.mamba_scan_bwd(x, dtv, a, bi, ci, dsk, states, dy, dh_final=dh),
+                    lambda: ref.mamba_scan_bwd_ref(x, dtv, a, bi, ci, dsk, h0, states, dy, dh,
+                                                   chunk=scan.SCAN_STEPS),
+                    None, flops=b * l * d * (25 * n + 8), nbytes=0, dtype="float32",
+                    tol_kind="scan_bwd", timed=False, peak="fp32")
+    check(not scan._rows_vectorisable(x, dtv, dy),
+          "K8 backward: the unaligned rows were taken as 16-byte vectors")
+    plan_line(bench.cases["mamba_scan_bwd"][-1], b, l, d, n, torch.float32)
 
     # a row's bits do not depend on the batch; two calls have the same bits
     x, dtv, a, bi, ci, dsk, states, dy, dh, got, fn = main
@@ -1783,7 +1844,8 @@ def mamba_scan_bwd_cases(torch, bench, ref, scan):
 
     # the forward with boundary states keeps the serving bits
     for b, l in ((4, 512), (2, 2048)):
-        x, dtv, a, bi, ci, dsk, _, _ = operands(b, l, 8192, 16, torch.bfloat16, True, False)
+        x, dtv, a, bi, ci, dsk, _, _ = scan_bwd_operands(torch, gen, b, l, 8192, 16, torch.bfloat16,
+                                                         True, False)
         y0, h0_ = scan.mamba_scan(x, dtv, a, bi, ci, dsk)
         y1, h1, states = scan.mamba_scan(x, dtv, a, bi, ci, dsk, states=True)
         check(torch.equal(y0, y1) and torch.equal(h0_, h1),
@@ -5113,6 +5175,7 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "fused_panel_bf16_wmma": "fused_panel", "fused_panel_f32_simt": "fused_panel",
              "fused_chain_f32_simt": "fused_chain", "mamba_scan_prefill_kernel": "mamba_scan",
              "mamba_scan_decode_kernel": "mamba_scan", "mamba_scan_bwd_kernel": "mamba_scan_bwd",
+             "mamba_scan_bwd_combine_kernel": "mamba_scan_bwd",
              "block_spmm_bf16_wgmma": "block_spmm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wgmma": "grouped_matmul",
@@ -5507,7 +5570,8 @@ def unfused_training_launches(cfg, seq, loss_chunk):
     recompute) and once more for an attention layer's activated projection's
     pre-activation in the backward, K1 on a transposed operand for each
     projection's dX and dW; K2 twice and K6 once an attention layer; K8's
-    forward twice and its backward once a mamba layer (whose four products
+    forward twice and its backward's two launches (the walk and the
+    combine) once a mamba layer (whose four products
     have no activation); per loss chunk the logits twice (checkpointed),
     their dX and dW, a tied embedding read transposed."""
     from repro_torch.models import lm
@@ -5521,7 +5585,7 @@ def unfused_training_launches(cfg, seq, loss_chunk):
     return {"gemm": attn * (2 * products + 1) + mamba * 2 * 4 + chunks * head_plain,
             "gemm_transposed": 2 * attn * products + mamba * 2 * 4 + chunks * head_trans,
             "flash_attention": 2 * attn, "flash_attention_bwd": attn,
-            "mamba_scan": 2 * mamba, "mamba_scan_bwd": mamba}
+            "mamba_scan": 2 * mamba, "mamba_scan_bwd": 2 * mamba}
 
 
 def _named_leaves(tree, key=""):

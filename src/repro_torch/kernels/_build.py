@@ -90,11 +90,14 @@ SIGNATURES = {
         "mamba_scan_steps": (),
         "mamba_scan_min_blocks": (_I,),
         # x, dt, a, b, c, d_skip, states, dy, dh_final, dx, ddt, db, dc, da,
-        # dd, dh0, step states, dB/dC partials, dA/dD partials, counters,
-        # bf16, B, L, D, N, x/dt strides (batch, step), b/c strides (batch,
-        # step, n), dy strides (batch, step), stream
-        "mamba_scan_bwd": (_P,) * 20 + (_I,) * 5 + (_L,) * 12 + (_P,),
-        "mamba_scan_bwd_smem": (_I,),
+        # dd, dh0, dB/dC partials, dA/dD partials, bf16, vec, B, L, D, N,
+        # x/dt strides (batch, step), b/c strides (batch, step, n), dy
+        # strides (batch, step), stream
+        "mamba_scan_bwd": (_P,) * 18 + (_I,) * 6 + (_L,) * 12 + (_P,),
+        "mamba_scan_bwd_sub": (),
+        "mamba_scan_bwd_min_blocks": (),
+        # bf16, N, what (0 shared memory, 1 registers, 2 blocks an SM)
+        "mamba_scan_bwd_info": (_I, _I, _I),
     },
     "block_spmm": {
         # blocks, row_ptr, col_id, b, c, in_bf16, out_bf16, nrows, bm, bk,

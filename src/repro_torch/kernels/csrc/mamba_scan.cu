@@ -67,40 +67,67 @@
 // (B 2, L 2048, D 8192, N 16, bf16): bytes, x, dt and dy read, dx and ddt
 // written, the boundary states read (64 chunks of 1 MB), B, C, dB, dC,
 // A, dA, D, dD, dh_final and dh0: about 0.40 GB, 0.12 ms at 3.35 TB/s;
-// and the exponentials, B·L·D·N = 537 M a pass, 0.128 ms a pass on 132 SMs
-// x 16 special-function results a clock at 1.98 GHz.  This kernel makes
-// two passes (the recompute and the reverse walk), so its floor is 0.257
-// ms.
+// the operations, about 25 N + 8 a channel-step at the fp32 rate (0.20
+// ms); and the exponentials, B·L·D·N = 537 M a pass, 0.128 ms a pass on
+// 132 SMs x 16 special-function results a clock at 1.98 GHz.  The states
+// h_{t-1} the reverse walk needs are recomputed (keeping (B, L, D, N)
+// would take 2.1 GB a layer), so the exponentials are paid more than once:
+// two passes give a floor of 0.257 ms.  Each channel is a chain of L
+// dependent steps forward and L back, so what the card is given to issue
+// while a step waits on shared memory, a shuffle or an exponential sets
+// the time: warps an SM, and no device-memory latency inside a step.
 //
-// What its design does about it (a simple kernel first; PERF.md):
-// - A block owns 128 channels of one row, one thread a channel with its N
-//   states in registers (the forward's LANES 1), and walks the chunks from
-//   the last to the first.  For each chunk it stages the chunk's B and C
-//   in shared memory as fp32, recomputes the chunk's states from its
-//   boundary state with the forward's own arithmetic (the ex2 decay on
-//   A·log2 e, __fmul_rn / __fmaf_rn as the forward rounds them, so the
-//   states are bitwise the forward's), storing each step's states in a
-//   per-block workspace in device memory (kSteps x N x 128 fp32, 256 KB a
-//   block at N 16: 32 MB for the whole grid at B 2, which L2 mostly
-//   holds), and then walks the chunk backwards reading h_{t-1} from there
-//   (the boundary state for the chunk's first step).  Cost: two
-//   exponentials a state-step instead of one, and the workspace written and
-//   read once (2 B·L·D·N·4 bytes, 4.3 GB at that layer, L2 traffic) where
-//   keeping (B, L, D, N) would take 2.1 GB of device memory a layer.
-// - No floating-point atomics.  dB_t and dC_t sum over D: each warp
-//   reduces its 32 channels' 2N values by a butterfly that leaves one value
-//   a lane (fixed lanes, fixed order), the four warps' sums are added in a
-//   fixed tree after the chunk, and each block writes its partial for the
-//   chunk's steps; the last block of a (row, chunk) to finish (an integer
-//   counter) adds the partials of the row's channel blocks in block order
-//   and writes dB and dC.  dA and dD sum over B and L: each thread sums its
-//   channel's steps in registers, and the last block of a channel block
-//   adds the rows' partials in row order.  A row has the same bits at any
+// What its design does about it:
+// - Four states a thread: a channel's N states on N / 4 neighbouring lanes
+//   (4 at N 16, 2 at N 8), a block of 128 threads owning 128 / LANES
+//   channels of one row (32 at N 16), so falcon-mamba-7b's B 2 layer is
+//   512 blocks and 4 of them (16 warps) fit an SM by shared memory and the
+//   128 registers __launch_bounds__ grants: one wave.  The sums over a
+//   channel's states (dx's and ddt's) are one fixed tree whichever lanes
+//   hold them: groups of 4 states in order, the groups pairwise (the
+//   forward's y), the last levels by shuffles.
+// - The block walks the chunks of kSteps steps from the last to the first.
+//   While it walks one, the next one's x, dt and dy rows are in flight by
+//   16-byte cp.async into the other of two shared buffers, its B and C in
+//   registers (widened to fp32 into shared memory after the walk: they are
+//   column slices of the x projection, which 16-byte copies cannot read in
+//   general) and its boundary state in registers: no step loop reads
+//   device memory.
+// - The chunk's states stay on chip.  The block walks the chunk forward
+//   once from its boundary state to the states entering each sub-chunk of
+//   kSub steps (into shared memory, each thread its own); then, for each
+//   sub-chunk in reverse, it recomputes the sub-chunk's states and decays
+//   in registers and walks back through them, its kSub steps unrolled and
+//   unconditional so that they interleave (the last chunk's last sub-chunk
+//   is padded with steps of x = dt = dy = 0, which change nothing).
+//   Holding 8 steps' states in shared memory instead was no faster, and 8
+//   steps in registers need 3 blocks an SM, which was slower.  The
+//   recompute is the forward's arithmetic (the ex2 decay on A·log2 e,
+//   __fmul_rn / __fmaf_rn as the forward rounds them), so its states are
+//   bitwise the forward's.  A 32-step chunk costs 60 exponentials a state:
+//   28 to the last sub-chunk's entry and 32 recomputed.
+// - dB_t and dC_t (sums over D) without a reduction a step: each step
+//   leaves its terms g dt x and dy h in shared memory; once a sub-chunk,
+//   the block sums its channels' terms in one fixed order (four
+//   interleaved runs over the channels, then (r0 + r1) + (r2 + r3)) into
+//   its partial in device memory.  A second launch
+//   (mamba_scan_bwd_combine_kernel) adds the channel blocks' partials in
+//   block order: a last-block-to-finish combine inside the kernel
+//   serialised the card on the few blocks that finished last (5.0 ms
+//   against 1.38; PERF.md).  dA and dD (sums over B and L): each thread
+//   sums its steps in registers and the second launch adds the rows in
+//   row order.  No floating-point atomics: a row has the same bits at any
 //   B, and two runs the same bits.
+// - ddt is x Σ g B + Σ A g a h_{t-1}: Σ g B is dx's sum already, so a
+//   state costs two operations fewer than Σ g (x B + A a h_{t-1}).
+// - dx and ddt of a chunk collect in shared memory (every lane of a
+//   channel stores the same value: no branch) and leave it in 16-byte
+//   stores.
 // - x, dt and dy are read in place through (batch, step) strides with a
-//   unit stride along D, B and C through (batch, step, n) strides (column
-//   slices of the x projection); dx, ddt, dB and dC are written contiguous
-//   in the operands' type.
+//   unit stride along D, B and C through (batch, step, n) strides; dx,
+//   ddt, dB and dC are written contiguous in the operands' type.  Rows the
+//   16-byte copies cannot cover (a base, stride or D·size not a multiple
+//   of 16 bytes) are staged and stored an element at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -428,6 +455,14 @@ cudaError_t dispatch(int N, const Args& a, int B, int lanes, cudaStream_t s) {
 // The backward (see the header).
 // ---------------------------------------------------------------------------
 
+// Steps of a chunk whose states and decays a thread holds in registers at
+// once.  kernels/mamba_scan.py's SCAN_BWD_SUB mirrors it.
+constexpr int kSub = 4;
+// Blocks an SM the backward asks ptxas to keep resident (its register
+// budget, 128 a thread): four, which its shared memory allows at N 16 in
+// bf16.  kernels/mamba_scan.py's _BWD_MIN_BLOCKS mirrors it.
+constexpr int kBwdMinBlocks = 4;
+
 struct BwdArgs {
   const void* x;
   const void* dt;
@@ -445,233 +480,382 @@ struct BwdArgs {
   float* da;           // (D, N)
   float* dd;           // (D,)
   float* dh0;          // (B, D, N) or null
-  float4* ws;          // (B, gx, kSteps, N / 4, 128): each step's states
-  float* pbc;          // (B, chunks, gx, kSteps, 2N): dB, dC partials
-  float* pa;           // (B, D, N + 1): dA and dD partials
-  int* cnt;            // B·chunks + gx counters, zero at the launch
+  float* pbc;          // (B, chunks, gx, kSteps, 2N): each block's dB, dC sums
+  float* pa;           // (B, D, N + 1): each row's dA and dD
   int L, D;
+  int vec;             // x, dt and dy rows take 16-byte copies
   long long xb, xl, db_, dl, bb, bl, bn, cb, cl, cn, yb, yl;   // element strides
 };
 
-// The butterfly that sums V values over a warp's 32 lanes and leaves one
-// sum a lane: at offset O the lanes with bit O set keep the upper half of
-// their W values and add their partner's upper half, the others the lower
-// half; once one value is left the remaining offsets add it to the
-// partner's (a + b and b + a round alike).  Lane l ends with the sum of
-// value l >> (5 - log2 V), in one fixed order.
-template <int W, int O, int V>
-__device__ __forceinline__ void scatter(float (&v)[V], int lane) {
-  if constexpr (O >= 1) {
-    if constexpr (W > 1) {
-      constexpr int H = W / 2;
-      const bool up = (lane & O) != 0;
-#pragma unroll
-      for (int k = 0; k < H; ++k) {
-        const float send = up ? v[k] : v[k + H];
-        const float keep = up ? v[k + H] : v[k];
-        v[k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, O));
-      }
-      scatter<H, O / 2, V>(v, lane);
-    } else {
-      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
-      scatter<1, O / 2, V>(v, lane);
-    }
-  }
-}
-
-template <int N>
+// Shared memory of a backward block: 128 / (N / 4) channels, 4 states a
+// thread.
+template <typename T, int N>
 struct BwdSmem {
-  float bc[kSteps][2 * N];                     // the chunk's B then C, fp32
-  float red[kSteps][kThreads / 32][2 * N];     // each warp's dB, dC sums a step
-  int last[4];                                 // [0]: this block finished last (16 bytes)
+  static constexpr int CH = kThreads / (N / 4);
+  T xs[2][kSteps][CH];                 // x of two chunks
+  T ds[2][kSteps][CH];                 // dt
+  T ys[2][kSteps][CH];                 // dy
+  T dxs[kSteps][CH];                   // the chunk's dx
+  T dts[kSteps][CH];                   // its ddt
+  float bc[kSteps][2 * N];             // the chunk's B then C, fp32
+  float4 ent[kSteps / kSub - 1][kThreads];   // each thread's states entering sub-chunks 1, 2, ...
+  float4 tb[kSub][kThreads];           // each thread's dB terms of the sub-chunk's steps
+  float4 gap[4];                       // puts tc 16 banks from tb: the block sum reads both
+  float4 tc[kSub][kThreads];           // its dC terms
 };
 
-// Grid (ceil(D / 128), B), 128 threads, one a channel.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-mamba_scan_bwd_kernel(const BwdArgs a) {
-  constexpr int V = 2 * N, W = kThreads / 32, Q = N / 4;
-  constexpr int SHIFT = V == 32 ? 0 : 1;        // lane l holds value l >> SHIFT
-  static_assert(V == 16 || V == 32, "N is 8 or 16");
-  static_assert(W == 4, "four warps a block: their sums are added (w0 + w1) + (w2 + w3)");
-  __shared__ __align__(16) BwdSmem<N> sm;
+__device__ __forceinline__ float4 pack4(const float (&v)[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
+__device__ __forceinline__ void unpack4(float (&v)[4], const float4 u) {
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+__device__ __forceinline__ float4 add4(const float4 p, const float4 q) {
+  return make_float4(__fadd_rn(p.x, q.x), __fadd_rn(p.y, q.y), __fadd_rn(p.z, q.z), __fadd_rn(p.w, q.w));
+}
+__device__ __forceinline__ float4 shfl_xor4(const float4 p, int o) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, p.x, o), __shfl_xor_sync(0xffffffffu, p.y, o),
+                     __shfl_xor_sync(0xffffffffu, p.z, o), __shfl_xor_sync(0xffffffffu, p.w, o));
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.y, bx = blockIdx.x, gx = gridDim.x, B = gridDim.y;
-  const int d = bx * kThreads + tid;
-  const bool live = d < a.D;
+// Grid (ceil(D / CH), B), 128 threads, CH = 128 / (N / 4) channels a
+// block.  Leaves dB and dC as each block's sums over its channels, dA and
+// dD as each row's, for mamba_scan_bwd_combine_kernel.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+mamba_scan_bwd_kernel(const BwdArgs a) {
+  using Smem = BwdSmem<T, N>;
+  constexpr int LANES = N / 4, CH = Smem::CH, V = 2 * N, VX = 16 / sizeof(T);
+  constexpr int BCR = kSteps * V / kThreads;   // B and C elements a thread stages
+  static_assert(N % 4 == 0 && LANES <= 32 && CH % 4 == 0, "4 states a thread, whole warps");
+  static_assert(BCR * kThreads == kSteps * V, "B and C stage in whole passes");
+  static_assert(CH * sizeof(T) % 16 == 0, "a block's rows are whole 16-byte vectors");
+  static_assert(kSub * V / 4 * 4 <= kThreads, "a sub-chunk's block sums take one pass");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem);
+
+  const int tid = threadIdx.x, ch = tid / LANES, j = tid % LANES;
+  const int b = blockIdx.y, bx = blockIdx.x, gx = gridDim.x;
+  const int d0 = bx * CH, d = d0 + ch;
+  const int nc = min(CH, a.D - d0);   // live channels of this block
+  const bool live = ch < nc;
   const int L = a.L, chunks = (L + kSteps - 1) / kSteps;
 
-  float av[N], a2[N], g[N], dA[N];
+  // Slots no copy writes read zero: a channel past the last one steps on
+  // zeros from zero states (decay 1, terms 0) and stores nothing, and so
+  // do the steps past L that pad the last chunk's last sub-chunk.
+  for (int e = tid; e < 2 * kSteps * CH; e += kThreads) {
+    (&sm.xs[0][0][0])[e] = from_float<T>(0.0f);
+    (&sm.ds[0][0][0])[e] = from_float<T>(0.0f);
+    (&sm.ys[0][0][0])[e] = from_float<T>(0.0f);
+  }
+  __syncthreads();   // before the copies into the same buffers
+  float av[4], a2[4], g[4], dA[4];
   if (live) {
-    load_states(av, a.a + (long long)d * N);
+    load_states(av, a.a + (long long)d * N + j * 4);
   } else {
 #pragma unroll
-    for (int s = 0; s < N; ++s) av[s] = 0.0f;
+    for (int s = 0; s < 4; ++s) av[s] = 0.0f;
   }
 #pragma unroll
-  for (int s = 0; s < N; ++s) {
+  for (int s = 0; s < 4; ++s) {
     a2[s] = __fmul_rn(av[s], kLog2e);
     g[s] = 0.0f;
     dA[s] = 0.0f;
   }
-  if (live && a.dhf != nullptr) load_states(g, a.dhf + ((long long)b * a.D + d) * N);
+  if (live && a.dhf != nullptr) load_states(g, a.dhf + ((long long)b * a.D + d) * N + j * 4);
   float dD = 0.0f;
   const float dsk = live ? a.dskip[d] : 0.0f;
 
-  const T* xr = static_cast<const T*>(a.x) + b * a.xb + d;
-  const T* dr = static_cast<const T*>(a.dt) + b * a.db_ + d;
-  const T* yr = static_cast<const T*>(a.dy) + b * a.yb + d;
+  const T* xr = static_cast<const T*>(a.x) + b * a.xb + d0;
+  const T* dr = static_cast<const T*>(a.dt) + b * a.db_ + d0;
+  const T* yr = static_cast<const T*>(a.dy) + b * a.yb + d0;
   const T* br = static_cast<const T*>(a.b) + b * a.bb;
   const T* cr = static_cast<const T*>(a.c) + b * a.cb;
-  T* dxr = static_cast<T*>(a.dx) + (long long)b * L * a.D + d;
-  T* dtr = static_cast<T*>(a.ddt) + (long long)b * L * a.D + d;
-  float4* ws = a.ws + ((long long)b * gx + bx) * kSteps * Q * kThreads + tid;
+  const float* hbr = a.hb + ((long long)b * chunks * a.D + d) * N + j * 4;
+  const bool vec_out = a.D * sizeof(T) % 16 == 0;
 
-  for (int i = chunks - 1; i >= 0; --i) {
-    const int t0 = i * kSteps, n = min(kSteps, L - t0);
-    __syncthreads();   // the previous chunk's B, C and warp sums are read
-    for (int e = tid; e < kSteps * V; e += kThreads) {
-      const int t = e / V, k = e % V;
-      sm.bc[t][k] = t >= n ? 0.0f
-                    : k < N ? to_float(br[(t0 + t) * a.bl + k * a.bn])
-                            : to_float(cr[(t0 + t) * a.cl + (k - N) * a.cn]);
+  // chunk i's x, dt and dy rows into buffer i % 2, one commit group
+  auto stage = [&](int i) {
+    const int t0 = i * kSteps, n = min(kSteps, L - t0), q = i & 1;
+    T* xd = &sm.xs[q][0][0];
+    T* dd = &sm.ds[q][0][0];
+    T* yd = &sm.ys[q][0][0];
+    if (a.vec) {
+      const int nv = nc / VX;
+      for (int e = tid; e < n * nv; e += kThreads) {
+        const int t = e / nv, v = e % nv, o = t * CH + v * VX;
+        cp_async16(smem_u32(xd + o), xr + (t0 + t) * a.xl + v * VX);
+        cp_async16(smem_u32(dd + o), dr + (t0 + t) * a.dl + v * VX);
+        cp_async16(smem_u32(yd + o), yr + (t0 + t) * a.yl + v * VX);
+      }
+    } else {
+      for (int e = tid; e < n * nc; e += kThreads) {
+        const int t = e / nc, k = e % nc, o = t * CH + k;
+        xd[o] = xr[(t0 + t) * a.xl + k];
+        dd[o] = dr[(t0 + t) * a.dl + k];
+        yd[o] = yr[(t0 + t) * a.yl + k];
+      }
     }
-    __syncthreads();
-
-    // Recompute the chunk's states from its boundary state, the forward's
-    // arithmetic step for step, each step's states into the workspace.
-    const float* hbp = a.hb + (((long long)b * chunks + i) * a.D + d) * N;
-    float h[N];
+    cp_async_commit();
+  };
+  // chunk i's B and C: element e = t * 2N + k of the chunk, thread tid
+  // holding e = tid, tid + 128, ...
+  T bcr[BCR];
+  auto fetch = [&](int i) {
+    const int t0 = i * kSteps, n = min(kSteps, L - t0);
+#pragma unroll
+    for (int r = 0; r < BCR; ++r) {
+      const int e = tid + r * kThreads, t = e / V, k = e % V;
+      bcr[r] = t >= n ? from_float<T>(0.0f)
+               : k < N ? br[(t0 + t) * a.bl + k * a.bn] : cr[(t0 + t) * a.cl + (k - N) * a.cn];
+    }
+  };
+  auto widen = [&]() {
+#pragma unroll
+    for (int r = 0; r < BCR; ++r) (&sm.bc[0][0])[tid + r * kThreads] = to_float(bcr[r]);
+  };
+  // this thread's states entering chunk i
+  auto bound = [&](float (&h)[4], int i) {
     if (live) {
-      load_states(h, hbp);
+      load_states(h, hbr + (long long)i * a.D * N);
     } else {
 #pragma unroll
-      for (int s = 0; s < N; ++s) h[s] = 0.0f;
+      for (int s = 0; s < 4; ++s) h[s] = 0.0f;
     }
-    for (int t = 0; t < n; ++t) {
-      const float xv = live ? to_float(xr[(t0 + t) * a.xl]) : 0.0f;
-      const float dv = live ? to_float(dr[(t0 + t) * a.dl]) : 0.0f;
-      float dec[N];
+  };
+
+  float hcur[4], hnext[4];
+  stage(chunks - 1);
+  fetch(chunks - 1);
+  widen();
+  bound(hcur, chunks - 1);
+  for (int i = chunks - 1; i >= 0; --i) {
+    const int t0 = i * kSteps, n = min(kSteps, L - t0), q = i & 1;
+    const bool more = i > 0;
+    if (more) {
+      stage(i - 1);   // its buffer was last read before the previous chunk's last barrier
+      fetch(i - 1);
+      bound(hnext, i - 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // chunk i's x, dt, dy, B and C are in shared memory
+    const T* xc = &sm.xs[q][0][ch];
+    const T* dc = &sm.ds[q][0][ch];
+    const T* yc = &sm.ys[q][0][ch];
+
+    // One step of this thread's states, the forward's arithmetic:
+    // h <- h a_t + (dt x) B_t with a_t = 2^(dt A log2 e).
+    auto walk = [&](float (&h)[4], float (&dec)[4], int t) {
+      const float xv = to_float(xc[t * CH]), dv = to_float(dc[t * CH]);
+      float bv[4];
+      load_states(bv, &sm.bc[t][j * 4]);
       decays(dec, a2, dv);
       const float dxv = __fmul_rn(dv, xv);
 #pragma unroll
-      for (int s = 0; s < N; ++s) h[s] = __fmaf_rn(h[s], dec[s], __fmul_rn(dxv, sm.bc[t][s]));
+      for (int s = 0; s < 4; ++s) h[s] = __fmaf_rn(h[s], dec[s], __fmul_rn(dxv, bv[s]));
+    };
+
+    // The states entering each sub-chunk: one walk from the boundary state
+    // to the last sub-chunk's first step, each thread into its own slots.
+    const int subs = (n + kSub - 1) / kSub;
+    {
+      float h[4], dec[4];
 #pragma unroll
-      for (int q = 0; q < Q; ++q)
-        ws[(t * Q + q) * kThreads] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+      for (int s = 0; s < 4; ++s) h[s] = hcur[s];
+      for (int k = 1; k < subs; ++k) {
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) walk(h, dec, (k - 1) * kSub + u);
+        sm.ent[k - 1][tid] = pack4(h);
+      }
     }
 
-    // Walk the chunk backwards: h holds h_t, hp becomes h_{t-1}.
-    for (int t = n - 1; t >= 0; --t) {
-      float hp[N];
-      if (t > 0) {
+    float* part = a.pbc + (((long long)b * chunks + i) * gx + bx) * kSteps * V;
+    for (int k = subs - 1; k >= 0; --k) {
+      const int u0 = k * kSub, nk = min(kSub, n - u0);
+      // Recompute the sub-chunk in registers: hs[u] enters step u0 + u,
+      // hs[u + 1] leaves it, dec[u] is its decay.
+      float hs[kSub + 1][4], dec[kSub][4];
+      if (k == 0) {
 #pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const float4 u = ws[((t - 1) * Q + q) * kThreads];
-          hp[4 * q] = u.x;
-          hp[4 * q + 1] = u.y;
-          hp[4 * q + 2] = u.z;
-          hp[4 * q + 3] = u.w;
-        }
-      } else if (live) {
-        load_states(hp, hbp);
+        for (int s = 0; s < 4; ++s) hs[0][s] = hcur[s];
       } else {
+        unpack4(hs[0], sm.ent[k - 1][tid]);
+      }
 #pragma unroll
-        for (int s = 0; s < N; ++s) hp[s] = 0.0f;
-      }
-      const float xv = live ? to_float(xr[(t0 + t) * a.xl]) : 0.0f;
-      const float dv = live ? to_float(dr[(t0 + t) * a.dl]) : 0.0f;
-      const float dyv = live ? to_float(yr[(t0 + t) * a.yl]) : 0.0f;
-      float dec[N];
-      decays(dec, a2, dv);
-      const float dxv = __fmul_rn(dv, xv);
-      float v[V];            // this channel's dB (first N) and dC terms
-      float gb = 0.0f, gd = 0.0f;
+      for (int u = 0; u < kSub; ++u) {
 #pragma unroll
-      for (int s = 0; s < N; ++s) {
-        const float bv = sm.bc[t][s], cv = sm.bc[t][N + s];
-        g[s] = __fmaf_rn(dyv, cv, g[s]);
-        v[N + s] = __fmul_rn(dyv, h[s]);
-        v[s] = __fmul_rn(g[s], dxv);
-        const float p = __fmul_rn(dec[s], hp[s]);                    // a_t h_{t-1}
-        gb = __fmaf_rn(g[s], bv, gb);
-        gd = __fmaf_rn(g[s], __fmaf_rn(xv, bv, __fmul_rn(av[s], p)), gd);
-        dA[s] = __fmaf_rn(__fmul_rn(g[s], p), dv, dA[s]);
-        g[s] = __fmul_rn(g[s], dec[s]);
-        h[s] = hp[s];
+        for (int s = 0; s < 4; ++s) hs[u + 1][s] = hs[u][s];
+        walk(hs[u + 1], dec[u], u0 + u);
       }
-      dD = __fmaf_rn(dyv, xv, dD);
-      if (live) {
-        dxr[(long long)(t0 + t) * a.D] = from_float<T>(__fmaf_rn(dv, gb, __fmul_rn(dsk, dyv)));
-        dtr[(long long)(t0 + t) * a.D] = from_float<T>(gd);
+      // Walk it back.  Every step runs, so the unrolled steps interleave: a
+      // step past the chunk's end reads x = dt = dy = 0 and B = C = 0,
+      // which leave g unchanged, add nothing to dA and dD, and leave terms
+      // and rows that are never read.
+#pragma unroll
+      for (int u = kSub - 1; u >= 0; --u) {
+        const int t = u0 + u;
+        float bv[4], cv[4];
+        load_states(bv, &sm.bc[t][j * 4]);
+        load_states(cv, &sm.bc[t][N + j * 4]);
+        const float xv = to_float(xc[t * CH]), dv = to_float(dc[t * CH]);
+        const float dyv = to_float(yc[t * CH]);
+        const float dxv = __fmul_rn(dv, xv);
+        float vb[4], vc[4], pb = 0.0f, pd = 0.0f;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          g[s] = __fmaf_rn(dyv, cv[s], g[s]);
+          vc[s] = __fmul_rn(dyv, hs[u + 1][s]);
+          vb[s] = __fmul_rn(g[s], dxv);
+          const float r = __fmul_rn(g[s], __fmul_rn(dec[u][s], hs[u][s]));   // g a_t h_{t-1}
+          pb = s == 0 ? __fmul_rn(g[s], bv[s]) : __fmaf_rn(g[s], bv[s], pb);
+          pd = s == 0 ? __fmul_rn(av[s], r) : __fmaf_rn(av[s], r, pd);
+          dA[s] = __fmaf_rn(r, dv, dA[s]);
+          g[s] = __fmul_rn(g[s], dec[u][s]);
+        }
+        const float gb = lanes_sum<LANES>(pb), gd = lanes_sum<LANES>(pd);
+        dD = __fmaf_rn(dyv, xv, dD);
+        // the channel's lanes hold the same sums and store the same values
+        sm.dxs[t][ch] = from_float<T>(__fmaf_rn(dv, gb, __fmul_rn(dsk, dyv)));
+        sm.dts[t][ch] = from_float<T>(__fmaf_rn(xv, gb, gd));
+        sm.tb[u][tid] = pack4(vb);
+        sm.tc[u][tid] = pack4(vc);
       }
-      scatter<V, 16, V>(v, lane);
-      if ((lane & ((1 << SHIFT) - 1)) == 0) sm.red[t][warp][lane >> SHIFT] = v[0];
+      __syncthreads();   // every thread's dB and dC terms of the sub-chunk are in shared memory
+      // The block's sums over its channels, 4 states at a time: thread
+      // c * LANES + j's float4 holds channel c's states 4j..4j+3.  Each of
+      // four neighbouring lanes runs over the channels c = r, r + 4, ...
+      // in order, then they add (r0 + r1) + (r2 + r3).
+      {
+        const int task = tid / 4, r = tid % 4, u = task / (V / 4), grp = task % (V / 4);
+        float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (u < nk) {
+          const float4* src = grp < LANES ? &sm.tb[u][grp] : &sm.tc[u][grp - LANES];
+          run = src[r * LANES];
+#pragma unroll
+          for (int it = 1; it < CH / 4; ++it) run = add4(run, src[(r + 4 * it) * LANES]);
+        }
+        run = add4(run, shfl_xor4(run, 1));   // every lane: the shuffles need whole warps
+        run = add4(run, shfl_xor4(run, 2));
+        if (u < nk && r == 0) *reinterpret_cast<float4*>(part + (u0 + u) * V + grp * 4) = run;
+      }
+      __syncthreads();   // the sub-chunk's terms are read
     }
-    __syncthreads();   // every warp's sums of the chunk are in shared memory
 
-    // This block's partial of dB_t and dC_t, then the row's last block to
-    // finish the chunk adds the channel blocks' partials in block order.
-    float* part = a.pbc + ((long long)b * chunks + i) * gx * kSteps * V;
-    for (int e = tid; e < n * V; e += kThreads) {
-      const int t = e / V, k = e % V;
-      part[(long long)bx * kSteps * V + e] =
-          __fadd_rn(__fadd_rn(sm.red[t][0][k], sm.red[t][1][k]),
-                    __fadd_rn(sm.red[t][2][k], sm.red[t][3][k]));
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) sm.last[0] = atomicAdd(a.cnt + (long long)b * chunks + i, 1) == gx - 1;
-    __syncthreads();
-    if (sm.last[0]) {
-      __threadfence();
-      for (int e = tid; e < n * V; e += kThreads) {
-        const int t = e / V, k = e % V;
-        float sum = __ldcg(part + e);
-        for (int j = 1; j < gx; ++j) sum = __fadd_rn(sum, __ldcg(part + (long long)j * kSteps * V + e));
-        const long long o = ((long long)b * L + t0 + t) * N;
-        if (k < N) static_cast<T*>(a.db)[o + k] = from_float<T>(sum);
-        else static_cast<T*>(a.dc)[o + k - N] = from_float<T>(sum);
+    // chunk i's dx and ddt rows
+    {
+      T* dxr = static_cast<T*>(a.dx) + ((long long)b * L + t0) * a.D + d0;
+      T* dtr = static_cast<T*>(a.ddt) + ((long long)b * L + t0) * a.D + d0;
+      const T* xo = &sm.dxs[0][0];
+      const T* dO = &sm.dts[0][0];
+      if (vec_out) {
+        const int nv = nc / VX;
+        for (int e = tid; e < n * nv; e += kThreads) {
+          const int t = e / nv, v = e % nv, o = t * CH + v * VX;
+          *reinterpret_cast<uint4*>(dxr + (long long)t * a.D + v * VX) = *reinterpret_cast<const uint4*>(xo + o);
+          *reinterpret_cast<uint4*>(dtr + (long long)t * a.D + v * VX) = *reinterpret_cast<const uint4*>(dO + o);
+        }
+      } else {
+        for (int e = tid; e < n * nc; e += kThreads) {
+          const int t = e / nc, k = e % nc;
+          dxr[(long long)t * a.D + k] = xo[t * CH + k];
+          dtr[(long long)t * a.D + k] = dO[t * CH + k];
+        }
       }
+    }
+    __syncthreads();   // chunk i's buffers are read
+    if (more) {
+      widen();
+#pragma unroll
+      for (int s = 0; s < 4; ++s) hcur[s] = hnext[s];
     }
   }
 
-  if (live && a.dh0 != nullptr) store_states(a.dh0 + ((long long)b * a.D + d) * N, g);
-  // dA and dD: this row's partial, then the channel block's last row to
-  // finish adds the rows' partials in row order.
-  if (live) {
+  if (live && a.dh0 != nullptr) store_states(a.dh0 + ((long long)b * a.D + d) * N + j * 4, g);
+  if (live) {   // this row's dA and dD
     float* pa = a.pa + ((long long)b * a.D + d) * (N + 1);
 #pragma unroll
-    for (int s = 0; s < N; ++s) pa[s] = dA[s];
-    pa[N] = dD;
+    for (int s = 0; s < 4; ++s) pa[j * 4 + s] = dA[s];
+    if (j == 0) pa[N] = dD;
   }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) sm.last[0] = atomicAdd(a.cnt + (long long)B * chunks + bx, 1) == B - 1;
-  __syncthreads();
-  if (sm.last[0] && live) {
-    __threadfence();
-#pragma unroll
-    for (int s = 0; s <= N; ++s) {
-      float sum = __ldcg(a.pa + (long long)d * (N + 1) + s);
-      for (int r = 1; r < B; ++r)
-        sum = __fadd_rn(sum, __ldcg(a.pa + ((long long)r * a.D + d) * (N + 1) + s));
-      if (s < N) a.da[(long long)d * N + s] = sum;
-      else a.dd[d] = sum;
-    }
+}
+
+// The backward's second launch: grid (ceil(max(L·2N, D·(N + 1)) / 128), B
+// + 1).  Item (t, k) of row b < B adds the channel blocks' dB/dC sums of
+// its step in block order; item (d, k) of y = B adds the rows' dA/dD in
+// row order.  No atomics: the same bits at any B and on every run.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_combine_kernel(const BwdArgs a, int gx) {
+  constexpr int V = 2 * N;
+  const int B = gridDim.y - 1, b = blockIdx.y, e = blockIdx.x * kThreads + threadIdx.x;
+  if (b == B) {
+    if (e >= a.D * (N + 1)) return;
+    const int d = e / (N + 1), k = e % (N + 1);
+    float sum = a.pa[e];
+    for (int r = 1; r < B; ++r) sum = __fadd_rn(sum, a.pa[(long long)r * a.D * (N + 1) + e]);
+    if (k < N) a.da[(long long)d * N + k] = sum;
+    else a.dd[d] = sum;
+    return;
   }
+  if (e >= a.L * V) return;
+  const int t = e / V, k = e % V, i = t / kSteps, chunks = (a.L + kSteps - 1) / kSteps;
+  const float* p = a.pbc + ((long long)b * chunks + i) * gx * kSteps * V + (t % kSteps) * V + k;
+  float sum = p[0];
+#pragma unroll 8
+  for (int jb = 1; jb < gx; ++jb) sum = __fadd_rn(sum, p[(long long)jb * kSteps * V]);
+  const long long o = ((long long)b * a.L + t) * N;
+  if (k < N) static_cast<T*>(a.db)[o + k] = from_float<T>(sum);
+  else static_cast<T*>(a.dc)[o + k - N] = from_float<T>(sum);
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t s) {
+  constexpr size_t smem = sizeof(BwdSmem<T, N>);
+  static_assert(smem <= kSmemLimit, "a backward block fits the SM");
+  const auto kern = mamba_scan_bwd_kernel<T, N>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  constexpr int CH = BwdSmem<T, N>::CH;
+  const int gx = (a.D + CH - 1) / CH;
+  kern<<<dim3(gx, B), kThreads, smem, s>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int items = max(a.L * 2 * N, a.D * (N + 1));
+  mamba_scan_bwd_combine_kernel<T, N><<<dim3((items + kThreads - 1) / kThreads, B + 1), kThreads, 0, s>>>(a, gx);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_bwd(int N, const BwdArgs& a, int B, cudaStream_t s) {
-  const dim3 grid((a.D + kThreads - 1) / kThreads, B);
   switch (N) {
-    case 8: mamba_scan_bwd_kernel<T, 8><<<grid, kThreads, 0, s>>>(a); break;
-    case 16: mamba_scan_bwd_kernel<T, 16><<<grid, kThreads, 0, s>>>(a); break;
+    case 8: return launch_bwd<T, 8>(a, B, s);
+    case 16: return launch_bwd<T, 16>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// The backward's dynamic shared memory (what 0), registers a thread (1) or
+// blocks resident an SM (2) at state size N in T, for the wrapper's check
+// of its plan; -1 where it cannot say.
+template <typename T, int N>
+int bwd_info(int what) {
+  const auto kern = mamba_scan_bwd_kernel<T, N>;
+  constexpr int smem = static_cast<int>(sizeof(BwdSmem<T, N>));
+  if (what == 0) return smem;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kern) != cudaSuccess) return -1;
+  if (what == 1) return attr.numRegs;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -718,46 +902,48 @@ extern "C" int mamba_scan_min_blocks(int lanes) {
   }
 }
 
-// The backward.  x, dt, b, c, a, dskip as mamba_scan's; hb (B, ceil(L /
-// kSteps), D, N) fp32 contiguous, the states the forward stored; dy (B, L,
-// D) in x's type by (batch, step) strides with a unit stride along D;
-// dh_final (B, D, N) fp32 contiguous or null (zeros).  Writes dx, ddt (B,
-// L, D) and db, dc (B, L, N) contiguous in x's type, da (D, N), dd (D,)
-// and, when not null, dh0 (B, D, N) in fp32.  ws (B · ceil(D / 128) ·
-// kSteps · N · 128 floats), pbc (B · chunks · ceil(D / 128) · kSteps · 2N
-// floats) and pa (B · D · (N + 1) floats) are workspaces, cnt (B · chunks +
-// ceil(D / 128) int32s) counters that must be zero.  The base of every
-// fp32 tensor is 16-byte aligned.  Returns the launch's
-// cudaGetLastError().
+// The backward: two launches, the walk and the combine.  x, dt, b, c, a,
+// dskip as mamba_scan's; hb (B, ceil(L / kSteps), D, N) fp32 contiguous,
+// the states the forward stored; dy (B, L, D) in x's type by (batch, step)
+// strides with a unit stride along D; dh_final (B, D, N) fp32 contiguous
+// or null (zeros).  Writes dx, ddt (B, L, D) and db, dc (B, L, N)
+// contiguous in x's type, da (D, N), dd (D,) and, when not null, dh0 (B,
+// D, N) in fp32.  pbc (B · chunks · gx · kSteps · 2N floats, gx = ceil(D /
+// (128 / (N / 4)))) and pa (B · D · (N + 1) floats) are workspaces.  vec:
+// x, dt and dy have 16-byte aligned bases, (batch, step) strides and
+// D·size (the cp.async copies read them), else 0.  The base of every fp32
+// tensor is 16-byte aligned.  Returns the launches' cudaGetLastError().
 extern "C" int mamba_scan_bwd(const void* x, const void* dt, const void* a, const void* b,
                               const void* c, const void* dskip, const void* hb, const void* dy,
                               const void* dhf, void* dx, void* ddt, void* db, void* dc, void* da,
-                              void* dd, void* dh0, void* ws, void* pbc, void* pa, void* cnt,
-                              int bf16_, int B, int L, int D, int N, long long x_sb,
-                              long long x_sl, long long dt_sb, long long dt_sl, long long b_sb,
-                              long long b_sl, long long b_sn, long long c_sb, long long c_sl,
-                              long long c_sn, long long dy_sb, long long dy_sl, void* stream) {
+                              void* dd, void* dh0, void* pbc, void* pa, int bf16_, int vec, int B,
+                              int L, int D, int N, long long x_sb, long long x_sl, long long dt_sb,
+                              long long dt_sl, long long b_sb, long long b_sl, long long b_sn,
+                              long long c_sb, long long c_sl, long long c_sn, long long dy_sb,
+                              long long dy_sl, void* stream) {
   if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs args{x, dt, static_cast<const float*>(a), b, c, static_cast<const float*>(dskip),
                      static_cast<const float*>(hb), dy, static_cast<const float*>(dhf), dx, ddt,
                      db, dc, static_cast<float*>(da), static_cast<float*>(dd),
-                     static_cast<float*>(dh0), static_cast<float4*>(ws), static_cast<float*>(pbc),
-                     static_cast<float*>(pa), static_cast<int*>(cnt), L, D,
-                     x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, b_sn, c_sb, c_sl, c_sn, dy_sb, dy_sl};
+                     static_cast<float*>(dh0), static_cast<float*>(pbc), static_cast<float*>(pa),
+                     L, D, vec, x_sb, x_sl, dt_sb, dt_sl, b_sb, b_sl, b_sn, c_sb, c_sl, c_sn,
+                     dy_sb, dy_sl};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bf16_ ? dispatch_bwd<bf16>(N, args, B, s) : dispatch_bwd<float>(N, args, B, s);
   return static_cast<int>(e);
 }
 
-// The backward's static shared memory at state size N (bf16 and fp32
-// alike), for the wrapper's check of its plan; -1 for another N.
-extern "C" int mamba_scan_bwd_smem(int N) {
-  cudaFuncAttributes attr;
-  cudaError_t e;
+// Steps of a backward sub-chunk (kSub) and its register budget in blocks
+// an SM (kBwdMinBlocks), for the wrapper's check of its plan.
+extern "C" int mamba_scan_bwd_sub() { return kSub; }
+extern "C" int mamba_scan_bwd_min_blocks() { return kBwdMinBlocks; }
+
+// bwd_info at state size N (8 or 16) in bf16 (bf16_ != 0) or fp32; -1 for
+// another N.
+extern "C" int mamba_scan_bwd_info(int bf16_, int N, int what) {
   switch (N) {
-    case 8: e = cudaFuncGetAttributes(&attr, mamba_scan_bwd_kernel<bf16, 8>); break;
-    case 16: e = cudaFuncGetAttributes(&attr, mamba_scan_bwd_kernel<bf16, 16>); break;
+    case 8: return bf16_ ? bwd_info<bf16, 8>(what) : bwd_info<float, 8>(what);
+    case 16: return bf16_ ? bwd_info<bf16, 16>(what) : bwd_info<float, 16>(what);
     default: return -1;
   }
-  return e == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes) : -1;
 }

@@ -20,12 +20,20 @@ For training, :func:`mamba_scan` with ``states=True`` also returns the
 state entering each chunk of :data:`SCAN_STEPS` steps, which the prefill
 stores as it walks, and :func:`mamba_scan_bwd` runs the backward kernel
 (no TPU counterpart: the reference differentiates its XLA scan), whose plan
-:func:`scan_bwd_plan` gives: a block of 128 channels of one row walks the
-chunks in reverse, recomputes each chunk's states from its boundary state
-into a workspace with the forward's arithmetic and steps back through
-them; dB and dC (sums over D) and dA and dD (sums over B and L) are
-combined from per-block partials in a fixed order by the last block to
-finish, so a row has the same bits at any B.  Its plain version is
+:func:`scan_bwd_plan` gives.  What bounds it is each channel's serial walk
+and the states it recomputes (the reverse walk needs h_{t-1}, and keeping
+every step's state would take gigabytes), so its design gives the card as
+much to issue as it holds: 4 states a thread (N / 4 lanes a channel), a
+block of 128 threads on 128 / lanes channels of one row, 4 blocks an SM;
+the next chunk's x, dt and dy staged by ``cp.async`` (B and C in
+registers) while one is walked in reverse; each chunk walked forward once
+from its boundary state to the states entering its sub-chunks of
+:data:`SCAN_BWD_SUB` steps, and each sub-chunk recomputed in registers
+(the forward's arithmetic, so the forward's bits) and walked back from
+there.  dB and dC (sums over D) are summed over a block's channels once a
+sub-chunk and, by a second launch, over the channel blocks in block order;
+dA and dD (sums over B and L) over the rows in row order: a row has the
+same bits at any B.  Its plain version is
 ``kernels.ref.mamba_scan_bwd_ref``.
 """
 from __future__ import annotations
@@ -39,10 +47,11 @@ from repro_torch.kernels import _build
 
 __all__ = ["mamba_scan", "mamba_scan_bwd", "scan_plan", "scan_bwd_plan", "ScanPlan",
            "ScanBwdPlan", "SCAN_LAUNCHES", "SCAN_PREFILL_LAUNCHES", "SCAN_DECODE_LAUNCHES",
-           "SCAN_BWD_LAUNCHES", "STATE_SIZES", "SCAN_STEPS", "KERNEL_NAMES"]
+           "SCAN_BWD_LAUNCHES", "STATE_SIZES", "SCAN_STEPS", "SCAN_BWD_SUB", "KERNEL_NAMES"]
 
 # Launches of the CUDA kernels since import (or since a caller reset them):
-# all of the forward's, those of each of its variants, and the backward's.
+# all of the forward's, those of each of its variants, and the backward's
+# (two a call: the walk and the combine).
 SCAN_LAUNCHES = 0
 SCAN_PREFILL_LAUNCHES = 0
 SCAN_DECODE_LAUNCHES = 0
@@ -53,6 +62,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Steps a prefill chunk stages (csrc/mamba_scan.cu kSteps, which the
 # wrapper checks against the library once).
 SCAN_STEPS = 32
+# Steps of a chunk the backward holds in registers at once
+# (csrc/mamba_scan.cu kSub, checked the same way).
+SCAN_BWD_SUB = 4
 # The device kernel of each variant, as a profiler names it.
 KERNEL_NAMES = {"prefill": "mamba_scan_prefill_kernel", "decode": "mamba_scan_decode_kernel",
                 "backward": "mamba_scan_bwd_kernel"}
@@ -65,6 +77,8 @@ _BLOCK_RESERVED = 1024        # and reserves for each resident block
 # (csrc/mamba_scan.cu MinBlocks, which the wrapper checks against the
 # library's mamba_scan_min_blocks() once): its register budget.
 _MIN_BLOCKS = {1: 2, 2: 4}
+# The backward's (csrc/mamba_scan.cu kBwdMinBlocks): 128 registers a thread.
+_BWD_MIN_BLOCKS = 4
 
 
 class ScanPlan(NamedTuple):
@@ -209,42 +223,69 @@ def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None, states=Fals
 
 
 class ScanBwdPlan(NamedTuple):
-    """How K8's backward runs one call: ``grid`` (channel blocks, B) of
-    ``threads`` threads (one a channel), ``smem_bytes`` of static shared
-    memory (the chunk's B and C in fp32 and each warp's dB and dC sums a
-    step), ``chunks`` of :data:`SCAN_STEPS` steps walked in reverse, and
-    the workspaces the wrapper allocates: ``ws_bytes`` for each step's
-    states of a chunk, ``partial_bytes`` for the dB/dC partials of every
-    (row, chunk, channel block) and the dA/dD partials of every row,
-    ``counters`` int32s, zeroed."""
+    """How K8's backward runs one call: ``grid`` (channel blocks of 128 /
+    (N / 4) channels, B) of ``threads`` threads, N / 4 a channel (4 states
+    each), ``smem_bytes`` of dynamic shared memory (x, dt and dy of two
+    chunks, a chunk's dx and ddt, its B and C in fp32, the states entering
+    its sub-chunks, a sub-chunk's dB and dC terms), ``blocks_per_sm``
+    resident (by threads, shared memory and the kernel's register budget),
+    the ``waves`` the grid takes on 132 SMs, ``chunks`` of
+    :data:`SCAN_STEPS` steps walked in reverse, each in sub-chunks of
+    :data:`SCAN_BWD_SUB`, and ``partial_bytes``, the workspace the wrapper
+    allocates for the dB/dC sums of every (row, step, channel block) and
+    the dA/dD of every row, which a second launch adds in block and row
+    order."""
     variant: str
     grid: tuple
     threads: int
     smem_bytes: int
+    blocks_per_sm: int
+    waves: int
     chunks: int
-    ws_bytes: int
     partial_bytes: int
-    counters: int
 
 
 @functools.lru_cache(maxsize=256)
 def scan_bwd_plan(b, l, d, n, dtype):
     """K8's backward plan for x, dt (b, l, d) and a state of n in
-    ``dtype``: a pure function of these (nothing is launched).  Raises
-    ``ValueError`` for a dtype or state size the kernel does not take, or
-    no step."""
+    ``dtype``: a pure function of these (nothing is launched).  Lanes are n
+    / 4 at every b: 4 states a thread, 4 lanes at N 16 and 2 at N 8.  A
+    block's shared memory grows with the states it holds, not with its
+    threads, so fewer lanes would hold more states a block and fewer warps
+    an SM; 4 lanes put falcon-mamba-7b's B 2 layer (D 8192) in 512 blocks,
+    4 an SM, one wave.  Raises ``ValueError`` for a dtype or state size the
+    kernel does not take, or no step."""
     if dtype not in _DTYPES:
         raise ValueError(f"mamba_scan_bwd dtype {dtype}: need one of {_DTYPES}")
     if n not in STATE_SIZES:
         raise ValueError(f"mamba_scan_bwd state size {n}: need one of {STATE_SIZES}")
     if l < 1:
         raise ValueError(f"mamba_scan_bwd needs at least one step, not {l}")
-    gx = -(-d // _THREADS)
+    size = torch.finfo(dtype).bits // 8
+    channels = _THREADS // (n // 4)
+    gx = -(-d // channels)
     chunks = -(-l // SCAN_STEPS)
-    smem = SCAN_STEPS * 2 * n * 4 + SCAN_STEPS * (_THREADS // 32) * 2 * n * 4 + 16
-    ws = b * gx * SCAN_STEPS * n * _THREADS * 4
+    # x, dt, dy in two buffers, dx and ddt, in the operands' type; B and C in
+    # fp32; the states entering sub-chunks 1, 2, ...; a sub-chunk's dB and dC
+    # terms and the 64 bytes between them, a float4 a thread and step
+    smem = ((3 * 2 + 2) * SCAN_STEPS * channels * size + SCAN_STEPS * 2 * n * 4
+            + (SCAN_STEPS // SCAN_BWD_SUB - 1 + 2 * SCAN_BWD_SUB) * _THREADS * 16 + 64)
+    resident = min(2048 // _THREADS, _SM_SMEM // (smem + _BLOCK_RESERVED), _BWD_MIN_BLOCKS)
+    waves = -(-gx * b // (_SMS * resident))
     partial = b * chunks * gx * SCAN_STEPS * 2 * n * 4 + b * d * (n + 1) * 4
-    return ScanBwdPlan("backward", (gx, b), _THREADS, smem, chunks, ws, partial, b * chunks + gx)
+    return ScanBwdPlan("backward", (gx, b), _THREADS, smem, resident, waves, chunks, partial)
+
+
+def _rows_vectorisable(*tensors):
+    """Whether the backward's 16-byte copies can stage these (B, L, D) rows:
+    16-byte aligned bases, (batch, step) strides and D·size."""
+    t = tensors[0]
+    size = t.element_size()
+    return (t.shape[-1] * size % 16 == 0
+            and all(u.data_ptr() % 16 == 0
+                    and all(m == 1 or u.stride(i) * size % 16 == 0
+                            for i, m in enumerate(u.shape[:2]))
+                    for u in tensors))
 
 
 def mamba_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, *, dh_final=None, with_dh0=True):
@@ -254,8 +295,10 @@ def mamba_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, *, dh_final=None, w
     L, D) in x's dtype with a unit stride along D, ``dh_final`` (B, D, N)
     fp32 or None.  → (dx, ddt (B, L, D) in x's dtype, da (D, N) fp32, db,
     dc (B, L, N) contiguous in x's dtype, dd (D,) fp32, dh0 (B, D, N) fp32
-    or None without ``with_dh0``).  One launch of the kernel
-    :func:`scan_bwd_plan` plans.  Raises on anything it does not take."""
+    or None without ``with_dh0``).  Two launches: the kernel
+    :func:`scan_bwd_plan` plans (x, dt and dy rows that are not whole
+    16-byte vectors are staged an element at a time), then the combine of
+    its per-block sums.  Raises on anything it does not take."""
     global SCAN_BWD_LAUNCHES
     tensors = (x, dt, a, b_in, c_in, d_skip, states, dy, dh_final)
     if any(t is not None and t.device.type != "cuda" for t in tensors):
@@ -293,32 +336,31 @@ def mamba_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, *, dh_final=None, w
     da = torch.empty(dch, n, dtype=torch.float32, device=dev)
     dd = torch.empty(dch, dtype=torch.float32, device=dev)
     dh0 = torch.empty(bsz, dch, n, dtype=torch.float32, device=dev) if with_dh0 else None
-    ws = torch.empty(plan.ws_bytes // 4, dtype=torch.float32, device=dev)
     part = torch.empty(plan.partial_bytes // 4, dtype=torch.float32, device=dev)
-    rows_part = part[part.numel() - bsz * dch * (n + 1):]     # the rows' dA and dD partials
-    counters = torch.zeros(plan.counters, dtype=torch.int32, device=dev)
+    rows_part = part[part.numel() - bsz * dch * (n + 1):]     # the rows' dA and dD
     lib = _library()
     err = lib.mamba_scan_bwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
         d_skip.data_ptr(), states.data_ptr(), dy.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None, dx.data_ptr(), ddt.data_ptr(),
         db.data_ptr(), dc.data_ptr(), da.data_ptr(), dd.data_ptr(),
-        dh0.data_ptr() if dh0 is not None else None, ws.data_ptr(), part.data_ptr(),
-        rows_part.data_ptr(), counters.data_ptr(), int(x.dtype == torch.bfloat16), bsz, l,
-        dch, n, *x.stride()[:2], *dt.stride()[:2], *b_in.stride(), *c_in.stride(),
+        dh0.data_ptr() if dh0 is not None else None, part.data_ptr(), rows_part.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(_rows_vectorisable(x, dt, dy)),
+        bsz, l, dch, n, *x.stride()[:2], *dt.stride()[:2], *b_in.stride(), *c_in.stride(),
         *dy.stride()[:2], torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "mamba_scan_bwd")
-    SCAN_BWD_LAUNCHES += 1
+    SCAN_BWD_LAUNCHES += 2
     return dx, ddt, da, db, dc, dd, dh0
 
 
 @functools.lru_cache(maxsize=1)
 def _library():
     """K8's library, once its chunk of steps is checked to be
-    :data:`SCAN_STEPS` (the plan sizes shared memory by it), its
-    prefill's register budgets to be :data:`_MIN_BLOCKS` (the plan counts
-    resident blocks and waves by them) and its backward's shared memory to
-    be :func:`scan_bwd_plan`'s."""
+    :data:`SCAN_STEPS` (the plans size shared memory by it), its prefill's
+    register budgets to be :data:`_MIN_BLOCKS` (the plan counts resident
+    blocks and waves by them), and its backward's sub-chunk, register
+    budget, shared memory and resident blocks an SM, by dtype and state
+    size, to be :func:`scan_bwd_plan`'s."""
     lib = _build.load("mamba_scan")
     if lib.mamba_scan_steps() != SCAN_STEPS:
         raise RuntimeError(f"csrc/mamba_scan.cu stages {lib.mamba_scan_steps()} steps a chunk,"
@@ -327,9 +369,21 @@ def _library():
     if built != _MIN_BLOCKS:
         raise RuntimeError(f"csrc/mamba_scan.cu keeps {built} prefill blocks an SM by lanes,"
                            f" scan_plan {_MIN_BLOCKS}")
-    smem = {n: lib.mamba_scan_bwd_smem(n) for n in STATE_SIZES}
-    planned = {n: scan_bwd_plan(1, 1, 1, n, torch.bfloat16).smem_bytes for n in STATE_SIZES}
-    if smem != planned:
-        raise RuntimeError(f"csrc/mamba_scan.cu's backward holds {smem} bytes of shared memory"
-                           f" by state size, scan_bwd_plan {planned}")
+    if (lib.mamba_scan_bwd_sub(), lib.mamba_scan_bwd_min_blocks()) != (SCAN_BWD_SUB,
+                                                                        _BWD_MIN_BLOCKS):
+        raise RuntimeError(f"csrc/mamba_scan.cu's backward walks sub-chunks of"
+                           f" {lib.mamba_scan_bwd_sub()} steps and keeps"
+                           f" {lib.mamba_scan_bwd_min_blocks()} blocks an SM, scan_bwd_plan"
+                           f" {SCAN_BWD_SUB} and {_BWD_MIN_BLOCKS}")
+    for dtype in _DTYPES:
+        for n in STATE_SIZES:
+            plan = scan_bwd_plan(1, 1, 1, n, dtype)
+            bf16 = int(dtype == torch.bfloat16)
+            smem, regs, blocks = (lib.mamba_scan_bwd_info(bf16, n, w) for w in range(3))
+            if (smem, blocks) != (plan.smem_bytes, plan.blocks_per_sm) or not 0 < regs <= (
+                    65536 // (_THREADS * _BWD_MIN_BLOCKS)):
+                raise RuntimeError(
+                    f"csrc/mamba_scan.cu's backward in {dtype} at N {n}: {smem} bytes of shared"
+                    f" memory, {regs} registers a thread, {blocks} blocks an SM; scan_bwd_plan"
+                    f" {plan.smem_bytes} bytes, {plan.blocks_per_sm} blocks")
     return lib

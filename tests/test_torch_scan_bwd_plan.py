@@ -1,25 +1,28 @@
 """K8's backward on the CPU: its launch plan and a torch model of the
 kernel's algorithm (no GPU, no nvcc needed).
 
-``mamba_scan.scan_bwd_plan`` gives the backward's grid (128 channels of one
-row a block), static shared memory, chunks of ``SCAN_STEPS`` steps and the
-workspaces the wrapper allocates.  ``emulate_scan_bwd`` below repeats the
-kernel's walk in torch fp32: the chunks in reverse from the boundary states
-the forward stores, each chunk's states recomputed with the forward's
-decay 2^(dt · (A · log2 e)), the reverse step carrying g = dL/dh, dB and dC
-summed over a warp's 32 channels by the kernel's butterfly, over the
-block's four warps as (w0 + w1) + (w2 + w3) and over the channel blocks in
-block order, dA and dD over the rows in row order.  It is held against the
-port's plain ``mamba_scan_bwd_ref`` and ``jax.grad`` of the reference's
-``mamba_scan_ref``: fp32 (rtol 1e-4, atol 1e-3), as
-``tests/test_torch_mamba.py``'s gradients (the same recurrences, products,
-exponentials and sums rounded in another order); bf16 inputs (2e-2, 2e-1)
-(both sides compute in fp32 from the same bf16 values and round each
-gradient of a bf16 input once).  A row's gradients do not depend on the
-batch.
+``mamba_scan.scan_bwd_plan`` gives the backward's grid (128 / (n / 4)
+channels of one row a block, n / 4 lanes a channel: four states a thread),
+dynamic shared memory, resident blocks and waves, chunks of ``SCAN_STEPS`` steps walked in
+sub-chunks of ``SCAN_BWD_SUB`` and the workspaces the wrapper allocates.
+``emulate_scan_bwd`` below repeats the kernel's walk in torch fp32: the
+chunks in reverse from the boundary states the forward stores; in each
+chunk one walk from the boundary state to the states entering its
+sub-chunks, then each sub-chunk in reverse recomputed from its entry state
+with the forward's decay 2^(dt · (A · log2 e)) and walked back carrying g
+= dL/dh; dx's sum Σ g B and ddt's Σ A g a h_{t-1} (ddt = x Σ g B + Σ A g a
+h_{t-1}) over a channel's states in the fixed tree (groups of 4 states in
+order, the groups pairwise), dB and dC summed over a
+block's channels once a step in four interleaved runs, (r0 + r1) + (r2 +
+r3), and over the channel blocks in block order, dA and dD over the rows
+in row order.  It is held against the port's plain ``mamba_scan_bwd_ref``
+and ``jax.grad`` of the reference's ``mamba_scan_ref``: fp32 (rtol 1e-4,
+atol 1e-3), as ``tests/test_torch_mamba.py``'s gradients (the same
+recurrences, products, exponentials and sums rounded in another order);
+bf16 inputs (2e-2, 2e-1) (both sides compute in fp32 from the same bf16
+values and round each gradient of a bf16 input once).  A row's gradients
+do not depend on the batch.
 """
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +37,13 @@ LOG2E = 1.4426950408889634
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 BF16_TOL = dict(rtol=2e-2, atol=2e-1)
 STEPS = tscan.SCAN_STEPS
-BLOCK = 128                      # channels a block, one a thread
+SUB = tscan.SCAN_BWD_SUB
+THREADS = 128
+
+
+def channels(n):
+    """Channels a block: 128 threads, n / 4 lanes a channel."""
+    return THREADS // (n // 4)
 
 
 def _inputs(seed, b, l, d, n, dtype=torch.float32):
@@ -66,40 +75,46 @@ def emulate_forward_states(x, dt, a, b_in, h0=None, steps=STEPS):
     return torch.stack(bounds, 1)
 
 
-def butterfly(v):
-    """The kernel's warp sum of V values a lane over 32 lanes, v (..., 32,
-    V) → (..., V): at offset O the lanes with bit O set keep the upper half
-    and add their partner's upper half, the others the lower halves; one
-    value left, it is added to the partner's.  Lane l ends with value l >>
-    (5 - log2 V), which is read back from there."""
-    values = width = v.shape[-1]
-    lanes = torch.arange(32)
-    o = 16
-    while o >= 1:
-        partner = lanes ^ o
-        if width > 1:
-            half = width // 2
-            up = ((lanes & o) != 0)[:, None]
-            lower, upper = v[..., :half], v[..., half:width]
-            v = torch.where(up, upper, lower) + torch.where(up, lower, upper)[..., partner, :]
-            width = half
-        else:
-            v = v + v[..., partner, :]
-        o //= 2
-    shift = 5 - int(math.log2(values))
-    return v[..., [k << shift for k in range(values)], 0]
+def state_sum(u, v):
+    """sum_n u v over the last axis (N) in the kernel's tree: each group of
+    4 states a product and three multiply-adds in order, the groups added
+    pairwise (the lanes' shuffles at offsets 1, 2)."""
+    parts = []
+    for q in range(u.shape[-1] // 4):
+        p = u[..., 4 * q] * v[..., 4 * q]
+        for s in range(1, 4):
+            p = u[..., 4 * q + s] * v[..., 4 * q + s] + p
+        parts.append(p)
+    w = 1
+    while w < len(parts):
+        for q in range(0, len(parts) - w, 2 * w):
+            parts[q] = parts[q] + parts[q + w]
+        w *= 2
+    return parts[0]
 
 
-def emulate_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, dh_final=None, steps=STEPS):
+def block_sum(v):
+    """v (..., CH, K) → (..., K): the kernel's sum over a block's CH
+    channels, four interleaved runs in channel order, then (r0 + r1) + (r2
+    + r3)."""
+    runs = [v[..., r, :] for r in range(4)]
+    for c in range(4, v.shape[-2], 4):
+        runs = [runs[r] + v[..., c + r, :] for r in range(4)]
+    return (runs[0] + runs[1]) + (runs[2] + runs[3])
+
+
+def emulate_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, dh_final=None, steps=STEPS,
+                     sub=SUB):
     """The backward kernel's walk in torch fp32 (see the module docstring).
     → (dx, ddt, dA, dB, dC, dD, dh0) as ``mamba_scan_bwd_ref``'s."""
     bsz, l, dch = x.shape
     n = a.shape[1]
-    gx = -(-dch // BLOCK)
-    pad = gx * BLOCK - dch
+    ch = channels(n)
+    gx = -(-dch // ch)
+    pad = gx * ch - dch
 
     def chan(t):                 # pad the channel axis to whole blocks with zeros
-        return torch.nn.functional.pad(t.float(), (0, pad)) if t.dim() < 4 else t
+        return torch.nn.functional.pad(t.float(), (0, pad))
 
     xf, dtf, dyf = chan(x), chan(dt), chan(dy)
     av = torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
@@ -107,41 +122,50 @@ def emulate_scan_bwd(x, dt, a, b_in, c_in, d_skip, states, dy, dh_final=None, st
     dsk = torch.nn.functional.pad(d_skip.float(), (0, pad))
     bnd = torch.nn.functional.pad(states.float(), (0, 0, 0, pad))
     bf, cf = b_in.float(), c_in.float()
-    g = (torch.zeros(bsz, gx * BLOCK, n) if dh_final is None
+    g = (torch.zeros(bsz, gx * ch, n) if dh_final is None
          else torch.nn.functional.pad(dh_final.float(), (0, 0, 0, pad)))
-    dA = torch.zeros(bsz, gx * BLOCK, n)
-    dD = torch.zeros(bsz, gx * BLOCK)
-    dx, ddt = torch.zeros(bsz, l, gx * BLOCK), torch.zeros(bsz, l, gx * BLOCK)
+    dA = torch.zeros(bsz, gx * ch, n)
+    dD = torch.zeros(bsz, gx * ch)
+    dx, ddt = torch.zeros(bsz, l, gx * ch), torch.zeros(bsz, l, gx * ch)
     db, dc = torch.zeros(bsz, l, n), torch.zeros(bsz, l, n)
+
+    def walk(h, t):              # the forward's step: h a_t + (dt x) B_t
+        dv, xv = dtf[:, t, :, None], xf[:, t, :, None]
+        dec = torch.exp2(dv * a2)
+        return h * dec + (dv * xv) * bf[:, t, None, :], dec
+
     for i in reversed(range(states.shape[1])):
         t0, t1 = i * steps, min(l, (i + 1) * steps)
-        hs, h = [], bnd[:, i]
-        for t in range(t0, t1):                      # the recompute
-            dv, xv = dtf[:, t, :, None], xf[:, t, :, None]
-            h = h * torch.exp2(dv * a2) + (dv * xv) * bf[:, t, None, :]
-            hs.append(h)
+        subs = -(-(t1 - t0) // sub)
+        entry, h = [bnd[:, i]], bnd[:, i]            # the walk to each sub-chunk's entry
+        for t in range(t0, t0 + (subs - 1) * sub):
+            h = walk(h, t)[0]
+            if (t - t0) % sub == sub - 1:
+                entry.append(h)
         part = torch.zeros(bsz, gx, t1 - t0, 2 * n)
-        for t in reversed(range(t0, t1)):            # the reverse walk
-            k = t - t0
-            hp = hs[k - 1] if k > 0 else bnd[:, i]
-            dv, xv, dyv = dtf[:, t, :, None], xf[:, t, :, None], dyf[:, t, :, None]
-            bv, cv = bf[:, t, None, :], cf[:, t, None, :]
-            dec = torch.exp2(dv * a2)
-            g = dyv * cv + g
-            v = torch.cat([g * (dv * xv), dyv * hs[k]], -1)           # (B, Dp, 2N)
-            p = dec * hp
-            gb = torch.zeros(bsz, gx * BLOCK)
-            gd = torch.zeros(bsz, gx * BLOCK)
-            for s in range(n):
-                gb = g[..., s] * bv[..., s] + gb
-                gd = g[..., s] * (xv[..., 0] * bv[..., s] + av[:, s] * p[..., s]) + gd
-            dA = (g * p) * dv + dA
-            g = g * dec
-            dD = dyv[..., 0] * xv[..., 0] + dD
-            dx[:, t] = dv[..., 0] * gb + dsk * dyv[..., 0]
-            ddt[:, t] = gd
-            w = butterfly(v.view(bsz, gx, 4, 32, 2 * n))                  # (B, gx, 4, 2N)
-            part[:, :, k] = (w[:, :, 0] + w[:, :, 1]) + (w[:, :, 2] + w[:, :, 3])
+        for k in reversed(range(subs)):
+            u0, u1 = t0 + k * sub, min(t1, t0 + (k + 1) * sub)
+            hs, decs, h = [], [], entry[k]
+            for t in range(u0, u1):                  # the recompute into registers
+                h, dec = walk(h, t)
+                hs.append(h)
+                decs.append(dec)
+            for t in reversed(range(u0, u1)):        # the reverse walk
+                u = t - u0
+                hp = hs[u - 1] if u > 0 else entry[k]
+                dv, xv, dyv = dtf[:, t, :, None], xf[:, t, :, None], dyf[:, t, :, None]
+                bv, cv = bf[:, t, None, :], cf[:, t, None, :]
+                g = dyv * cv + g
+                v = torch.cat([g * (dv * xv), dyv * hs[u]], -1)           # (B, Dp, 2N)
+                r = g * (decs[u] * hp)                    # g a_t h_{t-1}
+                gb = state_sum(g, bv)
+                gd = state_sum(av.expand_as(r), r)
+                dA = r * dv + dA
+                g = g * decs[u]
+                dD = dyv[..., 0] * xv[..., 0] + dD
+                dx[:, t] = dv[..., 0] * gb + dsk * dyv[..., 0]
+                ddt[:, t] = xv[..., 0] * gb + gd
+                part[:, :, t - t0] = block_sum(v.view(bsz, gx, ch, 2 * n))
         total = part[:, 0]
         for j in range(1, gx):                       # the channel blocks in order
             total = total + part[:, j]
@@ -178,34 +202,63 @@ def _close(got, want, tol):
 # --- the plan ---------------------------------------------------------------
 
 def test_plan_at_falcon_mamba_training_layer():
-    """B 2 x L 2048, D 8192, N 16, bf16: 64 channel blocks a row, 64 chunks
-    of 32 steps, 20496 bytes of shared memory, 32 MiB of step states, the
-    dB/dC partials of every (row, chunk, block) and the rows' dA/dD."""
+    """B 2 x L 2048, D 8192, N 16, bf16: 4 lanes a channel, 32 channels a
+    block, 512 blocks of 4 warps, 4 an SM by their 51264 bytes of shared
+    memory: one wave on 132 SMs, 12 to 16 warps on every SM; 64 chunks of
+    32 steps in sub-chunks of 4; the dB/dC sums of every (row, chunk,
+    block) and the rows' dA/dD, which a second launch adds; no step
+    workspace and no counters."""
     plan = tscan.scan_bwd_plan(2, 2048, 8192, 16, torch.bfloat16)
-    assert plan.variant == "backward" and plan.threads == BLOCK
-    assert plan.grid == (64, 2) and plan.chunks == 64
-    assert plan.smem_bytes == 32 * 32 * 4 + 32 * 4 * 32 * 4 + 16 == 20496
-    assert plan.ws_bytes == 2 * 64 * 32 * 16 * 128 * 4 == 32 * 2**20
-    assert plan.partial_bytes == 2 * 64 * 64 * 32 * 32 * 4 + 2 * 8192 * 17 * 4
-    assert plan.counters == 2 * 64 + 64
+    assert plan.variant == "backward" and plan.threads == THREADS
+    assert plan.grid == (256, 2)
+    assert plan.smem_bytes == 8 * 32 * 32 * 2 + 32 * 32 * 4 + (7 + 2 * 4) * 128 * 16 + 64 == 51264
+    assert plan.blocks_per_sm == 4 and plan.waves == 1
+    blocks = plan.grid[0] * plan.grid[1]
+    assert 4 * (blocks // 132) >= 8 and blocks <= 132 * plan.blocks_per_sm
+    assert plan.chunks == 64 and SUB == 4
+    assert plan.partial_bytes == 2 * 64 * 256 * 32 * 32 * 4 + 2 * 8192 * 17 * 4
+    assert "ws_bytes" not in plan._fields and "counters" not in plan._fields
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b, l, d, n", [(4, 128, 128, 8), (2, 32, 128, 8), (1, 77, 200, 16),
-                                        (3, 1, 100, 8), (2, 2048, 8192, 16)])
+                                        (3, 1, 100, 8), (2, 2048, 8192, 16),
+                                        (1, 2048, 8192, 16), (4, 2048, 8192, 16)])
 def test_grid_chunks_and_workspaces(b, l, d, n, dtype):
-    """The reduced falcon-mamba (D 128, N 8) and ragged shapes: a block a
-    128 channels of a row, ceil(L / 32) chunks, shared memory of one
-    chunk's B and C and four warps' sums a step, workspaces by the sizes
-    the kernel indexes; fp32 and bf16 alike."""
+    """The reduced falcon-mamba (D 128, N 8), ragged shapes and the
+    training layer at B 1, 2 and 4: a block of 128 / (n / 4) channels of a
+    row, ceil(L / 32) chunks, shared memory of three operand rows in two
+    buffers, a chunk's dx and ddt, its B and C, the states entering each sub-chunk and a
+    sub-chunk's dB and dC terms (64 bytes between these put their banks 16
+    apart),
+    resident blocks by shared memory within the register budget's 4,
+    waves on 132 SMs, workspaces by the sizes the kernel indexes."""
     plan = tscan.scan_bwd_plan(b, l, d, n, dtype)
-    gx = -(-d // BLOCK)
+    size = 2 if dtype == torch.bfloat16 else 4
+    ch = channels(n)
+    gx = -(-d // ch)
     chunks = -(-l // STEPS)
     assert plan.grid == (gx, b) and plan.chunks == chunks
-    assert plan.smem_bytes == STEPS * 2 * n * 4 * (1 + 4) + 16 <= 48 * 1024
-    assert plan.ws_bytes == b * gx * STEPS * n * BLOCK * 4
+    assert plan.smem_bytes == (8 * STEPS * ch * size + STEPS * 2 * n * 4
+                               + (STEPS // SUB - 1 + 2 * SUB) * 128 * 16 + 64)
+    assert plan.blocks_per_sm == min(4, 233472 // (plan.smem_bytes + 1024))
+    assert plan.waves == -(-gx * b // (132 * plan.blocks_per_sm))
     assert plan.partial_bytes == 4 * (b * chunks * gx * STEPS * 2 * n + b * d * (n + 1))
-    assert plan.counters == b * chunks + gx
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("d, n", [(128, 8), (8192, 16)])
+def test_the_lane_choice(b, d, n):
+    """Four states a thread at every batch: 2 lanes at the reduced D 128, N
+    8 (64 channels a block, 3 blocks an SM in bf16), 4 at D 8192, N 16 (32
+    channels, 4 an SM); at D 8192 B 1 fills 256 of the 528 block slots, B 2
+    512 in one wave, B 4 two waves."""
+    plan = tscan.scan_bwd_plan(b, 2048, d, n, torch.bfloat16)
+    assert channels(n) == {8: 64, 16: 32}[n]
+    assert plan.blocks_per_sm == (3 if n == 8 else 4)
+    assert plan.grid == (d // channels(n), b)
+    if d == 8192:
+        assert plan.waves == {1: 1, 2: 1, 4: 2}[b]
 
 
 def test_what_the_backward_cannot_take_is_refused():
@@ -221,16 +274,67 @@ def test_what_the_backward_cannot_take_is_refused():
         tscan.mamba_scan_bwd(x, dt, a, bi, ci, dsk, states, dy, dh_final=dh)
 
 
+@pytest.mark.parametrize("what, vec", [("aligned", True), ("odd base", False),
+                                       ("odd step stride", False), ("odd D", False),
+                                       ("one step", True)])
+def test_which_rows_take_16_byte_copies(what, vec):
+    """x, dt and dy are staged by 16-byte copies only where every base,
+    (batch, step) stride and D·size is a multiple of 16 bytes; an axis of
+    one carries no stride."""
+    base = torch.zeros(2, 3, 72, dtype=torch.bfloat16)
+    if what == "aligned":
+        t = base[..., 8:72]
+    elif what == "odd base":
+        t = base[..., 1:65]
+    elif what == "odd step stride":
+        t = torch.zeros(2, 3, 68, dtype=torch.bfloat16)[..., :64]
+    elif what == "odd D":
+        t = torch.zeros(2, 3, 60, dtype=torch.bfloat16)
+    else:   # a step stride of 136 bytes, on an axis of one
+        t = torch.zeros(2 * 72, dtype=torch.bfloat16).as_strided((2, 1, 64), (72, 68, 1))
+    ok = torch.zeros(2, t.shape[1], t.shape[2], dtype=torch.bfloat16)
+    assert tscan._rows_vectorisable(t, ok, ok) == vec
+    assert tscan._rows_vectorisable(ok, ok, t) == vec
+
+
 # --- the arithmetic ---------------------------------------------------------
 
-def test_the_butterfly_leaves_each_lane_one_sum():
-    """Lane l holds the sum over the 32 lanes of value l >> (5 - log2 V),
-    for the 2N = 32 and 16 values of N 16 and 8."""
-    gen = torch.Generator().manual_seed(0)
-    for width in (32, 16):
-        v = torch.randn(3, 32, width, generator=gen)
-        got = butterfly(v)
-        np.testing.assert_allclose(got.numpy(), v.sum(1).numpy(), rtol=1e-6, atol=1e-6)
+@pytest.mark.parametrize("n", [8, 16])
+def test_the_state_sum_tree(n):
+    """dx's and ddt's sum over a channel's states: each group of 4 in order
+    (a product, three multiply-adds), then the groups pairwise, as the
+    lanes' shuffles add them; bitwise the same order written out in numpy
+    float32, and the sum to rounding."""
+    rng = np.random.default_rng(n)
+    u, v = rng.normal(size=(2, 7, n)).astype(np.float32)
+    got = state_sum(torch.from_numpy(u), torch.from_numpy(v)).numpy()
+    parts = []
+    for q in range(n // 4):
+        p = u[:, 4 * q] * v[:, 4 * q]
+        for s in range(1, 4):
+            p = np.float32(u[:, 4 * q + s] * v[:, 4 * q + s]) + p
+        parts.append(p)
+    want = (parts[0] + parts[1]) if n == 8 else (parts[0] + parts[1]) + (parts[2] + parts[3])
+    assert np.array_equal(got, want)
+    np.testing.assert_allclose(got, (u.astype(np.float64) * v).sum(-1), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_the_block_sum_order(n):
+    """dB's and dC's sum over a block's channels (32 at N 16, 64 at N 8):
+    four runs over channels c = r, r + 4, ... in order, then (r0 + r1) +
+    (r2 + r3); bitwise that order written out in numpy float32, and the
+    sum to rounding."""
+    ch = channels(n)
+    rng = np.random.default_rng(ch)
+    v = rng.normal(size=(3, ch, 2 * n)).astype(np.float32)
+    got = block_sum(torch.from_numpy(v)).numpy()
+    runs = [v[:, r].copy() for r in range(4)]
+    for c in range(4, ch, 4):
+        for r in range(4):
+            runs[r] = runs[r] + v[:, c + r]
+    assert np.array_equal(got, (runs[0] + runs[1]) + (runs[2] + runs[3]))
+    np.testing.assert_allclose(got, v.astype(np.float64).sum(1), rtol=1e-5, atol=1e-5)
 
 
 def test_boundary_states_are_the_carried_state_of_the_chunked_scan():
@@ -252,11 +356,13 @@ def test_boundary_states_are_the_carried_state_of_the_chunked_scan():
 
 
 @pytest.mark.parametrize("b, l, d, n, with_dh", [(2, 64, 128, 8, True), (1, 77, 200, 16, False),
-                                                 (3, 40, 136, 16, True), (2, 1, 24, 8, True)])
+                                                 (3, 40, 136, 16, True), (2, 1, 24, 8, True),
+                                                 (2, 45, 40, 16, True)])
 def test_the_emulation_matches_the_plain_backward_and_jax_grad(b, l, d, n, with_dh):
-    """Ragged L against the 32-step chunk, D not a multiple of a block (dead
-    channels in the last block), N 8 and 16, from h0, with and without a
-    cotangent on h_final."""
+    """Ragged L against the 32-step chunk and its 4-step sub-chunks, D not
+    a multiple of a block (dead channels in the last block: 200 and 136 at
+    32 channels a block, 24 at 64, 40 one block and a quarter), N 8 and 16,
+    from h0, with and without a cotangent on h_final."""
     x, dt, a, bi, ci, dsk, h0, dy, dh = _inputs(2 + l, b, l, d, n)
     dh = dh if with_dh else None
     states = emulate_forward_states(x, dt, a, bi, h0)
@@ -281,8 +387,9 @@ def test_the_emulation_with_bf16_operands():
 
 def test_a_row_does_not_depend_on_the_batch():
     """dx, ddt, dB, dC and dh0 of a row have the same bits at B 1 as at B
-    3: the sums over D run over fixed lanes, warps and blocks; dA and dD
-    add the rows' partials in row order."""
+    3: the sums over D run over fixed lanes, channels and blocks, and the
+    lanes do not depend on B; dA and dD add the rows' partials in row
+    order."""
     x, dt, a, bi, ci, dsk, h0, dy, dh = _inputs(6, 3, 45, 200, 8)
     states = emulate_forward_states(x, dt, a, bi, h0)
     full = emulate_scan_bwd(x, dt, a, bi, ci, dsk, states, dy, dh)

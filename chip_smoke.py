@@ -33,7 +33,7 @@ Phases, each of which must pass:
      replaced kernel's recorded time printed beside; rows at B 1 bitwise equal to B 4, S not
      a multiple of the chunk, window edges inside a chunk, a slot of length
      0, a misaligned cache refused) and K4 paged decode, also at gpt-j-6b's
-     D 256; K5 fused
+     D 256 and at qwen3-moe's group of 16 query heads at D 128; K5 fused
      TppGraphs (each GEMM-rooted row beside the WMMA or SIMT variant it
      replaced on the same inputs; decoded rows bitwise equal at M 1, 3, 8
      and 16; the fp32-operand backward graphs on wgmma_split at the fp32
@@ -59,8 +59,11 @@ Phases, each of which must pass:
      16x16 blocks, sparsity 0 to 0.9, bf16 and fp32, K1 and cuBLAS on the
      dense matrix beside it), 8x8 blocks and bert-large's sparse FFN
      products, each bf16 row on the wgmma kernel (its 64-row work list)
-     beside the WMMA one (the pruned blocks' list); K9 at qwen3-moe's
-     expert widths on wgmma (the replaced kernel's recorded time printed
+     beside the WMMA one (the pruned blocks' list); K9 at qwen3-moe's MoE
+     layer as ``blocks._expert_ffn`` runs it (128 row tiles of cap 1, 2,
+     160 and 320 rows, group_id arange(128), gate/up d 4096 -> f 1536 and
+     down 1536 -> 4096, fp32 out, beside ``torch._grouped_mm``), at its
+     earlier 64-row tiles (the replaced kernel's recorded time printed
      beside it), and checks
      (rows 8 and 100 a tile, ragged d and f, fp32 out, ids clamped) each on
      the variant its plan names; K7 Listing 6 at
@@ -126,6 +129,18 @@ Phases, each of which must pass:
      tokens on 8 slots), each with every counter set to 0 just before and
      read just after: K2 48 times a prefill, K3 or K4 48 times a step, K1
      7 x 48 + 1 times a prefill or step, nothing else;
+ 7h. (after 7g) serve qwen3-moe-235b at full width (bf16, d 4096, 64/4
+     heads of 128, 128 experts top 8 of 1536, vocabulary 151936; 12 of its
+     94 layers, ~62 GB; random weights from a seed): one MoE layer at T
+     2048 against its plain expert products under one routing (routing
+     and dispatched buffer bitwise equal, dropped slots counted), then
+     ``generate_loop`` (B 4, prompt 1024, 32 new tokens, prefill and decode
+     beside the bound of every expert read and of the experts hit), the
+     engine (8 ragged requests, 8 slots), dropless batch invariance (2
+     layers, 3-slot drain = 8-slot drain) and ``use_fusion=True`` (2
+     layers, logits within the bf16 tolerance under the unfused routing),
+     each with exact launch counts: K9 three times a layer a prefill or
+     step (once fused, beside K5 129 times), every launch on wgmma;
  7b. free llama2-13b and serve full-width falcon-mamba-7b (bf16, all 64
      layers, random weights from a seed): K8 must launch once per layer per
      prefill and per decode step and K1 four times per layer plus the
@@ -320,9 +335,11 @@ ROW = {
     "block_spmm": "bert-large's two FFN products at 80 % block sparsity (8x8 blocks) on 4096 tokens"
                   " (phase 7c: W_up 4096x1024 @ x^T, W_down 1024x4096 @ h^T, bf16); library:"
                   " torch.matmul on the dense pruned weights",
-    "grouped_matmul": "one qwen3-moe expert layer's up projection: 4096 rows in 64-row tiles, d 4096"
-                      " -> f 1536, 128 experts, sorted group ids, bf16; library: torch._grouped_mm"
-                      " where the card's torch has it",
+    "grouped_matmul": "one qwen3-moe MoE layer's three expert products (gate, up: d 4096 -> f 1536;"
+                      " down: 1536 -> 4096; 128 row tiles, group_id arange(128), bf16 in, fp32 out)"
+                      " at phase 7h (b)'s prefill (B 4 x 1024 tokens, cap 320) plus one decode step"
+                      " (B 4, cap 1); library: torch._grouped_mm where the card's torch takes the"
+                      " operands",
     "fused_output": "bert-large's two Listing 6 output layers at 4096 tokens (Bert-Output K 4096,"
                     " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask) on the"
                     " wgmma variant (8-CTA clusters); no one PyTorch call fuses the product with"
@@ -1237,6 +1254,10 @@ def decode_cases(torch, bench, ref, fa):
         ("check ragged lens H4 Hk2 D16 window16 fp32", 3, 4, 2, 64, 16, [20, 64, 37], 16, f32, 0, False),
         ("check H16 Hk1 D128 fp32", 2, 16, 1, 100, 128, [100, 61], None, f32, 0, False),
         ("gptj B4 H16 S528 D256 len520", 4, 16, 16, 528, 256, [520] * 4, None, bf16, 0, True),
+        # qwen3-moe-235b's decode (phase 7h): a group of 16 query heads at D
+        # 128, the 2048 (head, dim) pairs a block holds at most
+        ("qwen3-moe B4 H64 Hk4 S1056 D128 len1040", 4, 64, 4, 1056, 128, [1040] * 4, None, bf16,
+         0, True),
         ("check ragged lens H16 D256 window64", 3, 16, 16, 300, 256, [1, 300, 129], 64, bf16, 0, False),
         # S not a multiple of the chunk; lengths clamped to S
         (f"check S{3 * chunk + 44} H8 Hk2 D128 len above S", 3, 8, 2, 3 * chunk + 44, 128,
@@ -1343,6 +1364,9 @@ def paged_decode_cases(torch, bench, ref, fa):
         ("check H8 Hk2 D64 ps8 len1", 2, 8, 2, 64, 8, 8, 20, [50, 1], None, bf16, 0, False),
         # gpt-j-6b's engine shape: H = Hk = 16, D 256
         ("gptj B8 H16 D256 ps16 len37..1000", 8, 16, 16, 256, 16, 64, 512, engine_lens, None, bf16, 0, True),
+        # qwen3-moe-235b's engine (phase 7h): groups of 16 at D 128
+        ("qwen3-moe B8 H64 Hk4 D128 ps16 len37..1000", 8, 64, 4, 128, 16, 64, 512, engine_lens,
+         None, bf16, 0, True),
         ("check H4 Hk2 D256 ps4 window5 fp32", 3, 4, 2, 256, 4, 8, 20, [13, 32, 3], 5, f32, 0, False),
         ("check H16 D256 ps16 window100", 3, 16, 16, 256, 16, 8, 20, [100, 61, 1], 100, bf16, 0, False),
         # small pages over several chunks, window edges inside chunks
@@ -2032,14 +2056,41 @@ def block_spmm_cases(torch, bench, ref, spmm, brgemm):
               f"K10: an empty {str(dt)[6:]} work list did not launch or is not zero")
 
 
+def grouped_mm_yardstick(torch, ref, x, gid, w):
+    """``torch._grouped_mm`` on K9's operands (x in ``len(gid)`` row tiles,
+    ``gid`` sorted, so each expert's rows lie together and the offsets are
+    the running row counts; the experts' slabs column-major), where the
+    card's torch has it and it agrees with the plain version; → (the call
+    or None, why not)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, f"torch {torch.__version__} has no torch._grouped_mm"
+    rows = x.shape[0] // gid.shape[0]
+    offs = (torch.bincount(gid.long(), minlength=w.shape[0]) * rows).cumsum(0).to(torch.int32)
+    wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)
+    try:
+        out = torch._grouped_mm(x, wt, offs=offs)
+        err, ok = compare(torch, out, ref.grouped_matmul_ref(x, gid, w), 1e-2, 1e-2)
+    except (RuntimeError, TypeError, ValueError) as exc:   # the yardstick only
+        return None, f"torch._grouped_mm refused these operands: {str(exc).splitlines()[0][:160]}"
+    if not ok:
+        return None, f"torch._grouped_mm disagrees with the plain version by {err:.3e}"
+    return (lambda: torch._grouped_mm(x, wt, offs=offs)), None
+
+
 def grouped_matmul_cases(torch, bench, ref, spmm):
-    """K9 against its plain version at qwen3-moe's expert widths
+    """K9 against its plain version at qwen3-moe's MoE layer
     (``src/repro/configs/qwen3_moe_235b.py``: d 4096, moe_d_ff 1536, 128
-    experts): 4096 rows in 64-row tiles with sorted group ids drawn from the
-    seed, bf16, on the variant ``grouped_plan`` names (wgmma), with its
-    device time and the replaced kernel's recorded time (``WAS_MS``) printed
-    beside it; library:
-    ``torch._grouped_mm`` where the card's torch has it; plus checks, each
+    experts) as ``blocks._expert_ffn`` runs it: the (E, cap, d) buffer as
+    128 row tiles of ``cap`` rows, ``group_id = arange(128)``, bf16 in,
+    fp32 out, for the gate and up products (d 4096 -> f 1536) and the down
+    product (1536 -> 4096) at cap 1 and 2 (decode at 4 and 8 tokens:
+    ceil(1.25 T 8 / 128)) and 160 and 320 (prefill at 2048 and 4096
+    tokens).  The row is phase 7h (b)'s layer: its prefill (B 4 x 1024,
+    cap 320) and one decode step (B 4, cap 1), gate and up twice, down
+    once.  Each case with its device time, beside ``torch._grouped_mm``
+    where it takes the operands.  Then the earlier row's case (4096 rows in
+    64-row tiles with sorted group ids drawn from the seed) with the replaced
+    kernel's recorded time (``WAS_MS``) beside it; plus checks, each
     on the variant its plan names: rows 8 and 100 a tile, f not a multiple
     of the wgmma tile, a ragged d, fp32 output and bf16 output of fp32
     operands, out-of-range ids clamped, f not a multiple of 8 (wmma) and
@@ -2070,34 +2121,41 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
                   weight=weight, timed=timed)
         return bench.cases["grouped_matmul"][-1], fn
 
+    e = 128
+    arange = torch.arange(e, dtype=torch.int32, device="cuda")
+    refused = {}
+    for d, f, what, per_layer in ((4096, 1536, "gate/up", 2), (1536, 4096, "down", 1)):
+        w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(bf16)
+        for cap in (1, 2, 160, 320):
+            x = torch.randn(e * cap, d, generator=gen, device="cuda").to(bf16)
+            library, why = grouped_mm_yardstick(torch, ref, x, arange, w)
+            if why:
+                refused[f"{what} cap {cap}"] = why
+            row, fn = run(f"qwen3-moe {what} cap {cap}: E{e} tiles of {cap} d{d} f{f} -> fp32",
+                          x, arange, w, f32, library=library, flops=2 * e * cap * d * f,
+                          nbytes=2 * (e * cap * d + e * d * f) + 4 * (e * cap * f + e),
+                          weight=per_layer if cap in (1, 320) else 0, timed=True)
+            row["device_ms"] = device_ms(torch, fn)
+            print(f"    device {row['device_ms']:.4f} ms", flush=True)
+            del x
+        del w
+    torch.cuda.empty_cache()
+
     t, d, f, e, bm = 4096, 4096, 1536, 128, 64
     x, w, gid = operands(t, d, f, e, bm, bf16)
     used = int(torch.unique(gid).numel())
-    library, why = None, None
-    if not hasattr(torch, "_grouped_mm"):
-        why = f"torch {torch.__version__} has no torch._grouped_mm"
-    else:
-        # rows of each expert, in order: offsets are the running row counts
-        offs = (torch.bincount(gid.long(), minlength=e) * bm).cumsum(0).to(torch.int32)
-        wt = w.transpose(-2, -1).contiguous().transpose(-2, -1)    # column-major slabs
-        try:
-            lib_out = torch._grouped_mm(x, wt, offs=offs)
-            err, ok = compare(torch, lib_out, ref.grouped_matmul_ref(x, gid, w), 1e-2, 1e-2)
-            if ok:
-                library = lambda: torch._grouped_mm(x, wt, offs=offs)
-            else:
-                why = f"torch._grouped_mm disagrees with the plain version by {err:.3e}"
-        except (RuntimeError, TypeError, ValueError) as exc:   # the yardstick only
-            why = f"torch._grouped_mm refused these operands: {str(exc).splitlines()[0][:160]}"
+    library, why = grouped_mm_yardstick(torch, ref, x, gid, w)
     row, fn = run(f"qwen3-moe T{t} tiles of {bm} d{d} f{f} E{e} ({used} used)", x, gid, w,
                   library=library, flops=2 * t * d * f,
-                  nbytes=2 * (t * d + used * d * f + t * f) + 4 * (t // bm), weight=1, timed=True)
+                  nbytes=2 * (t * d + used * d * f + t * f) + 4 * (t // bm), timed=True)
     row["device_ms"] = device_ms(torch, fn)
     print(f"    device {row['device_ms']:.4f} ms; was {WAS_MS['qwen3-moe']:.4f} ms (the wmma"
           f" variant it replaced, a lone call, PERF.md)", flush=True)
-    bench.extra["grouped_matmul_library"] = why or "torch._grouped_mm"
     if why:
-        print(f"  grouped_matmul library: none, {why}", flush=True)
+        refused[f"T{t} tiles of {bm}"] = why
+    bench.extra["grouped_matmul_library"] = refused or "torch._grouped_mm"
+    for case, why in refused.items():
+        print(f"  grouped_matmul library at {case}: none, {why}", flush=True)
     del x, w, gid
     for t, d, f, e, bm, dt, out in ((192, 96, 200, 5, 48, f32, None), (64, 32, 64, 4, 8, bf16, None),
                                     (300, 64, 136, 3, 100, bf16, None), (256, 72, 128, 6, 64, f32, bf16),
@@ -4298,6 +4356,383 @@ def gemma3_full_width(torch, counters, peaks, card_line):
     return result
 
 
+class Routing:
+    """Records or pins the expert choices of ``blocks.moe_apply``: while
+    active, each call of ``blocks._top_k`` appends its expert ids to
+    ``record``; with ``replay``, each call takes the next recorded ids
+    instead of its own (weights gathered from its own probabilities) and
+    counts in ``flips`` the rows whose own choice differed.  The route is a
+    discontinuous function of the router's logits: two paths whose logits
+    differ in their last bits can send a token to another expert, so the
+    checks that hold two paths to each other do it under one routing."""
+
+    def __init__(self, blocks, replay=None):
+        self.blocks, self.record, self.flips = blocks, [], 0
+        self.replay = iter(replay) if replay is not None else None
+
+    def __enter__(self):
+        real = self.real = self.blocks._top_k
+
+        def top_k(probs, k):
+            w, i = real(probs, k)
+            if self.replay is not None:
+                pinned = next(self.replay)
+                self.flips += int((pinned != i).any(-1).sum())
+                w, i = probs.gather(-1, pinned), pinned
+            self.record.append(i.clone())
+            return w, i
+
+        self.blocks._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks._top_k = self.real
+
+
+def moe_bounds(cfg, params, batch, prompt_len, new, peaks, hit_experts):
+    """Least card time for qwen3-moe's prefill and decode step (the larger
+    of the bytes over the HBM rate and the operations over the bf16 peak).
+    Operations: the active parameters (attention projections, router, k
+    experts) for every token, causal attention and the last token's logits.
+    Bytes: the prefill reads every weight once (a 4096-token prompt hits
+    every expert) and writes K and V; a decode step reads the attention,
+    router, norm and head weights and the cache at the mean length, plus
+    either all E experts of every layer, as the reference's semantics has
+    it (every expert computes its ``cap`` slots, live or not: what K9 reads
+    today), or only the ``hit_experts`` a layer (the mean count of distinct
+    experts a decode step routes to), or k a layer (one token)."""
+    el = params["embed"].element_size()
+    L, e, k = cfg.num_layers, cfg.num_experts, cfg.experts_per_tok
+    d, f, v = cfg.d_model, cfg.moe_d_ff, cfg.padded_vocab
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = 2 * d * h * hd + 2 * d * hk * hd
+    expert = 3 * d * f
+    dense = L * (attn + d * e) * el + (2 * L + 1) * d * 4 + d * v * el
+    kv_token = 2 * L * batch * hk * hd * el
+    active = 2 * L * (attn + d * e + k * expert)
+
+    def bound(flops, nbytes):
+        return max(flops / peaks["bf16"], nbytes / peaks["hbm"]) * 1e3
+
+    pairs = prompt_len * (prompt_len + 1) // 2
+    tokens = batch * prompt_len
+    prefill_flops = tokens * active + 4 * batch * h * hd * pairs * L + 2 * batch * d * v
+    prefill_bytes = dense + L * e * expert * el + kv_token * prompt_len
+    length = prompt_len + new / 2
+    step_flops = batch * active + 4 * batch * h * hd * length * L + 2 * batch * d * v
+    kv_read = kv_token * length
+    every = dense + L * e * expert * el + kv_read
+    hit = dense + L * hit_experts * expert * el + kv_read
+    one = dense + L * k * expert * el + kv_token / batch * length
+    return {"prefill_bound_ms": bound(prefill_flops, prefill_bytes), "prefill_flops": prefill_flops,
+            "prefill_bytes": prefill_bytes,
+            "decode_bound_ms_every_expert": bound(step_flops, every), "decode_bytes_every_expert": every,
+            "decode_bound_ms_hit_experts": bound(step_flops, hit), "decode_bytes_hit_experts": hit,
+            "hit_experts_per_layer": hit_experts,
+            "decode_bound_ms_b1_k_experts": bound(step_flops / batch, one),
+            "decode_bytes_b1_k_experts": one}
+
+
+def qwen3_moe_full_width(torch, counters, peaks, card_line):
+    """qwen3-moe-235b at full width (bf16, d 4096, 64 query heads over 4 kv
+    heads of 128, 128 experts top 8 of moe_d_ff 1536, vocabulary 151936;
+    random weights from a seed), 12 of its 94 layers (~62 GB: an expert
+    layer is 4.83 GB):
+    (a) one MoE layer at T 2048 (random x, capacity 1.25, cap 160), its
+    dropped slots counted, against the same layer with the expert products
+    on ``ref.grouped_matmul_ref`` on the card: routing and the dispatched
+    buffer (E, cap, d) bitwise equal (both from one K1 router product),
+    y within the bf16 tolerance; one K1 and three K9 launches, all three
+    on wgmma, nothing else;
+    (b) ``generate_loop`` at B 4, prompt 1024, 32 new tokens, timed beside
+    its bounds (``moe_bounds``; a warm prefill), peak memory, one decode
+    step (its routing recorded: the experts a step hits) and one prefill
+    profiled;
+    (c) the engine: 8 ragged greedy requests of 64..512 tokens, 16 new
+    each, on 8 slots, ``validate()`` after every step;
+    (d) dropless (``capacity_factor`` 1e9), the first 2 layers: 8 requests
+    drained on 8 slots and on 3, token for token equal (under capacity a
+    token's output depends on its batch, by the reference's design);
+    (e) ``use_fusion=True``, the first 2 layers: a prefill (B 2 x 256) and
+    4 teacher-forced decode steps, logits within the bf16 tolerance of the
+    unfused ones under the unfused run's routing (``Routing``), K5 once an
+    expert and once for the attention output a layer and call.
+    Each model path runs with every counter set to 0 just before and read
+    just after, and must launch exactly, per layer: K1 five times
+    (q, k, v, o, router; four under use_fusion, whose output projection is
+    K5) and once more for the logits, a prefill or step; K2 once a prefill,
+    K3 (dense) or K4 (paged) once a step, K9 three times a prefill or step
+    (once under use_fusion), K5 129 times a prefill or step under
+    use_fusion; nothing else; every K1 launch on a wgmma variant, every K2
+    and K9 launch on its wgmma kernel, K3 and K4 at a group of 16 query
+    heads of D 128, the most they take."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import blocks, lm
+    from repro_torch.serve import probe
+    from repro_torch.serve.decode import ServeConfig, generate_loop
+
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b"), num_layers=12)
+    e, k = cfg.num_experts, cfg.experts_per_tok
+    result = {"layers": cfg.num_layers, "of_layers": get_config("qwen3_moe_235b").num_layers}
+
+    def expect(launches, what, *, prefills, steps, layers=cfg.num_layers, paged=False,
+               fused=False):
+        calls = prefills + steps
+        k1_on_wgmma(launches, what)
+        want = {"K1": ((4 if fused else 5) * layers + 1) * calls, "K2": layers * prefills,
+                "K3": 0 if paged else layers * steps, "K4": layers * steps if paged else 0,
+                "K5": (1 + e) * layers * calls if fused else 0,
+                "K9": (1 if fused else 3) * layers * calls}
+        got = {"K1": launches["gemm"] + launches["gemm_transposed"],
+               "K2": launches["flash_attention"], "K3": launches["flash_decode"],
+               "K4": launches["paged_decode"], "K5": launches["fused_gemm"],
+               "K9": launches["grouped_matmul"]}
+        print(f"  {what}: launches {got} (want {want}); K2 on wgmma"
+              f" {launches['flash_attention_wgmma']}, K9 on wgmma"
+              f" {launches['grouped_matmul_wgmma']}", flush=True)
+        check(got == want and launches["flash_attention_wgmma"] == got["K2"]
+              and launches["grouped_matmul_wgmma"] == got["K9"],
+              f"{what}: launches {got}, want {want}; K2 on wgmma"
+              f" {launches['flash_attention_wgmma']}, K9 on wgmma"
+              f" {launches['grouped_matmul_wgmma']}")
+        check(kernel_total(launches) == sum(got.values()),
+              f"{what}: kernels other than K1-K5 and K9 launched: {launches}")
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = probe.tree_bytes(params)
+    print(f"  init {cfg.name}: {cfg.num_layers} of {result['of_layers']} layers, d_model"
+          f" {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {e}"
+          f" experts top {k} of {cfg.moe_d_ff}, {w_bytes / 1e9:.2f} GB of weights in"
+          f" {time.perf_counter() - start:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rtol, atol = BF16_LOGITS
+
+    # (a) one MoE layer against its plain expert products, under one routing
+    t = 2048
+    moe = params["layers"][0]["moe"]
+    x = torch.randn(t, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    cap = int(min(t, max(1, math.ceil(cfg.capacity_factor * t * k / e))))
+    buffers = {}
+    real_ffn, real_gm = blocks._expert_ffn, ops.grouped_matmul
+
+    def layer(name):
+        def ffn(cfg_, wg, wu, wd, xe):
+            buffers[name] = xe.clone()
+            return real_ffn(cfg_, wg, wu, wd, xe)
+        blocks._expert_ffn = ffn
+        try:
+            with Routing(blocks) as r:
+                y, aux = blocks.moe_apply(cfg, moe, x)
+        finally:
+            blocks._expert_ffn = real_ffn
+        return y, aux, r.record[0]
+
+    counters.reset()
+    y, aux, route = layer("kernels")
+    launches = counters.read()
+    ops.grouped_matmul = lambda a, g, w, **kw: ref.grouped_matmul_ref(a, g, w, **kw)
+    try:
+        y_p, aux_p, route_p = layer("plain")
+    finally:
+        ops.grouped_matmul = real_gm
+    counts = torch.bincount(route.reshape(-1), minlength=e)
+    dropped = int((counts - cap).clamp(min=0).sum())
+    err, ok = compare(torch, y, y_p, rtol, atol)
+    y_max = float(y_p.float().abs().max())
+    layer_ms = time_ms(torch, lambda: blocks.moe_apply(cfg, moe, x))
+    plain_ms = None
+    ops.grouped_matmul = lambda a, g, w, **kw: ref.grouped_matmul_ref(a, g, w, **kw)
+    try:
+        plain_ms = time_ms(torch, lambda: blocks.moe_apply(cfg, moe, x), warmup=1, reps=3)
+    finally:
+        ops.grouped_matmul = real_gm
+    same_route = torch.equal(route, route_p)
+    same_slots = torch.equal(buffers["kernels"], buffers["plain"])
+    result["layer"] = {"tokens": t, "cap": cap, "slots": t * k, "dropped": dropped,
+                       "experts_used": int((counts > 0).sum()), "max_abs_err": err,
+                       "max_abs_y": y_max,
+                       "aux": float(aux), "aux_plain": float(aux_p), "ms": layer_ms,
+                       "plain_ms": plain_ms, "launches": launches}
+    print(f"  (a) one MoE layer, T {t}, cap {cap}: {dropped} of {t * k} slots dropped, "
+          f"{result['layer']['experts_used']} experts used; routing bitwise equal {same_route},"
+          f" dispatched buffer bitwise equal {same_slots}; y max_abs_err {err:.3e} against the"
+          f" plain expert products (rtol {rtol}, atol {atol}; |y| up to {y_max:.3g});"
+          f" aux {float(aux):.6f}"
+          f" ({float(aux_p):.6f}); {layer_ms:.3f} ms ({plain_ms:.3f} ms with the plain"
+          f" products); launches K1 {launches['gemm']}, K9 {launches['grouped_matmul']}"
+          f" ({launches['grouped_matmul_wgmma']} on wgmma)", flush=True)
+    check(same_route and same_slots, "qwen3-moe layer: routing or slots differ between the"
+          " kernel and plain runs, which share the router's K1 product")
+    check(ok, f"qwen3-moe layer: {err:.3e} from the plain expert products")
+    check(float(aux) == float(aux_p), f"qwen3-moe layer: aux {float(aux)} against {float(aux_p)}")
+    check(launches["gemm"] == 1 and launches["grouped_matmul"] == 3
+          and launches["grouped_matmul_wgmma"] == 3 and kernel_total(launches) == 4,
+          f"qwen3-moe layer launches {launches}: want one K1 and three K9 on wgmma")
+    del x, y, y_p, buffers
+    torch.cuda.empty_cache()
+
+    # (b) generate_loop
+    batch, plen, new = 4, 1024, 32
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, device="cuda")
+    scfg = ServeConfig(max_seq=plen + new)
+
+    def serve(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_loop(cfg, params, prompts, n, scfg=scfg)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    serve(1)                          # the allocator's first blocks at these shapes
+    _, prefill_ms = serve(1)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out, total_ms = serve(new)
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    expect(launches, "phase 7h (b) qwen3-moe generate_loop", prefills=1, steps=new - 1)
+    check(out.shape == (batch, plen + new) and torch.equal(out[:, :plen], prompts)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"qwen3-moe generate_loop output {tuple(out.shape)}")
+    decode_ms = (total_ms - prefill_ms) / (new - 1)
+    # one more decode step, profiled, its routing recorded: the experts a
+    # step actually reaches
+    caches = lm.init_cache(cfg, batch, plen + new, device="cuda")
+    logits, caches = lm.prefill(cfg, params, caches, {"tokens": prompts})
+    check(bool(lm.finite_logits(logits).all()), "qwen3-moe prefill logits are not finite")
+    last = logits.argmax(-1)
+    with Routing(blocks) as r:
+        profile = device_breakdown(torch, lambda: lm.decode_step(cfg, params, caches, last, plen),
+                                   decode_ms)
+    hit = [int(torch.unique(ids).numel()) for ids in r.record[-cfg.num_layers:]]
+    # and one more prefill (it rewrites the cache from position 0)
+    prefill_profile = device_breakdown(
+        torch, lambda: lm.prefill(cfg, params, caches, {"tokens": prompts}), prefill_ms)
+    for what, prof in (("decode step", profile), ("prefill", prefill_profile)):
+        print(f"  {what}: the PyTorch ops whose kernels take the most device time: "
+              + "; ".join(f"{k} {v['ms']:.1f} ms / {v['calls']}"
+                          for k, v in prof["other_top"].items()), flush=True)
+    gl = {"batch": batch, "prompt": plen, "new": new, "prefill_ms": prefill_ms,
+          "decode_ms_per_token": decode_ms, "total_ms": total_ms,
+          "tokens_per_s": batch * new / (total_ms / 1e3),
+          "decode_tokens_per_s": batch / (decode_ms / 1e3),
+          "max_memory_allocated_bytes": peak, "weight_bytes": w_bytes,
+          "hit_experts_by_layer": hit, "launches": launches, "decode_profile": profile,
+          "prefill_profile": prefill_profile}
+    gl.update(moe_bounds(cfg, params, batch, plen, new, peaks, sum(hit) / len(hit)))
+    result["generate_loop"] = gl
+    print(f"  (b) generate_loop B{batch} P{plen} +{new}: prefill {prefill_ms:.1f} ms (bound"
+          f" {gl['prefill_bound_ms']:.2f} ms: {gl['prefill_flops'] / 1e12:.2f} TFLOP of active"
+          f" parameters at the bf16 peak, {gl['prefill_bytes'] / 1e9:.2f} GB), decode"
+          f" {decode_ms:.2f} ms/step (bound {gl['decode_bound_ms_every_expert']:.2f} ms reading"
+          f" every expert as the reference's semantics has it,"
+          f" {gl['decode_bytes_every_expert'] / 1e9:.2f} GB; {gl['decode_bound_ms_hit_experts']:.2f}"
+          f" ms reading the {sum(hit) / len(hit):.1f} experts a layer the step hits,"
+          f" {gl['decode_bytes_hit_experts'] / 1e9:.2f} GB; {gl['decode_bound_ms_b1_k_experts']:.2f}"
+          f" ms for one token's {k}), {gl['tokens_per_s']:.1f} tokens/s overall,"
+          f" {gl['decode_tokens_per_s']:.1f} decoded tokens/s; peak {peak / 1e9:.2f} GB"
+          f" ({w_bytes / 1e9:.2f} GB of weights); {card_line}", flush=True)
+    del out, caches, logits, last
+    torch.cuda.empty_cache()
+
+    # (c) the engine
+    rng = np.random.default_rng(31)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist(),
+                 max_new=16) for _ in range(8)]
+    counters.reset()
+    eng, wall_ms = drain(torch, cfg, params, reqs, num_slots=8)
+    launches = counters.read()
+    steps = eng.decode_steps
+    for uid, req in enumerate(reqs):
+        check(eng.status(uid).value == "finished", f"qwen3-moe request {uid} ended"
+              f" {eng.status(uid).value}")
+        check(len(eng.collect(uid)) == len(req["prompt"]) + req["max_new"],
+              f"qwen3-moe request {uid}: {len(eng.collect(uid))} tokens")
+    expect(launches, "phase 7h (c) qwen3-moe engine", prefills=len(reqs), steps=steps, paged=True)
+    result["engine"] = {"requests": len(reqs), "decode_steps": steps,
+                        "generated_tokens": eng.tokens_generated, "drain_ms": wall_ms,
+                        "tokens_per_s": eng.tokens_generated / (wall_ms / 1e3),
+                        "launches": launches}
+    print(f"  (c) engine: {len(reqs)} requests of 64..512 tokens, 16 new each, on 8 slots:"
+          f" {wall_ms:.1f} ms, {steps} decode steps, {eng.tokens_generated} tokens, validate()"
+          f" clean; {card_line}", flush=True)
+    del eng
+
+    # (d) dropless: a row's tokens do not depend on its batch
+    two = dict(params, layers=params["layers"][:2])
+    dcfg = dataclasses.replace(cfg, num_layers=2, capacity_factor=1e9)
+    short = [dict(r, max_new=8) for r in reqs]
+    counters.reset()
+    eng8, wall8 = drain(torch, dcfg, two, short, num_slots=8)
+    launches = counters.read()
+    expect(launches, "phase 7h (d) qwen3-moe dropless engine, 8 slots", prefills=len(short),
+           steps=eng8.decode_steps, layers=2, paged=True)
+    tokens8 = {uid: eng8.collect(uid) for uid in range(len(short))}
+    eng3, wall3 = drain(torch, dcfg, two, short, num_slots=3)
+    tokens3 = {uid: eng3.collect(uid) for uid in range(len(short))}
+    diff = first_difference(torch, dcfg, two, tokens8, tokens3)
+    result["dropless"] = {"layers": 2, "requests": len(short), "slots8_drain_ms": wall8,
+                          "slots3_drain_ms": wall3, "equal_tokens": diff is None,
+                          "launches": launches}
+    print(f"  (d) dropless (capacity_factor 1e9), 2 layers: {len(short)} requests on 8 slots"
+          f" {wall8:.1f} ms, on 3 slots {wall3:.1f} ms; tokens equal: {diff is None}"
+          + (f"; first difference {diff}" if diff else ""), flush=True)
+    check(diff is None, f"qwen3-moe dropless tokens depend on the number of slots: {diff}")
+    del eng8, eng3
+
+    # (e) use_fusion=True on the same 2 layers, under the unfused routing
+    ucfg = dataclasses.replace(cfg, num_layers=2)
+    fcfg = dataclasses.replace(ucfg, use_fusion=True)
+    batch, plen, steps = 2, 256, 4
+    prompts = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, device="cuda")
+
+    def run(c, fed=None, replay=None):
+        caches = lm.init_cache(c, batch, plen + steps, device="cuda")
+        with Routing(blocks, replay=replay) as r:
+            lg, caches = lm.prefill(c, two, caches, {"tokens": prompts})
+            got, toks = [lg], []
+            for i in range(steps):
+                toks.append(fed[i] if fed is not None else lg.argmax(-1))
+                lg, caches = lm.decode_step(c, two, caches, toks[-1], plen + i)
+                got.append(lg)
+        return torch.stack(got), toks, r
+
+    want, fed, unfused_route = run(ucfg)
+    counters.reset()
+    got, _, pinned = run(fcfg, fed, unfused_route.record)
+    launches = counters.read()
+    by_graph = dict(counters.fused_gemm.GRAPH_LAUNCHES)
+    expect(launches, "phase 7h (e) qwen3-moe use_fusion=True", prefills=1, steps=steps, layers=2,
+           fused=True)
+    k5_on_wgmma(launches, "phase 7h (e) qwen3-moe use_fusion=True")
+    calls = 2 * (1 + steps)
+    want_graphs = {"fused_attn_out_res": calls, f"fused_gated_mlp_{cfg.mlp_activation}": e * calls}
+    check(by_graph == want_graphs, f"qwen3-moe fused: K5 by graph {by_graph}, want {want_graphs}")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    result["fused"] = {"layers": 2, "batch": batch, "prompt": plen, "steps": steps,
+                       "max_abs_logit_diff": err, "argmax_agreement": agree,
+                       "routing_rows_pinned": pinned.flips, "launches": launches,
+                       "launches_by_graph": by_graph}
+    print(f"  (e) use_fusion=True, 2 layers, B{batch} P{plen} + {steps} steps: logits max"
+          f" |d| {err:.3e} from the unfused ones under one routing (rtol {rtol}, atol {atol};"
+          f" {pinned.flips} token rows of the fused run would have routed otherwise), argmax"
+          f" agreement {100 * agree:.1f} %; K5 by graph {by_graph}", flush=True)
+    check(bool(torch.isfinite(got).all()), "qwen3-moe fused logits are not finite")
+    check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+          f"qwen3-moe fused logits {err:.3e} from the unfused ones")
+    del params, two, got, want
+    torch.cuda.empty_cache()
+    return result
+
+
 def logits_divergence(torch, rec_a, rec_b, uid):
     """The first position at which two drains sampled ``uid`` from logits
     that are not bitwise equal, with the largest difference and each
@@ -5224,8 +5659,13 @@ def device_breakdown(torch, run, wall_ms):
         torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
-    by_kernel, ranges, names = {}, {}, {}
+    by_kernel, ranges, names, other = {}, {}, {}, {}
     for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.key.startswith("aten::") \
+                and ev.self_device_time_total > 0:
+            # the library and glue kernels ("other") by the PyTorch op that
+            # launched them
+            other[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
         if (ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0
                 or "spin_kernel" in ev.key):
             continue
@@ -5244,7 +5684,10 @@ def device_breakdown(torch, run, wall_ms):
            "device_busy_share": busy_ms / wall_ms if busy_ms else None,
            "by_kernel": {k: {"ms": ms, "launches": n} for k, (ms, n) in
                          sorted(by_kernel.items(), key=lambda kv: -kv[1][0])},
-           "ranges_ms": ranges, "device_names": names}
+           "ranges_ms": ranges, "device_names": names,
+           # the PyTorch ops whose kernels take the most device time
+           "other_top": {k: {"ms": ms, "calls": n} for k, (ms, n) in
+                         sorted(other.items(), key=lambda kv: -kv[1][0])[:8]}}
     print(f"  profile: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms"
           + "".join(f"; {k} {v['ms']:.1f} ms / {v['launches']}" for k, v in out["by_kernel"].items())
           + "".join(f"; range {k} spans {v:.1f} ms on the device" for k, v in ranges.items()),
@@ -5945,6 +6388,10 @@ def main() -> int:
           " the ring-buffer cache and the engine")
     gemma3 = gemma3_full_width(torch, counters, peaks, card_line)
 
+    phase("7h. qwen3-moe-235b, full width (12 of 94 layers): one MoE layer, generate_loop,"
+          " the engine, dropless batch invariance and use_fusion=True")
+    qwen3 = qwen3_moe_full_width(torch, counters, peaks, card_line)
+
     phase("8. reduced configs: training on CUDA against the CPU")
     reduced_training(torch)
 
@@ -6022,7 +6469,12 @@ def main() -> int:
                    "gemma3_generate_loop": gemma3["generate_loop"]["launches"][name],
                    "gemma3_long_prompt": gemma3["long_prompt"]["launches"][name],
                    "gemma3_ring": gemma3["ring"]["launches"][name],
-                   "gemma3_engine": gemma3["engine"]["launches"][name]}
+                   "gemma3_engine": gemma3["engine"]["launches"][name],
+                   "qwen3_moe_layer": qwen3["layer"]["launches"][name],
+                   "qwen3_generate_loop": qwen3["generate_loop"]["launches"][name],
+                   "qwen3_engine": qwen3["engine"]["launches"][name],
+                   "qwen3_dropless_engine": qwen3["dropless"]["launches"][name],
+                   "qwen3_fused": qwen3["fused"]["launches"][name]}
         kernels.append({
             "name": name, "row": ROW[name], "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -6040,6 +6492,7 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
                       "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
                       "scheduled": scheduled, "gptj_engine": gptj, "gemma3": gemma3,
+                      "qwen3_moe": qwen3,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,

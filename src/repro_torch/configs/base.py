@@ -4,8 +4,9 @@ A copy of ``repro/configs/base.py``: the same ``ModelConfig`` fields,
 ``padded_vocab``, ``reduced()`` and ``get_config``, so a config built here
 compares equal field by field with the reference one.  Only the
 architectures of the ported slices are registered (dense decoders, gemma3's
-5:1 local:global pattern among them, the encoder-only bert-large and the
-attention-free Mamba-1 LM); the rest of
+5:1 local:global pattern among them, the encoder-only bert-large, the
+attention-free Mamba-1 LM and qwen3-moe-235b, whose every layer is a
+top-k mixture of experts); the rest of
 the reference's zoo joins as the port grows (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
@@ -149,7 +150,7 @@ class ModelConfig:
 
 # The architectures the port runs.
 ARCH_IDS = ["minicpm_2b", "gptj_6b", "llama2_13b", "falcon_mamba_7b", "bert_large",
-            "chatglm3_6b", "glm4_9b", "gemma3_12b"]
+            "chatglm3_6b", "glm4_9b", "gemma3_12b", "qwen3_moe_235b"]
 
 # Every architecture of the reference package; those not in ARCH_IDS are
 # still to be ported.

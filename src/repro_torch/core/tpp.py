@@ -159,8 +159,8 @@ def softmax(x, axis=-1):
     return (e / torch.sum(e, dim=axis, keepdim=True)).to(x.dtype)
 
 
-def _row_mean(x):
-    """Mean over the last dim, summed in an order fixed per row: the row is
+def _row_sum(x):
+    """Sum over the last dim (kept), in an order fixed per row: the row is
     zero-padded to a power-of-two width and halved pairwise.  A library
     reduction on the GPU picks how to split a row by the number of rows, so
     its sums, and a decoded token with them, could change with how many
@@ -171,7 +171,12 @@ def _row_mean(x):
     while n > 1:
         n //= 2
         s = s[..., :n] + s[..., n:]
-    return s / d
+    return s
+
+
+def _row_mean(x):
+    """Mean over the last dim, summed as :func:`_row_sum` sums."""
+    return _row_sum(x) / x.shape[-1]
 
 
 def layernorm(x, gamma, beta, *, eps: float = 1e-5):

@@ -15,10 +15,12 @@ backward wiring as the card: ``matmul``'s backward is K1 on transposed
 operands, ``attention``'s is K6 fed by K2's row log-sum-exp, and
 ``mamba_scan``'s is K8's backward kernel fed by the states K8's forward
 writes at its chunk boundaries.  When no input requires a gradient they
-call the forward alone and save nothing.  ``block_spmm``,
-``grouped_matmul``, ``conv2d``, ``brgemm_blocked`` and a ``matmul``
-scheduled by a spec string have no gradient in the reference: each raises
-when an input requires a gradient.
+call the forward alone and save nothing.  ``block_spmm``, ``conv2d``,
+``brgemm_blocked`` and a ``matmul`` scheduled by a spec string have no
+gradient in the reference: each raises when an input requires a gradient.
+``grouped_matmul`` raises too, since K9's backward is still to be written;
+the reference's MoE layer, which computes the same products as einsums,
+does train.
 """
 from __future__ import annotations
 
@@ -243,11 +245,10 @@ def mamba_scan(x, dt, a, b_in, c_in, d_skip, *, h0=None, h_out=None):
     return scan.mamba_scan(x, dt, a, b_in, c_in, d_skip, h0=h0, h_out=h_out)
 
 
-def _no_grad(name, *tensors):
+def _no_grad(name, *tensors, why="the reference differentiates neither its Pallas kernel"
+             " nor this one"):
     if _wants_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward: the reference differentiates neither its Pallas "
-            "kernel nor this one")
+        raise NotImplementedError(f"{name} has no backward: {why}")
 
 
 def block_spmm(blocks, row_id, col_id, b, *, nrows_b, bn=128, out_dtype=None):
@@ -273,7 +274,10 @@ def grouped_matmul(x, group_id, w, *, bf=128, out_dtype=None):
     (default ``x.dtype``) (K9).  ``bf`` is the reference's f tile; the CUDA
     kernel tiles f by 128 (bf16) or 64 (fp32) and masks the edge.
     Inference only: an input that requires a gradient raises."""
-    _no_grad("grouped_matmul", x, w)
+    _no_grad("grouped_matmul", x, w,
+             why="K9's backward is not written yet (ROADMAP.md, Queue 1: qwen3-moe training);"
+             " the reference trains its MoE layer through jax.grad of its einsums, not"
+             " through this kernel")
     if _on_cpu(x, group_id, w):
         return ref.grouped_matmul_ref(x, group_id, w, out_dtype=out_dtype)
     return spmm.grouped_matmul(x, group_id, w, out_dtype=out_dtype)

@@ -18,9 +18,12 @@ block's residual and the training path's dropout), the MLP's up projection
 and the no-cache attention (the chained root) are fused TppGraphs
 (``repro_torch.fusion``: K5 on the card) with derived backward graphs, as
 in ``repro``.  The Mamba-1 block (``mamba_apply``: the selective scan, K8
-on the card) serves with the dense and the paged caches; it has no
-backward yet.  The MLA, MoE and cross-attention branches are still to be
-ported (ROADMAP.md, Queue 1).
+on the card) serves with the dense and the paged caches and trains.  The
+token-choice top-k mixture of experts (``moe_apply``, single device) serves:
+its router is K1, its experts' three products K9 (``ops.grouped_matmul``)
+over the (E, cap, d) dispatch buffer, and it refuses a gradient until K9
+has a backward.  The MLA and cross-attention branches and expert
+parallelism are still to be ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from repro_torch.fusion import library as fusion_lib
 from repro_torch.fusion import rng
 from repro_torch.kernels import ops
 
-__all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp", "init_mamba",
-           "apply_rope", "attention_apply", "mlp_apply", "mamba_apply",
+__all__ = ["compute_dtype", "init_norm", "init_attention", "init_mlp", "init_moe",
+           "init_mamba", "apply_rope", "attention_apply", "mlp_apply", "moe_apply",
+           "mamba_apply",
            "ATTN_OUT_DROPOUT_SALT"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -302,8 +306,8 @@ def _refuse_ring_chunk(smax, cache_pos, s):
 # MLP (gated / plain)
 # --------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen, dtype=None):
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, gen, dtype=None, *, d_ff=None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype or compute_dtype(cfg)
     if cfg.gated_mlp:
         return {"wg": _init(gen, (d, ff), dtype=dt),
@@ -335,6 +339,126 @@ def mlp_apply(cfg: ModelConfig, p, x2d):
         return ops.matmul(tpp.mul(g, u), p["wd"])
     hid = ops.matmul(x2d, p["wu"], bias=p["bu"], activation=act)
     return ops.matmul(hid, p["wd"], bias=p["bd"])
+
+
+# --------------------------------------------------------------------------
+# Mixture of experts (token-choice top-k, capacity-bounded dispatch)
+# --------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, gen, dtype=None):
+    """The router (d, E) at scale 0.02 and the experts' gated FFN, ``wg``
+    and ``wu`` (E, d, f) and ``wd`` (E, f, d), at the reference's scales
+    (``wg`` and ``wu`` at 1/sqrt of their leading axis, as its ``_init``);
+    ``"shared"``, a dense gated MLP of ``moe_d_ff · num_shared_experts``,
+    where the config has shared experts."""
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    dt = dtype or compute_dtype(cfg)
+    p = {"router": _init(gen, (d, e), 0.02, dtype=dt),
+         "wg": _init(gen, (e, d, ff), dtype=dt),
+         "wu": _init(gen, (e, d, ff), dtype=dt),
+         "wd": _init(gen, (e, ff, d), 1.0 / math.sqrt(ff), dtype=dt)}
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(cfg, gen, dtype, d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+    return p
+
+
+def _expert_ffn(cfg: ModelConfig, wg, wu, wd, xe):
+    """xe (E, C, d) → (E, C, d): the gated FFN of every expert over its C
+    slots.  The three products run on ``ops.grouped_matmul`` (K9 on the
+    card): xe viewed as E row tiles of C rows, tile i on expert i, each
+    product accumulated and returned in fp32, as the reference's einsums
+    are.  With ``cfg.use_fusion`` each expert's gated up projection is
+    ``fused_gated_mlp_apply`` (K5 on the card), one call an expert, as the
+    reference's loop; the down product stays on K9."""
+    e, cap, d = xe.shape
+    dt = xe.dtype
+    gid = torch.arange(e, dtype=torch.int32, device=xe.device)
+    wg, wu, wd = wg.to(dt), wu.to(dt), wd.to(dt)
+    if cfg.use_fusion:
+        h = torch.stack([fusion_lib.fused_gated_mlp_apply(xe[i], wg[i], wu[i],
+                                                          activation=cfg.mlp_activation)
+                         for i in range(e)]).to(dt)
+    else:
+        x2 = xe.reshape(e * cap, d)
+        g = ops.grouped_matmul(x2, gid, wg, out_dtype=torch.float32)
+        u = ops.grouped_matmul(x2, gid, wu, out_dtype=torch.float32)
+        h = (tpp.ACTIVATIONS[cfg.mlp_activation](g) * u).to(dt)
+    y = ops.grouped_matmul(h.reshape(e * cap, -1), gid, wd, out_dtype=torch.float32)
+    return y.to(dt).view(e, cap, d)
+
+
+def _top_k(probs, k):
+    """The k largest of each row, ties to the lower index (``lax.top_k``'s
+    order; ``torch.topk`` promises none): a stable descending sort."""
+    w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[:, :k], i[:, :k]
+
+
+def moe_apply(cfg: ModelConfig, p, x2d):
+    """Token-choice top-k MoE with capacity-bounded dispatch, x2d (T, d) →
+    (y (T, d), aux): the reference's single-device ``moe_apply``.
+
+    The router's logits come from K1 in fp32; top k of the softmax,
+    renormalised.  Each expert holds ``cap = min(T, max(1, ceil(capacity ·
+    T · k / E)))`` slots, filled in (token, k) order (a stable sort of the
+    expert ids ranks them); a slot ranked past ``cap`` is dropped into a
+    trash row, read back as zeros.  So, by the reference's design, a
+    token's output depends on the batch it shares once drops occur;
+    dropless (``cap = T``) it does not.  The buffer (E, cap, d) goes
+    through ``_expert_ffn`` (K9), each slot comes back scaled by its weight
+    in the compute dtype, and the k slots of a token are summed in fp32,
+    one after another.  The softmax
+    and the renormalisation sum each row in a fixed order
+    (``tpp._row_sum``), so a decoded row does not depend on its batch.
+    ``aux`` is the Switch load-balance loss (fp32 scalar).
+
+    Serving only: an input that requires a gradient raises, since K9 has no
+    backward yet (ROADMAP.md); the reference trains through ``jax.grad`` of
+    its einsums."""
+    if ops._wants_grad(x2d, p["router"], p["wg"], p["wu"], p["wd"]):
+        raise NotImplementedError(
+            "moe_apply takes no gradient in repro_torch yet: the experts run on K9, which "
+            "has no backward (ROADMAP.md, Queue 1: qwen3-moe training)")
+    dt = x2d.dtype
+    t, d = x2d.shape
+    e, k = cfg.num_experts, cfg.experts_per_tok
+
+    logits = ops.matmul(x2d, p["router"], out_dtype=torch.float32)
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = ex / tpp._row_sum(ex)
+    topw, topi = _top_k(probs, k)                                  # (T, k)
+    topw = topw / torch.clamp(tpp._row_sum(topw), min=1e-9)
+
+    # a token takes at most one slot of an expert: T is the dropless bound
+    cap = int(min(t, max(1, math.ceil(cfg.capacity_factor * t * k / e))))
+    flat_e = topi.reshape(-1)                                       # (T·k,)
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.empty_like(flat_e).scatter_(
+        0, order, torch.arange(t * k, device=x2d.device) - first)
+    kept = rank < cap
+    slot = torch.where(kept, flat_e * cap + rank, e * cap)          # e·cap: the trash row
+
+    xe = x2d.new_zeros(e * cap + 1, d)
+    xe[slot] = x2d.repeat_interleave(k, dim=0)
+    ye = _expert_ffn(cfg, p["wg"], p["wu"], p["wd"], xe[:e * cap].view(e, cap, d))
+    ye = torch.cat([ye.reshape(e * cap, d), ye.new_zeros(1, d)])
+    contrib = (ye[slot] * topw.reshape(-1, 1).to(dt)).view(t, k, d)
+    y = contrib[:, 0].float()
+    for j in range(1, k):
+        y = y + contrib[:, j].float()
+    y = y.to(dt)
+    if cfg.num_shared_experts:
+        y = y + mlp_apply(cfg, p["shared"], x2d)
+    return y, _moe_aux_loss(probs, topi, e)
+
+
+def _moe_aux_loss(probs, topi, e):
+    """Switch-style load-balance loss, fp32: E · Σ_e mean prob(e) · share of
+    the T·k slots routed to e."""
+    t, k = topi.shape
+    counts = torch.bincount(topi.reshape(-1), minlength=e).float()
+    return e * torch.sum(probs.mean(0) * (counts / (t * k)))
 
 
 # --------------------------------------------------------------------------

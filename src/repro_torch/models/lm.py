@@ -15,10 +15,15 @@ per-slot mamba state.  Both are updated in place by ``prefill`` and
 ``decode_step``.
 
 Dense decoders, the encoder-only bert-large (``"bidir"`` layers: attention
-without a causal mask) and the attention-free Mamba-1 LM (falcon-mamba-7b,
-served only: the scan has no backward yet) run here; MoE, MLA,
-encoder-decoder and VLM configs raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1).  Like the reference, ``init_cache``, ``prefill`` and
+without a causal mask), the attention-free Mamba-1 LM (falcon-mamba-7b) and
+the mixture-of-experts decoder qwen3-moe-235b (served only: its experts run
+on K9, which has no backward yet, so ``lm_loss`` raises
+``NotImplementedError`` when the MoE layer's weights or input want a
+gradient) run here; MLA, encoder-decoder and VLM configs raise
+``NotImplementedError`` (ROADMAP.md, Queue 1).  ``forward_hidden`` returns
+the reference's ``(h, caches, aux)``: aux is the MoE layers' load-balance
+loss summed over layers (zero without MoE layers), which ``lm_loss``
+weights by ``aux_weight``.  Like the reference, ``init_cache``, ``prefill`` and
 ``decode_step`` do not refuse a bidirectional config (its prefill attends
 over the whole prompt); the reference's tests give bert no decode step,
 and neither do the port's.  Training (``lm_loss``) takes fp32 master
@@ -30,6 +35,7 @@ and computes the same either way, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +48,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import blocks as B
 
 __all__ = [
-    "LayerGroup", "derive_groups", "layer_kinds", "init_params",
+    "LayerGroup", "derive_groups", "layer_signatures", "layer_kinds", "init_params",
     "forward_hidden", "lm_loss", "init_cache", "init_paged_cache", "prefill",
     "decode_step", "finite_logits",
 ]
@@ -56,7 +62,7 @@ class LayerGroup:
 
 def _check_dense(cfg: ModelConfig) -> None:
     unsupported = {
-        "MoE layers": cfg.is_moe, "MLA attention": cfg.use_mla,
+        "MLA attention": cfg.use_mla,
         "encoder-decoder models": cfg.is_encdec,
         "modality frontends": cfg.frontend is not None,
     }
@@ -66,43 +72,62 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def derive_groups(cfg: ModelConfig) -> list[LayerGroup]:
-    """The reference's layer groups for a decoder without MoE layers: one
-    group, its period the config's layer pattern."""
+    """The reference's layer groups: the ``first_k_dense`` layers, then one
+    group whose period is ``lcm(pattern_period, moe_period)``, each position
+    a (kind, is_moe) pair."""
     _check_dense(cfg)
     sigs = cfg._layer_kinds()
-    period = cfg.pattern_period
-    if len(sigs) % period:
-        raise ValueError(f"{cfg.name}: {len(sigs)} layers, pattern period {period}")
-    return [LayerGroup(tuple(sigs[:period]), len(sigs) // period)]
+    groups = []
+    k = cfg.first_k_dense
+    if k:
+        groups.append(LayerGroup(tuple(sigs[:k]), 1))
+    rest = sigs[k:]
+    if rest:
+        period = math.lcm(cfg.pattern_period, cfg.moe_period if cfg.is_moe else 1)
+        if len(rest) % period or any(s != rest[i % period] for i, s in enumerate(rest)):
+            raise ValueError(f"{cfg.name}: {len(rest)} layers do not repeat a period of"
+                             f" {period}")
+        groups.append(LayerGroup(tuple(rest[:period]), len(rest) // period))
+    return groups
+
+
+def layer_signatures(cfg: ModelConfig) -> list[tuple[str, bool]]:
+    """(block kind, is_moe) of every layer, in order."""
+    return [sig for g in derive_groups(cfg) for _ in range(g.repeat) for sig in g.kinds]
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
     """Block kind of every layer, in order."""
-    return [kind for g in derive_groups(cfg) for _ in range(g.repeat)
-            for kind, _ in g.kinds]
+    return [kind for kind, _ in layer_signatures(cfg)]
 
 
 # --------------------------------------------------------------------------
 # Blocks and parameters
 # --------------------------------------------------------------------------
 
-def init_block(cfg: ModelConfig, gen, kind: str, dtype=None):
+def init_block(cfg: ModelConfig, gen, kind: str, moe: bool, dtype=None):
+    """A block's parameters: its mixer, then ``"moe"`` for an MoE layer or
+    else ``"mlp"`` where ``d_ff > 0`` (the reference's ``_has_ffn``)."""
     p = {"norm1": B.init_norm(cfg, gen.device)}
     if kind == "mamba":
         p["mamba"] = B.init_mamba(cfg, gen, dtype)
     else:
         p["attn"] = B.init_attention(cfg, gen, dtype)
-    if cfg.d_ff > 0:
+    if moe or cfg.d_ff > 0:
         p["norm2"] = B.init_norm(cfg, gen.device)
-        p["mlp"] = B.init_mlp(cfg, gen, dtype)
+        p["moe" if moe else "mlp"] = (B.init_moe(cfg, gen, dtype) if moe
+                                      else B.init_mlp(cfg, gen, dtype))
     return p
 
 
 def block_apply(cfg: ModelConfig, p, x, *, kind: str, cache=None,
                 cache_pos=0, positions=None, page_table=None, page_size=0,
                 dropout_seed=None, seq_lengths=None):
-    """Pre-norm residual block → (x, cache).  ``dropout_seed`` (training
-    only, already folded per layer) enables the attention-output dropout.
+    """Pre-norm residual block → (x, cache, aux), aux the MoE layer's
+    load-balance loss (an fp32 scalar; the float 0.0 for a block without
+    one, which launches nothing).
+    ``dropout_seed`` (training only, already folded per layer) enables the
+    attention-output dropout.
     With ``cfg.use_fusion`` the residual of an attention block rides the
     fused output projection (``fused_attn_out_res``), which returns the
     post-residual value, as in ``repro/models/lm.py``.  A mamba block keeps
@@ -120,11 +145,16 @@ def block_apply(cfg: ModelConfig, p, x, *, kind: str, cache=None,
                                        page_size=page_size, dropout_seed=dropout_seed,
                                        residual=x if res_folded else None)
         x = out if res_folded else x + out
-    if "mlp" in p:
+    aux = 0.0
+    if "norm2" in p:
         h = B._norm(cfg, p["norm2"], x)
         b, s, d = h.shape
-        x = x + B.mlp_apply(cfg, p["mlp"], h.reshape(b * s, d)).view(b, s, d)
-    return x, cache
+        if "moe" in p:
+            y, aux = B.moe_apply(cfg, p["moe"], h.reshape(b * s, d))
+        else:
+            y = B.mlp_apply(cfg, p["mlp"], h.reshape(b * s, d))
+        x = x + y.view(b, s, d)
+    return x, cache, aux
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
@@ -146,7 +176,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None, dtype=None):
     params = {
         "embed": B._init(gen, (v, d), 0.02, dtype=dt),
         "final_norm": B.init_norm(cfg, gen.device),
-        "layers": [init_block(cfg, gen, kind, dt) for kind in layer_kinds(cfg)],
+        "layers": [init_block(cfg, gen, kind, moe, dt)
+                   for kind, moe in layer_signatures(cfg)],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = B._init(gen, (d, v), 0.02, dtype=dt)
@@ -176,7 +207,8 @@ def _positions_from(pos0, b, s, device):
 def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
                    cache_pos=0, page_table=None, page_size=0, remat=True,
                    dropout_seed=None, seq_lengths=None):
-    """→ (hidden (B, S, d) in the compute dtype, caches).  ``batch`` holds
+    """→ (hidden (B, S, d) in the compute dtype, caches, aux): aux the MoE
+    layers' load-balance losses summed (fp32 scalar).  ``batch`` holds
     ``tokens`` (B, S) at positions ``cache_pos ..``; ``cache_pos`` may be a
     per-slot (B,) tensor, and ``page_table``/``page_size`` switch the
     attention caches to the paged pool layout (see ``init_paged_cache``).
@@ -196,6 +228,7 @@ def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
     x = _embed(cfg, params, tokens)
     positions = _positions_from(cache_pos, b, s, tokens.device)
     remat = remat and caches is None and torch.is_grad_enabled()
+    aux = 0.0
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         seed_i = rng.fold_in(dropout_seed, i) if dropout_seed is not None else None
         kw = dict(kind=kind, cache=caches[i] if caches is not None else None,
@@ -203,11 +236,14 @@ def forward_hidden(cfg: ModelConfig, params, batch, *, caches=None,
                   page_size=page_size, dropout_seed=seed_i, seq_lengths=seq_lengths)
         if remat:
             # the blocks draw no torch random numbers: nothing to replay
-            x, _ = checkpoint(block_apply, cfg, p, x, use_reentrant=False,
-                              preserve_rng_state=False, **kw)
+            x, _, aux_i = checkpoint(block_apply, cfg, p, x, use_reentrant=False,
+                                     preserve_rng_state=False, **kw)
         else:
-            x, _ = block_apply(cfg, p, x, **kw)
-    return B._norm(cfg, params["final_norm"], x), caches
+            x, _, aux_i = block_apply(cfg, p, x, **kw)
+        aux = aux + aux_i
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), device=tokens.device)
+    return B._norm(cfg, params["final_norm"], x), caches, aux
 
 
 def _chunk_loss(cfg, w, hc, yc, mc):
@@ -228,9 +264,9 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat=True, loss_chunk=512,
     {"ce", "aux", "tokens"}).  Cross-entropy over sequence chunks of
     ``loss_chunk`` tokens, each chunk checkpointed when gradients are on,
     so logits live for one chunk at a time; ``ce = tot / max(cnt, 1)``.
-    Dense models have no auxiliary loss (aux = 0).  Counterpart of
-    ``repro/models/lm.py::lm_loss``."""
-    h, _ = forward_hidden(cfg, params, batch, remat=remat, dropout_seed=dropout_seed)
+    ``aux`` is ``forward_hidden``'s (zero without MoE layers), weighted by
+    ``aux_weight``.  Counterpart of ``repro/models/lm.py::lm_loss``."""
+    h, _, aux = forward_hidden(cfg, params, batch, remat=remat, dropout_seed=dropout_seed)
     w = _unembed_weight(cfg, params)
     labels = batch["labels"].long()
     mask = batch["mask"].float()
@@ -249,7 +285,6 @@ def lm_loss(cfg: ModelConfig, params, batch, *, remat=True, loss_chunk=512,
             t, n = _chunk_loss(cfg, w, *args)
         tot, cnt = tot + t, cnt + n
     ce = tot / torch.clamp(cnt, min=1.0)
-    aux = torch.zeros((), device=h.device)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
@@ -343,9 +378,9 @@ def prefill(cfg: ModelConfig, params, caches, batch, *, page_table=None,
     doubles as the mamba layers' valid length (``logit_index + 1``), so
     their state is exact despite the padding."""
     seq_lengths = logit_index.long() + 1 if logit_index is not None else None
-    h, caches = forward_hidden(cfg, params, batch, caches=caches, cache_pos=0,
-                               page_table=page_table, page_size=page_size,
-                               seq_lengths=seq_lengths)
+    h, caches, _ = forward_hidden(cfg, params, batch, caches=caches, cache_pos=0,
+                                  page_table=page_table, page_size=page_size,
+                                  seq_lengths=seq_lengths)
     if logit_index is None:
         h_last = h[:, -1]
     else:
@@ -358,9 +393,9 @@ def decode_step(cfg: ModelConfig, params, caches, tokens, pos, *,
     """One decode step: tokens (B,) at position ``pos``, a scalar or
     per-slot (B,) positions (continuous batching); → (logits (B, V) fp32,
     caches)."""
-    h, caches = forward_hidden(cfg, params, {"tokens": tokens[:, None]},
-                               caches=caches, cache_pos=pos,
-                               page_table=page_table, page_size=page_size)
+    h, caches, _ = forward_hidden(cfg, params, {"tokens": tokens[:, None]},
+                                  caches=caches, cache_pos=pos,
+                                  page_table=page_table, page_size=page_size)
     return _logits(cfg, params, h[:, -1]), caches
 
 

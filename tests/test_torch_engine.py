@@ -108,7 +108,8 @@ def _shuffled_table(b, ppr, num_pages, seed):
     return table
 
 
-@pytest.mark.parametrize("arch", ["llama2_13b", "minicpm_2b", "falcon_mamba_7b"])
+@pytest.mark.parametrize("arch", ["llama2_13b", "minicpm_2b", "falcon_mamba_7b",
+                                  "qwen3_moe_235b"])
 def test_paged_cache_matches_dense_logits(arch):
     """Bucket-padded paged prefill and (B,)-position paged decode reproduce
     the dense-cache logits (the port's copy of the reference's test); for

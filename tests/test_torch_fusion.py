@@ -597,7 +597,7 @@ def test_fused_training_takes_steps():
     params, opt = init_train_state(cfg, tcfg, 0, device="cpu")
     batch = to_device(SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                                  global_batch=2, seed=1)).batch_at(0), "cpu")
-    h, _ = tlm.forward_hidden(cfg, params, batch, dropout_seed=3)
+    h, _, _ = tlm.forward_hidden(cfg, params, batch, dropout_seed=3)
     assert h.requires_grad and torch.isfinite(h).all()
     step = make_train_step(cfg, tcfg)
     losses = []

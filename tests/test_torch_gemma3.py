@@ -56,7 +56,7 @@ def _tokens(cfg, shape, seed):
 
 def _full_logits(cfg, params, toks):
     """The port's full forward: (B, S, V) fp32 logits at every position."""
-    h, _ = tlm.forward_hidden(cfg, params, {"tokens": torch.from_numpy(toks)}, remat=False)
+    h, _, _ = tlm.forward_hidden(cfg, params, {"tokens": torch.from_numpy(toks)}, remat=False)
     b, s, d = h.shape
     return tlm._logits(cfg, params, h.reshape(b * s, d)).view(b, s, -1)
 
@@ -158,10 +158,10 @@ def test_chunk_inside_the_ring_matches_reference():
     _, tcache = tlm.prefill(tcfg, tparams, tcache, {"tokens": torch.from_numpy(toks[:, :2])})
     jh, _, _ = jlm.forward_hidden(jcfg, jparams, {"tokens": jnp.asarray(toks[:, 2:])},
                                   caches=jcache, cache_pos=2, remat=False)
-    th, _ = tlm.forward_hidden(tcfg, tparams, {"tokens": torch.from_numpy(toks[:, 2:])},
+    th, _, _ = tlm.forward_hidden(tcfg, tparams, {"tokens": torch.from_numpy(toks[:, 2:])},
                                caches=tcache, cache_pos=2, remat=False)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **LOGIT_TOL)
-    hf, _ = tlm.forward_hidden(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, remat=False)
+    hf, _, _ = tlm.forward_hidden(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, remat=False)
     assert float((th - hf[:, 2:]).abs().max()) < SELF_ATOL
 
 

@@ -1,4 +1,4 @@
-"""The port's decoders (dense and Mamba-1) and greedy serving loop against
+"""The port's decoders (dense, Mamba-1 and MoE) and greedy serving loop against
 the JAX package, on the CPU, for reduced fp32 configs: the reference's own weights
 (``repro.models.lm.init_params`` → numpy → ``params_from_numpy``) and the
 same numpy-seeded tokens go through both.
@@ -28,7 +28,7 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import decode as tdecode
 
 ARCHS = ["llama2_13b", "gptj_6b", "minicpm_2b", "falcon_mamba_7b", "chatglm3_6b", "glm4_9b",
-         "gemma3_12b"]
+         "gemma3_12b", "qwen3_moe_235b"]
 # encoder-only: no decode step in the reference (tests/test_models.py)
 ENCODERS = ["bert_large"]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -60,7 +60,7 @@ def test_configs_are_copies_of_the_reference(arch):
 def test_padded_vocab_and_unported_archs():
     assert torch_config("minicpm_2b").padded_vocab == 122880
     with pytest.raises(KeyError, match="ROADMAP"):
-        torch_config("qwen3_moe_235b")
+        torch_config("deepseek_v2_236b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -137,7 +137,7 @@ def test_decode_matches_forward(arch):
     _, _, cfg, params = _models(arch)
     b, s, p = 2, 16, 8
     toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s)))
-    h, _ = tlm.forward_hidden(cfg, params, {"tokens": toks})
+    h, _, _ = tlm.forward_hidden(cfg, params, {"tokens": toks})
     full = tlm._logits(cfg, params, h.reshape(b * s, -1)).view(b, s, -1)
     caches = tlm.init_cache(cfg, b, s, device="cpu")
     logits, caches = tlm.prefill(cfg, params, caches, {"tokens": toks[:, :p]})
@@ -163,12 +163,12 @@ def test_encoder_hidden_and_loss_match_reference(fused):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jh = jlm.forward_hidden(jcfg, jparams, jb, remat=False)[0]
-    th, _ = tlm.forward_hidden(tcfg, tparams, tb, remat=False)
+    th, _, _ = tlm.forward_hidden(tcfg, tparams, tb, remat=False)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **LOGIT_TOL)
     # a later token changes an earlier position's state: attention is not causal
     tb2 = dict(tb, tokens=tb["tokens"].clone())
     tb2["tokens"][:, -1] = (tb2["tokens"][:, -1] + 1) % tcfg.vocab_size
-    th2, _ = tlm.forward_hidden(tcfg, tparams, tb2, remat=False)
+    th2, _, _ = tlm.forward_hidden(tcfg, tparams, tb2, remat=False)
     assert float((th2[:, 0] - th[:, 0]).abs().max()) > 1e-6
     jloss, _ = jlm.lm_loss(jcfg, jparams, jb, remat=False, loss_chunk=8)
     tloss, _ = tlm.lm_loss(tcfg, tparams, tb, remat=False, loss_chunk=8)

@@ -66,7 +66,13 @@ Phases, each of which must pass:
      earlier 64-row tiles (the replaced kernel's recorded time printed
      beside it), and checks
      (rows 8 and 100 a tile, ragged d and f, fp32 out, ids clamped) each on
-     the variant its plan names; K7 Listing 6 at
+     the variant its plan names; K9's backward (dX and dW) at qwen3-moe's
+     training layer (128 tiles of cap 320: gate/up and down, bf16 in, dW
+     fp32, beside ``torch.bmm`` on the (E, cap, .) views; dW twice bitwise
+     equal) and checks (rows 1, 8 and 100 a tile, an expert's tiles apart,
+     experts without a tile, ids clamped, d or f not a multiple of 8 on
+     wmma, fp32 on simt); K6 at qwen3-moe's group of 16 (B 2, H 64, Hk 4,
+     S 2048, D 128, causal); K7 Listing 6 at
      bert-large's output layers and N 5120, beside K5's keep-mask graph;
      K2 and K6 without a causal mask at bert-large's shape; K11 Listing 1 at
      benchmarks/bench_gemm.py's seven shapes under five spec strings on its
@@ -166,9 +172,11 @@ Phases, each of which must pass:
      K11 launch; ResNet-50's 1x1 layers (N 32) through ``ops.conv2d``, one
      K12 call on one K1 launch a layer; its 3x3 layers (N 2) through
      Listing 4 on the executor, no kernel; each against its plain version;
-  8. train reduced fp32 minicpm-2b, gpt-j-6b, bert-large and
-     falcon-mamba-7b (96 tokens) for 3 steps on the card and on the CPU from
-     one initial state (loss and grad norm must agree), and check that 2
+  8. train reduced fp32 minicpm-2b, gpt-j-6b, bert-large,
+     falcon-mamba-7b (96 tokens) and qwen3-moe-235b for 3 steps on the card
+     and on the CPU from one initial state (loss and grad norm must agree;
+     qwen3's routing recorded on the CPU and replayed on the card, remat's
+     recompute included, its flips printed), and check that 2
      steps + checkpoint + restore + 2 steps give the parameters of 4 steps
      straight, bit for bit; then 3 steps of each attention model with
      ``use_fusion=True`` at dropout 0.15, CUDA against CPU;
@@ -212,6 +220,15 @@ Phases, each of which must pass:
      each of 3 fresh AdamW steps at lr 1e-6 on a repeated batch; step time,
      tokens/s, the model-FLOPs share and peak memory with the card's name
      and power limit;
+ 10e. train qwen3-moe-235b at full width (d 4096, 64/4 heads of 128, 128
+     experts top 8 of 1536; 1 of its 94 layers, B 2 x S 2048) as phase 9 (6
+     steps): K1, K2, K6, K9 and K9's backward launched exactly as the layer
+     count and remat imply, every K9 launch (forward, dX, dW) on wgmma;
+     ``gradient_slope`` within 10 % for each group of leaves (router and
+     experts included) under the base point's routing, flips printed; the
+     loss falling at each of 3 downhill steps; one profiled step; step
+     time, tokens/s, the model-FLOPs share and peak memory with the card's
+     name and power limit;
  11. print one JSON line with every kernel's numbers;
  12. print the last line, ``{"ok": true, "device": {...}}``.
 
@@ -271,6 +288,10 @@ REPLACES = {
     "mamba_scan_bwd": "src/repro/kernels/ref.py:235",
     "block_spmm": "src/repro/kernels/block_spmm.py:72",
     "grouped_matmul": "src/repro/kernels/block_spmm.py:137",
+    # no TPU kernel: the reference trains its MoE layer through jax.grad of
+    # its expert einsums, which this kernel's dX and dW replace on the card
+    "grouped_matmul_bwd": "none: the reference differentiates"
+                          " src/repro/models/blocks.py:486 _expert_ffn's einsums",
     "fused_output": "src/repro/kernels/fused_output.py:48",
     "brgemm_blocked": "src/repro/kernels/brgemm.py:152",
     "conv2d_1x1": "src/repro/kernels/conv.py:112",
@@ -295,6 +316,7 @@ SOURCE = {
     "mamba_scan_bwd": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "block_spmm": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/block_spmm.cu",
+    "grouped_matmul_bwd": "src/repro_torch/kernels/csrc/block_spmm.cu",
     "fused_output": "src/repro_torch/kernels/csrc/fused_output.cu",
     "brgemm_blocked": "src/repro_torch/kernels/csrc/brgemm_blocked.cu",
     # the reshape around K1 (csrc/gemm.cu), under the spec string
@@ -340,6 +362,11 @@ ROW = {
                       " at phase 7h (b)'s prefill (B 4 x 1024 tokens, cap 320) plus one decode step"
                       " (B 4, cap 1); library: torch._grouped_mm where the card's torch takes the"
                       " operands",
+    "grouped_matmul_bwd": "one qwen3-moe MoE layer's expert backward at phase 10e's training shape"
+                          " (B 2 x S 2048: 128 row tiles of cap 320, group_id arange(128), bf16 in):"
+                          " dX (bf16) and dW (fp32) of the gate and up products (d 4096, f 1536)"
+                          " and of the down product (1536 -> 4096); library: torch.bmm on the"
+                          " (E, cap, .) views",
     "fused_output": "bert-large's two Listing 6 output layers at 4096 tokens (Bert-Output K 4096,"
                     " Bert-SelfOutput K 1024; N 1024, bf16, dropout 0.1 by a keep mask) on the"
                     " wgmma variant (8-CTA clusters); no one PyTorch call fuses the product with"
@@ -1016,8 +1043,8 @@ def k7_k13_build_report(logs, fo, k13):
 
 def k3_k9_build_report(logs):
     """Print the ``-Xptxas -v`` figures of K3's split kernel by dtype and
-    head dim (csrc/flash_decode.cu) and of K9's wgmma kernel
-    (csrc/block_spmm.cu), and any ptxas C7518 warning (serialized wgmma) in
+    head dim (csrc/flash_decode.cu) and of K9's wgmma kernels, forward, dX
+    and dW (csrc/block_spmm.cu), and any ptxas C7518 warning (serialized wgmma) in
     K9's source; → those figures."""
     report = {}
     for mangled, figures in ptxas_by_kernel(logs["flash_decode"]).items():
@@ -1026,8 +1053,10 @@ def k3_k9_build_report(logs):
             dt = "fp32" if found.group(1) == "f" else "bf16"
             report[f"K3 flash_decode_split_kernel<{dt}, {found.group(2)}>"] = figures
     for mangled, figures in ptxas_by_kernel(logs["block_spmm"]).items():
-        if "grouped_matmul_bf16_wgmma" in mangled:
-            report["K9 grouped_matmul_bf16_wgmma"] = figures
+        for kernel in ("grouped_matmul_bf16_wgmma", "grouped_matmul_dx_bf16_wgmma",
+                       "grouped_matmul_dw_bf16_wgmma"):
+            if kernel in mangled:
+                report[f"K9 {kernel}"] = figures
     warnings = [ln.strip() for ln in logs["block_spmm"].splitlines() if "C7518" in ln]
     for name, figures in sorted(report.items()):
         print(f"  {name}: {figures}", flush=True)
@@ -1131,7 +1160,8 @@ def attention_bwd_cases(torch, bench, ref, fa):
     and lse are first held against the plain version's): minicpm-2b's training
     shape (B 4, H 36, S 1024, D 64, causal, bf16), llama2-13b's (B 1, H 40,
     S 512, D 128), GQA, window 128, bert-large's (B 16, H 16, S 512, D 64,
-    not causal), and small fp32 and bf16 checks (ragged, Sq < Skv,
+    not causal), qwen3-moe's training layer (B 2, H 64 over Hk 4: a group
+    of 16, S 2048, D 128, causal), and small fp32 and bf16 checks (ragged, Sq < Skv,
     noncausal, windows 24 and 100, GQA 5:1, D 16 to 256, rows with every
     key masked)."""
     import torch.nn.functional as F
@@ -1157,6 +1187,8 @@ def attention_bwd_cases(torch, bench, ref, fa):
         ("check Sq64 Skv64 H2 D64 noncausal", 1, 2, 2, 64, 64, 64, False, None, torch.bfloat16, 0, False),
         ("check Sq97 Skv61 H2 D256 masked rows", 1, 2, 2, 97, 61, 256, True, None, torch.bfloat16, 0, False),
         ("check Sq200 Skv200 H5 Hk1 D32 noncausal window100", 2, 5, 1, 200, 200, 32, False, 100, torch.bfloat16, 0, False),
+        # qwen3-moe-235b's training layer (phase 10e): a group of 16 query heads
+        ("qwen3-moe B2 H64 Hk4 S2048 D128 causal", 2, 64, 4, 2048, 2048, 128, True, None, torch.bfloat16, 0, True),
     ]
     for label, b, h, hk, sq, skv, d, causal, window, dt, weight, timed in cases:
         def proj(s, heads, scale=1.0):
@@ -2172,6 +2204,108 @@ def grouped_matmul_cases(torch, bench, ref, spmm):
     run("check T256 tiles of 64 d128 f256 E4 ids -3, 0, 4, 100 clamped", x, gid, w)
 
 
+def grouped_bmm_yardstick(torch, kind, x, dy, w):
+    """One ``torch.bmm`` on the (E, cap, .) views of K9's backward operands
+    at ``group_id = arange(E)`` (tile e is expert e's rows): dX = dY_e
+    w_e^T in bf16; dW = x_e^T dY_e in fp32 (``out_dtype``).  Timed beside
+    the kernel only; → (the call, which call it is)."""
+    e = w.shape[0]
+    if kind == "dx":
+        a, b = dy.view(e, -1, dy.shape[1]), w.transpose(1, 2)
+        return (lambda: torch.bmm(a, b)), "torch.bmm(dY (E, cap, f), w^T) -> bf16"
+    a, b = x.view(e, -1, x.shape[1]).transpose(1, 2), dy.view(e, -1, dy.shape[1])
+    return (lambda: torch.bmm(a, b, out_dtype=torch.float32)), \
+        "torch.bmm(x^T (E, d, cap), dY, out_dtype=float32)"
+
+
+def grouped_matmul_bwd_cases(torch, bench, ref, spmm):
+    """K9's backward against its plain versions (``ref.grouped_matmul_dx_ref``,
+    ``grouped_matmul_dw_ref``) at qwen3-moe's training layer as
+    ``ops.grouped_matmul``'s backward runs it in phase 10e (B 2 x S 2048:
+    4096 tokens, cap ceil(1.25 · 4096 · 8 / 128) = 320, 128 row tiles,
+    group_id arange(128), bf16 in): dX (bf16) and dW (fp32) of the gate and
+    up products (d 4096, f 1536; twice a layer) and of the down product
+    (1536 -> 4096; once), each with its device time, its bound from the
+    bytes each call must move and its operations, and one ``torch.bmm`` on
+    the (E, cap, .) views beside it; two calls bitwise equal (no float
+    atomics).  Then checks on the variant each plan names: rows 1, 8 and
+    100 a tile, an expert's tiles apart, experts without a tile, ids out of
+    range clamped, d or f not a multiple of 8 (wmma), fp32 (simt).  The
+    plain versions take the clamped ids."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def run(label, kind, x, gid, w, dy, library=None, flops=0, nbytes=0, weight=0, timed=False):
+        e, tiles = w.shape[0], gid.shape[0]
+        t, d = x.shape
+        plan = spmm.grouped_bwd_plan(kind, tiles, t // tiles, d, w.shape[2], e, x.dtype)
+        clamped = gid.clamp(0, e - 1)
+        if kind == "dx":
+            fn = lambda: spmm.grouped_matmul_dx(dy, gid, w)  # noqa: E731
+            plain = lambda: ref.grouped_matmul_dx_ref(dy, clamped, w)  # noqa: E731
+        else:
+            fn = lambda: spmm.grouped_matmul_dw(x, gid, dy, e)  # noqa: E731
+            plain = lambda: ref.grouped_matmul_dw_ref(x, clamped, dy, e)  # noqa: E731
+        counters = spmm.GROUPED_BWD_COUNTERS[kind]
+        before = {v: getattr(spmm, c) for v, c in counters.items()}
+        first = fn()
+        ran = [v for v, c in counters.items() if getattr(spmm, c) > before[v]]
+        check(ran == [plan.variant], f"K9 {kind} {label}: ran on {ran}, its plan names {plan.variant}")
+        name = "bfloat16" if x.dtype == bf16 else "float32"
+        got = bench.run("grouped_matmul_bwd", f"{kind} {label} [{plan.variant}]", fn, plain,
+                        library, flops=flops, nbytes=nbytes, dtype=name, tol_kind="gemm",
+                        weight=weight, timed=timed)
+        check(torch.equal(first, got), f"K9 {kind} {label}: two identical calls differ")
+        return fn
+
+    e, cap = 128, 320
+    t = e * cap
+    arange = torch.arange(e, dtype=torch.int32, device="cuda")
+    yardsticks = {}
+    for d, f, what, per_layer in ((4096, 1536, "gate/up", 2), (1536, 4096, "down", 1)):
+        w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(bf16)
+        x = torch.randn(t, d, generator=gen, device="cuda").to(bf16)
+        dy = torch.randn(t, f, generator=gen, device="cuda").to(bf16)
+        for kind in ("dx", "dw"):
+            library, how = grouped_bmm_yardstick(torch, kind, x, dy, w)
+            yardsticks[f"{kind} {what}"] = how
+            # dX reads every slab and dY and writes dX (bf16); dW reads x and
+            # dY and writes every slab in fp32
+            nbytes = (2 * (e * d * f + t * f + t * d) if kind == "dx"
+                      else 2 * (t * d + t * f) + 4 * e * d * f)
+            fn = run(f"qwen3-moe {what}: E{e} tiles of {cap} d{d} f{f}", kind, x, arange, w, dy,
+                     library=library, flops=2 * t * d * f, nbytes=nbytes, weight=per_layer,
+                     timed=True)
+            row = bench.cases["grouped_matmul_bwd"][-1]
+            row["device_ms"] = device_ms(torch, fn)
+            row["library_call"] = how
+            print(f"    device {row['device_ms']:.4f} ms; library: {how}", flush=True)
+        del w, x, dy
+    torch.cuda.empty_cache()
+    bench.extra["grouped_matmul_bwd_library"] = yardsticks
+    checks = [  # label, the tiles' experts, rows a tile, d, f, E, dtype
+        ("rows 1", [0, 1, 2], 1, 64, 136, 3, bf16),
+        ("rows 8", [0, 1, 1, 2], 8, 72, 128, 3, bf16),
+        ("rows 100", [0, 1, 2], 100, 136, 200, 3, bf16),
+        ("an expert's tiles apart", [2, 0, 2, 1, 0], 64, 128, 256, 4, bf16),
+        ("experts without a tile", [3, 3, 1], 100, 128, 256, 4, bf16),
+        ("ids -3, 0, 4, 100 clamped", [-3, 0, 4, 100], 64, 128, 256, 4, bf16),
+        ("f 100 (wmma)", [0, 1, 0], 100, 64, 100, 2, bf16),
+        ("d 100 (wmma)", [1, 0, 1], 64, 100, 128, 2, bf16),
+        ("d 100, tiles apart, an expert without a tile (wmma)", [2, 0, 2], 8, 100, 136, 4, bf16),
+        ("fp32, tiles apart (simt)", [2, 0, 2, 1], 100, 96, 200, 4, f32),
+        ("fp32, experts without a tile (simt)", [3, 3, 1], 8, 64, 100, 4, f32),
+    ]
+    for label, experts, rows, d, f, e, dt in checks:
+        gid = torch.tensor(experts, dtype=torch.int32, device="cuda")
+        tiles = gid.shape[0]
+        x = torch.randn(tiles * rows, d, generator=gen, device="cuda").to(dt)
+        dy = torch.randn(tiles * rows, f, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(dt)
+        for kind in ("dx", "dw"):
+            run(f"check {label}: rows {rows} d{d} f{f} E{e}", kind, x, gid, w, dy)
+
+
 def fused_output_cases(torch, bench, fo, fusion):
     """K7 (Listing 6) against its plain version at bert-large's two output
     layers (M 4096 tokens, N 1024: Bert-Output K 4096 and Bert-SelfOutput K
@@ -2675,7 +2809,7 @@ def chained_backward_sources(fusion, fused_gemm):
     pairs = [(fusion.fused_attention_graph(causal=True, window=256, scale=0.125), 64)]
     for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
                 get_config("gptj_6b"), get_config("gptj_6b").reduced(), get_config("bert_large"),
-                get_config("bert_large").reduced()):
+                get_config("bert_large").reduced(), get_config("qwen3_moe_235b").reduced()):
         for kind in sorted(set(lm.layer_kinds(cfg))):
             pairs.append((attention_graph(fusion, cfg, kind), cfg.head_dim))
     for _, _, _, sq, skv, d, causal, window, *_ in CHAINED_BWD_CASES:
@@ -2961,8 +3095,8 @@ def fused_graphs(fusion):
 
 def training_graphs(fusion):
     """Every K5 graph the fused training path launches for full-width
-    minicpm-2b, gpt-j-6b and bert-large and the reduced minicpm-2b, gpt-j-6b and
-    bert-large of phase 8 (the chained attention at each config's scale and
+    minicpm-2b, gpt-j-6b and bert-large and the reduced minicpm-2b, gpt-j-6b,
+    bert-large and qwen3-moe-235b of phase 8 (the chained attention at each config's scale and
     kind, causal or bidirectional, fused_attn_out with and without dropout,
     the gated and plain MLP up projections, and all their derived backward
     graphs), and phase 3's row-panel and windowed checks."""
@@ -2975,7 +3109,7 @@ def training_graphs(fusion):
            fusion.fused_output_graph(0.1), fusion.fused_attn_out_graph(True, "rmsnorm", 1e-6)]
     for cfg in (get_config("minicpm_2b"), get_config("minicpm_2b").reduced(),
                 get_config("gptj_6b"), get_config("gptj_6b").reduced(), get_config("bert_large"),
-                get_config("bert_large").reduced()):
+                get_config("bert_large").reduced(), get_config("qwen3_moe_235b").reduced()):
         for kind in sorted(set(lm.layer_kinds(cfg))):
             fwd.append(attention_graph(fusion, cfg, kind))
     out = []
@@ -4361,7 +4495,8 @@ class Routing:
     active, each call of ``blocks._top_k`` appends its expert ids to
     ``record``; with ``replay``, each call takes the next recorded ids
     instead of its own (weights gathered from its own probabilities) and
-    counts in ``flips`` the rows whose own choice differed.  The route is a
+    counts in ``flips`` the rows whose own choice differed (a record made
+    on one device replays on another).  The route is a
     discontinuous function of the router's logits: two paths whose logits
     differ in their last bits can send a token to another expert, so the
     checks that hold two paths to each other do it under one routing."""
@@ -4376,7 +4511,7 @@ class Routing:
         def top_k(probs, k):
             w, i = real(probs, k)
             if self.replay is not None:
-                pinned = next(self.replay)
+                pinned = next(self.replay).to(i.device)
                 self.flips += int((pinned != i).any(-1).sum())
                 w, i = probs.gather(-1, pinned), pinned
             self.record.append(i.clone())
@@ -5615,7 +5750,14 @@ KERNEL_OF = {"gemm_bf16_wgmma": "gemm", "gemm_bf16_wgmma_decode": "gemm",
              "block_spmm_bf16_wmma": "block_spmm", "block_spmm_f32_simt": "block_spmm",
              "grouped_matmul_bf16_wgmma": "grouped_matmul",
              "grouped_matmul_bf16_wmma": "grouped_matmul",
-             "grouped_matmul_f32_simt": "grouped_matmul", "fused_output_kernel": "fused_output",
+             "grouped_matmul_f32_simt": "grouped_matmul",
+             "grouped_matmul_dx_bf16_wgmma": "grouped_matmul_bwd",
+             "grouped_matmul_dw_bf16_wgmma": "grouped_matmul_bwd",
+             "grouped_matmul_dx_bf16_wmma": "grouped_matmul_bwd",
+             "grouped_matmul_dw_bf16_wmma": "grouped_matmul_bwd",
+             "grouped_matmul_dx_f32_simt": "grouped_matmul_bwd",
+             "grouped_matmul_dw_f32_simt": "grouped_matmul_bwd",
+             "fused_output_kernel": "fused_output",
              "fused_output_wgmma": "fused_output",
              "brgemm_blocked_bf16_wgmma": "brgemm_blocked",
              "brgemm_blocked_bf16_wmma": "brgemm_blocked",
@@ -5753,6 +5895,10 @@ class Counters:
         self.spmm.GROUPED_LAUNCHES = 0
         for counter in self.spmm.GROUPED_COUNTERS.values():
             setattr(self.spmm, counter, 0)
+        self.spmm.GROUPED_BWD_LAUNCHES = 0
+        for by_variant in self.spmm.GROUPED_BWD_COUNTERS.values():
+            for counter in by_variant.values():
+                setattr(self.spmm, counter, 0)
         self.fo.LAUNCHES = 0
         for counter in self.fo.VARIANT_COUNTERS.values():
             setattr(self.fo, counter, 0)
@@ -5796,6 +5942,12 @@ class Counters:
                 # K9's launches by variant (not kernel rows of their own)
                 **{f"grouped_matmul_{v}": getattr(self.spmm, c)
                    for v, c in self.spmm.GROUPED_COUNTERS.items()},
+                "grouped_matmul_bwd": self.spmm.GROUPED_BWD_LAUNCHES,
+                # K9's backward launches by product and variant (not kernel
+                # rows of their own)
+                **{f"grouped_matmul_{kind}_{v}": getattr(self.spmm, c)
+                   for kind, by_variant in self.spmm.GROUPED_BWD_COUNTERS.items()
+                   for v, c in by_variant.items()},
                 "fused_output": self.fo.LAUNCHES,
                 # K7's launches by variant (not kernel rows of their own)
                 **{f"fused_output_{v}": getattr(self.fo, c)
@@ -5814,6 +5966,9 @@ SUB_COUNTS = frozenset({"gemm_wgmma", "gemm_wgmma_decode", "gemm_wmma", "gemm_si
                         "fused_wgmma", "fused_wgmma_decode", "fused_wgmma_split", "fused_wmma",
                         "fused_simt", "block_spmm_wgmma", "block_spmm_wmma", "block_spmm_simt",
                         "grouped_matmul_wgmma", "grouped_matmul_wmma", "grouped_matmul_simt",
+                        "grouped_matmul_dx_wgmma", "grouped_matmul_dx_wmma",
+                        "grouped_matmul_dx_simt", "grouped_matmul_dw_wgmma",
+                        "grouped_matmul_dw_wmma", "grouped_matmul_dw_simt",
                         "brgemm_blocked_wgmma", "mamba_scan_prefill", "mamba_scan_decode",
                         "fused_output_wgmma", "fused_output_wmma", "fused_output_simt"})
 
@@ -5885,26 +6040,33 @@ TRAIN_TOL = 1e-4     # loss and grad norm per step, reduced fp32 configs: CUDA v
 
 
 def reduced_training(torch):
-    """Reduced fp32 minicpm-2b, gpt-j-6b, bert-large and falcon-mamba-7b
+    """Reduced fp32 minicpm-2b, gpt-j-6b, bert-large, falcon-mamba-7b
     (96 tokens: three of K8's 32-step chunks on the card, the reference's
-    chunked scan on the CPU): three ``make_train_step`` steps on CUDA and on
+    chunked scan on the CPU) and qwen3-moe-235b (K9 and its backward on the
+    card): three ``make_train_step`` steps on CUDA and on
     the CPU from the same initial state and batches (loss and grad norm
     within TRAIN_TOL), then 4 trainer steps straight against 2 steps, a
     checkpoint, a restore and 2 more on the card (parameters bitwise equal);
     and the same three steps with ``use_fusion=True`` at dropout 0.15 (K5's
-    graphs, forward and derived backward, on the card) for the three
-    attention models (a mamba block has no fused form)."""
+    graphs, forward and derived backward, on the card) for the attention
+    models (a mamba block has no fused form).  qwen3's routing is
+    discontinuous in the router's last bits, so each CPU step records its
+    expert choices (``Routing``: the forward's and remat's recompute of
+    every block) and the card's step replays them; the rows whose own
+    choice differed are counted and printed."""
     import dataclasses
     import tempfile
     from repro_torch.configs.base import get_config
     from repro_torch.data import DataConfig, SyntheticCorpus, to_device
+    from repro_torch.models import blocks
     from repro_torch.optim.adamw import init_state, tree_leaves
     from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                    init_train_state, make_train_step, train)
 
     for arch, fused in (("minicpm_2b", False), ("gptj_6b", False), ("bert_large", False),
-                        ("falcon_mamba_7b", False), ("minicpm_2b", True), ("gptj_6b", True),
-                        ("bert_large", True)):
+                        ("falcon_mamba_7b", False), ("qwen3_moe_235b", False),
+                        ("minicpm_2b", True), ("gptj_6b", True), ("bert_large", True),
+                        ("qwen3_moe_235b", True)):
         cfg = get_config(arch).reduced()
         if fused:
             cfg = dataclasses.replace(cfg, use_fusion=True, dropout_rate=0.15)
@@ -5917,19 +6079,32 @@ def reduced_training(torch):
         state["cuda"] = (gpu_params, init_state(gpu_params, tcfg.adamw))
         step_fn = make_train_step(cfg, tcfg)
         corpus = SyntheticCorpus(dcfg)
-        worst = 0.0
+        worst, flips, routed = 0.0, 0, 0
         for step in range(3):
             batch = corpus.batch_at(step)
             m = {}
+            record = None
             for dev in ("cpu", "cuda"):
-                params, opt, metrics = step_fn(*state[dev], to_device(batch, dev), step)
+                with Routing(blocks, replay=record) as r:
+                    params, opt, metrics = step_fn(*state[dev], to_device(batch, dev), step)
+                check(record is None or len(r.record) == len(record),
+                      f"{arch} reduced step {step}: the card chose experts {len(r.record)} times,"
+                      f" the CPU {len(record or [])}")
+                record = r.record
                 state[dev] = (params, opt)
                 m[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+            flips += r.flips
+            routed += sum(int(i.numel()) for i in record)
             for (a, b), what in zip(zip(m["cuda"], m["cpu"]), ("loss", "grad norm")):
                 rel = abs(a - b) / abs(b)
                 worst = max(worst, rel)
                 check(math.isfinite(a) and rel <= TRAIN_TOL,
                       f"{arch} reduced step {step}: CUDA {what} {a} against CPU {b}")
+        if cfg.is_moe:
+            check(routed > 0, f"{arch}: no expert was chosen in 3 steps")
+            print(f"  {arch}-reduced routing: {routed} expert choices in 3 steps (each block's"
+                  f" forward and remat's recompute) recorded on the CPU and replayed on the card;"
+                  f" the card's own choice differed in {flips} token rows", flush=True)
         if fused:
             print(f"  {arch}-reduced fp32 use_fusion, dropout 0.15: 3 steps, CUDA (K5) vs CPU loss"
                   f" and grad norm within {worst:.2e} relative (tol {TRAIN_TOL})", flush=True)
@@ -5959,15 +6134,20 @@ def training_model_flops(cfg, batch, seq):
     each mamba layer its scan forward and backward (6 N + 3 a channel and
     token forward, K8's count; the backward twice that), remat excluded;
     FLOPs the step does with remat: one more forward of every layer and
-    one more of the loss chunks' logits)."""
+    one more of the loss chunks' logits).  An MoE layer's weights are its
+    active ones: the router and ``experts_per_tok`` experts (6 N counts the
+    routed tokens' work, not the capacity's padding slots)."""
     from repro_torch.models import lm
 
     d, ff, h, hd = cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim
-    attn_layer = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d \
-        + (3 if cfg.gated_mlp else 2) * d * ff
+    attn = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd + h * hd * d
+    mlp = (3 if cfg.gated_mlp else 2) * d * ff
+    moe = d * cfg.num_experts + 3 * d * cfg.moe_d_ff * (cfg.experts_per_tok
+                                                        + cfg.num_shared_experts)
     tokens = batch * seq
     weights, extra_fwd = 0, 0
-    for kind in lm.layer_kinds(cfg):
+    for kind, is_moe in lm.layer_signatures(cfg):
+        attn_layer = attn + (moe if is_moe else mlp)
         if kind == "mamba":
             di, n, dr = cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank
             weights += d * 2 * di + di * (dr + 2 * n) + dr * di + di * d
@@ -6010,25 +6190,32 @@ def fused_training_launches(fusion, cfg, steps):
 def unfused_training_launches(cfg, seq, loss_chunk):
     """Launches one unfused training step of ``cfg`` makes under remat: K1
     twice for each projection of a layer (the forward and remat's
-    recompute) and once more for an attention layer's activated projection's
-    pre-activation in the backward, K1 on a transposed operand for each
-    projection's dX and dW; K2 twice and K6 once an attention layer; K8's
-    forward twice and its backward's two launches (the walk and the
-    combine) once a mamba layer (whose four products
-    have no activation); per loss chunk the logits twice (checkpointed),
-    their dX and dW, a tied embedding read transposed."""
+    recompute) and once more for each activated projection's
+    pre-activation in the backward (the MLP's up or gate projection; an
+    MoE layer, without shared experts, has none), K1 on a transposed
+    operand for each projection's dX and dW; an MoE layer's router is one
+    such projection, its three expert products K9 twice (forward and
+    recompute) and K9's backward once each for dX and dW; K2 twice and K6
+    once an attention layer; K8's forward twice and its backward's two
+    launches (the walk and the combine) once a mamba layer (whose four
+    products have no activation); per loss chunk the logits twice
+    (checkpointed), their dX and dW, a tied embedding read transposed."""
     from repro_torch.models import lm
 
-    kinds = lm.layer_kinds(cfg)
-    mamba = sum(kind == "mamba" for kind in kinds)
-    attn = len(kinds) - mamba
-    products = 4 + (3 if cfg.gated_mlp else 2)
+    sigs = lm.layer_signatures(cfg)
+    mamba = sum(kind == "mamba" for kind, _ in sigs)
+    moe = sum(is_moe for kind, is_moe in sigs if kind != "mamba")
+    attn = len(sigs) - mamba
+    # projections and activated projections of the attention layers
+    products = attn * 4 + (attn - moe) * (3 if cfg.gated_mlp else 2) + moe
+    activated = attn - moe
     chunks = seq // min(loss_chunk, seq)
     head_plain, head_trans = (1, 3) if cfg.tie_embeddings else (2, 2)
-    return {"gemm": attn * (2 * products + 1) + mamba * 2 * 4 + chunks * head_plain,
-            "gemm_transposed": 2 * attn * products + mamba * 2 * 4 + chunks * head_trans,
+    return {"gemm": 2 * products + activated + mamba * 2 * 4 + chunks * head_plain,
+            "gemm_transposed": 2 * products + mamba * 2 * 4 + chunks * head_trans,
             "flash_attention": 2 * attn, "flash_attention_bwd": attn,
-            "mamba_scan": 2 * mamba, "mamba_scan_bwd": 2 * mamba}
+            "mamba_scan": 2 * mamba, "mamba_scan_bwd": 2 * mamba,
+            "grouped_matmul": 2 * 3 * moe, "grouped_matmul_bwd": 2 * 3 * moe}
 
 
 def _named_leaves(tree, key=""):
@@ -6062,15 +6249,25 @@ def gradient_slope(torch, cfg, params, batch, lr=None):
     (L(+) + L(-)) / 2 - L, which it cancels, is reported beside it.  The
     parameters are restored bit for bit.  With ``lr``, also the first-order
     drop of a fresh AdamW's first step at that lr, which moves each
-    parameter by about lr against its gradient's sign: lr |g|_1.  → the
-    loss, and per group |g_G|^2, |g_G|_1, the central difference and the
-    even part."""
-    from repro_torch.models import lm
+    parameter by about lr against its gradient's sign: lr |g|_1.  For an
+    MoE config the stepped losses take the base point's routing
+    (``Routing``: the forward's expert choices of the gradient's own run,
+    replayed), since the route is a discontinuous function of the
+    router's logits and the gradient is that of the base point's route;
+    the rows a step would have routed elsewhere are counted beside each
+    group.  → the loss, and per group |g_G|^2, |g_G|_1, the central
+    difference, the even part and (MoE) the flips."""
+    from repro_torch.models import blocks, lm
 
     f = 0.02
     named = _named_leaves(params)
-    loss, _ = lm.lm_loss(cfg, params, batch, remat=True, loss_chunk=512)
-    grads = torch.autograd.grad(loss, [t for _, t in named])
+    moe_layers = sum(is_moe for _, is_moe in lm.layer_signatures(cfg))
+    with Routing(blocks) as base:
+        loss, _ = lm.lm_loss(cfg, params, batch, remat=True, loss_chunk=512)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+    pinned = base.record[:moe_layers]          # the forward's, before remat's recompute
+    check(len(base.record) == 2 * moe_layers,
+          f"gradient slope: {len(base.record)} expert choices for {moe_layers} MoE layers")
     l0 = float(loss.detach())
     del loss
     groups = {}
@@ -6084,24 +6281,31 @@ def gradient_slope(torch, cfg, params, batch, lr=None):
             g2 = sum(float(g.float().pow(2).sum()) for _, g in members)
             check(g2 > 0, f"gradient slope: the leaves {key} have no gradient")
             saved = [p.clone() for p, _ in members]
-            moved = []
+            moved, flips = [], 0
             for sign in (-1, 1):
                 for p, g in members:
                     p.add_(g, alpha=sign * f / g2)
-                moved.append(float(lm.lm_loss(cfg, params, batch, loss_chunk=512)[0]) - l0)
+                with Routing(blocks, replay=pinned if moe_layers else None) as r:
+                    moved.append(float(lm.lm_loss(cfg, params, batch, loss_chunk=512)[0]) - l0)
+                flips += r.flips
                 for (p, _), s in zip(members, saved):
                     p.copy_(s)
             rows[key] = {"grad_norm_sq": g2,
                          "grad_l1": sum(float(g.float().abs().sum()) for _, g in members),
                          "central": (moved[1] - moved[0]) / 2, "even": (moved[1] + moved[0]) / 2}
+            if moe_layers:
+                rows[key]["flips"] = flips
             del saved
     del grads
     torch.cuda.empty_cache()
     unheld = SLOPE_BF16_UNHELD if cfg.dtype == "bfloat16" else ()
     print(f"  gradient slope at loss {l0:.5f} ({cfg.dtype}): steps of -+eps g on each group of"
-          f" leaves alone, predicted to move the loss by {f}: central difference (even part) "
+          f" leaves alone, predicted to move the loss by {f}: central difference (even part"
+          + ("; rows the two steps would have routed elsewhere, pinned to the base point's"
+             " route" if moe_layers else "") + ") "
           + ", ".join(f"{k}{' (not held)' if k in unheld else ''} {r['central']:.5f}"
-                      f" ({r['even']:+.5f})" for k, r in rows.items()), flush=True)
+                      f" ({r['even']:+.5f}" + (f"; {r['flips']} flips" if moe_layers else "")
+                      + ")" for k, r in rows.items()), flush=True)
     result = {"loss": l0, "dtype": cfg.dtype, "drop": f, "groups": rows, "not_held": list(unheld)}
     if lr is not None:
         result["adamw_first_step"] = {"lr": lr, "first_order_drop": lr * rows["all"]["grad_l1"]}
@@ -6195,6 +6399,18 @@ def train_full_width(torch, counters, peaks, *, arch="minicpm_2b", batch=4, seq=
         check(launches["mamba_scan_prefill"] == want["mamba_scan"],
               f"K8's prefill kernel launched {launches['mamba_scan_prefill']} times in {steps}"
               f" steps, want {want['mamba_scan']}")
+        bwd_wgmma = launches["grouped_matmul_dx_wgmma"] + launches["grouped_matmul_dw_wgmma"]
+        check(launches["grouped_matmul_wgmma"] == want["grouped_matmul"]
+              and bwd_wgmma == want["grouped_matmul_bwd"]
+              and launches["grouped_matmul_dx_wgmma"] == launches["grouped_matmul_dw_wgmma"],
+              f"K9 launched {launches['grouped_matmul_wgmma']} times on wgmma forward, dX"
+              f" {launches['grouped_matmul_dx_wgmma']} and dW {launches['grouped_matmul_dw_wgmma']}"
+              f" times in {steps} steps, want {want['grouped_matmul']} and"
+              f" {want['grouped_matmul_bwd']} // 2 each")
+        if want["grouped_matmul"]:
+            print(f"  K9: {launches['grouped_matmul_wgmma']} forward, {launches['grouped_matmul_dx_wgmma']}"
+                  f" dX and {launches['grouped_matmul_dw_wgmma']} dW launches, all on wgmma",
+                  flush=True)
     check(launches["gemm_transposed"] > 0, "K1 never read a transposed operand")
     step_ms = statistics.median(hist["step_time"][1:]) * 1e3   # steps 2 .. steps
     tokens = batch * seq
@@ -6335,7 +6551,8 @@ def main() -> int:
                         (hw_prng_cases, (fusion, fused_gemm, rng)),
                         (bert_attention_cases, (fusion,)),
                         (block_spmm_cases, (ref, spmm, brgemm)),
-                        (grouped_matmul_cases, (ref, spmm)), (fused_output_cases, (fo, fusion)),
+                        (grouped_matmul_cases, (ref, spmm)),
+                        (grouped_matmul_bwd_cases, (ref, spmm)), (fused_output_cases, (fo, fusion)),
                         (brgemm_blocked_cases, (ref, brgemm)), (gemm_spec_cases, (ref, brgemm)),
                         (conv1x1_cases, (ref, ops))):
         start = time.perf_counter()
@@ -6440,6 +6657,20 @@ def main() -> int:
           f" model-FLOPs share {100 * mamba_train['mfu_bf16_peak']:.2f} %, peak"
           f" {mamba_train['max_memory_allocated_gib']:.2f} GiB", flush=True)
 
+    phase("10e. qwen3-moe-235b, full width (1 of 94 layers), training")
+    # d 4096, 64/4 heads of 128, 128 experts top 8 of 1536 as published; 1
+    # layer: its 2.42 B expert and 71 M attention parameters plus the untied
+    # embedding and head (1.245 B) take 16-18 bytes a parameter as fp32
+    # masters, gradients, AdamW moments and bf16 copies (~60-67 GB); two
+    # layers would need ~100 GB
+    qwen3_train = train_full_width(torch, counters, peaks, arch="qwen3_moe_235b", batch=2,
+                                   seq=2048, layers=1, slope=True)
+    print(f"  qwen3-moe-235b (1 layer) B2 x S2048 on {card_line}: step"
+          f" {qwen3_train['step_ms_median']:.1f} ms, {qwen3_train['tokens_per_s']:.1f} tokens/s,"
+          f" model-FLOPs share {100 * qwen3_train['mfu_bf16_peak']:.2f} % (bound"
+          f" {qwen3_train['step_bound_ms']:.1f} ms), peak"
+          f" {qwen3_train['max_memory_allocated_gib']:.2f} GiB", flush=True)
+
     phase("11. kernels")
     kernels = []
     for name in KERNELS:
@@ -6461,6 +6692,7 @@ def main() -> int:
                    "gptj_training": gptj_train["launches"][name],
                    "gptj_fused_training": gptj_fused["launches"][name],
                    "mamba_training": mamba_train["launches"][name],
+                   "qwen3_training": qwen3_train["launches"][name],
                    "parlooper_listing1": loops["listing1_launches"][name],
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
@@ -6497,6 +6729,7 @@ def main() -> int:
                       "fused_training": fused_training, "bert_training": bert,
                       "bert_fused_training": bert_fused, "gptj_training": gptj_train,
                       "gptj_fused_training": gptj_fused, "mamba_training": mamba_train,
+                      "qwen3_training": qwen3_train,
                       "phase3_seconds": phase3_s, "phase3_extra": bench.extra,
                       "k2_build": k2_build, "chain_build": chain_build, "bwd_build": bwd_build,
                       "gemm_build": gemm_build, "k5_k10_build": k5_k10_build,

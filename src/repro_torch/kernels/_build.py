@@ -108,6 +108,13 @@ SIGNATURES = {
         # variant, stream
         "grouped_matmul": (_P,) * 4 + (_I,) * 8 + (_P,),
         "grouped_tile": (_P,),
+        # dy, group_id, w, dx, in_bf16, out_bf16, tiles, rows, E, d, f,
+        # variant, stream
+        "grouped_matmul_dx": (_P,) * 4 + (_I,) * 8 + (_P,),
+        # x, group_id, dy, dw, in_bf16, tiles, rows, E, d, f, variant,
+        # stream
+        "grouped_matmul_dw": (_P,) * 4 + (_I,) * 7 + (_P,),
+        "grouped_bwd_tile": (_P,),
     },
     "fused_output": {
         # x, w, bias, residual, keep, gamma, beta, out, scratch, in_bf16,

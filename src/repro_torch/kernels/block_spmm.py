@@ -14,9 +14,13 @@ or 16 rows and for operands TMA cannot read, SIMT for fp32; for K9 in
 bf16 the GEMM mainloop ``csrc/gemm_mainloop.cuh`` under a Policy that reads
 each row tile's expert through tensor maps over x (d, rows, tiles) and w
 (f, d, E) (``grouped_plan``: one 64-row chunk of a row tile by 128 columns a
-CTA), K1's WMMA tile for bf16 operands TMA cannot read, SIMT for fp32.  The
-plain versions are
-``kernels.ref.block_spmm_ref`` and ``kernels.ref.grouped_matmul_ref``;
+CTA), K1's WMMA tile for bf16 operands TMA cannot read, SIMT for fp32.
+K9's backward (``grouped_matmul_dx``: dY w[g]^T per row tile;
+``grouped_matmul_dw``: each expert's x_tile^T dY_tile summed over its tiles
+in tile order, fp32) runs on the same mainloop, every operand read in place
+(``grouped_bwd_plan``), with WMMA and SIMT variants beside it.  The plain
+versions are ``kernels.ref.block_spmm_ref``, ``kernels.ref.grouped_matmul_ref``,
+``grouped_matmul_dx_ref`` and ``grouped_matmul_dw_ref``;
 ``kernels.ops.block_spmm`` and ``kernels.ops.grouped_matmul`` pick between
 kernel and plain version by the device of the tensors.
 
@@ -39,7 +43,9 @@ __all__ = ["densify_to_bcsr", "block_spmm", "grouped_matmul", "spmm_plan", "pair
            "grouped_plan", "SpmmPlan", "GroupedPlan", "WGMMA_ROWS", "SPMM_LAUNCHES",
            "SPMM_WGMMA_LAUNCHES", "SPMM_WMMA_LAUNCHES", "SPMM_SIMT_LAUNCHES", "SPMM_COUNTERS",
            "GROUPED_LAUNCHES", "GROUPED_WGMMA_LAUNCHES", "GROUPED_WMMA_LAUNCHES",
-           "GROUPED_SIMT_LAUNCHES", "GROUPED_COUNTERS", "GROUPED_TILE", "BLOCK_SHAPES"]
+           "GROUPED_SIMT_LAUNCHES", "GROUPED_COUNTERS", "GROUPED_TILE", "BLOCK_SHAPES",
+           "grouped_matmul_dx", "grouped_matmul_dw", "grouped_bwd_plan", "GroupedBwdPlan",
+           "GROUPED_DX_TILE", "GROUPED_DW_TILE", "GROUPED_BWD_LAUNCHES", "GROUPED_BWD_COUNTERS"]
 
 # Launches of each CUDA kernel since import (or since a caller reset them),
 # and K10's and K9's by variant.
@@ -51,6 +57,14 @@ GROUPED_LAUNCHES = 0
 GROUPED_WGMMA_LAUNCHES = 0
 GROUPED_WMMA_LAUNCHES = 0
 GROUPED_SIMT_LAUNCHES = 0
+# K9's backward: launches of dX and dW together, and of each by variant
+GROUPED_BWD_LAUNCHES = 0
+GROUPED_DX_WGMMA_LAUNCHES = 0
+GROUPED_DX_WMMA_LAUNCHES = 0
+GROUPED_DX_SIMT_LAUNCHES = 0
+GROUPED_DW_WGMMA_LAUNCHES = 0
+GROUPED_DW_WMMA_LAUNCHES = 0
+GROUPED_DW_SIMT_LAUNCHES = 0
 
 WGMMA_ROWS = 64              # wgmma: rows of a block (csrc/block_spmm.cu spmm_wg::BM)
 BLOCK_SHAPES = ((8, 8), (16, 16), (WGMMA_ROWS, 8), (WGMMA_ROWS, 16))   # K10's (bm, bk)
@@ -68,6 +82,17 @@ GROUPED_COUNTERS = {"wgmma": "GROUPED_WGMMA_LAUNCHES", "wmma": "GROUPED_WMMA_LAU
 # CTA computes 64 rows of a row tile (one consumer warpgroup).
 GROUPED_TILE = (128, 4)
 _GROUPED_ROWS = 64
+GROUPED_BWD_COUNTERS = {
+    "dx": {"wgmma": "GROUPED_DX_WGMMA_LAUNCHES", "wmma": "GROUPED_DX_WMMA_LAUNCHES",
+           "simt": "GROUPED_DX_SIMT_LAUNCHES"},
+    "dw": {"wgmma": "GROUPED_DW_WGMMA_LAUNCHES", "wmma": "GROUPED_DW_WMMA_LAUNCHES",
+           "simt": "GROUPED_DW_SIMT_LAUNCHES"}}
+# K9's backward wgmma tiles (rows, columns, TMA ring stages) of a CTA
+# (csrc/block_spmm.cu grouped_bwd::DxCfg and DwCfg, which the wrappers check
+# against the library once): dX the forward's tile (64 rows of a row tile by
+# 128 columns of d), dW K1's (128 rows of d by 128 columns of f).
+GROUPED_DX_TILE = (64, 128, 4)
+GROUPED_DW_TILE = (128, 128, 3)
 
 
 class SpmmPlan(NamedTuple):
@@ -130,6 +155,54 @@ def grouped_plan(tiles: int, rows: int, d: int, f: int, e: int, dtype,
     bn = GROUPED_TILE[0]
     return GroupedPlan("wgmma", (-(-f // bn), chunks, tiles), GROUPED_TILE, (d, rows, tiles),
                        (f, d, e))
+
+
+class GroupedBwdPlan(NamedTuple):
+    """How K9's backward runs one product (``kind`` dx or dw): ``variant``
+    (wgmma, wmma or simt), its ``grid``, and for wgmma the (rows, columns,
+    stages) ``tile`` and the extents of the tensor maps, innermost first:
+    dx reads ``a_map`` dY (f, rows, tiles) and ``b_map`` w (f, d, E), both
+    K-major (the k-steps walk f); dw reads ``a_map`` x (d, rows, tiles) and
+    ``b_map`` dY (f, rows, tiles), both MN-major (the k-steps walk each
+    tile's rows, zeros past its end)."""
+    kind: str
+    variant: str
+    grid: tuple
+    tile: tuple = ()
+    a_map: tuple = ()
+    b_map: tuple = ()
+
+
+def grouped_bwd_plan(kind: str, tiles: int, rows: int, d: int, f: int, e: int, dtype,
+                     aligned: bool = True) -> GroupedBwdPlan:
+    """K9's backward plan for the forward x (tiles·rows, d) times w (e, d,
+    f) of ``dtype``: ``kind`` "dx" (dY (tiles·rows, f) → dX (tiles·rows,
+    d)) or "dw" (x and dY → dW (e, d, f) fp32).  fp32 → ``simt`` (64 x 64
+    blocks); bf16 → ``wgmma`` where TMA reads every operand in place
+    (``aligned``: 16-byte aligned bases; d and f multiples of 8), else
+    ``wmma`` (64 x 128 blocks).  dx's grid is the forward's with d for f:
+    (column tiles of d, 64-row chunks, row tiles) on wgmma, (column tiles,
+    row tiles, chunks) otherwise; dw's is (column tiles of f, row tiles of
+    d, experts), each CTA walking its expert's tiles in tile order.  Never
+    names a variant because a launch failed."""
+    if kind not in ("dx", "dw"):
+        raise ValueError(f"grouped_bwd_plan kind {kind!r}: need 'dx' or 'dw'")
+    chunks = -(-rows // _GROUPED_ROWS)
+    simt = dtype != torch.bfloat16
+    wgmma = not simt and aligned and d % 8 == 0 and f % 8 == 0
+    if kind == "dx":
+        if not wgmma:
+            bn = 64 if simt else 128
+            return GroupedBwdPlan("dx", "simt" if simt else "wmma", (-(-d // bn), tiles, chunks))
+        bm, bn, _ = GROUPED_DX_TILE
+        return GroupedBwdPlan("dx", "wgmma", (-(-d // bn), -(-rows // bm), tiles), GROUPED_DX_TILE,
+                              (f, rows, tiles), (f, d, e))
+    if not wgmma:
+        bn = 64 if simt else 128
+        return GroupedBwdPlan("dw", "simt" if simt else "wmma", (-(-f // bn), -(-d // 64), e))
+    bm, bn, _ = GROUPED_DW_TILE
+    return GroupedBwdPlan("dw", "wgmma", (-(-f // bn), -(-d // bm), e), GROUPED_DW_TILE,
+                          (d, rows, tiles), (f, rows, tiles))
 
 
 def paired_steps(row_ptr, bk: int) -> list[list[tuple[int, int]]]:
@@ -302,4 +375,95 @@ def grouped_matmul(x, group_id, w, *, out_dtype=None):
     _build.check(err, "grouped_matmul")
     GROUPED_LAUNCHES += 1
     globals()[GROUPED_COUNTERS[plan.variant]] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _grouped_bwd_library():
+    """K9's library, once its backward wgmma tiles are checked to be
+    :data:`GROUPED_DX_TILE` and :data:`GROUPED_DW_TILE` (the plan's)."""
+    lib = _grouped_library()
+    tile = (ctypes.c_int * 6)()
+    lib.grouped_bwd_tile(tile)
+    if (tuple(tile[:3]), tuple(tile[3:])) != (GROUPED_DX_TILE, GROUPED_DW_TILE):
+        raise RuntimeError(f"csrc/block_spmm.cu's K9 backward tiles are {tuple(tile)},"
+                           f" grouped_bwd_plan's {GROUPED_DX_TILE + GROUPED_DW_TILE}")
+    return lib
+
+
+def _grouped_bwd_operands(name, x, group_id, w):
+    """Checks shared by the backward wrappers: CUDA, 2-D ``x`` and 3-D or
+    2-D ``w`` of one dtype, contiguous, whole row tiles; → the int32 ids
+    and the tile count."""
+    _check_cuda(name, x, group_id, w)
+    tiles = group_id.shape[0] if group_id.dim() == 1 else 0
+    if tiles == 0 or x.shape[0] % tiles:
+        raise ValueError(f"{name}: {x.shape[0]} rows in {tuple(group_id.shape)} tiles")
+    if w.dtype != x.dtype:
+        raise ValueError(f"{name} dtypes: {x.dtype}, {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    return _ids(f"{name} group_id", group_id, tiles), tiles
+
+
+def _count_bwd(kind, variant):
+    global GROUPED_BWD_LAUNCHES
+    GROUPED_BWD_LAUNCHES += 1
+    globals()[GROUPED_BWD_COUNTERS[kind][variant]] += 1
+
+
+def grouped_matmul_dx(dy, group_id, w, *, out_dtype=None):
+    """K9's dX on the GPU: dy (T, f) in ``len(group_id)`` row tiles, w (E,
+    d, f) of dy's dtype (fp32 or bf16), both contiguous; tile i times the
+    transpose of expert ``group_id[i]``'s slab (clamped into [0, E)), read
+    where it lies → (T, d) in ``out_dtype`` (default ``dy.dtype``), fp32
+    accumulator, on the variant ``grouped_bwd_plan`` names.  Raises on
+    anything the kernel does not take."""
+    if dy.dim() != 2 or w.dim() != 3 or w.shape[2] != dy.shape[1]:
+        raise ValueError(f"grouped_matmul_dx dy {tuple(dy.shape)}, w {tuple(w.shape)}")
+    group_id, tiles = _grouped_bwd_operands("grouped_matmul_dx", dy, group_id, w)
+    out_dtype = out_dtype or dy.dtype
+    codes = _dtype_code("grouped_matmul_dx", dy.dtype, out_dtype)
+    t, f = dy.shape
+    e, d, _ = w.shape
+    aligned = dy.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = grouped_bwd_plan("dx", tiles, t // tiles, d, f, e, dy.dtype, aligned)
+    out = torch.empty(t, d, dtype=out_dtype, device=dy.device)
+    if out.numel() == 0:
+        return out
+    err = _grouped_bwd_library().grouped_matmul_dx(
+        dy.data_ptr(), group_id.data_ptr(), w.data_ptr(), out.data_ptr(), *codes, tiles,
+        t // tiles, e, d, f, GROUPED_VARIANTS[plan.variant],
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, "grouped_matmul_dx")
+    _count_bwd("dx", plan.variant)
+    return out
+
+
+def grouped_matmul_dw(x, group_id, dy, num_experts: int):
+    """K9's dW on the GPU: x (T, d) and dy (T, f) of one dtype (fp32 or
+    bf16) in ``len(group_id)`` row tiles, both contiguous; for each of the
+    ``num_experts`` experts the sum over its row tiles (ids clamped into
+    [0, E)), in tile order, of x_tile^T dy_tile → (E, d, f) fp32, zeros for
+    an expert that owns no tile; no float atomics, so a rerun gives the same
+    bits.  On the variant ``grouped_bwd_plan`` names.  Raises on anything
+    the kernel does not take."""
+    if x.dim() != 2 or dy.dim() != 2 or dy.shape[0] != x.shape[0] or num_experts < 1:
+        raise ValueError(f"grouped_matmul_dw x {tuple(x.shape)}, dy {tuple(dy.shape)},"
+                         f" {num_experts} experts")
+    group_id, tiles = _grouped_bwd_operands("grouped_matmul_dw", x, group_id, dy)
+    codes = _dtype_code("grouped_matmul_dw", x.dtype, torch.float32)
+    t, d = x.shape
+    f = dy.shape[1]
+    out = torch.empty(num_experts, d, f, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    plan = grouped_bwd_plan("dw", tiles, t // tiles, d, f, num_experts, x.dtype, aligned)
+    err = _grouped_bwd_library().grouped_matmul_dw(
+        x.data_ptr(), group_id.data_ptr(), dy.data_ptr(), out.data_ptr(), codes[0], tiles,
+        t // tiles, num_experts, d, f, GROUPED_VARIANTS[plan.variant],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "grouped_matmul_dw")
+    _count_bwd("dw", plan.variant)
     return out

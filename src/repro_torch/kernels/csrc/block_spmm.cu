@@ -510,34 +510,46 @@ __device__ __forceinline__ void store2(void* out, int out_bf16, size_t at, float
   }
 }
 
-// blockIdx: x the column tile, y the 64-row chunk of the row tile, z the
-// row tile, so the column tiles of a row tile run together.
+// One CTA of a per-row-tile product out (tiles·rows, N) = A_t (rows, K)
+// times expert g's slab, on a C of one consumer warpgroup: A read K-major
+// through `ta` (K, rows, tiles), the slab through `tb` (MN-major (N, K, E)
+// for the forward, K-major (K, N, E) for K9's dX).  blockIdx: x the column
+// tile, y the 64-row chunk of the row tile, z the row tile, so the column
+// tiles of a row tile run together.
+template <class C>
+__device__ __forceinline__ void row_tile(const CUtensorMap* ta, const CUtensorMap* tb,
+                                         const int* __restrict__ group_id, void* __restrict__ out,
+                                         int out_bf16, int rows, int E, int K, int N) {
+  static_assert(C::WG == 1, "one consumer warpgroup: 64 rows of a row tile");
+  extern __shared__ unsigned char smem_raw[];
+  const gemm_ml::Smem<C> sm(smem_raw);
+  const int n0 = blockIdx.x * C::BN, c0 = blockIdx.y * 64, t = blockIdx.z;
+  const int n = (K + gemm_ml::BK - 1) / gemm_ml::BK;
+  gemm_ml::init<C>(sm);
+  const int wg = gemm_ml::warpgroup();
+  if (wg == C::WG) {
+    const int g = min(max(group_id[t], 0), E - 1);
+    gemm_ml::produce<C>(sm, ta, tb, Coords{c0, n0, t, g}, n);
+    return;
+  }
+  float acc[C::BN / 2];
+  gemm_ml::consume<C>(acc, sm, n, wg);
+  // acc[i]: row c0 + acc_row(i) of row tile t, column n0 + acc_col(i)
+  const size_t row0 = (size_t)t * rows;
+  const bool pair = N % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < C::BN / 2; i += 2) {
+    const int r = c0 + gemm_ml::acc_row(i), c = n0 + gemm_ml::acc_col(i);
+    if (r < rows && c < N)
+      store2(out, out_bf16, (row0 + r) * N + c, acc[i], acc[i + 1], c + 1 < N, pair);
+  }
+}
+
 __global__ void __launch_bounds__(Cfg::THREADS)
 grouped_matmul_bf16_wgmma(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tw, const int* __restrict__ group_id,
                           void* __restrict__ out, int out_bf16, int rows, int E, int d, int f) {
-  extern __shared__ unsigned char smem_raw[];
-  const gemm_ml::Smem<Cfg> sm(smem_raw);
-  const int n0 = blockIdx.x * Cfg::BN, c0 = blockIdx.y * 64, t = blockIdx.z;
-  const int n = (d + gemm_ml::BK - 1) / gemm_ml::BK;
-  gemm_ml::init<Cfg>(sm);
-  const int wg = gemm_ml::warpgroup();
-  if (wg == Cfg::WG) {
-    const int g = min(max(group_id[t], 0), E - 1);
-    gemm_ml::produce<Cfg>(sm, &tx, &tw, Coords{c0, n0, t, g}, n);
-    return;
-  }
-  float acc[Cfg::BN / 2];
-  gemm_ml::consume<Cfg>(acc, sm, n, wg);
-  // acc[i]: row c0 + acc_row(i) of row tile t, column n0 + acc_col(i)
-  const size_t row0 = (size_t)t * rows;
-  const bool pair = f % 2 == 0;
-#pragma unroll
-  for (int i = 0; i < Cfg::BN / 2; i += 2) {
-    const int r = c0 + gemm_ml::acc_row(i), c = n0 + gemm_ml::acc_col(i);
-    if (r < rows && c < f)
-      store2(out, out_bf16, (row0 + r) * f + c, acc[i], acc[i + 1], c + 1 < f, pair);
-  }
+  row_tile<Cfg>(&tx, &tw, group_id, out, out_bf16, rows, E, d, f);
 }
 
 cudaError_t launch(const bf16* x, const int* group_id, const bf16* w, void* out, int out_bf16,
@@ -559,6 +571,164 @@ cudaError_t launch(const bf16* x, const int* group_id, const bf16* w, void* out,
   return cudaGetLastError();
 }
 }  // namespace grouped_wg
+
+// K9's backward: the gradients of out = x_t w[g] for every row tile t,
+//   dX_t = dY_t w[g]^T                  (T, d), in x's dtype;
+//   dW[e] = sum over the tiles t of e, in tile order, of x_t^T dY_t
+//                                        (E, d, f), fp32.
+// No TPU kernel: the reference trains its MoE layer through jax.grad of
+// repro/models/blocks.py:486 _expert_ffn's einsums, which these replace on
+// the card, as K1's transposed reads carry a projection's backward.
+//
+// What bounds them on an H100: at qwen3-moe's training layer (4096 tokens,
+// 128 experts' tiles of cap 320 rows, d 4096, f 1536) each is 515 GFLOP of
+// bf16 products, 0.52 ms at the dense peak.  dX reads every expert's slab
+// (1.61 GB), dY and writes dX: about 0.62 ms of HBM, so bytes bound it by a
+// little; dW reads x and dY once (0.46 GB) and writes 3.22 GB of fp32
+// slabs: about 1.10 ms, bound by its writes.
+//
+// What the design does about it: both run the GEMM mainloop of
+// csrc/gemm_mainloop.cuh, every operand read in place through tensor maps
+// (no transposed copy of w, x or dY) and zeros past every extent.
+//   dX: the forward's CTA (grouped_wg::row_tile: 64 rows of a row tile by
+//     128 columns, a 4-stage ring), its B the expert's slab read K-major
+//     where it lies, through a map over w (f, d, E) whose box runs along f,
+//     so that the k-steps walk f.
+//   dW: K1's tile (two consumer warpgroups, 128 rows of d by 128 columns of
+//     f, a 3-stage ring, two CTAs an SM), a CTA per (column tile, row tile,
+//     expert).  A is x read MN-major and B dY read MN-major, each through
+//     a map over (width, rows, tiles), so the contraction runs over the
+//     rows of each tile: ceil(rows / 64) k-steps a tile, rows past a tile's
+//     end arriving as zeros.  The producer walks the expert's tiles in tile
+//     order and the consumers sum every k-step into one fp32 accumulator,
+//     so the tiles of an expert may lie apart, their sum has one order, and
+//     no float atomics are used; an expert that owns no tile runs no k-step
+//     and writes zeros.  The fp32 writes bound it at this shape.
+//   wmma (bf16 operands TMA cannot read) and simt (fp32): the forward's
+//     WMMA and SIMT tiles for dX (the slab read as a stored (N, K)
+//     matrix), and tiles of their shape for dW that step the same tile
+//     walk through shared memory, unpipelined.
+// kernels/block_spmm.py's GROUPED_DX_TILE and GROUPED_DW_TILE mirror the
+// two configs, and its wrappers check them against grouped_bwd_tile() once.
+namespace grouped_bwd {
+using DxCfg = gemm_ml::Config<1, 128, 4, false, false>;
+using DwCfg = gemm_ml::Config<2, 128, 3, true, true>;
+
+__global__ void __launch_bounds__(DxCfg::THREADS)
+grouped_matmul_dx_bf16_wgmma(const __grid_constant__ CUtensorMap tdy,
+                             const __grid_constant__ CUtensorMap tw,
+                             const int* __restrict__ group_id, void* __restrict__ dx,
+                             int out_bf16, int rows, int E, int d, int f) {
+  grouped_wg::row_tile<DxCfg>(&tdy, &tw, group_id, dx, out_bf16, rows, E, f, d);
+}
+
+// The number of row tiles of expert e (ids clamped into [0, E)), the same
+// value in every thread: a warp's sum, broadcast from lane 0 so that the
+// k-step loops it bounds are not divergent paths to ptxas (C7518).
+__device__ __forceinline__ int owned_tiles(const int* __restrict__ group_id, int tiles, int E,
+                                           int e) {
+  int c = 0;
+  for (int t = threadIdx.x % 32; t < tiles; t += 32) c += min(max(group_id[t], 0), E - 1) == e;
+#pragma unroll
+  for (int s = 16; s > 0; s /= 2) c += __shfl_xor_sync(0xffffffffu, c, s);
+  return __shfl_sync(0xffffffffu, c, 0);
+}
+
+// dW's addressing: k-step it covers rows [64 (it % kpt), + 64) of the
+// (it / kpt)-th tile of expert e in tile order; A is x's box there at d
+// m0, B dY's at f n0.  The producer asks for it = 0, 1, ... in order, so
+// the walk keeps its tile and steps to the expert's next one.
+struct DwCoords {
+  const int* group_id;
+  int E, e, kpt, m0, n0;
+  mutable int tile = -1;
+  __device__ __forceinline__ void coords(int it, int& ar, int& ak, int& az, int& br, int& bk,
+                                         int& bz, int& bz_hi) const {
+    const int s = it % kpt;
+    if (s == 0) {
+      do {
+        ++tile;
+      } while (min(max(group_id[tile], 0), E - 1) != e);
+    }
+    ar = m0, br = n0, ak = bk = s * gemm_ml::BK, az = bz = bz_hi = tile;
+  }
+};
+
+// blockIdx: x the 128-column tile of f, y the 128-row tile of d, z the
+// expert.
+__global__ void __launch_bounds__(DwCfg::THREADS, 2)
+grouped_matmul_dw_bf16_wgmma(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tdy,
+                             const int* __restrict__ group_id, float* __restrict__ dw, int tiles,
+                             int rows, int E, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const gemm_ml::Smem<DwCfg> sm(smem_raw);
+  const int n0 = blockIdx.x * DwCfg::BN, m0 = blockIdx.y * DwCfg::BM, e = blockIdx.z;
+  const int kpt = (rows + gemm_ml::BK - 1) / gemm_ml::BK;
+  const int n = owned_tiles(group_id, tiles, E, e) * kpt;
+  gemm_ml::init<DwCfg>(sm);
+  const int wg = gemm_ml::warpgroup();
+  if (wg == DwCfg::WG) {
+    gemm_ml::produce<DwCfg>(sm, &tx, &tdy, DwCoords{group_id, E, e, kpt, m0, n0}, n);
+    return;
+  }
+  float acc[DwCfg::BN / 2];
+  gemm_ml::consume<DwCfg>(acc, sm, n, wg);
+  // acc[i]: row m0 + 64 wg + acc_row(i) of dW[e] (along d), column
+  // n0 + acc_col(i) (along f)
+  float* out = dw + (size_t)e * d * f;
+  const int row0 = m0 + 64 * wg;
+  const bool pair = f % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < DwCfg::BN / 2; i += 2) {
+    const int r = row0 + gemm_ml::acc_row(i), c = n0 + gemm_ml::acc_col(i);
+    if (r < d && c < f)
+      grouped_wg::store2(out, 0, (size_t)r * f + c, acc[i], acc[i + 1], c + 1 < f, pair);
+  }
+}
+
+template <class Kern>
+cudaError_t allow_smem(Kern kern, int bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+cudaError_t launch_dx(const bf16* dy, const int* group_id, const bf16* w, void* dx, int out_bf16,
+                      int tiles, int rows, int E, int d, int f, cudaStream_t s) {
+  CUtensorMap tdy, tw;
+  // dY as (f, rows, tiles), K-major: a tile's rows past its end read as zeros
+  cudaError_t e = hopper::tile_map(&tdy, dy, f, rows, tiles, 1, f, (long long)rows * f, 0,
+                                   gemm_ml::BK, 64);
+  // the experts as (f, d, E), K-major: boxes of 64 f by 128 rows of d
+  if (e == cudaSuccess)
+    e = hopper::tile_map(&tw, w, f, d, E, 1, f, (long long)d * f, 0, gemm_ml::BK, DxCfg::BN);
+  if (e != cudaSuccess) return e;
+  static const cudaError_t attr = allow_smem(&grouped_matmul_dx_bf16_wgmma, DxCfg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((d + DxCfg::BN - 1) / DxCfg::BN, (rows + 63) / 64, tiles);
+  grouped_matmul_dx_bf16_wgmma<<<grid, DxCfg::THREADS, DxCfg::SMEM, s>>>(tdy, tw, group_id, dx,
+                                                                          out_bf16, rows, E, d, f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dw(const bf16* x, const int* group_id, const bf16* dy, float* dw, int tiles,
+                      int rows, int E, int d, int f, cudaStream_t s) {
+  CUtensorMap tx, tdy;
+  // x as (d, rows, tiles) and dY as (f, rows, tiles), MN-major: panels of
+  // 64 columns by 64 rows of a tile, zeros past its end
+  cudaError_t e = hopper::tile_map(&tx, x, d, rows, tiles, 1, d, (long long)rows * d, 0,
+                                   DwCfg::A::SW, gemm_ml::BK);
+  if (e == cudaSuccess)
+    e = hopper::tile_map(&tdy, dy, f, rows, tiles, 1, f, (long long)rows * f, 0, DwCfg::B::SW,
+                         gemm_ml::BK);
+  if (e != cudaSuccess) return e;
+  static const cudaError_t attr = allow_smem(&grouped_matmul_dw_bf16_wgmma, DwCfg::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((f + DwCfg::BN - 1) / DwCfg::BN, (d + DwCfg::BM - 1) / DwCfg::BM, E);
+  grouped_matmul_dw_bf16_wgmma<<<grid, DwCfg::THREADS, DwCfg::SMEM, s>>>(tx, tdy, group_id, dw,
+                                                                          tiles, rows, E, d, f);
+  return cudaGetLastError();
+}
+}  // namespace grouped_bwd
 
 // K9 on wmma, for bf16 operands TMA cannot read (a base not 16-byte
 // aligned, d or f not a multiple of 8), so with scalar loads.  blockIdx: x
@@ -587,6 +757,150 @@ grouped_matmul_f32_simt(const float* __restrict__ x, const int* __restrict__ gro
   f32_simt_tile<false, false>(x + row0 * d, w + (size_t)g * d * f,
                               static_cast<const float*>(nullptr), out + row0 * f, rows, f, d, d,
                               f, ACT_NONE, blockIdx.z * 64, blockIdx.x * 64);
+}
+
+// K9's dX on wmma (bf16 operands TMA cannot read) and simt (fp32): the
+// forward's tiles with the expert's slab (d, f) read as a stored (N, K)
+// matrix.  blockIdx: x the column tile of d, y the row tile, z the 64-row
+// chunk of it.
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+grouped_matmul_dx_bf16_wmma(const bf16* __restrict__ dy, const int* __restrict__ group_id,
+                            const bf16* __restrict__ w, TOut* __restrict__ dx, int rows, int E,
+                            int d, int f) {
+  const int g = min(max(group_id[blockIdx.y], 0), E - 1);
+  const size_t row0 = (size_t)blockIdx.y * rows;
+  bf16_wmma_tile<64, 128, 2, 4, false, true>(dy + row0 * f, w + (size_t)g * d * f,
+                                             static_cast<const bf16*>(nullptr), dx + row0 * d,
+                                             rows, d, f, f, f, ACT_NONE, false, blockIdx.z * 64,
+                                             blockIdx.x * 128);
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+grouped_matmul_dx_f32_simt(const float* __restrict__ dy, const int* __restrict__ group_id,
+                           const float* __restrict__ w, TOut* __restrict__ dx, int rows, int E,
+                           int d, int f) {
+  const int g = min(max(group_id[blockIdx.y], 0), E - 1);
+  const size_t row0 = (size_t)blockIdx.y * rows;
+  f32_simt_tile<false, true>(dy + row0 * f, w + (size_t)g * d * f,
+                             static_cast<const float*>(nullptr), dx + row0 * d, rows, d, f, f, f,
+                             ACT_NONE, blockIdx.z * 64, blockIdx.x * 64);
+}
+
+// K9's dW on wmma: the (64 x 128) tile at (m0 along d, n0 along f) of
+// expert e's slab, 8 warps of 32 x 32, over the expert's tiles in tile
+// order and each tile's rows 32 at a time through shared memory (scalar
+// loads, zeros past the tile's rows, d and f).  blockIdx: x the column
+// tile of f, y the row tile of d, z the expert.
+__global__ void __launch_bounds__(256)
+grouped_matmul_dw_bf16_wmma(const bf16* __restrict__ x, const int* __restrict__ group_id,
+                            const bf16* __restrict__ dy, float* __restrict__ dw, int tiles,
+                            int rows, int E, int d, int f) {
+  constexpr int BM = 64, BN = 128, BK = 32, AP = BM + 8, BP = BN + 8;
+  __shared__ __align__(128) bf16 As[BK * AP];   // x^T's tile, k-major
+  __shared__ __align__(128) bf16 Bs[BK * BP];
+  __shared__ __align__(128) float Cs[8][16 * 16];
+  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wm = warp / 4, wn = warp % 4;
+  const bf16 zero = __float2bfloat16(0.0f);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int t = 0; t < tiles; ++t) {
+    if (min(max(group_id[t], 0), E - 1) != e) continue;
+    const bf16* xt = x + (size_t)t * rows * d;
+    const bf16* yt = dy + (size_t)t * rows * f;
+    for (int k0 = 0; k0 < rows; k0 += BK) {
+      for (int i = threadIdx.x; i < BK * BM; i += 256) {
+        const int r = i / BM, c = i % BM;
+        As[r * AP + c] = k0 + r < rows && m0 + c < d ? xt[(size_t)(k0 + r) * d + m0 + c] : zero;
+      }
+      for (int i = threadIdx.x; i < BK * BN; i += 256) {
+        const int r = i / BN, c = i % BN;
+        Bs[r * BP + c] = k0 + r < rows && n0 + c < f ? yt[(size_t)(k0 + r) * f + n0 + c] : zero;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], &As[kk * AP + wm * 32 + i * 16], AP);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bfr[j], &Bs[kk * BP + wn * 32 + j * 16], BP);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+  float* cs = Cs[warp];
+  float* out = dw + (size_t)e * d * f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int q = lane; q < 256; q += 32) {
+        const int gm = m0 + wm * 32 + i * 16 + q / 16, gn = n0 + wn * 32 + j * 16 + q % 16;
+        if (gm < d && gn < f) out[(size_t)gm * f + gn] = cs[q];
+      }
+      __syncwarp();
+    }
+}
+
+// K9's dW in fp32 FMA (never TF32): the 64 x 64 tile at (m0, n0) of expert
+// e's slab, 256 threads of 4 x 4, the same tile walk 16 rows at a time.
+__global__ void __launch_bounds__(256)
+grouped_matmul_dw_f32_simt(const float* __restrict__ x, const int* __restrict__ group_id,
+                           const float* __restrict__ dy, float* __restrict__ dw, int tiles,
+                           int rows, int E, int d, int f) {
+  constexpr int BM = 64, BN = 64, BK = 16;
+  __shared__ float As[BK][BM + 4];
+  __shared__ float Bs[BK][BN + 4];
+  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    if (min(max(group_id[t], 0), E - 1) != e) continue;
+    const float* xt = x + (size_t)t * rows * d;
+    const float* yt = dy + (size_t)t * rows * f;
+    for (int k0 = 0; k0 < rows; k0 += BK) {
+      for (int i = threadIdx.x; i < BK * BM; i += 256) {
+        const int r = i / BM, c = i % BM;
+        As[r][c] = k0 + r < rows && m0 + c < d ? xt[(size_t)(k0 + r) * d + m0 + c] : 0.0f;
+        Bs[r][c] = k0 + r < rows && n0 + c < f ? yt[(size_t)(k0 + r) * f + n0 + c] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+  float* out = dw + (size_t)e * d * f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
+      if (gm < d && gn < f) out[(size_t)gm * f + gn] = acc[i][j];
+    }
 }
 
 }  // namespace
@@ -696,5 +1010,93 @@ extern "C" int grouped_matmul(const void* x, const void* group_id, const void* w
 extern "C" int grouped_tile(int* out) {
   out[0] = grouped_wg::Cfg::BN;
   out[1] = grouped_wg::Cfg::STAGES;
+  return 0;
+}
+
+// K9's dX: dy (tiles·rows, f) and w (E, d, f) contiguous, bf16 if in_bf16
+// else fp32; group_id (tiles) int32 on the device, clamped into [0, E); dx
+// (tiles·rows, d) contiguous, bf16 if out_bf16 else fp32.  variant 1:
+// wgmma (bf16, d and f multiples of 8, dy's and w's bases 16-byte
+// aligned); 0: wmma (other bf16) or simt (fp32).  Returns
+// cudaGetLastError() after the launch.
+extern "C" int grouped_matmul_dx(const void* dy, const void* group_id, const void* w, void* dx,
+                                 int in_bf16, int out_bf16, int tiles, int rows, int E, int d,
+                                 int f, int variant, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gid = static_cast<const int*>(group_id);
+  if (variant == 1) {
+    if (!in_bf16 || d % 8 || f % 8) return static_cast<int>(cudaErrorInvalidConfiguration);
+    return static_cast<int>(grouped_bwd::launch_dx(static_cast<const bf16*>(dy), gid,
+                                                   static_cast<const bf16*>(w), dx, out_bf16,
+                                                   tiles, rows, E, d, f, s));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (rows + 63) / 64;
+  if (in_bf16) {
+    const dim3 grid((d + 127) / 128, tiles, chunks);
+    const bf16* Y = static_cast<const bf16*>(dy);
+    const bf16* W = static_cast<const bf16*>(w);
+    if (out_bf16)
+      grouped_matmul_dx_bf16_wmma<<<grid, 256, 0, s>>>(Y, gid, W, static_cast<bf16*>(dx), rows, E,
+                                                       d, f);
+    else
+      grouped_matmul_dx_bf16_wmma<<<grid, 256, 0, s>>>(Y, gid, W, static_cast<float*>(dx), rows,
+                                                       E, d, f);
+  } else {
+    const dim3 grid((d + 63) / 64, tiles, chunks);
+    const float* Y = static_cast<const float*>(dy);
+    const float* W = static_cast<const float*>(w);
+    if (out_bf16)
+      grouped_matmul_dx_f32_simt<<<grid, 256, 0, s>>>(Y, gid, W, static_cast<bf16*>(dx), rows, E,
+                                                      d, f);
+    else
+      grouped_matmul_dx_f32_simt<<<grid, 256, 0, s>>>(Y, gid, W, static_cast<float*>(dx), rows, E,
+                                                      d, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9's dW: x (tiles·rows, d) and dy (tiles·rows, f) contiguous, bf16 if
+// in_bf16 else fp32; group_id (tiles) int32 on the device, clamped into
+// [0, E); dw (E, d, f) fp32 contiguous, every element written (zeros for an
+// expert that owns no tile).  variant 1: wgmma (bf16, d and f multiples of
+// 8, x's and dy's bases 16-byte aligned); 0: wmma (other bf16) or simt
+// (fp32).  Returns cudaGetLastError() after the launch.
+extern "C" int grouped_matmul_dw(const void* x, const void* group_id, const void* dy, void* dw,
+                                 int in_bf16, int tiles, int rows, int E, int d, int f,
+                                 int variant, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gid = static_cast<const int*>(group_id);
+  float* out = static_cast<float*>(dw);
+  if (variant == 1) {
+    if (!in_bf16 || d % 8 || f % 8) return static_cast<int>(cudaErrorInvalidConfiguration);
+    return static_cast<int>(grouped_bwd::launch_dw(static_cast<const bf16*>(x), gid,
+                                                   static_cast<const bf16*>(dy), out, tiles, rows,
+                                                   E, d, f, s));
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_bf16) {
+    const dim3 grid((f + 127) / 128, (d + 63) / 64, E);
+    grouped_matmul_dw_bf16_wmma<<<grid, 256, 0, s>>>(static_cast<const bf16*>(x), gid,
+                                                     static_cast<const bf16*>(dy), out, tiles,
+                                                     rows, E, d, f);
+  } else {
+    const dim3 grid((f + 63) / 64, (d + 63) / 64, E);
+    grouped_matmul_dw_f32_simt<<<grid, 256, 0, s>>>(static_cast<const float*>(x), gid,
+                                                    static_cast<const float*>(dy), out, tiles,
+                                                    rows, E, d, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9's backward wgmma tiles, for the wrappers' check of their plans: dX's
+// (rows, columns, ring stages), then dW's.
+extern "C" int grouped_bwd_tile(int* out) {
+  out[0] = grouped_bwd::DxCfg::BM;
+  out[1] = grouped_bwd::DxCfg::BN;
+  out[2] = grouped_bwd::DxCfg::STAGES;
+  out[3] = grouped_bwd::DwCfg::BM;
+  out[4] = grouped_bwd::DwCfg::BN;
+  out[5] = grouped_bwd::DwCfg::STAGES;
   return 0;
 }

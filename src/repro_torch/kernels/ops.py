@@ -8,19 +8,18 @@ fails the call.  Counterpart of ``repro/kernels/ops.py`` (``matmul``,
 ``mamba_scan``, ``block_spmm``, ``grouped_matmul``, ``conv2d``), plus
 ``brgemm_blocked`` (paper Listing 1, K11).
 
-``matmul``, ``attention`` and ``mamba_scan`` are ``torch.autograd.Function``s
-when an input requires a gradient.  Their forward and backward dispatch by
-device too, so the CPU tests run the same Function, saved tensors and
-backward wiring as the card: ``matmul``'s backward is K1 on transposed
-operands, ``attention``'s is K6 fed by K2's row log-sum-exp, and
-``mamba_scan``'s is K8's backward kernel fed by the states K8's forward
-writes at its chunk boundaries.  When no input requires a gradient they
-call the forward alone and save nothing.  ``block_spmm``, ``conv2d``,
-``brgemm_blocked`` and a ``matmul`` scheduled by a spec string have no
-gradient in the reference: each raises when an input requires a gradient.
-``grouped_matmul`` raises too, since K9's backward is still to be written;
-the reference's MoE layer, which computes the same products as einsums,
-does train.
+``matmul``, ``attention``, ``mamba_scan`` and ``grouped_matmul`` are
+``torch.autograd.Function``s when an input requires a gradient.  Their
+forward and backward dispatch by device too, so the CPU tests run the same
+Function, saved tensors and backward wiring as the card: ``matmul``'s
+backward is K1 on transposed operands, ``attention``'s is K6 fed by K2's row
+log-sum-exp, ``mamba_scan``'s is K8's backward kernel fed by the states K8's
+forward writes at its chunk boundaries, and ``grouped_matmul``'s is K9's
+backward (dX and dW kernels reading the same operands transposed, in
+place).  When no input requires a gradient they call the forward alone and
+save nothing.  ``block_spmm``, ``conv2d``, ``brgemm_blocked`` and a
+``matmul`` scheduled by a spec string have no gradient in the reference:
+each raises when an input requires a gradient.
 """
 from __future__ import annotations
 
@@ -268,19 +267,52 @@ def block_spmm(blocks, row_id, col_id, b, *, nrows_b, bn=128, out_dtype=None):
     return spmm.block_spmm(blocks, row_id, col_id, b, nrows_b=nrows_b, out_dtype=out_dtype)
 
 
-def grouped_matmul(x, group_id, w, *, bf=128, out_dtype=None):
-    """Per-row-tile expert product: x (T, d) in ``len(group_id)`` row tiles,
-    ``group_id`` (tiles,) int32, w (E, d, f); → (T, f) in ``out_dtype``
-    (default ``x.dtype``) (K9).  ``bf`` is the reference's f tile; the CUDA
-    kernel tiles f by 128 (bf16) or 64 (fp32) and masks the edge.
-    Inference only: an input that requires a gradient raises."""
-    _no_grad("grouped_matmul", x, w,
-             why="K9's backward is not written yet (ROADMAP.md, Queue 1: qwen3-moe training);"
-             " the reference trains its MoE layer through jax.grad of its einsums, not"
-             " through this kernel")
+def _grouped_fwd(x, group_id, w, out_dtype):
     if _on_cpu(x, group_id, w):
         return ref.grouped_matmul_ref(x, group_id, w, out_dtype=out_dtype)
     return spmm.grouped_matmul(x, group_id, w, out_dtype=out_dtype)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The per-row-tile expert product with w cast to x's dtype inside, so
+    the gradient of fp32 master experts comes back in fp32 (K9's dW writes
+    fp32) rather than rounded to the compute dtype first.  Backward: the
+    incoming gradient rounded to x's dtype, then dX (K9's dX kernel, in x's
+    dtype) and dW (K9's dW kernel, fp32) on the card, their plain versions
+    on the CPU; ``group_id`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group_id, w, out_dtype):
+        ctx.save_for_backward(x, group_id, w)
+        return _grouped_fwd(x, group_id, _cast(w, x.dtype), out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, group_id, w = ctx.saved_tensors
+        dyc = _cast(dy, x.dtype).contiguous()
+        cpu = _on_cpu(x, group_id, w, dyc)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wc = _cast(w, x.dtype)
+            dx = (ref.grouped_matmul_dx_ref(dyc, group_id, wc) if cpu
+                  else spmm.grouped_matmul_dx(dyc, group_id, wc))
+        if ctx.needs_input_grad[2]:
+            dw = (ref.grouped_matmul_dw_ref(x, group_id, dyc, w.shape[0]) if cpu
+                  else spmm.grouped_matmul_dw(x, group_id, dyc, w.shape[0]))
+        return dx, None, _cast(dw, w.dtype), None
+
+
+def grouped_matmul(x, group_id, w, *, bf=128, out_dtype=None):
+    """Per-row-tile expert product: x (T, d) in ``len(group_id)`` row tiles,
+    ``group_id`` (tiles,) int32, w (E, d, f); → (T, f) in ``out_dtype``
+    (default ``x.dtype``) (K9).  ``w`` may be fp32 master weights: it is
+    cast to ``x``'s dtype at use.  ``bf`` is the reference's f tile; the
+    CUDA kernel tiles f by 128 (bf16) or 64 (fp32) and masks the edge.
+    With a gradient wanted it is the autograd Function ``_GroupedMatmul``,
+    whose backward is K9's dX and dW kernels on the card."""
+    if _wants_grad(x, w):
+        return _GroupedMatmul.apply(x, group_id, w, out_dtype)
+    return _grouped_fwd(x, group_id, _cast(w, x.dtype), out_dtype)
 
 
 def brgemm_blocked(a, b, *, spec_string="bca", k_step=1, block_steps=None, out_dtype=None):

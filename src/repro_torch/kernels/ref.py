@@ -8,7 +8,9 @@ is what XLA's autodiff of that oracle computes (``matmul_bwd_ref``;
 plain version of the backward mainloop that K6 and K5's chained backward
 share); ``mlp_ref``, ``bcsr_to_dense``,
 ``block_spmm_ref``, ``grouped_matmul_ref``, ``brgemm_blocked_ref`` and
-``conv2d_ref`` mirror the oracles of the same names.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
+``conv2d_ref`` mirror the oracles of the same names;
+``grouped_matmul_dx_ref`` and ``grouped_matmul_dw_ref`` are what XLA's
+autodiff of the reference's expert einsums computes, per row tile.  On the CPU they are what ``kernels.ops`` runs (``matmul``'s
 backward there runs ``matmul_ref`` on transposed views, as K1 reads them on
 the card, and the tests hold it against ``matmul_bwd_ref``); on the GPU
 they are what ``chip_smoke.py`` holds each CUDA kernel against.  They
@@ -24,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import tpp
 
 __all__ = ["matmul_ref", "matmul_bwd_ref", "brgemm_blocked_ref", "conv2d_ref", "mlp_ref", "bcsr_to_dense", "block_spmm_ref",
-           "grouped_matmul_ref", "attention_ref", "attention_chunked", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
+           "grouped_matmul_ref", "grouped_matmul_dx_ref", "grouped_matmul_dw_ref", "attention_ref", "attention_chunked", "attention_fwd_ref", "attention_bwd_ref", "flash_bwd_ref",
            "decode_attention_ref", "paged_decode_attention_ref", "mamba_scan_ref",
            "mamba_scan_chunked", "mamba_scan_bwd_ref"]
 
@@ -134,6 +136,32 @@ def grouped_matmul_ref(x, group_id, w, *, out_dtype=None):
     bm = x.shape[0] // tiles
     out = torch.bmm(x.reshape(tiles, bm, -1).float(), w[group_id.long()].float())
     return out.reshape(x.shape[0], w.shape[-1]).to(out_dtype or x.dtype)
+
+
+def grouped_matmul_dx_ref(dy, group_id, w, *, out_dtype=None):
+    """The gradient of ``grouped_matmul_ref`` with respect to x: dy (T, f)
+    in ``len(group_id)`` row tiles, w (E, d, f); tile i times the transpose
+    of its expert's slab, → (T, d) in ``out_dtype`` (default ``dy.dtype``),
+    fp32 accumulator."""
+    tiles = group_id.shape[0]
+    bm = dy.shape[0] // tiles
+    out = torch.bmm(dy.reshape(tiles, bm, -1).float(),
+                    w[group_id.long()].float().transpose(1, 2))
+    return out.reshape(dy.shape[0], w.shape[1]).to(out_dtype or dy.dtype)
+
+
+def grouped_matmul_dw_ref(x, group_id, dy, num_experts):
+    """The gradient of ``grouped_matmul_ref`` with respect to w: x (T, d)
+    and dy (T, f) in ``len(group_id)`` row tiles; each tile's x_tile^T
+    dy_tile in fp32, added into its expert's slab by ``index_add_`` (on the
+    CPU one tile after another, in tile order) → (num_experts, d, f) fp32,
+    zeros for an expert that owns no tile."""
+    tiles = group_id.shape[0]
+    bm = x.shape[0] // tiles
+    part = torch.bmm(x.reshape(tiles, bm, -1).float().transpose(1, 2),
+                     dy.reshape(tiles, bm, -1).float())
+    out = torch.zeros(num_experts, x.shape[1], dy.shape[1], dtype=torch.float32, device=x.device)
+    return out.index_add_(0, group_id.long(), part)
 
 
 def _masked_scores(q, k, *, causal, window, scale):

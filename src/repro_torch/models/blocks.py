@@ -19,11 +19,11 @@ and the no-cache attention (the chained root) are fused TppGraphs
 (``repro_torch.fusion``: K5 on the card) with derived backward graphs, as
 in ``repro``.  The Mamba-1 block (``mamba_apply``: the selective scan, K8
 on the card) serves with the dense and the paged caches and trains.  The
-token-choice top-k mixture of experts (``moe_apply``, single device) serves:
-its router is K1, its experts' three products K9 (``ops.grouped_matmul``)
-over the (E, cap, d) dispatch buffer, and it refuses a gradient until K9
-has a backward.  The MLA and cross-attention branches and expert
-parallelism are still to be ported (ROADMAP.md, Queue 1).
+token-choice top-k mixture of experts (``moe_apply``, single device) serves
+and trains: its router is K1, its experts' three products K9
+(``ops.grouped_matmul``, whose backward is K9's dX and dW kernels) over the
+(E, cap, d) dispatch buffer.  The MLA and cross-attention branches and
+expert parallelism are still to be ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -365,16 +365,20 @@ def init_moe(cfg: ModelConfig, gen, dtype=None):
 def _expert_ffn(cfg: ModelConfig, wg, wu, wd, xe):
     """xe (E, C, d) → (E, C, d): the gated FFN of every expert over its C
     slots.  The three products run on ``ops.grouped_matmul`` (K9 on the
-    card): xe viewed as E row tiles of C rows, tile i on expert i, each
-    product accumulated and returned in fp32, as the reference's einsums
-    are.  With ``cfg.use_fusion`` each expert's gated up projection is
-    ``fused_gated_mlp_apply`` (K5 on the card), one call an expert, as the
-    reference's loop; the down product stays on K9."""
+    card; its backward K9's dX and dW kernels): xe viewed as E row tiles of
+    C rows, tile i on expert i, each product accumulated and returned in
+    fp32, as the reference's einsums are.  The weights go in as they are
+    stored (fp32 masters when training) and are cast to xe's dtype inside
+    the product, so their gradients come back in fp32.  With
+    ``cfg.use_fusion`` each expert's gated up projection is
+    ``fused_gated_mlp_apply`` (K5 on the card, with its derived backward
+    graphs), one call an expert, as the reference's loop; the down product
+    stays on K9."""
     e, cap, d = xe.shape
     dt = xe.dtype
     gid = torch.arange(e, dtype=torch.int32, device=xe.device)
-    wg, wu, wd = wg.to(dt), wu.to(dt), wd.to(dt)
     if cfg.use_fusion:
+        wg, wu = wg.to(dt), wu.to(dt)
         h = torch.stack([fusion_lib.fused_gated_mlp_apply(xe[i], wg[i], wu[i],
                                                           activation=cfg.mlp_activation)
                          for i in range(e)]).to(dt)
@@ -412,19 +416,18 @@ def moe_apply(cfg: ModelConfig, p, x2d):
     (``tpp._row_sum``), so a decoded row does not depend on its batch.
     ``aux`` is the Switch load-balance loss (fp32 scalar).
 
-    Serving only: an input that requires a gradient raises, since K9 has no
-    backward yet (ROADMAP.md); the reference trains through ``jax.grad`` of
-    its einsums."""
-    if ops._wants_grad(x2d, p["router"], p["wg"], p["wu"], p["wd"]):
-        raise NotImplementedError(
-            "moe_apply takes no gradient in repro_torch yet: the experts run on K9, which "
-            "has no backward (ROADMAP.md, Queue 1: qwen3-moe training)")
+    Training differentiates it as the reference's ``jax.grad`` does: the
+    experts' products through K9's backward, the router through the top-k
+    weights (the softmax's shift held constant, as ``jax.nn.softmax``'s)
+    and the aux loss, the dispatch and gather through their index ops; a
+    dropped slot and the trash row take no gradient, and the expert ids
+    none."""
     dt = x2d.dtype
     t, d = x2d.shape
     e, k = cfg.num_experts, cfg.experts_per_tok
 
     logits = ops.matmul(x2d, p["router"], out_dtype=torch.float32)
-    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
     probs = ex / tpp._row_sum(ex)
     topw, topi = _top_k(probs, k)                                  # (T, k)
     topw = topw / torch.clamp(tpp._row_sum(topw), min=1e-9)

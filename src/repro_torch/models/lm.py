@@ -16,10 +16,8 @@ per-slot mamba state.  Both are updated in place by ``prefill`` and
 
 Dense decoders, the encoder-only bert-large (``"bidir"`` layers: attention
 without a causal mask), the attention-free Mamba-1 LM (falcon-mamba-7b) and
-the mixture-of-experts decoder qwen3-moe-235b (served only: its experts run
-on K9, which has no backward yet, so ``lm_loss`` raises
-``NotImplementedError`` when the MoE layer's weights or input want a
-gradient) run here; MLA, encoder-decoder and VLM configs raise
+the mixture-of-experts decoder qwen3-moe-235b (its experts on K9, trained
+through K9's backward) run here; MLA, encoder-decoder and VLM configs raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1).  ``forward_hidden`` returns
 the reference's ``(h, caches, aux)``: aux is the MoE layers' load-balance
 loss summed over layers (zero without MoE layers), which ``lm_loss``

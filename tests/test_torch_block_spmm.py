@@ -4,7 +4,10 @@ the JAX reference: ``densify_to_bcsr`` array for array, the reference's
 Pallas kernels in interpret mode over ``tests/test_kernels.py``'s densities,
 block sizes and seeded random patterns, bf16 inputs, a transposed-view B,
 an empty block row, the Fig. 10 call of ``benchmarks/bench_e2e.py`` at its
-reduced widths, and ``mlp_ref``; plus the wrappers' refusals.
+reduced widths, and ``mlp_ref``; K9's gradients (``ops.grouped_matmul``
+under autograd: ``grouped_matmul_dx_ref`` and ``grouped_matmul_dw_ref`` on
+the CPU) against ``jax.grad`` of the reference's per-tile product (rtol
+1e-4 / atol 1e-5 in fp32); plus the wrappers' refusals.
 
 Tolerances are ``tests/test_kernels.py``'s ``_tol``: fp32 rtol 1e-4 / atol
 1e-3 (fp32 sums in another order), bf16 rtol 2e-2 / atol 2e-1 (the output's
@@ -195,9 +198,10 @@ def test_ops_raise_when_a_gradient_is_wanted():
         tops.block_spmm(blocks, rid, cid, b, nrows_b=1)
     with torch.no_grad():
         assert tops.block_spmm(blocks, rid, cid, b, nrows_b=1).shape == (8, 4)
+    # K9 has a backward (``_GroupedMatmul``): its product is differentiable
     x, w = torch.randn(8, 4), torch.randn(2, 4, 6, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tops.grouped_matmul(x, torch.zeros(1, dtype=torch.int32), w)
+    out = tops.grouped_matmul(x, torch.zeros(1, dtype=torch.int32), w)
+    assert out.requires_grad and type(out.grad_fn).__name__ == "_GroupedMatmulBackward"
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -207,5 +211,80 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tspmm.grouped_matmul(torch.randn(8, 4), torch.zeros(1, dtype=torch.int32),
                              torch.randn(2, 4, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        tspmm.grouped_matmul_dx(torch.randn(8, 6), torch.zeros(1, dtype=torch.int32),
+                                torch.randn(2, 4, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        tspmm.grouped_matmul_dw(torch.randn(8, 4), torch.zeros(1, dtype=torch.int32),
+                                torch.randn(8, 6), 2)
     with pytest.raises(ValueError, match="cpu or all on cuda"):
         tops.block_spmm(blocks, rid, cid, torch.randn(8, 4, device="meta"), nrows_b=1)
+
+
+def _jax_grouped_grads(x, gid, w, r):
+    """jax.grad of sum(r * out), out the reference's per-tile product
+    (``repro/kernels/ref.py``'s grouped oracle written as an einsum over the
+    gathered slabs, as the MoE layer's einsums compute it) → (dx, dw)."""
+    import jax
+
+    tiles = gid.shape[0]
+
+    def loss(xx, ww):
+        out = jnp.einsum("tcd,tdf->tcf", xx.reshape(tiles, -1, xx.shape[1]), ww[gid])
+        return jnp.sum(out.reshape(r.shape) * r)
+
+    dx, dw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    return np.asarray(dx), np.asarray(dw)
+
+
+@pytest.mark.parametrize("gid", [[0, 1, 2, 3], [2, 0, 2, 1, 0], [3, 3, 1]],
+                         ids=["one-tile-each", "tiles-apart", "expert-without-tile"])
+@pytest.mark.parametrize("rows", [1, 8, 13])
+def test_grouped_matmul_gradients_match_jax_grad(gid, rows):
+    """``ops.grouped_matmul`` under autograd in fp32 (the Function's CPU
+    dispatch: the plain dX and dW): an expert's tiles apart from each other
+    (summed in tile order), an expert that owns no tile (a zero slab), the
+    output in fp32 from fp32 operands, and dX alone when w wants none."""
+    rng = np.random.default_rng(rows + len(gid))
+    e, d, f = 4, 24, 40
+    gid = np.asarray(gid, np.int32)
+    x = rng.normal(size=(len(gid) * rows, d)).astype(np.float32)
+    w = rng.normal(size=(e, d, f)).astype(np.float32)
+    r = rng.normal(size=(len(gid) * rows, f)).astype(np.float32)
+    jdx, jdw = _jax_grouped_grads(x, gid, w, r)
+    tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+    out = tops.grouped_matmul(tx, torch.from_numpy(gid), tw, out_dtype=torch.float32)
+    dx, dw = torch.autograd.grad((out * _t(r)).sum(), (tx, tw))
+    assert dw.dtype == torch.float32 and dx.dtype == torch.float32
+    np.testing.assert_allclose(dx.numpy(), jdx, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), jdw, rtol=1e-4, atol=1e-5)
+    for missing in set(range(e)) - set(gid.tolist()):
+        assert not dw[missing].any()
+    out = tops.grouped_matmul(tx, torch.from_numpy(gid), _t(w))
+    (only_dx,) = torch.autograd.grad((out * _t(r)).sum(), (tx,))
+    np.testing.assert_allclose(only_dx.numpy(), jdx, rtol=1e-4, atol=1e-5)
+
+
+def test_grouped_matmul_gradient_of_fp32_masters_in_bf16():
+    """bf16 activations against fp32 master experts: the product casts w to
+    bf16 inside, dX comes back in bf16 and dW in fp32, not rounded to bf16
+    (the incoming gradient rounded to bf16 first, as ``ops.matmul`` rounds
+    dZ); dW equals the fp32 product of the bf16 operands."""
+    rng = np.random.default_rng(5)
+    gid = torch.tensor([1, 0, 1], dtype=torch.int32)
+    x = _t(rng.normal(size=(3 * 16, 32)), torch.bfloat16).requires_grad_()
+    w = _t(rng.normal(size=(2, 32, 48)) / 6).requires_grad_()
+    r = _t(rng.normal(size=(3 * 16, 48)))
+    out = tops.grouped_matmul(x, gid, w, out_dtype=torch.float32)
+    dx, dw = torch.autograd.grad((out * r).sum(), (x, w))
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    rb = r.to(torch.bfloat16).float()
+    xs = x.detach().float().reshape(3, 16, 32)
+    want = torch.zeros(2, 32, 48)
+    for t, g in enumerate(gid.tolist()):
+        want[g] += xs[t].T @ rb.reshape(3, 16, 48)[t]
+    np.testing.assert_allclose(dw.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert not torch.equal(dw, dw.to(torch.bfloat16).float())
+    wb = w.detach().to(torch.bfloat16).float()
+    want_dx = torch.stack([rb.reshape(3, 16, 48)[t] @ wb[g].T for t, g in enumerate(gid.tolist())])
+    np.testing.assert_allclose(dx.float().numpy(), want_dx.reshape(48, 32).numpy(), **BF16_TOL)

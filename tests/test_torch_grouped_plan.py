@@ -11,6 +11,14 @@ steps in fp32; it is held against the reference's
 ``grouped_matmul_pallas`` in interpret mode and the port's plain
 ``grouped_matmul_ref`` at ``tests/test_kernels.py``'s tolerances: fp32
 rtol 1e-4 / atol 1e-3, bf16 rtol 2e-2 / atol 2e-1.
+
+K9's backward the same way: ``grouped_bwd_plan``'s variants, grids and
+tensor-map extents, and ``emulate_dx`` / ``emulate_dw`` walking the wgmma
+kernels' grids box by box (dX reading w's slab K-major through (f, d, E),
+dW walking each expert's tiles in tile order as ``DwCoords`` does, 64 rows
+of a tile a k-step) against ``grouped_matmul_dx_ref`` and
+``grouped_matmul_dw_ref``: tiles of one expert apart, an expert without a
+tile, rows 1, 8 and 100 a tile.
 """
 import re
 from pathlib import Path
@@ -152,3 +160,221 @@ def test_out_of_range_ids_are_clamped():
     got = emulate_wgmma(x, gid, w, tspmm.grouped_plan(tiles, rows, d, f, e, torch.bfloat16))
     want = tref.grouped_matmul_ref(x, gid.clamp(0, e - 1), w)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# K9's backward
+# ---------------------------------------------------------------------------
+
+def _clamp(g, e):
+    return min(max(int(g), 0), e - 1)
+
+
+def emulate_dx(dy, group_id, w, plan):
+    """dX's wgmma variant on the CPU: for each CTA (column tile n of d,
+    64-row chunk c, row tile t) of ``plan.grid``, k-step it reads A's box
+    at (f it·64, row c·64, tile t) of dY's map (f, rows, tiles) and B's at
+    (f it·64, d n·bn, expert g) of w's map (f, d, E), K-major both; the
+    epilogue stores rows below ``rows`` and columns below d, each once."""
+    f, rows, tiles = plan.a_map
+    _, d, e = plan.b_map
+    bm, bn, _ = plan.tile
+    ym = dy.float().reshape(tiles, rows, f)
+    out = torch.full((tiles * rows, d), float("nan"))
+    written = torch.zeros(tiles * rows, d, dtype=torch.int32)
+    nx, ny, nz = plan.grid
+    for n in range(nx):
+        for c in range(ny):
+            for t in range(nz):
+                g = _clamp(group_id[t], e)
+                acc = torch.zeros(bm, bn)
+                for it in range(-(-f // BK)):
+                    acc += _box(ym[t], c * bm, it * BK, bm, BK) @ \
+                        _box(w[g].float(), n * bn, it * BK, bn, BK).T
+                r = min(bm, rows - c * bm)
+                cols = min(bn, d - n * bn)
+                at = slice(t * rows + c * bm, t * rows + c * bm + r)
+                out[at, n * bn:n * bn + cols] = acc[:r, :cols]
+                written[at, n * bn:n * bn + cols] += 1
+    assert bool((written == 1).all()), "an output element stored other than once"
+    return out
+
+
+def dw_walk(group_id, e, expert, kpt):
+    """The (tile, 64-row step) of each k-step of expert ``expert``'s CTAs,
+    as ``DwCoords`` walks them: the expert's tiles (ids clamped) in tile
+    order, ``kpt`` steps a tile; the count of k-steps is
+    ``owned_tiles · kpt``."""
+    owned = sum(_clamp(g, e) == expert for g in group_id)
+    tile, out = -1, []
+    for it in range(owned * kpt):
+        s = it % kpt
+        if s == 0:
+            tile += 1
+            while _clamp(group_id[tile], e) != expert:
+                tile += 1
+        out.append((tile, s))
+    return out
+
+
+def emulate_dw(x, group_id, dy, plan):
+    """dW's wgmma variant on the CPU: for each CTA (column tile n of f, row
+    tile m of d, expert e) of ``plan.grid``, the k-steps of ``dw_walk``,
+    each A's box at (d m·bm, row s·64, tile) of x's map (d, rows, tiles)
+    and B's at (f n·bn, row s·64, tile) of dY's map (f, rows, tiles),
+    MN-major both (zeros past a tile's rows), summed into one fp32
+    accumulator in that order; every element of dW stored once."""
+    d, rows, tiles = plan.a_map
+    f = plan.b_map[0]
+    bm, bn, _ = plan.tile
+    nx, ny, ne = plan.grid
+    xm = x.float().reshape(tiles, rows, d)
+    ym = dy.float().reshape(tiles, rows, f)
+    out = torch.full((ne, d, f), float("nan"))
+    written = torch.zeros(ne, d, f, dtype=torch.int32)
+    kpt = -(-rows // BK)
+    for n in range(nx):
+        for m in range(ny):
+            for e in range(ne):
+                acc = torch.zeros(bm, bn)
+                for t, s in dw_walk(group_id, ne, e, kpt):
+                    acc += _box(xm[t], s * BK, m * bm, BK, bm).T @ \
+                        _box(ym[t], s * BK, n * bn, BK, bn)
+                r, cols = min(bm, d - m * bm), min(bn, f - n * bn)
+                out[e, m * bm:m * bm + r, n * bn:n * bn + cols] = acc[:r, :cols]
+                written[e, m * bm:m * bm + r, n * bn:n * bn + cols] += 1
+    assert bool((written == 1).all()), "an output element stored other than once"
+    return out
+
+
+@pytest.mark.parametrize("kind", ["dx", "dw"])
+@pytest.mark.parametrize("dtype, d, f, aligned, variant", [
+    (torch.bfloat16, 4096, 1536, True, "wgmma"),
+    (torch.bfloat16, 64, 136, True, "wgmma"),
+    (torch.bfloat16, 64, 100, True, "wmma"),       # f % 8 != 0
+    (torch.bfloat16, 100, 128, True, "wmma"),      # d % 8 != 0
+    (torch.bfloat16, 64, 128, False, "wmma"),      # a base off 16 bytes
+    (torch.float32, 64, 128, True, "simt"),
+    (torch.float32, 64, 100, False, "simt"),
+])
+def test_the_backward_variant_follows_dtype_and_alignment(kind, dtype, d, f, aligned, variant):
+    tiles, rows, e = 4, 100, 8
+    plan = tspmm.grouped_bwd_plan(kind, tiles, rows, d, f, e, dtype, aligned)
+    assert (plan.kind, plan.variant) == (kind, variant)
+    bn = 64 if variant == "simt" else 128
+    if variant == "wgmma":
+        assert plan.tile == (tspmm.GROUPED_DX_TILE if kind == "dx" else tspmm.GROUPED_DW_TILE)
+    else:
+        assert plan.tile == plan.a_map == plan.b_map == ()
+        want = (-(-d // bn), tiles, 2) if kind == "dx" else (-(-f // bn), -(-d // 64), e)
+        assert plan.grid == want
+
+
+@pytest.mark.parametrize("rows", [1, 8, 100, 320])
+def test_the_backward_tensor_maps_extents(rows):
+    """dX reads dY (f, rows, tiles) and w (f, d, E) K-major, the k-steps
+    along f; dW reads x (d, rows, tiles) and dY (f, rows, tiles) MN-major,
+    the k-steps along a tile's rows, whose extent stops a box at the
+    tile's end."""
+    tiles, d, f, e = 3, 72, 200, 5
+    dx = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16)
+    bm, bn, _ = tspmm.GROUPED_DX_TILE
+    assert (dx.a_map, dx.b_map) == ((f, rows, tiles), (f, d, e))
+    assert dx.grid == (-(-d // bn), -(-rows // bm), tiles)
+    dw = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16)
+    bm, bn, _ = tspmm.GROUPED_DW_TILE
+    assert (dw.a_map, dw.b_map) == ((d, rows, tiles), (f, rows, tiles))
+    assert dw.grid == (-(-f // bn), -(-d // bm), e)
+
+
+def test_the_qwen3_moe_training_products_run_on_wgmma():
+    """The training layer (128 tiles of cap 320): gate/up (d 4096 -> f 1536)
+    and down (1536 -> 4096), dX and dW each on wgmma."""
+    for d, f in ((4096, 1536), (1536, 4096)):
+        for kind in ("dx", "dw"):
+            plan = tspmm.grouped_bwd_plan(kind, 128, 320, d, f, 128, torch.bfloat16)
+            assert plan.variant == "wgmma"
+    assert tspmm.grouped_bwd_plan("dw", 128, 320, 4096, 1536, 128, torch.bfloat16).grid == \
+        (1536 // 128, 4096 // 128, 128)
+    with pytest.raises(ValueError, match="kind"):
+        tspmm.grouped_bwd_plan("dy", 1, 1, 8, 8, 1, torch.bfloat16)
+
+
+def test_the_backward_tiles_are_the_source_tiles():
+    """GROUPED_DX_TILE and GROUPED_DW_TILE mirror grouped_bwd's configs (64
+    rows a consumer warpgroup), checked again against the library on the
+    card."""
+    src = (Path(tspmm.__file__).resolve().parent / "csrc" / "block_spmm.cu").read_text()
+    found = {}
+    for name, a_mn, b_mn in (("Dx", "false", "false"), ("Dw", "true", "true")):
+        m = re.findall(rf"using {name}Cfg = gemm_ml::Config<(\d+), (\d+), (\d+), {a_mn}, {b_mn}>;",
+                       src)
+        assert len(m) == 1, name
+        wg, bn, stages = map(int, m[0])
+        found[name] = (64 * wg, bn, stages)
+    assert found == {"Dx": tspmm.GROUPED_DX_TILE, "Dw": tspmm.GROUPED_DW_TILE}
+
+
+def test_every_backward_variant_has_a_counter():
+    for kind in ("dx", "dw"):
+        assert set(tspmm.GROUPED_BWD_COUNTERS[kind]) == set(tspmm.GROUPED_VARIANTS)
+        for counter in tspmm.GROUPED_BWD_COUNTERS[kind].values():
+            assert isinstance(getattr(tspmm, counter), int)
+    assert isinstance(tspmm.GROUPED_BWD_LAUNCHES, int)
+
+
+# group ids: one tile each; an expert's tiles apart (expert 2 at tiles 0
+# and 2, expert 0 at 1 and 4); expert 0 and 2 without a tile; ids out of
+# range (clamped into [0, E))
+BWD_GROUPS = {"one-tile-each": [0, 1, 2, 3], "tiles-apart": [2, 0, 2, 1, 0],
+              "experts-without-tile": [3, 3, 1], "clamped": [-2, 7, 1]}
+
+
+@pytest.mark.parametrize("groups", list(BWD_GROUPS))
+@pytest.mark.parametrize("rows, d, f", [(1, 64, 136), (8, 72, 128), (100, 136, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_backward_addressing_matches_the_plain_versions(groups, rows, d, f, dtype):
+    rng = np.random.default_rng(rows + d + len(groups))
+    e = 4
+    gid = torch.tensor(BWD_GROUPS[groups], dtype=torch.int32)
+    tiles = gid.shape[0]
+    x = torch.from_numpy(rng.normal(size=(tiles * rows, d)).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=(tiles * rows, f)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32)).to(dtype)
+    clamped = gid.clamp(0, e - 1)
+    plan = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16)
+    np.testing.assert_allclose(emulate_dx(dy, gid, w, plan).numpy(),
+                               tref.grouped_matmul_dx_ref(dy, clamped, w).float().numpy(),
+                               **TOL[dtype])
+    plan = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16)
+    got = emulate_dw(x, gid, dy, plan)
+    want = tref.grouped_matmul_dw_ref(x, clamped, dy, e)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL[dtype])
+    for missing in set(range(e)) - set(clamped.tolist()):
+        assert not got[missing].any() and not want[missing].any()
+
+
+def test_the_dw_walk_sums_each_experts_tiles_in_tile_order():
+    """``DwCoords``' walk: every tile of an expert, in ascending tile order,
+    each tile's 64-row steps in order, none of another expert's; an expert
+    without a tile takes no step.  So the fp32 sum over an expert's tiles
+    has one order, whatever the grid's schedule."""
+    gid = [2, 0, 2, -1, 9, 2]       # -1 → expert 0, 9 → expert 3
+    assert dw_walk(gid, 4, 2, 2) == [(0, 0), (0, 1), (2, 0), (2, 1), (5, 0), (5, 1)]
+    assert dw_walk(gid, 4, 0, 3) == [(1, 0), (1, 1), (1, 2), (3, 0), (3, 1), (3, 2)]
+    assert dw_walk(gid, 4, 3, 1) == [(4, 0)]
+    assert dw_walk(gid, 4, 1, 5) == []
+    # the kernel's order, not another: the dW of expert 2 summed tile by tile
+    rng = np.random.default_rng(1)
+    rows, d, f = 100, 64, 128
+    x = torch.from_numpy(rng.normal(size=(6 * rows, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(6 * rows, f)).astype(np.float32))
+    plan = tspmm.grouped_bwd_plan("dw", 6, rows, d, f, 4, torch.bfloat16)
+    got = emulate_dw(x, gid, dy, plan)[2]
+    bm, bn, _ = plan.tile
+    acc = torch.zeros(bm, bn)
+    for t in (0, 2, 5):
+        for s in range(2):
+            acc += _box(x[t * rows:(t + 1) * rows], s * BK, 0, BK, bm).T @ \
+                _box(dy[t * rows:(t + 1) * rows], s * BK, 0, BK, bn)
+    assert torch.equal(got, acc[:d, :f])

@@ -9,9 +9,12 @@ Held: y at fp32 rtol 1e-4 / atol 1e-3 and aux at rtol 1e-5, dropless and at
 probability equal: ties to the lower expert, as ``lax.top_k``); a shared
 expert; the fused gated up projection; a bf16 layer at rtol 2e-2 / atol
 2e-1 (``tests/test_kernels.py``'s bf16 tolerance); ``_expert_ffn``'s three
-products on ``ops.grouped_matmul``; the refusal of a gradient; the layer
-groups of the reference's ``derive_groups``; and the whole reduced model's
-``lm_loss`` (ce and aux).
+products on ``ops.grouped_matmul``; the layer's gradients (input, router,
+``wg``, ``wu``, ``wd``) against ``jax.grad`` of the reference's
+``moe_apply`` at fp32 rtol 1e-4 / atol 1e-5, dropless, at capacity 0.5 and
+with the fused gated up projection; the layer groups of the reference's
+``derive_groups``; and the whole reduced model's ``lm_loss`` (ce and aux),
+and its gradients with drops.
 """
 import dataclasses
 import math
@@ -187,20 +190,36 @@ def test_expert_products_run_on_grouped_matmul(monkeypatch, fused):
     assert calls == want
 
 
-def test_gradient_is_refused():
-    jcfg, tcfg = _cfgs()
-    _, tp, _, tx = _layer(jcfg, tcfg)
-    with pytest.raises(NotImplementedError, match="K9"):
-        TB.moe_apply(tcfg, tp, tx.clone().requires_grad_())
-    w = tp["wg"].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K9's backward is not written yet"):
-        tops.grouped_matmul(tx, torch.zeros(1, dtype=torch.int32), w)
-    params = tlm.init_params(tcfg, 0, device="cpu", dtype=torch.float32)
-    for leaf in _leaves(params):
-        leaf.requires_grad_()
-    toks = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        tlm.lm_loss(tcfg, params, {"tokens": toks, "labels": toks, "mask": torch.ones(1, 8)})
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("capacity, fused", [(1e9, False), (0.5, False), (1e9, True),
+                                             (0.5, True)],
+                         ids=["dropless", "drops", "fused-dropless", "fused-drops"])
+def test_layer_gradients_match_reference(capacity, fused):
+    """jax.grad of sum(r * y) + 0.3 aux through the reference's
+    ``moe_apply`` against ``torch.autograd.grad`` through the port's (K9's
+    backward on its plain versions; the fused up projection through K5's
+    derived graphs), with respect to the input and every weight; at
+    capacity 0.5 some slots are dropped, and those take no gradient."""
+    jcfg, tcfg = _cfgs(capacity_factor=capacity, use_fusion=fused)
+    jp, tp, jx, tx = _layer(jcfg, tcfg)
+    r = np.random.default_rng(7).normal(size=(T, tcfg.d_model)).astype(np.float32)
+
+    def jloss(p, x):
+        y, aux = JB.moe_apply(jcfg, p, x)
+        return jnp.sum(y * r) + 0.3 * aux
+
+    jdx, jdp = jax.grad(jloss, argnums=(1, 0))(jp, jx)
+    names = ("router", "wg", "wu", "wd")
+    leaves = [tx.requires_grad_()] + [tp[k].requires_grad_() for k in names]
+    y, aux = TB.moe_apply(tcfg, tp, tx)
+    grads = torch.autograd.grad((y * torch.from_numpy(r)).sum() + 0.3 * aux, leaves)
+    for name, got, want in zip(("x",) + names, grads, [jdx] + [jdp[k] for k in names]):
+        assert got.dtype == torch.float32, name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL, err_msg=name)
+    if capacity < 1:
+        assert _dropped(tcfg, tp, tx.detach()) > 0
 
 
 def _leaves(tree):
@@ -262,3 +281,37 @@ def test_lm_loss_matches_reference(capacity):
     np.testing.assert_allclose(float(tm["aux"]), float(jm["aux"]), rtol=1e-5)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     assert float(tm["aux"]) > 0
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_lm_loss_gradients_with_drops_match_reference(remat):
+    """Every gradient leaf of the reduced model's ``lm_loss`` (router,
+    ``wg``, ``wu``, ``wd``, attention, norms, embedding, head) at capacity
+    0.5, where slots are dropped, against ``jax.grad`` of the reference's
+    (the dropless case is ``tests/test_torch_train.py``'s)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    jcfg, tcfg = _cfgs(capacity_factor=0.5)
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(4)
+    b, s = 2, 32
+    batch = {"tokens": rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32),
+             "mask": (rng.random((b, s)) > 0.1).astype(np.float32)}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jlm.lm_loss(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()},
+                              remat=remat, loss_chunk=16), has_aux=True)(jparams)
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), device="cpu",
+                                dtype=torch.float32)
+    leaves = tree_leaves(tparams)
+    for leaf in leaves:
+        leaf.requires_grad_()
+    loss, _ = tlm.lm_loss(tcfg, tparams, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          remat=remat, loss_chunk=16)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    grads = torch.autograd.grad(loss, leaves)
+    want = tree_leaves(params_from_numpy(tcfg, jax.tree.map(np.asarray, jgrads), device="cpu",
+                                         dtype=torch.float32))
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **GRAD_TOL)

@@ -1,6 +1,7 @@
 """The port's training slice on the CPU against the JAX reference: schedules,
 AdamW, the synthetic corpus, dropout bits, the fp32 master parameters,
-``lm_loss`` and its gradients (falcon-mamba-7b's selective scan included),
+``lm_loss`` and its gradients (falcon-mamba-7b's selective scan and
+qwen3-moe-235b's mixture of experts, on K9's backward, included),
 5-step ``make_train_step`` trajectories, and
 mirrors of ``tests/test_train_and_ft.py`` (trainer, checkpoints, watchdog).
 
@@ -40,7 +41,7 @@ from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train import (SimulatedPreemption, TrainConfig, TrainerConfig,
                                init_train_state, make_train_step, train)
 
-ARCHS = ("minicpm_2b", "gptj_6b", "bert_large", "falcon_mamba_7b")
+ARCHS = ("minicpm_2b", "gptj_6b", "bert_large", "falcon_mamba_7b", "qwen3_moe_235b")
 CFG = get_config("minicpm_2b").reduced()
 DCFG = DataConfig(vocab_size=CFG.vocab_size, seq_len=32, global_batch=8, seed=1)
 
@@ -250,6 +251,13 @@ def test_mamba_train_step_trajectory_matches_reference():
     (``ops.mamba_scan``'s ``_MambaScan`` against the reference's
     ``mamba_scan_xla_chunked`` under ``jax.grad``)."""
     _check_trajectory("falcon_mamba_7b", seq=128)
+
+
+def test_moe_train_step_trajectory_matches_reference():
+    """The same five steps for qwen3-moe-235b (every layer a mixture of
+    experts: the experts' products and their gradients on K9's plain
+    versions, the aux loss in the loss)."""
+    _check_trajectory("qwen3_moe_235b")
 
 
 def _check_trajectory(arch, seq=32):

@@ -1044,8 +1044,10 @@ def k7_k13_build_report(logs, fo, k13):
 def k3_k9_build_report(logs):
     """Print the ``-Xptxas -v`` figures of K3's split kernel by dtype and
     head dim (csrc/flash_decode.cu) and of K9's wgmma kernels, forward, dX
-    and dW (csrc/block_spmm.cu), and any ptxas C7518 warning (serialized wgmma) in
-    K9's source; → those figures."""
+    (transposed, 256 x 160 tiles) and dW (a persistent grid)
+    (csrc/block_spmm.cu), and any ptxas C7518 warning (serialized wgmma) in
+    K9's source; fail unless the three K9 kernels are named, none spills
+    and no C7518 warning is given; → those figures."""
     report = {}
     for mangled, figures in ptxas_by_kernel(logs["flash_decode"]).items():
         found = re.search(r"flash_decode_split_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -1062,6 +1064,10 @@ def k3_k9_build_report(logs):
         print(f"  {name}: {figures}", flush=True)
     print(f"  csrc/block_spmm.cu ptxas C7518 (serialized wgmma) warnings: {len(warnings)}",
           flush=True)
+    k9 = {k: v for k, v in report.items() if k.startswith("K9 ")}
+    check(len(k9) == 3 and not warnings
+          and all(_ptxas_numbers(v)[1] == 0 for v in k9.values()),
+          f"K9's wgmma kernels: {k9} ({len(warnings)} C7518 warnings)")
     return {"kernels": report, "c7518": warnings}
 
 
@@ -2218,6 +2224,17 @@ def grouped_bmm_yardstick(torch, kind, x, dy, w):
         "torch.bmm(x^T (E, d, cap), dY, out_dtype=float32)"
 
 
+def grouped_bwd_operands(torch, gen, d, f, e, cap):
+    """K9's backward operands at ``e`` row tiles of ``cap`` rows, drawn from
+    ``gen`` in this order: w (e, d, f) scaled by 1 / sqrt(d), x (e·cap, d)
+    and dY (e·cap, f), all bf16 (``scripts/time_grouped_bwd.py`` draws the
+    same ones)."""
+    w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(torch.bfloat16)
+    x = torch.randn(e * cap, d, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(e * cap, f, generator=gen, device="cuda").to(torch.bfloat16)
+    return w, x, dy
+
+
 def grouped_matmul_bwd_cases(torch, bench, ref, spmm):
     """K9's backward against its plain versions (``ref.grouped_matmul_dx_ref``,
     ``grouped_matmul_dw_ref``) at qwen3-moe's training layer as
@@ -2230,15 +2247,18 @@ def grouped_matmul_bwd_cases(torch, bench, ref, spmm):
     the (E, cap, .) views beside it; two calls bitwise equal (no float
     atomics).  Then checks on the variant each plan names: rows 1, 8 and
     100 a tile, an expert's tiles apart, experts without a tile, ids out of
-    range clamped, d or f not a multiple of 8 (wmma), fp32 (simt).  The
-    plain versions take the clamped ids."""
+    range clamped, d or f not a multiple of 8 (wmma), fp32 (simt); and dW's
+    persistent grid at more units than CTAs storing every unit once, over
+    memory a NaN tensor held.  The plain versions take the clamped ids."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf16, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def run(label, kind, x, gid, w, dy, library=None, flops=0, nbytes=0, weight=0, timed=False):
         e, tiles = w.shape[0], gid.shape[0]
         t, d = x.shape
-        plan = spmm.grouped_bwd_plan(kind, tiles, t // tiles, d, w.shape[2], e, x.dtype)
+        plan = spmm.grouped_bwd_plan(kind, tiles, t // tiles, d, w.shape[2], e, x.dtype,
+                                     sms=sms)
         clamped = gid.clamp(0, e - 1)
         if kind == "dx":
             fn = lambda: spmm.grouped_matmul_dx(dy, gid, w)  # noqa: E731
@@ -2263,9 +2283,7 @@ def grouped_matmul_bwd_cases(torch, bench, ref, spmm):
     arange = torch.arange(e, dtype=torch.int32, device="cuda")
     yardsticks = {}
     for d, f, what, per_layer in ((4096, 1536, "gate/up", 2), (1536, 4096, "down", 1)):
-        w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(bf16)
-        x = torch.randn(t, d, generator=gen, device="cuda").to(bf16)
-        dy = torch.randn(t, f, generator=gen, device="cuda").to(bf16)
+        w, x, dy = grouped_bwd_operands(torch, gen, d, f, e, cap)
         for kind in ("dx", "dw"):
             library, how = grouped_bmm_yardstick(torch, kind, x, dy, w)
             yardsticks[f"{kind} {what}"] = how
@@ -2304,6 +2322,28 @@ def grouped_matmul_bwd_cases(torch, bench, ref, spmm):
         w = (torch.randn(e, d, f, generator=gen, device="cuda") / math.sqrt(d)).to(dt)
         for kind in ("dx", "dw"):
             run(f"check {label}: rows {rows} d{d} f{f} E{e}", kind, x, gid, w, dy)
+    # dW's persistent grid at more units than CTAs covers every unit once:
+    # expert 4's tiles apart (tiles 0 and 2), experts 2 and 3 without a
+    # tile; the output lies where a NaN tensor of its size lay just before,
+    # so a unit no CTA stored would show
+    gid = torch.tensor([4, 0, 4, 1], dtype=torch.int32, device="cuda")
+    rows, d, f, e = 100, 1024, 1280, 5
+    plan = spmm.grouped_bwd_plan("dw", gid.shape[0], rows, d, f, e, bf16, sms=sms)
+    check(plan.variant == "wgmma" and math.prod(plan.units) > plan.grid[0],
+          f"K9 dw coverage check: plan {plan}")
+    x = torch.randn(gid.shape[0] * rows, d, generator=gen, device="cuda").to(bf16)
+    dy = torch.randn(gid.shape[0] * rows, f, generator=gen, device="cuda").to(bf16)
+    poison = torch.full((e, d, f), float("nan"), device="cuda")
+    at = poison.data_ptr()
+    del poison
+    got = spmm.grouped_matmul_dw(x, gid, dy, e)
+    err, ok = compare(torch, got, ref.grouped_matmul_dw_ref(x, gid, dy, e), 1e-2, 1e-2)
+    check(got.data_ptr() == at and ok and not got[2].any() and not got[3].any(),
+          f"K9 dw: {math.prod(plan.units)} units on {plan.grid[0]} CTAs: max err {err:.3e},"
+          f" on the poisoned block {got.data_ptr() == at}")
+    print(f"    dw on the persistent grid: {math.prod(plan.units)} units {plan.units} on"
+          f" {plan.grid[0]} CTAs, every unit stored once over NaN (max err {err:.3e}); experts"
+          f" 2, 3 without a tile zeros", flush=True)
 
 
 def fused_output_cases(torch, bench, fo, fusion):

@@ -112,8 +112,8 @@ SIGNATURES = {
         # variant, stream
         "grouped_matmul_dx": (_P,) * 4 + (_I,) * 8 + (_P,),
         # x, group_id, dy, dw, in_bf16, tiles, rows, E, d, f, variant,
-        # stream
-        "grouped_matmul_dw": (_P,) * 4 + (_I,) * 7 + (_P,),
+        # CTAs (wgmma's persistent grid), stream
+        "grouped_matmul_dw": (_P,) * 4 + (_I,) * 8 + (_P,),
         "grouped_bwd_tile": (_P,),
     },
     "fused_output": {

@@ -15,10 +15,13 @@ bf16 the GEMM mainloop ``csrc/gemm_mainloop.cuh`` under a Policy that reads
 each row tile's expert through tensor maps over x (d, rows, tiles) and w
 (f, d, E) (``grouped_plan``: one 64-row chunk of a row tile by 128 columns a
 CTA), K1's WMMA tile for bf16 operands TMA cannot read, SIMT for fp32.
-K9's backward (``grouped_matmul_dx``: dY w[g]^T per row tile;
-``grouped_matmul_dw``: each expert's x_tile^T dY_tile summed over its tiles
-in tile order, fp32) runs on the same mainloop, every operand read in place
-(``grouped_bwd_plan``), with WMMA and SIMT variants beside it.  The plain
+K9's backward (``grouped_matmul_dx``: dY w[g]^T per row tile, taken as
+its transpose w[g] dY^T, 256 rows of d by 160 rows of a tile a CTA;
+``grouped_matmul_dw``: each expert's x_tile^T dY_tile summed over its
+tiles in tile order, fp32, on a persistent grid whose tiles leave by TMA
+stores while the next unit computes) runs on the same mainloop, every
+operand read in place (``grouped_bwd_plan``), with WMMA and SIMT variants
+beside it.  The plain
 versions are ``kernels.ref.block_spmm_ref``, ``kernels.ref.grouped_matmul_ref``,
 ``grouped_matmul_dx_ref`` and ``grouped_matmul_dw_ref``;
 ``kernels.ops.block_spmm`` and ``kernels.ops.grouped_matmul`` pick between
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -87,12 +91,13 @@ GROUPED_BWD_COUNTERS = {
            "simt": "GROUPED_DX_SIMT_LAUNCHES"},
     "dw": {"wgmma": "GROUPED_DW_WGMMA_LAUNCHES", "wmma": "GROUPED_DW_WMMA_LAUNCHES",
            "simt": "GROUPED_DW_SIMT_LAUNCHES"}}
-# K9's backward wgmma tiles (rows, columns, TMA ring stages) of a CTA
-# (csrc/block_spmm.cu grouped_bwd::DxCfg and DwCfg, which the wrappers check
-# against the library once): dX the forward's tile (64 rows of a row tile by
-# 128 columns of d), dW K1's (128 rows of d by 128 columns of f).
-GROUPED_DX_TILE = (64, 128, 4)
-GROUPED_DW_TILE = (128, 128, 3)
+# K9's backward wgmma tiles (wgmma's M rows, N columns, TMA ring stages) of
+# a CTA (csrc/block_spmm.cu grouped_bwd::DxCfg and DwCfg, which the wrappers
+# check against the library once): dX transposed, 256 rows of d by 160 rows
+# of a row tile, one CTA an SM; dW 256 rows of d by 128 columns of f, a
+# unit of a persistent grid of one CTA an SM.
+GROUPED_DX_TILE = (256, 160, 4)
+GROUPED_DW_TILE = (256, 128, 4)
 
 
 class SpmmPlan(NamedTuple):
@@ -161,30 +166,39 @@ class GroupedBwdPlan(NamedTuple):
     """How K9's backward runs one product (``kind`` dx or dw): ``variant``
     (wgmma, wmma or simt), its ``grid``, and for wgmma the (rows, columns,
     stages) ``tile`` and the extents of the tensor maps, innermost first:
-    dx reads ``a_map`` dY (f, rows, tiles) and ``b_map`` w (f, d, E), both
+    dx reads ``a_map`` w (f, d, E) and ``b_map`` dY (f, rows, tiles), both
     K-major (the k-steps walk f); dw reads ``a_map`` x (d, rows, tiles) and
     ``b_map`` dY (f, rows, tiles), both MN-major (the k-steps walk each
-    tile's rows, zeros past its end)."""
+    tile's rows, zeros past its end).  dx's wgmma tile is dX's transpose:
+    rows of d by rows of a row tile.  dw's wgmma grid is persistent: CTA c
+    of the grid's g walks units c, c + g, ... of the ``units`` (experts,
+    tiles of d, tiles of f), numbered with f fastest and the expert
+    slowest."""
     kind: str
     variant: str
     grid: tuple
     tile: tuple = ()
     a_map: tuple = ()
     b_map: tuple = ()
+    units: tuple = ()
 
 
 def grouped_bwd_plan(kind: str, tiles: int, rows: int, d: int, f: int, e: int, dtype,
-                     aligned: bool = True) -> GroupedBwdPlan:
+                     aligned: bool = True, *, sms: int) -> GroupedBwdPlan:
     """K9's backward plan for the forward x (tiles·rows, d) times w (e, d,
     f) of ``dtype``: ``kind`` "dx" (dY (tiles·rows, f) → dX (tiles·rows,
     d)) or "dw" (x and dY → dW (e, d, f) fp32).  fp32 → ``simt`` (64 x 64
     blocks); bf16 → ``wgmma`` where TMA reads every operand in place
     (``aligned``: 16-byte aligned bases; d and f multiples of 8), else
-    ``wmma`` (64 x 128 blocks).  dx's grid is the forward's with d for f:
-    (column tiles of d, 64-row chunks, row tiles) on wgmma, (column tiles,
-    row tiles, chunks) otherwise; dw's is (column tiles of f, row tiles of
-    d, experts), each CTA walking its expert's tiles in tile order.  Never
-    names a variant because a launch failed."""
+    ``wmma`` (64 x 128 blocks).  dx on wgmma: dX^T = w[g] dY^T, a grid of
+    (256-row tiles of d, 160-row parts of a row tile, row tiles), reading w
+    (f, d, E) and dY (f, rows, tiles); otherwise (column tiles, row tiles,
+    64-row chunks).  dw on wgmma: a persistent grid of min(units, ``sms``)
+    CTAs (``sms``: the card's streaming multiprocessors), one an SM, over
+    the e · ceil(d / 256) · ceil(f / 128) units, each unit's sum walking
+    its expert's tiles in tile order; otherwise (column tiles of f, row
+    tiles of d, experts).  Never names a variant
+    because a launch failed."""
     if kind not in ("dx", "dw"):
         raise ValueError(f"grouped_bwd_plan kind {kind!r}: need 'dx' or 'dw'")
     chunks = -(-rows // _GROUPED_ROWS)
@@ -195,14 +209,15 @@ def grouped_bwd_plan(kind: str, tiles: int, rows: int, d: int, f: int, e: int, d
             bn = 64 if simt else 128
             return GroupedBwdPlan("dx", "simt" if simt else "wmma", (-(-d // bn), tiles, chunks))
         bm, bn, _ = GROUPED_DX_TILE
-        return GroupedBwdPlan("dx", "wgmma", (-(-d // bn), -(-rows // bm), tiles), GROUPED_DX_TILE,
-                              (f, rows, tiles), (f, d, e))
+        return GroupedBwdPlan("dx", "wgmma", (-(-d // bm), -(-rows // bn), tiles), GROUPED_DX_TILE,
+                              (f, d, e), (f, rows, tiles))
     if not wgmma:
         bn = 64 if simt else 128
         return GroupedBwdPlan("dw", "simt" if simt else "wmma", (-(-f // bn), -(-d // 64), e))
     bm, bn, _ = GROUPED_DW_TILE
-    return GroupedBwdPlan("dw", "wgmma", (-(-f // bn), -(-d // bm), e), GROUPED_DW_TILE,
-                          (d, rows, tiles), (f, rows, tiles))
+    units = (e, -(-d // bm), -(-f // bn))
+    return GroupedBwdPlan("dw", "wgmma", (min(math.prod(units), sms),), GROUPED_DW_TILE,
+                          (d, rows, tiles), (f, rows, tiles), units)
 
 
 def paired_steps(row_ptr, bk: int) -> list[list[tuple[int, int]]]:
@@ -406,6 +421,12 @@ def _grouped_bwd_operands(name, x, group_id, w):
     return _ids(f"{name} group_id", group_id, tiles), tiles
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    """The streaming multiprocessors of a CUDA device (dW's persistent grid)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _count_bwd(kind, variant):
     global GROUPED_BWD_LAUNCHES
     GROUPED_BWD_LAUNCHES += 1
@@ -427,7 +448,8 @@ def grouped_matmul_dx(dy, group_id, w, *, out_dtype=None):
     t, f = dy.shape
     e, d, _ = w.shape
     aligned = dy.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    plan = grouped_bwd_plan("dx", tiles, t // tiles, d, f, e, dy.dtype, aligned)
+    plan = grouped_bwd_plan("dx", tiles, t // tiles, d, f, e, dy.dtype, aligned,
+                            sms=_sms(dy.device))
     out = torch.empty(t, d, dtype=out_dtype, device=dy.device)
     if out.numel() == 0:
         return out
@@ -459,10 +481,11 @@ def grouped_matmul_dw(x, group_id, dy, num_experts: int):
     if out.numel() == 0:
         return out
     aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    plan = grouped_bwd_plan("dw", tiles, t // tiles, d, f, num_experts, x.dtype, aligned)
+    plan = grouped_bwd_plan("dw", tiles, t // tiles, d, f, num_experts, x.dtype, aligned,
+                            sms=_sms(x.device))
     err = _grouped_bwd_library().grouped_matmul_dw(
         x.data_ptr(), group_id.data_ptr(), dy.data_ptr(), out.data_ptr(), codes[0], tiles,
-        t // tiles, num_experts, d, f, GROUPED_VARIANTS[plan.variant],
+        t // tiles, num_experts, d, f, GROUPED_VARIANTS[plan.variant], plan.grid[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "grouped_matmul_dw")
     _count_bwd("dw", plan.variant)

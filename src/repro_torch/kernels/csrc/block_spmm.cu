@@ -512,10 +512,9 @@ __device__ __forceinline__ void store2(void* out, int out_bf16, size_t at, float
 
 // One CTA of a per-row-tile product out (tiles·rows, N) = A_t (rows, K)
 // times expert g's slab, on a C of one consumer warpgroup: A read K-major
-// through `ta` (K, rows, tiles), the slab through `tb` (MN-major (N, K, E)
-// for the forward, K-major (K, N, E) for K9's dX).  blockIdx: x the column
-// tile, y the 64-row chunk of the row tile, z the row tile, so the column
-// tiles of a row tile run together.
+// through `ta` (K, rows, tiles), the slab MN-major through `tb` (N, K, E).
+// blockIdx: x the column tile, y the 64-row chunk of the row tile, z the
+// row tile, so the column tiles of a row tile run together.
 template <class C>
 __device__ __forceinline__ void row_tile(const CUtensorMap* ta, const CUtensorMap* tb,
                                          const int* __restrict__ group_id, void* __restrict__ out,
@@ -590,20 +589,43 @@ cudaError_t launch(const bf16* x, const int* group_id, const bf16* w, void* out,
 // What the design does about it: both run the GEMM mainloop of
 // csrc/gemm_mainloop.cuh, every operand read in place through tensor maps
 // (no transposed copy of w, x or dY) and zeros past every extent.
-//   dX: the forward's CTA (grouped_wg::row_tile: 64 rows of a row tile by
-//     128 columns, a 4-stage ring), its B the expert's slab read K-major
-//     where it lies, through a map over w (f, d, E) whose box runs along f,
-//     so that the k-steps walk f.
-//   dW: K1's tile (two consumer warpgroups, 128 rows of d by 128 columns of
-//     f, a 3-stage ring, two CTAs an SM), a CTA per (column tile, row tile,
-//     expert).  A is x read MN-major and B dY read MN-major, each through
-//     a map over (width, rows, tiles), so the contraction runs over the
-//     rows of each tile: ceil(rows / 64) k-steps a tile, rows past a tile's
-//     end arriving as zeros.  The producer walks the expert's tiles in tile
-//     order and the consumers sum every k-step into one fp32 accumulator,
-//     so the tiles of an expert may lie apart, their sum has one order, and
-//     no float atomics are used; an expert that owns no tile runs no k-step
-//     and writes zeros.  The fp32 writes bound it at this shape.
+//   dX: what a CTA brings from L2 into shared memory for each product it
+//     does holds it back, not HBM or the tensor cores: on the forward's 64
+//     x 128 tile a k-step brings 24 KB for 0.5 M multiply-adds, 12 GB a
+//     product at ~7.5 TB/s (PERF.md).  So the product is taken transposed,
+//     dX_t^T = w[g] dY_t^T: wgmma's M runs along d, 256 rows a CTA (two
+//     consumer warpgroups of two m64 blocks each, consume_blocks), A the
+//     expert's slab read K-major where it lies (a map over w (f, d, E)),
+//     and its N over 160 rows of the row tile (m64n160k16: two CTAs cover
+//     a 320-row tile, no row wasted), B dY read K-major (a map over (f,
+//     rows, tiles)); the k-steps walk f.  A k-step brings 52 KB for 2.6 M
+//     multiply-adds: the slab is read twice and dY d / 256 times, about
+//     5.2 GB a product.  One CTA an SM, a 4-stage ring.  The epilogue
+//     stores the transpose: lanes l and l ^ 4 hold rows r and r + 1 of d
+//     at the same two rows of the tile, trade one value, and each stores
+//     two consecutive elements of a row of dX.
+//   dW: a persistent grid, one CTA an SM, whose CTA c walks the units
+//     (expert, 256-row tile of d, 128-column tile of f) c, c + grid, ...,
+//     numbered with f fastest and the expert slowest, so that the CTAs
+//     running at once share one expert's x and dY in L2 (DwCfg: two
+//     consumer warpgroups of two m64 blocks each on m64n128k16, a 4-stage
+//     ring of 48 KB stages; a 128 x 128 unit moved a third more bytes from
+//     L2).  A is x read MN-major and B dY read MN-major, each through a map
+//     over (width, rows, tiles), so the contraction runs over the rows of
+//     each tile: ceil(rows / 64) k-steps a tile, rows past a tile's end
+//     arriving as zeros.  For each unit the producer walks the expert's
+//     tiles in tile order (DwCoords, from its first tile found by a
+//     ballot) and the consumers sum every k-step into one fp32
+//     accumulator, so the tiles of an expert may lie apart, their sum has
+//     one order (each element's k16 steps as with a CTA a 128 x 128 tile:
+//     the same bits), and no float atomics are used; an expert that owns
+//     no tile runs no k-step and writes zeros.  The ring carries on from
+//     one unit to the next, so the producer loads the next unit's k-steps
+//     while the consumers finish this one, and the ring fills once a CTA.
+//     Each warpgroup writes its 128 x 128 fp32 tile in parts of 64 x 32
+//     (8 KB, the 128-byte swizzle, no bank conflicts) into two part
+//     buffers in turn, one thread storing each part by TMA while the next
+//     is written; the fp32 writes bound it at this shape.
 //   wmma (bf16 operands TMA cannot read) and simt (fp32): the forward's
 //     WMMA and SIMT tiles for dX (the slab read as a stored (N, K)
 //     matrix), and tiles of their shape for dW that step the same tile
@@ -611,15 +633,83 @@ cudaError_t launch(const bf16* x, const int* group_id, const bf16* w, void* out,
 // kernels/block_spmm.py's GROUPED_DX_TILE and GROUPED_DW_TILE mirror the
 // two configs, and its wrappers check them against grouped_bwd_tile() once.
 namespace grouped_bwd {
-using DxCfg = gemm_ml::Config<1, 128, 4, false, false>;
-using DwCfg = gemm_ml::Config<2, 128, 3, true, true>;
+using DxCfg = gemm_ml::Config<2, 160, 4, false, false, 2>;
+using DwCfg = gemm_ml::Config<2, 128, 4, true, true, 2>;
 
-__global__ void __launch_bounds__(DxCfg::THREADS)
-grouped_matmul_dx_bf16_wgmma(const __grid_constant__ CUtensorMap tdy,
-                             const __grid_constant__ CUtensorMap tw,
+// Both kernels run one CTA an SM with the producer warp in a warpgroup of
+// its own, so that the warpgroup can give its registers to the consumers'
+// accumulators (setmaxnreg): the launch gives each of the 384 threads 168;
+// the producers keep 40, the consumers take 232.
+constexpr int THREADS = 128 * 3;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(DxCfg::WG == 2 && DwCfg::WG == 2, "two consumer warpgroups and the producer's");
+
+// dW's staging: each consumer warpgroup writes its two m64 blocks of fp32
+// out in parts of 64 rows by 32 columns (128-byte rows in the 128-byte
+// swizzle), one TMA store each, through DW_BUFS part buffers in turn, so
+// that a part is written while the last one's store reads.  The shared
+// memory: 1024 bytes to align the ring, the ring, 1024 bytes that hold its
+// barriers and keep the staging 1024-byte aligned, and the part buffers of
+// each consumer warpgroup.
+constexpr int DW_PART_COLS = 32;
+constexpr int DW_BUFS = 2;
+constexpr int DW_PART_BYTES = 64 * DW_PART_COLS * 4;
+constexpr int DW_PARTS = DwCfg::BN / DW_PART_COLS;
+constexpr int DW_STAGING = DW_BUFS * DW_PART_BYTES;
+constexpr int DW_SMEM = 1024 + DwCfg::STAGES * DwCfg::STAGE_BYTES + 1024 + DwCfg::WG * DW_STAGING;
+static_assert(16 * DwCfg::STAGES + 16 <= 1024, "the barriers fit before the staging");
+static_assert(DW_SMEM <= 232448, "a CTA's shared memory");
+
+// dX's addressing: A the expert g's slab at rows m0 of d, B dY's rows n0
+// of row tile t; k-step it at f = 64 it.
+struct DxCoords {
+  int m0, n0, t, g;
+  __device__ __forceinline__ void coords(int it, int& ar, int& ak, int& az, int& br, int& bk,
+                                         int& bz, int& bz_hi) const {
+    ar = m0, az = g, br = n0, bz = bz_hi = t, ak = bk = it * gemm_ml::BK;
+  }
+};
+
+// blockIdx: x the 256-row tile of d, y the 160-row part of the row tile,
+// z the row tile.
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_matmul_dx_bf16_wgmma(const __grid_constant__ CUtensorMap tw,
+                             const __grid_constant__ CUtensorMap tdy,
                              const int* __restrict__ group_id, void* __restrict__ dx,
                              int out_bf16, int rows, int E, int d, int f) {
-  grouped_wg::row_tile<DxCfg>(&tdy, &tw, group_id, dx, out_bf16, rows, E, f, d);
+  extern __shared__ unsigned char smem_raw[];
+  const gemm_ml::Smem<DxCfg> sm(smem_raw);
+  const int m0 = blockIdx.x * DxCfg::BM, n0 = blockIdx.y * DxCfg::BN, t = blockIdx.z;
+  const int n = (f + gemm_ml::BK - 1) / gemm_ml::BK;
+  gemm_ml::init<DxCfg>(sm);
+  const int wg = gemm_ml::warpgroup();
+  if (wg == DxCfg::WG) {
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const int g = min(max(group_id[t], 0), E - 1);
+    gemm_ml::produce<DxCfg>(sm, &tw, &tdy, DxCoords{m0, n0, t, g}, n);
+    return;
+  }
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const int r0 = m0 + 64 * DxCfg::MB * wg;
+  float acc[DxCfg::MB][DxCfg::BN / 2];
+  gemm_ml::consume_blocks<DxCfg>(acc, sm, n, wg);
+  // acc[j][i]: row r0 + 64 j + acc_row(i) of d, row n0 + acc_col(i) of
+  // tile t (acc[j][i + 1] the next row of the tile).  Lane l holds an even
+  // row r of d, lane l ^ 4 (l & 4 set) r + 1; the even lane sends its
+  // next-tile-row value and takes the odd lane's this-tile-row one, so the
+  // even lane stores dX[c][r, r + 1] and the odd one dX[c + 1][r, r + 1].
+  const bool odd = threadIdx.x & 4;
+  const size_t row0 = (size_t)t * rows;
+#pragma unroll
+  for (int j = 0; j < DxCfg::MB; ++j)
+#pragma unroll
+    for (int i = 0; i < DxCfg::BN / 2; i += 2) {
+      const float got = __shfl_xor_sync(0xffffffffu, odd ? acc[j][i] : acc[j][i + 1], 4);
+      const int r = r0 + 64 * j + gemm_ml::acc_row(i) - odd, c = n0 + gemm_ml::acc_col(i) + odd;
+      if (c < rows && r < d)
+        grouped_wg::store2(dx, out_bf16, (row0 + c) * d + r, odd ? got : acc[j][i],
+                           odd ? acc[j][i + 1] : got, true, true);
+    }
 }
 
 // The number of row tiles of expert e (ids clamped into [0, E)), the same
@@ -634,14 +724,30 @@ __device__ __forceinline__ int owned_tiles(const int* __restrict__ group_id, int
   return __shfl_sync(0xffffffffu, c, 0);
 }
 
+// The first row tile of expert e (ids clamped into [0, E)), or `tiles` if
+// it owns none: a ballot over a warp's 32 tiles at a time, the same value
+// in every lane (one scan of the ids a unit, not one load a tile in one
+// thread while the ring drains).
+__device__ __forceinline__ int first_tile(const int* __restrict__ group_id, int tiles, int E,
+                                          int e) {
+  for (int t0 = 0; t0 < tiles; t0 += 32) {
+    const int t = t0 + threadIdx.x % 32;
+    const unsigned hit =
+        __ballot_sync(0xffffffffu, t < tiles && min(max(group_id[t], 0), E - 1) == e);
+    if (hit) return t0 + __ffs(hit) - 1;
+  }
+  return tiles;
+}
+
 // dW's addressing: k-step it covers rows [64 (it % kpt), + 64) of the
 // (it / kpt)-th tile of expert e in tile order; A is x's box there at d
 // m0, B dY's at f n0.  The producer asks for it = 0, 1, ... in order, so
-// the walk keeps its tile and steps to the expert's next one.
+// the walk keeps its tile and steps to the expert's next one, from the
+// tile before its first.
 struct DwCoords {
   const int* group_id;
   int E, e, kpt, m0, n0;
-  mutable int tile = -1;
+  mutable int tile;  // before the walk: the tile before the expert's first
   __device__ __forceinline__ void coords(int it, int& ar, int& ak, int& az, int& br, int& bk,
                                          int& bz, int& bz_hi) const {
     const int s = it % kpt;
@@ -654,37 +760,96 @@ struct DwCoords {
   }
 };
 
-// blockIdx: x the 128-column tile of f, y the 128-row tile of d, z the
-// expert.
-__global__ void __launch_bounds__(DwCfg::THREADS, 2)
+// Unit u of dW: expert e, rows [m0, + DwCfg::BM) of d, columns [n0, +
+// DwCfg::BN) of f; nd and nf the tiles of d and f, f fastest.
+struct DwUnit {
+  int e, m0, n0;
+  __device__ __forceinline__ DwUnit(int u, int nd, int nf) {
+    e = u / (nd * nf);
+    const int r = u - e * nd * nf;
+    m0 = r / nf * DwCfg::BM;
+    n0 = r % nf * DwCfg::BN;
+  }
+};
+
+// The 128 threads of consumer warpgroup wg (named barrier 1 + wg).
+__device__ __forceinline__ void sync_warpgroup(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ void st_shared2(uint32_t at, float x0, float x1) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at), "f"(x0), "f"(x1) : "memory");
+}
+
+// The persistent grid (gridDim.x CTAs, from the plan) over E · nd · nf
+// units; tdw maps dW (f, d, E) fp32 in boxes of 32 columns by 64 rows.
+// Only the producer warp of the producer warpgroup stays: the ids' scans
+// (owned_tiles, first_tile) take its 32 lanes, the loads its lane 0.
+__global__ void __launch_bounds__(THREADS, 1)
 grouped_matmul_dw_bf16_wgmma(const __grid_constant__ CUtensorMap tx,
                              const __grid_constant__ CUtensorMap tdy,
-                             const int* __restrict__ group_id, float* __restrict__ dw, int tiles,
-                             int rows, int E, int d, int f) {
+                             const __grid_constant__ CUtensorMap tdw,
+                             const int* __restrict__ group_id, int tiles, int rows, int E, int d,
+                             int f) {
   extern __shared__ unsigned char smem_raw[];
   const gemm_ml::Smem<DwCfg> sm(smem_raw);
-  const int n0 = blockIdx.x * DwCfg::BN, m0 = blockIdx.y * DwCfg::BM, e = blockIdx.z;
   const int kpt = (rows + gemm_ml::BK - 1) / gemm_ml::BK;
-  const int n = owned_tiles(group_id, tiles, E, e) * kpt;
+  const int nd = (d + DwCfg::BM - 1) / DwCfg::BM, nf = (f + DwCfg::BN - 1) / DwCfg::BN;
+  const int units = E * nd * nf;
   gemm_ml::init<DwCfg>(sm);
   const int wg = gemm_ml::warpgroup();
+  int it = 0;  // the ring step of the unit's first k-step
   if (wg == DwCfg::WG) {
-    gemm_ml::produce<DwCfg>(sm, &tx, &tdy, DwCoords{group_id, E, e, kpt, m0, n0}, n);
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 128 * DwCfg::WG + 32) return;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const DwUnit at(u, nd, nf);
+      const int n = owned_tiles(group_id, tiles, E, at.e) * kpt;
+      const int first = first_tile(group_id, tiles, E, at.e);
+      gemm_ml::produce<DwCfg>(sm, &tx, &tdy,
+                              DwCoords{group_id, E, at.e, kpt, at.m0, at.n0, first - 1}, n, it);
+      it += n;
+    }
     return;
   }
-  float acc[DwCfg::BN / 2];
-  gemm_ml::consume<DwCfg>(acc, sm, n, wg);
-  // acc[i]: row m0 + 64 wg + acc_row(i) of dW[e] (along d), column
-  // n0 + acc_col(i) (along f)
-  float* out = dw + (size_t)e * d * f;
-  const int row0 = m0 + 64 * wg;
-  const bool pair = f % 2 == 0;
+  hopper::setmaxnreg_inc<CONSUMER_REGS>();
+  const uint32_t staging = sm.ring + DwCfg::STAGES * DwCfg::STAGE_BYTES + 1024 + wg * DW_STAGING;
+  const bool lead = threadIdx.x % 128 == 0;
+  int part = 0;  // the parts this warpgroup has stored, for its buffers' turn
+  float acc[DwCfg::MB][DwCfg::BN / 2];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const DwUnit at(u, nd, nf);
+    const int n = owned_tiles(group_id, tiles, E, at.e) * kpt;
+    gemm_ml::consume_blocks<DwCfg>(acc, sm, n, wg, it, true);
+    it += n;
+    // acc[j][i]: row acc_row(i) of block j's 64, column acc_col(i): in part
+    // c / 32, its 16-byte chunk (c % 32) / 4 xor the row's low 3 bits
 #pragma unroll
-  for (int i = 0; i < DwCfg::BN / 2; i += 2) {
-    const int r = row0 + gemm_ml::acc_row(i), c = n0 + gemm_ml::acc_col(i);
-    if (r < d && c < f)
-      grouped_wg::store2(out, 0, (size_t)r * f + c, acc[i], acc[i + 1], c + 1 < f, pair);
+    for (int j = 0; j < DwCfg::MB; ++j)
+#pragma unroll
+      for (int p = 0; p < DW_PARTS; ++p) {
+        const uint32_t buf = staging + ((part + j * DW_PARTS + p) % DW_BUFS) * DW_PART_BYTES;
+        // the buffer is free once the stores of its last part have read it
+        if (lead) hopper::bulk_wait_read<DW_BUFS - 1>();
+        sync_warpgroup(wg);
+#pragma unroll
+        for (int q = 0; q < DW_PART_COLS / 2; q += 2) {
+          const int i = p * DW_PART_COLS / 2 + q;
+          const int r = gemm_ml::acc_row(i), c = gemm_ml::acc_col(i) % DW_PART_COLS;
+          st_shared2(buf + r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2)),
+                     acc[j][i], acc[j][i + 1]);
+        }
+        hopper::fence_async_smem();
+        sync_warpgroup(wg);
+        if (lead) {
+          hopper::tma_store_3d(&tdw, buf, at.n0 + p * DW_PART_COLS,
+                               at.m0 + 64 * (DwCfg::MB * wg + j), at.e);
+          hopper::bulk_commit();
+        }
+      }
+    part += DwCfg::MB * DW_PARTS;
   }
+  if (lead) hopper::bulk_wait<0>();
 }
 
 template <class Kern>
@@ -694,25 +859,27 @@ cudaError_t allow_smem(Kern kern, int bytes) {
 
 cudaError_t launch_dx(const bf16* dy, const int* group_id, const bf16* w, void* dx, int out_bf16,
                       int tiles, int rows, int E, int d, int f, cudaStream_t s) {
-  CUtensorMap tdy, tw;
-  // dY as (f, rows, tiles), K-major: a tile's rows past its end read as zeros
-  cudaError_t e = hopper::tile_map(&tdy, dy, f, rows, tiles, 1, f, (long long)rows * f, 0,
-                                   gemm_ml::BK, 64);
-  // the experts as (f, d, E), K-major: boxes of 64 f by 128 rows of d
+  CUtensorMap tw, tdy;
+  // the experts as (f, d, E), K-major: boxes of 64 f by 256 rows of d
+  cudaError_t e = hopper::tile_map(&tw, w, f, d, E, 1, f, (long long)d * f, 0, gemm_ml::BK,
+                                   DxCfg::BM);
+  // dY as (f, rows, tiles), K-major, boxes of 64 f by 160 rows: a tile's
+  // rows past its end read as zeros
   if (e == cudaSuccess)
-    e = hopper::tile_map(&tw, w, f, d, E, 1, f, (long long)d * f, 0, gemm_ml::BK, DxCfg::BN);
+    e = hopper::tile_map(&tdy, dy, f, rows, tiles, 1, f, (long long)rows * f, 0, gemm_ml::BK,
+                         DxCfg::BN);
   if (e != cudaSuccess) return e;
   static const cudaError_t attr = allow_smem(&grouped_matmul_dx_bf16_wgmma, DxCfg::SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((d + DxCfg::BN - 1) / DxCfg::BN, (rows + 63) / 64, tiles);
-  grouped_matmul_dx_bf16_wgmma<<<grid, DxCfg::THREADS, DxCfg::SMEM, s>>>(tdy, tw, group_id, dx,
-                                                                          out_bf16, rows, E, d, f);
+  const dim3 grid((d + DxCfg::BM - 1) / DxCfg::BM, (rows + DxCfg::BN - 1) / DxCfg::BN, tiles);
+  grouped_matmul_dx_bf16_wgmma<<<grid, THREADS, DxCfg::SMEM, s>>>(tw, tdy, group_id, dx,
+                                                                   out_bf16, rows, E, d, f);
   return cudaGetLastError();
 }
 
 cudaError_t launch_dw(const bf16* x, const int* group_id, const bf16* dy, float* dw, int tiles,
-                      int rows, int E, int d, int f, cudaStream_t s) {
-  CUtensorMap tx, tdy;
+                      int rows, int E, int d, int f, int ctas, cudaStream_t s) {
+  CUtensorMap tx, tdy, tdw;
   // x as (d, rows, tiles) and dY as (f, rows, tiles), MN-major: panels of
   // 64 columns by 64 rows of a tile, zeros past its end
   cudaError_t e = hopper::tile_map(&tx, x, d, rows, tiles, 1, d, (long long)rows * d, 0,
@@ -720,12 +887,19 @@ cudaError_t launch_dw(const bf16* x, const int* group_id, const bf16* dy, float*
   if (e == cudaSuccess)
     e = hopper::tile_map(&tdy, dy, f, rows, tiles, 1, f, (long long)rows * f, 0, DwCfg::B::SW,
                          gemm_ml::BK);
+  // dW as (f, d, E) fp32, stored in boxes of 32 columns by 64 rows in the
+  // 128-byte swizzle; nothing past d or f is written
+  const cuuint64_t dims[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)f * 4, (cuuint64_t)d * f * 4};
+  const cuuint32_t box[3] = {DW_PART_COLS, 64, 1};
+  if (e == cudaSuccess)
+    e = hopper::raw_map(&tdw, dw, 3, dims, strides, box, 128, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
   if (e != cudaSuccess) return e;
-  static const cudaError_t attr = allow_smem(&grouped_matmul_dw_bf16_wgmma, DwCfg::SMEM);
+  static const cudaError_t attr = allow_smem(&grouped_matmul_dw_bf16_wgmma, DW_SMEM);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((f + DwCfg::BN - 1) / DwCfg::BN, (d + DwCfg::BM - 1) / DwCfg::BM, E);
-  grouped_matmul_dw_bf16_wgmma<<<grid, DwCfg::THREADS, DwCfg::SMEM, s>>>(tx, tdy, group_id, dw,
-                                                                          tiles, rows, E, d, f);
+  if (ctas < 1) return cudaErrorInvalidConfiguration;
+  grouped_matmul_dw_bf16_wgmma<<<ctas, THREADS, DW_SMEM, s>>>(tx, tdy, tdw, group_id, tiles, rows,
+                                                              E, d, f);
   return cudaGetLastError();
 }
 }  // namespace grouped_bwd
@@ -1060,11 +1234,12 @@ extern "C" int grouped_matmul_dx(const void* dy, const void* group_id, const voi
 // in_bf16 else fp32; group_id (tiles) int32 on the device, clamped into
 // [0, E); dw (E, d, f) fp32 contiguous, every element written (zeros for an
 // expert that owns no tile).  variant 1: wgmma (bf16, d and f multiples of
-// 8, x's and dy's bases 16-byte aligned); 0: wmma (other bf16) or simt
-// (fp32).  Returns cudaGetLastError() after the launch.
+// 8, x's, dy's and dw's bases 16-byte aligned) on a persistent grid of
+// `ctas` CTAs; 0: wmma (other bf16) or simt (fp32), `ctas` unread.
+// Returns cudaGetLastError() after the launch.
 extern "C" int grouped_matmul_dw(const void* x, const void* group_id, const void* dy, void* dw,
                                  int in_bf16, int tiles, int rows, int E, int d, int f,
-                                 int variant, void* stream) {
+                                 int variant, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gid = static_cast<const int*>(group_id);
   float* out = static_cast<float*>(dw);
@@ -1072,7 +1247,7 @@ extern "C" int grouped_matmul_dw(const void* x, const void* group_id, const void
     if (!in_bf16 || d % 8 || f % 8) return static_cast<int>(cudaErrorInvalidConfiguration);
     return static_cast<int>(grouped_bwd::launch_dw(static_cast<const bf16*>(x), gid,
                                                    static_cast<const bf16*>(dy), out, tiles, rows,
-                                                   E, d, f, s));
+                                                   E, d, f, ctas, s));
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (in_bf16) {
@@ -1090,7 +1265,8 @@ extern "C" int grouped_matmul_dw(const void* x, const void* group_id, const void
 }
 
 // K9's backward wgmma tiles, for the wrappers' check of their plans: dX's
-// (rows, columns, ring stages), then dW's.
+// (rows of d, rows of a row tile, ring stages), then dW's (rows of d,
+// columns of f, ring stages).
 extern "C" int grouped_bwd_tile(int* out) {
   out[0] = grouped_bwd::DxCfg::BM;
   out[1] = grouped_bwd::DxCfg::BN;

@@ -95,12 +95,13 @@ struct Operand {
 
 };
 
-// A CTA's shape: WG consumer warpgroups of 64 M rows by BN, a ring of
+// A CTA's shape: WG consumer warpgroups of 64 MB M rows by BN (MB m64
+// blocks a warpgroup: consume for one, consume_blocks for more), a ring of
 // STAGES stages; A_MN / B_MN: whether wgmma's A (M rows) and B (N columns)
 // operands are stored MN-major.
-template <int WG_, int BN_, int STAGES_, bool A_MN, bool B_MN>
+template <int WG_, int BN_, int STAGES_, bool A_MN, bool B_MN, int MB_ = 1>
 struct Config {
-  static constexpr int WG = WG_, BM = 64 * WG_, BN = BN_, STAGES = STAGES_;
+  static constexpr int WG = WG_, MB = MB_, BM = 64 * WG_ * MB_, BN = BN_, STAGES = STAGES_;
   static constexpr bool kAMN = A_MN, kBMN = B_MN;
   using A = Operand<BM, A_MN>;
   using B = Operand<BN, B_MN>;
@@ -178,55 +179,79 @@ __device__ __forceinline__ void arrive_if(uint32_t bar, bool pred) {
 //   void coords(int it, int& a_row, int& a_k, int& a_z,
 //               int& b_row, int& b_k, int& b_z, int& b_z_hi) const;
 // (b_z_hi: the outer coordinate of B's upper half of panels; b_z for one
-// matrix.)
+// matrix.)  A CTA that walks several tiles through one ring passes the
+// ring step of the tile's first k-step as `it0` (the Policy still sees
+// the tile's own steps 0 .. n - 1), as its consumers pass it to consume.
 template <class C, class Policy>
 __device__ __forceinline__ void produce(const Smem<C>& sm, const CUtensorMap* ta,
-                                        const CUtensorMap* tb, const Policy& pol, int n) {
+                                        const CUtensorMap* tb, const Policy& pol, int n,
+                                        int it0 = 0) {
   if (threadIdx.x != 128 * C::WG) return;
-  for (int it = 0; it < n; ++it) {
+  for (int step = 0; step < n; ++step) {
+    const int it = it0 + step;
     const int s = it % C::STAGES;
     if (it >= C::STAGES) wait(sm.empty + 8 * s, ((it / C::STAGES) - 1) & 1);
     const uint32_t bar = sm.full + 8 * s;
     int ar, ak, az, br, bk, bz, bz_hi;
-    pol.coords(it, ar, ak, az, br, bk, bz, bz_hi);
+    pol.coords(step, ar, ak, az, br, bk, bz, bz_hi);
     hopper::mbar_expect_tx(bar, C::STAGE_BYTES);
     C::A::load(sm.a(s), ta, bar, ar, ak, az, az);
     C::B::load(sm.b(s), tb, bar, br, bk, bz, bz_hi);
   }
 }
 
-// A consumer warpgroup `wg`: acc (its 64 rows by BN, wgmma's layout: thread
-// lane of warp w holds row 16 w + lane / 4 + 8 ((i / 2) % 2) and column
-// 8 (i / 4) + 2 (lane % 4) + i % 2 in acc[i]) = the sum over the `n`
-// k-steps of the ring, one wgmma group in flight behind the next.  A CTA
-// that walks several tiles through one ring (K7's row band) passes the
-// ring step of the tile's first k-step as `it0` and `release_last`, so the
-// stage of the tile's last k-step is freed for the next tile's loads.
+// A consumer warpgroup `wg`: acc[j] (rows 64 (MB wg + j) of the tile and
+// on, by BN, wgmma's layout: thread lane of warp w holds row 16 w + lane / 4
+// + 8 ((i / 2) % 2) and column 8 (i / 4) + 2 (lane % 4) + i % 2 in
+// acc[j][i]) = the sum over the `n` k-steps of the ring, each k16 step
+// issued for every block before the next, one wgmma group in flight behind
+// the next.  A CTA that walks several tiles through one ring (K7's row
+// band, K9's persistent dW) passes the ring step of the tile's first
+// k-step as `it0` and `release_last`, so the stage of the tile's last
+// k-step is freed for the next tile's loads.
 template <class C>
-__device__ __forceinline__ void consume(float (&acc)[C::BN / 2], const Smem<C>& sm, int n,
-                                        int wg, int it0 = 0, bool release_last = false) {
+__device__ __forceinline__ void consume_blocks(float (&acc)[C::MB][C::BN / 2], const Smem<C>& sm,
+                                               int n, int wg, int it0 = 0,
+                                               bool release_last = false) {
 #pragma unroll
-  for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < C::MB; ++j)
+#pragma unroll
+    for (int i = 0; i < C::BN / 2; ++i) acc[j][i] = 0.0f;
   for (int step = 0; step < n; ++step) {
     const int it = it0 + step;
     const int s = it % C::STAGES;
     wait(sm.full + 8 * s, (it / C::STAGES) & 1);
     const uint32_t a_s = sm.a(s), b_s = sm.b(s);
-    hopper::fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < C::MB; ++j) hopper::fence_regs(acc[j]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks)
-      hopper::Wgmma<C::BN>::template ss<C::kAMN ? 1 : 0, C::kBMN ? 1 : 0>(
-          acc, C::A::desc(a_s, 64 * wg, ks), C::B::desc(b_s, 0, ks), 1);
+#pragma unroll
+      for (int j = 0; j < C::MB; ++j)
+        hopper::Wgmma<C::BN>::template ss<C::kAMN ? 1 : 0, C::kBMN ? 1 : 0>(
+            acc[j], C::A::desc(a_s, 64 * (C::MB * wg + j), ks), C::B::desc(b_s, 0, ks), 1);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();  // the group of step it - 1 is done: free its stage
-    hopper::fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < C::MB; ++j) hopper::fence_regs(acc[j]);
     if (step > 0) arrive_if(sm.empty + 8 * ((it - 1) % C::STAGES), threadIdx.x % 128 == 0);
   }
   hopper::wgmma_wait<0>();
-  hopper::fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < C::MB; ++j) hopper::fence_regs(acc[j]);
   if (release_last && n > 0)
     arrive_if(sm.empty + 8 * ((it0 + n - 1) % C::STAGES), threadIdx.x % 128 == 0);
+}
+
+// consume_blocks for a Config of one m64 block a warpgroup: acc holds its
+// 64 rows by BN.
+template <class C>
+__device__ __forceinline__ void consume(float (&acc)[C::BN / 2], const Smem<C>& sm, int n,
+                                        int wg, int it0 = 0, bool release_last = false) {
+  static_assert(C::MB == 1, "consume takes one m64 block a warpgroup");
+  consume_blocks<C>(reinterpret_cast<float (&)[1][C::BN / 2]>(acc), sm, n, wg, it0,
+                    release_last);
 }
 
 // The (row, column) of wgmma's output that acc[i] of this thread holds,

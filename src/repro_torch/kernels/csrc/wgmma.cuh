@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: warpgroup
 // matrix products (wgmma) with operands in swizzled shared-memory tiles or,
 // for A, in registers; the 64-bit descriptor of such a tile; mbarriers; and
-// TMA tile and bulk loads that complete on an mbarrier.  K2's bf16 forward
+// TMA tile and bulk loads that complete on an mbarrier, and TMA tile stores
+// in bulk groups.  K2's bf16 forward
 // (csrc/flash_attention.cu), the attention backward (csrc/attention_bwd.cuh:
 // K6 and K5's chained backward) and the GEMM mainloop of K1 and K11
 // (csrc/gemm_mainloop.cuh) are built from them.
@@ -146,6 +147,53 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// Lower or raise this warpgroup's registers a thread to N (a multiple of 8
+// in [24, 256]; every warp of the warpgroup executes it): a producer
+// warpgroup gives back what the consumers' accumulators take, within the
+// CTA's registers at launch.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Make this thread's writes to shared memory visible to the asynchronous
+// proxy (TMA): every thread that wrote a tile calls it before the barrier
+// after which one thread issues the tile's TMA store.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One TMA store of the box at `src` in shared memory to coordinates (c0,
+// c1, c2) of a 3-D tensor map; parts of the box past the map's extents are
+// not written.  It joins this thread's open bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_3d(const void* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// Close this thread's open bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups are still reading
+// their shared memory (their buffers may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Two bf16 values in one 32-bit register, `lo` in the low half: a wgmma A
 // fragment word.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -156,7 +204,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulator D (N / 2
 // registers a thread).  ss (N 64 and 128, K2's S tiles and K10's blocks;
-// N 16 and 256, the GEMM mainloop's decode and prefill tiles): A and B by
+// N 16 and 256, the GEMM mainloop's decode and prefill tiles; N 160, K9's
+// dX over half of a 320-row tile): A and B by
 // descriptors, TA / TB their transpose bits (0: K-major).  rs (N 16 to
 // 256, K2's head dims): A from registers (four words a thread, the
 // accumulator's layout: rows 16 w + lane / 4 and + 8 of warp w, columns
@@ -284,6 +333,33 @@ struct Wgmma<128> {
 };
 
 template <>
+struct Wgmma<160> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[80], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p, 1, 1, %83, %84;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
 struct Wgmma<256> {
   template <int TA, int TB>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
@@ -403,13 +479,15 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int D, int S, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A bf16 tensor map of `rank` (3 or 4) dimensions, innermost first: extents
-// `dims`, the byte strides of dimensions 1.. `strides` (multiples of 16),
-// boxes of `box` elements, written unswizzled (`span` 16: 16-byte rows of
-// 8-row core matrices) or swizzled over `span` bytes; reads past an extent
-// give zeros.
+// A tensor map of `rank` (3 or 4) dimensions of `type` (bf16 unless
+// named), innermost first: extents `dims`, the byte strides of dimensions
+// 1.. `strides` (multiples of 16), boxes of `box` elements, written
+// unswizzled (`span` 16: 16-byte rows of 8-row core matrices) or swizzled
+// over `span` bytes; reads past an extent give zeros, stores past it are
+// dropped.
 inline cudaError_t raw_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                           const cuuint64_t* strides, const cuuint32_t* box, int span) {
+                           const cuuint64_t* strides, const cuuint32_t* box, int span,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -417,7 +495,7 @@ inline cudaError_t raw_map(CUtensorMap* map, const void* ptr, int rank, const cu
                                      : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                      : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                   : CU_TENSOR_MAP_SWIZZLE_NONE;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+  const CUresult r = encode(map, type, rank, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -14,9 +14,12 @@ rtol 1e-4 / atol 1e-3, bf16 rtol 2e-2 / atol 2e-1.
 
 K9's backward the same way: ``grouped_bwd_plan``'s variants, grids and
 tensor-map extents, and ``emulate_dx`` / ``emulate_dw`` walking the wgmma
-kernels' grids box by box (dX reading w's slab K-major through (f, d, E),
-dW walking each expert's tiles in tile order as ``DwCoords`` does, 64 rows
-of a tile a k-step) against ``grouped_matmul_dx_ref`` and
+kernels' grids box by box (dX as its transpose w[g] dY^T: 256 rows of d
+by 160 rows of a row tile a CTA, reading w's slab K-major through (f, d,
+E) and dY through (f, rows, tiles); dW: the persistent
+grid's CTAs walking their units as ``dw_units`` says, each unit
+walking its expert's tiles in tile order as ``DwCoords`` does, 64 rows of
+a tile a k-step) against ``grouped_matmul_dx_ref`` and
 ``grouped_matmul_dw_ref``: tiles of one expert apart, an expert without a
 tile, rows 1, 8 and 100 a tile.
 """
@@ -35,6 +38,7 @@ from repro_torch.kernels import ref as tref
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-3), torch.bfloat16: dict(rtol=2e-2, atol=2e-1)}
 BK = 64          # k elements a ring stage (csrc/gemm_mainloop.cuh gemm_ml::BK)
 ROWS = 64        # rows of a row tile a CTA
+SMS = 132        # an H100's streaming multiprocessors (dW's persistent grid)
 
 
 def _box(m, r0, c0, nr, nc):
@@ -171,31 +175,33 @@ def _clamp(g, e):
 
 
 def emulate_dx(dy, group_id, w, plan):
-    """dX's wgmma variant on the CPU: for each CTA (column tile n of d,
-    64-row chunk c, row tile t) of ``plan.grid``, k-step it reads A's box
-    at (f it·64, row c·64, tile t) of dY's map (f, rows, tiles) and B's at
-    (f it·64, d n·bn, expert g) of w's map (f, d, E), K-major both; the
-    epilogue stores rows below ``rows`` and columns below d, each once."""
-    f, rows, tiles = plan.a_map
-    _, d, e = plan.b_map
+    """dX's wgmma variant on the CPU, the transpose dX_t^T = w[g] dY_t^T:
+    for each CTA (tile m of bm rows of d, part p of bn rows of row tile t,
+    row tile t) of ``plan.grid``, k-step it reads A's box at (f it·64, d
+    m·bm, expert g) of w's map (f, d, E) and B's at (f it·64, row p·bn,
+    tile t) of dY's map (f, rows, tiles), K-major both (zeros past every
+    extent); the epilogue stores the transpose, rows of the tile below
+    ``rows`` and columns below d, each element once."""
+    f, d, e = plan.a_map
+    _, rows, tiles = plan.b_map
     bm, bn, _ = plan.tile
     ym = dy.float().reshape(tiles, rows, f)
     out = torch.full((tiles * rows, d), float("nan"))
     written = torch.zeros(tiles * rows, d, dtype=torch.int32)
     nx, ny, nz = plan.grid
-    for n in range(nx):
-        for c in range(ny):
+    for m in range(nx):
+        for p in range(ny):
             for t in range(nz):
                 g = _clamp(group_id[t], e)
                 acc = torch.zeros(bm, bn)
                 for it in range(-(-f // BK)):
-                    acc += _box(ym[t], c * bm, it * BK, bm, BK) @ \
-                        _box(w[g].float(), n * bn, it * BK, bn, BK).T
-                r = min(bm, rows - c * bm)
-                cols = min(bn, d - n * bn)
-                at = slice(t * rows + c * bm, t * rows + c * bm + r)
-                out[at, n * bn:n * bn + cols] = acc[:r, :cols]
-                written[at, n * bn:n * bn + cols] += 1
+                    acc += _box(w[g].float(), m * bm, it * BK, bm, BK) @ \
+                        _box(ym[t], p * bn, it * BK, bn, BK).T
+                r = min(bn, rows - p * bn)
+                cols = min(bm, d - m * bm)
+                at = slice(t * rows + p * bn, t * rows + p * bn + r)
+                out[at, m * bm:m * bm + cols] = acc[:cols, :r].T
+                written[at, m * bm:m * bm + cols] += 1
     assert bool((written == 1).all()), "an output element stored other than once"
     return out
 
@@ -217,32 +223,44 @@ def dw_walk(group_id, e, expert, kpt):
     return out
 
 
+def dw_units(units, ctas, cta):
+    """The (expert, tile of d, tile of f) units that CTA ``cta`` of dW's
+    persistent grid of ``ctas`` walks, in its order, as
+    ``grouped_matmul_dw_bf16_wgmma``'s loop and ``DwUnit`` do: units
+    ``cta``, ``cta + ctas``, ... of ``units`` = (experts, tiles of d, tiles
+    of f), numbered with f fastest and the expert slowest."""
+    e, nd, nf = units
+    return [(u // (nd * nf), u % (nd * nf) // nf, u % nf) for u in range(cta, e * nd * nf, ctas)]
+
+
 def emulate_dw(x, group_id, dy, plan):
-    """dW's wgmma variant on the CPU: for each CTA (column tile n of f, row
-    tile m of d, expert e) of ``plan.grid``, the k-steps of ``dw_walk``,
-    each A's box at (d m·bm, row s·64, tile) of x's map (d, rows, tiles)
-    and B's at (f n·bn, row s·64, tile) of dY's map (f, rows, tiles),
-    MN-major both (zeros past a tile's rows), summed into one fp32
-    accumulator in that order; every element of dW stored once."""
+    """dW's wgmma variant on the CPU: each CTA of the persistent
+    ``plan.grid`` walks its units (expert e, tile m of d, tile n of f) as
+    ``dw_units`` says; for each, the k-steps of ``dw_walk``, each
+    A's box at (d m·bm, row s·64, tile) of x's map (d, rows, tiles) and
+    B's at (f n·bn, row s·64, tile) of dY's map (f, rows, tiles), MN-major
+    both (zeros past a tile's rows), summed into one fp32 accumulator in
+    that order; the unit's store drops what lies past d and f.  Every
+    element of dW stored once."""
     d, rows, tiles = plan.a_map
     f = plan.b_map[0]
     bm, bn, _ = plan.tile
-    nx, ny, ne = plan.grid
+    ne = plan.units[0]
     xm = x.float().reshape(tiles, rows, d)
     ym = dy.float().reshape(tiles, rows, f)
     out = torch.full((ne, d, f), float("nan"))
     written = torch.zeros(ne, d, f, dtype=torch.int32)
     kpt = -(-rows // BK)
-    for n in range(nx):
-        for m in range(ny):
-            for e in range(ne):
-                acc = torch.zeros(bm, bn)
-                for t, s in dw_walk(group_id, ne, e, kpt):
-                    acc += _box(xm[t], s * BK, m * bm, BK, bm).T @ \
-                        _box(ym[t], s * BK, n * bn, BK, bn)
-                r, cols = min(bm, d - m * bm), min(bn, f - n * bn)
-                out[e, m * bm:m * bm + r, n * bn:n * bn + cols] = acc[:r, :cols]
-                written[e, m * bm:m * bm + r, n * bn:n * bn + cols] += 1
+    (ctas,) = plan.grid
+    for cta in range(ctas):
+        for e, m, n in dw_units(plan.units, ctas, cta):
+            acc = torch.zeros(bm, bn)
+            for t, s in dw_walk(group_id, ne, e, kpt):
+                acc += _box(xm[t], s * BK, m * bm, BK, bm).T @ \
+                    _box(ym[t], s * BK, n * bn, BK, bn)
+            r, cols = min(bm, d - m * bm), min(bn, f - n * bn)
+            out[e, m * bm:m * bm + r, n * bn:n * bn + cols] = acc[:r, :cols]
+            written[e, m * bm:m * bm + r, n * bn:n * bn + cols] += 1
     assert bool((written == 1).all()), "an output element stored other than once"
     return out
 
@@ -259,7 +277,7 @@ def emulate_dw(x, group_id, dy, plan):
 ])
 def test_the_backward_variant_follows_dtype_and_alignment(kind, dtype, d, f, aligned, variant):
     tiles, rows, e = 4, 100, 8
-    plan = tspmm.grouped_bwd_plan(kind, tiles, rows, d, f, e, dtype, aligned)
+    plan = tspmm.grouped_bwd_plan(kind, tiles, rows, d, f, e, dtype, aligned, sms=SMS)
     assert (plan.kind, plan.variant) == (kind, variant)
     bn = 64 if variant == "simt" else 128
     if variant == "wgmma":
@@ -272,19 +290,21 @@ def test_the_backward_variant_follows_dtype_and_alignment(kind, dtype, d, f, ali
 
 @pytest.mark.parametrize("rows", [1, 8, 100, 320])
 def test_the_backward_tensor_maps_extents(rows):
-    """dX reads dY (f, rows, tiles) and w (f, d, E) K-major, the k-steps
-    along f; dW reads x (d, rows, tiles) and dY (f, rows, tiles) MN-major,
-    the k-steps along a tile's rows, whose extent stops a box at the
-    tile's end."""
+    """dX (transposed) reads w (f, d, E) and dY (f, rows, tiles) K-major,
+    the k-steps along f, a box of dY stopped at the tile's end; dW reads x
+    (d, rows, tiles) and dY (f, rows, tiles) MN-major, the k-steps along a
+    tile's rows, whose extent stops a box at the tile's end."""
     tiles, d, f, e = 3, 72, 200, 5
-    dx = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16)
+    dx = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16, sms=SMS)
     bm, bn, _ = tspmm.GROUPED_DX_TILE
-    assert (dx.a_map, dx.b_map) == ((f, rows, tiles), (f, d, e))
-    assert dx.grid == (-(-d // bn), -(-rows // bm), tiles)
-    dw = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16)
+    assert (dx.a_map, dx.b_map) == ((f, d, e), (f, rows, tiles))
+    assert dx.grid == (-(-d // bm), -(-rows // bn), tiles)
+    dw = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16, sms=SMS)
     bm, bn, _ = tspmm.GROUPED_DW_TILE
     assert (dw.a_map, dw.b_map) == ((d, rows, tiles), (f, rows, tiles))
-    assert dw.grid == (-(-f // bn), -(-d // bm), e)
+    assert dw.units == (e, -(-d // bm), -(-f // bn))
+    # a persistent grid: one CTA an SM, none without a unit
+    assert dw.grid == (min(e * -(-d // bm) * -(-f // bn), SMS),)
 
 
 def test_the_qwen3_moe_training_products_run_on_wgmma():
@@ -292,26 +312,37 @@ def test_the_qwen3_moe_training_products_run_on_wgmma():
     and down (1536 -> 4096), dX and dW each on wgmma."""
     for d, f in ((4096, 1536), (1536, 4096)):
         for kind in ("dx", "dw"):
-            plan = tspmm.grouped_bwd_plan(kind, 128, 320, d, f, 128, torch.bfloat16)
+            plan = tspmm.grouped_bwd_plan(kind, 128, 320, d, f, 128, torch.bfloat16, sms=SMS)
             assert plan.variant == "wgmma"
-    assert tspmm.grouped_bwd_plan("dw", 128, 320, 4096, 1536, 128, torch.bfloat16).grid == \
-        (1536 // 128, 4096 // 128, 128)
+    dx = tspmm.grouped_bwd_plan("dx", 128, 320, 4096, 1536, 128, torch.bfloat16, sms=SMS)
+    bm, bn, _ = tspmm.GROUPED_DX_TILE
+    # two CTAs over a 320-row tile, no row past its end
+    assert dx.grid == (4096 // bm, 320 // bn, 128) == (16, 2, 128)
+    dw = tspmm.grouped_bwd_plan("dw", 128, 320, 4096, 1536, 128, torch.bfloat16, sms=SMS)
+    bm, bn, _ = tspmm.GROUPED_DW_TILE
+    assert dw.units == (128, 4096 // bm, 1536 // bn) and dw.grid == (132,)
+    assert tspmm.grouped_bwd_plan("dw", 128, 320, 4096, 1536, 128, torch.bfloat16,
+                                  sms=114).grid == (114,)
     with pytest.raises(ValueError, match="kind"):
-        tspmm.grouped_bwd_plan("dy", 1, 1, 8, 8, 1, torch.bfloat16)
+        tspmm.grouped_bwd_plan("dy", 1, 1, 8, 8, 1, torch.bfloat16, sms=SMS)
+    with pytest.raises(TypeError, match="sms"):     # no card's SM count by default
+        tspmm.grouped_bwd_plan("dw", 128, 320, 4096, 1536, 128, torch.bfloat16)
 
 
 def test_the_backward_tiles_are_the_source_tiles():
     """GROUPED_DX_TILE and GROUPED_DW_TILE mirror grouped_bwd's configs (64
-    rows a consumer warpgroup), checked again against the library on the
-    card."""
+    rows a consumer warpgroup's m64 block, one block unless named),
+    checked again against the library on the card; dX's 160 is one wgmma's
+    n (m64n160k16), dW's 128 keeps m64n128k16, the instruction of a 128 x
+    128 tile, and so its bits."""
     src = (Path(tspmm.__file__).resolve().parent / "csrc" / "block_spmm.cu").read_text()
     found = {}
     for name, a_mn, b_mn in (("Dx", "false", "false"), ("Dw", "true", "true")):
-        m = re.findall(rf"using {name}Cfg = gemm_ml::Config<(\d+), (\d+), (\d+), {a_mn}, {b_mn}>;",
-                       src)
+        m = re.findall(rf"using {name}Cfg = gemm_ml::Config<(\d+), (\d+), (\d+), {a_mn}, {b_mn}"
+                       rf"(?:, (\d+))?>;", src)
         assert len(m) == 1, name
-        wg, bn, stages = map(int, m[0])
-        found[name] = (64 * wg, bn, stages)
+        wg, bn, stages, blocks = m[0]
+        found[name] = (64 * int(wg) * int(blocks or 1), int(bn), int(stages))
     assert found == {"Dx": tspmm.GROUPED_DX_TILE, "Dw": tspmm.GROUPED_DW_TILE}
 
 
@@ -342,11 +373,11 @@ def test_the_backward_addressing_matches_the_plain_versions(groups, rows, d, f, 
     dy = torch.from_numpy(rng.normal(size=(tiles * rows, f)).astype(np.float32)).to(dtype)
     w = torch.from_numpy((rng.normal(size=(e, d, f)) / np.sqrt(d)).astype(np.float32)).to(dtype)
     clamped = gid.clamp(0, e - 1)
-    plan = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16)
+    plan = tspmm.grouped_bwd_plan("dx", tiles, rows, d, f, e, torch.bfloat16, sms=SMS)
     np.testing.assert_allclose(emulate_dx(dy, gid, w, plan).numpy(),
                                tref.grouped_matmul_dx_ref(dy, clamped, w).float().numpy(),
                                **TOL[dtype])
-    plan = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16)
+    plan = tspmm.grouped_bwd_plan("dw", tiles, rows, d, f, e, torch.bfloat16, sms=SMS)
     got = emulate_dw(x, gid, dy, plan)
     want = tref.grouped_matmul_dw_ref(x, clamped, dy, e)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL[dtype])
@@ -369,7 +400,7 @@ def test_the_dw_walk_sums_each_experts_tiles_in_tile_order():
     rows, d, f = 100, 64, 128
     x = torch.from_numpy(rng.normal(size=(6 * rows, d)).astype(np.float32))
     dy = torch.from_numpy(rng.normal(size=(6 * rows, f)).astype(np.float32))
-    plan = tspmm.grouped_bwd_plan("dw", 6, rows, d, f, 4, torch.bfloat16)
+    plan = tspmm.grouped_bwd_plan("dw", 6, rows, d, f, 4, torch.bfloat16, sms=SMS)
     got = emulate_dw(x, gid, dy, plan)[2]
     bm, bn, _ = plan.tile
     acc = torch.zeros(bm, bn)
@@ -378,3 +409,80 @@ def test_the_dw_walk_sums_each_experts_tiles_in_tile_order():
             acc += _box(x[t * rows:(t + 1) * rows], s * BK, 0, BK, bm).T @ \
                 _box(dy[t * rows:(t + 1) * rows], s * BK, 0, BK, bn)
     assert torch.equal(got, acc[:d, :f])
+
+
+@pytest.mark.parametrize("ctas", [1, 3, 132])
+def test_the_persistent_dw_visits_every_unit_once(ctas):
+    """``dw_units``: the CTAs of dW's persistent grid together walk
+    every (expert, tile of d, tile of f) exactly once, each CTA its units in
+    ascending order, the expert slowest; no CTA more than one unit ahead of
+    another."""
+    bm, bn, _ = tspmm.GROUPED_DW_TILE
+    plan = tspmm.grouped_bwd_plan("dw", 6, 64, 3 * bm, 4 * bn, 5, torch.bfloat16, sms=ctas)
+    units = plan.units
+    assert units == (5, 3, 4) and plan.grid == (min(ctas, 60),)
+    walks = [dw_units(units, ctas, c) for c in range(ctas)]
+    seen = [u for walk in walks for u in walk]
+    every = [(e, m, n) for e in range(5) for m in range(3) for n in range(4)]
+    assert sorted(seen) == every and len(seen) == len(every)
+    for walk in walks:
+        assert walk == sorted(walk)
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+
+
+def test_the_persistent_dw_loop_is_dw_units():
+    """``dw_units`` is what ``grouped_matmul_dw_bf16_wgmma`` runs: its
+    producer and its consumers each stride units blockIdx.x, + gridDim.x,
+    ... over E · nd · nf, and ``DwUnit`` splits unit u into (expert u /
+    (nd·nf), tile of d r / nf, tile of f r % nf) of its remainder r."""
+    src = (Path(tspmm.__file__).resolve().parent / "csrc" / "block_spmm.cu").read_text()
+    kernel = src[src.index("grouped_matmul_dw_bf16_wgmma("):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    assert re.search(r"nd = \(d \+ DwCfg::BM - 1\) / DwCfg::BM, "
+                     r"nf = \(f \+ DwCfg::BN - 1\) / DwCfg::BN;", kernel)
+    assert "const int units = E * nd * nf;" in kernel
+    # the producer's loop and the consumers' loop
+    loop = r"for \(int u = blockIdx\.x; u < units; u \+= gridDim\.x\) \{\s*const DwUnit at\(u, nd, nf\);"
+    assert len(re.findall(loop, kernel)) == 2
+    unit = src[src.index("struct DwUnit {"):]
+    unit = unit[:unit.index("};")]
+    for line in ("e = u / (nd * nf);", "const int r = u - e * nd * nf;",
+                 "m0 = r / nf * DwCfg::BM;", "n0 = r % nf * DwCfg::BN;"):
+        assert line in unit, line
+    # the same split as dw_units' at every unit of a grid with several tiles each way
+    nd, nf, ctas = 3, 4, 7
+    for c in range(ctas):
+        kernel_order = []
+        for u in range(c, 5 * nd * nf, ctas):
+            e = u // (nd * nf)
+            r = u - e * nd * nf
+            kernel_order.append((e, r // nf, r % nf))
+        assert dw_units((5, nd, nf), ctas, c) == kernel_order
+
+
+def test_each_persistent_unit_sums_in_tile_order():
+    """Under the persistent walk (3 CTAs, more units than CTAs) each unit's
+    sum is still ``DwCoords``' walk: the expert's tiles in tile order, each
+    tile's 64-row steps in order, summed into one accumulator, so a unit's
+    bits do not depend on which CTA takes it or what it took before; an
+    expert without a tile is zeros."""
+    gid = [2, 0, 2, -1, 9, 2]       # -1 → expert 0, 9 → expert 3; expert 1 owns none
+    bm, bn, _ = tspmm.GROUPED_DW_TILE
+    rows, d, f, e = 100, 2 * bm - 8, 3 * bn - 8, 4
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(6 * rows, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(6 * rows, f)).astype(np.float32))
+    plan = tspmm.grouped_bwd_plan("dw", 6, rows, d, f, e, torch.bfloat16, sms=3)
+    assert plan.grid == (3,) and plan.units == (4, 2, 3)
+    got = emulate_dw(x, gid, dy, plan)
+    for expert, tiles in ((2, (0, 2, 5)), (0, (1, 3)), (3, (4,))):
+        for m in range(2):
+            for n in range(3):
+                acc = torch.zeros(bm, bn)
+                for t in tiles:
+                    for s in range(2):
+                        acc += _box(x[t * rows:(t + 1) * rows], s * BK, m * bm, BK, bm).T @ \
+                            _box(dy[t * rows:(t + 1) * rows], s * BK, n * bn, BK, bn)
+                want = acc[:min(bm, d - m * bm), :min(bn, f - n * bn)]
+                assert torch.equal(got[expert, m * bm:(m + 1) * bm, n * bn:(n + 1) * bn], want)
+    assert not got[1].any()

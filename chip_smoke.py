@@ -236,6 +236,7 @@ Any failure raises and exits non-zero before the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -3126,11 +3127,14 @@ def sweep_graphs(fusion):
 def fused_graphs(fusion):
     """Every graph phase 3 and the fused serving path launch: the path's
     (llama2-13b, gpt-j-6b), fused_qkv, the op sweep, Listing 6's keep-mask
-    graph beside K7, and K13's graphs (with Listing 6 at rate 0)."""
+    graph beside K7, K13's graphs (with Listing 6 at rate 0), and phase
+    7i's (the serving shapes' bare attention output, the report's
+    layernorm one)."""
     return [fusion.fused_gated_mlp_graph("silu"), fusion.fused_attn_out_graph(True),
             fusion.fused_mlp_graph("gelu"), fusion.fused_qkv_graph(), *sweep_graphs(fusion),
             fusion.fused_output_graph(0.1, rng_dropout=False), *k13_graphs(fusion),
-            fusion.fused_output_graph(0.0)]
+            fusion.fused_output_graph(0.0), fusion.fused_attn_out_graph(),
+            fusion.fused_attn_out_graph(residual=True, norm="layernorm")]
 
 
 def training_graphs(fusion):
@@ -5761,6 +5765,248 @@ def scheduled_path(torch, counters, fusion, rng):
     return result
 
 
+def ranks(values):
+    """1-based ranks, ties given their mean rank."""
+    order = sorted(range(len(values)), key=lambda i: values[i])
+    out = [0.0] * len(values)
+    i = 0
+    while i < len(order):
+        j = i
+        while j + 1 < len(order) and values[order[j + 1]] == values[order[i]]:
+            j += 1
+        for t in range(i, j + 1):
+            out[order[t]] = (i + j) / 2 + 1
+        i = j + 1
+    return out
+
+
+def spearman(xs, ys):
+    """Spearman's rank correlation of two equal-length lists (None where one
+    of them does not vary)."""
+    rx, ry = ranks(xs), ranks(ys)
+    mx, my = statistics.fmean(rx), statistics.fmean(ry)
+    sxy = sum((a - mx) * (b - my) for a, b in zip(rx, ry))
+    sx = math.sqrt(sum((a - mx) ** 2 for a in rx))
+    sy = math.sqrt(sum((b - my) ** 2 for b in ry))
+    return sxy / (sx * sy) if sx and sy else None
+
+
+def fmt(x, digits=4):
+    """A number to ``digits`` decimals, or "none" for None."""
+    return "none" if x is None else f"{x:.{digits}f}"
+
+
+# K1's shapes in phase 7i (b): llama2-13b's prefill up projection and the
+# 2048 x 5120 x 5120 product phase 3 times by spec string; K1's wgmma tile
+# (brgemm.WGMMA_TILE) with the mainloop's 64-deep k-step as the plan's tiles
+K1_TUNE_SHAPES = ((2048, 5120, 13824), (2048, 5120, 5120))
+K1_TUNE_TILES = (128, 64, 128)
+
+
+def k1_tune(torch, brgemm, fusion, target, tc, m, k, n):
+    """Phase 7i (b) at one shape: the tuner's 64 legal candidates under the
+    card's target, the model's top 8, ``DEFAULT_SPEC`` and the fixed grid
+    timed by CUDA events, each output bitwise the fixed grid's; a second
+    identical search served by the cache."""
+    from repro_torch.core import perf_model
+    from repro_torch.core.loops import ThreadedLoop
+    from repro_torch.obs import metrics, profiler
+
+    kw = dict(dtype=torch.bfloat16, tiles=K1_TUNE_TILES, target=target, max_candidates=64,
+              top_k=8, cache=tc, return_stats=True)
+    results, stats = brgemm.autotune_matmul(m, k, n, **kw)
+    check(len(results) == 8 and not stats.cache_hit,
+          f"K1 {m}x{k}x{n}: the search returned {len(results)} results, cache hit"
+          f" {stats.cache_hit}")
+    hits = metrics.default_registry().counter("tune.cache.hits")
+    before = hits.value
+    again, stats2 = brgemm.autotune_matmul(m, k, n, **kw)
+    check(stats2.cache_hit and stats2.candidates_generated == 0 and hits.value == before + 1
+          and [r.candidate.spec_string for r in again] == [r.candidate.spec_string
+                                                           for r in results],
+          f"K1 {m}x{k}x{n}: the second search was not a cache hit with no candidate"
+          f" (hit {stats2.cache_hit}, generated {stats2.candidates_generated},"
+          f" tune.cache.hits {before} -> {hits.value})")
+
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    a = (torch.randn(m, k, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(torch.bfloat16)
+    fixed = brgemm.matmul(a, b)
+    rows = []
+    bm, bk, bn = K1_TUNE_TILES
+    loops, in_maps, out_map = brgemm.nest_inputs(m, k, n, K1_TUNE_TILES)
+    default = ThreadedLoop(loops, brgemm.DEFAULT_SPEC, reduction_letters=("a",))
+    cands = [(r.candidate.spec_string, fusion.schedule_kwargs(r.candidate)["block_steps"],
+              r.report) for r in results]
+    cands.append((brgemm.DEFAULT_SPEC + " (default)", {}, perf_model.predict(
+        default.nest, in_maps, out_map, dtype=torch.bfloat16, flops_per_body=2.0 * bm * bk * bn,
+        tile_mnk=(bm, bn, bk), target=target)))
+    for label, steps, rep in cands:
+        spec = label.split()[0]
+        fn = lambda: brgemm.matmul(a, b, spec_string=spec, tiles=K1_TUNE_TILES,  # noqa: E731
+                                   block_steps=steps)
+        out = fn()
+        check(torch.equal(out, fixed), f"K1 {m}x{k}x{n} under {spec} {steps} differs from the"
+                                       " fixed grid")
+        ms = profiler.time_callable(fn, iters=10, warmup=3, device="cuda")[0] * 1e3
+        rows.append({"label": label, "spec": spec, "block_steps": steps,
+                     "predicted_ms": rep.total_time * 1e3,
+                     "hbm_bytes": rep.hbm_bytes, "bound": rep.bound, "measured_ms": ms})
+    maps = in_maps + [out_map]
+    compulsory, no_reuse = perf_model.traffic_bounds(
+        perf_model.nest_levels(default.nest), [tm.letters for tm in maps],
+        [math.prod(tm.tile) * 2 for tm in maps])
+    fixed_ms = profiler.time_callable(lambda: brgemm.matmul(a, b), iters=10, warmup=3,
+                                      device="cuda")[0] * 1e3
+    library_ms = profiler.time_callable(lambda: torch.matmul(a, b), iters=10, warmup=3,
+                                        device="cuda")[0] * 1e3
+    rho = spearman([r["predicted_ms"] for r in rows], [r["measured_ms"] for r in rows])
+    # the model's order: predicted time, then predicted bytes (autotune._rank_key)
+    rho_rank = spearman([(r["predicted_ms"], r["hbm_bytes"]) for r in rows],
+                        [r["measured_ms"] for r in rows])
+    top = rows[0]
+    print(f"  K1 {m}x{k}x{n} bf16 on tiles {K1_TUNE_TILES}: {stats.candidates_generated}"
+          f" generated, {stats.candidates_scored} scored, {stats.candidates_pruned} pruned,"
+          f" {stats.candidates_filtered} filtered in {stats.search_time_s:.4f} s"
+          f" (search_time_s); the repeat: cache hit, 0 generated, {stats2.search_time_s:.4f} s;"
+          f" HBM bytes compulsory {compulsory / 1e6:.1f} MB, every CTA its own panels"
+          f" {no_reuse / 1e6:.1f} MB")
+    for r in rows:
+        print(f"    {r['label']:18s} {str(r['block_steps']):16s} predicted {r['predicted_ms']:.4f}"
+              f" ms ({r['bound']}, {r['hbm_bytes'] / 1e6:.1f} MB)  measured"
+              f" {r['measured_ms']:.4f} ms", flush=True)
+    print(f"    Spearman(predicted ms, measured) over {len(rows)} schedules: {fmt(rho)}; of the"
+          f" model's order (ms, then bytes) {fmt(rho_rank)}; the model's"
+          f" winner {top['spec']} {top['block_steps']} {top['measured_ms']:.4f} ms against the"
+          f" fixed grid {fixed_ms:.4f} ms and torch.matmul {library_ms:.4f} ms (yardstick); the"
+          f" fastest measured {min(r['measured_ms'] for r in rows):.4f} ms", flush=True)
+    return {"shape": [m, k, n], "tiles": list(K1_TUNE_TILES), "stats": dataclasses.asdict(stats),
+            "repeat_stats": dataclasses.asdict(stats2), "rows": rows, "spearman": rho,
+            "spearman_model_order": rho_rank, "compulsory_bytes": compulsory,
+            "no_reuse_bytes": no_reuse,
+            "fixed_ms": fixed_ms, "torch_matmul_ms": library_ms}
+
+
+# Phase 7i (c): llama2-13b's serving shapes, as the engine of phase 6 runs
+# them (8 slots) and a 512-token prefill bucket; a winner's K5 output
+# against the plain version in bf16 (fp32 sums in another order, the plain
+# version's bf16 rounding of each product before its epilogue)
+SERVE_SLOTS, SERVE_BUCKETS, SERVE_CANDIDATES = 8, (512,), 64
+SERVE_TUNE_TOL = (2e-2, 2e-1)
+# Phase 7i (d): the report's shape, llama2-13b's attention output projection
+# at a 2048-token prefill
+REPORT_SHAPE = (2048, 5120, 5120)
+
+
+def serving_tune(torch, fusion, target, tc):
+    """Phase 7i (c): ``tune_serving_shapes`` for llama2-13b, then each graph
+    and phase re-ranked by K5's times on the card (``measured_autotune_graph``,
+    top 5, under a key of its own: the model-only entries do not serve it);
+    each winner's output bitwise the fixed grid's and within the bf16
+    tolerance of the plain version."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.obs import profiler
+    from repro_torch.serve import tuning
+
+    cfg = get_config("llama2_13b")
+    rtol, atol = SERVE_TUNE_TOL
+    start = time.perf_counter()
+    report = tuning.tune_serving_shapes(cfg, num_slots=SERVE_SLOTS, prefill_buckets=SERVE_BUCKETS,
+                                        dtype=torch.bfloat16, target=target, cache=tc,
+                                        max_candidates=SERVE_CANDIDATES)
+    model_s = time.perf_counter() - start
+    rows = []
+    for phase_name, entries in report.items():
+        for entry, (name, graph, k, n) in zip(entries, tuning.serving_graph_shapes(cfg)):
+            m = entry["m"]
+            results, stats = fusion.measured_autotune_graph(
+                graph, m, k, n, device="cuda", dtype=torch.bfloat16, target=target, cache=tc,
+                max_candidates=SERVE_CANDIDATES, measure_top_k=5, measure_iters=5,
+                measure_warmup=2, return_stats=True)
+            check(not stats.cache_hit and all(r.measured_s is not None for r in results[:5]),
+                  f"{name} {phase_name}: the re-rank measured on the card was served from the"
+                  " cache (the model-only entry of tune_serving_shapes, or another device's)")
+            best = results[0]
+            ops = profiler.synth_operands(graph, m, k, n, dtype=torch.bfloat16, device="cuda")
+            for spec in graph.operands:        # weights at the scale of a trained layer
+                if spec.kind == "rhs":
+                    ops[spec.name] = ops[spec.name] * k ** -0.5
+            fixed_fn = fusion.compile_for_device(graph)
+            fixed = fixed_fn(**ops)
+            out = fusion.compile_for_device(graph, **fusion.schedule_kwargs(best.candidate))(**ops)
+            check(torch.equal(out, fixed), f"{name} {phase_name}: K5 under the winner"
+                                           f" {best.candidate.spec_string} differs from the"
+                                           " fixed grid")
+            err, ok = compare(torch, out, fusion.plain_version(graph)(**ops), rtol, atol)
+            check(ok, f"{name} {phase_name}: the winner's output is {err:.3e} from the plain"
+                      f" version (rtol {rtol}, atol {atol})")
+            fixed_ms = profiler.time_callable(lambda: fixed_fn(**ops), iters=5, warmup=2,
+                                              device="cuda")[0] * 1e3
+            measured = [(r.candidate.spec_string, r.report.total_time * 1e3, r.measured_s * 1e3)
+                        for r in results if r.measured_s is not None]
+            rows.append({"graph": name, "phase": phase_name, "m": m, "k": k, "n": n,
+                         "spec": best.candidate.spec_string,
+                         "block_steps": fusion.schedule_kwargs(best.candidate)["block_steps"],
+                         "model_spec": entry["spec"], "predicted_ms": best.report.total_time * 1e3,
+                         "measured_ms": best.measured_s * 1e3, "fixed_ms": fixed_ms,
+                         "max_abs_err": err, "measured_top5": measured,
+                         "spearman_top5": spearman([x[1] for x in measured],
+                                                   [x[2] for x in measured])})
+            print(f"  {name:9s} {phase_name:12s} M{m} {k}->{n}: winner {best.candidate.spec_string}"
+                  f" {rows[-1]['block_steps']} (model's first {entry['spec']}) predicted"
+                  f" {rows[-1]['predicted_ms']:.4f} ms, measured {rows[-1]['measured_ms']:.4f} ms;"
+                  f" fixed grid {fixed_ms:.4f} ms; Spearman over the measured top 5"
+                  f" {fmt(rows[-1]['spearman_top5'])}; bitwise the fixed grid, max err {err:.3e}"
+                  f" against the plain version", flush=True)
+    return {"model_s": model_s, "rows": rows}
+
+
+def autotune_path(torch, counters, card_line, brgemm, fusion):
+    """Phase 7i, the paper's autotuner and performance model on the card,
+    with every counter set to 0 just before and read just after:
+    (a) ``H100Target`` read from the card; (b) K1 tuned at two shapes
+    (``k1_tune``); (c) llama2-13b's serving graphs tuned and re-ranked on
+    K5 (``serving_tune``); (d) ``obs.report.run_report`` at one shape.
+    The tune cache is a fresh directory of the build tree, so the first
+    search of each shape misses and the repeat hits."""
+    import tempfile
+
+    from repro_torch.core import perf_model, tunecache
+    from repro_torch.obs import metrics, report
+
+    target = perf_model.H100Target.from_device(0)
+    print(f"  (a) {card_line}: {target}", flush=True)
+    cache_root = ROOT / "build"
+    cache_root.mkdir(exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="tune-cache-7i-", dir=cache_root)
+    tc = tunecache.TuneCache(cache_dir)
+    result = {"target": dataclasses.asdict(target), "card": card_line}
+    counters.reset()
+    result["k1"] = [k1_tune(torch, brgemm, fusion, target, tc, *shape)
+                    for shape in K1_TUNE_SHAPES]
+    result["serving"] = serving_tune(torch, fusion, target, tc)
+    payload = report.run_report(*REPORT_SHAPE, device="cuda", target=target, cache_dir=cache_dir,
+                                iters=5, warmup=2)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    print(f"  (d) obs.report at {REPORT_SHAPE[0]}x{REPORT_SHAPE[1]}x{REPORT_SHAPE[2]} bf16:")
+    for line in payload["_table"].splitlines():
+        print(f"    {line}")
+    print(f"    counters {payload['counters']}", flush=True)
+    result["report"] = {key: val for key, val in payload.items() if key != "_table"}
+    result["launches"] = launches
+    result["tune_counters"] = {name: v for name, v in metrics.default_registry().snapshot().items()
+                               if name.startswith("tune.")}
+    check(launches["gemm"] > 0 and launches["fused_gemm"] > 0,
+          f"phase 7i launched K1 {launches['gemm']} and K5 {launches['fused_gemm']} times")
+    k1_on_wgmma(launches, "phase 7i")
+    print(f"  (e) phase 7i launches: K1 {launches['gemm']}, K5 {launches['fused_gemm']}"
+          f" (by graph kind: fused_gemm {launches['fused_gemm']}, K5 on wgmma"
+          f" {launches['fused_wgmma']}, wgmma_decode {launches['fused_wgmma_decode']})",
+          flush=True)
+    return result
+
+
 # Kernel names as the profiler reports them → the port's kernel.  K1's
 # launches that read a transposed operand are kernels of their own names;
 # K5's generated kernels go by template: fused_gemm (a pointwise epilogue,
@@ -6638,6 +6884,9 @@ def main() -> int:
     phase("7e. K5 scheduled from spec strings, and K13, through the library helpers")
     scheduled = scheduled_path(torch, counters, fusion, rng)
 
+    phase("7i. the autotuner and the performance model")
+    tuned = autotune_path(torch, counters, card_line, brgemm, fusion)
+
     phase("7f. gpt-j-6b, full width (4 of 28 layers): the engine at head dim 256")
     gptj = gptj_engine(torch, counters)
 
@@ -6737,6 +6986,7 @@ def main() -> int:
                    "parlooper_conv1x1": loops["conv1x1_launches"][name],
                    "parlooper_conv3x3": loops["conv3x3_launches"][name],
                    "scheduled": scheduled["launches"][name],
+                   "autotune": tuned["launches"][name],
                    "gptj_engine": gptj["launches"][name],
                    "gemma3_generate_loop": gemma3["generate_loop"]["launches"][name],
                    "gemma3_long_prompt": gemma3["long_prompt"]["launches"][name],
@@ -6763,7 +7013,8 @@ def main() -> int:
                if name.startswith("fused_") and name != "fused_output" else {})})
     print(json.dumps({"build_s": build_s, "full_width": result, "engine": engine,
                       "fused": fused, "mamba": mamba, "sparse_ffn": sparse, "parlooper": loops,
-                      "scheduled": scheduled, "gptj_engine": gptj, "gemma3": gemma3,
+                      "scheduled": scheduled, "autotune": tuned, "gptj_engine": gptj,
+                      "gemma3": gemma3,
                       "qwen3_moe": qwen3,
                       "training": training,
                       "fused_training": fused_training, "bert_training": bert,

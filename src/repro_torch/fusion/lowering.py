@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.analysis import footprint
+from repro_torch.core.autotune import _freeze
 from repro_torch.core.cuda_lowering import (CudaPlan, TensorMap, plan_cuda,
                                             validate_reduction_innermost)
 from repro_torch.core.executor import require_no_mesh
@@ -438,14 +439,6 @@ def plain_version(graph: TppGraph, *, simplify: bool = True, out_dtype=None,
 
 _COMPILE_CACHE: dict = {}
 _SCHEDULE_KW = ("spec_string", "tiles", "block_steps", "hw_prng")
-
-
-def _freeze(v):
-    if isinstance(v, dict):
-        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
-    if isinstance(v, (list, tuple)):
-        return tuple(_freeze(x) for x in v)
-    return v
 
 
 def compile_for_device(graph: TppGraph, *, out_dtype=None, **schedule):

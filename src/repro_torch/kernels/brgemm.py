@@ -13,7 +13,7 @@ validates it), maps the plan's output visit order onto K1's CTA tiles
 (``cta_order``) and launches one block per entry of that table: the spec
 string sets the order in which the tiles are rasterised.  Each tile is still
 computed by one block in one K order, so every legal spec gives the same
-bits.
+bits.  ``autotune_matmul`` ranks those schedules by the performance model.
 
 K1 has four variants (``gemm_variant``), chosen from the dtype, M and
 whether TMA can read the operands where they lie, never from a build or
@@ -45,7 +45,8 @@ from repro_torch.core.legality import LegalityError
 from repro_torch.core.loops import LoopSpec, ThreadedLoop
 from repro_torch.kernels import _build
 
-__all__ = ["matmul", "brgemm_blocked", "schedule", "blocked_schedule", "cta_tile",
+__all__ = ["matmul", "brgemm_blocked", "schedule", "autotune_matmul", "nest_inputs",
+           "blocked_schedule", "cta_tile",
            "cta_order", "tile_order", "pick_tiles", "gemm_variant", "variant_of",
            "decode_splits", "blocked_variant", "blocked_pairs", "DEFAULT_SPEC", "VARIANTS",
            "WGMMA_TILE", "DECODE_ROWS", "DECODE_COLUMNS", "VARIANT_COUNTERS", "BLOCKED_COUNTERS",
@@ -119,10 +120,11 @@ def _steps_key(block_steps):
     return tuple(sorted((k, tuple(v)) for k, v in (block_steps or {}).items()))
 
 
-@functools.lru_cache(maxsize=256)
-def _matmul_plan(m, k, n, itemsize, spec_string, tiles, steps):
-    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
-    bm, bk, bn = tiles or pick_tiles(m, k, n, dtype)
+def nest_inputs(m, k, n, tiles, steps=()):
+    """(loops, [A's map, B's map], C's map): the reference's nest over
+    (K, M, N) blocks of ``tiles`` = (bm, bk, bn), with ``steps``
+    ((letter, block steps) pairs) as its blockings."""
+    bm, bk, bn = tiles
     if m % bm or k % bk or n % bn:
         raise LegalityError(
             f"matmul {m}x{k}x{n} is not divisible by the tiles (bm {bm}, bk {bk}, bn {bn})",
@@ -133,15 +135,52 @@ def _matmul_plan(m, k, n, itemsize, spec_string, tiles, steps):
         LoopSpec(0, m // bm, 1, block_steps=steps.get("b", ()), name="M"),
         LoopSpec(0, n // bn, 1, block_steps=steps.get("c", ()), name="N"),
     ]
-    tl = ThreadedLoop(loops, spec_string, reduction_letters=("a",))
+    return (loops, [TensorMap(("b", "a"), (bm, bk), layout="flat"),
+                    TensorMap(("a", "c"), (bk, bn), layout="flat")],
+            TensorMap(("b", "c"), (bm, bn), layout="flat"))
+
+
+def _validate(tl):
+    """What K1 launches: the reduction inside the output blocks, no mesh."""
     validate_reduction_innermost(tl.nest, ("b", "c"), ("a",))
     require_no_mesh(tl.nest)
-    return plan_cuda(
-        tl.nest,
-        [TensorMap(("b", "a"), (bm, bk), layout="flat"),
-         TensorMap(("a", "c"), (bk, bn), layout="flat")],
-        TensorMap(("b", "c"), (bm, bn), layout="flat"),
-        reduction_letters=("a",))
+
+
+@functools.lru_cache(maxsize=256)
+def _matmul_plan(m, k, n, itemsize, spec_string, tiles, steps):
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    loops, in_maps, out_map = nest_inputs(m, k, n, tiles or pick_tiles(m, k, n, dtype), steps)
+    tl = ThreadedLoop(loops, spec_string, reduction_letters=("a",))
+    _validate(tl)
+    return plan_cuda(tl.nest, in_maps, out_map, reduction_letters=("a",))
+
+
+def autotune_matmul(m, k, n, *, dtype=torch.bfloat16, tiles=None, target=None,
+                    max_candidates=64, top_k=8, cache=None, cache_dir=None,
+                    use_cache=True, return_stats=False):
+    """K1's schedules for an (m, k) @ (k, n) product of ``dtype``, ranked
+    best-first by the performance model (``core.autotune`` under
+    ``target``, default ``perf_model.H100Target()``): the nest ``schedule``
+    plans over (K, M, N) blocks of ``tiles`` (default ``pick_tiles``), with
+    only the plans K1 launches (the reduction inside the output blocks).
+    Returns the ``TuneResult``s (and the ``SearchStats`` with
+    ``return_stats``); ``matmul(a, b, tiles=tiles,
+    **fusion.schedule_kwargs(result.candidate))`` launches one.  The search
+    persists in the tune cache under a key of K1's own."""
+    from repro_torch.core import autotune, perf_model
+
+    tiles = tuple(tiles or pick_tiles(m, k, n, dtype))
+    bm, bk, bn = tiles
+    loops, in_maps, out_map = nest_inputs(m, k, n, tiles)
+    results, stats = autotune.autotune_with_stats(
+        loops, in_maps, out_map, dtype=dtype, flops_per_body=2.0 * bm * bk * bn,
+        tile_mnk=(bm, bn, bk), reduction_letters=("a",),
+        target=target or perf_model.H100Target(), max_candidates=max_candidates,
+        top_k=top_k,
+        spec_filter=lambda perm, _par, mesh: autotune.reduction_inside_outputs(perm, mesh),
+        validate_fn=_validate, cache=cache, cache_dir=cache_dir, use_cache=use_cache,
+        cache_extra=("brgemm.matmul",))
+    return (results, stats) if return_stats else results
 
 
 def schedule(m, k, n, dtype, spec_string=None, tiles=None, block_steps=None):

@@ -1,13 +1,16 @@
-"""Runtime observability for the serving engine: the subset of
-``repro/obs`` that ``serve.engine`` uses.
+"""Runtime observability, ported from ``repro/obs``.
 
 ``metrics`` (counters, gauges, histograms), ``trace`` (spans and instant
-events) and ``recorder`` (the flight recorder).  The kill switch is the same
-``REPRO_OBS`` environment variable: unset or truthy → enabled;
-``0``/``off``/``no``/``false`` → the default tracer and the engine's registry
-are no-op null backends.  The flight recorder is not gated.  The Chrome-trace
-export, the report CLI and the kernel profiler are ported later (ROADMAP.md,
-Queue 1).
+events), ``recorder`` (the flight recorder), ``profiler`` (warmup + median
+kernel timing — CUDA events on the card — beside ``perf_model``
+predictions) and ``report`` (the attribution-table CLI: ``python -m
+repro_torch.obs.report``).  The kill switch is the same ``REPRO_OBS``
+environment variable: unset or truthy → enabled; ``0``/``off``/``no``/
+``false`` → the default tracer and the engine's registry are no-op null
+backends.  The flight recorder is not gated.  ``profiler`` imports the
+fusion stack and is loaded lazily, so that ``core`` and ``serve`` modules
+can import ``repro_torch.obs`` without a cycle.  The Chrome-trace export is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from repro_torch.obs.trace import NULL_TRACER, Tracer, get_tracer
 
 __all__ = ["enabled", "metrics", "trace", "recorder", "Registry",
            "NULL_REGISTRY", "Tracer", "NULL_TRACER", "get_tracer",
-           "FlightRecorder"]
+           "FlightRecorder", "profiler"]
 
 _DISABLE_VALUES = ("0", "off", "no", "false")
 
@@ -29,3 +32,15 @@ def enabled() -> bool:
     """Observability master switch (``REPRO_OBS``)."""
     return os.environ.get("REPRO_OBS", "1").strip().lower() \
         not in _DISABLE_VALUES
+
+
+def __getattr__(name):
+    # lazy: profiler imports repro_torch.fusion, which (via core.tunecache)
+    # imports repro_torch.obs.metrics — an eager import here would be a cycle
+    if name == "profiler":
+        import importlib
+
+        module = importlib.import_module("repro_torch.obs.profiler")
+        globals()["profiler"] = module
+        return module
+    raise AttributeError(f"module 'repro_torch.obs' has no attribute {name!r}")

@@ -5,8 +5,9 @@
 :class:`NullRegistry` hands out one shared no-op instrument, which is what
 an engine gets when observability is disabled (``REPRO_OBS=0``).  Each :class:`~repro_torch.serve.engine.Engine` owns its
 registry, so two engines in one process never mix counts.  The metric names
-are those of the reference's catalog (``serve.*``, and ``fusion.*`` in the
-process-global :func:`default_registry` that the fusion compiler writes).
+are those of the reference's catalog (``serve.*``, and ``fusion.*`` and
+``tune.*`` in the process-global :func:`default_registry` that the fusion
+compiler, the tuner and the tune cache write).
 """
 from __future__ import annotations
 
@@ -92,6 +93,31 @@ class Histogram:
             self._min = min(self._min, v)
             self._max = max(self._max, v)
 
+    def quantile(self, q: float) -> float:
+        """Bucket-boundary quantile estimate (exact only at boundaries)."""
+        if not self._n:
+            return 0.0
+        rank = q * self._n
+        seen = 0
+        for i, c in enumerate(self._counts):
+            seen += c
+            if seen >= rank and c:
+                return self.bounds[i] if i < len(self.bounds) else self._max
+        return self._max
+
+    def summary(self) -> dict:
+        return {
+            "count": self._n,
+            "sum": self._sum,
+            "min": self._min if self._n else None,
+            "max": self._max if self._n else None,
+            "mean": (self._sum / self._n) if self._n else None,
+            "p50": self.quantile(0.5),
+            "p99": self.quantile(0.99),
+            "bounds": list(self.bounds),
+            "bucket_counts": list(self._counts),
+        }
+
 
 # -- registries -------------------------------------------------------------
 
@@ -102,6 +128,10 @@ class Registry:
     def __init__(self):
         self._instruments: dict[str, object] = {}
         self._lock = threading.Lock()
+
+    @property
+    def enabled(self) -> bool:
+        return True
 
     def _get(self, name: str, cls, *args):
         with self._lock:
@@ -123,6 +153,19 @@ class Registry:
 
     def histogram(self, name: str, bounds: Optional[tuple] = None) -> Histogram:
         return self._get(name, Histogram, bounds)
+
+    def snapshot(self) -> dict:
+        """JSON-serializable {name: value-or-summary}: counters → int,
+        gauges → float, histograms → summary dict."""
+        out = {}
+        with self._lock:
+            items = list(self._instruments.items())
+        for name, inst in items:
+            if isinstance(inst, (Counter, Gauge)):
+                out[name] = inst.value
+            else:
+                out[name] = inst.summary()
+        return out
 
 
 class _NullInstrument:
@@ -147,6 +190,13 @@ _NULL_INSTRUMENT = _NullInstrument()
 
 class NullRegistry:
     """The disabled backend: hands out the shared no-op instrument."""
+
+    @property
+    def enabled(self) -> bool:
+        return False
+
+    def snapshot(self) -> dict:
+        return {}
 
     def counter(self, name: str) -> _NullInstrument:
         return _NULL_INSTRUMENT
